@@ -1,0 +1,102 @@
+"""Model assembly from the reference net config (port of
+u2pl_tpu/models/builder.py): the same YAML `type` strings, the same
+{"pred", "rep"?, "aux"?} output dict, in NCHW."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+from torch import nn
+
+from u2pl_tpu_torch.config import NetCfg
+from u2pl_tpu_torch.models.decoder import AuxHead, DeepLabV3, DeepLabV3Plus
+from u2pl_tpu_torch.models.resnet import ResNet, resnet_spec
+
+
+class SegModel(nn.Module):
+    """Encoder + decoder (+ aux head).  Outputs are at output-stride 4 (v3+)
+    / 8 (v3); upsampling to image size is the caller's (evallib/slide.py)."""
+
+    def __init__(self, net: NetCfg):
+        super().__init__()
+        spec = resnet_spec(net.encoder.type)
+        self.encoder = ResNet(
+            layers=spec["layers"],
+            block=spec["block"],
+            replace_stride_with_dilation=net.encoder.replace_stride_with_dilation,
+            multi_grid=net.encoder.multi_grid,
+            zero_init_residual=net.encoder.zero_init_residual,
+            fpn=net.encoder.fpn,
+        )
+        dec_key = net.decoder.type.rsplit(".", 1)[-1]
+        if dec_key == "dec_deeplabv3_plus":
+            self.decoder = DeepLabV3Plus(
+                self.encoder.out_planes,
+                self.encoder.low_planes,
+                num_classes=net.num_classes,
+                inner_planes=net.decoder.inner_planes,
+                dilations=net.decoder.dilations,
+                rep_head=net.decoder.rep_head,
+            )
+        elif dec_key == "dec_deeplabv3":
+            self.decoder = DeepLabV3(
+                self.encoder.out_planes,
+                num_classes=net.num_classes,
+                inner_planes=net.decoder.inner_planes,
+                dilations=net.decoder.dilations,
+            )
+        else:
+            raise ValueError(f"unknown decoder type {net.decoder.type!r}")
+        # aux head on the layer3 feature (the second-to-last encoder output)
+        self.auxor = (
+            AuxHead(self.encoder.aux_planes, net.num_classes)
+            if net.aux_loss is not None
+            else None
+        )
+
+    def forward(self, x):
+        feats = self.encoder(x)
+        outs = self.decoder(feats)
+        if self.auxor is not None:
+            outs["aux"] = self.auxor(feats[-2])
+        return outs
+
+
+def init_weights(model: SegModel, generator: torch.Generator) -> None:
+    """The JAX package's init, drawn from `generator`: kaiming-normal
+    (fan_out) conv kernels, zero conv biases, BN gamma 1 / beta 0 (gamma 0
+    on each residual branch's last BN under zero_init_residual), running
+    mean 0 / var 1."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d):
+                nn.init.kaiming_normal_(
+                    m.weight, mode="fan_out", nonlinearity="relu", generator=generator
+                )
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+        if model.encoder.zero_init_residual:
+            for stage in (model.encoder.layer1, model.encoder.layer2,
+                          model.encoder.layer3, model.encoder.layer4):
+                for blk in stage:
+                    blk.last_bn().weight.zero_()
+
+
+def build_model(
+    net: NetCfg,
+    device: Union[str, torch.device] = "cpu",
+    generator: Optional[torch.Generator] = None,
+) -> SegModel:
+    """Float32 SegModel on `device`, initialised from `generator` (a fresh
+    seed-0 CPU generator by default).  Built on the meta device first, so no
+    global RNG is drawn; weights are then drawn on the CPU and moved.
+    `net.dtype` (bfloat16 compute) is not ported: callers choose float32,
+    as serve.py's default `--dtype float32` does."""
+    with torch.device("meta"):
+        model = SegModel(net)
+    model = model.to_empty(device="cpu")
+    init_weights(model, generator or torch.Generator().manual_seed(0))
+    return model.to(device)
