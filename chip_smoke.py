@@ -8,8 +8,8 @@ Run from the root of a checkout, with no arguments:
 Phases; any failure ends the run with a nonzero exit code:
   0. setup: the card's name and power limit, the kernels built from
      u2pl_tpu_torch/kernels/csrc with nvcc, and the yaml / PIL probe;
-  1. each CUDA kernel against its plain PyTorch version at the serving
-     path's shapes, on the card;
+  1. each CUDA kernel against its plain PyTorch version at the serving and
+     training paths' shapes, on the card;
   2. the slice: the full VOC model of experiments/pascal/1464/ours (ResNet-101
      + DeepLabv3+, 21 classes, float32 as serve.py's default) from seeded
      random weights, saved as a reference-format .pth, loaded by InferEngine
@@ -17,7 +17,17 @@ Phases; any failure ends the run with a nonzero exit code:
      are checked against the plain-version path and both kernels' launch
      counts against zero;
   3. timings: the host's load and save per image, forwards at batch 1
-     and 4, each kernel beside its plain version, peak device memory.
+     and 4, each kernel beside its plain version, peak device memory;
+  4. the training slice: the same VOC config minus its `trainer.contrastive`
+     block, full ResNet-101 student and EMA teacher from seeded random
+     weights, 5 steps of 4 labeled + 4 unlabeled synthetic 513² images
+     through `train.steps.run_steps` (2 warmup, 2 in the first semi epoch,
+     1 in epoch 2), checked for finite losses, gradients reaching the ASPP
+     and layer4, the teacher copy / EMA, teacher BN tracking and every
+     training kernel's launch count; then step 5 again from a copy of the
+     state, through the kernels and through the plain versions, compared;
+  5. training timings: warmup and semi step medians, images/s, peak device
+     memory, each training kernel beside its plain version.
 It prints a JSON line of kernels, then one JSON line
 {"ok": true, "device": {...}} as the last line of its output.
 """
@@ -25,6 +35,8 @@ It prints a JSON line of kernels, then one JSON line
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
 import io
 import json
 import os
@@ -58,6 +70,26 @@ NEAR_TIE = 1e-5  # kernel B: labels may differ only where top-2 gap <= this (rel
 MIN_AGREEMENT = 0.999  # served mask vs plain-version path, per image
 # six requests: one full batch of 4 and a partial batch of 2
 IMAGE_SIZES = [(375, 500), (500, 333), (281, 500), (375, 500), (333, 500), (500, 375)]
+
+# training slice: 4 labeled + 4 unlabeled 513² images per step, 5 steps at
+# 2 steps per epoch (sup_only_epoch 1 in the config): 2 warmup, 2 in the
+# first semi epoch, 1 in epoch 2
+CROP = 513
+B_L = B_U = 4
+STEPS_PER_EPOCH = 2
+TRAIN_STEPS = 5
+# phase-1 bounds of the training kernels
+A_BWD_TOL = 1e-4  # max abs diff / max |grad|
+C_LOSS_TOL = 1e-5  # relative
+C_GRAD_TOL = 1e-6  # max abs diff / max |grad|
+D_TOL = 1e-5  # relative, max-prob and entropy
+# step 5 through the kernels vs through the plain versions
+STEP_LOSS_TOL = 1e-4  # relative: sup_loss, uns_loss, drop_thresh
+STEP_UPDATE_TOL = 1e-2  # per tensor: L2 of the update difference / L2 of the update
+# ... plus this RMS per element: the conv biases that feed a BN have a zero
+# gradient in exact arithmetic, so their update is weight decay + rounding
+# noise (~1e-9 per element at lr 1e-3), on any two routes
+STEP_UPDATE_FLOOR = 1e-8
 
 
 def fail(msg: str) -> None:
@@ -155,20 +187,6 @@ def synthetic_jpegs(folder: str):
     return paths
 
 
-@contextlib.contextmanager
-def plain_decoder_resize():
-    """Route the decoder's upsample through the plain version."""
-    import u2pl_tpu_torch.models.decoder as decoder
-    from u2pl_tpu_torch.ops.resize import resize_bilinear_plain
-
-    saved = decoder.resize_bilinear
-    decoder.resize_bilinear = resize_bilinear_plain
-    try:
-        yield
-    finally:
-        decoder.resize_bilinear = saved
-
-
 def phase2_slice(dev, card, tmp):
     import numpy as np
     import torch
@@ -258,7 +276,7 @@ def phase2_slice(dev, card, tmp):
     loaded = [engine.load(p) for p in images]
     before = (R.resize_bilinear.launches, R.resize_argmax.launches)
     agreement = []
-    with torch.inference_mode(), plain_decoder_resize():
+    with torch.inference_mode(), plain_versions():
         for i in range(0, len(loaded), 4):
             chunk = loaded[i : i + 4]
             x = torch.from_numpy(np.stack([img for img, _ in chunk])).to(dev)
@@ -338,6 +356,425 @@ def phase3_timings(dev, card, engine, images, loaded, tmp):
     return times
 
 
+def phase1_train_kernels(dev):
+    """The training slice's kernels against their plain versions, on the card,
+    at the slice's shapes and a few odd ones.  Returns {kernel: max error}."""
+    import torch
+
+    from u2pl_tpu_torch.losses import ce, unsup
+    from u2pl_tpu_torch.ops import mixing, quantile
+    from u2pl_tpu_torch.ops import resize as R
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    errs = {}
+    # A-bwd: the decoder's os8 -> os4 upsample and the logits' upsample
+    worst = 0.0
+    for shape, out in (((8, 256, 65, 65), (129, 129)), ((4, 21, 129, 129), (513, 513)),
+                       ((2, 3, 33, 17), (7, 9))):
+        x = torch.randn(*shape, device=dev, generator=g, requires_grad=True)
+        y = R.resize_bilinear(x, out)
+        if not y.requires_grad:
+            fail("kernel A: the output of a tensor that requires grad has no grad_fn")
+        gy = torch.randn(y.shape, device=dev, generator=g)
+        (gx,) = torch.autograd.grad(y, x, gy)
+        ref = R.resize_bilinear_bwd_plain(gy, shape[2:])
+        torch.cuda.synchronize()
+        abs_err = (gx - ref).abs().max().item()
+        err = abs_err / ref.abs().max().item()
+        again = R.resize_bilinear_bwd(gy, shape[2:])
+        log(f"[phase 1] kernel A-bwd {shape[2:]} <- {out} x{shape[0] * shape[1]} planes: max abs "
+            f"diff / max |grad| {err:.3e} (bound {A_BWD_TOL}); run-to-run equal: "
+            f"{torch.equal(again, gx)}")
+        if not err <= A_BWD_TOL or not torch.equal(again, gx):
+            fail(f"kernel A-bwd {shape}->{out}: {err}")
+        worst = max(worst, abs_err)
+        del x, y, gy, gx, ref, again
+    errs["A_bwd"] = worst
+
+    # C forward and backward, ~10% of the labels ignored; all-ignored -> 0
+    loss_err = grad_err = 0.0
+    for shape, out in (((4, 21, 129, 129), (513, 513)), ((3, 5, 9, 7), (33, 25))):
+        x = torch.randn(*shape, device=dev, generator=g, requires_grad=True)
+        lab = torch.randint(0, shape[1], (shape[0],) + out, device=dev, generator=g,
+                            dtype=torch.int32)
+        lab[torch.rand(lab.shape, device=dev, generator=g) < 0.1] = 255
+        loss = ce.upsample_cross_entropy(x, lab)
+        (gx,) = torch.autograd.grad(loss, x)
+        xp = x.detach().clone().requires_grad_(True)
+        ref = ce.upsample_cross_entropy_plain(xp, lab)
+        (gref,) = torch.autograd.grad(ref, xp)
+        torch.cuda.synchronize()
+        le_abs, ge_abs = abs(loss.item() - ref.item()), (gx - gref).abs().max().item()
+        le, ge = le_abs / abs(ref.item()), ge_abs / gref.abs().max().item()
+        log(f"[phase 1] kernel C {shape} -> {out}: loss {loss.item():.6f} vs plain "
+            f"{ref.item():.6f}, rel diff {le:.3e} (bound {C_LOSS_TOL}); gradient max abs "
+            f"diff / max |grad| {ge:.3e} (bound {C_GRAD_TOL})")
+        if not (le <= C_LOSS_TOL and ge <= C_GRAD_TOL):
+            fail(f"kernel C {shape}: loss {le}, gradient {ge}")
+        loss_err, grad_err = max(loss_err, le_abs), max(grad_err, ge_abs)
+    x = torch.randn(4, 21, 129, 129, device=dev, generator=g, requires_grad=True)
+    lab = torch.full((4, 513, 513), 255, dtype=torch.int32, device=dev)
+    loss = ce.upsample_cross_entropy(x, lab)
+    (gx,) = torch.autograd.grad(loss, x)
+    log(f"[phase 1] kernel C all ignored: loss {loss.item()}, gradient all zero "
+        f"{not gx.any().item()} (must be 0 and True)")
+    if loss.item() != 0.0 or gx.any().item():
+        fail("kernel C: an all-ignored batch must give loss 0 and a zero gradient")
+    errs["C_fwd"], errs["C_bwd"] = loss_err, grad_err
+
+    # D: max-prob, argmax, entropy
+    worst = 0.0
+    for shape, out in (((4, 21, 129, 129), (513, 513)), ((3, 5, 9, 7), (33, 25))):
+        x = torch.randn(*shape, device=dev, generator=g) * 3
+        mp, am, ent = unsup.upsample_softmax_stats(x, out)
+        rmp, ram, rent = unsup.upsample_softmax_stats_plain(x, out)
+        top2 = R.resize_bilinear_plain(x, out).topk(2, dim=1).values
+        near = (top2[:, 0] - top2[:, 1]) <= NEAR_TIE * top2[:, 0].abs().clamp(min=1.0)
+        torch.cuda.synchronize()
+        e_mp = ((mp - rmp).abs() / rmp.abs()).max().item()
+        e_ent = ((ent - rent).abs() / rent.abs().clamp(min=1e-3)).max().item()
+        bad = int(((am != ram) & ~near).sum())
+        log(f"[phase 1] kernel D {shape} -> {out}: max-prob rel {e_mp:.3e}, entropy rel "
+            f"{e_ent:.3e} (bound {D_TOL}); argmax {int((am != ram).sum())} mismatches, {bad} "
+            f"outside the {int(near.sum())} near-tie pixels (bound 0)")
+        if not (e_mp <= D_TOL and e_ent <= D_TOL and bad == 0):
+            fail(f"kernel D {shape}: {e_mp} {e_ent} {bad}")
+        worst = max(worst, (mp - rmp).abs().max().item(), (ent - rent).abs().max().item())
+    errs["D"] = worst
+
+    # E: bit-equal to the masked sort, 1,052,676 values (4 x 513²)
+    pct = torch.tensor([0.0, 37.5, 80.0, 100.0], device=dev)
+    n = B_U * CROP * CROP
+    ent = torch.rand(n, device=dev, generator=g) * 3
+    ent[: n // 4] = torch.randint(0, 9, (n // 4,), device=dev, generator=g).float() * 0.25
+    valid = torch.rand(n, device=dev, generator=g) < 0.85
+    one = torch.zeros(n, dtype=torch.bool, device=dev)
+    one[n // 3] = True
+    for name, v, m in (("1,052,676 values, ~85% valid, duplicates", ent, valid),
+                       ("empty mask", ent, torch.zeros_like(valid)), ("n = 1", ent, one)):
+        got = quantile.masked_percentiles(v, m, pct)
+        ref = quantile.masked_percentiles_plain(v, m, pct)
+        torch.cuda.synchronize()
+        log(f"[phase 1] kernel E {name}: {got.tolist()} vs plain {ref.tolist()}; bit-equal "
+            f"{torch.equal(got, ref)}")
+        if not torch.equal(got, ref):
+            fail(f"kernel E ({name}) is not bit-equal to the masked sort")
+    errs["E"] = 0.0
+
+    # K3: cutmix and cutout, bit-equal
+    img = torch.randn(B_U, 3, CROP, CROP, device=dev, generator=g)
+    lab = torch.randint(0, 21, (B_U, CROP, CROP), device=dev, generator=g, dtype=torch.int32)
+    prob = torch.rand(B_U, CROP, CROP, device=dev, generator=g)
+    boxes = mixing.draw_boxes(g, B_U, CROP, CROP)
+    for mode in mixing.MODES:
+        got = mixing.generate_unsup_data(img, lab, prob, boxes, mode)
+        ref = mixing.generate_unsup_data_plain(img, lab, prob, boxes, mode)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        log(f"[phase 1] kernel K3 {mode} {tuple(img.shape)}, boxes {boxes.tolist()}: bit-equal {same}")
+        if not same:
+            fail(f"kernel K3 ({mode}) is not bit-equal to its plain version")
+    errs["K3"] = 0.0
+    return errs
+
+
+TRAIN_COUNTERS = {  # kernel -> (module, wrapper, counter attribute)
+    "A": ("u2pl_tpu_torch.ops.resize", "resize_bilinear", "launches"),
+    "A_bwd": ("u2pl_tpu_torch.ops.resize", "resize_bilinear_bwd", "launches"),
+    "C_fwd": ("u2pl_tpu_torch.losses.ce", "upsample_cross_entropy", "fwd_launches"),
+    "C_bwd": ("u2pl_tpu_torch.losses.ce", "upsample_cross_entropy", "bwd_launches"),
+    "D": ("u2pl_tpu_torch.losses.unsup", "upsample_softmax_stats", "launches"),
+    "E": ("u2pl_tpu_torch.ops.quantile", "masked_percentiles", "launches"),
+    "K3": ("u2pl_tpu_torch.ops.mixing", "generate_unsup_data", "launches"),
+}
+
+
+def _counter(name):
+    import importlib
+
+    mod, fn, attr = TRAIN_COUNTERS[name]
+    return getattr(importlib.import_module(mod), fn), attr
+
+
+def read_counters():
+    return {k: getattr(*_counter(k)) for k in TRAIN_COUNTERS}
+
+
+def zero_counters():
+    for k in TRAIN_COUNTERS:
+        setattr(*_counter(k), 0)
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route every kernel of the serving forward and the training step
+    through its plain version."""
+    import u2pl_tpu_torch.losses.ce as ce
+    import u2pl_tpu_torch.losses.unsup as unsup
+    import u2pl_tpu_torch.models.decoder as decoder
+    import u2pl_tpu_torch.ops.mixing as mixing
+    import u2pl_tpu_torch.ops.quantile as quantile
+    from u2pl_tpu_torch.ops.resize import resize_bilinear_plain
+
+    swaps = [
+        (decoder, "resize_bilinear", resize_bilinear_plain),
+        (ce, "upsample_cross_entropy", ce.upsample_cross_entropy_plain),
+        (unsup, "upsample_cross_entropy", ce.upsample_cross_entropy_plain),
+        (unsup, "upsample_softmax_stats", unsup.upsample_softmax_stats_plain),
+        (quantile, "masked_percentiles", quantile.masked_percentiles_plain),
+        (mixing, "generate_unsup_data", mixing.generate_unsup_data_plain),
+    ]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    try:
+        for m, n, f in swaps:
+            setattr(m, n, f)
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def train_config():
+    """The VOC `ours` config without its contrastive block (float32)."""
+    from u2pl_tpu_torch.config import load_config
+
+    cfg = load_config(VOC_CONFIG)
+    return dataclasses.replace(cfg, trainer=dataclasses.replace(cfg.trainer, contrastive=None))
+
+
+def synthetic_batches(dev, n):
+    """n batches of (4 labeled, their labels, 4 unlabeled) 513² images, made
+    from SEED with numpy: smooth colour fields with noise, normalised like
+    the dataset; labels quantise the first channel into the 21 classes, ~5%
+    of them 255."""
+    import numpy as np
+    import torch
+
+    from u2pl_tpu_torch.ops.resize import resize_bilinear_numpy
+
+    rng = np.random.RandomState(SEED + 3)
+
+    def images(b):
+        x = np.stack([resize_bilinear_numpy(rng.randn(9, 9, 3).astype(np.float32), (CROP, CROP))
+                      for _ in range(b)])
+        x = (x + 0.2 * rng.randn(*x.shape)).astype(np.float32)
+        return x
+
+    out = []
+    for _ in range(n):
+        img_l, img_u = images(B_L), images(B_U)
+        lab = np.clip(((img_l[..., 0] + 2.5) * 21 / 5).astype(np.int32), 0, 20)
+        lab[rng.rand(*lab.shape) < 0.05] = 255
+        to = lambda a: torch.from_numpy(a).permute(0, 3, 1, 2).contiguous().to(dev)  # noqa: E731
+        out.append((to(img_l), torch.from_numpy(lab).to(dev), to(img_u)))
+    return out
+
+
+def _params_equal(a, b):
+    import torch
+
+    return all(torch.equal(p, q) for p, q in zip(a.parameters(), b.parameters()))
+
+
+def phase4_training(dev, card):
+    import torch
+
+    from u2pl_tpu_torch.models.decoder import Dropout2d
+    from u2pl_tpu_torch.ops import mixing
+    from u2pl_tpu_torch.train.steps import run_steps
+    from u2pl_tpu_torch.train.state import create_train_state
+    from u2pl_tpu_torch.train.steps import make_semi_step
+
+    cfg = train_config()
+    log(f"[phase 4] config {os.path.relpath(VOC_CONFIG, ROOT)} minus its trainer.contrastive "
+        f"block (contrastive -> None), trained in float32 with TF32 off (config dtype "
+        f"{cfg.net.dtype}, sync_bn {cfg.net.sync_bn}: one card, plain BN); "
+        f"{cfg.trainer.optimizer.type} lr {cfg.trainer.optimizer.lr} x10 head, poly, "
+        f"drop_percent {cfg.trainer.unsupervised.drop_percent}, apply_aug "
+        f"{cfg.trainer.unsupervised.apply_aug}, ema {cfg.net.ema_decay}; {B_L}+{B_U} images "
+        f"of {CROP}², steps_per_epoch {STEPS_PER_EPOCH}, sup_only_epoch "
+        f"{cfg.trainer.sup_only_epoch}, {TRAIN_STEPS} steps")
+    t0 = time.monotonic()
+    state = create_train_state(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    batches = synthetic_batches(dev, TRAIN_STEPS)
+    n_params = sum(p.numel() for p in state.student.parameters())
+    log(f"[phase 4] student + teacher ({n_params} parameters each) and {TRAIN_STEPS} batches "
+        f"built in {time.monotonic() - t0:.1f}s")
+    student, teacher = state.student, state.teacher
+    # behind kernel A (the decoder's upsample), so A-bwd must reach them; the
+    # layer4 one on the shortcut path (zero_init_residual zeroes each block's
+    # last BN scale, so a residual branch gets no gradient at step 0)
+    watch = {
+        "decoder.aspp.conv3.0.weight": student.decoder.aspp.conv3[0].weight,
+        "encoder.layer4.0.downsample.0.weight": student.encoder.layer4[0].downsample[0].weight,
+    }
+    start = {k: p.detach().clone() for k, p in watch.items()}
+    t_bn0 = {k: v.clone() for k, v in teacher.state_dict().items() if "running" in k}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    history, snapshot = [], None
+    t0 = time.monotonic()
+    for i_iter, m in run_steps(state, batches, STEPS_PER_EPOCH, cfg, generator=gen):
+        epoch = i_iter // STEPS_PER_EPOCH
+        for k, p in watch.items():
+            if p.grad is None or not torch.isfinite(p.grad).all() or p.grad.abs().sum() == 0:
+                fail(f"step {i_iter}: no finite nonzero gradient reached {k}")
+        if epoch < cfg.trainer.sup_only_epoch and i_iter == STEPS_PER_EPOCH - 1:
+            moved = [k for k, v in teacher.state_dict().items() if k in t_bn0 and not torch.equal(v, t_bn0[k])]
+            log(f"[phase 4] after warmup: {len(moved)} of {len(t_bn0)} teacher BN buffers moved")
+            if len(moved) < len(t_bn0) // 2:
+                fail("the teacher's BN statistics did not track the warmup batches")
+        same = _params_equal(teacher, student)
+        if epoch == cfg.trainer.sup_only_epoch and not same:
+            fail(f"step {i_iter} (first semi epoch): teacher != student")
+        if epoch > cfg.trainer.sup_only_epoch and same:
+            fail(f"step {i_iter} (epoch {epoch}): teacher == student after the EMA")
+        history.append((i_iter, {k: v.item() for k, v in m.items()}, same))
+        if i_iter == TRAIN_STEPS - 2:
+            snapshot = copy.deepcopy(state)  # before step 5
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    for i_iter, m, same in history:
+        log(f"[phase 4] step {i_iter} ({'warmup' if 'drop_thresh' not in m else 'semi'}, epoch "
+            f"{i_iter // STEPS_PER_EPOCH}): " + ", ".join(f"{k} {v:.6g}" for k, v in m.items())
+            + f"; teacher == student: {same}")
+        if not all(v == v and abs(v) != float("inf") for v in m.values()):
+            fail(f"step {i_iter}: non-finite metrics {m}")
+    changed = {k: (watch[k] - start[k]).norm().item() for k in watch}
+    log(f"[phase 4] {TRAIN_STEPS} steps in {run_s:.2f} s; L2 of the change over the run: "
+        f"{changed}; launches {launches}")
+    if not all(v > 0 for v in changed.values()):
+        fail(f"student parameters did not change: {changed}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        fail(f"a kernel of the training path was never launched: {missing}")
+    log(f"[{card}] peak device memory over the {TRAIN_STEPS} training steps: "
+        f"{peak / 2**30:.2f} GiB")
+
+    # step 5 again from the snapshot, dropout off and the mix injected (coin
+    # heads), through the kernels and through the plain versions
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    mix = (torch.tensor(True, device=dev), mixing.draw_boxes(g, B_U, CROP, CROP))
+    step = make_semi_step(cfg, STEPS_PER_EPOCH)
+    runs = {}
+    for route in ("kernels", "plain"):
+        st = copy.deepcopy(snapshot)
+        for mm in list(st.student.modules()) + list(st.teacher.modules()):
+            if isinstance(mm, Dropout2d):
+                mm.p = 0.0
+        before = {k: p.detach().clone() for k, p in st.student.named_parameters()}
+        counts = read_counters()
+        with plain_versions() if route == "plain" else contextlib.nullcontext():
+            m = step(st, *batches[-1], mix=mix)
+        torch.cuda.synchronize()
+        delta = {k: p.detach() - before[k] for k, p in st.student.named_parameters()}
+        runs[route] = ({k: v.item() for k, v in m.items()}, delta, read_counters() != counts)
+        del st
+    (mk, dk, _), (mp, dp, launched) = runs["kernels"], runs["plain"]
+    if launched:
+        fail("the plain-version step launched a kernel")
+    rel = {k: abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-30) for k in ("sup_loss", "uns_loss", "drop_thresh")}
+    diff = {k: (dk[k] - dp[k]).norm().item() for k in dp}
+    norm = {k: dp[k].norm().item() for k in dp}
+    upd = {k: diff[k] / max(norm[k], 1e-30) for k in dp}
+    over = {k: diff[k] / (STEP_UPDATE_TOL * norm[k] + STEP_UPDATE_FLOOR * dp[k].numel() ** 0.5)
+            for k in dp}
+    worst = sorted(upd.items(), key=lambda kv: -kv[1])[:3]
+    tight = sorted(over.items(), key=lambda kv: -kv[1])[:3]
+    log(f"[phase 4] step {TRAIN_STEPS} again, kernels vs plain versions: kernels {mk}; plain "
+        f"{mp}; rel diffs {rel} (bound {STEP_LOSS_TOL}); per-tensor update L2 diff / L2: median "
+        f"{statistics.median(upd.values()):.3e}, largest {[(k, v, norm[k]) for k, v in worst]} "
+        f"(bound {STEP_UPDATE_TOL} of the update + {STEP_UPDATE_FLOOR} RMS; closest to it, as a "
+        f"share of the bound: {tight})")
+    if not all(v <= STEP_LOSS_TOL for v in rel.values()):
+        fail(f"step {TRAIN_STEPS}: kernels vs plain versions {rel}")
+    if tight[0][1] > 1.0:
+        fail(f"step {TRAIN_STEPS}: parameter update differs from the plain route: {tight}")
+    return state, batches, launches, peak
+
+
+def phase5_train_timings(dev, card, state, batches):
+    import torch
+
+    from u2pl_tpu_torch.losses import ce, unsup
+    from u2pl_tpu_torch.ops import mixing, quantile
+    from u2pl_tpu_torch.ops import resize as R
+    from u2pl_tpu_torch.train.steps import make_semi_step, make_semi_warmup_step
+
+    cfg = train_config()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    steps = {"warmup": (make_semi_warmup_step(cfg, STEPS_PER_EPOCH), B_L),
+             "semi": (make_semi_step(cfg, STEPS_PER_EPOCH), B_L + B_U)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {}
+    for name, (fn, imgs) in steps.items():
+        runs = []
+        for i in range(2 + 7):
+            batch = batches[i % len(batches)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(state, *batch, gen)
+            torch.cuda.synchronize()
+            if i >= 2:
+                runs.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(runs)
+        out[name] = med
+        log(f"[{card}] {name} step ({imgs} images of {CROP}², f32, synchronised): median "
+            f"{med:.1f} ms over {len(runs)} runs after 2 (min {min(runs):.1f}, max "
+            f"{max(runs):.1f}); {imgs * 1e3 / med:.2f} img/s")
+    log(f"[{card}] peak device memory over the timed training steps: "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    times = {}
+    for label, shape, out_hw in (("A_bwd_decoder", (8, 256, 65, 65), (129, 129)),
+                                 ("A_bwd_logits", (4, 21, 129, 129), (513, 513))):
+        gy = torch.randn(shape[:2] + out_hw, device=dev, generator=g)
+        times[label] = (cuda_ms(lambda: R.resize_bilinear_bwd(gy, shape[2:]), 20),
+                        cuda_ms(lambda: R.resize_bilinear_bwd_plain(gy, shape[2:]), 20))
+        del gy
+    x = torch.randn(4, 21, 129, 129, device=dev, generator=g, requires_grad=True)
+    lab = torch.randint(0, 21, (4, CROP, CROP), device=dev, generator=g, dtype=torch.int32)
+    lab[torch.rand(lab.shape, device=dev, generator=g) < 0.1] = 255
+    with torch.no_grad():
+        times["C_fwd"] = (cuda_ms(lambda: ce.upsample_cross_entropy(x, lab)),
+                          cuda_ms(lambda: ce.upsample_cross_entropy_plain(x, lab)))
+    lk, lp = ce.upsample_cross_entropy(x, lab), ce.upsample_cross_entropy_plain(x, lab)
+    times["C_bwd"] = (cuda_ms(lambda: torch.autograd.grad(lk, x, retain_graph=True)),
+                      cuda_ms(lambda: torch.autograd.grad(lp, x, retain_graph=True)))
+    del lk, lp
+    xd = x.detach()
+    times["D"] = (cuda_ms(lambda: unsup.upsample_softmax_stats(xd, (CROP, CROP))),
+                  cuda_ms(lambda: unsup.upsample_softmax_stats_plain(xd, (CROP, CROP))))
+    ent = torch.rand(B_U, CROP, CROP, device=dev, generator=g)
+    valid = torch.rand(B_U, CROP, CROP, device=dev, generator=g) < 0.85
+    pct = torch.tensor([85.0], device=dev)
+    times["E"] = (cuda_ms(lambda: quantile.masked_percentiles(ent, valid, pct)),
+                  cuda_ms(lambda: quantile.masked_percentiles_plain(ent, valid, pct)))
+    img = torch.randn(B_U, 3, CROP, CROP, device=dev, generator=g)
+    boxes = mixing.draw_boxes(g, B_U, CROP, CROP)
+    lab_u = lab.clone()
+    times["K3"] = (cuda_ms(lambda: mixing.generate_unsup_data(img, lab_u, ent, boxes, "cutmix")),
+                   cuda_ms(lambda: mixing.generate_unsup_data_plain(img, lab_u, ent, boxes, "cutmix")))
+    shapes = {
+        "A_bwd_decoder": "(8, 256, 129, 129) -> (8, 256, 65, 65)",
+        "A_bwd_logits": "(4, 21, 513, 513) -> (4, 21, 129, 129)",
+        "C_fwd": "(4, 21, 129, 129) -> 513², labels (4, 513, 513)",
+        "C_bwd": "the same, backward to the os4 logits (incl. A-bwd)",
+        "D": "(4, 21, 129, 129) -> 513²",
+        "E": "1 percentile of (4, 513, 513), ~85% valid",
+        "K3": "cutmix (4, 3, 513, 513) + label + max-prob",
+    }
+    for k, (tk, tp) in times.items():
+        log(f"[{card}] kernel {k} {shapes[k]}: {tk:.4f} ms; plain version {tp:.4f} ms")
+    return out, times
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "u2pl_tpu_torch")):
         fail(f"no u2pl_tpu_torch package beside {__file__}: run from a checkout of the repo")
@@ -366,26 +803,40 @@ def main() -> int:
     log(f"[phase 0] kernels built in {lib.build_seconds:.2f} s: {ptxas}")
 
     a_err, b_err = phase1_kernels(dev)
+    errs = phase1_train_kernels(dev)
     with tempfile.TemporaryDirectory(prefix="u2pl_chip_smoke_") as tmp:
         engine, images, loaded, launches = phase2_slice(dev, card, tmp)
         times = phase3_timings(dev, card, engine, images, loaded, tmp)
+    del engine, images, loaded
+    state, batches, train_launches, _ = phase4_training(dev, card)
+    _, train_times = phase5_train_timings(dev, card, state, batches)
 
-    source = "u2pl_tpu_torch/kernels/csrc/resize.cu"
-    report = {
-        "kernels": [
-            {
-                "name": "resize_bilinear_ac", "route": "cuda", "source": source,
-                "replaces": "u2pl_tpu/ops/resize.py:76", "launches": launches["A"],
-                "max_abs_err": a_err, "ms": times["A_logits"][0],
-                "plain_ms": times["A_logits"][1],
-            },
-            {
-                "name": "resize_argmax_ac", "route": "cuda", "source": source,
-                "replaces": "u2pl_tpu/serving.py:115", "launches": launches["B"],
-                "max_abs_err": b_err, "ms": times["B"][0], "plain_ms": times["B"][1],
-            },
-        ]
-    }
+    csrc = "u2pl_tpu_torch/kernels/csrc/"
+
+    def entry(name, source, replaces, launches_, err, ms):
+        return {"name": name, "route": "cuda", "source": csrc + source, "replaces": replaces,
+                "launches": launches_, "max_abs_err": err, "ms": ms[0], "plain_ms": ms[1]}
+
+    # kernel A is on both paths: its launches are the serving run's plus the
+    # training run's, each counted from 0 just before that run
+    report = {"kernels": [
+        entry("resize_bilinear_ac", "resize.cu", "u2pl_tpu/ops/resize.py:76",
+              launches["A"] + train_launches["A"], a_err, times["A_logits"]),
+        entry("resize_argmax_ac", "resize.cu", "u2pl_tpu/serving.py:115",
+              launches["B"], b_err, times["B"]),
+        entry("resize_bilinear_ac_bwd", "resize.cu", "u2pl_tpu/ops/resize.py:76",
+              train_launches["A_bwd"], errs["A_bwd"], train_times["A_bwd_decoder"]),
+        entry("upsample_ce_fwd", "upsample_ce.cu", "u2pl_tpu/losses/ce.py:23",
+              train_launches["C_fwd"], errs["C_fwd"], train_times["C_fwd"]),
+        entry("upsample_ce_bwd", "upsample_ce.cu", "u2pl_tpu/losses/ce.py:23",
+              train_launches["C_bwd"], errs["C_bwd"], train_times["C_bwd"]),
+        entry("upsample_softmax_stats", "upsample_ce.cu", "u2pl_tpu/losses/unsup.py:24",
+              train_launches["D"], errs["D"], train_times["D"]),
+        entry("masked_percentiles", "quantile.cu", "u2pl_tpu/ops/quantile.py:136",
+              train_launches["E"], errs["E"], train_times["E"]),
+        entry("unsup_mix_boxes", "mixing.cu", "u2pl_tpu/ops/mixing.py:62",
+              train_launches["K3"], errs["K3"], train_times["K3"]),
+    ]}
     log(card)
     log(json.dumps(report))
     log(json.dumps({

@@ -85,3 +85,141 @@ def test_kernels_refuse_what_they_do_not_take():
         tr.resize_argmax(x[0].half(), (4, 4))
     with pytest.raises(ValueError):
         tr.resize_argmax(torch.randn(256, 4, 4, device=dev), (8, 8))
+
+
+# ---- the training slice's kernels: A-bwd, C, D, E, K3 ----------------------
+
+BWD_SHAPES = [
+    ((2, 8, 65, 65), (129, 129)),  # decoder upsample, narrowed
+    ((2, 5, 129, 129), (513, 513)),  # logits upsample
+    ((2, 3, 33, 17), (7, 9)),  # a downsample
+    ((2, 3, 1, 5), (4, 10)),
+]
+
+
+@pytest.mark.parametrize("shape,outsz", BWD_SHAPES)
+def test_kernel_a_bwd_matches_plain_adjoint(shape, outsz):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(*shape, device=dev, generator=g, requires_grad=True)
+    y = tr.resize_bilinear(x, outsz)
+    assert y.requires_grad  # kernel A keeps the autograd graph
+    gy = torch.randn(y.shape, device=dev, generator=g)
+    n = tr.resize_bilinear_bwd.launches
+    (gx,) = torch.autograd.grad(y, x, gy)
+    torch.cuda.synchronize()
+    assert tr.resize_bilinear_bwd.launches == n + 1
+    ref = tr.resize_bilinear_bwd_plain(gy, shape[2:])
+    # gather-form sums vs a matmul's order: within 1e-5 of the gradient's max
+    assert (gx - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    again = tr.resize_bilinear_bwd(gy, shape[2:])
+    assert torch.equal(again, gx)  # deterministic: no atomics
+
+
+def _labels(g, b, h, w, c, dev, ignore_frac=0.1):
+    lab = torch.randint(0, c, (b, h, w), device=dev, generator=g, dtype=torch.int32)
+    drop = torch.rand((b, h, w), device=dev, generator=g) < ignore_frac
+    return torch.where(drop, torch.full_like(lab, 255), lab)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("shape,outsz", [((2, 21, 33, 33), (129, 129)), ((3, 5, 9, 7), (33, 25))])
+def test_kernel_c_matches_plain(shape, outsz, weighted):
+    from u2pl_tpu_torch.losses import ce
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(*shape, device=dev, generator=g, requires_grad=True)
+    lab = _labels(g, shape[0], *outsz, shape[1], dev)
+    cw = torch.rand(shape[1], device=dev, generator=g) if weighted else None
+    n = (ce.upsample_cross_entropy.fwd_launches, ce.upsample_cross_entropy.bwd_launches)
+    loss = ce.upsample_cross_entropy(x, lab, 255, cw)
+    (gx,) = torch.autograd.grad(loss * 3.0, x)
+    torch.cuda.synchronize()
+    assert (ce.upsample_cross_entropy.fwd_launches, ce.upsample_cross_entropy.bwd_launches) == (
+        n[0] + 1, n[1] + 1,
+    )
+    xp = x.detach().clone().requires_grad_(True)
+    ref = ce.upsample_cross_entropy_plain(xp, lab, 255, cw)
+    (gref,) = torch.autograd.grad(ref * 3.0, xp)
+    assert abs(loss.item() - ref.item()) <= 1e-5 * abs(ref.item())
+    assert (gx - gref).abs().max().item() <= 1e-6 * max(gref.abs().max().item(), 1e-30)
+
+
+def test_kernel_c_all_ignored_is_zero():
+    from u2pl_tpu_torch.losses import ce
+
+    dev = _cuda()
+    x = torch.randn(2, 5, 9, 9, device=dev, requires_grad=True)
+    lab = torch.full((2, 33, 33), 255, dtype=torch.int32, device=dev)
+    loss = ce.upsample_cross_entropy(x, lab)
+    (gx,) = torch.autograd.grad(loss, x)
+    assert loss.item() == 0.0 and not gx.any()
+
+
+@pytest.mark.parametrize("shape,outsz", [((2, 21, 33, 33), (129, 129)), ((3, 5, 9, 7), (33, 25))])
+def test_kernel_d_matches_plain(shape, outsz):
+    from u2pl_tpu_torch.losses import unsup
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(*shape, device=dev, generator=g) * 3
+    n = unsup.upsample_softmax_stats.launches
+    mp, am, ent = unsup.upsample_softmax_stats(x, outsz)
+    torch.cuda.synchronize()
+    assert unsup.upsample_softmax_stats.launches == n + 1
+    rmp, ram, rent = unsup.upsample_softmax_stats_plain(x, outsz)
+    assert ((mp - rmp).abs() <= 1e-5 * rmp.abs()).all()
+    assert ((ent - rent).abs() <= 1e-5 * rent.abs().clamp(min=1e-3)).all()
+    top2 = tr.resize_bilinear_plain(x, outsz).topk(2, dim=1).values
+    near_tie = (top2[:, 0] - top2[:, 1]) <= 1e-5 * top2[:, 0].abs().clamp(min=1.0)
+    assert am.dtype == torch.int32 and not ((am != ram) & ~near_tie).any()
+
+
+def _percentile_cases(dev):
+    g = torch.Generator(device=dev).manual_seed(4)
+    v = torch.rand(1000, device=dev, generator=g)
+    m = torch.rand(1000, device=dev, generator=g) < 0.85
+    dup = torch.randint(0, 7, (5000,), device=dev, generator=g).float() * 0.25 - 0.5
+    one = torch.zeros(300, dtype=torch.bool, device=dev)
+    one[17] = True
+    return [
+        ("random", v, m),
+        ("duplicates", dup, torch.rand(5000, device=dev, generator=g) < 0.5),
+        ("empty", v, torch.zeros_like(m)),
+        ("n=1", v[:300], one),
+        ("all", v, torch.ones_like(m)),
+    ]
+
+
+def test_kernel_e_bit_equal_to_plain():
+    from u2pl_tpu_torch.ops import quantile
+
+    dev = _cuda()
+    pct = torch.tensor([0.0, 37.5, 80.0, 100.0], device=dev)
+    for name, v, m in _percentile_cases(dev):
+        n = quantile.masked_percentiles.launches
+        got = quantile.masked_percentiles(v, m, pct)
+        torch.cuda.synchronize()
+        assert quantile.masked_percentiles.launches == n + 1
+        ref = quantile.masked_percentiles_plain(v, m, pct)
+        assert torch.equal(got, ref), (name, got, ref)
+
+
+@pytest.mark.parametrize("mode", ["cutmix", "cutout"])
+def test_kernel_k3_bit_equal_to_plain(mode):
+    from u2pl_tpu_torch.ops import mixing
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(5)
+    img = torch.randn(3, 3, 33, 29, device=dev, generator=g)
+    lab = torch.randint(0, 21, (3, 33, 29), device=dev, generator=g, dtype=torch.int32)
+    prob = torch.rand(3, 33, 29, device=dev, generator=g)
+    boxes = mixing.draw_boxes(g, 3, 33, 29)
+    n = mixing.generate_unsup_data.launches
+    got = mixing.generate_unsup_data(img, lab, prob, boxes, mode)
+    torch.cuda.synchronize()
+    assert mixing.generate_unsup_data.launches == n + 1
+    ref = mixing.generate_unsup_data_plain(img, lab, prob, boxes, mode)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)

@@ -1,0 +1,357 @@
+"""The port's semi-supervised trainer against the JAX steps, on the CPU: a
+golden trajectory through warmup -> the first semi epoch -> epoch 2.
+
+JAX runs `make_semi_warmup_step` / `make_semi_step` on `make_mesh(1)` for
+three steps (resnet10 + DeepLabv3+, inner 16, dilations [2, 4, 6], 5
+classes, no aux; 2 labeled + 2 unlabeled 33² images per step; contrastive
+off, `apply_aug: cutmix`, steps_per_epoch 1, sup_only_epoch 1), with the
+per-step student -> teacher copy of the first semi epoch as train_semi.py
+does it.  The port takes each step through `train.steps.run_steps` from
+JAX's state before that step (student and teacher parameters and BN
+statistics, the SGD trace), so every step of the trajectory, with its
+branch, copy and EMA decay, is held against JAX's own step.  Dropout is
+neutralised on both sides (flax `Dropout` patched to identity, the port's at
+p = 0), as tests/test_golden_step.py does, and the port's CutMix coin and
+boxes are JAX's own draws, replayed from the step's key schedule
+(steps.py:275-281, mixing.py:33-37); the key is chosen so that both semi
+steps mix.
+
+Why from JAX's state and not free-running: the warmup's ASPP image-pool BN
+normalises 2 values per channel, where its gradient is mathematically ~0
+and in float32 only rounding noise; those noise-sized differences grow to
+~4% of some tensors' updates two steps on, in JAX against itself too
+(rerun from weights moved by 1e-7).  The batches are smooth images labeled
+by their own colour (a learnable target): with random labels the gradient
+is a small residual that float32 rounding dominates (JAX's own float32
+gradient is then ~4e-3 from its float64 one at 4+4 images, where the port's
+float64 gradient equals JAX's float64 one to 3e-7).
+
+Tolerances, per step: the losses rtol 1e-4 and the drop threshold rtol
+1e-5 (measured ~1e-6 and 9e-6); the teacher's BN running statistics rtol
+1e-4; the student's parameter update and the teacher's parameters in the L2
+pattern of test_golden_step.py:_delta_close: per tensor within 3e-2 of the
+reference update's norm (plus 1e-6 RMS per element, for the conv biases
+that feed a BN, whose gradient is rounding noise), over all tensors within
+1e-2.  A semi step takes the argmax of the teacher's logits as
+pseudo-labels, and near-tied pixels flip between any two float32
+implementations: the losses do not move, the gradient does.  Measured: a
+median of 3.3e-3 over tensors and 1.2e-2 at worst, where JAX against itself
+from weights moved by 1e-7 also moved 3.2e-3 (median).
+"""
+
+import os
+import subprocess
+import sys
+
+import flax.linen as fnn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from test_torch_model import small_net_raw
+from u2pl_tpu.config import parse_config
+from u2pl_tpu.dist import make_mesh
+from u2pl_tpu.models import build_model as build_jax_model
+from u2pl_tpu.train.optim import make_optimizer as jax_make_optimizer
+from u2pl_tpu.train.state import TrainState, copy_student_to_teacher as jax_copy
+from u2pl_tpu.train.steps import make_semi_step as jax_semi_step
+from u2pl_tpu.train.steps import make_semi_warmup_step as jax_warmup_step
+from u2pl_tpu.train.steps import make_sup_step as jax_sup_step
+from u2pl_tpu_torch.models import build_model
+from u2pl_tpu_torch.models.decoder import Dropout2d
+from u2pl_tpu_torch.ops.mixing import boxes_from_uniforms
+from u2pl_tpu_torch.train.steps import run_steps
+from u2pl_tpu_torch.train.state import create_train_state
+from u2pl_tpu_torch.utils.convert_jax import flax_to_torch
+
+HW = 33
+B = 2
+STEPS = 3  # warmup, first semi epoch, epoch 2
+TENSOR_L2 = 3e-2
+GLOBAL_L2 = 1e-2
+
+
+def raw_cfg(**unsup):
+    return {
+        "dataset": {"type": "pascal_semi", "batch_size": B, "ignore_label": 255},
+        "criterion": {"type": "CELoss", "kwargs": {}},
+        "trainer": {
+            "epochs": 4,
+            "sup_only_epoch": 1,
+            "optimizer": {"type": "SGD",
+                          "kwargs": {"lr": 0.01, "momentum": 0.9, "weight_decay": 0.0001}},
+            "lr_scheduler": {"mode": "poly", "kwargs": {"power": 0.9}},
+            "unsupervised": {"drop_percent": 80, "apply_aug": "cutmix", **unsup},
+        },
+        "net": small_net_raw(aux=False),
+    }
+
+
+def batches():
+    """Smooth colour fields (a 4x4 random grid, upsampled) with a little
+    noise, labeled by quantising their first channel into the 5 classes:
+    a learnable target, so the gradient is not a small residual of random
+    labels that float32 rounding would dominate."""
+    from u2pl_tpu_torch.ops.resize import resize_bilinear_numpy
+
+    rng = np.random.RandomState(21)
+
+    def images():
+        x = np.stack([resize_bilinear_numpy(rng.randn(4, 4, 3).astype(np.float32), (HW, HW))
+                      for _ in range(B)]) * 2
+        return (x + 0.1 * rng.randn(*x.shape)).astype(np.float32)
+
+    out = []
+    for _ in range(STEPS):
+        img_l = images()
+        lab_l = np.clip(((img_l[..., 0] + 2) * 5 / 4).astype(np.int32), 0, 4)
+        lab_l[:, :3] = 255
+        out.append((img_l, lab_l, images()))
+    return out
+
+
+def jax_mix(rng, i_iter):
+    """The semi step's coin and CutMix uniforms at `i_iter`, replayed."""
+    dev_rng = jax.random.fold_in(jax.random.fold_in(rng, i_iter), 0)
+    _, _, _, k_coin, k_mix = jax.random.split(dev_rng, 5)
+    coin = bool(jax.random.uniform(k_coin, ()) < 0.5)
+    u = [[float(jax.random.uniform(r, ())) for r in jax.random.split(k, 3)]
+         for k in jax.random.split(k_mix, B)]
+    return coin, torch.tensor(u, dtype=torch.float32)
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(lambda a: np.array(a), jax.device_get(tree))
+
+
+def _jax_snapshot(state):
+    return {
+        "params": _np_tree(state.params), "batch_stats": _np_tree(state.batch_stats),
+        "teacher_params": _np_tree(state.teacher_params),
+        "teacher_batch_stats": _np_tree(state.teacher_batch_stats),
+        "trace": _np_tree(optax.tree_utils.tree_get(state.opt_state, "trace")),
+    }
+
+
+def _port_state(cfg, snap, step):
+    """The port's TrainState at JAX's state `snap` before global step `step`."""
+    student = build_model(cfg.net)
+    student.load_state_dict(
+        flax_to_torch({"params": snap["params"], "batch_stats": snap["batch_stats"]}), strict=True
+    )
+    for m in student.modules():
+        if isinstance(m, Dropout2d):
+            m.p = 0.0
+    state = create_train_state(cfg, student=student)
+    state.teacher.load_state_dict(flax_to_torch(
+        {"params": snap["teacher_params"], "batch_stats": snap["teacher_batch_stats"]}
+    ), strict=True)
+    if step > 0:
+        trace = flax_to_torch({"params": snap["trace"]})
+        for name, p in state.student.named_parameters():
+            state.optimizer.state[p]["trace"] = trace[name].clone()
+    state.step.fill_(step)
+    return state
+
+
+@pytest.fixture(scope="module")
+def trajectory():
+    cfg = parse_config(raw_cfg())
+    data = batches()
+    # a step key whose coin lands heads on both semi steps, so the
+    # trajectory goes through CutMix
+    seed = next(s for s in range(64)
+                if all(jax_mix(jax.random.PRNGKey(s), i)[0] for i in (1, 2)))
+    rng = jax.random.PRNGKey(seed)
+
+    init_model = build_jax_model(cfg.net)
+    init = jax.jit(lambda k, x: init_model.init(k, x, train=False))
+    variables = _np_tree(init(jax.random.PRNGKey(0), jnp.zeros((1, HW, HW, 3))))
+    params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
+    bstats = jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"])
+    tx = jax_make_optimizer(cfg.trainer.optimizer, params, head_lr_multiplier=10.0)
+    state = TrainState(
+        step=jnp.zeros((), jnp.int32), params=params, batch_stats=bstats,
+        opt_state=tx.init(params), teacher_params=jax.tree_util.tree_map(jnp.copy, params),
+        teacher_batch_stats=jax.tree_util.tree_map(jnp.copy, bstats),
+    )
+    jax_before, jax_after = [], []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fnn.Dropout, "__call__", lambda self, x, **kw: x)
+        model = build_jax_model(cfg.net, axis_name="data")
+        mesh = make_mesh(1)
+        warmup = jax_warmup_step(cfg, model, tx, 1, mesh)
+        semi = jax_semi_step(cfg, model, tx, 1, mesh)
+        for i, (img_l, lab_l, img_u) in enumerate(data):
+            jax_before.append(_jax_snapshot(state))
+            args = (jnp.asarray(img_l), jnp.asarray(lab_l), jnp.asarray(img_u), rng)
+            step_fn = warmup if i == 0 else semi
+            if i == 1:
+                state = jax_copy(state)
+            state, m = step_fn(state, *args)
+            jax_after.append((
+                {k: float(v) for k, v in jax.device_get(m).items() if np.ndim(v) == 0},
+                flax_to_torch({"params": _np_tree(state.params)}),
+                flax_to_torch({"params": _np_tree(state.teacher_params),
+                               "batch_stats": _np_tree(state.teacher_batch_stats)}),
+            ))
+
+    torch_after, steps = [], []
+    for i, (img_l, lab_l, img_u) in enumerate(data):
+        tstate = _port_state(cfg, jax_before[i], i)
+        mix = None
+        if i > 0:
+            coin, u = jax_mix(rng, i)
+            mix = (torch.tensor(coin), boxes_from_uniforms(u, HW, HW))
+        batch = (torch.from_numpy(img_l).permute(0, 3, 1, 2).contiguous(),
+                 torch.from_numpy(lab_l), torch.from_numpy(img_u).permute(0, 3, 1, 2).contiguous())
+        ((it, m),) = run_steps(tstate, [batch], 1, cfg, start_iter=i, mixes=[mix])
+        steps.append((it, int(tstate.step)))
+        torch_after.append((
+            {k: float(v) for k, v in m.items()},
+            {k: v.detach().clone() for k, v in tstate.student.state_dict().items()},
+            {k: v.detach().clone() for k, v in tstate.teacher.state_dict().items()},
+        ))
+    before = [flax_to_torch({"params": b["params"]}) for b in jax_before]
+    return before, jax_after, torch_after, steps
+
+
+def _delta_close(got, ref, before, name):
+    """Per tensor: the L2 of the two updates' difference within TENSOR_L2 of
+    the reference update's norm, plus 1e-6 RMS per element for the tensors
+    whose gradient is rounding noise; element backstop 0.25 of the largest
+    magnitude, as test_golden_step.py.  Returns the two updates for the global check."""
+    a, b = (np.asarray(t, np.float64) - before for t in (got, ref))
+    nb = np.linalg.norm(b)
+    floor = 1e-6 * np.sqrt(b.size)
+    assert np.linalg.norm(a - b) <= TENSOR_L2 * nb + floor, (
+        f"{name}: L2 {np.linalg.norm(a - b):.3e} vs ||ref|| {nb:.3e}"
+    )
+    np.testing.assert_allclose(a, b, rtol=0, atol=0.25 * np.abs(b).max() + 1e-5, err_msg=name)
+    return a, b
+
+
+def _global_close(pairs, name):
+    diff = np.sqrt(sum(np.sum((a - b) ** 2) for a, b in pairs))
+    norm = np.sqrt(sum(np.sum(b ** 2) for _, b in pairs))
+    assert diff <= GLOBAL_L2 * norm, f"{name}: global L2 {diff:.3e} vs {norm:.3e}"
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_losses_and_drop_threshold(trajectory, i):
+    _, jax_after, torch_after, steps = trajectory
+    assert steps[i] == (i, i + 1)  # (run_steps' i_iter, the device step after it)
+    ref, got = jax_after[i][0], torch_after[i][0]
+    for k in ("sup_loss", "uns_loss", "con_loss"):
+        np.testing.assert_allclose(got[k], ref[k], rtol=1e-4, atol=1e-7, err_msg=k)
+    np.testing.assert_allclose(got["lr"], ref["lr"], rtol=1e-6)
+    if i > 0:
+        assert ref["uns_loss"] > 0
+        np.testing.assert_allclose(got["drop_thresh"], ref["drop_thresh"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_student_update(trajectory, i):
+    before, jax_after, torch_after, _ = trajectory
+    pairs = [
+        _delta_close(torch_after[i][1][k].numpy(), ref.numpy(), before[i][k].numpy(), f"step {i} {k}")
+        for k, ref in jax_after[i][1].items()
+    ]
+    _global_close(pairs, f"step {i} student")
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_teacher_parameters(trajectory, i):
+    before, jax_after, torch_after, _ = trajectory
+    t_ref, t_got, s_got = jax_after[i][2], torch_after[i][2], torch_after[i][1]
+    params = list(jax_after[i][1])
+    pairs = []
+    for k in params:
+        if i == 1:  # first semi epoch: decay 0, teacher == post-step student
+            assert torch.equal(t_got[k], s_got[k]), k
+        pairs.append(_delta_close(t_got[k].numpy(), t_ref[k].numpy(), before[i][k].numpy(),
+                                  f"step {i} teacher {k}"))
+    _global_close(pairs, f"step {i} teacher")
+    if i == 2:  # epoch 2: a real EMA, the teacher no longer equals the student
+        assert any(not torch.equal(t_got[k], s_got[k]) for k in params)
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_teacher_bn_running_stats(trajectory, i):
+    _, jax_after, torch_after, _ = trajectory
+    t_ref, t_got = jax_after[i][2], torch_after[i][2]
+    keys = [k for k in t_ref if k.endswith(("running_mean", "running_var"))]
+    assert keys
+    for k in keys:
+        w = t_ref[k].numpy()
+        np.testing.assert_allclose(t_got[k].numpy(), w, rtol=1e-4, atol=1e-5 * np.abs(w).max(),
+                                   err_msg=f"step {i} {k}")
+
+
+def test_sup_step_matches_jax():
+    """One `make_sup_step` on 4 labeled images (two batches' labeled
+    halves), from flax's init, in both packages; bounds as above."""
+    from u2pl_tpu_torch.train.steps import make_sup_step
+
+    cfg = parse_config(raw_cfg())
+    data = batches()
+    img = np.concatenate([data[0][0], data[1][0]])
+    lab = np.concatenate([data[0][1], data[1][1]])
+    model = build_jax_model(cfg.net)
+    init = jax.jit(lambda k, x: model.init(k, x, train=False))
+    variables = _np_tree(init(jax.random.PRNGKey(1), jnp.zeros((1, HW, HW, 3))))
+    params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
+    tx = jax_make_optimizer(cfg.trainer.optimizer, params, head_lr_multiplier=10.0)
+    state = TrainState(step=jnp.asarray(3, jnp.int32), params=params,
+                       batch_stats=jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"]),
+                       opt_state=tx.init(params))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fnn.Dropout, "__call__", lambda self, x, **kw: x)
+        step = jax_sup_step(cfg, build_jax_model(cfg.net, axis_name="data"), tx, 2, make_mesh(1))
+        state, ref = step(state, jnp.asarray(img), jnp.asarray(lab), jax.random.PRNGKey(0))
+    after = flax_to_torch({"params": _np_tree(state.params)})
+
+    snap = {"params": variables["params"], "batch_stats": variables["batch_stats"],
+            "teacher_params": variables["params"], "teacher_batch_stats": variables["batch_stats"]}
+    tstate = _port_state(cfg, snap, 0)
+    tstate.step.fill_(3)
+    got = make_sup_step(cfg, 2)(
+        tstate, torch.from_numpy(img).permute(0, 3, 1, 2).contiguous(), torch.from_numpy(lab)
+    )
+    np.testing.assert_allclose(float(got["sup_loss"]), float(ref["sup_loss"]), rtol=1e-4)
+    np.testing.assert_allclose(float(got["lr"]), float(ref["lr"]), rtol=1e-6)
+    assert int(tstate.step) == 4
+    before = flax_to_torch({"params": variables["params"]})
+    sd = tstate.student.state_dict()
+    _global_close([_delta_close(sd[k].numpy(), after[k].numpy(), before[k].numpy(), f"sup {k}")
+                   for k in after], "sup step")
+
+
+def test_unported_branches_raise():
+    from u2pl_tpu_torch.train.steps import make_semi_step, make_sup_step
+
+    contra = raw_cfg()
+    contra["trainer"]["contrastive"] = {"low_rank": 3, "high_rank": 20}
+    with pytest.raises(NotImplementedError, match="contrastive"):
+        make_semi_step(parse_config(contra), 1)
+    ohem = raw_cfg()
+    ohem["criterion"] = {"type": "ohem", "kwargs": {"thresh": 0.7, "min_kept": 100}}
+    with pytest.raises(NotImplementedError, match="ohem"):
+        make_sup_step(parse_config(ohem), 1)
+    with pytest.raises(NotImplementedError, match="classmix"):
+        make_semi_step(parse_config(raw_cfg(apply_aug="classmix")), 1)
+
+
+def test_steps_module_imports_no_jax():
+    code = (
+        "import sys, u2pl_tpu_torch.train.steps; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax')]; "
+        "assert not bad, bad"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    subprocess.run([sys.executable, "-S", "-c", code], check=True, cwd=root, timeout=120,
+                   env={**env, "PYTHONPATH": root + os.pathsep + os.pathsep.join(sys.path)})

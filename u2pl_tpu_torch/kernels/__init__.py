@@ -21,13 +21,36 @@ def load():
 
     path, seconds, log = build()
     lib = ctypes.CDLL(path)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    # (x, y, idx_h, w_h, idx_w, w_w, planes, H, W, OH, OW, stream)
-    lib.u2pl_resize_bilinear_ac.argtypes = [p] * 6 + [i] * 5 + [p]
-    lib.u2pl_resize_bilinear_ac.restype = i
-    # (x, out, idx_h, w_h, idx_w, w_w, C, H, W, OH, OW, stream)
-    lib.u2pl_resize_argmax_ac.argtypes = [p] * 6 + [i] * 5 + [p]
-    lib.u2pl_resize_argmax_ac.restype = i
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    signatures = {
+        # (x, y, idx_h, w_h, idx_w, w_w, planes, H, W, OH, OW, stream)
+        "u2pl_resize_bilinear_ac": [p] * 6 + [i] * 5 + [p],
+        # (gy, gx, idx_h, w_h, rng_h, idx_w, w_w, rng_w, planes, H, W, OH, OW, stream)
+        "u2pl_resize_bilinear_ac_bwd": [p] * 8 + [i] * 5 + [p],
+        # (x, out, idx_h, w_h, idx_w, w_w, C, H, W, OH, OW, stream)
+        "u2pl_resize_argmax_ac": [p] * 6 + [i] * 5 + [p],
+        # (x, labels, cw, lse, part, stats, idx_h, w_h, idx_w, w_w,
+        #  B, C, H, W, OH, OW, ignore, floor, stream)
+        "u2pl_upsample_ce_fwd": [p] * 10 + [i] * 7 + [f, p],
+        # (x, labels, cw, lse, stats, gout, gfull, idx_h, w_h, idx_w, w_w,
+        #  B, C, H, W, OH, OW, ignore, floor, stream)
+        "u2pl_upsample_ce_bwd": [p] * 11 + [i] * 7 + [f, p],
+        # (x, maxprob, argmax, entropy, idx_h, w_h, idx_w, w_w,
+        #  B, C, H, W, OH, OW, stream)
+        "u2pl_upsample_softmax_stats": [p] * 8 + [i] * 6 + [p],
+        # (values, mask, pct, out, state, n, K, stream)
+        "u2pl_masked_percentiles": [p] * 5 + [i] * 2 + [p],
+        # (img, lab, prob, boxes, img_out, lab_out, prob_out,
+        #  B, CI, H, W, cutout, ignore, stream)
+        "u2pl_unsup_mix_boxes": [p] * 7 + [i] * 6 + [p],
+        "u2pl_upsample_ce_parts": [],
+        "u2pl_quantile_max_queries": [],
+        "u2pl_quantile_state_words": [],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = i
     lib.u2pl_error_string.argtypes = [i]
     lib.u2pl_error_string.restype = ctypes.c_char_p
     lib.build_seconds, lib.build_log = seconds, log

@@ -2,9 +2,10 @@
 
 The library has a plain C interface and is loaded with ctypes (see
 `kernels/__init__.py`): no PyTorch headers are compiled, which keeps the
-build to seconds.  It is built at first use into `kernels/build/`, named by
-a hash of the sources and flags, so an edited source is never run from a
-stale library.
+build to seconds.  Each `.cu` source is compiled by its own nvcc process,
+all started together, and the objects are then linked.  The library is
+built at first use into `kernels/build/`, named by a hash of the sources
+and flags, so an edited source is never run from a stale library.
 
     python -m u2pl_tpu_torch.kernels.build     # build now, print the log
 """
@@ -26,7 +27,7 @@ BUILD_DIR = os.path.join(HERE, "build")
 # registers, shared memory and spills in the build log.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 
@@ -65,16 +66,35 @@ def build() -> Tuple[str, float, str]:
     if os.path.isfile(out):
         return out, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
+    nvcc = nvcc_path()
+    tag = f"{out}.{os.getpid()}"
     cu = [s for s in sources() if s.endswith(".cu")]
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *cu]
+    objs = [f"{tag}.{os.path.basename(s)}.o" for s in cu]
     t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(cu, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    failed = [src for src, p in zip(cu, procs) if p.returncode != 0]
+    if not failed:
+        link = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+                "-o", f"{tag}.tmp", *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed = ["link"]
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     seconds = time.monotonic() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}\n{log}")
+    os.replace(f"{tag}.tmp", out)  # atomic: a concurrent loader sees all or nothing
     return out, seconds, log
 
 

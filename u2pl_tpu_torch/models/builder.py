@@ -10,7 +10,7 @@ import torch
 from torch import nn
 
 from u2pl_tpu_torch.config import NetCfg
-from u2pl_tpu_torch.models.decoder import AuxHead, DeepLabV3, DeepLabV3Plus
+from u2pl_tpu_torch.models.decoder import AuxHead, DeepLabV3, DeepLabV3Plus, Dropout2d
 from u2pl_tpu_torch.models.resnet import ResNet, resnet_spec
 
 
@@ -55,11 +55,20 @@ class SegModel(nn.Module):
             else None
         )
 
-    def forward(self, x):
-        feats = self.encoder(x)
-        outs = self.decoder(feats)
-        if self.auxor is not None:
-            outs["aux"] = self.auxor(feats[-2])
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """{"pred", "rep"?, "aux"?} of NCHW `x`.  In train mode the dropout
+        masks are drawn from `generator` (required when dropout is on)."""
+        drops = [m for m in self.modules() if isinstance(m, Dropout2d)]
+        for m in drops:
+            m.generator = generator
+        try:
+            feats = self.encoder(x)
+            outs = self.decoder(feats)
+            if self.auxor is not None:
+                outs["aux"] = self.auxor(feats[-2])
+        finally:
+            for m in drops:
+                m.generator = None
         return outs
 
 

@@ -5,18 +5,49 @@ Module names follow the reference torch modules, i.e. the keys
 `u2pl_tpu.utils.convert_torch._translate` emits (`aspp.conv1.{1,2}`,
 `aspp.conv{2..}.{0,1}`, `low_conv.{0,1}`, `head.{0,1[,4]}`,
 `classifier.{0,1,4,5,8}`, `representation.*`, `aux.{0,1,4}`).  Flax's
-spatially broadcast Dropout is `Dropout2d`; it is active in train mode only.
+spatially broadcast Dropout is `Dropout2d`; it is active in train mode only
+and draws its masks from the generator `SegModel.forward` hands it.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from u2pl_tpu_torch.models.resnet import conv1x1, conv3x3, norm
 from u2pl_tpu_torch.ops.resize import resize_bilinear
+
+
+class Dropout2d(nn.Module):
+    """`nn.Dropout2d` semantics (whole channels per sample, kept ones scaled
+    by 1/(1-p)) with the mask drawn from `self.generator`, never from torch's
+    global RNG.  `SegModel.forward(x, generator)` sets the generator for the
+    length of one forward; in train mode with p > 0 and no generator it
+    raises.  flax's `Dropout(broadcast_dims=(1, 2))` is the same function,
+    `where(keep, x / (1 - p), 0)`."""
+
+    def __init__(self, p: float = 0.1):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise ValueError(
+                "Dropout2d in train mode draws from a generator: call the model "
+                "as model(x, generator=g)"
+            )
+        keep_p = 1.0 - self.p
+        probs = torch.full(x.shape[:2] + (1, 1), keep_p, dtype=x.dtype, device=x.device)
+        keep = torch.bernoulli(probs, generator=self.generator).bool()
+        return torch.where(keep, x / keep_p, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
 
 
 class ASPP(nn.Module):
@@ -54,8 +85,8 @@ def _head_stack(in_planes: int, out_planes: int) -> nn.Sequential:
     """classifier / representation tower: two 3x3 conv+BN+ReLU+Dropout2d,
     then a 1x1 projection (reference decoder.py:82-106)."""
     return nn.Sequential(
-        conv3x3(in_planes, 256, bias=True), norm(256), nn.ReLU(), nn.Dropout2d(0.1),
-        conv3x3(256, 256, bias=True), norm(256), nn.ReLU(), nn.Dropout2d(0.1),
+        conv3x3(in_planes, 256, bias=True), norm(256), nn.ReLU(), Dropout2d(0.1),
+        conv3x3(256, 256, bias=True), norm(256), nn.ReLU(), Dropout2d(0.1),
         conv1x1(256, out_planes, bias=True),
     )
 
@@ -77,7 +108,7 @@ class DeepLabV3Plus(nn.Module):
         )
         self.head = nn.Sequential(
             conv3x3(self.aspp.out_planes, 256), norm(256), nn.ReLU(),
-            nn.Dropout2d(0.1),
+            Dropout2d(0.1),
         )
         self.classifier = _head_stack(512, num_classes)
         self.representation = _head_stack(512, 256) if rep_head else None
@@ -109,7 +140,7 @@ class DeepLabV3(nn.Module):
         self.aspp = ASPP(in_planes, inner_planes, dilations)
         self.head = nn.Sequential(
             conv3x3(self.aspp.out_planes, 256), norm(256), nn.ReLU(),
-            nn.Dropout2d(0.1), conv1x1(256, num_classes, bias=True),
+            Dropout2d(0.1), conv1x1(256, num_classes, bias=True),
         )
 
     def forward(self, feats):
@@ -124,7 +155,7 @@ class AuxHead(nn.Module):
         super().__init__()
         self.aux = nn.Sequential(
             conv3x3(in_planes, 256, bias=True), norm(256), nn.ReLU(),
-            nn.Dropout2d(0.1), conv1x1(256, num_classes, bias=True),
+            Dropout2d(0.1), conv1x1(256, num_classes, bias=True),
         )
 
     def forward(self, x):

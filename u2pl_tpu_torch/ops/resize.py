@@ -17,6 +17,10 @@ Dispatch: a CPU tensor takes the plain PyTorch version; a CUDA tensor
 launches the hand-written kernel (`kernels/csrc/resize.cu`) or raises —
 there is no fallback from the card to the plain version.  Each wrapper
 counts its kernel launches in `<wrapper>.launches`.
+
+`resize_bilinear` is differentiable: an `autograd.Function` whose backward
+is the adjoint resize, kernel A-bwd (`resize_bilinear_bwd`) on the card and
+the transposed einsums on the CPU.
 """
 
 from __future__ import annotations
@@ -91,6 +95,20 @@ def _device_taps(
     return idx.to(device), w.to(device)
 
 
+@functools.lru_cache(maxsize=256)
+def _device_ranges(
+    in_size: int, out_size: int, align_corners: bool, device: torch.device
+) -> torch.Tensor:
+    """Kernel A-bwd's table on `device`: int32 [start; end], (2, in_size),
+    the output indices whose taps reach each input index (lo in {i-1, i};
+    contiguous because lo is non-decreasing)."""
+    lo, _, _ = _interp_taps_np(in_size, out_size, align_corners)
+    i = np.arange(in_size)
+    start = np.searchsorted(lo, i - 1, side="left")
+    end = np.searchsorted(lo, i, side="right")
+    return torch.from_numpy(np.stack([start, end]).astype(np.int32)).to(device)
+
+
 def _dense(in_size: int, out_size: int, align_corners: bool, like: torch.Tensor):
     return torch.from_numpy(_interp_matrix_np(in_size, out_size, align_corners)).to(
         like.device
@@ -109,6 +127,21 @@ def resize_bilinear_plain(
     y = torch.einsum("oh,bchw->bcow", wh, x.float())
     y = torch.einsum("pw,bcow->bcop", ww, y)
     return y.to(x.dtype)
+
+
+def resize_bilinear_bwd_plain(
+    gy: torch.Tensor, in_size: Tuple[int, int], align_corners: bool = True
+) -> torch.Tensor:
+    """Plain PyTorch version of kernel A-bwd: the adjoint of
+    `resize_bilinear_plain`, the two einsums with the transposed dense
+    matrices in reverse order (W first), as XLA's VJP of the JAX function."""
+    _, _, oh, ow = gy.shape
+    h, w = int(in_size[0]), int(in_size[1])
+    wh = _dense(h, oh, align_corners, gy)
+    ww = _dense(w, ow, align_corners, gy)
+    g = torch.einsum("pw,bcop->bcow", ww, gy.float())
+    g = torch.einsum("oh,bcow->bchw", wh, g)
+    return g.to(gy.dtype)
 
 
 def resize_argmax_plain(
@@ -139,16 +172,33 @@ def resize_bilinear(
     """Bilinear resize of NCHW `x` to spatial `size` (h, w) (kernel A).
 
     Same values as the JAX `resize_bilinear` on the NHWC transpose; the
-    (h, w) == input size case returns `x` itself, as there."""
+    (h, w) == input size case returns `x` itself, as there.  Differentiable
+    in `x` (backward: `resize_bilinear_bwd`)."""
     if x.dim() != 4:
         raise ValueError(f"resize_bilinear: expected NCHW, got {tuple(x.shape)}")
-    b, c, h, w = x.shape
     oh, ow = int(size[0]), int(size[1])
-    if (oh, ow) == (h, w):
+    if (oh, ow) == tuple(x.shape[2:]):
         return x
-    if x.device.type == "cpu":
-        return resize_bilinear_plain(x, (oh, ow), align_corners)
+    return _ResizeBilinear.apply(x, (oh, ow), align_corners)
+
+
+class _ResizeBilinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, size, align_corners):
+        ctx.in_size, ctx.align_corners = tuple(x.shape[2:]), align_corners
+        if x.device.type == "cpu":
+            return resize_bilinear_plain(x, size, align_corners)
+        return _resize_bilinear_cuda(x, size, align_corners)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return resize_bilinear_bwd(gy.contiguous(), ctx.in_size, ctx.align_corners), None, None
+
+
+def _resize_bilinear_cuda(x: torch.Tensor, size, align_corners: bool) -> torch.Tensor:
     _check_cuda_f32(x, 4, "resize_bilinear")
+    b, c, h, w = x.shape
+    oh, ow = size
     if b * c * oh * ow >= 2**31:
         raise ValueError("resize_bilinear: output exceeds the int32 sizes")
     from u2pl_tpu_torch.kernels import check, load
@@ -169,6 +219,43 @@ def resize_bilinear(
 
 
 resize_bilinear.launches = 0
+
+
+def resize_bilinear_bwd(
+    gy: torch.Tensor, in_size: Tuple[int, int], align_corners: bool = True
+) -> torch.Tensor:
+    """Adjoint of `resize_bilinear`: the gradient (B, C, h, w) of an
+    (h, w) -> gy's (H, W) resize, given the output gradient gy (kernel A-bwd:
+    gather form, deterministic)."""
+    if gy.dim() != 4:
+        raise ValueError(f"resize_bilinear_bwd: expected NCHW, got {tuple(gy.shape)}")
+    h, w = int(in_size[0]), int(in_size[1])
+    if gy.device.type == "cpu":
+        return resize_bilinear_bwd_plain(gy, (h, w), align_corners)
+    _check_cuda_f32(gy, 4, "resize_bilinear_bwd")
+    b, c, oh, ow = gy.shape
+    if b * c * h * w >= 2**31:
+        raise ValueError("resize_bilinear_bwd: output exceeds the int32 sizes")
+    from u2pl_tpu_torch.kernels import check, load
+
+    lib = load()
+    idx_h, w_h = _device_taps(h, oh, align_corners, gy.device)
+    idx_w, w_w = _device_taps(w, ow, align_corners, gy.device)
+    rng_h = _device_ranges(h, oh, align_corners, gy.device)
+    rng_w = _device_ranges(w, ow, align_corners, gy.device)
+    gx = torch.empty((b, c, h, w), dtype=gy.dtype, device=gy.device)
+    with torch.cuda.device(gy.device):
+        err = lib.u2pl_resize_bilinear_ac_bwd(
+            gy.data_ptr(), gx.data_ptr(), idx_h.data_ptr(), w_h.data_ptr(),
+            rng_h.data_ptr(), idx_w.data_ptr(), w_w.data_ptr(), rng_w.data_ptr(),
+            b * c, h, w, oh, ow, torch.cuda.current_stream(gy.device).cuda_stream,
+        )
+    check(lib, err, "resize_bilinear_ac_bwd launch")
+    resize_bilinear_bwd.launches += 1
+    return gx
+
+
+resize_bilinear_bwd.launches = 0
 
 
 def resize_argmax(

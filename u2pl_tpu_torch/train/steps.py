@@ -1,0 +1,291 @@
+"""Supervised and semi-supervised U²PL train steps, contrastive branch off
+(port of u2pl_tpu/train/steps.py, one device).
+
+Each maker returns a step that updates the `TrainState` in place and
+returns its metrics as 0-d device tensors; nothing on a step reads a value
+back to the host.  The anatomy follows the JAX steps line by line:
+
+  semi step (steps.py:269-574): eval-mode teacher forward on the unlabeled
+  batch -> max-prob / argmax pseudo-labels of the upsampled logits (kernel D)
+  -> CutMix or Cutout on a 50% coin, one coin for the batch (kernel K3) ->
+  train-mode teacher forward on labeled + mixed images (updates the
+  teacher's BN statistics) -> entropy of its upsampled unlabeled logits
+  (kernel D) -> the annealed drop percentile of that entropy over the valid
+  pseudo-labels (kernel E) -> student forward on labeled + mixed images,
+  sup CE + entropy-gated unsup CE of the upsampled logits (kernel C,
+  forward and backward) -> optimizer step at the poly LR -> EMA of the
+  teacher's parameters, with decay 0 in the first semi epoch.
+
+`run_steps` sequences the warmup and semi steps by epoch, as
+train_semi.py does.
+
+Dropout masks and the mix draws (coin, boxes) come from the `generator`
+passed to the step; `mix=(coin, boxes)` injects the draws instead.  The
+contrastive loss (`trainer.contrastive`) and OHEM (`criterion.type: ohem`)
+raise NotImplementedError: they are later slices (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence, Tuple
+
+import torch
+
+from u2pl_tpu_torch.config import Config
+from u2pl_tpu_torch.losses import ce as ce_loss
+from u2pl_tpu_torch.losses import unsup
+from u2pl_tpu_torch.ops import mixing, quantile
+from u2pl_tpu_torch.train.lr import _div, lr_at
+from u2pl_tpu_torch.train.state import TrainState, copy_student_to_teacher
+
+Metrics = Dict[str, torch.Tensor]
+
+
+def _check_ported(cfg: Config) -> None:
+    if cfg.criterion.type == "ohem":
+        raise NotImplementedError(
+            "criterion.type: ohem is not ported yet (ROADMAP.md queue 1, "
+            "'Cityscapes family (OHEM, K7)')"
+        )
+    if cfg.trainer.contrastive is not None:
+        raise NotImplementedError(
+            "trainer.contrastive is not ported yet (ROADMAP.md queue 1, "
+            "'the contrastive slice (K4-K6, memobank)'); remove the block to "
+            "train without it"
+        )
+
+
+def make_sup_loss_fn(cfg: Config) -> Callable:
+    """sup_loss(pred_os4, labels, aux_os4) with the config's aux weight,
+    ignore label and use_weight (steps.py:51-66)."""
+    _check_ported(cfg)
+    aux_w = cfg.net.aux_loss.loss_weight if cfg.net.aux_loss else 0.0
+    return functools.partial(
+        ce_loss.supervised_loss,
+        aux_weight=aux_w,
+        ignore_label=cfg.dataset.ignore_label,
+        use_weight=cfg.criterion.use_weight,
+    )
+
+
+def make_normalizer(cfg: Config) -> Callable:
+    """uint8 NCHW batches -> (x - mean) / std per channel on the device;
+    float batches pass through untouched (steps.py:73-84)."""
+    mean = torch.tensor(cfg.dataset.mean, dtype=torch.float32)[:, None, None]
+    std = torch.tensor(cfg.dataset.std, dtype=torch.float32)[:, None, None]
+
+    def norm(img: torch.Tensor) -> torch.Tensor:
+        if img.dtype == torch.uint8:
+            return (img.float() - mean.to(img.device)) / std.to(img.device)
+        return img
+
+    return norm
+
+
+def _update(cfg: Config, state: TrainState, max_iter: int, steps_per_epoch: int) -> torch.Tensor:
+    """Optimizer step at the scheduled LR of `state.step` (steps.py:87-100)."""
+    lr = lr_at(
+        cfg.trainer.lr_scheduler, cfg.trainer.optimizer.lr, state.step, max_iter,
+        steps_per_epoch,
+    )
+    state.optimizer.step(lr)
+    return lr
+
+
+def _sup_forward_backward(state, sup_loss_fn, image, label, generator, has_aux):
+    state.student.train()
+    state.optimizer.zero_grad(set_to_none=True)
+    outs = state.student(image, generator=generator)
+    loss = sup_loss_fn(outs["pred"], label, outs["aux"] if has_aux else None)
+    loss.backward()
+    return loss.detach()
+
+
+def make_sup_step(cfg: Config, steps_per_epoch: int) -> Callable:
+    """Supervised baseline step (steps.py:103-162):
+    step(state, image, label, generator=None) -> metrics."""
+    max_iter = cfg.trainer.epochs * steps_per_epoch
+    sup_loss_fn = make_sup_loss_fn(cfg)
+    has_aux = cfg.net.aux_loss is not None
+    normalize = make_normalizer(cfg)
+
+    def step(state: TrainState, image, label, generator=None) -> Metrics:
+        loss = _sup_forward_backward(state, sup_loss_fn, normalize(image), label, generator, has_aux)
+        lr = _update(cfg, state, max_iter, steps_per_epoch)
+        state.step += 1
+        return {"sup_loss": loss, "lr": lr}
+
+    return step
+
+
+def make_semi_warmup_step(cfg: Config, steps_per_epoch: int) -> Callable:
+    """Warmup branch of the semi trainer (steps.py:165-244): sup loss on the
+    labeled batch + a train-mode teacher forward on it that only updates the
+    teacher's BN statistics.
+    step(state, image_l, label_l, image_u, generator=None) -> metrics."""
+    max_iter = cfg.trainer.epochs * steps_per_epoch
+    sup_loss_fn = make_sup_loss_fn(cfg)
+    has_aux = cfg.net.aux_loss is not None
+    normalize = make_normalizer(cfg)
+
+    def step(state: TrainState, image_l, label_l, image_u, generator=None) -> Metrics:
+        image_l = normalize(image_l)
+        loss = _sup_forward_backward(state, sup_loss_fn, image_l, label_l, generator, has_aux)
+        state.teacher.train()
+        with torch.no_grad():
+            state.teacher(image_l, generator=generator)
+        lr = _update(cfg, state, max_iter, steps_per_epoch)
+        state.step += 1
+        zero = torch.zeros((), device=loss.device)
+        return {"sup_loss": loss, "uns_loss": zero, "con_loss": zero, "lr": lr}
+
+    return step
+
+
+def epoch_scalars(
+    step: torch.Tensor, steps_per_epoch: int, cfg: Config
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(drop_percent, ema_decay) of the device step, in the JAX float32
+    arithmetic of steps.py:274, :356-359 and :520-541 (a 1-ulp difference
+    in the percent would move the percentile's rank)."""
+    tr = cfg.trainer
+    epoch_i = torch.div(step, steps_per_epoch, rounding_mode="floor")
+    epoch = epoch_i.to(torch.float32)
+    percent_unreliable = (100.0 - tr.unsupervised.drop_percent) * (1.0 - _div(epoch, tr.epochs))
+    drop_percent = 100.0 - percent_unreliable
+    since = step.to(torch.float32) - float(steps_per_epoch * tr.sup_only_epoch) + 1.0
+    decay = torch.minimum(
+        1.0 - torch.full_like(since, 1.0) / since, torch.full_like(since, cfg.net.ema_decay)
+    )
+    decay = torch.where(epoch_i == tr.sup_only_epoch, torch.zeros_like(decay), decay)
+    return drop_percent, decay
+
+
+def make_semi_step(cfg: Config, steps_per_epoch: int) -> Callable:
+    """The U²PL semi-supervised step without the contrastive branch
+    (steps.py:247-583).
+    step(state, image_l, label_l, image_u, generator=None, mix=None) -> metrics;
+    `mix=(coin, boxes)`: a 0-d bool and (B_u, 4) int32 boxes on the device,
+    in place of the generator's draws."""
+    max_iter = cfg.trainer.epochs * steps_per_epoch
+    sup_loss_fn = make_sup_loss_fn(cfg)
+    has_aux = cfg.net.aux_loss is not None
+    ignore = cfg.dataset.ignore_label
+    unsup_cfg = cfg.trainer.unsupervised
+    normalize = make_normalizer(cfg)
+    if unsup_cfg.apply_aug:
+        mixing.check_mode(unsup_cfg.apply_aug)
+
+    def step(
+        state: TrainState, image_l, label_l, image_u, generator=None,
+        mix: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ) -> Metrics:
+        image_l, image_u = normalize(image_l), normalize(image_u)
+        b_l, h, w = label_l.shape
+        student, teacher = state.student, state.teacher
+        drop_percent, ema_decay = epoch_scalars(state.step, steps_per_epoch, cfg)
+
+        with torch.no_grad():
+            # ---- 1. pseudo-labels from the eval-mode teacher (:283-301)
+            teacher.eval()
+            pred_u_teacher = teacher(image_u)["pred"]
+            logits_u_aug, label_u_aug, _ = unsup.upsample_softmax_stats(pred_u_teacher, (h, w))
+            del pred_u_teacher
+
+            # ---- 2. strong augmentation on a 50% coin (:303-319)
+            image_u_aug = image_u
+            if unsup_cfg.apply_aug:
+                if mix is None:
+                    if generator is None:
+                        raise ValueError("the semi step draws its mix from a generator or `mix`")
+                    coin = torch.rand((), generator=generator, device=generator.device) < 0.5
+                    boxes = mixing.draw_boxes(generator, image_u.shape[0], h, w)
+                else:
+                    coin, boxes = mix
+                aug_img, aug_lab, aug_log = mixing.generate_unsup_data(
+                    image_u, label_u_aug, logits_u_aug, boxes, unsup_cfg.apply_aug, ignore
+                )
+                image_u_aug = torch.where(coin, aug_img, image_u)
+                label_u_aug = torch.where(coin, aug_lab, label_u_aug)
+                del aug_img, aug_lab, aug_log, logits_u_aug
+            image_all = torch.cat([image_l, image_u_aug], dim=0)
+
+            # ---- teacher train-mode forward (:323-343): updates teacher BN
+            teacher.train()
+            pred_all_teacher = teacher(image_all, generator=generator)["pred"]
+            _, _, entropy = unsup.upsample_softmax_stats(pred_all_teacher[b_l:], (h, w))
+            del pred_all_teacher
+
+            # ---- the annealed drop percentile of the entropy (:352-406)
+            valid_u = label_u_aug != ignore
+            drop_thresh = quantile.masked_percentiles(entropy, valid_u, drop_percent.reshape(1))[0]
+
+        # ---- student forward / backward (:437-517)
+        student.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        outs = student(image_all, generator=generator)
+        pred_all = outs["pred"]
+        sup_loss = sup_loss_fn(pred_all[:b_l], label_l, outs["aux"][:b_l] if has_aux else None)
+        unsup_loss = unsup.compute_unsupervised_loss(
+            pred_all[b_l:], label_u_aug, entropy, drop_thresh, ignore
+        ) * unsup_cfg.loss_weight
+        del outs, pred_all
+        (sup_loss + unsup_loss).backward()
+        lr = _update(cfg, state, max_iter, steps_per_epoch)
+
+        # ---- EMA of the teacher's parameters (:519-546)
+        with torch.no_grad():
+            t_params = list(teacher.parameters())
+            s_params = list(student.parameters())
+            blended = torch._foreach_add(
+                torch._foreach_mul(t_params, ema_decay),
+                torch._foreach_mul(s_params, 1.0 - ema_decay),
+            )
+            torch._foreach_copy_(t_params, blended)
+        state.step += 1
+        return {
+            "sup_loss": sup_loss.detach(),
+            "uns_loss": unsup_loss.detach(),
+            "con_loss": torch.zeros((), device=sup_loss.device),
+            "lr": lr,
+            "drop_thresh": drop_thresh,
+        }
+
+    return step
+
+
+def run_steps(
+    state: TrainState,
+    batches: Iterable[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
+    steps_per_epoch: int,
+    cfg: Config,
+    generator: Optional[torch.Generator] = None,
+    start_iter: int = 0,
+    mixes: Optional[Sequence] = None,
+) -> Iterator[Tuple[int, Metrics]]:
+    """The semi trainer's step sequencing (train_semi.py:166-245; its CLI,
+    data pipeline, validation and checkpoints are a later slice): warmup
+    steps while epoch < sup_only_epoch, the student -> teacher copy before
+    every step of the first semi epoch (train_semi.py:233-237), semi steps
+    after that.
+
+    One step per (image_l, label_l, image_u) batch, from global iteration
+    `start_iter` (the host's copy of `state.step`, so choosing the branch
+    reads nothing back from the device); yields (i_iter, metrics) after each
+    step.  `mixes[j]`, when given, is the semi step's injected (coin, boxes)
+    for batch j."""
+    warmup = make_semi_warmup_step(cfg, steps_per_epoch)
+    semi = make_semi_step(cfg, steps_per_epoch)
+    sup_only_epoch = cfg.trainer.sup_only_epoch
+    for j, (image_l, label_l, image_u) in enumerate(batches):
+        i_iter = start_iter + j
+        epoch = i_iter // steps_per_epoch
+        if epoch < sup_only_epoch:
+            metrics = warmup(state, image_l, label_l, image_u, generator)
+        else:
+            if epoch == sup_only_epoch:
+                copy_student_to_teacher(state)
+            mix = mixes[j] if mixes is not None else None
+            metrics = semi(state, image_l, label_l, image_u, generator, mix=mix)
+        yield i_iter, metrics
