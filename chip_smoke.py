@@ -27,8 +27,26 @@ Phases; any failure ends the run with a nonzero exit code:
      training kernel's launch count; then step 5 again from a copy of the
      state, through the kernels and through the plain versions, compared;
   5. training timings: warmup and semi step medians, images/s, peak device
-     memory, each training kernel beside its plain version.
-It prints a JSON line of kernels, then one JSON line
+     memory, each training kernel beside its plain version;
+  6. the contrastive slice: the full `ours` config WITH trainer.contrastive
+     (a (21, 50000, 256) bf16 memory bank, 8192 keys per class and step,
+     256 queries, 50 negatives), 5 steps through `run_steps` (2 warmup, 3
+     semi), checked for finite losses, con_loss > 0 on every semi step, the
+     bank's occupancy against the keys enqueued, a gradient reaching the
+     representation head and every kernel's launch count; then step 5 again
+     from a copy, through the kernels and through the plain versions,
+     compared, and the contrastive loss on the step's own inputs, kernels
+     against plain versions, its selections and bank bit-equal;
+  7. contrastive timings: the contrastive semi step's median, images/s and
+     peak memory, and each K4-K6 kernel beside its plain version and, where
+     one exists, a single PyTorch call for the same function.
+Phase 1 also holds the contrastive kernels (K4: pixel masks, key selection,
+anchor draws; K5: the bank write; K6: the InfoNCE forward and backward)
+against their plain versions at the flagship shapes, on a prefilled bank
+that wraps.
+It prints a JSON line of kernels (each with its launches on the main paths,
+its error against its plain version, its time beside the plain version's,
+its bound and a library call's time), then one JSON line
 {"ok": true, "device": {...}} as the last line of its output.
 """
 
@@ -90,6 +108,14 @@ STEP_UPDATE_TOL = 1e-2  # per tensor: L2 of the update difference / L2 of the up
 # gradient in exact arithmetic, so their update is weight decay + rounding
 # noise (~1e-9 per element at lr 1e-3), on any two routes
 STEP_UPDATE_FLOOR = 1e-8
+# contrastive slice: the flagship's os4 batch and the kernels' bounds
+OS4 = 129
+K6_LOSS_TOL = 1e-5  # relative
+K6_GRAD_TOL = 1e-6  # max abs diff / max |grad|
+CON_LOSS_TOL = 1e-4  # step 5, kernels vs plain versions, relative
+# the card's published peaks (NVIDIA H100 SXM data sheet), for the bounds
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 
 def fail(msg: str) -> None:
@@ -303,6 +329,7 @@ def phase2_slice(dev, card, tmp):
 def phase3_timings(dev, card, engine, images, loaded, tmp):
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     from u2pl_tpu_torch.ops import resize as R
 
@@ -341,17 +368,19 @@ def phase3_timings(dev, card, engine, images, loaded, tmp):
             f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB"
         )
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    times = {}
+    times = {}  # name -> (kernel ms, plain ms, library ms or None)
     for name, (shape, out) in (("A_logits", A_SHAPES[0]), ("A_decoder", A_SHAPES[1])):
         x = torch.randn(*shape, device=dev, generator=g)
         k = cuda_ms(lambda: R.resize_bilinear(x, out))
         p = cuda_ms(lambda: R.resize_bilinear_plain(x, out))
-        times[name] = (k, p)
-        log(f"[{card}] kernel A {shape} -> {out}: {k:.4f} ms; plain version {p:.4f} ms")
+        lib = cuda_ms(lambda: F.interpolate(x, size=out, mode="bilinear", align_corners=True))
+        times[name] = (k, p, lib)
+        log(f"[{card}] kernel A {shape} -> {out}: {k:.4f} ms; plain version {p:.4f} ms; "
+            f"F.interpolate(bilinear, align_corners=True) {lib:.4f} ms")
     logits = torch.randn(21, 513, 513, device=dev, generator=g)
     k = cuda_ms(lambda: R.resize_argmax(logits, (375, 500)))
     p = cuda_ms(lambda: R.resize_argmax_plain(logits, (375, 500)))
-    times["B"] = (k, p)
+    times["B"] = (k, p, None)
     log(f"[{card}] kernel B (21, 513, 513) -> (375, 500): {k:.4f} ms; plain version {p:.4f} ms")
     return times
 
@@ -487,22 +516,36 @@ TRAIN_COUNTERS = {  # kernel -> (module, wrapper, counter attribute)
     "E": ("u2pl_tpu_torch.ops.quantile", "masked_percentiles", "launches"),
     "K3": ("u2pl_tpu_torch.ops.mixing", "generate_unsup_data", "launches"),
 }
+CONTRA_COUNTERS = {
+    "K4_masks": ("u2pl_tpu_torch.losses.contrastive", "contra_pixel_masks", "launches"),
+    "K4_select": ("u2pl_tpu_torch.losses.contrastive", "select_keys", "launches"),
+    "K4_anchors": ("u2pl_tpu_torch.losses.contrastive", "sample_anchors", "launches"),
+    "K5": ("u2pl_tpu_torch.memobank", "memobank_enqueue", "launches"),
+    "K6_fwd": ("u2pl_tpu_torch.losses.contrastive", "contra_infonce", "fwd_launches"),
+    "K6_bwd": ("u2pl_tpu_torch.losses.contrastive", "contra_infonce", "bwd_launches"),
+}
+COUNTERS = {**TRAIN_COUNTERS, **CONTRA_COUNTERS}
 
 
 def _counter(name):
     import importlib
 
-    mod, fn, attr = TRAIN_COUNTERS[name]
+    mod, fn, attr = COUNTERS[name]
     return getattr(importlib.import_module(mod), fn), attr
 
 
 def read_counters():
-    return {k: getattr(*_counter(k)) for k in TRAIN_COUNTERS}
+    return {k: getattr(*_counter(k)) for k in COUNTERS}
 
 
 def zero_counters():
-    for k in TRAIN_COUNTERS:
+    for k in COUNTERS:
         setattr(*_counter(k), 0)
+
+
+def scalars(metrics):
+    """The 0-d metrics of a step as floats (neg_cand is per class)."""
+    return {k: v.item() for k, v in metrics.items() if v.dim() == 0}
 
 
 @contextlib.contextmanager
@@ -510,7 +553,9 @@ def plain_versions():
     """Route every kernel of the serving forward and the training step
     through its plain version."""
     import u2pl_tpu_torch.losses.ce as ce
+    import u2pl_tpu_torch.losses.contrastive as contrastive
     import u2pl_tpu_torch.losses.unsup as unsup
+    import u2pl_tpu_torch.memobank as memobank
     import u2pl_tpu_torch.models.decoder as decoder
     import u2pl_tpu_torch.ops.mixing as mixing
     import u2pl_tpu_torch.ops.quantile as quantile
@@ -523,6 +568,11 @@ def plain_versions():
         (unsup, "upsample_softmax_stats", unsup.upsample_softmax_stats_plain),
         (quantile, "masked_percentiles", quantile.masked_percentiles_plain),
         (mixing, "generate_unsup_data", mixing.generate_unsup_data_plain),
+        (contrastive, "contra_pixel_masks", contrastive.contra_pixel_masks_plain),
+        (contrastive, "select_keys", contrastive.select_keys_plain),
+        (contrastive, "sample_anchors", contrastive.sample_anchors_plain),
+        (contrastive, "memobank_enqueue", memobank.memobank_enqueue_plain),
+        (contrastive, "contra_infonce", contrastive.contra_infonce_plain),
     ]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     try:
@@ -632,7 +682,7 @@ def phase4_training(dev, card):
             fail(f"step {i_iter} (first semi epoch): teacher != student")
         if epoch > cfg.trainer.sup_only_epoch and same:
             fail(f"step {i_iter} (epoch {epoch}): teacher == student after the EMA")
-        history.append((i_iter, {k: v.item() for k, v in m.items()}, same))
+        history.append((i_iter, scalars(m), same))
         if i_iter == TRAIN_STEPS - 2:
             snapshot = copy.deepcopy(state)  # before step 5
     torch.cuda.synchronize()
@@ -650,7 +700,7 @@ def phase4_training(dev, card):
         f"{changed}; launches {launches}")
     if not all(v > 0 for v in changed.values()):
         fail(f"student parameters did not change: {changed}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in TRAIN_COUNTERS if launches[k] <= 0]
     if missing:
         fail(f"a kernel of the training path was never launched: {missing}")
     log(f"[{card}] peak device memory over the {TRAIN_STEPS} training steps: "
@@ -673,7 +723,7 @@ def phase4_training(dev, card):
             m = step(st, *batches[-1], mix=mix)
         torch.cuda.synchronize()
         delta = {k: p.detach() - before[k] for k, p in st.student.named_parameters()}
-        runs[route] = ({k: v.item() for k, v in m.items()}, delta, read_counters() != counts)
+        runs[route] = (scalars(m), delta, read_counters() != counts)
         del st
     (mk, dk, _), (mp, dp, launched) = runs["kernels"], runs["plain"]
     if launched:
@@ -735,32 +785,38 @@ def phase5_train_timings(dev, card, state, batches):
     for label, shape, out_hw in (("A_bwd_decoder", (8, 256, 65, 65), (129, 129)),
                                  ("A_bwd_logits", (4, 21, 129, 129), (513, 513))):
         gy = torch.randn(shape[:2] + out_hw, device=dev, generator=g)
-        times[label] = (cuda_ms(lambda: R.resize_bilinear_bwd(gy, shape[2:]), 20),
-                        cuda_ms(lambda: R.resize_bilinear_bwd_plain(gy, shape[2:]), 20))
+        times[label] = (
+            cuda_ms(lambda: R.resize_bilinear_bwd(gy, shape[2:]), 20),
+            cuda_ms(lambda: R.resize_bilinear_bwd_plain(gy, shape[2:]), 20),
+            # F.interpolate's own backward, called directly
+            cuda_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
+                gy, list(out_hw), list(shape), True), 20),
+        )
         del gy
     x = torch.randn(4, 21, 129, 129, device=dev, generator=g, requires_grad=True)
     lab = torch.randint(0, 21, (4, CROP, CROP), device=dev, generator=g, dtype=torch.int32)
     lab[torch.rand(lab.shape, device=dev, generator=g) < 0.1] = 255
     with torch.no_grad():
         times["C_fwd"] = (cuda_ms(lambda: ce.upsample_cross_entropy(x, lab)),
-                          cuda_ms(lambda: ce.upsample_cross_entropy_plain(x, lab)))
+                          cuda_ms(lambda: ce.upsample_cross_entropy_plain(x, lab)), None)
     lk, lp = ce.upsample_cross_entropy(x, lab), ce.upsample_cross_entropy_plain(x, lab)
     times["C_bwd"] = (cuda_ms(lambda: torch.autograd.grad(lk, x, retain_graph=True)),
-                      cuda_ms(lambda: torch.autograd.grad(lp, x, retain_graph=True)))
+                      cuda_ms(lambda: torch.autograd.grad(lp, x, retain_graph=True)), None)
     del lk, lp
     xd = x.detach()
     times["D"] = (cuda_ms(lambda: unsup.upsample_softmax_stats(xd, (CROP, CROP))),
-                  cuda_ms(lambda: unsup.upsample_softmax_stats_plain(xd, (CROP, CROP))))
+                  cuda_ms(lambda: unsup.upsample_softmax_stats_plain(xd, (CROP, CROP))), None)
     ent = torch.rand(B_U, CROP, CROP, device=dev, generator=g)
     valid = torch.rand(B_U, CROP, CROP, device=dev, generator=g) < 0.85
     pct = torch.tensor([85.0], device=dev)
     times["E"] = (cuda_ms(lambda: quantile.masked_percentiles(ent, valid, pct)),
-                  cuda_ms(lambda: quantile.masked_percentiles_plain(ent, valid, pct)))
+                  cuda_ms(lambda: quantile.masked_percentiles_plain(ent, valid, pct)), None)
     img = torch.randn(B_U, 3, CROP, CROP, device=dev, generator=g)
     boxes = mixing.draw_boxes(g, B_U, CROP, CROP)
     lab_u = lab.clone()
     times["K3"] = (cuda_ms(lambda: mixing.generate_unsup_data(img, lab_u, ent, boxes, "cutmix")),
-                   cuda_ms(lambda: mixing.generate_unsup_data_plain(img, lab_u, ent, boxes, "cutmix")))
+                   cuda_ms(lambda: mixing.generate_unsup_data_plain(img, lab_u, ent, boxes, "cutmix")),
+                   None)
     shapes = {
         "A_bwd_decoder": "(8, 256, 129, 129) -> (8, 256, 65, 65)",
         "A_bwd_logits": "(4, 21, 513, 513) -> (4, 21, 129, 129)",
@@ -770,9 +826,408 @@ def phase5_train_timings(dev, card, state, batches):
         "E": "1 percentile of (4, 513, 513), ~85% valid",
         "K3": "cutmix (4, 3, 513, 513) + label + max-prob",
     }
-    for k, (tk, tp) in times.items():
-        log(f"[{card}] kernel {k} {shapes[k]}: {tk:.4f} ms; plain version {tp:.4f} ms")
+    for k, (tk, tp, tl) in times.items():
+        lib = "" if tl is None else f"; aten upsample_bilinear2d_backward {tl:.4f} ms"
+        log(f"[{card}] kernel {k} {shapes[k]}: {tk:.4f} ms; plain version {tp:.4f} ms{lib}")
     return out, times
+
+
+def contra_case(dev, cfg):
+    """The contrastive loss's pieces at the flagship shapes, from SEED: the
+    os4 softmax of 4 + 4 images (21 classes, peaked), small labels (class 0
+    on ~60% of the pixels, so its candidates pass the 8192-key cap; ~5%
+    ignored), low / high masks, student and teacher representations (256
+    features), a (21, 50000, 256) bf16 bank full of seeded keys with each
+    ring's `ptr` k/8 rows before its end, so a write of more keys wraps, and
+    the draws."""
+    import torch
+
+    from u2pl_tpu_torch.memobank import init_memobank
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    ccfg = cfg.trainer.contrastive
+    b, c, f = B_L + B_U, cfg.net.num_classes, 256
+    n = b * OS4 * OS4
+    q, m = ccfg.num_queries, ccfg.num_negatives
+    rand = lambda *shape: torch.rand(*shape, device=dev, generator=g)  # noqa: E731
+    prob = torch.softmax(4 * torch.randn(b, c, OS4, OS4, device=dev, generator=g), dim=1)
+    labels = torch.randint(0, c, (b, OS4, OS4), device=dev, generator=g, dtype=torch.int32)
+    labels[rand(b, OS4, OS4) < 0.6] = 0
+    labels[rand(b, OS4, OS4) < 0.05] = 255
+    low, high = rand(b, OS4, OS4) < 0.7, rand(b, OS4, OS4) < 0.5
+    low[:B_L] = high[:B_L] = labels[:B_L] != 255
+    rep = torch.randn(b, f, OS4, OS4, device=dev, generator=g)
+    rep_t = rep + 0.1 * torch.randn(b, f, OS4, OS4, device=dev, generator=g)
+    bank = init_memobank(c, f, dtype=torch.bfloat16, device=dev)
+    for j in range(c):
+        bank.keys[j].copy_(torch.randn(bank.keys.shape[1:], device=dev, generator=g))
+    bank.occupancy.copy_(bank.sizes)
+    bank.ptr.copy_(bank.sizes - max(ccfg.max_keys_per_class_per_step // 8, 1))
+    return {"prob": prob, "labels": labels, "low": low, "high": high, "rep": rep,
+            "rep_t": rep_t, "bank": bank, "pri": rand(c, n), "u_anchor": rand(c, q),
+            "u_neg": rand(c, q * m)}
+
+
+def phase1_contrastive_kernels(dev, cfg):
+    """K4, K5 and K6 against their plain versions at the flagship shapes.
+    Returns ({kernel: max error}, the case with its intermediates)."""
+    import torch
+
+    from u2pl_tpu_torch.losses import contrastive as tc
+    from u2pl_tpu_torch.memobank import clone_bank, memobank_enqueue, memobank_enqueue_plain
+
+    ccfg = cfg.trainer.contrastive
+    case = contra_case(dev, cfg)
+    c, n = case["pri"].shape
+    k = ccfg.max_keys_per_class_per_step
+    errs = {}
+    args = (case["prob"], case["labels"], case["low"], case["high"], B_L, ccfg)
+    got, ref = tc.contra_pixel_masks(*args), tc.contra_pixel_masks_plain(*args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    anchor, negative, low_valid, counts = got
+    log(f"[phase 1] K4 contra_pixel_masks {tuple(case['prob'].shape)}: masks and counts bit-equal "
+        f"{same}; n_low_valid {counts[0].tolist()}; neg_candidates {counts[1].tolist()}")
+    if not same or not anchor.any():
+        fail("K4 contra_pixel_masks is not bit-equal to its plain version (or no anchors)")
+    errs["K4_masks"] = 0.0
+
+    for kk in (k, 12288):  # the VOC cap and the Cityscapes configs' cap
+        idx, n_sel = tc.select_keys(negative, case["pri"], kk)
+        ref_idx, ref_n = tc.select_keys_plain(negative, case["pri"], kk)
+        torch.cuda.synchronize()
+        same = torch.equal(n_sel, ref_n) and all(
+            torch.equal(idx[j, : int(ref_n[j])], ref_idx[j, : int(ref_n[j])]) for j in range(c))
+        over = int((counts[1] > kk).sum())
+        log(f"[phase 1] K4 select_keys ({c}, {n}), k {kk}: {over} classes over the cap; "
+            f"n_sel {n_sel.tolist()}; slabs bit-equal {same}")
+        if not same or (kk == k and over == 0):
+            fail(f"K4 select_keys (k {kk}) differs from the stable argsort (or no class over the cap)")
+        if kk == k:
+            case["sel_idx"], case["n_sel"] = idx, n_sel
+    errs["K4_select"] = 0.0
+
+    class_valid = counts[0] > 0
+    b_j = tc.valid_classes_first(class_valid)
+    a_j = torch.arange(c, dtype=torch.int32, device=dev)
+    got = tc.sample_anchors(anchor, a_j, case["u_anchor"])
+    ref = tc.sample_anchors_plain(anchor, a_j, case["u_anchor"])
+    torch.cuda.synchronize()
+    same = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    log(f"[phase 1] K4 sample_anchors ({c}, {n}) x {case['u_anchor'].shape[1]} draws: n_anchor "
+        f"{got[1].tolist()}; bit-equal {same}")
+    if not same:
+        fail("K4 sample_anchors is not bit-equal to its plain version")
+    errs["K4_anchors"] = 0.0
+
+    bank = case["bank"]
+    kb = memobank_enqueue(clone_bank(bank), case["rep_t"], case["sel_idx"], case["n_sel"])
+    rb = memobank_enqueue_plain(clone_bank(bank), case["rep_t"], case["sel_idx"], case["n_sel"])
+    torch.cuda.synchronize()
+    same = all(torch.equal(getattr(kb, a), getattr(rb, a)) for a in ("keys", "ptr", "occupancy"))
+    wrapped = int((bank.ptr + case["n_sel"] > bank.sizes).sum())
+    log(f"[phase 1] K5 memobank_enqueue {tuple(bank.keys.shape)} bf16, {int(case['n_sel'].sum())} "
+        f"keys, {wrapped} classes' rings wrapped: keys, ptr and occupancy bit-equal {same}")
+    if not same or wrapped == 0:
+        fail("K5 memobank_enqueue is not bit-equal to its plain version (or no ring wrapped)")
+    errs["K5"] = 0.0
+    del kb, rb
+
+    lv = low_valid.view(c, B_L + B_U, -1).transpose(0, 1)
+    rep_t = case["rep_t"]
+    proto = torch.bmm(lv, rep_t.flatten(2).transpose(1, 2)).sum(0)
+    proto = proto / torch.clamp(counts[0][:, None].float(), min=1.0)
+    valid_seg = class_valid.sum().to(torch.int32)
+    active = ((torch.arange(c, device=dev) < valid_seg) & (got[1] > 0)
+              & (bank.occupancy[b_j.long()] > 0))
+    case.update(anchor=anchor, negative=negative, anchor_idx=got[0], a_j=a_j, b_j=b_j,
+                positive=proto[a_j.long()].contiguous(), active=active, valid_seg=valid_seg)
+    k6 = (case["anchor_idx"], case["positive"], bank, b_j, case["u_neg"], active, valid_seg,
+          ccfg.temperature)
+    rk = case["rep"].clone().requires_grad_(True)
+    rp = case["rep"].clone().requires_grad_(True)
+    lk = tc.contra_infonce(rk, *k6)
+    (gk,) = torch.autograd.grad(lk, rk)
+    lp = tc.contra_infonce_plain(rp, *k6)
+    (gp,) = torch.autograd.grad(lp, rp)
+    torch.cuda.synchronize()
+    le = abs(lk.item() - lp.item())
+    ge = (gk - gp).abs().max().item()
+    rel, grel = le / max(abs(lp.item()), 1e-30), ge / max(gp.abs().max().item(), 1e-30)
+    log(f"[phase 1] K6 contra_infonce, {int(active.sum())} active positions x "
+        f"{case['u_anchor'].shape[1]} anchors x (1 + {ccfg.num_negatives}) keys: loss "
+        f"{lk.item():.6f} vs plain {lp.item():.6f}, rel diff {rel:.3e} (bound {K6_LOSS_TOL}); "
+        f"gradient max abs diff / max |grad| {grel:.3e} (bound {K6_GRAD_TOL})")
+    if not (lp.item() > 0 and rel <= K6_LOSS_TOL and grel <= K6_GRAD_TOL):
+        fail(f"K6 contra_infonce: loss {rel}, gradient {grel}")
+    errs["K6_fwd"], errs["K6_bwd"] = le, ge
+    return errs, case
+
+
+def phase6_contrastive(dev, card, cfg):
+    import torch
+
+    import u2pl_tpu_torch.losses.contrastive as contrastive
+    from u2pl_tpu_torch.memobank import clone_bank
+    from u2pl_tpu_torch.models.decoder import Dropout2d
+    from u2pl_tpu_torch.ops import mixing
+    from u2pl_tpu_torch.train.state import create_train_state
+    from u2pl_tpu_torch.train.steps import draw_contrastive, make_semi_step, run_steps
+
+    ccfg = cfg.trainer.contrastive
+    k = ccfg.max_keys_per_class_per_step
+    log(f"[phase 6] config {os.path.relpath(VOC_CONFIG, ROOT)} with trainer.contrastive: "
+        f"{ccfg.num_queries} queries, {ccfg.num_negatives} negatives, {k} keys per class and "
+        f"step, ranks [{ccfg.low_rank}, {ccfg.high_rank}), temperature {ccfg.temperature}, "
+        f"a {ccfg.queue_dtype} bank; float32, TF32 off; {B_L}+{B_U} images of {CROP}², "
+        f"steps_per_epoch {STEPS_PER_EPOCH}, {TRAIN_STEPS} steps")
+    state = create_train_state(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    batches = synthetic_batches(dev, TRAIN_STEPS)
+    log(f"[phase 6] bank {tuple(state.bank.keys.shape)} {state.bank.keys.dtype}, "
+        f"{state.bank.keys.numel() * state.bank.keys.element_size() / 1e6:.1f} MB")
+    rep_head = state.student.decoder.representation
+    watch = {"decoder.representation.0.weight": rep_head[0].weight,
+             "decoder.representation.8.weight": rep_head[8].weight}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    enqueued = torch.zeros(cfg.net.num_classes, dtype=torch.int64, device=dev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    history, snapshot = [], None
+    t0 = time.monotonic()
+    for i_iter, m in run_steps(state, batches, STEPS_PER_EPOCH, cfg, generator=gen):
+        if "low_thresh" in m:
+            for name, p in watch.items():
+                if p.grad is None or not torch.isfinite(p.grad).all() or p.grad.abs().sum() == 0:
+                    fail(f"step {i_iter}: no finite nonzero gradient reached {name}")
+            enqueued += torch.clamp(m["neg_cand"], max=k)
+            expect = torch.minimum(enqueued, state.bank.sizes.long())
+            if not torch.equal(state.bank.occupancy.long(), expect):
+                fail(f"step {i_iter}: bank occupancy {state.bank.occupancy.tolist()} != "
+                     f"min(keys enqueued, size) {expect.tolist()}")
+        history.append((i_iter, scalars(m), m["neg_cand"].tolist() if "neg_cand" in m else None))
+        if i_iter == TRAIN_STEPS - 2:
+            snapshot = copy.deepcopy(state)  # before step 5
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    for i_iter, m, neg in history:
+        semi = "low_thresh" in m
+        log(f"[phase 6] step {i_iter} ({'semi' if semi else 'warmup'}, epoch "
+            f"{i_iter // STEPS_PER_EPOCH}): " + ", ".join(f"{a} {v:.6g}" for a, v in m.items())
+            + (f"; neg_cand {neg}" if semi else ""))
+        if not all(v == v and abs(v) != float("inf") for v in m.values()):
+            fail(f"step {i_iter}: non-finite metrics {m}")
+        if semi and not m["con_loss"] > 0:
+            fail(f"step {i_iter}: con_loss {m['con_loss']} is not > 0")
+    log(f"[phase 6] {TRAIN_STEPS} steps in {run_s:.2f} s; bank occupancy "
+        f"{state.bank.occupancy.tolist()}, ptr {state.bank.ptr.tolist()}; launches {launches}")
+    missing = [name for name, v in launches.items() if v <= 0]
+    if missing:
+        fail(f"a kernel of the contrastive training path was never launched: {missing}")
+    log(f"[{card}] peak device memory over the {TRAIN_STEPS} contrastive training steps: "
+        f"{peak / 2**30:.2f} GiB")
+
+    # step 5 again from the snapshot, dropout off, the mix and the contrastive
+    # draws injected, through the kernels and through the plain versions; the
+    # contrastive loss's inputs are captured on the way
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    mix = (torch.tensor(True, device=dev), mixing.draw_boxes(g, B_U, CROP, CROP))
+    draws = draw_contrastive(g, cfg, (B_L + B_U) * OS4 * OS4)
+    step = make_semi_step(cfg, STEPS_PER_EPOCH)
+    original = contrastive.compute_contra_memobank_loss
+    runs, captured = {}, {}
+    for route in ("kernels", "plain"):
+        st = copy.deepcopy(snapshot)
+        for mm in list(st.student.modules()) + list(st.teacher.modules()):
+            if isinstance(mm, Dropout2d):
+                mm.p = 0.0
+        before = {a: p.detach().clone() for a, p in st.student.named_parameters()}
+        counts = read_counters()
+
+        def capture(*args, _route=route, **kw):
+            captured[_route] = ([a.detach().clone() if torch.is_tensor(a) else a for a in args],
+                                clone_bank(args[8]), kw)
+            return original(*args, **kw)
+
+        contrastive.compute_contra_memobank_loss = capture
+        try:
+            with plain_versions() if route == "plain" else contextlib.nullcontext():
+                m = step(st, *batches[-1], mix=mix, contra=draws)
+        finally:
+            contrastive.compute_contra_memobank_loss = original
+        torch.cuda.synchronize()
+        delta = {a: p.detach() - before[a] for a, p in st.student.named_parameters()}
+        runs[route] = (scalars(m), m["neg_cand"].tolist(), delta, read_counters() != counts, st.bank)
+        del st
+    (mk, nk, dk, _, bk), (mp, np_, dp, launched, bp) = runs["kernels"], runs["plain"]
+    if launched:
+        fail("the plain-version step launched a kernel")
+    names = ("sup_loss", "uns_loss", "con_loss", "drop_thresh", "low_thresh", "high_thresh")
+    rel = {a: abs(mk[a] - mp[a]) / max(abs(mp[a]), 1e-30) for a in names}
+    (ak, _, _), (ap, _, _) = captured["kernels"], captured["plain"]
+    discrete = {"labels": sum(int((ak[i] != ap[i]).sum()) for i in (1, 2)),
+                "masks": sum(int((ak[i] != ap[i]).sum()) for i in (5, 6))}
+    diff = {a: (dk[a] - dp[a]).norm().item() for a in dp}
+    norm = {a: dp[a].norm().item() for a in dp}
+    over = {a: diff[a] / (STEP_UPDATE_TOL * norm[a] + STEP_UPDATE_FLOOR * dp[a].numel() ** 0.5)
+            for a in dp}
+    tight = sorted(over.items(), key=lambda kv: -kv[1])[:3]
+    log(f"[phase 6] step {TRAIN_STEPS} again, kernels vs plain versions: kernels {mk}; plain {mp}; "
+        f"rel diffs {rel}; neg_cand {nk} vs {np_}; the loss's inputs: {discrete} label / mask "
+        f"pixels differ, teacher softmax max abs diff "
+        f"{(ak[3] - ap[3]).abs().max().item():.3e}; bank occupancy equal "
+        f"{torch.equal(bk.occupancy, bp.occupancy)}; update closest to the bound, as a share of "
+        f"it: {tight}")
+    if not rel["con_loss"] <= CON_LOSS_TOL:
+        fail(f"step {TRAIN_STEPS}: con_loss kernels vs plain versions {rel['con_loss']}")
+    if not all(rel[a] <= STEP_LOSS_TOL for a in ("sup_loss", "uns_loss", "drop_thresh")):
+        fail(f"step {TRAIN_STEPS}: kernels vs plain versions {rel}")
+    if tight[0][1] > 1.0:
+        fail(f"step {TRAIN_STEPS}: parameter update differs from the plain route: {tight}")
+
+    # the contrastive loss on the kernel route's own inputs, both ways:
+    # selections, anchors and bank bit-equal, loss and gradient within K6's bounds
+    args, bank0, kw = captured["kernels"]
+    out = {}
+    for route in ("kernels", "plain"):
+        rep = args[0].clone().requires_grad_(True)
+        with plain_versions() if route == "plain" else contextlib.nullcontext():
+            bank, loss, info = original(rep, *args[1:8], clone_bank(bank0), *args[9:], **kw)
+        (grad,) = torch.autograd.grad(loss, rep)
+        out[route] = (loss.item(), grad, bank, info["neg_candidates"])
+    torch.cuda.synchronize()
+    (lk, gk, bk, ck), (lp, gp, bp, cp) = out["kernels"], out["plain"]
+    same = all(torch.equal(getattr(bk, a), getattr(bp, a)) for a in ("keys", "ptr", "occupancy"))
+    rel_l = abs(lk - lp) / max(abs(lp), 1e-30)
+    rel_g = (gk - gp).abs().max().item() / max(gp.abs().max().item(), 1e-30)
+    log(f"[phase 6] the step's contrastive loss on identical inputs, kernels vs plain versions: "
+        f"loss {lk:.6f} vs {lp:.6f} (rel {rel_l:.3e}, bound {K6_LOSS_TOL}); gradient "
+        f"{rel_g:.3e} of its max (bound {K6_GRAD_TOL}); selections and bank bit-equal {same}; "
+        f"neg_candidates equal {torch.equal(ck, cp)}")
+    if not (same and torch.equal(ck, cp) and rel_l <= K6_LOSS_TOL and rel_g <= K6_GRAD_TOL):
+        fail("the contrastive loss differs between the kernels and the plain versions")
+    return state, batches, launches, peak
+
+
+def phase7_contrastive_timings(dev, card, cfg, state, batches, case):
+    import torch
+
+    from u2pl_tpu_torch.losses import contrastive as tc
+    from u2pl_tpu_torch.memobank import clone_bank, memobank_enqueue, memobank_enqueue_plain
+    from u2pl_tpu_torch.train.steps import make_semi_step
+
+    ccfg = cfg.trainer.contrastive
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    step = make_semi_step(cfg, STEPS_PER_EPOCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = []
+    for i in range(2 + 7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, *batches[i % len(batches)], gen)
+        torch.cuda.synchronize()
+        if i >= 2:
+            runs.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(runs)
+    imgs = B_L + B_U
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[{card}] contrastive semi step ({imgs} images of {CROP}², f32, synchronised): median "
+        f"{med:.1f} ms over {len(runs)} runs after 2 (min {min(runs):.1f}, max {max(runs):.1f}); "
+        f"{imgs * 1e3 / med:.2f} img/s; peak device memory {peak / 2**30:.2f} GiB")
+
+    k = ccfg.max_keys_per_class_per_step
+    masks = (case["prob"], case["labels"], case["low"], case["high"], B_L, ccfg)
+    neg, pri = case["negative"], case["pri"]
+    masked = torch.where(neg, pri, torch.full_like(pri, float("inf")))
+    bank_k, bank_p = clone_bank(case["bank"]), clone_bank(case["bank"])
+    enq = (case["rep_t"], case["sel_idx"], case["n_sel"])
+    anchors = (case["anchor"], case["a_j"], case["u_anchor"])
+    k6 = (case["anchor_idx"], case["positive"], case["bank"], case["b_j"], case["u_neg"],
+          case["active"], case["valid_seg"], ccfg.temperature)
+    times = {
+        "K4_masks": (cuda_ms(lambda: tc.contra_pixel_masks(*masks)),
+                     cuda_ms(lambda: tc.contra_pixel_masks_plain(*masks)), None),
+        "K4_select": (cuda_ms(lambda: tc.select_keys(neg, pri, k)),
+                      cuda_ms(lambda: tc.select_keys_plain(neg, pri, k)),
+                      cuda_ms(lambda: torch.sort(masked, dim=1, stable=True))),
+        "K4_anchors": (cuda_ms(lambda: tc.sample_anchors(*anchors)),
+                       cuda_ms(lambda: tc.sample_anchors_plain(*anchors)), None),
+        "K5": (cuda_ms(lambda: memobank_enqueue(bank_k, *enq)),
+               cuda_ms(lambda: memobank_enqueue_plain(bank_p, *enq)), None),
+    }
+    del bank_k, bank_p
+    rep = case["rep"].clone().requires_grad_(True)
+    with torch.no_grad():
+        fwd = (cuda_ms(lambda: tc.contra_infonce(rep, *k6), 20),
+               cuda_ms(lambda: tc.contra_infonce_plain(rep, *k6), 20))
+    times["K6_fwd"] = fwd + (None,)
+    lk, lp = tc.contra_infonce(rep, *k6), tc.contra_infonce_plain(rep, *k6)
+    # the library yardstick of the backward: index_add_ of the anchors'
+    # gradient rows into a zeroed (N, F) gradient (NHWC rows)
+    b, f = rep.shape[:2]
+    rows = case["anchor_idx"].flatten().long()
+    src = torch.randn(rows.numel(), f, device=dev)
+    times["K6_bwd"] = (
+        cuda_ms(lambda: torch.autograd.grad(lk, rep, retain_graph=True), 20),
+        cuda_ms(lambda: torch.autograd.grad(lp, rep, retain_graph=True), 20),
+        cuda_ms(lambda: torch.zeros(b * OS4 * OS4, f, device=dev).index_add_(0, rows, src), 20),
+    )
+    del lk, lp
+    shapes = {
+        "K4_masks": f"prob {tuple(case['prob'].shape)} -> (21, N) masks",
+        "K4_select": f"({neg.shape[0]}, {neg.shape[1]}), k {k}",
+        "K4_anchors": f"({neg.shape[0]}, {neg.shape[1]}) x {case['u_anchor'].shape[1]} draws",
+        "K5": f"{int(case['n_sel'].sum())} keys into {tuple(case['bank'].keys.shape)} bf16",
+        "K6_fwd": f"{int(case['active'].sum())} positions x {case['u_anchor'].shape[1]} x "
+                  f"(1 + {ccfg.num_negatives})",
+        "K6_bwd": "the same, backward to the (8, 256, 129, 129) rep",
+    }
+    library = {"K4_select": "torch.sort(stable=True)", "K6_bwd": "index_add_ into (N, F) rows"}
+    for name, (tk, tp, tl) in times.items():
+        lib = "" if tl is None else f"; {library[name]} {tl:.4f} ms"
+        log(f"[{card}] kernel {name} {shapes[name]}: {tk:.4f} ms; plain version {tp:.4f} ms{lib}")
+    return {"semi_ms": med, "img_s": imgs * 1e3 / med, "peak": peak}, times
+
+
+def bounds(case, cfg):
+    """{kernel: (bound ms, "bytes" or "operations")}: the least time the card
+    could take for each timed call, the larger of the bytes it must move
+    over the HBM rate and its operations over the float32 peak, from the
+    shapes (and, for K5 and K6, this run's selections) of the timed calls."""
+    c, n = case["pri"].shape
+    ccfg = cfg.trainer.contrastive
+    q, m, k = ccfg.num_queries, ccfg.num_negatives, ccfg.max_keys_per_class_per_step
+    f, b, hw = 256, B_L + B_U, OS4 * OS4
+    lo, hi = 4 * 21 * OS4 * OS4, 4 * 21 * CROP * CROP  # (4, 21) logits at os4 / 513²
+    px = 4 * CROP * CROP
+    sel = int(case["n_sel"].sum())
+    act = int(case["active"].sum())
+    # operations per upsampled value: 9 for the bilinear taps (6 products,
+    # 3 sums), plus the softmax / CE / entropy terms the function needs
+    moved = {  # kernel -> (bytes, float32 operations)
+        "A": ((lo + hi) * 4, hi * 9),
+        "B": (21 * CROP * CROP * 4 + 375 * 500, 21 * 375 * 500 * 10),
+        "A_bwd": ((8 * 256 * 129 * 129 + 8 * 256 * 65 * 65) * 4, 8 * 256 * 129 * 129 * 9),
+        "C_fwd": (lo * 4 + px * 4, hi * 11),
+        "C_bwd": (2 * lo * 4 + px * 4, hi * 20),
+        "D": (lo * 4 + px * 12, hi * 16),
+        "E": (px * 5, 0),
+        "K3": (2 * px * (12 + 4 + 4), 0),
+        "K4_masks": (b * hw * (21 * 4 + 4 + 2) + c * n * 6, n * c * c),
+        "K4_select": (c * n * 5 + c * k * 4, 0),
+        "K4_anchors": (c * n + 2 * c * q * 4, 0),
+        "K5": (sel * (f * 4 + 4 + f * 2), 0),
+        "K6_fwd": (act * q * (f * 4 + m * (f * 2 + 4)) + act * f * 4, act * q * (m + 1) * f * 4),
+        "K6_bwd": (b * f * hw * 4 + act * q * (f * 4 + 4), 0),
+    }
+    out = {}
+    for name, (nbytes, ops) in moved.items():
+        t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOPS
+        out[name] = (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+    return out
 
 
 def main() -> int:
@@ -804,38 +1259,70 @@ def main() -> int:
 
     a_err, b_err = phase1_kernels(dev)
     errs = phase1_train_kernels(dev)
+    from u2pl_tpu_torch.config import load_config
+
+    ccfg = load_config(VOC_CONFIG)  # the `ours` config as it stands, contrastive included
+    contra_errs, case = phase1_contrastive_kernels(dev, ccfg)
+    errs.update(contra_errs)
     with tempfile.TemporaryDirectory(prefix="u2pl_chip_smoke_") as tmp:
         engine, images, loaded, launches = phase2_slice(dev, card, tmp)
         times = phase3_timings(dev, card, engine, images, loaded, tmp)
     del engine, images, loaded
     state, batches, train_launches, _ = phase4_training(dev, card)
     _, train_times = phase5_train_timings(dev, card, state, batches)
+    del state, batches
+    state, batches, contra_launches, _ = phase6_contrastive(dev, card, ccfg)
+    _, contra_times = phase7_contrastive_timings(dev, card, ccfg, state, batches, case)
+    del state, batches
+    bound = bounds(case, ccfg)
 
     csrc = "u2pl_tpu_torch/kernels/csrc/"
+    times.update(train_times)
+    times.update(contra_times)
 
-    def entry(name, source, replaces, launches_, err, ms):
+    def entry(name, key, source, replaces, launches_, err, timing):
+        ms, plain_ms, library_ms = times[timing]
+        bound_ms, bound_by = bound[key]
         return {"name": name, "route": "cuda", "source": csrc + source, "replaces": replaces,
-                "launches": launches_, "max_abs_err": err, "ms": ms[0], "plain_ms": ms[1]}
+                "launches": launches_, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
-    # kernel A is on both paths: its launches are the serving run's plus the
-    # training run's, each counted from 0 just before that run
+    # launches: each path's run counted from 0 just before it (serving,
+    # training without and with the contrastive branch), summed per kernel
+    def runs(key):
+        return train_launches[key] + contra_launches[key]
+
     report = {"kernels": [
-        entry("resize_bilinear_ac", "resize.cu", "u2pl_tpu/ops/resize.py:76",
-              launches["A"] + train_launches["A"], a_err, times["A_logits"]),
-        entry("resize_argmax_ac", "resize.cu", "u2pl_tpu/serving.py:115",
-              launches["B"], b_err, times["B"]),
-        entry("resize_bilinear_ac_bwd", "resize.cu", "u2pl_tpu/ops/resize.py:76",
-              train_launches["A_bwd"], errs["A_bwd"], train_times["A_bwd_decoder"]),
-        entry("upsample_ce_fwd", "upsample_ce.cu", "u2pl_tpu/losses/ce.py:23",
-              train_launches["C_fwd"], errs["C_fwd"], train_times["C_fwd"]),
-        entry("upsample_ce_bwd", "upsample_ce.cu", "u2pl_tpu/losses/ce.py:23",
-              train_launches["C_bwd"], errs["C_bwd"], train_times["C_bwd"]),
-        entry("upsample_softmax_stats", "upsample_ce.cu", "u2pl_tpu/losses/unsup.py:24",
-              train_launches["D"], errs["D"], train_times["D"]),
-        entry("masked_percentiles", "quantile.cu", "u2pl_tpu/ops/quantile.py:136",
-              train_launches["E"], errs["E"], train_times["E"]),
-        entry("unsup_mix_boxes", "mixing.cu", "u2pl_tpu/ops/mixing.py:62",
-              train_launches["K3"], errs["K3"], train_times["K3"]),
+        entry("resize_bilinear_ac", "A", "resize.cu", "u2pl_tpu/ops/resize.py:76",
+              launches["A"] + runs("A"), a_err, "A_logits"),
+        entry("resize_argmax_ac", "B", "resize.cu", "u2pl_tpu/serving.py:115",
+              launches["B"], b_err, "B"),
+        entry("resize_bilinear_ac_bwd", "A_bwd", "resize.cu", "u2pl_tpu/ops/resize.py:76",
+              runs("A_bwd"), errs["A_bwd"], "A_bwd_decoder"),
+        entry("upsample_ce_fwd", "C_fwd", "upsample_ce.cu", "u2pl_tpu/losses/ce.py:23",
+              runs("C_fwd"), errs["C_fwd"], "C_fwd"),
+        entry("upsample_ce_bwd", "C_bwd", "upsample_ce.cu", "u2pl_tpu/losses/ce.py:23",
+              runs("C_bwd"), errs["C_bwd"], "C_bwd"),
+        entry("upsample_softmax_stats", "D", "upsample_ce.cu", "u2pl_tpu/losses/unsup.py:24",
+              runs("D"), errs["D"], "D"),
+        entry("masked_percentiles", "E", "quantile.cu", "u2pl_tpu/ops/quantile.py:136",
+              runs("E"), errs["E"], "E"),
+        entry("unsup_mix_boxes", "K3", "mixing.cu", "u2pl_tpu/ops/mixing.py:62",
+              runs("K3"), errs["K3"], "K3"),
+        entry("contra_pixel_masks", "K4_masks", "contrastive.cu",
+              "u2pl_tpu/losses/contrastive.py:50", contra_launches["K4_masks"],
+              errs["K4_masks"], "K4_masks"),
+        entry("select_keys", "K4_select", "contrastive.cu", "u2pl_tpu/losses/contrastive.py:89",
+              contra_launches["K4_select"], errs["K4_select"], "K4_select"),
+        entry("sample_anchors", "K4_anchors", "contrastive.cu",
+              "u2pl_tpu/losses/contrastive.py:73", contra_launches["K4_anchors"],
+              errs["K4_anchors"], "K4_anchors"),
+        entry("memobank_enqueue", "K5", "memobank.cu", "u2pl_tpu/memobank.py:92",
+              contra_launches["K5"], errs["K5"], "K5"),
+        entry("contra_infonce_fwd", "K6_fwd", "infonce.cu", "u2pl_tpu/losses/contrastive.py:168",
+              contra_launches["K6_fwd"], errs["K6_fwd"], "K6_fwd"),
+        entry("contra_infonce_bwd", "K6_bwd", "infonce.cu", "u2pl_tpu/losses/contrastive.py:168",
+              contra_launches["K6_bwd"], errs["K6_bwd"], "K6_bwd"),
     ]}
     log(card)
     log(json.dumps(report))

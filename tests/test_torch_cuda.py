@@ -223,3 +223,191 @@ def test_kernel_k3_bit_equal_to_plain(mode):
     ref = mixing.generate_unsup_data_plain(img, lab, prob, boxes, mode)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+# ---- the contrastive slice's kernels: K4, K5, K6 -----------------------------
+
+# (B, B_l, C, h, w): the flagship's os4 batch, and an odd one
+CONTRA_SHAPES = [(8, 4, 21, 129, 129), (3, 1, 5, 9, 7)]
+
+
+def _contra_inputs(dev, b, b_l, c, h, w, seed=6):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    prob = torch.softmax(3 * torch.randn(b, c, h, w, device=dev, generator=g), dim=1)
+    prob[0, :, 0, :4] = 1.0 / c  # tied probabilities
+    labels = torch.randint(0, c, (b, h, w), device=dev, generator=g, dtype=torch.int32)
+    labels[torch.rand(b, h, w, device=dev, generator=g) < 0.1] = 255
+    low = torch.rand(b, h, w, device=dev, generator=g) < 0.8
+    high = torch.rand(b, h, w, device=dev, generator=g) < 0.6
+    return g, prob, labels, low, high
+
+
+def _contra_cfg(**kw):
+    from u2pl_tpu_torch.config import parse_config
+
+    raw = {"low_rank": 3, "high_rank": 20, "num_negatives": 50, "num_queries": 256, **kw}
+    return parse_config({"trainer": {"contrastive": raw}}).trainer.contrastive
+
+
+@pytest.mark.parametrize("shape", CONTRA_SHAPES)
+def test_kernel_pixel_masks_bit_equal(shape):
+    from u2pl_tpu_torch.losses import contrastive as tc
+
+    dev = _cuda()
+    b, b_l, c, h, w = shape
+    _, prob, labels, low, high = _contra_inputs(dev, *shape)
+    cfg = _contra_cfg(low_rank=1 if c < 8 else 3, high_rank=3 if c < 8 else 20)
+    n = tc.contra_pixel_masks.launches
+    got = tc.contra_pixel_masks(prob, labels, low, high, b_l, cfg)
+    torch.cuda.synchronize()
+    assert tc.contra_pixel_masks.launches == n + 1
+    ref = tc.contra_pixel_masks_plain(prob, labels, low, high, b_l, cfg)
+    for name, x, y in zip(("anchor", "negative", "low_valid", "counts"), got, ref):
+        assert x.dtype == y.dtype and torch.equal(x, y), name
+    assert ref[0].any() and ref[1].any()
+
+
+def _select_inputs(dev, c, n, density, ties, seed=7):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mask = torch.rand(c, n, device=dev, generator=g) < density
+    pri = torch.rand(c, n, device=dev, generator=g)
+    if ties:
+        pri = torch.floor(pri * 16) / 16
+    return mask, pri
+
+
+@pytest.mark.parametrize("c,n,k,density,ties", [
+    (21, 133128, 8192, 0.3, False),  # the flagship: over the cap
+    (21, 133128, 16384, 0.05, False),  # the largest k, under the cap
+    (21, 133128, 8192, 0.3, True),  # tied priorities across the threshold
+    (5, 1000, 16, 0.5, False),
+    (5, 1000, 700, 0.5, True),
+    (3, 37, 64, 1.0, False),  # fewer pixels than k
+])
+def test_kernel_select_keys_bit_equal(c, n, k, density, ties):
+    from u2pl_tpu_torch.losses import contrastive as tc
+
+    dev = _cuda()
+    mask, pri = _select_inputs(dev, c, n, density, ties)
+    mask[c - 1] = False  # an empty class
+    cnt = tc.select_keys.launches
+    idx, n_sel = tc.select_keys(mask, pri, k)
+    torch.cuda.synchronize()
+    assert tc.select_keys.launches == cnt + 1
+    ref_idx, ref_n = tc.select_keys_plain(mask, pri, k)
+    assert torch.equal(n_sel, ref_n)
+    for j in range(c):
+        m = int(ref_n[j])
+        assert torch.equal(idx[j, :m], ref_idx[j, :m]), j
+
+
+@pytest.mark.parametrize("c,n,q,density", [(21, 133128, 256, 0.02), (5, 9000, 64, 0.3),
+                                           (4, 100, 33, 0.0)])
+def test_kernel_sample_anchors_bit_equal(c, n, q, density):
+    from u2pl_tpu_torch.losses import contrastive as tc
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(8)
+    mask = torch.rand(c, n, device=dev, generator=g) < density
+    mask[0] = False
+    a_j = torch.randperm(c, device=dev, generator=g).to(torch.int32)
+    u = torch.rand(c, q, device=dev, generator=g)
+    u[:, 0] = 0.99999994  # the largest draw below 1
+    cnt = tc.sample_anchors.launches
+    got = tc.sample_anchors(mask, a_j, u)
+    torch.cuda.synchronize()
+    assert tc.sample_anchors.launches == cnt + 1
+    ref = tc.sample_anchors_plain(mask, a_j, u)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def _prefilled_bank(dev, c, f, queue, class0, dtype, seed=9):
+    from u2pl_tpu_torch.memobank import init_memobank
+
+    bank = init_memobank(c, f, queue, class0, dtype, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bank.keys.copy_(torch.randn(bank.keys.shape, device=dev, generator=g).to(dtype))
+    bank.occupancy.copy_(torch.minimum(
+        torch.randint(0, class0 + 1, (c,), device=dev, generator=g, dtype=torch.int32), bank.sizes))
+    bank.ptr.copy_(torch.remainder(bank.occupancy + 7, bank.sizes).to(torch.int32))
+    return bank
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,c,h,w,k,queue,class0", [
+    (8, 21, 129, 129, 8192, 30000, 50000),  # the flagship bank, wrapping
+    (2, 5, 9, 7, 16, 12, 20),  # k close to the queue: the ring wraps within one write
+    (2, 3, 5, 5, 40, 12, 20),  # k beyond the queue: only the newest `size` rows land
+])
+def test_kernel_memobank_enqueue_bit_equal(dtype, b, c, h, w, k, queue, class0):
+    from u2pl_tpu_torch.memobank import clone_bank, memobank_enqueue, memobank_enqueue_plain
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(10)
+    rep = torch.randn(b, 256, h, w, device=dev, generator=g)
+    bank = _prefilled_bank(dev, c, 256, queue, class0, dtype)
+    n = b * h * w
+    sel = torch.stack([torch.randperm(n, device=dev, generator=g)[:k] if k <= n else
+                       torch.randint(0, n, (k,), device=dev, generator=g) for _ in range(c)])
+    sel = sel.to(torch.int32)
+    n_sel = torch.randint(0, k + 1, (c,), device=dev, generator=g, dtype=torch.int32)
+    n_sel[0] = k
+    ref = memobank_enqueue_plain(clone_bank(bank), rep, sel, n_sel)
+    cnt = memobank_enqueue.launches
+    got = memobank_enqueue(bank, rep, sel, n_sel)
+    torch.cuda.synchronize()
+    assert memobank_enqueue.launches == cnt + 1
+    for name in ("keys", "ptr", "occupancy"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+@pytest.mark.parametrize("b,c,h,w,q,m,cap", [(8, 21, 129, 129, 256, 50, 50000),
+                                             (3, 5, 9, 7, 16, 4, 20)])
+def test_kernel_infonce_fwd_bwd_match_plain(b, c, h, w, q, m, cap):
+    from u2pl_tpu_torch.losses import contrastive as tc
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(11)
+    n = b * h * w
+    bank = _prefilled_bank(dev, c, 256, min(cap, 30000), cap, torch.bfloat16)
+    bank.occupancy[1] = 0  # an empty bank class
+    rep = torch.randn(b, 256, h, w, device=dev, generator=g, requires_grad=True)
+    # disjoint anchor pixels per position, with repeated draws within one
+    pix = torch.randperm(n, device=dev, generator=g)[: c * 8].view(c, 8)
+    anchor_idx = pix.gather(1, torch.randint(0, 8, (c, q), device=dev, generator=g)).to(torch.int32)
+    positive = torch.randn(c, 256, device=dev, generator=g)
+    b_j = torch.randperm(c, device=dev, generator=g).to(torch.int32)
+    u_neg = torch.rand(c, q * m, device=dev, generator=g)
+    valid_seg = torch.tensor(c - 1, dtype=torch.int32, device=dev)
+    active = (torch.arange(c, device=dev) < valid_seg) & (bank.occupancy[b_j.long()] > 0)
+    args = (anchor_idx, positive, bank, b_j, u_neg, active, valid_seg, 0.5)
+    cnt = (tc.contra_infonce.fwd_launches, tc.contra_infonce.bwd_launches)
+    loss = tc.contra_infonce(rep, *args)
+    (grad,) = torch.autograd.grad(loss * 3.0, rep)
+    torch.cuda.synchronize()
+    assert (tc.contra_infonce.fwd_launches, tc.contra_infonce.bwd_launches) == (cnt[0] + 1, cnt[1] + 1)
+    rp = rep.detach().clone().requires_grad_(True)
+    ref = tc.contra_infonce_plain(rp, *args)
+    (gref,) = torch.autograd.grad(ref * 3.0, rp)
+    assert ref.item() > 0
+    assert abs(loss.item() - ref.item()) <= 1e-5 * abs(ref.item())
+    assert (grad - gref).abs().max().item() <= 1e-6 * gref.abs().max().item()
+    again = torch.autograd.grad(tc.contra_infonce(rep, *args) * 3.0, rep)[0]
+    assert torch.equal(again, grad)  # deterministic: no float atomics
+    # valid_seg <= 1: zero loss, zero gradient
+    zero = tc.contra_infonce(rep, *args[:6], torch.tensor(1, dtype=torch.int32, device=dev), 0.5)
+    (gz,) = torch.autograd.grad(zero, rep)
+    assert zero.item() == 0.0 and not gz.any()
+
+
+def test_contrastive_kernels_refuse_what_they_do_not_take():
+    from u2pl_tpu_torch.losses import contrastive as tc
+
+    dev = _cuda()
+    mask = torch.ones(3, 10, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        tc.select_keys(mask, torch.rand(3, 10, device=dev), tc.MAX_KEYS + 1)
+    with pytest.raises(ValueError):
+        tc.select_keys(mask.to(torch.uint8), torch.rand(3, 10, device=dev), 4)
+    with pytest.raises(ValueError):
+        tc.sample_anchors(mask, torch.arange(3, device=dev), torch.rand(3, 4, device=dev))

@@ -14,10 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from u2pl_tpu.config import parse_config
+from u2pl_tpu.config import parse_config as jax_parse_config
 from u2pl_tpu.models import build_model as build_jax_model
 from u2pl_tpu.ops.pooling import max_pool_ceil
 from u2pl_tpu.utils.convert_torch import _translate, torch_to_flax
+from u2pl_tpu_torch.config import parse_config
 from u2pl_tpu_torch.models import build_model
 from u2pl_tpu_torch.utils.convert_jax import flax_to_torch
 
@@ -91,8 +92,9 @@ VARIANTS = {  # id -> (aux head, resnet18 + DeepLabv3)
 @pytest.fixture(scope="module", params=list(VARIANTS))
 def pair(request):
     aux, v3_basic = VARIANTS[request.param]
-    cfg = parse_config({"net": small_net_raw(aux, v3_basic)})
-    jmodel = build_jax_model(cfg.net)
+    raw = {"net": small_net_raw(aux, v3_basic)}
+    cfg = parse_config(raw)
+    jmodel = build_jax_model(jax_parse_config(raw).net)
     variables = perturbed_flax_variables(jmodel)
     tmodel = build_model(cfg.net)
     tmodel.load_state_dict(flax_to_torch(variables), strict=True)

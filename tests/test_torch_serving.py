@@ -24,9 +24,10 @@ HW = 65
 
 @pytest.fixture(scope="module")
 def ws(tmp_path_factory):
-    from u2pl_tpu.config import parse_config
+    from u2pl_tpu.config import parse_config as jax_parse_config
     from u2pl_tpu.models import build_model as build_jax_model
     from u2pl_tpu.serving import InferEngine as JaxEngine
+    from u2pl_tpu_torch.config import parse_config
     from u2pl_tpu_torch.serving import InferEngine
     from u2pl_tpu_torch.utils.convert_jax import flax_to_torch
 
@@ -40,17 +41,16 @@ def ws(tmp_path_factory):
         Image.fromarray((rng.rand(h, w, 3) * 255).astype(np.uint8)).save(p)
         images.append(str(p))
 
-    cfg = parse_config(
-        {
-            "dataset": {
-                "type": "pascal",
-                "mean": [123.675, 116.28, 103.53],
-                "std": [58.395, 57.12, 57.375],
-            },
-            "net": small_net_raw(aux=False),
-        }
-    )
-    variables = perturbed_flax_variables(build_jax_model(cfg.net), seed=3)
+    raw = {
+        "dataset": {
+            "type": "pascal",
+            "mean": [123.675, 116.28, 103.53],
+            "std": [58.395, 57.12, 57.375],
+        },
+        "net": small_net_raw(aux=False),
+    }
+    cfg, jcfg = parse_config(raw), jax_parse_config(raw)
+    variables = perturbed_flax_variables(build_jax_model(jcfg.net), seed=3)
     sd = flax_to_torch(variables)
     pth = root / "ckpt_best.pth"
     # reference layout: DDP prefixes, teacher preferred over the student
@@ -63,7 +63,7 @@ def ws(tmp_path_factory):
         },
         pth,
     )
-    jax_engine = JaxEngine(cfg, str(pth), batch_size=2)
+    jax_engine = JaxEngine(jcfg, str(pth), batch_size=2)
     engine = InferEngine(cfg, str(pth), batch_size=2, device="cpu")
     return root, cfg, pth, jax_engine, engine, images
 
@@ -167,6 +167,7 @@ def test_teacher_state_is_preferred(ws):
 
 
 def test_unported_options_raise(ws, tmp_path):
+    from u2pl_tpu_torch.config import parse_config
     from u2pl_tpu_torch.serving import InferEngine
 
     _, cfg, pth, _, _, _ = ws

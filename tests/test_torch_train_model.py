@@ -27,9 +27,10 @@ import torch
 
 from test_torch_model import perturbed_flax_variables, small_net_raw
 from test_torch_resize import SIZES
-from u2pl_tpu.config import parse_config
+from u2pl_tpu.config import parse_config as jax_parse_config
 from u2pl_tpu.models import build_model as build_jax_model
 from u2pl_tpu.ops.resize import resize_bilinear as jax_resize_bilinear
+from u2pl_tpu_torch.config import parse_config
 from u2pl_tpu_torch.models import build_model
 from u2pl_tpu_torch.models.decoder import Dropout2d
 from u2pl_tpu_torch.ops import resize as tr
@@ -45,8 +46,9 @@ def zero_dropout(model: torch.nn.Module) -> torch.nn.Module:
 
 @pytest.fixture(scope="module")
 def train_forward():
-    cfg = parse_config({"net": small_net_raw(aux=False)})
-    jmodel = build_jax_model(cfg.net)
+    raw = {"net": small_net_raw(aux=False)}
+    cfg = parse_config(raw)
+    jmodel = build_jax_model(jax_parse_config(raw).net)
 
     class JitInit:  # perturbed_flax_variables with a compiled init
         init = staticmethod(jax.jit(jmodel.init, static_argnames="train"))

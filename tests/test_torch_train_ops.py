@@ -16,7 +16,9 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from u2pl_tpu.config import LRSchedulerCfg, OptimizerCfg, parse_config
+from u2pl_tpu.config import LRSchedulerCfg as JaxLRSchedulerCfg
+from u2pl_tpu.config import OptimizerCfg as JaxOptimizerCfg
+from u2pl_tpu.config import parse_config as jax_parse_config
 from u2pl_tpu.losses.ce import cross_entropy_ignore as jax_ce
 from u2pl_tpu.losses.unsup import teacher_entropy as jax_entropy
 from u2pl_tpu.models import build_model as build_jax_model
@@ -27,9 +29,11 @@ from u2pl_tpu.train.lr import lr_at as jax_lr_at
 from u2pl_tpu.train.optim import apply_updates_with_lr, make_optimizer as jax_make_optimizer
 from u2pl_tpu.train.steps import _upsample
 from u2pl_tpu.utils.convert_torch import torch_to_flax
+from u2pl_tpu_torch.config import LRSchedulerCfg, OptimizerCfg, parse_config
 from u2pl_tpu_torch.losses import ce, unsup
 from u2pl_tpu_torch.models import build_model
 from u2pl_tpu_torch.ops import mixing, quantile
+from u2pl_tpu_torch.ops.resize import resize_bilinear_plain
 from u2pl_tpu_torch.train.lr import lr_at
 from u2pl_tpu_torch.train.optim import make_optimizer
 from u2pl_tpu_torch.train.steps import epoch_scalars
@@ -110,10 +114,24 @@ def test_upsample_softmax_stats_match_jax_step(shape, hw):
     ref_am = pt.argmax(axis=-1).astype(jnp.int32)  # steps.py:301
     ref_ent = jax_entropy(pt)
     mp, am, ent = unsup.upsample_softmax_stats(torch.from_numpy(x), hw)
-    np.testing.assert_allclose(mp.numpy(), np.asarray(ref_mp), rtol=1e-5)
-    np.testing.assert_allclose(ent.numpy(), np.asarray(ref_ent), rtol=1e-5, atol=1e-6)
+    # the two upsamples agree to float32 rounding (0 to 1e-6 here); the
+    # messages carry the margins, so a failure elsewhere says which one moved
+    up_diff = float(np.abs(np.moveaxis(np.asarray(pt), -1, 1)
+                           - resize_bilinear_plain(torch.from_numpy(x), hw).numpy()).max())
+    np.testing.assert_allclose(mp.numpy(), np.asarray(ref_mp), rtol=1e-5,
+                               err_msg=f"upsample max abs diff {up_diff}")
+    np.testing.assert_allclose(ent.numpy(), np.asarray(ref_ent), rtol=1e-5, atol=1e-6,
+                               err_msg=f"upsample max abs diff {up_diff}")
     assert am.dtype == torch.int32
-    np.testing.assert_array_equal(am.numpy(), np.asarray(ref_am))
+    # argmax: equal off near-ties, the rule of the card tests (top-2 gap
+    # <= 1e-5 relative); the smallest gap at these inputs is 2.5e-4
+    top2 = np.sort(np.asarray(pt), axis=-1)[..., -2:]
+    near_tie = (top2[..., 1] - top2[..., 0]) <= 1e-5 * np.maximum(np.abs(top2[..., 1]), 1.0)
+    off = (am.numpy() != np.asarray(ref_am)) & ~near_tie
+    assert not off.any(), (
+        f"{int(off.sum())} argmax mismatches off near-ties; {int(near_tie.sum())} near-ties; "
+        f"upsample max abs diff {up_diff}"
+    )
 
 
 def test_unsupervised_loss_matches_jax():
@@ -261,15 +279,15 @@ def test_draw_boxes_uses_only_the_generator():
 # ---- LR schedules and the optimizer -----------------------------------------
 
 @pytest.mark.parametrize("sched", [
-    LRSchedulerCfg(mode="poly", power=0.9),
-    LRSchedulerCfg(mode="cosine", targetlr=1e-5),
-    LRSchedulerCfg(mode="multistep"),
-    LRSchedulerCfg(mode="multistep", milestones=(2, 5)),
+    dict(mode="poly", power=0.9),
+    dict(mode="cosine", targetlr=1e-5),
+    dict(mode="multistep"),
+    dict(mode="multistep", milestones=(2, 5)),
 ], ids=["poly", "cosine", "multistep", "multistep_milestones"])
 def test_lr_at_matches_jax(sched):
     for it in [0, 1, 7, 33, 59, 119]:
-        ref = jax_lr_at(sched, 0.01, jnp.asarray(it, jnp.int32), 120, 12)
-        got = lr_at(sched, 0.01, torch.tensor(it, dtype=torch.int32), 120, 12)
+        ref = jax_lr_at(JaxLRSchedulerCfg(**sched), 0.01, jnp.asarray(it, jnp.int32), 120, 12)
+        got = lr_at(LRSchedulerCfg(**sched), 0.01, torch.tensor(it, dtype=torch.int32), 120, 12)
         assert got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, err_msg=str(it))
 
@@ -278,11 +296,11 @@ def test_lr_at_matches_jax(sched):
 def resnet10_variables():
     from test_torch_model import small_net_raw
 
-    cfg = parse_config({"net": small_net_raw(aux=True)})
-    model = build_jax_model(cfg.net)
+    raw = {"net": small_net_raw(aux=True)}
+    model = build_jax_model(jax_parse_config(raw).net)
     init = jax.jit(lambda k, x: model.init(k, x, train=False))
     variables = init(jax.random.PRNGKey(0), jnp.zeros((1, 33, 33, 3)))
-    return cfg, jax.tree_util.tree_map(np.asarray, variables)
+    return parse_config(raw), jax.tree_util.tree_map(np.asarray, variables)
 
 
 @pytest.mark.parametrize("kind,nesterov", [("SGD", False), ("SGD", True), ("Adam", False)])
@@ -290,9 +308,9 @@ def test_optimizer_three_steps_match_optax(resnet10_variables, kind, nesterov):
     cfg, variables = resnet10_variables
     model = build_model(cfg.net)
     model.load_state_dict(flax_to_torch(variables), strict=True)
-    opt_cfg = OptimizerCfg(type=kind, lr=0.01, momentum=0.9, weight_decay=1e-4, nesterov=nesterov)
+    opt_kw = dict(type=kind, lr=0.01, momentum=0.9, weight_decay=1e-4, nesterov=nesterov)
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
-    tx = jax_make_optimizer(opt_cfg, params, head_lr_multiplier=10.0)
+    tx = jax_make_optimizer(JaxOptimizerCfg(**opt_kw), params, head_lr_multiplier=10.0)
     opt_state = tx.init(params)
 
     @jax.jit
@@ -300,7 +318,7 @@ def test_optimizer_three_steps_match_optax(resnet10_variables, kind, nesterov):
         updates, opt_state = tx.update(grads, opt_state, params)
         return apply_updates_with_lr(params, updates, lr), opt_state
 
-    opt = make_optimizer(opt_cfg, model, head_lr_multiplier=10.0)
+    opt = make_optimizer(OptimizerCfg(**opt_kw), model, head_lr_multiplier=10.0)
     assert [g["lr_mult"] for g in opt.param_groups] == [1.0, 10.0]
     sched = LRSchedulerCfg(mode="poly", power=0.9)
     rng = np.random.RandomState(8)
@@ -314,7 +332,7 @@ def test_optimizer_three_steps_match_optax(resnet10_variables, kind, nesterov):
         rep_bias["bias"] = np.zeros_like(rep_bias["bias"])
         for name, g in flax_to_torch({"params": grads}).items():
             named[name].grad = None if name == "decoder.representation.8.bias" else g
-        lr = jax_lr_at(sched, 0.01, jnp.asarray(it), 30)
+        lr = jax_lr_at(JaxLRSchedulerCfg(mode="poly", power=0.9), 0.01, jnp.asarray(it), 30)
         params, opt_state = jax_update(
             jax.tree_util.tree_map(jnp.asarray, grads), opt_state, params, lr
         )

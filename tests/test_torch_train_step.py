@@ -37,6 +37,20 @@ pseudo-labels, and near-tied pixels flip between any two float32
 implementations: the losses do not move, the gradient does.  Measured: a
 median of 3.3e-3 over tensors and 1.2e-2 at worst, where JAX against itself
 from weights moved by 1e-7 also moved 3.2e-3 (median).
+
+The contrastive-on trajectory (`contra_trajectory`) runs the same three
+steps with the contrastive block of tests/test_train_step.py (a 64/96-key
+bf16 bank, 8 queries, 4 negatives, 16 keys per class and step); the port's
+contrastive draws are JAX's own, replayed from k_contra.  Its entropy
+thresholds and bank keys are held by what JAX moves against itself, not by
+float32 rounding: the teacher's train-mode forward normalises 4 images (2 at
+the ASPP image pool's BN, 4 values per channel), and from teacher weights
+moved by 1e-7 JAX's own representation moves by up to 9.6e-5 (|rep| <= 5.5)
+and a pixel's entropy by up to 2.9e-4 relative (median 2.5e-5); the port
+differs from JAX by 7.8e-5 and 2.1e-4 (measured at steps 1 and 2).  So the
+thresholds are held to rtol 3e-4 and each bank key to one bfloat16 ulp plus
+1e-4; the selections (neg_cand, ptr, occupancy) are exact, and con_loss
+within rtol 1e-4 (measured 6e-7).
 """
 
 import os
@@ -51,15 +65,19 @@ import optax
 import pytest
 import torch
 
+from test_torch_contrastive import jax_draws
 from test_torch_model import small_net_raw
-from u2pl_tpu.config import parse_config
+from u2pl_tpu.config import parse_config as jax_parse_config
 from u2pl_tpu.dist import make_mesh
+from u2pl_tpu.memobank import init_memobank as jax_init_memobank
 from u2pl_tpu.models import build_model as build_jax_model
 from u2pl_tpu.train.optim import make_optimizer as jax_make_optimizer
 from u2pl_tpu.train.state import TrainState, copy_student_to_teacher as jax_copy
 from u2pl_tpu.train.steps import make_semi_step as jax_semi_step
 from u2pl_tpu.train.steps import make_semi_warmup_step as jax_warmup_step
 from u2pl_tpu.train.steps import make_sup_step as jax_sup_step
+from u2pl_tpu_torch.config import parse_config
+from u2pl_tpu_torch.memobank import MemoryBank
 from u2pl_tpu_torch.models import build_model
 from u2pl_tpu_torch.models.decoder import Dropout2d
 from u2pl_tpu_torch.ops.mixing import boxes_from_uniforms
@@ -72,9 +90,24 @@ B = 2
 STEPS = 3  # warmup, first semi epoch, epoch 2
 TENSOR_L2 = 3e-2
 GLOBAL_L2 = 1e-2
+# contrastive trajectory: what JAX moves against itself from teacher
+# weights moved by 1e-7 (module docstring)
+THRESH_RTOL = 3e-4
+KEY_ATOL = 1e-4
 
 
-def raw_cfg(**unsup):
+# the contrastive block of tests/test_train_step.py, 5 classes
+CONTRA = {
+    "negative_high_entropy": True, "low_rank": 1, "high_rank": 3,
+    "current_class_threshold": 0.3, "current_class_negative_threshold": 1,
+    "low_entropy_threshold": 20, "num_negatives": 4, "num_queries": 8,
+    "temperature": 0.5, "max_keys_per_class_per_step": 16,
+}
+BANK = {"queue_size": 64, "class0_size": 96}  # tests/test_train_step.py:98
+
+
+def raw_cfg(contrastive=None, **unsup):
+    trainer_extra = {"contrastive": contrastive} if contrastive else {}
     return {
         "dataset": {"type": "pascal_semi", "batch_size": B, "ignore_label": 255},
         "criterion": {"type": "CELoss", "kwargs": {}},
@@ -85,6 +118,7 @@ def raw_cfg(**unsup):
                           "kwargs": {"lr": 0.01, "momentum": 0.9, "weight_decay": 0.0001}},
             "lr_scheduler": {"mode": "poly", "kwargs": {"power": 0.9}},
             "unsupervised": {"drop_percent": 80, "apply_aug": "cutmix", **unsup},
+            **trainer_extra,
         },
         "net": small_net_raw(aux=False),
     }
@@ -113,27 +147,45 @@ def batches():
     return out
 
 
+def _dev_rng(rng, i_iter):
+    return jax.random.fold_in(jax.random.fold_in(rng, i_iter), 0)
+
+
 def jax_mix(rng, i_iter):
     """The semi step's coin and CutMix uniforms at `i_iter`, replayed."""
-    dev_rng = jax.random.fold_in(jax.random.fold_in(rng, i_iter), 0)
-    _, _, _, k_coin, k_mix = jax.random.split(dev_rng, 5)
+    _, _, _, k_coin, k_mix = jax.random.split(_dev_rng(rng, i_iter), 5)
     coin = bool(jax.random.uniform(k_coin, ()) < 0.5)
     u = [[float(jax.random.uniform(r, ())) for r in jax.random.split(k, 3)]
          for k in jax.random.split(k_mix, B)]
     return coin, torch.tensor(u, dtype=torch.float32)
 
 
+def jax_contra(rng, i_iter, n_pixels):
+    """The semi step's contrastive draws at `i_iter`, replayed from k_contra
+    (steps.py:281) as compute_contra_memobank_loss splits it (:250-290)."""
+    k_contra = jax.random.split(_dev_rng(rng, i_iter), 5)[2]
+    return jax_draws(k_contra, CONTRA["num_queries"], CONTRA["num_negatives"], 5, n_pixels)
+
+
 def _np_tree(tree):
     return jax.tree_util.tree_map(lambda a: np.array(a), jax.device_get(tree))
 
 
+def _np_bank(bank):
+    return {"keys": np.array(bank.keys.astype(jnp.float32)), "ptr": np.array(bank.ptr),
+            "occupancy": np.array(bank.occupancy), "sizes": np.array(bank.sizes)}
+
+
 def _jax_snapshot(state):
-    return {
+    snap = {
         "params": _np_tree(state.params), "batch_stats": _np_tree(state.batch_stats),
         "teacher_params": _np_tree(state.teacher_params),
         "teacher_batch_stats": _np_tree(state.teacher_batch_stats),
         "trace": _np_tree(optax.tree_utils.tree_get(state.opt_state, "trace")),
     }
+    if state.bank is not None:
+        snap["bank"] = _np_bank(state.bank)
+    return snap
 
 
 def _port_state(cfg, snap, step):
@@ -154,12 +206,19 @@ def _port_state(cfg, snap, step):
         for name, p in state.student.named_parameters():
             state.optimizer.state[p]["trace"] = trace[name].clone()
     state.step.fill_(step)
+    if "bank" in snap:
+        b = snap["bank"]
+        state.bank = MemoryBank(torch.from_numpy(b["keys"]).to(state.bank.keys.dtype),
+                                *(torch.from_numpy(b[k]) for k in ("ptr", "occupancy", "sizes")))
     return state
 
 
-@pytest.fixture(scope="module")
-def trajectory():
-    cfg = parse_config(raw_cfg())
+def _trajectory(raw):
+    """JAX's 3-step trajectory on `raw`, and each port step from JAX's state
+    before it: (before, jax_after, torch_after, steps), each `after` a list
+    of (scalar metrics, student, teacher, extras) per step."""
+    cfg, jcfg = parse_config(raw), jax_parse_config(raw)
+    contra = jcfg.trainer.contrastive
     data = batches()
     # a step key whose coin lands heads on both semi steps, so the
     # trajectory goes through CutMix
@@ -167,24 +226,26 @@ def trajectory():
                 if all(jax_mix(jax.random.PRNGKey(s), i)[0] for i in (1, 2)))
     rng = jax.random.PRNGKey(seed)
 
-    init_model = build_jax_model(cfg.net)
+    init_model = build_jax_model(jcfg.net)
     init = jax.jit(lambda k, x: init_model.init(k, x, train=False))
     variables = _np_tree(init(jax.random.PRNGKey(0), jnp.zeros((1, HW, HW, 3))))
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
     bstats = jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"])
-    tx = jax_make_optimizer(cfg.trainer.optimizer, params, head_lr_multiplier=10.0)
+    tx = jax_make_optimizer(jcfg.trainer.optimizer, params, head_lr_multiplier=10.0)
     state = TrainState(
         step=jnp.zeros((), jnp.int32), params=params, batch_stats=bstats,
         opt_state=tx.init(params), teacher_params=jax.tree_util.tree_map(jnp.copy, params),
         teacher_batch_stats=jax.tree_util.tree_map(jnp.copy, bstats),
+        bank=jax_init_memobank(5, 256, **BANK) if contra else None,
+        prototype=jnp.zeros((5, contra.num_queries, 1, 256)) if contra else None,
     )
     jax_before, jax_after = [], []
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(fnn.Dropout, "__call__", lambda self, x, **kw: x)
-        model = build_jax_model(cfg.net, axis_name="data")
+        model = build_jax_model(jcfg.net, axis_name="data")
         mesh = make_mesh(1)
-        warmup = jax_warmup_step(cfg, model, tx, 1, mesh)
-        semi = jax_semi_step(cfg, model, tx, 1, mesh)
+        warmup = jax_warmup_step(jcfg, model, tx, 1, mesh)
+        semi = jax_semi_step(jcfg, model, tx, 1, mesh)
         for i, (img_l, lab_l, img_u) in enumerate(data):
             jax_before.append(_jax_snapshot(state))
             args = (jnp.asarray(img_l), jnp.asarray(lab_l), jnp.asarray(img_u), rng)
@@ -192,31 +253,55 @@ def trajectory():
             if i == 1:
                 state = jax_copy(state)
             state, m = step_fn(state, *args)
+            m = jax.device_get(m)
             jax_after.append((
-                {k: float(v) for k, v in jax.device_get(m).items() if np.ndim(v) == 0},
+                {k: float(v) for k, v in m.items() if np.ndim(v) == 0},
                 flax_to_torch({"params": _np_tree(state.params)}),
                 flax_to_torch({"params": _np_tree(state.teacher_params),
                                "batch_stats": _np_tree(state.teacher_batch_stats)}),
+                {"neg_cand": np.asarray(m["neg_cand"]) if "neg_cand" in m else None,
+                 "bank": _np_bank(state.bank) if contra else None},
             ))
 
     torch_after, steps = [], []
+    # os4 side: the stride-2 stem conv, then the ceil-mode 3x3/2 max-pool
+    side = ((HW - 1) // 2 + 1) // 2 + 1  # 33 -> 17 -> 9
+    n_pixels = 2 * B * side * side
     for i, (img_l, lab_l, img_u) in enumerate(data):
         tstate = _port_state(cfg, jax_before[i], i)
-        mix = None
+        mix = contra_draws = None
         if i > 0:
             coin, u = jax_mix(rng, i)
             mix = (torch.tensor(coin), boxes_from_uniforms(u, HW, HW))
+            if contra:
+                contra_draws = jax_contra(rng, i, n_pixels)
         batch = (torch.from_numpy(img_l).permute(0, 3, 1, 2).contiguous(),
                  torch.from_numpy(lab_l), torch.from_numpy(img_u).permute(0, 3, 1, 2).contiguous())
-        ((it, m),) = run_steps(tstate, [batch], 1, cfg, start_iter=i, mixes=[mix])
+        ((it, m),) = run_steps(tstate, [batch], 1, cfg, start_iter=i, mixes=[mix],
+                               contras=[contra_draws])
         steps.append((it, int(tstate.step)))
+        bank = tstate.bank
         torch_after.append((
-            {k: float(v) for k, v in m.items()},
+            {k: float(v) for k, v in m.items() if v.dim() == 0},
             {k: v.detach().clone() for k, v in tstate.student.state_dict().items()},
             {k: v.detach().clone() for k, v in tstate.teacher.state_dict().items()},
+            {"neg_cand": m["neg_cand"].numpy() if "neg_cand" in m else None,
+             "bank": None if bank is None else {
+                 "keys": bank.keys.float().numpy(), "ptr": bank.ptr.numpy(),
+                 "occupancy": bank.occupancy.numpy()}},
         ))
     before = [flax_to_torch({"params": b["params"]}) for b in jax_before]
     return before, jax_after, torch_after, steps
+
+
+@pytest.fixture(scope="module")
+def trajectory():
+    return _trajectory(raw_cfg())
+
+
+@pytest.fixture(scope="module")
+def contra_trajectory():
+    return _trajectory(raw_cfg(contrastive=CONTRA))
 
 
 def _delta_close(got, ref, before, name):
@@ -291,26 +376,85 @@ def test_teacher_bn_running_stats(trajectory, i):
                                    err_msg=f"step {i} {k}")
 
 
+def _bf16_ulp(x):
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    _, e = np.frexp(np.abs(x))
+    return np.ldexp(1.0, e - 8)
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_contrastive_losses_and_thresholds(contra_trajectory, i):
+    """The losses rtol 1e-4; neg_cand exact; the entropy thresholds rtol
+    3e-4 (see the module docstring: JAX against itself moves a pixel's
+    entropy by up to 2.9e-4 here; the port moved the thresholds by 9e-6 at
+    step 1 and 4.2e-5 at step 2, and the low threshold of step 2, 1.6e-16,
+    by 4.9e-5)."""
+    _, jax_after, torch_after, steps = contra_trajectory
+    assert steps[i] == (i, i + 1)
+    ref, got = jax_after[i][0], torch_after[i][0]
+    for k in ("sup_loss", "uns_loss", "con_loss"):
+        np.testing.assert_allclose(got[k], ref[k], rtol=1e-4, atol=1e-7, err_msg=k)
+    np.testing.assert_allclose(got["lr"], ref["lr"], rtol=1e-6)
+    np.testing.assert_array_equal(torch_after[i][3]["neg_cand"], jax_after[i][3]["neg_cand"])
+    if i > 0:
+        assert ref["con_loss"] > 0 and ref["uns_loss"] > 0
+        for k in ("drop_thresh", "low_thresh", "high_thresh"):
+            np.testing.assert_allclose(got[k], ref[k], rtol=THRESH_RTOL, err_msg=k)
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_contrastive_bank(contra_trajectory, i):
+    """ptr and occupancy exact; each key within one bfloat16 ulp plus
+    KEY_ATOL: the same rows are written, from teacher representations that
+    differ as JAX differs from itself (module docstring; measured 7.8e-5
+    port vs JAX, 9.6e-5 JAX vs JAX), rounded to bfloat16."""
+    _, jax_after, torch_after, _ = contra_trajectory
+    ref, got = jax_after[i][3]["bank"], torch_after[i][3]["bank"]
+    for k in ("ptr", "occupancy"):
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    if i > 0:
+        assert ref["occupancy"].sum() > 0
+    a, b = got["keys"], ref["keys"]
+    assert np.all(np.abs(a - b) <= np.maximum(_bf16_ulp(a), _bf16_ulp(b)) + KEY_ATOL), (
+        f"step {i}: {int((a != b).sum())} keys differ, max {np.abs(a - b).max()}"
+    )
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_contrastive_student_update(contra_trajectory, i):
+    """The update in the L2 pattern above; the contrastive loss reaches the
+    representation head, so its tensors are held too."""
+    before, jax_after, torch_after, _ = contra_trajectory
+    keys = list(jax_after[i][1])
+    assert any(k.startswith("decoder.representation.") for k in keys)
+    pairs = [
+        _delta_close(torch_after[i][1][k].numpy(), jax_after[i][1][k].numpy(),
+                     before[i][k].numpy(), f"step {i} {k}")
+        for k in keys
+    ]
+    _global_close(pairs, f"step {i} student")
+
+
 def test_sup_step_matches_jax():
     """One `make_sup_step` on 4 labeled images (two batches' labeled
     halves), from flax's init, in both packages; bounds as above."""
     from u2pl_tpu_torch.train.steps import make_sup_step
 
-    cfg = parse_config(raw_cfg())
+    cfg, jcfg = parse_config(raw_cfg()), jax_parse_config(raw_cfg())
     data = batches()
     img = np.concatenate([data[0][0], data[1][0]])
     lab = np.concatenate([data[0][1], data[1][1]])
-    model = build_jax_model(cfg.net)
+    model = build_jax_model(jcfg.net)
     init = jax.jit(lambda k, x: model.init(k, x, train=False))
     variables = _np_tree(init(jax.random.PRNGKey(1), jnp.zeros((1, HW, HW, 3))))
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
-    tx = jax_make_optimizer(cfg.trainer.optimizer, params, head_lr_multiplier=10.0)
+    tx = jax_make_optimizer(jcfg.trainer.optimizer, params, head_lr_multiplier=10.0)
     state = TrainState(step=jnp.asarray(3, jnp.int32), params=params,
                        batch_stats=jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"]),
                        opt_state=tx.init(params))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(fnn.Dropout, "__call__", lambda self, x, **kw: x)
-        step = jax_sup_step(cfg, build_jax_model(cfg.net, axis_name="data"), tx, 2, make_mesh(1))
+        step = jax_sup_step(jcfg, build_jax_model(jcfg.net, axis_name="data"), tx, 2, make_mesh(1))
         state, ref = step(state, jnp.asarray(img), jnp.asarray(lab), jax.random.PRNGKey(0))
     after = flax_to_torch({"params": _np_tree(state.params)})
 
@@ -333,10 +477,11 @@ def test_sup_step_matches_jax():
 def test_unported_branches_raise():
     from u2pl_tpu_torch.train.steps import make_semi_step, make_sup_step
 
-    contra = raw_cfg()
-    contra["trainer"]["contrastive"] = {"low_rank": 3, "high_rank": 20}
-    with pytest.raises(NotImplementedError, match="contrastive"):
-        make_semi_step(parse_config(contra), 1)
+    with pytest.raises(NotImplementedError, match="anchor_ema"):
+        make_semi_step(parse_config(raw_cfg(contrastive={**CONTRA, "anchor_ema": True})), 1)
+    with pytest.raises(NotImplementedError, match="radix"):
+        make_semi_step(parse_config(raw_cfg(contrastive={**CONTRA, "select_keys": "radix"})), 1)
+    make_semi_step(parse_config(raw_cfg(contrastive=CONTRA)), 1)  # ported
     ohem = raw_cfg()
     ohem["criterion"] = {"type": "ohem", "kwargs": {"thresh": 0.7, "min_kept": 100}}
     with pytest.raises(NotImplementedError, match="ohem"):
@@ -346,12 +491,29 @@ def test_unported_branches_raise():
 
 
 def test_steps_module_imports_no_jax():
-    code = (
-        "import sys, u2pl_tpu_torch.train.steps; "
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax')]; "
-        "assert not bad, bad"
-    )
+    """Every module of the port, and chip_smoke.py, loads without JAX and
+    without the JAX package: nothing named jax, flax, optax or u2pl_tpu(.*)
+    in sys.modules after importing them all; chip_smoke.py's imports,
+    function-level ones included, name none of them either."""
+    code = r"""
+import ast, importlib, pkgutil, sys
+import u2pl_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(u2pl_tpu_torch.__path__, "u2pl_tpu_torch.")]
+assert "u2pl_tpu_torch.train.steps" in mods and "u2pl_tpu_torch.memobank" in mods, mods
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+tree = ast.parse(open(chip_smoke.__file__).read())
+named = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+named += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+forbidden = ("jax", "flax", "optax", "u2pl_tpu")
+bad = [m for m in list(sys.modules) + named if m.split(".")[0] in forbidden]
+assert not bad, bad
+print(len(mods), "modules")
+"""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
-    subprocess.run([sys.executable, "-S", "-c", code], check=True, cwd=root, timeout=120,
-                   env={**env, "PYTHONPATH": root + os.pathsep + os.pathsep.join(sys.path)})
+    out = subprocess.run([sys.executable, "-S", "-c", code], check=True, cwd=root, timeout=120,
+                         capture_output=True, text=True,
+                         env={**env, "PYTHONPATH": root + os.pathsep + os.pathsep.join(sys.path)})
+    assert "modules" in out.stdout

@@ -314,3 +314,27 @@ def resize_bilinear_numpy(
     if x.ndim == 2:
         y = y[:, :, 0]
     return y
+
+
+@functools.lru_cache(maxsize=256)
+def _nearest_index_np(in_size: int, out_size: int) -> np.ndarray:
+    """torch mode="nearest" source indices, floor(i * in/out) in f64,
+    clipped (the JAX package's `_nearest_index_np`, u2pl_tpu/ops/resize.py:180)."""
+    return np.minimum(
+        (np.arange(out_size, dtype=np.float64) * (in_size / out_size)).astype(np.int64),
+        in_size - 1,
+    )
+
+
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Nearest resize of the two trailing (spatial) axes of `x` to `size`
+    (h, w): an index gather, torch `F.interpolate(mode="nearest")`'s
+    indices.  NCHW, NHW or HW, any dtype (masks, labels).  No kernel: a
+    plain gather on either device."""
+    if x.dim() not in (2, 3, 4):
+        raise ValueError(f"resize_nearest: expected 2-4 dims, got {tuple(x.shape)}")
+    h, w = x.shape[-2:]
+    oh, ow = int(size[0]), int(size[1])
+    ih = torch.from_numpy(_nearest_index_np(h, oh)).to(x.device)
+    iw = torch.from_numpy(_nearest_index_np(w, ow)).to(x.device)
+    return x.index_select(-2, ih).index_select(-1, iw)

@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from u2pl_tpu.config import LRSchedulerCfg
+from u2pl_tpu_torch.config import LRSchedulerCfg
 
 
 def _div(a: torch.Tensor, b: float) -> torch.Tensor:

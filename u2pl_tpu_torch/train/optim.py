@@ -22,7 +22,7 @@ from typing import Dict, List
 import torch
 from torch import nn
 
-from u2pl_tpu.config import OptimizerCfg
+from u2pl_tpu_torch.config import OptimizerCfg
 
 HEAD_SCOPES = ("decoder", "auxor")
 

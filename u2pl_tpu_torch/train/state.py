@@ -3,20 +3,22 @@
 
 The JAX state is an immutable pytree threaded through the compiled step;
 here it is a small mutable record, and the steps update the models, the
-optimizer and `step` in place.  `bank` and `prototype` (the contrastive
-memory bank) stay None until the contrastive slice is ported.
+optimizer, `step` and the memory `bank` in place.  With
+`trainer.contrastive` the state holds the bank (`memobank.init_memobank`,
+in the config's `queue_dtype`) and the (C, Q, 1, 256) `prototype` of the
+anchor-EMA path, zeros, as train_semi.py builds them; both None otherwise.
 """
 
 from __future__ import annotations
 
 import copy
 from dataclasses import dataclass
-from typing import Any, Optional, Union
+from typing import Optional, Union
 
 import torch
 
-from u2pl_tpu.config import head_lr_multiplier
-from u2pl_tpu_torch.config import Config
+from u2pl_tpu_torch.config import Config, head_lr_multiplier
+from u2pl_tpu_torch.memobank import MemoryBank, init_memobank
 from u2pl_tpu_torch.models import build_model
 from u2pl_tpu_torch.models.builder import SegModel
 from u2pl_tpu_torch.train.optim import make_optimizer
@@ -28,8 +30,8 @@ class TrainState:
     student: SegModel
     teacher: SegModel
     optimizer: torch.optim.Optimizer
-    bank: Any = None
-    prototype: Any = None
+    bank: Optional[MemoryBank] = None
+    prototype: Optional[torch.Tensor] = None
 
 
 def create_train_state(
@@ -40,14 +42,21 @@ def create_train_state(
 ) -> TrainState:
     """Student from `build_model` (or the one given), the teacher a copy of
     it (parameters and BN buffers) that takes no gradient, the optimizer
-    with the head group at x `head_lr_multiplier(cfg)`."""
+    with the head group at x `head_lr_multiplier(cfg)`, and the empty bank
+    and zero prototype when the config has `trainer.contrastive`."""
     if student is None:
         student = build_model(cfg.net, device=device, generator=generator)
     student = student.to(device)
     teacher = copy.deepcopy(student).requires_grad_(False)
     optimizer = make_optimizer(cfg.trainer.optimizer, student, head_lr_multiplier(cfg))
     step = torch.zeros((), dtype=torch.int32, device=device)
-    return TrainState(step=step, student=student, teacher=teacher, optimizer=optimizer)
+    state = TrainState(step=step, student=student, teacher=teacher, optimizer=optimizer)
+    contra = cfg.trainer.contrastive
+    if contra is not None:
+        c = cfg.net.num_classes
+        state.bank = init_memobank(c, 256, dtype=contra.queue_dtype, device=device)
+        state.prototype = torch.zeros((c, contra.num_queries, 1, 256), device=device)
+    return state
 
 
 @torch.no_grad()

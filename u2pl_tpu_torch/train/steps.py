@@ -1,5 +1,5 @@
-"""Supervised and semi-supervised U²PL train steps, contrastive branch off
-(port of u2pl_tpu/train/steps.py, one device).
+"""Supervised and semi-supervised U²PL train steps (port of
+u2pl_tpu/train/steps.py, one device).
 
 Each maker returns a step that updates the `TrainState` in place and
 returns its metrics as 0-d device tensors; nothing on a step reads a value
@@ -11,18 +11,24 @@ back to the host.  The anatomy follows the JAX steps line by line:
   train-mode teacher forward on labeled + mixed images (updates the
   teacher's BN statistics) -> entropy of its upsampled unlabeled logits
   (kernel D) -> the annealed drop percentile of that entropy over the valid
-  pseudo-labels (kernel E) -> student forward on labeled + mixed images,
-  sup CE + entropy-gated unsup CE of the upsampled logits (kernel C,
-  forward and backward) -> optimizer step at the poly LR -> EMA of the
-  teacher's parameters, with decay 0 in the first semi epoch.
+  pseudo-labels (kernel E; with `trainer.contrastive`, one call gives it and
+  the low / high entropy thresholds) -> student forward on labeled + mixed
+  images, sup CE + entropy-gated unsup CE of the upsampled logits (kernel C,
+  forward and backward) + the contrastive memory-bank InfoNCE on the
+  student's representation (kernels K4, K5, K6; the teacher's os4 softmax
+  and representation pick the anchors, the negatives and the prototypes)
+  -> optimizer step at the poly LR -> EMA of the teacher's parameters, with
+  decay 0 in the first semi epoch.
 
 `run_steps` sequences the warmup and semi steps by epoch, as
 train_semi.py does.
 
-Dropout masks and the mix draws (coin, boxes) come from the `generator`
-passed to the step; `mix=(coin, boxes)` injects the draws instead.  The
-contrastive loss (`trainer.contrastive`) and OHEM (`criterion.type: ohem`)
-raise NotImplementedError: they are later slices (ROADMAP.md).
+Dropout masks, the mix draws (coin, boxes) and the contrastive draws
+(key priorities, anchor and bank draws) come from the `generator` passed to
+the step; `mix=(coin, boxes)` and `contra=(pri, u_anchor, u_neg)` inject
+them instead.  OHEM (`criterion.type: ohem`), `contrastive.anchor_ema` and
+`contrastive.select_keys: radix` raise NotImplementedError: they are later
+slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,8 +40,9 @@ import torch
 
 from u2pl_tpu_torch.config import Config
 from u2pl_tpu_torch.losses import ce as ce_loss
-from u2pl_tpu_torch.losses import unsup
+from u2pl_tpu_torch.losses import contrastive, unsup
 from u2pl_tpu_torch.ops import mixing, quantile
+from u2pl_tpu_torch.ops.resize import resize_nearest
 from u2pl_tpu_torch.train.lr import _div, lr_at
 from u2pl_tpu_torch.train.state import TrainState, copy_student_to_teacher
 
@@ -48,11 +55,20 @@ def _check_ported(cfg: Config) -> None:
             "criterion.type: ohem is not ported yet (ROADMAP.md queue 1, "
             "'Cityscapes family (OHEM, K7)')"
         )
-    if cfg.trainer.contrastive is not None:
+
+
+def _check_contrastive_ported(cfg: Config) -> None:
+    contra = cfg.trainer.contrastive
+    if contra is None:
+        return
+    if contra.anchor_ema:
         raise NotImplementedError(
-            "trainer.contrastive is not ported yet (ROADMAP.md queue 1, "
-            "'the contrastive slice (K4-K6, memobank)'); remove the block to "
-            "train without it"
+            "contrastive.anchor_ema: true is not ported yet (ROADMAP.md queue 1)"
+        )
+    if contra.select_keys != "argsort":
+        raise NotImplementedError(
+            f"contrastive.select_keys: {contra.select_keys} is not ported yet "
+            "(ROADMAP.md queue 1); the port selects keys as 'argsort' does"
         )
 
 
@@ -162,17 +178,58 @@ def epoch_scalars(
     return drop_percent, decay
 
 
+def contrastive_percents(
+    step: torch.Tensor, steps_per_epoch: int, cfg: Config
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(alpha_t, 100 - alpha_t): the percents of the low and high entropy
+    thresholds of the contrastive masks, in the JAX float32 arithmetic of
+    steps.py:364-369."""
+    epoch = torch.div(step, steps_per_epoch, rounding_mode="floor").to(torch.float32)
+    alpha_t = cfg.trainer.contrastive.low_entropy_threshold * (1.0 - _div(epoch, cfg.trainer.epochs))
+    return alpha_t, 100.0 - alpha_t
+
+
+def _contrastive_masks(cfg, label_l, label_u, entropy, valid_u, low_thresh, high_thresh, small_hw):
+    """The contrastive loss's small labels and masks (steps.py:370-402):
+    low / high entropy masks of the unlabeled pixels (the labeled ones: every
+    valid pixel), nearest-resized with the labels to the representation's
+    (h, w); the one-hot is taken inside the loss, after the resize, as JAX
+    does."""
+    ignore = cfg.dataset.ignore_label
+    lab_valid = label_l != ignore
+    low_u = (entropy <= low_thresh) & valid_u
+    high_u = (entropy >= high_thresh) & valid_u
+    if not cfg.trainer.contrastive.negative_high_entropy:
+        high_u = torch.ones_like(high_u)
+    low = resize_nearest(torch.cat([lab_valid, low_u]), small_hw)
+    high = resize_nearest(torch.cat([lab_valid, high_u]), small_hw)
+    return resize_nearest(label_l, small_hw), resize_nearest(label_u, small_hw), low, high
+
+
+def draw_contrastive(generator: torch.Generator, cfg: Config, n_pixels: int):
+    """The contrastive loss's draws from `generator`: (pri (C, N), u_anchor
+    (C, Q), u_neg (C, Q * num_negatives)), float32 in [0, 1)."""
+    c, contra = cfg.net.num_classes, cfg.trainer.contrastive
+    q, m = contra.num_queries, contra.num_negatives
+    return tuple(
+        torch.rand(shape, generator=generator, device=generator.device)
+        for shape in ((c, n_pixels), (c, q), (c, q * m))
+    )
+
+
 def make_semi_step(cfg: Config, steps_per_epoch: int) -> Callable:
-    """The U²PL semi-supervised step without the contrastive branch
-    (steps.py:247-583).
-    step(state, image_l, label_l, image_u, generator=None, mix=None) -> metrics;
-    `mix=(coin, boxes)`: a 0-d bool and (B_u, 4) int32 boxes on the device,
-    in place of the generator's draws."""
+    """The U²PL semi-supervised step (steps.py:247-583).
+    step(state, image_l, label_l, image_u, generator=None, mix=None,
+    contra=None) -> metrics; `mix=(coin, boxes)`: a 0-d bool and (B_u, 4)
+    int32 boxes on the device, `contra=(pri, u_anchor, u_neg)` the
+    contrastive draws (`draw_contrastive`), in place of the generator's."""
     max_iter = cfg.trainer.epochs * steps_per_epoch
     sup_loss_fn = make_sup_loss_fn(cfg)
+    _check_contrastive_ported(cfg)
     has_aux = cfg.net.aux_loss is not None
     ignore = cfg.dataset.ignore_label
     unsup_cfg = cfg.trainer.unsupervised
+    contra_cfg = cfg.trainer.contrastive
     normalize = make_normalizer(cfg)
     if unsup_cfg.apply_aug:
         mixing.check_mode(unsup_cfg.apply_aug)
@@ -180,6 +237,7 @@ def make_semi_step(cfg: Config, steps_per_epoch: int) -> Callable:
     def step(
         state: TrainState, image_l, label_l, image_u, generator=None,
         mix: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        contra: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
     ) -> Metrics:
         image_l, image_u = normalize(image_l), normalize(image_u)
         b_l, h, w = label_l.shape
@@ -213,13 +271,34 @@ def make_semi_step(cfg: Config, steps_per_epoch: int) -> Callable:
 
             # ---- teacher train-mode forward (:323-343): updates teacher BN
             teacher.train()
-            pred_all_teacher = teacher(image_all, generator=generator)["pred"]
-            _, _, entropy = unsup.upsample_softmax_stats(pred_all_teacher[b_l:], (h, w))
-            del pred_all_teacher
+            t_out = teacher(image_all, generator=generator)
+            _, _, entropy = unsup.upsample_softmax_stats(t_out["pred"][b_l:], (h, w))
 
-            # ---- the annealed drop percentile of the entropy (:352-406)
+            # ---- the annealed drop percentile of the entropy, and the
+            # contrastive thresholds with it, in one call (:352-406)
             valid_u = label_u_aug != ignore
-            drop_thresh = quantile.masked_percentiles(entropy, valid_u, drop_percent.reshape(1))[0]
+            if contra_cfg is None:
+                drop_thresh = quantile.masked_percentiles(entropy, valid_u, drop_percent.reshape(1))[0]
+                del t_out
+            else:
+                alpha_t, alpha_hi = contrastive_percents(state.step, steps_per_epoch, cfg)
+                percents = torch.stack([drop_percent, alpha_t, alpha_hi])
+                drop_thresh, low_thresh, high_thresh = quantile.masked_percentiles(
+                    entropy, valid_u, percents
+                ).unbind()
+                prob_teacher = torch.softmax(t_out["pred"].float(), dim=1)
+                rep_teacher = t_out["rep"]
+                del t_out
+                small_hw = tuple(prob_teacher.shape[2:])
+                contra_in = _contrastive_masks(
+                    cfg, label_l, label_u_aug, entropy, valid_u, low_thresh, high_thresh, small_hw
+                )
+                if contra is None:
+                    if generator is None:
+                        raise ValueError("the semi step draws its contrastive draws from a "
+                                         "generator or `contra`")
+                    n_pixels = image_all.shape[0] * small_hw[0] * small_hw[1]
+                    contra = draw_contrastive(generator, cfg, n_pixels)
 
         # ---- student forward / backward (:437-517)
         student.train()
@@ -230,8 +309,20 @@ def make_semi_step(cfg: Config, steps_per_epoch: int) -> Callable:
         unsup_loss = unsup.compute_unsupervised_loss(
             pred_all[b_l:], label_u_aug, entropy, drop_thresh, ignore
         ) * unsup_cfg.loss_weight
+        con_loss = torch.zeros((), device=sup_loss.device)
+        neg_cand = torch.zeros((cfg.net.num_classes,), dtype=torch.int32, device=sup_loss.device)
+        if contra_cfg is not None:
+            label_l_small, label_u_small, low_small, high_small = contra_in
+            _, con_loss, info = contrastive.compute_contra_memobank_loss(
+                outs["rep"], label_l_small, label_u_small, prob_teacher[:b_l],
+                prob_teacher[b_l:], low_small, high_small, contra_cfg, state.bank,
+                rep_teacher, contra, ignore_label=ignore, return_info=True,
+            )
+            con_loss = con_loss * contra_cfg.loss_weight
+            neg_cand = info["neg_candidates"]
+            del prob_teacher, rep_teacher, contra_in
         del outs, pred_all
-        (sup_loss + unsup_loss).backward()
+        (sup_loss + unsup_loss + con_loss).backward()
         lr = _update(cfg, state, max_iter, steps_per_epoch)
 
         # ---- EMA of the teacher's parameters (:519-546)
@@ -244,13 +335,18 @@ def make_semi_step(cfg: Config, steps_per_epoch: int) -> Callable:
             )
             torch._foreach_copy_(t_params, blended)
         state.step += 1
-        return {
+        metrics = {
             "sup_loss": sup_loss.detach(),
             "uns_loss": unsup_loss.detach(),
-            "con_loss": torch.zeros((), device=sup_loss.device),
+            "con_loss": con_loss.detach(),
             "lr": lr,
+            "neg_cand": neg_cand,
             "drop_thresh": drop_thresh,
         }
+        if contra_cfg is not None:
+            metrics["low_thresh"] = low_thresh
+            metrics["high_thresh"] = high_thresh
+        return metrics
 
     return step
 
@@ -263,6 +359,7 @@ def run_steps(
     generator: Optional[torch.Generator] = None,
     start_iter: int = 0,
     mixes: Optional[Sequence] = None,
+    contras: Optional[Sequence] = None,
 ) -> Iterator[Tuple[int, Metrics]]:
     """The semi trainer's step sequencing (train_semi.py:166-245; its CLI,
     data pipeline, validation and checkpoints are a later slice): warmup
@@ -273,8 +370,8 @@ def run_steps(
     One step per (image_l, label_l, image_u) batch, from global iteration
     `start_iter` (the host's copy of `state.step`, so choosing the branch
     reads nothing back from the device); yields (i_iter, metrics) after each
-    step.  `mixes[j]`, when given, is the semi step's injected (coin, boxes)
-    for batch j."""
+    step.  `mixes[j]` and `contras[j]`, when given, are the semi step's
+    injected (coin, boxes) and contrastive draws for batch j."""
     warmup = make_semi_warmup_step(cfg, steps_per_epoch)
     semi = make_semi_step(cfg, steps_per_epoch)
     sup_only_epoch = cfg.trainer.sup_only_epoch
@@ -287,5 +384,6 @@ def run_steps(
             if epoch == sup_only_epoch:
                 copy_student_to_teacher(state)
             mix = mixes[j] if mixes is not None else None
-            metrics = semi(state, image_l, label_l, image_u, generator, mix=mix)
+            contra = contras[j] if contras is not None else None
+            metrics = semi(state, image_l, label_l, image_u, generator, mix=mix, contra=contra)
         yield i_iter, metrics
