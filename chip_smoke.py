@@ -39,11 +39,27 @@ Phases; any failure ends the run with a nonzero exit code:
      against plain versions, its selections and bank bit-equal;
   7. contrastive timings: the contrastive semi step's median, images/s and
      peak memory, and each K4-K6 kernel beside its plain version and, where
-     one exists, a single PyTorch call for the same function.
+     one exists, a single PyTorch call for the same function;
+  8. the Cityscapes slice: experiments/cityscapes/744/ours as it stands
+     (ResNet-101 + DeepLabv3+ with the aux head, 19 classes, OHEM on both
+     heads, the contrastive branch with 12288 keys per class and a (19,
+     50000, 256) bf16 bank), float32, from seeded random weights, 5 semi
+     steps (sup_only_epoch 0) of 2 labeled + 2 unlabeled synthetic 769²
+     images through `run_steps`, checked for finite losses, con_loss > 0,
+     gradients in the aux and representation heads, the bank's occupancy,
+     the heads' strides and the OHEM kernels' launches on both heads of
+     every step, with the kept-pixel count per head and step; step 5 again
+     through the kernels and through the plain versions, compared; then 2
+     steps of experiments/cityscapes/744/suponly through `make_sup_step`;
+  9. Cityscapes timings: the semi step's median, images/s and peak memory,
+     and each OHEM kernel (K7) beside its plain version and a library call.
 Phase 1 also holds the contrastive kernels (K4: pixel masks, key selection,
 anchor draws; K5: the bank write; K6: the InfoNCE forward and backward)
 against their plain versions at the flagship shapes, on a prefilled bank
-that wraps.
+that wraps, and the OHEM kernels (K7: target-class probability, k-th
+smallest, kept labels) at the Cityscapes heads' shapes, with the k-th value
+above and below thresh, an all-ignored map and fewer valid pixels than
+min_kept.
 It prints a JSON line of kernels (each with its launches on the main paths,
 its error against its plain version, its time beside the plain version's,
 its bound and a library call's time), then one JSON line
@@ -66,6 +82,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 VOC_CONFIG = os.path.join(ROOT, "experiments", "pascal", "1464", "ours", "config.yaml")
+CITY_CONFIG = os.path.join(ROOT, "experiments", "cityscapes", "744", "ours", "config.yaml")
+CITY_SUP_CONFIG = os.path.join(ROOT, "experiments", "cityscapes", "744", "suponly", "config.yaml")
 SEED = 0
 
 # phase 1 shapes: kernel A (B, C, H, W) -> (OH, OW); kernel B (C, H, W) -> (h, w)
@@ -113,6 +131,19 @@ OS4 = 129
 K6_LOSS_TOL = 1e-5  # relative
 K6_GRAD_TOL = 1e-6  # max abs diff / max |grad|
 CON_LOSS_TOL = 1e-4  # step 5, kernels vs plain versions, relative
+# Cityscapes slice: 2 labeled + 2 unlabeled 769² images per step, the os4
+# main head and the os8 aux head, 19 classes; OHEM's kernels' bounds
+CITY_CROP = 769
+CITY_B = 2
+CITY_OS4, CITY_OS8 = 193, 97
+CITY_SUP_STEPS = 2
+# p_y, relative, per pixel: against the softmax of kernel A's upsample
+# (the same upsampled logits; measured bit-equal), and against the plain
+# version, whose matmul resize rounds the logits (|x| < 8) up to 9.5e-7
+# apart (measured on the card: p_y up to 1.15e-6 apart)
+K7_PROB_TOL = 1e-6
+K7_PLAIN_TOL = 2e-6
+K7_NEAR = 1e-6  # a kept pixel may differ between routes only this close (relative) to the threshold
 # the card's published peaks (NVIDIA H100 SXM data sheet), for the bounds
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -524,7 +555,12 @@ CONTRA_COUNTERS = {
     "K6_fwd": ("u2pl_tpu_torch.losses.contrastive", "contra_infonce", "fwd_launches"),
     "K6_bwd": ("u2pl_tpu_torch.losses.contrastive", "contra_infonce", "bwd_launches"),
 }
-COUNTERS = {**TRAIN_COUNTERS, **CONTRA_COUNTERS}
+OHEM_COUNTERS = {
+    "K7_prob": ("u2pl_tpu_torch.losses.ohem", "ohem_target_prob", "launches"),
+    "K7_kth": ("u2pl_tpu_torch.ops.quantile", "kth_smallest", "launches"),
+    "K7_keep": ("u2pl_tpu_torch.losses.ohem", "ohem_keep_labels", "launches"),
+}
+COUNTERS = {**TRAIN_COUNTERS, **CONTRA_COUNTERS, **OHEM_COUNTERS}
 
 
 def _counter(name):
@@ -556,6 +592,7 @@ def plain_versions():
     import u2pl_tpu_torch.losses.contrastive as contrastive
     import u2pl_tpu_torch.losses.unsup as unsup
     import u2pl_tpu_torch.memobank as memobank
+    import u2pl_tpu_torch.losses.ohem as ohem
     import u2pl_tpu_torch.models.decoder as decoder
     import u2pl_tpu_torch.ops.mixing as mixing
     import u2pl_tpu_torch.ops.quantile as quantile
@@ -564,6 +601,7 @@ def plain_versions():
     swaps = [
         (decoder, "resize_bilinear", resize_bilinear_plain),
         (ce, "upsample_cross_entropy", ce.upsample_cross_entropy_plain),
+        (ohem, "ohem_cross_entropy", ohem.ohem_cross_entropy_plain),
         (unsup, "upsample_cross_entropy", ce.upsample_cross_entropy_plain),
         (unsup, "upsample_softmax_stats", unsup.upsample_softmax_stats_plain),
         (quantile, "masked_percentiles", quantile.masked_percentiles_plain),
@@ -592,28 +630,28 @@ def train_config():
     return dataclasses.replace(cfg, trainer=dataclasses.replace(cfg.trainer, contrastive=None))
 
 
-def synthetic_batches(dev, n):
-    """n batches of (4 labeled, their labels, 4 unlabeled) 513² images, made
-    from SEED with numpy: smooth colour fields with noise, normalised like
-    the dataset; labels quantise the first channel into the 21 classes, ~5%
-    of them 255."""
+def synthetic_batches(dev, n, b=B_L, crop=CROP, classes=21, seed=SEED + 3):
+    """n batches of (b labeled, their labels, b unlabeled) crop² images, made
+    from `seed` with numpy: smooth colour fields with noise, normalised like
+    the dataset; labels quantise the first channel into the classes, ~5% of
+    them 255 (by default the VOC slice's 4 + 4 at 513², 21 classes)."""
     import numpy as np
     import torch
 
     from u2pl_tpu_torch.ops.resize import resize_bilinear_numpy
 
-    rng = np.random.RandomState(SEED + 3)
+    rng = np.random.RandomState(seed)
 
     def images(b):
-        x = np.stack([resize_bilinear_numpy(rng.randn(9, 9, 3).astype(np.float32), (CROP, CROP))
+        x = np.stack([resize_bilinear_numpy(rng.randn(9, 9, 3).astype(np.float32), (crop, crop))
                       for _ in range(b)])
         x = (x + 0.2 * rng.randn(*x.shape)).astype(np.float32)
         return x
 
     out = []
     for _ in range(n):
-        img_l, img_u = images(B_L), images(B_U)
-        lab = np.clip(((img_l[..., 0] + 2.5) * 21 / 5).astype(np.int32), 0, 20)
+        img_l, img_u = images(b), images(b)
+        lab = np.clip(((img_l[..., 0] + 2.5) * classes / 5).astype(np.int32), 0, classes - 1)
         lab[rng.rand(*lab.shape) < 0.05] = 255
         to = lambda a: torch.from_numpy(a).permute(0, 3, 1, 2).contiguous().to(dev)  # noqa: E731
         out.append((to(img_l), torch.from_numpy(lab).to(dev), to(img_u)))
@@ -626,10 +664,48 @@ def _params_equal(a, b):
     return all(torch.equal(p, q) for p, q in zip(a.parameters(), b.parameters()))
 
 
-def phase4_training(dev, card):
+def both_routes(snapshot, run):
+    """`run(state, route)` (one step, returning its metrics) on a copy of
+    `snapshot` with dropout off, through the kernels and through the plain
+    versions: {route: (metrics, the student's update per parameter, the
+    state after)}.  Fails if the plain route launched a kernel."""
     import torch
 
     from u2pl_tpu_torch.models.decoder import Dropout2d
+
+    runs = {}
+    for route in ("kernels", "plain"):
+        st = copy.deepcopy(snapshot)
+        for mm in list(st.student.modules()) + list(st.teacher.modules()):
+            if isinstance(mm, Dropout2d):
+                mm.p = 0.0
+        before = {a: p.detach().clone() for a, p in st.student.named_parameters()}
+        counts = read_counters()
+        with plain_versions() if route == "plain" else contextlib.nullcontext():
+            m = run(st, route)
+        torch.cuda.synchronize()
+        if route == "plain" and read_counters() != counts:
+            fail("the plain-version step launched a kernel")
+        runs[route] = (m, {a: p.detach() - before[a] for a, p in st.student.named_parameters()}, st)
+    return runs
+
+
+def update_closeness(dk, dp):
+    """The two routes' updates per parameter: ({name: L2 of the difference /
+    L2 of the plain route's update}, the three closest to the bound
+    STEP_UPDATE_TOL of the update + STEP_UPDATE_FLOOR RMS, as (name, share
+    of the bound), closest first)."""
+    diff = {a: (dk[a] - dp[a]).norm().item() for a in dp}
+    norm = {a: dp[a].norm().item() for a in dp}
+    upd = {a: diff[a] / max(norm[a], 1e-30) for a in dp}
+    over = {a: diff[a] / (STEP_UPDATE_TOL * norm[a] + STEP_UPDATE_FLOOR * dp[a].numel() ** 0.5)
+            for a in dp}
+    return upd, sorted(over.items(), key=lambda kv: -kv[1])[:3]
+
+
+def phase4_training(dev, card):
+    import torch
+
     from u2pl_tpu_torch.ops import mixing
     from u2pl_tpu_torch.train.steps import run_steps
     from u2pl_tpu_torch.train.state import create_train_state
@@ -711,36 +787,18 @@ def phase4_training(dev, card):
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     mix = (torch.tensor(True, device=dev), mixing.draw_boxes(g, B_U, CROP, CROP))
     step = make_semi_step(cfg, STEPS_PER_EPOCH)
-    runs = {}
-    for route in ("kernels", "plain"):
-        st = copy.deepcopy(snapshot)
-        for mm in list(st.student.modules()) + list(st.teacher.modules()):
-            if isinstance(mm, Dropout2d):
-                mm.p = 0.0
-        before = {k: p.detach().clone() for k, p in st.student.named_parameters()}
-        counts = read_counters()
-        with plain_versions() if route == "plain" else contextlib.nullcontext():
-            m = step(st, *batches[-1], mix=mix)
-        torch.cuda.synchronize()
-        delta = {k: p.detach() - before[k] for k, p in st.student.named_parameters()}
-        runs[route] = (scalars(m), delta, read_counters() != counts)
-        del st
-    (mk, dk, _), (mp, dp, launched) = runs["kernels"], runs["plain"]
-    if launched:
-        fail("the plain-version step launched a kernel")
-    rel = {k: abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-30) for k in ("sup_loss", "uns_loss", "drop_thresh")}
-    diff = {k: (dk[k] - dp[k]).norm().item() for k in dp}
-    norm = {k: dp[k].norm().item() for k in dp}
-    upd = {k: diff[k] / max(norm[k], 1e-30) for k in dp}
-    over = {k: diff[k] / (STEP_UPDATE_TOL * norm[k] + STEP_UPDATE_FLOOR * dp[k].numel() ** 0.5)
-            for k in dp}
+    runs = both_routes(snapshot, lambda st, route: step(st, *batches[-1], mix=mix))
+    del snapshot
+    (mk, dk, _), (mp, dp, _) = runs["kernels"], runs["plain"]
+    mk, mp = scalars(mk), scalars(mp)
+    rel = {k: abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-30)
+           for k in ("sup_loss", "uns_loss", "drop_thresh")}
+    upd, tight = update_closeness(dk, dp)
     worst = sorted(upd.items(), key=lambda kv: -kv[1])[:3]
-    tight = sorted(over.items(), key=lambda kv: -kv[1])[:3]
     log(f"[phase 4] step {TRAIN_STEPS} again, kernels vs plain versions: kernels {mk}; plain "
         f"{mp}; rel diffs {rel} (bound {STEP_LOSS_TOL}); per-tensor update L2 diff / L2: median "
-        f"{statistics.median(upd.values()):.3e}, largest {[(k, v, norm[k]) for k, v in worst]} "
-        f"(bound {STEP_UPDATE_TOL} of the update + {STEP_UPDATE_FLOOR} RMS; closest to it, as a "
-        f"share of the bound: {tight})")
+        f"{statistics.median(upd.values()):.3e}, largest {worst} (bound {STEP_UPDATE_TOL} of the "
+        f"update + {STEP_UPDATE_FLOOR} RMS; closest to it, as a share of the bound: {tight})")
     if not all(v <= STEP_LOSS_TOL for v in rel.values()):
         fail(f"step {TRAIN_STEPS}: kernels vs plain versions {rel}")
     if tight[0][1] > 1.0:
@@ -964,12 +1022,134 @@ def phase1_contrastive_kernels(dev, cfg):
     return errs, case
 
 
+def ohem_case(dev, g, hw, amp, block, ignore_frac, c=19):
+    """Logits (CITY_B, c, hw, hw) of a head and 769² labels on which the
+    label's class leads at most pixels: classes constant on block² cells of
+    the head's grid, each label the nearest cell's class, the logits amp on
+    that class and 0 elsewhere, shifted by -amp / 2, plus 0.3 randn; a share
+    `ignore_frac` of the labels 255."""
+    import torch
+
+    from u2pl_tpu_torch.ops.resize import resize_nearest
+
+    cells = torch.randint(0, c, (CITY_B, -(-hw // block), -(-hw // block)), device=dev,
+                          generator=g, dtype=torch.int32)
+    lab_s = resize_nearest(cells, (hw, hw))
+    onehot = torch.nn.functional.one_hot(lab_s.long(), c).permute(0, 3, 1, 2).float()
+    noise = torch.randn(CITY_B, c, hw, hw, device=dev, generator=g)
+    x = (amp * onehot - amp / 2 + 0.3 * noise).contiguous()
+    lab = resize_nearest(lab_s, (CITY_CROP, CITY_CROP)).contiguous()
+    lab[torch.rand(lab.shape, device=dev, generator=g) < ignore_frac] = 255
+    return x, lab
+
+
+def phase1_ohem_kernels(dev, cfg):
+    """K7 against its plain versions at the Cityscapes heads' shapes, with
+    the config's thresh and min_kept.  On identical inputs the k-th value
+    and the kept labels are bit-equal; against the whole plain route, the
+    kept pixels may differ only within K7_NEAR of the threshold (p_y differ
+    in the last ulps), and they are counted.  The loss is held against the
+    plain route, its gradient against the plain CE of the kernel route's
+    kept labels.  Returns {kernel: max error}."""
+    import torch
+
+    from u2pl_tpu_torch.losses import ce, ohem
+    from u2pl_tpu_torch.ops import quantile
+    from u2pl_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_plain
+
+    thresh, min_kept = cfg.criterion.thresh, cfg.criterion.min_kept
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    cases = [  # (name, head side, amp, block, ignored share, what the k-th value must do)
+        ("main head, k-th above thresh", CITY_OS4, 8.0, 8, 0.05, "above"),
+        ("aux head, k-th above thresh", CITY_OS8, 8.0, 8, 0.05, "above"),
+        ("main head, k-th below thresh", CITY_OS4, 6.0, 4, 0.05, "below"),
+        ("main head, fewer valid pixels than min_kept", CITY_OS4, 8.0, 8, 0.95, "unapplied"),
+        ("main head, all ignored", CITY_OS4, 8.0, 8, 1.0, "empty"),
+    ]
+    t32 = torch.tensor(thresh, dtype=torch.float32, device=dev)
+    prob_err = 0.0
+    for j, (name, hw, amp, block, ignore, expect) in enumerate(cases):
+        x, lab = ohem_case(dev, g, hw, amp, block, ignore)
+        k = min(lab.numel(), min_kept)
+        p, nv = ohem.ohem_target_prob(x, lab)
+        kth = quantile.kth_smallest(p, k)
+        kept = ohem.ohem_keep_labels(lab, p, kth, nv, thresh, min_kept)
+        kth_same = quantile.kth_smallest_plain(p, k)
+        kept_same = ohem.ohem_keep_labels_plain(lab, p, kth_same, nv, thresh, min_kept)
+        p_ref, nv_ref = ohem.ohem_target_prob_plain(x, lab)
+        up = resize_bilinear(x, lab.shape[1:])
+        p_a, _ = ohem._target_prob(up, lab, 255)
+        up_diff = (up - resize_bilinear_plain(x, lab.shape[1:])).abs().max().item()
+        del up
+        kth_ref = quantile.kth_smallest_plain(p_ref, k)
+        kept_ref = ohem.ohem_keep_labels_plain(lab, p_ref, kth_ref, nv_ref, thresh, min_kept)
+        torch.cuda.synchronize()
+        rel = ((p - p_ref).abs() / p_ref).max().item()
+        rel_a = ((p - p_a).abs() / p_a).max().item()
+        thr, thr_ref = torch.maximum(t32, kth), torch.maximum(t32, kth_ref)
+        near = (((p - thr).abs() <= K7_NEAR * thr) | ((p_ref - thr_ref).abs() <= K7_NEAR * thr_ref))
+        diff = kept != kept_ref
+        n_valid, n_kept = int(nv), int((kept != 255).sum())
+        n_diff, n_far = int(diff.sum()), int((diff & ~near).sum())
+        log(f"[phase 1] K7 {name} {tuple(x.shape)} -> {CITY_CROP}², min_kept {min_kept}: p_y rel "
+            f"{rel_a:.3e} against the softmax of kernel A's upsample (bound {K7_PROB_TOL}), "
+            f"{rel:.3e} against the plain version (bound {K7_PLAIN_TOL}; the two upsamples' "
+            f"logits {up_diff:.3e} apart); num_valid {n_valid} "
+            f"(plain {int(nv_ref)}); k-th "
+            f"{kth.item():.9g}, bit-equal on identical p_y {torch.equal(kth, kth_same)} (plain route "
+            f"{kth_ref.item():.9g}); kept {n_kept}, bit-equal on identical inputs "
+            f"{torch.equal(kept, kept_same)}; vs the plain route {n_diff} kept pixels differ, "
+            f"{n_far} of them farther than {K7_NEAR} from the threshold (bound 0)")
+        if not (rel_a <= K7_PROB_TOL and rel <= K7_PLAIN_TOL and n_valid == int(nv_ref)
+                and torch.equal(kth, kth_same)
+                and torch.equal(kept, kept_same) and n_far == 0):
+            fail(f"K7 ({name}) differs from its plain versions")
+        ok = {"above": kth.item() > thresh and n_valid >= min_kept,
+              "below": kth.item() < thresh and n_valid >= min_kept,
+              "unapplied": 0 < n_valid < min_kept and n_kept == n_valid,
+              "empty": n_valid == 0 and kth.item() == 1.0 and n_kept == 0}[expect]
+        if not ok:
+            fail(f"K7 ({name}): the case is not what it should show ({expect}): k-th "
+                 f"{kth.item()}, valid {n_valid}, kept {n_kept}")
+        prob_err = max(prob_err, (p - p_ref).abs().max().item())
+
+        # the whole loss: the kernel route against the plain route, and its
+        # gradient against the plain CE of the kernel route's kept labels
+        for use_weight in (False, True) if j == 0 else (False,):
+            xk, xp, xs = (x.clone().requires_grad_(True) for _ in range(3))
+            loss = ohem.ohem_cross_entropy(xk, lab, thresh, min_kept, 255, use_weight)
+            (gk,) = torch.autograd.grad(loss, xk)
+            ref = ohem.ohem_cross_entropy_plain(xp, lab, thresh, min_kept, 255, use_weight)
+            (gp,) = torch.autograd.grad(ref, xp)
+            cw = ohem._class_weight(use_weight, dev)
+            same = ce.upsample_cross_entropy_plain(xs, kept, 255, cw)
+            (gs,) = torch.autograd.grad(same, xs)
+            torch.cuda.synchronize()
+            if expect == "empty":
+                log(f"[phase 1] K7 {name}: loss {loss.item()}, gradient all zero "
+                    f"{not gk.any().item()} (must be 0 and True)")
+                if loss.item() != 0.0 or gk.any().item():
+                    fail("K7: an all-ignored map must give loss 0 and a zero gradient")
+                continue
+            le = abs(loss.item() - ref.item()) / abs(ref.item())
+            ge = (gk - gs).abs().max().item() / gs.abs().max().item()
+            ge_route = (gk - gp).abs().max().item() / gp.abs().max().item()
+            log(f"[phase 1] K7 + C {name}{', weighted' if use_weight else ''}: loss "
+                f"{loss.item():.6f} vs plain route {ref.item():.6f}, rel {le:.3e} (bound "
+                f"{C_LOSS_TOL}); gradient max abs diff / max |grad| {ge:.3e} against the plain "
+                f"CE of the same kept labels (bound {C_GRAD_TOL}), {ge_route:.3e} against the plain "
+                f"route")
+            if not (le <= C_LOSS_TOL and ge <= C_GRAD_TOL):
+                fail(f"K7 + C ({name}): loss {le}, gradient {ge}")
+        del x, lab, p, p_ref, p_a, kept, kept_same, kept_ref
+    return {"K7_prob": prob_err, "K7_kth": 0.0, "K7_keep": 0.0}
+
+
 def phase6_contrastive(dev, card, cfg):
     import torch
 
     import u2pl_tpu_torch.losses.contrastive as contrastive
     from u2pl_tpu_torch.memobank import clone_bank
-    from u2pl_tpu_torch.models.decoder import Dropout2d
     from u2pl_tpu_torch.ops import mixing
     from u2pl_tpu_torch.train.state import create_train_state
     from u2pl_tpu_torch.train.steps import draw_contrastive, make_semi_step, run_steps
@@ -1024,7 +1204,7 @@ def phase6_contrastive(dev, card, cfg):
             fail(f"step {i_iter}: con_loss {m['con_loss']} is not > 0")
     log(f"[phase 6] {TRAIN_STEPS} steps in {run_s:.2f} s; bank occupancy "
         f"{state.bank.occupancy.tolist()}, ptr {state.bank.ptr.tolist()}; launches {launches}")
-    missing = [name for name, v in launches.items() if v <= 0]
+    missing = [name for name in (*TRAIN_COUNTERS, *CONTRA_COUNTERS) if launches[name] <= 0]
     if missing:
         fail(f"a kernel of the contrastive training path was never launched: {missing}")
     log(f"[{card}] peak device memory over the {TRAIN_STEPS} contrastive training steps: "
@@ -1038,49 +1218,38 @@ def phase6_contrastive(dev, card, cfg):
     draws = draw_contrastive(g, cfg, (B_L + B_U) * OS4 * OS4)
     step = make_semi_step(cfg, STEPS_PER_EPOCH)
     original = contrastive.compute_contra_memobank_loss
-    runs, captured = {}, {}
-    for route in ("kernels", "plain"):
-        st = copy.deepcopy(snapshot)
-        for mm in list(st.student.modules()) + list(st.teacher.modules()):
-            if isinstance(mm, Dropout2d):
-                mm.p = 0.0
-        before = {a: p.detach().clone() for a, p in st.student.named_parameters()}
-        counts = read_counters()
+    captured = {}
 
-        def capture(*args, _route=route, **kw):
-            captured[_route] = ([a.detach().clone() if torch.is_tensor(a) else a for a in args],
-                                clone_bank(args[8]), kw)
+    def run(st, route):
+        def capture(*args, **kw):
+            captured[route] = ([a.detach().clone() if torch.is_tensor(a) else a for a in args],
+                               clone_bank(args[8]), kw)
             return original(*args, **kw)
 
         contrastive.compute_contra_memobank_loss = capture
         try:
-            with plain_versions() if route == "plain" else contextlib.nullcontext():
-                m = step(st, *batches[-1], mix=mix, contra=draws)
+            return step(st, *batches[-1], mix=mix, contra=draws)
         finally:
             contrastive.compute_contra_memobank_loss = original
-        torch.cuda.synchronize()
-        delta = {a: p.detach() - before[a] for a, p in st.student.named_parameters()}
-        runs[route] = (scalars(m), m["neg_cand"].tolist(), delta, read_counters() != counts, st.bank)
-        del st
-    (mk, nk, dk, _, bk), (mp, np_, dp, launched, bp) = runs["kernels"], runs["plain"]
-    if launched:
-        fail("the plain-version step launched a kernel")
+
+    runs = both_routes(snapshot, run)
+    del snapshot
+    (mk, dk, sk), (mp, dp, sp) = runs["kernels"], runs["plain"]
+    nk, np_ = mk["neg_cand"].tolist(), mp["neg_cand"].tolist()
+    mk, mp, bk, bp = scalars(mk), scalars(mp), sk.bank, sp.bank
     names = ("sup_loss", "uns_loss", "con_loss", "drop_thresh", "low_thresh", "high_thresh")
     rel = {a: abs(mk[a] - mp[a]) / max(abs(mp[a]), 1e-30) for a in names}
     (ak, _, _), (ap, _, _) = captured["kernels"], captured["plain"]
     discrete = {"labels": sum(int((ak[i] != ap[i]).sum()) for i in (1, 2)),
                 "masks": sum(int((ak[i] != ap[i]).sum()) for i in (5, 6))}
-    diff = {a: (dk[a] - dp[a]).norm().item() for a in dp}
-    norm = {a: dp[a].norm().item() for a in dp}
-    over = {a: diff[a] / (STEP_UPDATE_TOL * norm[a] + STEP_UPDATE_FLOOR * dp[a].numel() ** 0.5)
-            for a in dp}
-    tight = sorted(over.items(), key=lambda kv: -kv[1])[:3]
+    _, tight = update_closeness(dk, dp)
     log(f"[phase 6] step {TRAIN_STEPS} again, kernels vs plain versions: kernels {mk}; plain {mp}; "
         f"rel diffs {rel}; neg_cand {nk} vs {np_}; the loss's inputs: {discrete} label / mask "
         f"pixels differ, teacher softmax max abs diff "
         f"{(ak[3] - ap[3]).abs().max().item():.3e}; bank occupancy equal "
         f"{torch.equal(bk.occupancy, bp.occupancy)}; update closest to the bound, as a share of "
         f"it: {tight}")
+    del runs, sk, sp, bk, bp
     if not rel["con_loss"] <= CON_LOSS_TOL:
         fail(f"step {TRAIN_STEPS}: con_loss kernels vs plain versions {rel['con_loss']}")
     if not all(rel[a] <= STEP_LOSS_TOL for a in ("sup_loss", "uns_loss", "drop_thresh")):
@@ -1192,17 +1361,224 @@ def phase7_contrastive_timings(dev, card, cfg, state, batches, case):
     return {"semi_ms": med, "img_s": imgs * 1e3 / med, "peak": peak}, times
 
 
+def phase8_cityscapes(dev, card, cfg):
+    import torch
+
+    import u2pl_tpu_torch.losses.ohem as ohem
+    from u2pl_tpu_torch.config import load_config
+    from u2pl_tpu_torch.ops import mixing
+    from u2pl_tpu_torch.train.state import create_train_state
+    from u2pl_tpu_torch.train.steps import (
+        draw_contrastive, make_semi_step, make_sup_step, run_steps,
+    )
+
+    ccfg, crit, tr = cfg.trainer.contrastive, cfg.criterion, cfg.trainer
+    k = ccfg.max_keys_per_class_per_step
+    ignore = cfg.dataset.ignore_label
+    log(f"[phase 8] config {os.path.relpath(CITY_CONFIG, ROOT)}: {cfg.dataset.type}, "
+        f"{cfg.net.num_classes} classes, aux head (weight {cfg.net.aux_loss.loss_weight}), "
+        f"criterion {crit.type} (thresh {crit.thresh}, min_kept {crit.min_kept}, use_weight "
+        f"{crit.use_weight}), {tr.optimizer.type} lr {tr.optimizer.lr} (x1 head), contrastive "
+        f"{ccfg.num_queries} queries, {ccfg.num_negatives} negatives, {k} keys per class, a "
+        f"{ccfg.queue_dtype} bank; float32, TF32 off; {CITY_B}+{CITY_B} images of {CITY_CROP}², "
+        f"steps_per_epoch {STEPS_PER_EPOCH}, sup_only_epoch {tr.sup_only_epoch}, "
+        f"{TRAIN_STEPS} steps")
+    t0 = time.monotonic()
+    state = create_train_state(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    batches = synthetic_batches(dev, TRAIN_STEPS, CITY_B, CITY_CROP, cfg.net.num_classes, SEED + 12)
+    student, teacher = state.student, state.teacher
+    log(f"[phase 8] student + teacher ({sum(p.numel() for p in student.parameters())} parameters "
+        f"each), bank {tuple(state.bank.keys.shape)} {state.bank.keys.dtype} and {TRAIN_STEPS} "
+        f"batches built in {time.monotonic() - t0:.1f}s")
+    watch = {"auxor.aux.0.weight": student.auxor.aux[0].weight,
+             "auxor.aux.4.weight": student.auxor.aux[4].weight,
+             "decoder.representation.0.weight": student.decoder.representation[0].weight,
+             "decoder.representation.8.weight": student.decoder.representation[8].weight}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    enqueued = torch.zeros(cfg.net.num_classes, dtype=torch.int64, device=dev)
+
+    # each OHEM call's head (its logits' side) and kept-pixel count, recorded
+    # around `ohem_kept_labels` (the three K7 kernels; each counts its launches)
+    heads = []
+    kept_fn = ohem.ohem_kept_labels
+
+    def record_kept(logits, *args, **kw):
+        out = kept_fn(logits, *args, **kw)
+        heads.append((tuple(logits.shape[2:]), (out != ignore).sum()))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    history, snapshot = [], None
+    ohem.ohem_kept_labels = record_kept
+    t0 = time.monotonic()
+    try:
+        for i_iter, m in run_steps(state, batches, STEPS_PER_EPOCH, cfg, generator=gen):
+            epoch = i_iter // STEPS_PER_EPOCH
+            for name, p in watch.items():
+                if p.grad is None or not torch.isfinite(p.grad).all() or p.grad.abs().sum() == 0:
+                    fail(f"step {i_iter}: no finite nonzero gradient reached {name}")
+            enqueued += torch.clamp(m["neg_cand"], max=k)
+            expect = torch.minimum(enqueued, state.bank.sizes.long())
+            if not torch.equal(state.bank.occupancy.long(), expect):
+                fail(f"step {i_iter}: bank occupancy {state.bank.occupancy.tolist()} != "
+                     f"min(keys enqueued, size) {expect.tolist()}")
+            same = _params_equal(teacher, student)
+            if epoch == tr.sup_only_epoch and not same:
+                fail(f"step {i_iter} (first semi epoch): teacher != student")
+            if epoch > tr.sup_only_epoch and same:
+                fail(f"step {i_iter} (epoch {epoch}): teacher == student after the EMA")
+            history.append((i_iter, scalars(m), m["neg_cand"].tolist(), same))
+            if i_iter == TRAIN_STEPS - 2:
+                snapshot = copy.deepcopy(state)  # before step 5
+        torch.cuda.synchronize()
+    finally:
+        ohem.ohem_kept_labels = kept_fn
+    run_s = time.monotonic() - t0
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    kept = [(hw, int(c)) for hw, c in heads]
+    for j, (i_iter, m, neg, same) in enumerate(history):
+        log(f"[phase 8] step {i_iter} (semi, epoch {i_iter // STEPS_PER_EPOCH}): "
+            + ", ".join(f"{a} {v:.6g}" for a, v in m.items())
+            + f"; kept pixels (main {kept[2 * j][0]}, aux {kept[2 * j + 1][0]} heads): "
+            f"{kept[2 * j][1]}, {kept[2 * j + 1][1]} of {CITY_B * CITY_CROP ** 2}; "
+            f"teacher == student: {same}; neg_cand {neg}")
+        if not all(v == v and abs(v) != float("inf") for v in m.values()):
+            fail(f"step {i_iter}: non-finite metrics {m}")
+        if not m["con_loss"] > 0:
+            fail(f"step {i_iter}: con_loss {m['con_loss']} is not > 0")
+    want = [(CITY_OS4, CITY_OS4), (CITY_OS8, CITY_OS8)] * TRAIN_STEPS
+    if [hw for hw, _ in kept] != want:
+        fail(f"OHEM heads {[hw for hw, _ in kept]}: not the os4 main and os8 aux head per step")
+    log(f"[phase 8] {TRAIN_STEPS} steps in {run_s:.2f} s; bank occupancy "
+        f"{state.bank.occupancy.tolist()}; launches {launches}")
+    missing = [a for a, v in launches.items() if v <= 0]
+    if missing:
+        fail(f"a kernel of the Cityscapes training path was never launched: {missing}")
+    if any(launches[a] != 2 * TRAIN_STEPS for a in OHEM_COUNTERS):
+        fail(f"the OHEM kernels did not run on both heads of every step: {launches}")
+    log(f"[{card}] peak device memory over the {TRAIN_STEPS} Cityscapes training steps: "
+        f"{peak / 2**30:.2f} GiB")
+
+    # step 5 again from the snapshot, dropout off, the mix and the
+    # contrastive draws injected, through the kernels and the plain versions
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    mix = (torch.tensor(True, device=dev), mixing.draw_boxes(g, CITY_B, CITY_CROP, CITY_CROP))
+    draws = draw_contrastive(g, cfg, 2 * CITY_B * CITY_OS4 * CITY_OS4)
+    step = make_semi_step(cfg, STEPS_PER_EPOCH)
+    runs = both_routes(snapshot, lambda st, route: step(st, *batches[-1], mix=mix, contra=draws))
+    del snapshot
+    (mk, dk, _), (mp, dp, _) = runs["kernels"], runs["plain"]
+    del runs
+    mk, mp = scalars(mk), scalars(mp)
+    names = ("sup_loss", "uns_loss", "con_loss", "drop_thresh", "low_thresh", "high_thresh")
+    rel = {a: abs(mk[a] - mp[a]) / max(abs(mp[a]), 1e-30) for a in names}
+    _, tight = update_closeness(dk, dp)
+    log(f"[phase 8] step {TRAIN_STEPS} again, kernels vs plain versions: kernels {mk}; plain {mp}; "
+        f"rel diffs {rel}; update closest to the bound, as a share of it: {tight}")
+    if not rel["con_loss"] <= CON_LOSS_TOL:
+        fail(f"step {TRAIN_STEPS}: con_loss kernels vs plain versions {rel['con_loss']}")
+    if not all(rel[a] <= STEP_LOSS_TOL for a in ("sup_loss", "uns_loss", "drop_thresh")):
+        fail(f"step {TRAIN_STEPS}: kernels vs plain versions {rel}")
+    if tight[0][1] > 1.0:
+        fail(f"step {TRAIN_STEPS}: parameter update differs from the plain route: {tight}")
+
+    # the supervised baseline: experiments/cityscapes/744/suponly, make_sup_step
+    sup_cfg = load_config(CITY_SUP_CONFIG)
+    sup_state = create_train_state(sup_cfg, device=dev,
+                                   generator=torch.Generator().manual_seed(SEED + 1))
+    sup_step = make_sup_step(sup_cfg, STEPS_PER_EPOCH)
+    aux_w = sup_state.student.auxor.aux[4].weight
+    zero_counters()
+    sup_losses = []
+    for image, label, _ in batches[:CITY_SUP_STEPS]:
+        m = sup_step(sup_state, image, label, gen)
+        grad = aux_w.grad
+        if grad is None or not torch.isfinite(grad).all() or grad.abs().sum() == 0:
+            fail("suponly: no finite nonzero gradient reached auxor.aux.4.weight")
+        sup_losses.append(m["sup_loss"].item())
+    sup_launches = {a: v for a, v in read_counters().items() if v}
+    log(f"[phase 8] {os.path.relpath(CITY_SUP_CONFIG, ROOT)} ({sup_cfg.dataset.type}, criterion "
+        f"{sup_cfg.criterion.type}): {CITY_SUP_STEPS} make_sup_step steps of {CITY_B} images, "
+        f"sup_loss {sup_losses}; launches {sup_launches}")
+    if not all(v == v and abs(v) != float("inf") for v in sup_losses):
+        fail(f"suponly: non-finite losses {sup_losses}")
+    if any(sup_launches.get(a, 0) != 2 * CITY_SUP_STEPS for a in OHEM_COUNTERS):
+        fail(f"suponly: the OHEM kernels did not run on both heads of every step: {sup_launches}")
+    del sup_state, sup_step
+    return state, batches, launches, peak
+
+
+def phase9_city_timings(dev, card, cfg, state, batches):
+    import torch
+
+    from u2pl_tpu_torch.losses import ohem
+    from u2pl_tpu_torch.ops import quantile
+    from u2pl_tpu_torch.train.steps import make_semi_step
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    step = make_semi_step(cfg, STEPS_PER_EPOCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = []
+    for i in range(2 + 7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, *batches[i % len(batches)], gen)
+        torch.cuda.synchronize()
+        if i >= 2:
+            runs.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(runs)
+    imgs = 2 * CITY_B
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[{card}] Cityscapes semi step (OHEM, contrastive; {imgs} images of {CITY_CROP}², f32, "
+        f"synchronised): median {med:.1f} ms over {len(runs)} runs after 2 (min {min(runs):.1f}, "
+        f"max {max(runs):.1f}); {imgs * 1e3 / med:.2f} img/s; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+
+    thresh, min_kept = cfg.criterion.thresh, cfg.criterion.min_kept
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    x, lab = ohem_case(dev, g, CITY_OS4, 8.0, 8, 0.05)
+    p, nv = ohem.ohem_target_prob(x, lab)
+    k = min(p.numel(), min_kept)
+    kth = quantile.kth_smallest(p, k)
+    flat = p.reshape(-1)
+    times = {
+        "K7_prob": (cuda_ms(lambda: ohem.ohem_target_prob(x, lab)),
+                    cuda_ms(lambda: ohem.ohem_target_prob_plain(x, lab)), None),
+        "K7_kth": (cuda_ms(lambda: quantile.kth_smallest(p, k)),
+                   cuda_ms(lambda: quantile.kth_smallest_plain(p, k)),
+                   cuda_ms(lambda: torch.kthvalue(flat, k))),
+        "K7_keep": (cuda_ms(lambda: ohem.ohem_keep_labels(lab, p, kth, nv, thresh, min_kept)),
+                    cuda_ms(lambda: ohem.ohem_keep_labels_plain(lab, p, kth, nv, thresh, min_kept)),
+                    None),
+    }
+    shapes = {
+        "K7_prob": f"{tuple(x.shape)} -> {CITY_CROP}², labels {tuple(lab.shape)}",
+        "K7_kth": f"k {k} of {p.numel()} p_y",
+        "K7_keep": f"labels and p_y {tuple(lab.shape)}",
+    }
+    for name, (tk, tp, tl) in times.items():
+        lib = "" if tl is None else f"; torch.kthvalue {tl:.4f} ms"
+        log(f"[{card}] kernel {name} {shapes[name]}: {tk:.4f} ms; plain version {tp:.4f} ms{lib}")
+    return {"semi_ms": med, "img_s": imgs * 1e3 / med, "peak": peak}, times
+
+
 def bounds(case, cfg):
     """{kernel: (bound ms, "bytes" or "operations")}: the least time the card
     could take for each timed call, the larger of the bytes it must move
     over the HBM rate and its operations over the float32 peak, from the
-    shapes (and, for K5 and K6, this run's selections) of the timed calls."""
+    shapes (and, for K5 and K6, this run's selections) of the timed calls
+    (K7's: phase 9's Cityscapes main head)."""
     c, n = case["pri"].shape
     ccfg = cfg.trainer.contrastive
     q, m, k = ccfg.num_queries, ccfg.num_negatives, ccfg.max_keys_per_class_per_step
     f, b, hw = 256, B_L + B_U, OS4 * OS4
     lo, hi = 4 * 21 * OS4 * OS4, 4 * 21 * CROP * CROP  # (4, 21) logits at os4 / 513²
     px = 4 * CROP * CROP
+    cpx = CITY_B * CITY_CROP * CITY_CROP  # Cityscapes labels
+    clo, chi = 19 * CITY_B * CITY_OS4 * CITY_OS4, 19 * cpx  # its 19-class logits, os4 / 769²
     sel = int(case["n_sel"].sum())
     act = int(case["active"].sum())
     # operations per upsampled value: 9 for the bilinear taps (6 products,
@@ -1222,6 +1598,11 @@ def bounds(case, cfg):
         "K5": (sel * (f * 4 + 4 + f * 2), 0),
         "K6_fwd": (act * q * (f * 4 + m * (f * 2 + 4)) + act * f * 4, act * q * (m + 1) * f * 4),
         "K6_bwd": (b * f * hw * 4 + act * q * (f * 4 + 4), 0),
+        # K7 at the Cityscapes main head, timed in phase 9: p_y from the os4
+        # logits and the labels; k-th smallest: one read of p_y; kept labels
+        "K7_prob": (clo * 4 + cpx * 8, chi * 11),
+        "K7_kth": (cpx * 4, 0),
+        "K7_keep": (cpx * 12, 0),
     }
     out = {}
     for name, (nbytes, ops) in moved.items():
@@ -1264,6 +1645,8 @@ def main() -> int:
     ccfg = load_config(VOC_CONFIG)  # the `ours` config as it stands, contrastive included
     contra_errs, case = phase1_contrastive_kernels(dev, ccfg)
     errs.update(contra_errs)
+    city_cfg = load_config(CITY_CONFIG)  # as it stands: OHEM, aux head, contrastive
+    errs.update(phase1_ohem_kernels(dev, city_cfg))
     with tempfile.TemporaryDirectory(prefix="u2pl_chip_smoke_") as tmp:
         engine, images, loaded, launches = phase2_slice(dev, card, tmp)
         times = phase3_timings(dev, card, engine, images, loaded, tmp)
@@ -1274,11 +1657,16 @@ def main() -> int:
     state, batches, contra_launches, _ = phase6_contrastive(dev, card, ccfg)
     _, contra_times = phase7_contrastive_timings(dev, card, ccfg, state, batches, case)
     del state, batches
+    torch.cuda.empty_cache()
+    state, batches, city_launches, _ = phase8_cityscapes(dev, card, city_cfg)
+    _, city_times = phase9_city_timings(dev, card, city_cfg, state, batches)
+    del state, batches
     bound = bounds(case, ccfg)
 
     csrc = "u2pl_tpu_torch/kernels/csrc/"
     times.update(train_times)
     times.update(contra_times)
+    times.update(city_times)
 
     def entry(name, key, source, replaces, launches_, err, timing):
         ms, plain_ms, library_ms = times[timing]
@@ -1288,9 +1676,10 @@ def main() -> int:
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
     # launches: each path's run counted from 0 just before it (serving,
-    # training without and with the contrastive branch), summed per kernel
+    # training without and with the contrastive branch, Cityscapes
+    # training), summed per kernel
     def runs(key):
-        return train_launches[key] + contra_launches[key]
+        return train_launches[key] + contra_launches[key] + city_launches[key]
 
     report = {"kernels": [
         entry("resize_bilinear_ac", "A", "resize.cu", "u2pl_tpu/ops/resize.py:76",
@@ -1310,19 +1699,25 @@ def main() -> int:
         entry("unsup_mix_boxes", "K3", "mixing.cu", "u2pl_tpu/ops/mixing.py:62",
               runs("K3"), errs["K3"], "K3"),
         entry("contra_pixel_masks", "K4_masks", "contrastive.cu",
-              "u2pl_tpu/losses/contrastive.py:50", contra_launches["K4_masks"],
+              "u2pl_tpu/losses/contrastive.py:50", runs("K4_masks"),
               errs["K4_masks"], "K4_masks"),
         entry("select_keys", "K4_select", "contrastive.cu", "u2pl_tpu/losses/contrastive.py:89",
-              contra_launches["K4_select"], errs["K4_select"], "K4_select"),
+              runs("K4_select"), errs["K4_select"], "K4_select"),
         entry("sample_anchors", "K4_anchors", "contrastive.cu",
-              "u2pl_tpu/losses/contrastive.py:73", contra_launches["K4_anchors"],
+              "u2pl_tpu/losses/contrastive.py:73", runs("K4_anchors"),
               errs["K4_anchors"], "K4_anchors"),
         entry("memobank_enqueue", "K5", "memobank.cu", "u2pl_tpu/memobank.py:92",
-              contra_launches["K5"], errs["K5"], "K5"),
+              runs("K5"), errs["K5"], "K5"),
         entry("contra_infonce_fwd", "K6_fwd", "infonce.cu", "u2pl_tpu/losses/contrastive.py:168",
-              contra_launches["K6_fwd"], errs["K6_fwd"], "K6_fwd"),
+              runs("K6_fwd"), errs["K6_fwd"], "K6_fwd"),
         entry("contra_infonce_bwd", "K6_bwd", "infonce.cu", "u2pl_tpu/losses/contrastive.py:168",
-              contra_launches["K6_bwd"], errs["K6_bwd"], "K6_bwd"),
+              runs("K6_bwd"), errs["K6_bwd"], "K6_bwd"),
+        entry("ohem_target_prob", "K7_prob", "ohem.cu", "u2pl_tpu/losses/ohem.py:66",
+              city_launches["K7_prob"], errs["K7_prob"], "K7_prob"),
+        entry("kth_smallest", "K7_kth", "quantile.cu", "u2pl_tpu/losses/ohem.py:35",
+              city_launches["K7_kth"], errs["K7_kth"], "K7_kth"),
+        entry("ohem_keep_labels", "K7_keep", "ohem.cu", "u2pl_tpu/losses/ohem.py:76",
+              city_launches["K7_keep"], errs["K7_keep"], "K7_keep"),
     ]}
     log(card)
     log(json.dumps(report))

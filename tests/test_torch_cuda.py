@@ -411,3 +411,120 @@ def test_contrastive_kernels_refuse_what_they_do_not_take():
         tc.select_keys(mask.to(torch.uint8), torch.rand(3, 10, device=dev), 4)
     with pytest.raises(ValueError):
         tc.sample_anchors(mask, torch.arange(3, device=dev), torch.rand(3, 4, device=dev))
+
+
+# ---- the Cityscapes slice's kernels: K7 (OHEM) --------------------------------
+
+# (B, C, h, w) logits -> (H, W) labels: the Cityscapes main and aux heads, an odd one
+OHEM_SHAPES = [((2, 19, 193, 193), (769, 769)), ((2, 19, 97, 97), (769, 769)),
+               ((3, 5, 9, 7), (33, 25))]
+
+
+def _ohem_inputs(dev, shape, outsz, ignore_frac=0.05, seed=12):
+    """Logits whose label's class leads at most pixels (classes constant on
+    4x4 cells of the logits' grid, the class +4, the rest -4, plus noise), so
+    p_y spreads from ~0 to ~1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, c, h, w = shape
+    cells = torch.randint(0, c, (b, -(-h // 4), -(-w // 4)), device=dev, generator=g,
+                          dtype=torch.int32)
+    lab_s = tr.resize_nearest(cells, (h, w))
+    onehot = torch.nn.functional.one_hot(lab_s.long(), c).permute(0, 3, 1, 2).float()
+    x = (8 * onehot - 4 + 0.3 * torch.randn(shape, device=dev, generator=g)).contiguous()
+    lab = tr.resize_nearest(lab_s, outsz).contiguous()
+    lab[torch.rand(lab.shape, device=dev, generator=g) < ignore_frac] = 255
+    return x, lab
+
+
+@pytest.mark.parametrize("shape,outsz", OHEM_SHAPES)
+def test_kernel_ohem_target_prob_matches_plain(shape, outsz):
+    from u2pl_tpu_torch.losses import ohem
+
+    dev = _cuda()
+    x, lab = _ohem_inputs(dev, shape, outsz)
+    n = ohem.ohem_target_prob.launches
+    p, nv = ohem.ohem_target_prob(x, lab)
+    torch.cuda.synchronize()
+    assert ohem.ohem_target_prob.launches == n + 1
+    ref, nv_ref = ohem.ohem_target_prob_plain(x, lab)
+    assert nv.dtype == torch.int32 and torch.equal(nv, nv_ref)
+    # exp(x_y - max) / sum on kernel A's upsampled logits: the plain softmax
+    # of the same logits (measured bit-equal); the plain version's matmul
+    # resize rounds the logits (|x| < 6) up to 9.5e-7 apart
+    via_a, _ = ohem._target_prob(tr.resize_bilinear(x, outsz), lab, 255)
+    assert ((p - via_a).abs() <= 1e-6 * via_a).all()
+    assert ((p - ref).abs() <= 2e-6 * ref).all()
+    assert torch.equal(p[lab == 255], torch.ones_like(p[lab == 255]))
+
+
+def _kth_cases(dev):
+    g = torch.Generator(device=dev).manual_seed(13)
+    n = 2 * 769 * 769
+    p = torch.rand(n, device=dev, generator=g)
+    p[torch.rand(n, device=dev, generator=g) < 0.3] = 0.5  # a tie block
+    p[torch.rand(n, device=dev, generator=g) < 0.05] = 1.0  # the ignored-pixel filler
+    dup = torch.randint(0, 7, (5000,), device=dev, generator=g).float() * 0.25 - 0.5
+    return [(p, k) for k in (1, 100000, n // 2, n)] + [(dup, k) for k in (1, 2500, 5000)] + [
+        (torch.ones(333, device=dev), 100)]
+
+
+def test_kernel_kth_smallest_bit_equal_to_plain():
+    from u2pl_tpu_torch.ops import quantile
+
+    dev = _cuda()
+    for v, k in _kth_cases(dev):
+        n = quantile.kth_smallest.launches
+        got = quantile.kth_smallest(v, k)
+        torch.cuda.synchronize()
+        assert quantile.kth_smallest.launches == n + 1
+        ref = quantile.kth_smallest_plain(v, k)
+        assert got.dim() == 0 and torch.equal(got, ref), (v.numel(), k, got, ref)
+    with pytest.raises(ValueError):
+        quantile.kth_smallest(torch.rand(10, device=dev), 11)
+
+
+@pytest.mark.parametrize("min_kept,ignore_frac", [(10, 0.05), (100000, 0.05), (100000, 0.95),
+                                                  (100000, 1.0)])
+def test_kernel_ohem_keep_labels_bit_equal(min_kept, ignore_frac):
+    """thresh sets the threshold, the k-th value does, fewer valid pixels
+    than min_kept (every valid pixel kept), an all-ignored map."""
+    from u2pl_tpu_torch.losses import ohem
+    from u2pl_tpu_torch.ops import quantile
+
+    dev = _cuda()
+    x, lab = _ohem_inputs(dev, *OHEM_SHAPES[0], ignore_frac=ignore_frac)
+    p, nv = ohem.ohem_target_prob_plain(x, lab)
+    kth = quantile.kth_smallest_plain(p, min(p.numel(), min_kept))
+    n = ohem.ohem_keep_labels.launches
+    got = ohem.ohem_keep_labels(lab, p, kth, nv, 0.7, min_kept)
+    torch.cuda.synchronize()
+    assert ohem.ohem_keep_labels.launches == n + 1
+    ref = ohem.ohem_keep_labels_plain(lab, p, kth, nv, 0.7, min_kept)
+    assert got.dtype == torch.int32 and torch.equal(got, ref)
+    if 0 < int(nv) < min_kept:
+        assert int((got != 255).sum()) == int(nv)
+
+
+@pytest.mark.parametrize("shape,outsz,use_weight", [
+    (*OHEM_SHAPES[1], False), (*OHEM_SHAPES[1], True), (*OHEM_SHAPES[2], False)])
+def test_ohem_cross_entropy_matches_plain(shape, outsz, use_weight):
+    """The whole OHEM loss through the kernels: its value against the plain
+    route, rel 1e-5; its gradient against the plain CE of the same kept
+    labels, 1e-6 of the max (the kept set may differ from the plain route's
+    on pixels within rounding of the threshold)."""
+    from u2pl_tpu_torch.losses import ce, ohem
+    from u2pl_tpu_torch.ops import quantile
+
+    dev = _cuda()
+    x, lab = _ohem_inputs(dev, shape, outsz)
+    min_kept = lab.numel() // 10
+    xk, xp, xs = (x.clone().requires_grad_(True) for _ in range(3))
+    loss = ohem.ohem_cross_entropy(xk, lab, 0.7, min_kept, 255, use_weight)
+    (gk,) = torch.autograd.grad(loss * 3.0, xk)
+    ref = ohem.ohem_cross_entropy_plain(xp, lab, 0.7, min_kept, 255, use_weight)
+    p, nv = ohem.ohem_target_prob(x, lab)
+    kept = ohem.ohem_keep_labels(lab, p, quantile.kth_smallest(p, min_kept), nv, 0.7, min_kept)
+    same = ce.upsample_cross_entropy_plain(xs, kept, 255, ohem._class_weight(use_weight, dev))
+    (gs,) = torch.autograd.grad(same * 3.0, xs)
+    assert abs(loss.item() - ref.item()) <= 1e-5 * abs(ref.item())
+    assert (gk - gs).abs().max().item() <= 1e-6 * gs.abs().max().item()

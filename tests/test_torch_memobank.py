@@ -30,16 +30,16 @@ def assert_equal(got, ref):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_init_matches_jax(dtype):
     ref = jm.init_memobank(4, 8, queue_size=5, class0_size=9, dtype=jnp.dtype(dtype))
-    got = tm.init_memobank(4, 8, queue_size=5, class0_size=9, dtype=dtype)
+    got = tm.init_memobank(4, 8, queue_size=5, class0_size=9, dtype=dtype, device="cpu")
     assert got.keys.dtype == getattr(torch, dtype)
     assert_equal(got, ref)
     with pytest.raises(NotImplementedError, match="queue_dtype"):
-        tm.init_memobank(4, 8, dtype="float16")
+        tm.init_memobank(4, 8, dtype="float16", device="cpu")
 
 
 def test_enqueue_and_wraparound():
     ref = jm.init_memobank(2, 4, queue_size=5, class0_size=8, dtype=jnp.float32)
-    got = tm.init_memobank(2, 4, queue_size=5, class0_size=8, dtype=torch.float32)
+    got = tm.init_memobank(2, 4, queue_size=5, class0_size=8, dtype=torch.float32, device="cpu")
 
     def slab(start, n, k=6):
         keys = np.zeros((k, 4), np.float32)
@@ -66,7 +66,7 @@ def test_enqueue_and_wraparound():
 
 
 def test_empty_class_sampling_flag():
-    got = tm.init_memobank(3, 4, queue_size=5, class0_size=5, dtype=torch.float32)
+    got = tm.init_memobank(3, 4, queue_size=5, class0_size=5, dtype=torch.float32, device="cpu")
     ref_s, ref_ne = jm.sample(jm.init_memobank(3, 4, 5, 5, jnp.float32), jax.random.PRNGKey(0), 8)
     u = jax.random.uniform(jax.random.PRNGKey(0), (3, 8))
     got_s, got_ne = tm.sample(got, torch.from_numpy(np.array(u)))
@@ -78,8 +78,8 @@ def test_valid_mask_compaction_preserves_order():
     keys = np.arange(8, dtype=np.float32).repeat(2).reshape(1, 8, 2)
     valid = np.array([[0, 1, 0, 1, 1, 0, 0, 1]], bool)
     ref = jm.enqueue(jm.init_memobank(1, 2, 10, 10, jnp.float32), jnp.asarray(keys), jnp.asarray(valid))
-    got = tm.enqueue(tm.init_memobank(1, 2, 10, 10, torch.float32), torch.from_numpy(keys),
-                     torch.from_numpy(valid))
+    got = tm.enqueue(tm.init_memobank(1, 2, 10, 10, torch.float32, device="cpu"),
+                     torch.from_numpy(keys), torch.from_numpy(valid))
     assert_equal(got, ref)
     np.testing.assert_array_equal(got.keys[0, :4, 0].numpy(), [1, 3, 4, 7])
 
@@ -106,7 +106,8 @@ def test_overfull_single_enqueue_keeps_newest_size_keys():
     first = np.arange(c * 2 * f, dtype=np.float32).reshape(c, 2, f)
     keys = (100 + np.arange(c * 12 * f, dtype=np.float32)).reshape(c, 12, f)
     ref = jm.init_memobank(c, f, queue_size=qsize, class0_size=qsize, dtype=jnp.float32)
-    got = tm.init_memobank(c, f, queue_size=qsize, class0_size=qsize, dtype=torch.float32)
+    got = tm.init_memobank(c, f, queue_size=qsize, class0_size=qsize, dtype=torch.float32,
+                           device="cpu")
     for k in (first, keys):
         valid = np.ones(k.shape[:2], bool)
         ref = jm.enqueue(ref, jnp.asarray(k), jnp.asarray(valid))

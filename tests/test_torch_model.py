@@ -96,7 +96,7 @@ def pair(request):
     cfg = parse_config(raw)
     jmodel = build_jax_model(jax_parse_config(raw).net)
     variables = perturbed_flax_variables(jmodel)
-    tmodel = build_model(cfg.net)
+    tmodel = build_model(cfg.net, device="cpu")
     tmodel.load_state_dict(flax_to_torch(variables), strict=True)
     return jmodel, variables, tmodel.eval(), aux, v3_basic
 
@@ -150,7 +150,7 @@ def test_ceil_maxpool_matches_jax(size):
 def test_init_draws_only_from_the_generator():
     cfg = parse_config({"net": small_net_raw(False)})
     state = torch.random.get_rng_state()
-    a = build_model(cfg.net, generator=torch.Generator().manual_seed(7)).state_dict()
-    b = build_model(cfg.net, generator=torch.Generator().manual_seed(7)).state_dict()
+    a = build_model(cfg.net, device="cpu", generator=torch.Generator().manual_seed(7)).state_dict()
+    b = build_model(cfg.net, device="cpu", generator=torch.Generator().manual_seed(7)).state_dict()
     assert torch.equal(torch.random.get_rng_state(), state)
     assert all(torch.equal(a[k], b[k]) for k in a)

@@ -58,7 +58,7 @@ def train_forward():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(fnn.Dropout, "__call__", lambda self, x, **kw: x)
         ref, mut = jmodel.apply(variables, jnp.asarray(x), train=True, mutable=["batch_stats"])
-    model = zero_dropout(build_model(cfg.net))
+    model = zero_dropout(build_model(cfg.net, device="cpu"))
     model.load_state_dict(flax_to_torch(variables), strict=True)
     model.train()
     with torch.no_grad():
@@ -132,7 +132,7 @@ def test_dropout2d_draws_whole_channels_from_the_generator():
 
 def test_model_forward_hands_the_generator_to_dropout():
     cfg = parse_config({"net": small_net_raw(aux=True)})
-    model = build_model(cfg.net).train()
+    model = build_model(cfg.net, device="cpu").train()
     x = torch.randn(2, 3, 33, 33)
     with pytest.raises(ValueError, match="generator"):
         model(x)

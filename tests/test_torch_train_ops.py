@@ -306,7 +306,7 @@ def resnet10_variables():
 @pytest.mark.parametrize("kind,nesterov", [("SGD", False), ("SGD", True), ("Adam", False)])
 def test_optimizer_three_steps_match_optax(resnet10_variables, kind, nesterov):
     cfg, variables = resnet10_variables
-    model = build_model(cfg.net)
+    model = build_model(cfg.net, device="cpu")
     model.load_state_dict(flax_to_torch(variables), strict=True)
     opt_kw = dict(type=kind, lr=0.01, momentum=0.9, weight_decay=1e-4, nesterov=nesterov)
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])

@@ -38,6 +38,17 @@ implementations: the losses do not move, the gradient does.  Measured: a
 median of 3.3e-3 over tensors and 1.2e-2 at worst, where JAX against itself
 from weights moved by 1e-7 also moved 3.2e-3 (median).
 
+The Cityscapes-shaped trajectory (`city_trajectory`) runs the same three
+steps on `dataset.type: cityscapes_semi` (the x1 head LR), with the aux head
+(`small_net_raw(aux=True)`, loss weight 0.4) and `criterion: ohem` at thresh
+0.1 and min_kept 1700 of the 2178 labeled pixels (1980 valid): the small
+net's p_y spread from ~1e-8 to 1, the 1700-th smallest lies at 0.46-0.91 and
+sets the threshold (JAX's own k-th values are recorded and asserted > thresh
+on both heads of every step), so ~1700 pixels per head are kept where thresh
+alone would keep ~1400.  It is held to the bounds above; its drop threshold,
+an entropy percentile of the same teacher forward as the contrastive
+trajectory's thresholds, to their THRESH_RTOL (measured 1.0e-5 and 1.5e-5).
+
 The contrastive-on trajectory (`contra_trajectory`) runs the same three
 steps with the contrastive block of tests/test_train_step.py (a 64/96-key
 bf16 bank, 8 queries, 4 negatives, 16 keys per class and step); the port's
@@ -67,8 +78,10 @@ import torch
 
 from test_torch_contrastive import jax_draws
 from test_torch_model import small_net_raw
+from u2pl_tpu.config import head_lr_multiplier as jax_head_lr_multiplier
 from u2pl_tpu.config import parse_config as jax_parse_config
 from u2pl_tpu.dist import make_mesh
+from u2pl_tpu.losses import ohem as jax_ohem
 from u2pl_tpu.memobank import init_memobank as jax_init_memobank
 from u2pl_tpu.models import build_model as build_jax_model
 from u2pl_tpu.train.optim import make_optimizer as jax_make_optimizer
@@ -94,6 +107,7 @@ GLOBAL_L2 = 1e-2
 # weights moved by 1e-7 (module docstring)
 THRESH_RTOL = 3e-4
 KEY_ATOL = 1e-4
+OHEM_THRESH = 0.1  # city_raw_cfg: below the 1700-th smallest p_y
 
 
 # the contrastive block of tests/test_train_step.py, 5 classes
@@ -122,6 +136,18 @@ def raw_cfg(contrastive=None, **unsup):
         },
         "net": small_net_raw(aux=False),
     }
+
+
+def city_raw_cfg():
+    """The Cityscapes shape of `raw_cfg`: the x1 head LR of
+    `cityscapes_semi`, the aux head, OHEM with a live selection (module
+    docstring) and the Cityscapes configs' weight decay."""
+    raw = raw_cfg()
+    raw["dataset"]["type"] = "cityscapes_semi"
+    raw["net"] = small_net_raw(aux=True)
+    raw["criterion"] = {"type": "ohem", "kwargs": {"thresh": OHEM_THRESH, "min_kept": 1700}}
+    raw["trainer"]["optimizer"]["kwargs"]["weight_decay"] = 0.0005
+    return raw
 
 
 def batches():
@@ -190,14 +216,14 @@ def _jax_snapshot(state):
 
 def _port_state(cfg, snap, step):
     """The port's TrainState at JAX's state `snap` before global step `step`."""
-    student = build_model(cfg.net)
+    student = build_model(cfg.net, device="cpu")
     student.load_state_dict(
         flax_to_torch({"params": snap["params"], "batch_stats": snap["batch_stats"]}), strict=True
     )
     for m in student.modules():
         if isinstance(m, Dropout2d):
             m.p = 0.0
-    state = create_train_state(cfg, student=student)
+    state = create_train_state(cfg, device="cpu", student=student)
     state.teacher.load_state_dict(flax_to_torch(
         {"params": snap["teacher_params"], "batch_stats": snap["teacher_batch_stats"]}
     ), strict=True)
@@ -231,7 +257,8 @@ def _trajectory(raw):
     variables = _np_tree(init(jax.random.PRNGKey(0), jnp.zeros((1, HW, HW, 3))))
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
     bstats = jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"])
-    tx = jax_make_optimizer(jcfg.trainer.optimizer, params, head_lr_multiplier=10.0)
+    tx = jax_make_optimizer(jcfg.trainer.optimizer, params,
+                            head_lr_multiplier=jax_head_lr_multiplier(jcfg))
     state = TrainState(
         step=jnp.zeros((), jnp.int32), params=params, batch_stats=bstats,
         opt_state=tx.init(params), teacher_params=jax.tree_util.tree_map(jnp.copy, params),
@@ -304,6 +331,41 @@ def contra_trajectory():
     return _trajectory(raw_cfg(contrastive=CONTRA))
 
 
+def recording_kth(kths):
+    """A stand-in for the JAX `_kth_smallest` that appends each k-th value
+    it selects to `kths` (a debug callback out of the compiled step)."""
+    original = jax_ohem._kth_smallest
+
+    def kth_smallest(p_y, k):
+        kth = original(p_y, k)
+        jax.debug.callback(lambda v: kths.append(float(v)), kth)
+        return kth
+
+    return kth_smallest
+
+
+@pytest.fixture(scope="module")
+def city_trajectory():
+    """(the trajectory, the k-th smallest p_y of each OHEM call in JAX and in
+    the port: the main and the aux head of each of the three steps)."""
+    from u2pl_tpu_torch.ops import quantile
+
+    kths, port_kths = [], []
+    plain = quantile.kth_smallest_plain
+
+    def port_kth(p_y, k):
+        kth = plain(p_y, k)
+        port_kths.append(float(kth))
+        return kth
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_ohem, "_kth_smallest", recording_kth(kths))
+        mp.setattr(quantile, "kth_smallest_plain", port_kth)
+        out = _trajectory(city_raw_cfg())
+    jax.effects_barrier()
+    return out, kths, port_kths
+
+
 def _delta_close(got, ref, before, name):
     """Per tensor: the L2 of the two updates' difference within TENSOR_L2 of
     the reference update's norm, plus 1e-6 RMS per element for the tensors
@@ -325,8 +387,9 @@ def _global_close(pairs, name):
     assert diff <= GLOBAL_L2 * norm, f"{name}: global L2 {diff:.3e} vs {norm:.3e}"
 
 
-@pytest.mark.parametrize("i", range(STEPS))
-def test_losses_and_drop_threshold(trajectory, i):
+def check_losses(trajectory, i, drop_rtol):
+    """Step i's losses rtol 1e-4, LR rtol 1e-6, the drop threshold of a semi
+    step to `drop_rtol`.  Returns (JAX's, the port's) scalar metrics."""
     _, jax_after, torch_after, steps = trajectory
     assert steps[i] == (i, i + 1)  # (run_steps' i_iter, the device step after it)
     ref, got = jax_after[i][0], torch_after[i][0]
@@ -335,21 +398,22 @@ def test_losses_and_drop_threshold(trajectory, i):
     np.testing.assert_allclose(got["lr"], ref["lr"], rtol=1e-6)
     if i > 0:
         assert ref["uns_loss"] > 0
-        np.testing.assert_allclose(got["drop_thresh"], ref["drop_thresh"], rtol=1e-5)
+        np.testing.assert_allclose(got["drop_thresh"], ref["drop_thresh"], rtol=drop_rtol)
+    return ref, got
 
 
-@pytest.mark.parametrize("i", range(STEPS))
-def test_student_update(trajectory, i):
+def check_student_update(trajectory, i):
+    """Step i's student update in the L2 pattern; returns the tensors' names."""
     before, jax_after, torch_after, _ = trajectory
     pairs = [
         _delta_close(torch_after[i][1][k].numpy(), ref.numpy(), before[i][k].numpy(), f"step {i} {k}")
         for k, ref in jax_after[i][1].items()
     ]
     _global_close(pairs, f"step {i} student")
+    return list(jax_after[i][1])
 
 
-@pytest.mark.parametrize("i", range(STEPS))
-def test_teacher_parameters(trajectory, i):
+def check_teacher_parameters(trajectory, i):
     before, jax_after, torch_after, _ = trajectory
     t_ref, t_got, s_got = jax_after[i][2], torch_after[i][2], torch_after[i][1]
     params = list(jax_after[i][1])
@@ -364,8 +428,7 @@ def test_teacher_parameters(trajectory, i):
         assert any(not torch.equal(t_got[k], s_got[k]) for k in params)
 
 
-@pytest.mark.parametrize("i", range(STEPS))
-def test_teacher_bn_running_stats(trajectory, i):
+def check_teacher_bn_running_stats(trajectory, i):
     _, jax_after, torch_after, _ = trajectory
     t_ref, t_got = jax_after[i][2], torch_after[i][2]
     keys = [k for k in t_ref if k.endswith(("running_mean", "running_var"))]
@@ -374,6 +437,26 @@ def test_teacher_bn_running_stats(trajectory, i):
         w = t_ref[k].numpy()
         np.testing.assert_allclose(t_got[k].numpy(), w, rtol=1e-4, atol=1e-5 * np.abs(w).max(),
                                    err_msg=f"step {i} {k}")
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_losses_and_drop_threshold(trajectory, i):
+    check_losses(trajectory, i, drop_rtol=1e-5)
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_student_update(trajectory, i):
+    check_student_update(trajectory, i)
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_teacher_parameters(trajectory, i):
+    check_teacher_parameters(trajectory, i)
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_teacher_bn_running_stats(trajectory, i):
+    check_teacher_bn_running_stats(trajectory, i)
 
 
 def _bf16_ulp(x):
@@ -389,16 +472,12 @@ def test_contrastive_losses_and_thresholds(contra_trajectory, i):
     entropy by up to 2.9e-4 here; the port moved the thresholds by 9e-6 at
     step 1 and 4.2e-5 at step 2, and the low threshold of step 2, 1.6e-16,
     by 4.9e-5)."""
-    _, jax_after, torch_after, steps = contra_trajectory
-    assert steps[i] == (i, i + 1)
-    ref, got = jax_after[i][0], torch_after[i][0]
-    for k in ("sup_loss", "uns_loss", "con_loss"):
-        np.testing.assert_allclose(got[k], ref[k], rtol=1e-4, atol=1e-7, err_msg=k)
-    np.testing.assert_allclose(got["lr"], ref["lr"], rtol=1e-6)
+    _, jax_after, torch_after, _ = contra_trajectory
+    ref, got = check_losses(contra_trajectory, i, drop_rtol=THRESH_RTOL)
     np.testing.assert_array_equal(torch_after[i][3]["neg_cand"], jax_after[i][3]["neg_cand"])
     if i > 0:
-        assert ref["con_loss"] > 0 and ref["uns_loss"] > 0
-        for k in ("drop_thresh", "low_thresh", "high_thresh"):
+        assert ref["con_loss"] > 0
+        for k in ("low_thresh", "high_thresh"):
             np.testing.assert_allclose(got[k], ref[k], rtol=THRESH_RTOL, err_msg=k)
 
 
@@ -424,23 +503,51 @@ def test_contrastive_bank(contra_trajectory, i):
 def test_contrastive_student_update(contra_trajectory, i):
     """The update in the L2 pattern above; the contrastive loss reaches the
     representation head, so its tensors are held too."""
-    before, jax_after, torch_after, _ = contra_trajectory
-    keys = list(jax_after[i][1])
+    keys = check_student_update(contra_trajectory, i)
     assert any(k.startswith("decoder.representation.") for k in keys)
-    pairs = [
-        _delta_close(torch_after[i][1][k].numpy(), jax_after[i][1][k].numpy(),
-                     before[i][k].numpy(), f"step {i} {k}")
-        for k in keys
-    ]
-    _global_close(pairs, f"step {i} student")
 
 
-def test_sup_step_matches_jax():
-    """One `make_sup_step` on 4 labeled images (two batches' labeled
-    halves), from flax's init, in both packages; bounds as above."""
+def test_cityscapes_ohem_selection_is_live(city_trajectory):
+    """JAX's k-th smallest p_y lies above thresh on both heads of every step,
+    so the threshold is the k-th value and the selection decides; the port's
+    k-th values agree with JAX's to rtol 1e-4, the forward's own bound
+    (tests/test_torch_model.py; measured 1.5e-5), each step's pair sorted:
+    the order of the callbacks within a step is not fixed."""
+    _, kths, port_kths = city_trajectory
+    assert len(kths) == len(port_kths) == 2 * STEPS
+    assert min(kths) > OHEM_THRESH, kths
+    for i in range(STEPS):
+        np.testing.assert_allclose(sorted(port_kths[2 * i:2 * i + 2]),
+                                   sorted(kths[2 * i:2 * i + 2]), rtol=1e-4)
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_cityscapes_losses(city_trajectory, i):
+    check_losses(city_trajectory[0], i, drop_rtol=THRESH_RTOL)
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_cityscapes_student_update(city_trajectory, i):
+    """The update in the L2 pattern above, the aux head's tensors included."""
+    keys = check_student_update(city_trajectory[0], i)
+    assert any(k.startswith("auxor.") for k in keys)
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_cityscapes_teacher(city_trajectory, i):
+    """The teacher's parameters (the copy and the EMA) and BN statistics,
+    as above."""
+    check_teacher_parameters(city_trajectory[0], i)
+    check_teacher_bn_running_stats(city_trajectory[0], i)
+
+
+def sup_step_case(raw):
+    """One `make_sup_step` on 4 labeled images (two batches' labeled halves),
+    from flax's init, in both packages: (port metrics, JAX metrics, port
+    student state_dict, JAX params after, params before)."""
     from u2pl_tpu_torch.train.steps import make_sup_step
 
-    cfg, jcfg = parse_config(raw_cfg()), jax_parse_config(raw_cfg())
+    cfg, jcfg = parse_config(raw), jax_parse_config(raw)
     data = batches()
     img = np.concatenate([data[0][0], data[1][0]])
     lab = np.concatenate([data[0][1], data[1][1]])
@@ -448,7 +555,8 @@ def test_sup_step_matches_jax():
     init = jax.jit(lambda k, x: model.init(k, x, train=False))
     variables = _np_tree(init(jax.random.PRNGKey(1), jnp.zeros((1, HW, HW, 3))))
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
-    tx = jax_make_optimizer(jcfg.trainer.optimizer, params, head_lr_multiplier=10.0)
+    tx = jax_make_optimizer(jcfg.trainer.optimizer, params,
+                            head_lr_multiplier=jax_head_lr_multiplier(jcfg))
     state = TrainState(step=jnp.asarray(3, jnp.int32), params=params,
                        batch_stats=jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"]),
                        opt_state=tx.init(params))
@@ -465,13 +573,24 @@ def test_sup_step_matches_jax():
     got = make_sup_step(cfg, 2)(
         tstate, torch.from_numpy(img).permute(0, 3, 1, 2).contiguous(), torch.from_numpy(lab)
     )
-    np.testing.assert_allclose(float(got["sup_loss"]), float(ref["sup_loss"]), rtol=1e-4)
-    np.testing.assert_allclose(float(got["lr"]), float(ref["lr"]), rtol=1e-6)
     assert int(tstate.step) == 4
     before = flax_to_torch({"params": variables["params"]})
-    sd = tstate.student.state_dict()
-    _global_close([_delta_close(sd[k].numpy(), after[k].numpy(), before[k].numpy(), f"sup {k}")
-                   for k in after], "sup step")
+    return got, ref, tstate.student.state_dict(), after, before
+
+
+def assert_sup_step_close(case, name):
+    """The sup step's loss rtol 1e-4, LR rtol 1e-6, update in the L2 pattern."""
+    got, ref, sd, after, before = case
+    np.testing.assert_allclose(float(got["sup_loss"]), float(ref["sup_loss"]), rtol=1e-4)
+    np.testing.assert_allclose(float(got["lr"]), float(ref["lr"]), rtol=1e-6)
+    _global_close([_delta_close(sd[k].numpy(), after[k].numpy(), before[k].numpy(), f"{name} {k}")
+                   for k in after], name)
+
+
+def test_sup_step_matches_jax():
+    """One `make_sup_step` on 4 labeled images, from flax's init, in both
+    packages; bounds as above."""
+    assert_sup_step_close(sup_step_case(raw_cfg()), "sup step")
 
 
 def test_unported_branches_raise():
@@ -484,10 +603,21 @@ def test_unported_branches_raise():
     make_semi_step(parse_config(raw_cfg(contrastive=CONTRA)), 1)  # ported
     ohem = raw_cfg()
     ohem["criterion"] = {"type": "ohem", "kwargs": {"thresh": 0.7, "min_kept": 100}}
-    with pytest.raises(NotImplementedError, match="ohem"):
-        make_sup_step(parse_config(ohem), 1)
+    make_sup_step(parse_config(ohem), 1)  # ported: the Cityscapes criterion
+    make_semi_step(parse_config(ohem), 1)
     with pytest.raises(NotImplementedError, match="classmix"):
         make_semi_step(parse_config(raw_cfg(apply_aug="classmix")), 1)
+
+
+def test_entry_points_default_to_the_card():
+    """`build_model`, `create_train_state` and `init_memobank` put their
+    tensors on the card unless the caller names the CPU."""
+    import inspect
+
+    from u2pl_tpu_torch.memobank import init_memobank
+
+    for fn in (build_model, create_train_state, init_memobank):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
 
 
 def test_steps_module_imports_no_jax():
@@ -499,7 +629,8 @@ def test_steps_module_imports_no_jax():
 import ast, importlib, pkgutil, sys
 import u2pl_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(u2pl_tpu_torch.__path__, "u2pl_tpu_torch.")]
-assert "u2pl_tpu_torch.train.steps" in mods and "u2pl_tpu_torch.memobank" in mods, mods
+assert {"u2pl_tpu_torch.train.steps", "u2pl_tpu_torch.memobank",
+        "u2pl_tpu_torch.losses.ohem"} <= set(mods), mods
 for m in mods:
     importlib.import_module(m)
 import chip_smoke

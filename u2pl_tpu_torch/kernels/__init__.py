@@ -57,6 +57,13 @@ def load():
         "u2pl_contra_infonce_fwd": [p] * 12 + [i] * 8 + [f, p],
         # (anchor_idx, active, valid_seg, gdir, g, grad_rep, B, F, HW, C, Q, stream)
         "u2pl_contra_infonce_bwd": [p] * 6 + [i] * 5 + [p],
+        # (values, out, state, n, k, stream)
+        "u2pl_kth_smallest": [p] * 3 + [i] * 2 + [p],
+        # (x, labels, p_y, num_valid, idx_h, w_h, idx_w, w_w,
+        #  B, C, H, W, OH, OW, ignore, stream)
+        "u2pl_ohem_target_prob": [p] * 8 + [i] * 7 + [p],
+        # (labels, p_y, kth, num_valid, out, n, thresh, min_kept, ignore, stream)
+        "u2pl_ohem_keep_labels": [p] * 5 + [i, f, i, i, p],
         "u2pl_upsample_ce_parts": [],
         "u2pl_quantile_max_queries": [],
         "u2pl_quantile_state_words": [],

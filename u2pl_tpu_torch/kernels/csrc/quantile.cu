@@ -21,6 +21,14 @@
 // Bound: five reads of the values and the mask (~5 MB each at 1,052,676
 // values), plus ten launches; the selection itself is O(K * 256) per level.
 // At most 4 queries per call (the contrastive slice needs 3).
+//
+// u2pl_kth_smallest (family K7) is the same descent with a rank in place of
+// a percent: no mask (every value counts) and one query at the 0-based rank
+// k - 1; replaces u2pl_tpu/losses/ohem.py:_kth_smallest (:35), OHEM's
+// min_kept-th smallest target-class probability.  The four histogram passes
+// are E's own kernel; the result, the selected key turned back into its
+// f32, stays on the device.  Bound: bytes, one read of the values (4.7 MB
+// at 2 x 769²); the descent reads them four times, in nine launches.
 
 #include <math.h>
 
@@ -52,10 +60,16 @@ __device__ __forceinline__ unsigned* q_state(unsigned* st, int q) {
   return st + 8 + 8 * q;
 }
 
+// a null mask: every value counts (the k-th smallest of u2pl_kth_smallest)
+__device__ __forceinline__ bool counted(const uint8_t* __restrict__ m,
+                                        unsigned i) {
+  return m == nullptr || m[i];
+}
+
 __device__ __forceinline__ unsigned key_at(const float* __restrict__ v,
                                            const uint8_t* __restrict__ m,
                                            unsigned i) {
-  return m[i] ? order_key(v[i]) : kInfKey;
+  return counted(m, i) ? order_key(v[i]) : kInfKey;
 }
 
 __global__ void radix_hist_kernel(const float* __restrict__ v,
@@ -73,7 +87,7 @@ __global__ void radix_hist_kernel(const float* __restrict__ v,
   for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x) {
     const unsigned key = key_at(v, m, i);
-    if (level == 0) count += m[i] ? 1u : 0u;
+    if (level == 0) count += counted(m, i) ? 1u : 0u;
     const unsigned bin = (key >> shift) & (kBins - 1);
     for (int q = 0; q < K; ++q) {
       if (level == 0 || (key >> (shift + 8)) == (prefix[q] >> (shift + 8))) {
@@ -90,15 +104,19 @@ __global__ void radix_hist_kernel(const float* __restrict__ v,
 }
 
 // one thread per query: at level 0 it first turns the percent into ranks
-// exactly as quantile.py:153-157 does; then it takes the first digit whose
-// cumulative count exceeds the remaining rank, and clears its histogram
-__global__ void radix_select_kernel(const float* __restrict__ pct, unsigned n,
-                                    int K, int level,
+// exactly as quantile.py:153-157 does (with no percents, query 0 takes the
+// 0-based `rank0`); then it takes the first digit whose cumulative count
+// exceeds the remaining rank, and clears its histogram
+__global__ void radix_select_kernel(const float* __restrict__ pct, int rank0,
+                                    unsigned n, int K, int level,
                                     unsigned* __restrict__ st) {
   const int q = threadIdx.x;
   if (q >= K) return;
   unsigned* s = q_state(st, q);
-  if (level == 0) {
+  if (level == 0 && pct == nullptr) {
+    s[0] = 0;
+    s[1] = (unsigned)rank0;
+  } else if (level == 0) {
     const int nv = (int)st[0];
     const int nm1 = nv - 1 > 0 ? nv - 1 : 0;
     const float rank =
@@ -183,6 +201,11 @@ __global__ void quantile_finalize_kernel(int K, const unsigned* __restrict__ st,
   out[q] = st[0] > 0 ? r : INFINITY;
 }
 
+__global__ void kth_finalize_kernel(const unsigned* __restrict__ st,
+                                    float* __restrict__ out) {
+  out[0] = key_to_f32(st[8]);  // query 0's selected key
+}
+
 }  // namespace
 
 extern "C" {
@@ -204,8 +227,8 @@ int u2pl_masked_percentiles(const void* values, const void* mask,
         (unsigned*)state);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    radix_select_kernel<<<1, 32, 0, s>>>((const float*)pct, (unsigned)n, K,
-                                         level, (unsigned*)state);
+    radix_select_kernel<<<1, 32, 0, s>>>((const float*)pct, 0, (unsigned)n,
+                                         K, level, (unsigned*)state);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -216,6 +239,28 @@ int u2pl_masked_percentiles(const void* values, const void* mask,
   if (err != cudaSuccess) return (int)err;
   quantile_finalize_kernel<<<1, 32, 0, s>>>(K, (const unsigned*)state,
                                             (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// the exact k-th smallest (1-based) of n f32 values into out[0];
+// state: u2pl_quantile_state_words() zeroed u32 words
+int u2pl_kth_smallest(const void* values, void* out, void* state, int n,
+                      int k, void* stream) {
+  if (n <= 0 || k < 1 || k > n) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int blocks = u2pl::blocks_for(n, kMaxBlocks);
+  for (int level = 0; level < 4; ++level) {
+    radix_hist_kernel<<<blocks, kThreads, 0, s>>>(
+        (const float*)values, nullptr, (unsigned)n, 1, level,
+        (unsigned*)state);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    radix_select_kernel<<<1, 32, 0, s>>>(nullptr, k - 1, (unsigned)n, 1,
+                                         level, (unsigned*)state);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  kth_finalize_kernel<<<1, 1, 0, s>>>((const unsigned*)state, (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -44,9 +44,10 @@ def init_memobank(
     queue_size: int = 30000,
     class0_size: int = 50000,
     dtype: Union[str, torch.dtype] = torch.bfloat16,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
 ) -> MemoryBank:
-    """An empty bank; `dtype` a torch dtype or a `queue_dtype` name."""
+    """An empty bank on `device` (the card unless the caller names the
+    CPU); `dtype` a torch dtype or a `queue_dtype` name."""
     if isinstance(dtype, str):
         if dtype not in BANK_DTYPES:
             raise NotImplementedError(

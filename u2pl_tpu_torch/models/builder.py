@@ -96,11 +96,12 @@ def init_weights(model: SegModel, generator: torch.Generator) -> None:
 
 def build_model(
     net: NetCfg,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
     generator: Optional[torch.Generator] = None,
 ) -> SegModel:
-    """Float32 SegModel on `device`, initialised from `generator` (a fresh
-    seed-0 CPU generator by default).  Built on the meta device first, so no
+    """Float32 SegModel on `device` (the card unless the caller names the
+    CPU), initialised from `generator` (a fresh seed-0 CPU generator by
+    default).  Built on the meta device first, so no
     global RNG is drawn; weights are then drawn on the CPU and moved.
     `net.dtype` (bfloat16 compute) is not ported: callers choose float32,
     as serve.py's default `--dtype float32` does."""

@@ -11,6 +11,11 @@ bit-equal to it; an empty mask gives +inf.
 selection, no sort) on the card and its plain version, the masked sort, on
 the CPU.  Nothing syncs with the host: the percents come in and the
 results go out as device tensors.
+
+`kth_smallest` is OHEM's order statistic (port of
+u2pl_tpu/losses/ohem.py:_kth_smallest): the same radix descent on the card
+(`u2pl_kth_smallest`, kernel E's histogram passes with a rank in place of a
+percent), a sort and an index on the CPU; bit-equal to JAX either way.
 """
 
 from __future__ import annotations
@@ -96,3 +101,39 @@ def masked_percentiles(
 
 
 masked_percentiles.launches = 0
+
+
+def kth_smallest_plain(values: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain PyTorch version of `kth_smallest`: a sort and an index."""
+    return torch.sort(values.reshape(-1).float()).values[k - 1]
+
+
+def kth_smallest(values: torch.Tensor, k: int) -> torch.Tensor:
+    """The exact 1-based k-th smallest of the f32 `values` (any shape, read
+    flat) as a 0-d tensor on their device; nothing is read back to the host.
+    Bit-equal to the JAX `_kth_smallest` (ohem.py:35)."""
+    n = values.numel()
+    if not 1 <= k <= n:
+        raise ValueError(f"kth_smallest: k {k} of {n} values")
+    if values.device.type == "cpu":
+        return kth_smallest_plain(values, k)
+    from u2pl_tpu_torch.ops.resize import _check_cuda_f32
+
+    _check_cuda_f32(values, values.dim(), "kth_smallest")
+    from u2pl_tpu_torch.kernels import check, load
+
+    lib = load()
+    dev = values.device
+    state = torch.zeros(lib.u2pl_quantile_state_words(), dtype=torch.int32, device=dev)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.u2pl_kth_smallest(
+            values.data_ptr(), out.data_ptr(), state.data_ptr(), n, int(k),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    check(lib, err, "kth_smallest launch")
+    kth_smallest.launches += 1
+    return out
+
+
+kth_smallest.launches = 0

@@ -36,12 +36,13 @@ class TrainState:
 
 def create_train_state(
     cfg: Config,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
     generator: Optional[torch.Generator] = None,
     student: Optional[SegModel] = None,
 ) -> TrainState:
-    """Student from `build_model` (or the one given), the teacher a copy of
-    it (parameters and BN buffers) that takes no gradient, the optimizer
+    """On `device` (the card unless the caller names the CPU): the student
+    from `build_model` (or the one given), the teacher a copy of it
+    (parameters and BN buffers) that takes no gradient, the optimizer
     with the head group at x `head_lr_multiplier(cfg)`, and the empty bank
     and zero prototype when the config has `trainer.contrastive`."""
     if student is None:

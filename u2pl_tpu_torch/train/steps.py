@@ -20,15 +20,19 @@ back to the host.  The anatomy follows the JAX steps line by line:
   -> optimizer step at the poly LR -> EMA of the teacher's parameters, with
   decay 0 in the first semi epoch.
 
+  The supervised loss follows `criterion.type`: the CE of the upsampled
+  logits (kernel C), or OHEM on the Cityscapes configs (`losses/ohem.py`:
+  kernels K7 pick the hard pixels, kernel C takes their CE), each on the
+  main head and, with `net.aux_loss`, the aux head.
+
 `run_steps` sequences the warmup and semi steps by epoch, as
 train_semi.py does.
 
 Dropout masks, the mix draws (coin, boxes) and the contrastive draws
 (key priorities, anchor and bank draws) come from the `generator` passed to
 the step; `mix=(coin, boxes)` and `contra=(pri, u_anchor, u_neg)` inject
-them instead.  OHEM (`criterion.type: ohem`), `contrastive.anchor_ema` and
-`contrastive.select_keys: radix` raise NotImplementedError: they are later
-slices (ROADMAP.md).
+them instead.  `contrastive.anchor_ema` and `contrastive.select_keys: radix`
+raise NotImplementedError: they are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -40,21 +44,13 @@ import torch
 
 from u2pl_tpu_torch.config import Config
 from u2pl_tpu_torch.losses import ce as ce_loss
-from u2pl_tpu_torch.losses import contrastive, unsup
+from u2pl_tpu_torch.losses import contrastive, ohem, unsup
 from u2pl_tpu_torch.ops import mixing, quantile
 from u2pl_tpu_torch.ops.resize import resize_nearest
 from u2pl_tpu_torch.train.lr import _div, lr_at
 from u2pl_tpu_torch.train.state import TrainState, copy_student_to_teacher
 
 Metrics = Dict[str, torch.Tensor]
-
-
-def _check_ported(cfg: Config) -> None:
-    if cfg.criterion.type == "ohem":
-        raise NotImplementedError(
-            "criterion.type: ohem is not ported yet (ROADMAP.md queue 1, "
-            "'Cityscapes family (OHEM, K7)')"
-        )
 
 
 def _check_contrastive_ported(cfg: Config) -> None:
@@ -73,15 +69,23 @@ def _check_contrastive_ported(cfg: Config) -> None:
 
 
 def make_sup_loss_fn(cfg: Config) -> Callable:
-    """sup_loss(pred_os4, labels, aux_os4) with the config's aux weight,
+    """sup_loss(pred, labels, aux) on the heads' own strides (os4 main, os8
+    aux), upsampled inside the loss, with the config's criterion, aux weight,
     ignore label and use_weight (steps.py:51-66)."""
-    _check_ported(cfg)
+    crit = cfg.criterion
     aux_w = cfg.net.aux_loss.loss_weight if cfg.net.aux_loss else 0.0
+    ign = cfg.dataset.ignore_label
+    if crit.type == "ohem":
+        return functools.partial(
+            ohem.ohem_supervised_loss,
+            aux_weight=aux_w,
+            thresh=crit.thresh,
+            min_kept=crit.min_kept,
+            ignore_label=ign,
+            use_weight=crit.use_weight,
+        )
     return functools.partial(
-        ce_loss.supervised_loss,
-        aux_weight=aux_w,
-        ignore_label=cfg.dataset.ignore_label,
-        use_weight=cfg.criterion.use_weight,
+        ce_loss.supervised_loss, aux_weight=aux_w, ignore_label=ign, use_weight=crit.use_weight
     )
 
 
