@@ -52,14 +52,30 @@ Phases; any failure ends the run with a nonzero exit code:
      through the kernels and through the plain versions, compared; then 2
      steps of experiments/cityscapes/744/suponly through `make_sup_step`;
   9. Cityscapes timings: the semi step's median, images/s and peak memory,
-     and each OHEM kernel (K7) beside its plain version and a library call.
+     and each OHEM kernel (K7) beside its plain version and a library call;
+ 10. the trainer CLIs: a synthetic VOC-layout workspace (16 labeled, 16
+     unlabeled and 4 val JPEG / PNG pairs of 500x375, from SEED) and
+     `u2pl_tpu_torch.train_semi.main` on experiments/pascal/1464/ours as it
+     stands but for the data paths, n_sup 16, pool_size 32, 2 epochs and
+     sup_only_epoch 1 (4 steps of 4 + 4 images at 513² per epoch, the
+     contrastive branch on): two validations with per-class IoU, ckpt.pth
+     and ckpt_best.pth, every kernel's launches (kernel B once per val
+     image); then a rerun with epochs 3 and auto_resume, which must start
+     at epoch 2, step 8 with the saved bank, and `train_sup` on suponly for
+     one epoch; step time, data wait, checkpoint seconds and bytes;
+ 11. the variant: the same workspace with apply_aug classmix,
+     contrastive.select_keys radix and sup_only_epoch 0, one epoch; the
+     K3c and K4r kernels must launch; its last step again through the
+     kernels and through the plain versions, compared.
 Phase 1 also holds the contrastive kernels (K4: pixel masks, key selection,
 anchor draws; K5: the bank write; K6: the InfoNCE forward and backward)
 against their plain versions at the flagship shapes, on a prefilled bank
-that wraps, and the OHEM kernels (K7: target-class probability, k-th
+that wraps, the OHEM kernels (K7: target-class probability, k-th
 smallest, kept labels) at the Cityscapes heads' shapes, with the k-th value
 above and below thresh, an all-ignored map and fewer valid pixels than
-min_kept.
+min_kept, and K3c (ClassMix) and K4r (radix key selection) bit-equal at the
+flagship's shapes, with tied draws, a single-class sample, keys tied at the
+threshold, valid 0xFFFFFFFF keys, a class under the cap and an empty one.
 It prints a JSON line of kernels (each with its launches on the main paths,
 its error against its plain version, its time beside the plain version's,
 its bound and a library call's time), then one JSON line
@@ -84,6 +100,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 VOC_CONFIG = os.path.join(ROOT, "experiments", "pascal", "1464", "ours", "config.yaml")
 CITY_CONFIG = os.path.join(ROOT, "experiments", "cityscapes", "744", "ours", "config.yaml")
 CITY_SUP_CONFIG = os.path.join(ROOT, "experiments", "cityscapes", "744", "suponly", "config.yaml")
+VOC_SUP_CONFIG = os.path.join(ROOT, "experiments", "pascal", "1464", "suponly", "config.yaml")
 SEED = 0
 
 # phase 1 shapes: kernel A (B, C, H, W) -> (OH, OW); kernel B (C, H, W) -> (h, w)
@@ -526,7 +543,7 @@ def phase1_train_kernels(dev):
     lab = torch.randint(0, 21, (B_U, CROP, CROP), device=dev, generator=g, dtype=torch.int32)
     prob = torch.rand(B_U, CROP, CROP, device=dev, generator=g)
     boxes = mixing.draw_boxes(g, B_U, CROP, CROP)
-    for mode in mixing.MODES:
+    for mode in ("cutmix", "cutout"):
         got = mixing.generate_unsup_data(img, lab, prob, boxes, mode)
         ref = mixing.generate_unsup_data_plain(img, lab, prob, boxes, mode)
         torch.cuda.synchronize()
@@ -536,6 +553,93 @@ def phase1_train_kernels(dev):
             fail(f"kernel K3 ({mode}) is not bit-equal to its plain version")
     errs["K3"] = 0.0
     return errs
+
+
+def classmix_case(dev, g):
+    """K3c's inputs at the flagship's shapes: (4, 3, 513², 513²) images,
+    pseudo-labels (~5% 255, which count as class C-1; sample 1 a single
+    class), max-probs and (4, C) draws, sample 0's with ties."""
+    import torch
+
+    img = torch.randn(B_U, 3, CROP, CROP, device=dev, generator=g)
+    lab = torch.randint(0, 21, (B_U, CROP, CROP), device=dev, generator=g, dtype=torch.int32)
+    lab[torch.rand(lab.shape, device=dev, generator=g) < 0.05] = 255
+    lab[1] = 7
+    prob = torch.rand(B_U, CROP, CROP, device=dev, generator=g)
+    u = torch.rand(B_U, 21, device=dev, generator=g)
+    u[0, 1::3] = u[0, 0]
+    return img, lab, prob, u
+
+
+def radix_case(dev, g, negative, k):
+    """K4r's inputs: the flagship's (21, N) negative mask with u32 keys (in
+    int32) from `g`, and planted cases on the classes with the most
+    candidates, in order: 64 more masked keys tied at the rank-k key (the
+    first, over the cap), a masked key 0xFFFFFFFF, a class cut to k // 2
+    masked pixels (all taken, one of them keyed 0xFFFFFFFF), an empty
+    class.  Returns (mask, keys, the
+    four classes)."""
+    import torch
+
+    mask = negative.clone()
+    keys = torch.randint(-2**31, 2**31, mask.shape, device=dev, generator=g, dtype=torch.int64)
+    keys = keys.to(torch.int32)
+    tie, top, cut, empty = torch.argsort(mask.sum(1), descending=True)[:4].tolist()
+    u32 = keys.to(torch.int64) & 0xFFFFFFFF
+    kv = torch.where(mask[tie], u32[tie], torch.full_like(u32[tie], 2**32 - 1))
+    t = int(torch.kthvalue(kv, k).values)
+    above = torch.nonzero(mask[tie] & (u32[tie] > t)).flatten()[:64]
+    keys[tie, above] = t - 2**32 if t >= 2**31 else t
+    keys[top, torch.nonzero(mask[top]).flatten()[0]] = -1
+    on = torch.nonzero(mask[cut]).flatten()
+    mask[cut, on[k // 2:]] = False
+    keys[cut, on[0]] = -1  # taken: its class is under the cap
+    mask[empty] = False
+    return mask, keys, (tie, top, cut, empty)
+
+
+def phase1_variant_kernels(dev, negative, k):
+    """K3c (ClassMix) and K4r (radix key selection) against their plain
+    versions, bit-equal, at the flagship's shapes, with the planted cases
+    of `classmix_case` and `radix_case`.  Returns ({kernel: max error},
+    their inputs)."""
+    import torch
+
+    from u2pl_tpu_torch.losses import contrastive as tc
+    from u2pl_tpu_torch.ops import mixing
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    img, lab, prob, u = classmix_case(dev, g)
+    got = mixing.generate_unsup_data(img, lab, prob, u, "classmix")
+    ref = mixing.generate_unsup_data_plain(img, lab, prob, u, "classmix")
+    sel = mixing.class_half_mask_plain(lab, u, u.shape[1])
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    kept = [round(float(s.float().mean()), 4) for s in sel]
+    log(f"[phase 1] kernel K3c classmix {tuple(img.shape)}, {u.shape[1]} classes, tied draws in "
+        f"sample 0, sample 1 one class: share of each sample's pixels kept {kept}; bit-equal {same}")
+    if not same or kept[1] != 0.0 or not all(0 < s < 1 for s in kept[:1] + kept[2:]):
+        fail("kernel K3c (classmix) is not bit-equal to its plain version (or a case is missing)")
+
+    mask, keys, (tie, top, cut, empty) = radix_case(dev, g, negative, k)
+    idx, n_sel = tc.select_keys_radix(mask, keys, k)
+    ref_idx, ref_n = tc.select_keys_radix_plain(mask, keys, k)
+    torch.cuda.synchronize()
+    same = torch.equal(idx, ref_idx) and torch.equal(n_sel, ref_n)
+    cnt = mask.sum(1)
+    u32 = keys.to(torch.int64) & 0xFFFFFFFF
+    kv = torch.where(mask[tie], u32[tie], torch.full_like(u32[tie], 2**32 - 1))
+    at_or_under = int((kv <= torch.kthvalue(kv, k).values).sum())
+    log(f"[phase 1] kernel K4r select_keys_radix {tuple(mask.shape)}, k {k}: candidates "
+        f"{cnt.tolist()}; class {tie} has {at_or_under} keys at or under its rank-k key; class "
+        f"{top} (over the cap) and {cut} (under it) each with a valid 0xFFFFFFFF key; class "
+        f"{empty} empty; n_sel {n_sel.tolist()}; idx and n_sel bit-equal {same}")
+    planted = (int(cnt[tie]) > k and at_or_under > k and int(cnt[cut]) <= k
+               and int(cnt[empty]) == 0)
+    if not same or not planted:
+        fail("kernel K4r (select_keys_radix) is not bit-equal to its plain version "
+             "(or a planted case is missing)")
+    return {"K3c": 0.0, "K4r": 0.0}, {"classmix": (img, lab, prob, u), "radix": (mask, keys)}
 
 
 TRAIN_COUNTERS = {  # kernel -> (module, wrapper, counter attribute)
@@ -560,7 +664,13 @@ OHEM_COUNTERS = {
     "K7_kth": ("u2pl_tpu_torch.ops.quantile", "kth_smallest", "launches"),
     "K7_keep": ("u2pl_tpu_torch.losses.ohem", "ohem_keep_labels", "launches"),
 }
-COUNTERS = {**TRAIN_COUNTERS, **CONTRA_COUNTERS, **OHEM_COUNTERS}
+VARIANT_COUNTERS = {  # apply_aug: classmix, contrastive.select_keys: radix
+    "K3c": ("u2pl_tpu_torch.ops.mixing", "generate_unsup_data", "classmix_launches"),
+    "K4r": ("u2pl_tpu_torch.losses.contrastive", "select_keys_radix", "launches"),
+}
+VAL_COUNTERS = {"B": ("u2pl_tpu_torch.ops.resize", "resize_argmax", "launches")}
+COUNTERS = {**TRAIN_COUNTERS, **CONTRA_COUNTERS, **OHEM_COUNTERS, **VARIANT_COUNTERS,
+            **VAL_COUNTERS}
 
 
 def _counter(name):
@@ -608,6 +718,7 @@ def plain_versions():
         (mixing, "generate_unsup_data", mixing.generate_unsup_data_plain),
         (contrastive, "contra_pixel_masks", contrastive.contra_pixel_masks_plain),
         (contrastive, "select_keys", contrastive.select_keys_plain),
+        (contrastive, "select_keys_radix", contrastive.select_keys_radix_plain),
         (contrastive, "sample_anchors", contrastive.sample_anchors_plain),
         (contrastive, "memobank_enqueue", memobank.memobank_enqueue_plain),
         (contrastive, "contra_infonce", contrastive.contra_infonce_plain),
@@ -1454,7 +1565,7 @@ def phase8_cityscapes(dev, card, cfg):
         fail(f"OHEM heads {[hw for hw, _ in kept]}: not the os4 main and os8 aux head per step")
     log(f"[phase 8] {TRAIN_STEPS} steps in {run_s:.2f} s; bank occupancy "
         f"{state.bank.occupancy.tolist()}; launches {launches}")
-    missing = [a for a, v in launches.items() if v <= 0]
+    missing = [a for a in (*TRAIN_COUNTERS, *CONTRA_COUNTERS, *OHEM_COUNTERS) if launches[a] <= 0]
     if missing:
         fail(f"a kernel of the Cityscapes training path was never launched: {missing}")
     if any(launches[a] != 2 * TRAIN_STEPS for a in OHEM_COUNTERS):
@@ -1565,6 +1676,285 @@ def phase9_city_timings(dev, card, cfg, state, batches):
     return {"semi_ms": med, "img_s": imgs * 1e3 / med, "peak": peak}, times
 
 
+# phases 10 and 11: the trainer CLIs on a synthetic VOC-layout workspace
+CLI_LABELED = CLI_UNLABELED = 16
+CLI_VAL = 4
+CLI_IMAGE = (375, 500)  # VOC's most common image size, (h, w)
+# 4 steps per epoch of 4 + 4 images; 2 epochs, the first of them warmup
+CLI_OVERRIDES = {"dataset.n_sup": 16, "dataset.pool_size": 32, "trainer.epochs": 2,
+                 "trainer.sup_only_epoch": 1}
+VARIANT_OVERRIDES = {**CLI_OVERRIDES, "trainer.epochs": 1, "trainer.sup_only_epoch": 0,
+                     "trainer.unsupervised.apply_aug": "classmix",
+                     "trainer.contrastive.select_keys": "radix"}
+
+
+@contextlib.contextmanager
+def random_init_allowed():
+    """U2PL_ALLOW_RANDOM_INIT=1: the configs require ImageNet weights, which
+    the smoke test does not have."""
+    old = os.environ.get("U2PL_ALLOW_RANDOM_INIT")
+    os.environ["U2PL_ALLOW_RANDOM_INIT"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["U2PL_ALLOW_RANDOM_INIT"]
+        else:
+            os.environ["U2PL_ALLOW_RANDOM_INIT"] = old
+
+
+def run_cli(module, cfg_path):
+    """`module.main` on the card (seed SEED), in process: (summary, the log
+    lines, the launch counts of the run, counted from 0)."""
+    import logging
+
+    lines = []
+    rec = logging.Handler()
+    rec.emit = lambda record: lines.append(record.getMessage())
+    logger = logging.getLogger("global")
+    logger.addHandler(rec)
+    zero_counters()
+    try:
+        with random_init_allowed():
+            summary = module.main(["--config", cfg_path, "--seed", str(SEED)])
+    finally:
+        logger.removeHandler(rec)
+    import torch
+
+    torch.cuda.synchronize()
+    return summary, lines, read_counters()
+
+
+def cli_report(card, name, summary):
+    for e, (ep_s, waits, data_s, step_s) in enumerate(zip(
+            summary["epoch_s"], summary["data_waits"], summary["data_s"], summary["step_s"])):
+        log(f"[{card}] {name} epoch {summary['start_epoch'] + e}: {ep_s:.3f} s for "
+            f"{summary['steps_per_epoch']} steps; per step: host step time {step_s * 1e3:.1f} ms "
+            f"(batch on the card -> step returned), data wait {data_s * 1e3:.1f} ms (the "
+            f"loader's mean; step by step {[round(w * 1e3, 1) for w in waits]} ms)")
+
+
+def check_validations(name, summary, lines, n, classes):
+    ious = [ln for ln in lines if ln.startswith(" * class [")]
+    mious = summary["mious"]
+    log(f"[phase 10] {name}: {len(mious)} validations, mIoU {mious}; best {summary['best_miou']}")
+    if len(mious) != n or len(ious) != n * classes or not all(0.0 <= m <= 1.0 for m in mious):
+        fail(f"{name}: validations {mious}, {len(ious)} per-class IoU lines "
+             f"(want {n} and {n * classes})")
+
+
+def phase10_cli(dev, card, tmp):
+    """train_semi on the flagship config (2 epochs, then a resume into a
+    third), and train_sup on suponly (1 epoch)."""
+    import torch
+
+    from u2pl_tpu_torch import train_semi, train_sup
+    from u2pl_tpu_torch.data.synthetic import make_voc_workspace, write_config
+    from u2pl_tpu_torch.utils.checkpoint import CKPT_BEST_NAME, CKPT_NAME
+
+    t_phase = time.monotonic()
+    paths = make_voc_workspace(os.path.join(tmp, "voc"), CLI_LABELED, CLI_UNLABELED, CLI_VAL,
+                               size=CLI_IMAGE, seed=SEED)
+    log(f"[phase 10] synthetic VOC workspace: {CLI_LABELED} labeled, {CLI_UNLABELED} unlabeled "
+        f"and {CLI_VAL} val JPEG / PNG pairs of {CLI_IMAGE[1]}x{CLI_IMAGE[0]}, made in "
+        f"{time.monotonic() - t_phase:.1f} s; config {os.path.relpath(VOC_CONFIG, ROOT)} with "
+        f"{CLI_OVERRIDES}")
+    exp = os.path.join(tmp, "exp_semi")
+    cfg_path = write_config(VOC_CONFIG, paths, exp, CLI_OVERRIDES)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    summary, lines, launches = run_cli(train_semi, cfg_path)
+    run_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    check_validations("train_semi", summary, lines, 2, 21)
+    ckpt = {n: os.path.join(exp, "checkpoints", n) for n in (CKPT_NAME, CKPT_BEST_NAME)}
+    if not all(os.path.isfile(p) for p in ckpt.values()):
+        fail(f"train_semi wrote {os.listdir(os.path.join(exp, 'checkpoints'))}")
+    size = {n: os.path.getsize(p) for n, p in ckpt.items()}
+    log(f"[phase 10] train_semi: {summary['steps']} steps, 2 validations in {run_s:.1f} s; "
+        f"checkpoints {size} bytes, written in {[round(t, 3) for t in summary['ckpt_s']]} s per "
+        f"epoch (best and latest); launches {launches}")
+    cli_report(card, "train_semi", summary)
+    state = summary.pop("state")
+    occupancy = state.bank.occupancy.clone()
+    want_b = 2 * CLI_VAL
+    missing = [a for a in (*TRAIN_COUNTERS, *CONTRA_COUNTERS) if launches[a] <= 0]
+    if summary["steps"] != 8 or int(state.step) != 8 or missing or launches["B"] != want_b:
+        fail(f"train_semi: {summary['steps']} steps, kernels never launched {missing}, "
+             f"kernel B {launches['B']} times (want one per val image, {want_b})")
+    if launches["K3c"] or launches["K4r"] or int(occupancy.sum()) <= 0:
+        fail(f"train_semi: an option's kernel ran, or the bank is empty: {launches}, "
+             f"{occupancy.tolist()}")
+    del state
+    torch.cuda.empty_cache()
+
+    # resume into a third epoch: auto_resume restores epoch 2, step 8 and the bank
+    cfg_path = write_config(VOC_CONFIG, paths, exp, {**CLI_OVERRIDES, "trainer.epochs": 3,
+                                                     "saver.auto_resume": True})
+    restored = {}
+    maybe_resume = train_semi.maybe_resume
+
+    def recording(cfg_saver, save_path, st):
+        out = maybe_resume(cfg_saver, save_path, st)
+        restored.update(step=int(st.step), occupancy=st.bank.occupancy.clone())
+        return out
+
+    train_semi.maybe_resume = recording
+    try:
+        t0 = time.monotonic()
+        resumed, lines, res_launches = run_cli(train_semi, cfg_path)
+        res_s = time.monotonic() - t0
+    finally:
+        train_semi.maybe_resume = maybe_resume
+    st = resumed.pop("state")
+    log(f"[phase 10] resume with epochs 3, auto_resume: started at epoch {resumed['start_epoch']}, "
+        f"step {resumed['start_iter']} (state step {restored.get('step')}); bank occupancy "
+        f"restored {restored['occupancy'].tolist()}; ran {resumed['steps']} steps to step "
+        f"{int(st.step)} in {res_s:.1f} s")
+    check_validations("train_semi resumed", resumed, lines, 1, 21)
+    if (resumed["start_epoch"], resumed["start_iter"], restored.get("step")) != (2, 8, 8) or not (
+            torch.equal(restored["occupancy"], occupancy)) or int(st.step) != 12:
+        fail("the resumed run did not start at epoch 2, step 8 with the saved bank")
+    cli_report(card, "train_semi resumed", resumed)
+    del st
+    torch.cuda.empty_cache()
+
+    # the supervised CLI on suponly, one epoch
+    sup_exp = os.path.join(tmp, "exp_sup")
+    sup_path = write_config(VOC_SUP_CONFIG, paths, sup_exp,
+                            {"dataset.n_sup": 16, "trainer.epochs": 1})
+    t0 = time.monotonic()
+    sup, lines, sup_launches = run_cli(train_sup, sup_path)
+    sup_s = time.monotonic() - t0
+    sup.pop("state")
+    check_validations("train_sup", sup, lines, 1, 21)
+    log(f"[phase 10] train_sup {os.path.relpath(VOC_SUP_CONFIG, ROOT)}: {sup['steps']} steps in "
+        f"{sup_s:.1f} s; launches {sup_launches}")
+    cli_report(card, "train_sup", sup)
+    sup_missing = [a for a in ("A", "A_bwd", "C_fwd", "C_bwd") if sup_launches[a] <= 0]
+    if sup["steps"] != 4 or sup_missing or sup_launches["B"] != CLI_VAL or not os.path.isfile(
+            os.path.join(sup_exp, "checkpoints", CKPT_BEST_NAME)):
+        fail(f"train_sup: {sup['steps']} steps, kernels never launched {sup_missing}, "
+             f"B {sup_launches['B']}")
+    torch.cuda.empty_cache()
+    phase_s = time.monotonic() - t_phase
+    log(f"[{card}] phase 10 (workspace, train_semi 2 epochs, resume, train_sup) in {phase_s:.1f} s; "
+        f"peak device memory of the train_semi run {peak / 2**30:.2f} GiB")
+    total = {a: launches[a] + res_launches[a] + sup_launches[a] for a in COUNTERS}
+    return paths, total, {"semi": summary, "resumed": resumed, "sup": sup, "ckpt_bytes": size,
+                          "phase_s": phase_s}
+
+
+def phase11_variant(dev, card, tmp, paths):
+    """train_semi with apply_aug: classmix and contrastive.select_keys: radix
+    (sup_only_epoch 0, one epoch of 4 semi steps); then its last step again
+    from a copy of the state before it, through the kernels and through the
+    plain versions."""
+    import torch
+
+    from u2pl_tpu_torch import train_semi
+    from u2pl_tpu_torch.data.synthetic import write_config
+    from u2pl_tpu_torch.ops import mixing
+    from u2pl_tpu_torch.train.steps import draw_contrastive
+
+    exp = os.path.join(tmp, "exp_variant")
+    cfg_path = write_config(VOC_CONFIG, paths, exp, VARIANT_OVERRIDES)
+    before_last = {}
+    run_steps = train_semi.run_steps
+
+    def tapped(state, batches, steps_per_epoch, cfg, **kw):
+        last = cfg.trainer.epochs * steps_per_epoch - 1
+
+        def tap(it):
+            for j, batch in enumerate(it):
+                if kw.get("start_iter", 0) + j == last:
+                    before_last.update(state=copy.deepcopy(state), batch=batch, cfg=cfg,
+                                       steps_per_epoch=steps_per_epoch, i_iter=last)
+                yield batch
+
+        yield from run_steps(state, tap(batches), steps_per_epoch, cfg, **kw)
+
+    train_semi.run_steps = tapped
+    try:
+        t0 = time.monotonic()
+        summary, lines, launches = run_cli(train_semi, cfg_path)
+        run_s = time.monotonic() - t0
+    finally:
+        train_semi.run_steps = run_steps
+    del summary["state"]
+    log(f"[phase 11] {os.path.relpath(VOC_CONFIG, ROOT)} with {VARIANT_OVERRIDES}: "
+        f"{summary['steps']} semi steps and a validation in {run_s:.1f} s, mIoU {summary['mious']}; "
+        f"launches {launches}")
+    cli_report(card, "train_semi classmix + radix", summary)
+    off = ("K3", "K4_select")
+    missing = [a for a in (*TRAIN_COUNTERS, *CONTRA_COUNTERS, *VARIANT_COUNTERS)
+               if a not in off and launches[a] <= 0]
+    if missing or any(launches[a] for a in off) or launches["B"] != CLI_VAL or len(
+            summary["mious"]) != 1:
+        fail(f"the variant run: kernels never launched {missing}, or K3 / K4 select ran "
+             f"({[launches[a] for a in off]}), or B {launches['B']}")
+
+    # its last step again, the ClassMix and contrastive draws injected (coin heads)
+    cfg, spe, i_iter = before_last["cfg"], before_last["steps_per_epoch"], before_last["i_iter"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    mix = (torch.tensor(True, device=dev),
+           mixing.draw_mix(g, "classmix", B_U, CROP, CROP, cfg.net.num_classes))
+    draws = draw_contrastive(g, cfg, (B_L + B_U) * OS4 * OS4)
+    if draws[0].dtype != torch.int32:
+        fail("select_keys: radix must draw u32 keys (in int32)")
+
+    def run(st, route):
+        steps = train_semi.run_steps(st, [before_last["batch"]], spe, cfg, start_iter=i_iter,
+                                     mixes=[mix], contras=[draws])
+        return next(iter(steps))[1]
+
+    runs = both_routes(before_last.pop("state"), run)
+    (mk, dk, _), (mp, dp, _) = runs["kernels"], runs["plain"]
+    del runs
+    mk, mp = scalars(mk), scalars(mp)
+    names = ("sup_loss", "uns_loss", "con_loss", "drop_thresh", "low_thresh", "high_thresh")
+    rel = {a: abs(mk[a] - mp[a]) / max(abs(mp[a]), 1e-30) for a in names}
+    _, tight = update_closeness(dk, dp)
+    log(f"[phase 11] step {i_iter} again, kernels vs plain versions: kernels {mk}; plain {mp}; "
+        f"rel diffs {rel}; update closest to the bound, as a share of it: {tight}")
+    if not rel["con_loss"] <= CON_LOSS_TOL:
+        fail(f"variant step {i_iter}: con_loss kernels vs plain versions {rel['con_loss']}")
+    if not all(rel[a] <= STEP_LOSS_TOL for a in ("sup_loss", "uns_loss", "drop_thresh")):
+        fail(f"variant step {i_iter}: kernels vs plain versions {rel}")
+    if tight[0][1] > 1.0:
+        fail(f"variant step {i_iter}: parameter update differs from the plain route: {tight}")
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def variant_timings(card, inputs, k):
+    """K3c and K4r on phase 1's inputs, each beside its plain version; K4r
+    also beside torch.topk (the same set of keys up to ties, not in pixel
+    order)."""
+    import torch
+
+    from u2pl_tpu_torch.losses import contrastive as tc
+    from u2pl_tpu_torch.ops import mixing
+
+    img, lab, prob, u = inputs["classmix"]
+    mask, keys = inputs["radix"]
+    masked = torch.where(mask, keys.to(torch.int64) & 0xFFFFFFFF,
+                         torch.full(keys.shape, 2**32 - 1, dtype=torch.int64, device=keys.device))
+    times = {
+        "K3c": (cuda_ms(lambda: mixing.generate_unsup_data(img, lab, prob, u, "classmix")),
+                cuda_ms(lambda: mixing.generate_unsup_data_plain(img, lab, prob, u, "classmix")),
+                None),
+        "K4r": (cuda_ms(lambda: tc.select_keys_radix(mask, keys, k)),
+                cuda_ms(lambda: tc.select_keys_radix_plain(mask, keys, k)),
+                cuda_ms(lambda: torch.topk(masked, k, dim=1, largest=False, sorted=False))),
+    }
+    log(f"[{card}] kernel K3c classmix {tuple(img.shape)} + label + max-prob, {u.shape[1]} "
+        f"classes: {times['K3c'][0]:.4f} ms; plain version {times['K3c'][1]:.4f} ms")
+    log(f"[{card}] kernel K4r {tuple(mask.shape)}, k {k}: {times['K4r'][0]:.4f} ms; plain version "
+        f"{times['K4r'][1]:.4f} ms; torch.topk(largest=False, sorted=False) {times['K4r'][2]:.4f} ms")
+    return times
+
+
 def bounds(case, cfg):
     """{kernel: (bound ms, "bytes" or "operations")}: the least time the card
     could take for each timed call, the larger of the bytes it must move
@@ -1592,8 +1982,11 @@ def bounds(case, cfg):
         "D": (lo * 4 + px * 12, hi * 16),
         "E": (px * 5, 0),
         "K3": (2 * px * (12 + 4 + 4), 0),
+        # K3c: K3's bytes and the (4, 21) draws
+        "K3c": (2 * px * (12 + 4 + 4) + 4 * 21 * 4, 0),
         "K4_masks": (b * hw * (21 * 4 + 4 + 2) + c * n * 6, n * c * c),
         "K4_select": (c * n * 5 + c * k * 4, 0),
+        "K4r": (c * n * 5 + c * k * 4 + c * 4, 0),  # mask + u32 keys in; idx + n_sel out
         "K4_anchors": (c * n + 2 * c * q * 4, 0),
         "K5": (sel * (f * 4 + 4 + f * 2), 0),
         "K6_fwd": (act * q * (f * 4 + m * (f * 2 + 4)) + act * f * 4, act * q * (m + 1) * f * 4),
@@ -1645,6 +2038,11 @@ def main() -> int:
     ccfg = load_config(VOC_CONFIG)  # the `ours` config as it stands, contrastive included
     contra_errs, case = phase1_contrastive_kernels(dev, ccfg)
     errs.update(contra_errs)
+    k = ccfg.trainer.contrastive.max_keys_per_class_per_step
+    variant_errs, variant_inputs = phase1_variant_kernels(dev, case["negative"], k)
+    errs.update(variant_errs)
+    variant_times = variant_timings(card, variant_inputs, k)
+    del variant_inputs
     city_cfg = load_config(CITY_CONFIG)  # as it stands: OHEM, aux head, contrastive
     errs.update(phase1_ohem_kernels(dev, city_cfg))
     with tempfile.TemporaryDirectory(prefix="u2pl_chip_smoke_") as tmp:
@@ -1661,12 +2059,17 @@ def main() -> int:
     state, batches, city_launches, _ = phase8_cityscapes(dev, card, city_cfg)
     _, city_times = phase9_city_timings(dev, card, city_cfg, state, batches)
     del state, batches
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="u2pl_chip_smoke_cli_") as tmp:
+        paths, cli_launches, _ = phase10_cli(dev, card, tmp)
+        variant_launches, _ = phase11_variant(dev, card, tmp, paths)
     bound = bounds(case, ccfg)
 
     csrc = "u2pl_tpu_torch/kernels/csrc/"
     times.update(train_times)
     times.update(contra_times)
     times.update(city_times)
+    times.update(variant_times)
 
     def entry(name, key, source, replaces, launches_, err, timing):
         ms, plain_ms, library_ms = times[timing]
@@ -1677,15 +2080,16 @@ def main() -> int:
 
     # launches: each path's run counted from 0 just before it (serving,
     # training without and with the contrastive branch, Cityscapes
-    # training), summed per kernel
+    # training, the CLIs' runs and the classmix + radix run), summed per kernel
     def runs(key):
-        return train_launches[key] + contra_launches[key] + city_launches[key]
+        return (train_launches[key] + contra_launches[key] + city_launches[key]
+                + cli_launches[key] + variant_launches[key])
 
     report = {"kernels": [
         entry("resize_bilinear_ac", "A", "resize.cu", "u2pl_tpu/ops/resize.py:76",
               launches["A"] + runs("A"), a_err, "A_logits"),
         entry("resize_argmax_ac", "B", "resize.cu", "u2pl_tpu/serving.py:115",
-              launches["B"], b_err, "B"),
+              launches["B"] + runs("B"), b_err, "B"),
         entry("resize_bilinear_ac_bwd", "A_bwd", "resize.cu", "u2pl_tpu/ops/resize.py:76",
               runs("A_bwd"), errs["A_bwd"], "A_bwd_decoder"),
         entry("upsample_ce_fwd", "C_fwd", "upsample_ce.cu", "u2pl_tpu/losses/ce.py:23",
@@ -1698,11 +2102,15 @@ def main() -> int:
               runs("E"), errs["E"], "E"),
         entry("unsup_mix_boxes", "K3", "mixing.cu", "u2pl_tpu/ops/mixing.py:62",
               runs("K3"), errs["K3"], "K3"),
+        entry("unsup_class_mix", "K3c", "mixing.cu", "u2pl_tpu/ops/mixing.py:44",
+              runs("K3c"), errs["K3c"], "K3c"),
         entry("contra_pixel_masks", "K4_masks", "contrastive.cu",
               "u2pl_tpu/losses/contrastive.py:50", runs("K4_masks"),
               errs["K4_masks"], "K4_masks"),
         entry("select_keys", "K4_select", "contrastive.cu", "u2pl_tpu/losses/contrastive.py:89",
               runs("K4_select"), errs["K4_select"], "K4_select"),
+        entry("select_keys_radix", "K4r", "contrastive.cu", "u2pl_tpu/losses/contrastive.py:106",
+              runs("K4r"), errs["K4r"], "K4r"),
         entry("sample_anchors", "K4_anchors", "contrastive.cu",
               "u2pl_tpu/losses/contrastive.py:73", runs("K4_anchors"),
               errs["K4_anchors"], "K4_anchors"),

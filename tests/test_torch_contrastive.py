@@ -6,8 +6,10 @@ plain PyTorch versions of kernels K4-K6, which the CUDA kernels are held
 against on the card in tests/test_torch_cuda.py).  The draws are replayed
 from the key JAX's function is given: split(rng, 4) -> (_, kkey, akey,
 nkey); the key-selection priorities of class c are uniform(split(kkey,
-C)[c], (N,)), the anchor draws of position j uniform(split(akey, C)[j],
-(Q,)), the bank draws uniform(nkey, (C, Q*M)) (contrastive.py:250-290).
+C)[c], (N,)) (under `select_keys: radix` its u32 keys bits(split(kkey,
+C)[c], (N,), uint32), held as int32 bits), the anchor draws of position j
+uniform(split(akey, C)[j], (Q,)), the bank draws uniform(nkey, (C, Q*M))
+(contrastive.py:250-290).
 
 Bounds: selections, anchor draws, masks, counts and the bank bit-equal;
 the loss rtol 1e-5 and its gradient with respect to `rep` within 1e-5 of
@@ -53,11 +55,21 @@ def cfgs(**kw):
     return jax_parse_config(raw).trainer.contrastive, parse_config(raw).trainer.contrastive
 
 
-def jax_draws(rng, num_queries, num_neg, c=C, n=N):
+def jax_keys(keys, n):
+    """The u32 keys `_select_keys_radix` draws from each key of `keys`, as
+    int32 bits: bits(key, (n,), uint32) (contrastive.py:129)."""
+    return np.stack([np.asarray(jax.random.bits(k, (n,), jnp.uint32)) for k in keys]).view(np.int32)
+
+
+def jax_draws(rng, num_queries, num_neg, c=C, n=N, select_keys="argsort"):
     """(pri, u_anchor, u_neg) as compute_contra_memobank_loss draws them
-    from the key `rng` it is given, for c classes and n pixels."""
+    from the key `rng` it is given, for c classes and n pixels; under
+    `select_keys: radix`, pri holds class c's u32 keys."""
     _, kkey, akey, nkey = jax.random.split(rng, 4)
-    pri = np.stack([np.asarray(jax.random.uniform(k, (n,))) for k in jax.random.split(kkey, c)])
+    if select_keys == "radix":
+        pri = jax_keys(jax.random.split(kkey, c), n)
+    else:
+        pri = np.stack([np.asarray(jax.random.uniform(k, (n,))) for k in jax.random.split(kkey, c)])
     u_a = np.stack([np.asarray(jax.random.uniform(k, (num_queries,)))
                     for k in jax.random.split(akey, c)])
     u_n = np.asarray(jax.random.uniform(nkey, (c, num_queries * num_neg)))
@@ -196,6 +208,58 @@ def test_select_keys_bit_equal_to_argsort(case, k):
         np.testing.assert_array_equal(idx[c, :n].numpy(), ref_idx[c][:n], err_msg=f"{name} {c}")
 
 
+def _radix_cases(n=300):
+    """(name, mask (C, n), keys (C, n) int32 bits or None for JAX's own)."""
+    rng = np.random.RandomState(5)
+    many = rng.rand(C, n) < 0.6
+    few = rng.rand(C, n) < 0.03
+    ties = (rng.randint(0, 6, (C, n)) * 0x2AAAAAAA).astype(np.uint32).view(np.int32)
+    top = jax_keys(jax.random.split(jax.random.PRNGKey(77), C), n)
+    top[:, :40] = -1  # 0xFFFFFFFF on valid pixels
+    return [("over the cap", many, None), ("under the cap", few, None),
+            ("ties at the threshold", many, ties), ("valid 0xFFFFFFFF keys", many, top),
+            ("empty class", many & (np.arange(C) != 3)[:, None], None)]
+
+
+@pytest.mark.parametrize("case", range(5))
+@pytest.mark.parametrize("k", [16, 170, 400])
+def test_select_keys_radix_bit_equal(case, k):
+    """`select_keys_radix_plain` (K4r's plain version) against JAX's
+    `_select_keys_radix` with JAX's own u32 keys (or planted ones, handed to
+    its `bits`): idx and valid bit-equal, the pad past the selection N - 1.
+    k 16: every non-empty class over the cap; 170: 'many' over, 'few' under;
+    400: more than the N = 300 pixels."""
+    name, mask, keys = _radix_cases()[case]
+    rng_keys = jax.random.split(jax.random.PRNGKey(30 + case), C)
+    if keys is None:
+        keys = jax_keys(rng_keys, mask.shape[1])
+    ref_idx, ref_valid = [], []
+    with pytest.MonkeyPatch.context() as mp:
+        for c in range(C):  # hand JAX these keys
+            mp.setattr(jax.random, "bits",
+                       lambda key, shape, dtype, _k=keys[c]: jnp.asarray(_k.view(np.uint32)))
+            i, v = jc._select_keys_radix(jnp.asarray(mask[c]), rng_keys[c], k)
+            ref_idx.append(np.asarray(i))
+            ref_valid.append(np.asarray(v))
+    idx, n_sel = tc.select_keys_radix(torch.from_numpy(mask), torch.from_numpy(keys), k)
+    assert idx.shape == (C, k) and idx.dtype == torch.int32 and n_sel.dtype == torch.int32
+    np.testing.assert_array_equal(idx.numpy(), np.stack(ref_idx), err_msg=name)
+    valid = np.arange(k)[None, :] < n_sel.numpy()[:, None]
+    np.testing.assert_array_equal(valid, np.stack(ref_valid), err_msg=name)
+    # int64 keys in [0, 2^32) select the same
+    wide = torch.from_numpy(keys.view(np.uint32).astype(np.int64))
+    assert torch.equal(tc.select_keys_radix(torch.from_numpy(mask), wide, k)[0], idx)
+    cnt = mask.sum(1)
+    for c in range(C):
+        assert int(n_sel[c]) == min(cnt[c], k)
+        assert (idx[c, n_sel[c]:] == mask.shape[1] - 1).all() if cnt[c] <= k else True
+    if name == "ties at the threshold" and k == 16:
+        # more keys at or under the threshold than k: the lower-indexed kept
+        kv = np.where(mask, keys.view(np.uint32), 0xFFFFFFFF)
+        t = np.sort(kv, axis=1)[:, k - 1]
+        assert ((kv <= t[:, None]).sum(1) > k).any()
+
+
 @pytest.mark.parametrize("density", [0.0, 0.002, 0.3, 1.0])
 def test_sample_anchors_bit_equal(density):
     rng = np.random.RandomState(3)
@@ -227,7 +291,7 @@ def run_both(seed, strict=True, fill=True, n_classes_present=C, high_frac=0.7, *
 
     (ref_loss, (ref_bank, ref_info)), ref_g = jax.value_and_grad(jax_loss, has_aux=True)(nhwc(rep))
     rep_t_ = torch.from_numpy(rep).requires_grad_(True)
-    draws = jax_draws(rng, cfg.num_queries, cfg.num_negatives)
+    draws = jax_draws(rng, cfg.num_queries, cfg.num_negatives, select_keys=cfg.select_keys)
     lab = torch.from_numpy(labels)
     pt = torch.from_numpy(prob)
     out_bank, loss, info = tc.compute_contra_memobank_loss(
@@ -259,6 +323,19 @@ def test_loss_matches_jax_over_the_key_cap():
     assert (np.asarray(rinfo["neg_candidates"]) > 4).any()
     np.testing.assert_allclose(gl, rl, rtol=1e-5)
     np.testing.assert_allclose(gg, rg, rtol=0, atol=1e-5 * np.abs(rg).max())
+    assert_equal(gbank, rbank)
+
+
+@pytest.mark.parametrize("cap", [4, 16])
+def test_loss_matches_jax_with_radix_keys(cap):
+    """`select_keys: radix`: JAX's u32 keys through K4r's plain version; at
+    cap 4 classes are over it, at 16 not; the bank bit-equal."""
+    (rl, rg, rbank, rinfo), (gl, gg, gbank, ginfo) = run_both(
+        2, max_keys_per_class_per_step=cap, select_keys="radix")
+    assert ((np.asarray(rinfo["neg_candidates"]) > cap).any()) == (cap == 4)
+    np.testing.assert_allclose(gl, rl, rtol=1e-5)
+    np.testing.assert_allclose(gg, rg, rtol=0, atol=1e-5 * np.abs(rg).max())
+    np.testing.assert_array_equal(ginfo["neg_candidates"].numpy(), np.asarray(rinfo["neg_candidates"]))
     assert_equal(gbank, rbank)
 
 

@@ -225,6 +225,35 @@ def test_kernel_k3_bit_equal_to_plain(mode):
         assert torch.equal(a, b)
 
 
+def _classmix_inputs(dev, b, c, h, w, seed=13):
+    """Images, pseudo-labels (some 255, sample 1 a single class), max-probs
+    and the (B, C) draws, with ties among a sample's draws."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    img = torch.randn(b, 3, h, w, device=dev, generator=g)
+    lab = torch.randint(0, c, (b, h, w), device=dev, generator=g, dtype=torch.int32)
+    lab[torch.rand(b, h, w, device=dev, generator=g) < 0.05] = 255
+    lab[1 % b] = 3
+    prob = torch.rand(b, h, w, device=dev, generator=g)
+    u = torch.rand(b, c, device=dev, generator=g)
+    u[0, 1::3] = u[0, 0]  # tied draws
+    return img, lab, prob, u
+
+
+@pytest.mark.parametrize("b,c,h,w", [(4, 21, 513, 513), (3, 5, 33, 29), (1, 64, 9, 7)])
+def test_kernel_k3c_classmix_bit_equal_to_plain(b, c, h, w):
+    from u2pl_tpu_torch.ops import mixing
+
+    dev = _cuda()
+    img, lab, prob, u = _classmix_inputs(dev, b, c, h, w)
+    n = mixing.generate_unsup_data.classmix_launches
+    got = mixing.generate_unsup_data(img, lab, prob, u, "classmix")
+    torch.cuda.synchronize()
+    assert mixing.generate_unsup_data.classmix_launches == n + 1
+    ref = mixing.generate_unsup_data_plain(img, lab, prob, u, "classmix")
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)
+
+
 # ---- the contrastive slice's kernels: K4, K5, K6 -----------------------------
 
 # (B, B_l, C, h, w): the flagship's os4 batch, and an odd one
@@ -299,6 +328,40 @@ def test_kernel_select_keys_bit_equal(c, n, k, density, ties):
     for j in range(c):
         m = int(ref_n[j])
         assert torch.equal(idx[j, :m], ref_idx[j, :m]), j
+
+
+def _radix_inputs(dev, c, n, density, seed=8):
+    """A (C, N) mask and u32 keys in int32: class 0 with a planted tie at
+    its rank-k key, class 1 with a masked key 0xFFFFFFFF, the last class
+    empty."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mask = torch.rand(c, n, device=dev, generator=g) < density
+    keys = torch.randint(0, 2**32, (c, n), device=dev, generator=g, dtype=torch.int64)
+    keys[0, ::7] = keys[0, 0]  # many equal keys in class 0
+    keys[1, :5] = 0xFFFFFFFF
+    mask[1, :5] = True
+    mask[c - 1] = False
+    return mask, keys.to(torch.int32)
+
+
+@pytest.mark.parametrize("c,n,k,density", [
+    (21, 133128, 8192, 0.3),  # the flagship: over the cap
+    (21, 133128, 8192, 0.03),  # under the cap
+    (5, 1000, 16, 0.5),
+    (5, 1000, 143, 1.0),  # the planted tie lands at the threshold
+    (3, 37, 64, 1.0),  # fewer pixels than k
+])
+def test_kernel_select_keys_radix_bit_equal(c, n, k, density):
+    from u2pl_tpu_torch.losses import contrastive as tc
+
+    dev = _cuda()
+    mask, keys = _radix_inputs(dev, c, n, density)
+    cnt = tc.select_keys_radix.launches
+    idx, n_sel = tc.select_keys_radix(mask, keys, k)
+    torch.cuda.synchronize()
+    assert tc.select_keys_radix.launches == cnt + 1
+    ref_idx, ref_n = tc.select_keys_radix_plain(mask, keys, k)
+    assert torch.equal(n_sel, ref_n) and torch.equal(idx, ref_idx)
 
 
 @pytest.mark.parametrize("c,n,q,density", [(21, 133128, 256, 0.02), (5, 9000, 64, 0.3),

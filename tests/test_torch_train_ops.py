@@ -259,10 +259,17 @@ def test_generate_unsup_data_bit_equal_to_jax(mode, seed, hw):
 
 
 def test_classmix_raises_not_ported():
+    """ClassMix is ported (tests/test_torch_mixing.py holds it against JAX):
+    it takes (B, C) draws, and what still raises is a malformed call or an
+    unknown mode."""
     x = torch.zeros(2, 3, 4, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mixing.generate_unsup_data(x, torch.zeros(2, 4, 4, dtype=torch.int32),
-                                   torch.zeros(2, 4, 4), torch.zeros(2, 4, dtype=torch.int32), "classmix")
+    lab, prob = torch.zeros(2, 4, 4, dtype=torch.int32), torch.zeros(2, 4, 4)
+    out = mixing.generate_unsup_data(x, lab, prob, torch.rand(2, 5), "classmix")
+    assert [tuple(t.shape) for t in out] == [(2, 3, 4, 4), (2, 4, 4), (2, 4, 4)]
+    with pytest.raises(ValueError, match="draws"):
+        mixing.generate_unsup_data(x, lab, prob, torch.rand(3, 5), "classmix")
+    with pytest.raises(ValueError, match="unknown"):
+        mixing.generate_unsup_data(x, lab, prob, torch.rand(2, 5), "mixup")
 
 
 def test_draw_boxes_uses_only_the_generator():

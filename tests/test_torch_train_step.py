@@ -62,6 +62,11 @@ differs from JAX by 7.8e-5 and 2.1e-4 (measured at steps 1 and 2).  So the
 thresholds are held to rtol 3e-4 and each bank key to one bfloat16 ulp plus
 1e-4; the selections (neg_cand, ptr, occupancy) are exact, and con_loss
 within rtol 1e-4 (measured 6e-7).
+
+The variant trajectory (`variant_trajectory`) is the contrastive one with
+`apply_aug: classmix` and `contrastive.select_keys: radix`: the port's
+ClassMix uniforms and u32 keys are JAX's own, replayed; it is held to the
+contrastive trajectory's bounds.
 """
 
 import os
@@ -177,20 +182,25 @@ def _dev_rng(rng, i_iter):
     return jax.random.fold_in(jax.random.fold_in(rng, i_iter), 0)
 
 
-def jax_mix(rng, i_iter):
-    """The semi step's coin and CutMix uniforms at `i_iter`, replayed."""
+def jax_mix(rng, i_iter, mode="cutmix"):
+    """The semi step's coin and mix uniforms at `i_iter`, replayed: three
+    per sample for the CutMix box, (5,) per sample for ClassMix."""
     _, _, _, k_coin, k_mix = jax.random.split(_dev_rng(rng, i_iter), 5)
     coin = bool(jax.random.uniform(k_coin, ()) < 0.5)
+    if mode == "classmix":
+        u = [np.asarray(jax.random.uniform(k, (5,))) for k in jax.random.split(k_mix, B)]
+        return coin, torch.from_numpy(np.stack(u))
     u = [[float(jax.random.uniform(r, ())) for r in jax.random.split(k, 3)]
          for k in jax.random.split(k_mix, B)]
     return coin, torch.tensor(u, dtype=torch.float32)
 
 
-def jax_contra(rng, i_iter, n_pixels):
+def jax_contra(rng, i_iter, n_pixels, select_keys="argsort"):
     """The semi step's contrastive draws at `i_iter`, replayed from k_contra
     (steps.py:281) as compute_contra_memobank_loss splits it (:250-290)."""
     k_contra = jax.random.split(_dev_rng(rng, i_iter), 5)[2]
-    return jax_draws(k_contra, CONTRA["num_queries"], CONTRA["num_negatives"], 5, n_pixels)
+    return jax_draws(k_contra, CONTRA["num_queries"], CONTRA["num_negatives"], 5, n_pixels,
+                     select_keys)
 
 
 def _np_tree(tree):
@@ -245,11 +255,12 @@ def _trajectory(raw):
     of (scalar metrics, student, teacher, extras) per step."""
     cfg, jcfg = parse_config(raw), jax_parse_config(raw)
     contra = jcfg.trainer.contrastive
+    mode = jcfg.trainer.unsupervised.apply_aug
     data = batches()
     # a step key whose coin lands heads on both semi steps, so the
     # trajectory goes through CutMix
     seed = next(s for s in range(64)
-                if all(jax_mix(jax.random.PRNGKey(s), i)[0] for i in (1, 2)))
+                if all(jax_mix(jax.random.PRNGKey(s), i, mode)[0] for i in (1, 2)))
     rng = jax.random.PRNGKey(seed)
 
     init_model = build_jax_model(jcfg.net)
@@ -298,10 +309,10 @@ def _trajectory(raw):
         tstate = _port_state(cfg, jax_before[i], i)
         mix = contra_draws = None
         if i > 0:
-            coin, u = jax_mix(rng, i)
-            mix = (torch.tensor(coin), boxes_from_uniforms(u, HW, HW))
+            coin, u = jax_mix(rng, i, mode)
+            mix = (torch.tensor(coin), u if mode == "classmix" else boxes_from_uniforms(u, HW, HW))
             if contra:
-                contra_draws = jax_contra(rng, i, n_pixels)
+                contra_draws = jax_contra(rng, i, n_pixels, contra.select_keys)
         batch = (torch.from_numpy(img_l).permute(0, 3, 1, 2).contiguous(),
                  torch.from_numpy(lab_l), torch.from_numpy(img_u).permute(0, 3, 1, 2).contiguous())
         ((it, m),) = run_steps(tstate, [batch], 1, cfg, start_iter=i, mixes=[mix],
@@ -329,6 +340,14 @@ def trajectory():
 @pytest.fixture(scope="module")
 def contra_trajectory():
     return _trajectory(raw_cfg(contrastive=CONTRA))
+
+
+@pytest.fixture(scope="module")
+def variant_trajectory():
+    """The contrastive trajectory with `apply_aug: classmix` and
+    `contrastive.select_keys: radix`."""
+    return _trajectory(raw_cfg(contrastive={**CONTRA, "select_keys": "radix"},
+                               apply_aug="classmix"))
 
 
 def recording_kth(kths):
@@ -465,15 +484,11 @@ def _bf16_ulp(x):
     return np.ldexp(1.0, e - 8)
 
 
-@pytest.mark.parametrize("i", range(STEPS))
-def test_contrastive_losses_and_thresholds(contra_trajectory, i):
+def check_contrastive_losses(trajectory, i):
     """The losses rtol 1e-4; neg_cand exact; the entropy thresholds rtol
-    3e-4 (see the module docstring: JAX against itself moves a pixel's
-    entropy by up to 2.9e-4 here; the port moved the thresholds by 9e-6 at
-    step 1 and 4.2e-5 at step 2, and the low threshold of step 2, 1.6e-16,
-    by 4.9e-5)."""
-    _, jax_after, torch_after, _ = contra_trajectory
-    ref, got = check_losses(contra_trajectory, i, drop_rtol=THRESH_RTOL)
+    THRESH_RTOL."""
+    _, jax_after, torch_after, _ = trajectory
+    ref, got = check_losses(trajectory, i, drop_rtol=THRESH_RTOL)
     np.testing.assert_array_equal(torch_after[i][3]["neg_cand"], jax_after[i][3]["neg_cand"])
     if i > 0:
         assert ref["con_loss"] > 0
@@ -482,12 +497,26 @@ def test_contrastive_losses_and_thresholds(contra_trajectory, i):
 
 
 @pytest.mark.parametrize("i", range(STEPS))
+def test_contrastive_losses_and_thresholds(contra_trajectory, i):
+    """The losses rtol 1e-4; neg_cand exact; the entropy thresholds rtol
+    3e-4 (see the module docstring: JAX against itself moves a pixel's
+    entropy by up to 2.9e-4 here; the port moved the thresholds by 9e-6 at
+    step 1 and 4.2e-5 at step 2, and the low threshold of step 2, 1.6e-16,
+    by 4.9e-5)."""
+    check_contrastive_losses(contra_trajectory, i)
+
+
+@pytest.mark.parametrize("i", range(STEPS))
 def test_contrastive_bank(contra_trajectory, i):
     """ptr and occupancy exact; each key within one bfloat16 ulp plus
     KEY_ATOL: the same rows are written, from teacher representations that
     differ as JAX differs from itself (module docstring; measured 7.8e-5
     port vs JAX, 9.6e-5 JAX vs JAX), rounded to bfloat16."""
-    _, jax_after, torch_after, _ = contra_trajectory
+    check_bank(contra_trajectory, i)
+
+
+def check_bank(trajectory, i):
+    _, jax_after, torch_after, _ = trajectory
     ref, got = jax_after[i][3]["bank"], torch_after[i][3]["bank"]
     for k in ("ptr", "occupancy"):
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
@@ -505,6 +534,24 @@ def test_contrastive_student_update(contra_trajectory, i):
     representation head, so its tensors are held too."""
     keys = check_student_update(contra_trajectory, i)
     assert any(k.startswith("decoder.representation.") for k in keys)
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_classmix_radix_losses_and_bank(variant_trajectory, i):
+    """`apply_aug: classmix` with `select_keys: radix`, JAX's own ClassMix
+    uniforms and u32 keys replayed: the contrastive trajectory's bounds (the
+    same teacher forward decides the pseudo-labels, the thresholds and the
+    keys), ptr and occupancy exact."""
+    check_contrastive_losses(variant_trajectory, i)
+    check_bank(variant_trajectory, i)
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_classmix_radix_update_and_teacher(variant_trajectory, i):
+    """The student's update and the teacher in the L2 pattern above."""
+    keys = check_student_update(variant_trajectory, i)
+    assert any(k.startswith("decoder.representation.") for k in keys)
+    check_teacher_parameters(variant_trajectory, i)
 
 
 def test_cityscapes_ohem_selection_is_live(city_trajectory):
@@ -598,15 +645,14 @@ def test_unported_branches_raise():
 
     with pytest.raises(NotImplementedError, match="anchor_ema"):
         make_semi_step(parse_config(raw_cfg(contrastive={**CONTRA, "anchor_ema": True})), 1)
-    with pytest.raises(NotImplementedError, match="radix"):
-        make_semi_step(parse_config(raw_cfg(contrastive={**CONTRA, "select_keys": "radix"})), 1)
     make_semi_step(parse_config(raw_cfg(contrastive=CONTRA)), 1)  # ported
+    # ported: radix key selection and ClassMix (the variant trajectory above)
+    make_semi_step(parse_config(raw_cfg(contrastive={**CONTRA, "select_keys": "radix"})), 1)
+    make_semi_step(parse_config(raw_cfg(apply_aug="classmix")), 1)
     ohem = raw_cfg()
     ohem["criterion"] = {"type": "ohem", "kwargs": {"thresh": 0.7, "min_kept": 100}}
     make_sup_step(parse_config(ohem), 1)  # ported: the Cityscapes criterion
     make_semi_step(parse_config(ohem), 1)
-    with pytest.raises(NotImplementedError, match="classmix"):
-        make_semi_step(parse_config(raw_cfg(apply_aug="classmix")), 1)
 
 
 def test_entry_points_default_to_the_card():
@@ -630,7 +676,9 @@ import ast, importlib, pkgutil, sys
 import u2pl_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(u2pl_tpu_torch.__path__, "u2pl_tpu_torch.")]
 assert {"u2pl_tpu_torch.train.steps", "u2pl_tpu_torch.memobank",
-        "u2pl_tpu_torch.losses.ohem"} <= set(mods), mods
+        "u2pl_tpu_torch.losses.ohem", "u2pl_tpu_torch.train_semi", "u2pl_tpu_torch.train_sup",
+        "u2pl_tpu_torch.data.loader", "u2pl_tpu_torch.data.native",
+        "u2pl_tpu_torch.train.validate", "u2pl_tpu_torch.utils.checkpoint"} <= set(mods), mods
 for m in mods:
     importlib.import_module(m)
 import chip_smoke

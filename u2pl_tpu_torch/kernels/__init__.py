@@ -43,11 +43,15 @@ def load():
         # (img, lab, prob, boxes, img_out, lab_out, prob_out,
         #  B, CI, H, W, cutout, ignore, stream)
         "u2pl_unsup_mix_boxes": [p] * 7 + [i] * 6 + [p],
+        # (img, lab, prob, u, present, img_out, lab_out, prob_out, B, CI, H, W, C, stream)
+        "u2pl_unsup_class_mix": [p] * 8 + [i] * 5 + [p],
         # (prob, labels, low, high, anchor, negative, low_valid, counts,
         #  B, B_l, C, HW, ignore, delta_p, delta_n, low_rank, high_rank, stream)
         "u2pl_contra_pixel_masks": [p] * 8 + [i] * 5 + [f] * 2 + [i] * 2 + [p],
         # (mask, pri, sel_idx, n_sel, state, C, N, K, stream)
         "u2pl_contra_select_keys": [p] * 5 + [i] * 3 + [p],
+        # (mask, keys, idx, n_sel, state, C, N, K, stream)
+        "u2pl_contra_select_keys_radix": [p] * 5 + [i] * 3 + [p],
         # (mask, a_j, u, idx, count, C, N, Q, stream)
         "u2pl_contra_sample_anchors": [p] * 5 + [i] * 3 + [p],
         # (rep, sel_idx, n_sel, keys, ptr, occ, sizes, B, F, HW, C, K, cap, dtype, stream)
@@ -68,6 +72,7 @@ def load():
         "u2pl_quantile_max_queries": [],
         "u2pl_quantile_state_words": [],
         "u2pl_select_keys_state_words": [i, i],
+        "u2pl_select_keys_radix_state_words": [i],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -1,8 +1,8 @@
 // Kernel family K4 (sm_90a): the per-pixel masks, the negative-key selection
 // and the anchor draws of the contrastive loss; replaces
 // u2pl_tpu/losses/contrastive.py: _ranks_desc (:50) with the mask algebra of
-// compute_contra_memobank_loss (:201-238), _select_keys_argsort (:89) and
-// _sample_with_replacement (:73).
+// compute_contra_memobank_loss (:201-238), _select_keys_argsort (:89),
+// _select_keys_radix (:106; K4r) and _sample_with_replacement (:73).
 //
 // Flagship shapes: N = 8 x 129 x 129 = 133,128 os4 pixels, C = 21 classes,
 // K = 8192 keys per class, Q = 256 draws per position.
@@ -23,6 +23,15 @@
 //   Ascending (priority, pixel) is the stable argsort's order, so the slab is
 //   the argsort's, ties included.  Bound: memory, 9 passes over the mask and
 //   the priorities (~14 MB each).
+// select_keys_radix (K4r): per class, kk = min(k, N) and cnt = #mask; the
+//   (kk-1)-th smallest masked u32 key t by the same radix descent at 32 bits
+//   (4 levels of 8 bits, no sort); sel = cnt > kk ? mask & key <= t : mask;
+//   then one block per class scans its row in pixel order, chunk by chunk
+//   (a block-wide exclusive scan of the chunk's selected pixels), and writes
+//   the first k selected positions, padding with N - 1 (JAX's clipped
+//   searchsorted miss).  A tie at t admits the lower-indexed tied pixels, as
+//   in JAX.  Bound: memory, 5 passes over the mask and the keys (~3.5 MB
+//   each at the flagship's (21, 133128)).
 // sample_anchors: one block per position counts its anchor row, then scans
 //   it once in chunks of 4096 pixels, compacting each chunk's set pixels into
 //   shared memory, where the draws r = floor(u * n) that fall in the chunk
@@ -277,7 +286,7 @@ __global__ void sk_sort_kernel(int C, int K, int kpad, unsigned* __restrict__ st
   if (threadIdx.x == 0) n_sel[c] = n;
 }
 
-// ---- sample_anchors --------------------------------------------------------
+// ---- block scan (select_keys_radix, sample_anchors) --------------------------
 
 // exclusive block scan of one int per thread (blockDim.x == kScanThreads);
 // returns the thread's exclusive prefix, *total the block's sum
@@ -306,6 +315,117 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* warp_tot,
   *total = warp_tot[31];
   return before + x - v;
 }
+
+// ---- select_keys_radix (K4r) -------------------------------------------------
+// state (u32 words, zeroed by the caller): histograms C x 256, then per class
+// kRxStateWords words: prefix, remaining rank, count, all-taken flag
+
+constexpr int kRxStateWords = 4;
+
+__global__ void skr_hist_kernel(const uint8_t* __restrict__ mask,
+                                const unsigned* __restrict__ keys, int C,
+                                int N, int level, unsigned* __restrict__ st) {
+  __shared__ unsigned hist[kBins];
+  __shared__ unsigned count;
+  const int c = blockIdx.y;
+  unsigned* cls = st + C * kBins + c * kRxStateWords;
+  if (level > 0 && cls[3]) return;  // at most kk keys: all are taken
+  for (int j = threadIdx.x; j < kBins; j += blockDim.x) hist[j] = 0;
+  if (threadIdx.x == 0) count = 0;
+  __syncthreads();
+  const unsigned prefix = cls[0];
+  const int shift = 24 - 8 * level;
+  const uint8_t* m = mask + (size_t)c * N;
+  const unsigned* kc = keys + (size_t)c * N;
+  unsigned my = 0;
+  for (int n = blockIdx.x * blockDim.x + threadIdx.x; n < N;
+       n += gridDim.x * blockDim.x) {
+    if (!m[n]) continue;
+    const unsigned key = kc[n];
+    ++my;
+    if (level == 0 || (key >> (shift + 8)) == (prefix >> (shift + 8))) {
+      atomicAdd(&hist[(key >> shift) & (kBins - 1)], 1u);
+    }
+  }
+  if (level == 0 && my) atomicAdd(&count, my);
+  __syncthreads();
+  for (int j = threadIdx.x; j < kBins; j += blockDim.x) {
+    if (hist[j]) atomicAdd(&st[c * kBins + j], hist[j]);
+  }
+  if (level == 0 && threadIdx.x == 0 && count) atomicAdd(&cls[2], count);
+}
+
+// one thread per class: at level 0 it decides whether every masked key is
+// taken (count <= kk), else it appends the digit of the rank-(kk-1) key
+__global__ void skr_select_kernel(int C, int KK, int level,
+                                  unsigned* __restrict__ st) {
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    unsigned* cls = st + C * kBins + c * kRxStateWords;
+    unsigned* h = st + c * kBins;
+    if (level == 0) {
+      cls[1] = (unsigned)(KK - 1);
+      cls[3] = cls[2] <= (unsigned)KK ? 1u : 0u;
+    }
+    if (!cls[3]) {
+      const int shift = 24 - 8 * level;
+      unsigned below = 0;
+      int sel = 0;
+      for (int b = 0; b < kBins; ++b) {
+        if (below + h[b] > cls[1]) {
+          sel = b;
+          break;
+        }
+        below += h[b];
+      }
+      cls[1] -= below;
+      cls[0] |= (unsigned)sel << shift;
+    }
+    for (int b = 0; b < kBins; ++b) h[b] = 0;
+  }
+}
+
+// one block per class (kScanThreads threads): the first K selected pixels in
+// pixel order, then N - 1 up to K
+__global__ void skr_compact_kernel(const uint8_t* __restrict__ mask,
+                                   const unsigned* __restrict__ keys, int C,
+                                   int N, int K, const unsigned* __restrict__ st,
+                                   int* __restrict__ idx,
+                                   int* __restrict__ n_sel) {
+  __shared__ int warp_tot[32];
+  const int c = blockIdx.x;
+  const unsigned* cls = st + C * kBins + c * kRxStateWords;
+  const bool all = cls[3] != 0;
+  const unsigned thresh = cls[0];
+  const uint8_t* m = mask + (size_t)c * N;
+  const unsigned* kc = keys + (size_t)c * N;
+  int* out = idx + (size_t)c * K;
+  int base = 0;
+  for (int start = 0; start < N && base < K; start += kChunk) {
+    const int first = start + threadIdx.x * kScanItems;
+    int flags = 0, cnt = 0;
+#pragma unroll
+    for (int i = 0; i < kScanItems; ++i) {
+      const int n = first + i;
+      if (n < N && m[n] && (all || kc[n] <= thresh)) {
+        flags |= 1 << i;
+        ++cnt;
+      }
+    }
+    int chunk_total;
+    int at = base + block_exclusive_scan(cnt, warp_tot, &chunk_total);
+#pragma unroll
+    for (int i = 0; i < kScanItems; ++i) {
+      if ((flags & (1 << i)) && at < K) out[at] = first + i;
+      at += (flags >> i) & 1;
+    }
+    base += chunk_total;
+    __syncthreads();
+  }
+  for (int j = min(base, K) + threadIdx.x; j < K; j += blockDim.x) out[j] = N - 1;
+  if (threadIdx.x == 0) n_sel[c] = (int)min(cls[2], (unsigned)K);
+}
+
+// ---- sample_anchors --------------------------------------------------------
 
 __global__ void sample_anchors_kernel(const uint8_t* __restrict__ mask,
                                       const int* __restrict__ a_j,
@@ -406,6 +526,34 @@ int u2pl_contra_select_keys(const void* mask, const void* pri, void* sel_idx,
   if (err != cudaSuccess) return (int)err;
   sk_sort_kernel<<<C, kSortThreads, smem, s>>>(C, K, kpad, st, (int*)sel_idx,
                                                (int*)n_sel);
+  return (int)cudaGetLastError();
+}
+
+int u2pl_select_keys_radix_state_words(int C) {
+  return C * kBins + C * kRxStateWords;
+}
+
+int u2pl_contra_select_keys_radix(const void* mask, const void* keys,
+                                  void* idx, void* n_sel, void* state, int C,
+                                  int N, int K, void* stream) {
+  if (C <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(u2pl::blocks_for(N, 128), C);
+  unsigned* st = (unsigned*)state;
+  const int kk = K < N ? K : N;
+  for (int level = 0; level < 4; ++level) {
+    skr_hist_kernel<<<grid, kThreads, 0, s>>>((const uint8_t*)mask,
+                                              (const unsigned*)keys, C, N,
+                                              level, st);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    skr_select_kernel<<<1, 32, 0, s>>>(C, kk, level, st);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  skr_compact_kernel<<<C, kScanThreads, 0, s>>>(
+      (const uint8_t*)mask, (const unsigned*)keys, C, N, K, st, (int*)idx,
+      (int*)n_sel);
   return (int)cudaGetLastError();
 }
 

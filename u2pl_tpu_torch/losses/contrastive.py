@@ -14,7 +14,9 @@ both sides.
 Random draws are inputs: `draws = (pri, u_anchor, u_neg)`, float32 in
 [0, 1):
   pri (C, N)            key-selection priorities of class c's pixels
-                        (JAX: uniform(split(kkey, C)[c], (N,)));
+                        (JAX: uniform(split(kkey, C)[c], (N,))); under
+                        `select_keys: radix` int32 holding u32 keys
+                        (JAX: bits(split(kkey, C)[c], (N,), uint32));
   u_anchor (C, Q)       anchor draws of POSITION j (split(akey, C)[j]);
   u_neg (C, Q*M)        bank draws of BANK CLASS c (uniform(nkey, (C, Q*M)));
                         position j reads row b_j.
@@ -25,6 +27,9 @@ The device functions and their kernels (CUDA C++, sm_90a):
                        negative and low-valid masks and their counts;
   select_keys          K4: per class the k smallest (priority, pixel) pairs
                        of the negative mask, in ascending order;
+  select_keys_radix    K4r: per class the masked pixels whose u32 key is at
+                       or under the k-th smallest, the first k in pixel
+                       order (`select_keys: radix`);
   sample_anchors       K4: per position the with-replacement anchor draws
                        mapped to set pixels of the anchor mask;
   memobank_enqueue     K5 (`memobank.py`, `kernels/csrc/memobank.cu`);
@@ -221,6 +226,70 @@ def select_keys(mask: torch.Tensor, pri: torch.Tensor, k: int):
 
 
 select_keys.launches = 0
+
+
+# ---- radix key selection (K4r: select_keys_radix) -------------------------
+
+def _u32(keys: torch.Tensor) -> torch.Tensor:
+    """u32 key bits held in int32 (or int64 in [0, 2^32)) -> int64 in [0, 2^32)."""
+    return keys.to(torch.int64) & 0xFFFFFFFF
+
+
+def select_keys_radix_plain(mask: torch.Tensor, keys: torch.Tensor, k: int):
+    """Plain PyTorch version of `select_keys_radix`: JAX's
+    `_select_keys_radix` (contrastive.py:126-137) per class, with
+    `torch.kthvalue` on the int64 keys for the radix select, then cumsum and
+    searchsorted."""
+    c, n = mask.shape
+    kk = min(k, n)
+    kv = torch.where(mask, _u32(keys), torch.full_like(keys, 0xFFFFFFFF, dtype=torch.int64))
+    cnt = mask.sum(dim=1)
+    thresh = torch.kthvalue(kv, kk, dim=1).values
+    sel = torch.where((cnt > kk)[:, None], mask & (kv <= thresh[:, None]), mask)
+    cs = torch.cumsum(sel.to(torch.int32), dim=1)
+    ranks = torch.arange(1, k + 1, dtype=torch.int32, device=mask.device).expand(c, k).contiguous()
+    idx = torch.searchsorted(cs, ranks, side="left")
+    return torch.clamp(idx, 0, n - 1).to(torch.int32), torch.clamp(cnt, max=k).to(torch.int32)
+
+
+def select_keys_radix(mask: torch.Tensor, keys: torch.Tensor, k: int):
+    """Per class c, with kk = min(k, N) and cnt = #mask[c]: when cnt > kk
+    the masked pixels whose u32 key (keys[c, n], unsigned) is at or under
+    the kk-th smallest masked key, else all masked pixels; of those the first
+    k in pixel order, padded with N - 1.  JAX's `_select_keys_radix` on the
+    same keys.  mask (C, N) bool; keys (C, N) int32 holding u32 bits (or
+    int64 in [0, 2^32)).  Returns (sel_idx (C, k) int32, n_sel (C,) int32
+    = min(cnt, k)); only the first n_sel[c] entries of row c are keys.
+
+    On the card, kernel K4r: a 32-bit radix select of the threshold (four
+    8-bit histogram levels per class), then one block per class compacts
+    its row in pixel order."""
+    c, n = mask.shape
+    if keys.shape != (c, n) or k <= 0:
+        raise ValueError(f"select_keys_radix: mask {tuple(mask.shape)}, keys "
+                         f"{tuple(keys.shape)}, k {k}")
+    if mask.device.type == "cpu":
+        return select_keys_radix_plain(mask, keys, k)
+    dev = keys.device
+    if keys.dtype == torch.int64:
+        keys = (keys - (keys >= 2**31).to(torch.int64) * 2**32).to(torch.int32)
+    keys = keys.contiguous()
+    _require(keys, dev, torch.int32, "select_keys_radix keys")
+    _require(mask, dev, torch.bool, "select_keys_radix mask")
+    from u2pl_tpu_torch.kernels import load
+
+    lib = load()
+    sel_idx = torch.empty((c, k), dtype=torch.int32, device=dev)
+    n_sel = torch.empty((c,), dtype=torch.int32, device=dev)
+    state = torch.zeros(lib.u2pl_select_keys_radix_state_words(c), dtype=torch.int32, device=dev)
+    _launch(lib, "u2pl_contra_select_keys_radix", "select_keys_radix", dev,
+            mask.data_ptr(), keys.data_ptr(), sel_idx.data_ptr(), n_sel.data_ptr(),
+            state.data_ptr(), c, n, k)
+    select_keys_radix.launches += 1
+    return sel_idx, n_sel
+
+
+select_keys_radix.launches = 0
 
 
 # ---- anchor draws (K4: sample_anchors) -------------------------------------
@@ -478,7 +547,8 @@ def compute_contra_memobank_loss(
     proto = proto / torch.clamp(n_low_valid[:, None].to(torch.float32), min=1.0)
 
     # enqueue this step's negative keys, then sample the bank (:250-292)
-    sel_idx, n_sel = select_keys(negative_mask, pri, cfg.max_keys_per_class_per_step)
+    select = select_keys_radix if cfg.select_keys == "radix" else select_keys
+    sel_idx, n_sel = select(negative_mask, pri, cfg.max_keys_per_class_per_step)
     memobank_enqueue(bank, rep_teacher, sel_idx, n_sel)
 
     b_j = valid_classes_first(class_valid)

@@ -79,15 +79,16 @@ class Adam(torch.optim.Optimizer):
             if "mu" not in st:
                 for p in params:
                     self.state[p].update(mu=torch.zeros_like(p), nu=torch.zeros_like(p))
-                st["count"] = torch.zeros((), dtype=torch.int32, device=params[0].device)
+                # "step": the key torch's load_state_dict keeps as saved
+                st["step"] = torch.zeros((), dtype=torch.int32, device=params[0].device)
             mu = torch._foreach_add(torch._foreach_mul(grads, 1.0 - b1),
                                     torch._foreach_mul([self.state[p]["mu"] for p in params], b1))
             nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - b2),
                                     torch._foreach_mul([self.state[p]["nu"] for p in params], b2))
             for p, m, n in zip(params, mu, nu):
                 self.state[p].update(mu=m, nu=n)
-            st["count"] = st["count"] + 1
-            cf = st["count"].to(torch.float32)
+            st["step"] = st["step"] + 1
+            cf = st["step"].to(torch.float32)
             c1 = 1.0 - torch.pow(torch.full_like(cf, b1), cf)
             c2 = 1.0 - torch.pow(torch.full_like(cf, b2), cf)
             mu_hat = torch._foreach_div(mu, c1)

@@ -28,7 +28,7 @@ from u2pl_tpu_torch.train.optim import make_optimizer
 class TrainState:
     step: torch.Tensor  # 0-d int32 on the models' device: the global iteration
     student: SegModel
-    teacher: SegModel
+    teacher: Optional[SegModel]  # None for the supervised trainer
     optimizer: torch.optim.Optimizer
     bank: Optional[MemoryBank] = None
     prototype: Optional[torch.Tensor] = None
@@ -39,16 +39,18 @@ def create_train_state(
     device: Union[str, torch.device] = "cuda",
     generator: Optional[torch.Generator] = None,
     student: Optional[SegModel] = None,
+    with_teacher: bool = True,
 ) -> TrainState:
     """On `device` (the card unless the caller names the CPU): the student
     from `build_model` (or the one given), the teacher a copy of it
-    (parameters and BN buffers) that takes no gradient, the optimizer
+    (parameters and BN buffers) that takes no gradient (None without
+    `with_teacher`, as the supervised trainer has it), the optimizer
     with the head group at x `head_lr_multiplier(cfg)`, and the empty bank
     and zero prototype when the config has `trainer.contrastive`."""
     if student is None:
         student = build_model(cfg.net, device=device, generator=generator)
     student = student.to(device)
-    teacher = copy.deepcopy(student).requires_grad_(False)
+    teacher = copy.deepcopy(student).requires_grad_(False) if with_teacher else None
     optimizer = make_optimizer(cfg.trainer.optimizer, student, head_lr_multiplier(cfg))
     step = torch.zeros((), dtype=torch.int32, device=device)
     state = TrainState(step=step, student=student, teacher=teacher, optimizer=optimizer)

@@ -7,7 +7,8 @@ back to the host.  The anatomy follows the JAX steps line by line:
 
   semi step (steps.py:269-574): eval-mode teacher forward on the unlabeled
   batch -> max-prob / argmax pseudo-labels of the upsampled logits (kernel D)
-  -> CutMix or Cutout on a 50% coin, one coin for the batch (kernel K3) ->
+  -> CutMix or Cutout (kernel K3) or ClassMix (kernel K3c) on a 50% coin,
+  one coin for the batch ->
   train-mode teacher forward on labeled + mixed images (updates the
   teacher's BN statistics) -> entropy of its upsampled unlabeled logits
   (kernel D) -> the annealed drop percentile of that entropy over the valid
@@ -16,7 +17,8 @@ back to the host.  The anatomy follows the JAX steps line by line:
   images, sup CE + entropy-gated unsup CE of the upsampled logits (kernel C,
   forward and backward) + the contrastive memory-bank InfoNCE on the
   student's representation (kernels K4, K5, K6; the teacher's os4 softmax
-  and representation pick the anchors, the negatives and the prototypes)
+  and representation pick the anchors, the negatives and the prototypes;
+  `contrastive.select_keys: radix` selects the negative keys with K4r)
   -> optimizer step at the poly LR -> EMA of the teacher's parameters, with
   decay 0 in the first semi epoch.
 
@@ -26,13 +28,15 @@ back to the host.  The anatomy follows the JAX steps line by line:
   main head and, with `net.aux_loss`, the aux head.
 
 `run_steps` sequences the warmup and semi steps by epoch, as
-train_semi.py does.
+train_semi.py does; the CLIs (`u2pl_tpu_torch.train_semi`, `train_sup`)
+drive it and `make_sup_step` from the data loaders.
 
-Dropout masks, the mix draws (coin, boxes) and the contrastive draws
-(key priorities, anchor and bank draws) come from the `generator` passed to
-the step; `mix=(coin, boxes)` and `contra=(pri, u_anchor, u_neg)` inject
-them instead.  `contrastive.anchor_ema` and `contrastive.select_keys: radix`
-raise NotImplementedError: they are later slices (ROADMAP.md).
+Dropout masks, the mix draws (the coin, and boxes or ClassMix uniforms)
+and the contrastive draws (key priorities, or u32 keys under `select_keys:
+radix`, anchor and bank draws) come from the `generator` passed to the
+step; `mix=(coin, draws)` and `contra=(pri, u_anchor, u_neg)` inject them
+instead.  `contrastive.anchor_ema` raises NotImplementedError: it is a
+later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -60,11 +64,6 @@ def _check_contrastive_ported(cfg: Config) -> None:
     if contra.anchor_ema:
         raise NotImplementedError(
             "contrastive.anchor_ema: true is not ported yet (ROADMAP.md queue 1)"
-        )
-    if contra.select_keys != "argsort":
-        raise NotImplementedError(
-            f"contrastive.select_keys: {contra.select_keys} is not ported yet "
-            "(ROADMAP.md queue 1); the port selects keys as 'argsort' does"
         )
 
 
@@ -212,21 +211,28 @@ def _contrastive_masks(cfg, label_l, label_u, entropy, valid_u, low_thresh, high
 
 def draw_contrastive(generator: torch.Generator, cfg: Config, n_pixels: int):
     """The contrastive loss's draws from `generator`: (pri (C, N), u_anchor
-    (C, Q), u_neg (C, Q * num_negatives)), float32 in [0, 1)."""
+    (C, Q), u_neg (C, Q * num_negatives)), float32 in [0, 1); under
+    `select_keys: radix` pri is a (C, N) int32 block of u32 key bits."""
     c, contra = cfg.net.num_classes, cfg.trainer.contrastive
     q, m = contra.num_queries, contra.num_negatives
-    return tuple(
-        torch.rand(shape, generator=generator, device=generator.device)
-        for shape in ((c, n_pixels), (c, q), (c, q * m))
+    dev = generator.device
+    if contra.select_keys == "radix":
+        pri = torch.randint(0, 2**32, (c, n_pixels), generator=generator, device=dev,
+                            dtype=torch.int64).to(torch.int32)
+    else:
+        pri = torch.rand((c, n_pixels), generator=generator, device=dev)
+    return (pri,) + tuple(
+        torch.rand(shape, generator=generator, device=dev) for shape in ((c, q), (c, q * m))
     )
 
 
 def make_semi_step(cfg: Config, steps_per_epoch: int) -> Callable:
     """The U²PL semi-supervised step (steps.py:247-583).
     step(state, image_l, label_l, image_u, generator=None, mix=None,
-    contra=None) -> metrics; `mix=(coin, boxes)`: a 0-d bool and (B_u, 4)
-    int32 boxes on the device, `contra=(pri, u_anchor, u_neg)` the
-    contrastive draws (`draw_contrastive`), in place of the generator's."""
+    contra=None) -> metrics; `mix=(coin, draws)`: a 0-d bool and the mode's
+    draws on the device ((B_u, 4) int32 boxes, or (B_u, C) f32 ClassMix
+    uniforms), `contra=(pri, u_anchor, u_neg)` the contrastive draws
+    (`draw_contrastive`), in place of the generator's."""
     max_iter = cfg.trainer.epochs * steps_per_epoch
     sup_loss_fn = make_sup_loss_fn(cfg)
     _check_contrastive_ported(cfg)
@@ -262,11 +268,12 @@ def make_semi_step(cfg: Config, steps_per_epoch: int) -> Callable:
                     if generator is None:
                         raise ValueError("the semi step draws its mix from a generator or `mix`")
                     coin = torch.rand((), generator=generator, device=generator.device) < 0.5
-                    boxes = mixing.draw_boxes(generator, image_u.shape[0], h, w)
+                    draws = mixing.draw_mix(generator, unsup_cfg.apply_aug, image_u.shape[0],
+                                            h, w, cfg.net.num_classes)
                 else:
-                    coin, boxes = mix
+                    coin, draws = mix
                 aug_img, aug_lab, aug_log = mixing.generate_unsup_data(
-                    image_u, label_u_aug, logits_u_aug, boxes, unsup_cfg.apply_aug, ignore
+                    image_u, label_u_aug, logits_u_aug, draws, unsup_cfg.apply_aug, ignore
                 )
                 image_u_aug = torch.where(coin, aug_img, image_u)
                 label_u_aug = torch.where(coin, aug_lab, label_u_aug)
@@ -355,6 +362,13 @@ def make_semi_step(cfg: Config, steps_per_epoch: int) -> Callable:
     return step
 
 
+def step_generator(seed: int, i_iter: int, device) -> torch.Generator:
+    """The generator of global step `i_iter` of a run seeded `seed` (JAX:
+    fold_in(rng, i_iter), steps.py:275): every draw of a step comes from
+    it, so a resumed run takes the draws an uninterrupted one takes."""
+    return torch.Generator(device=device).manual_seed(((seed + 1) << 32) + i_iter)
+
+
 def run_steps(
     state: TrainState,
     batches: Iterable[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
@@ -364,9 +378,11 @@ def run_steps(
     start_iter: int = 0,
     mixes: Optional[Sequence] = None,
     contras: Optional[Sequence] = None,
+    seed: Optional[int] = None,
 ) -> Iterator[Tuple[int, Metrics]]:
-    """The semi trainer's step sequencing (train_semi.py:166-245; its CLI,
-    data pipeline, validation and checkpoints are a later slice): warmup
+    """The semi trainer's step sequencing (train_semi.py:166-245; the CLI
+    `u2pl_tpu_torch.train_semi` adds the data pipeline, validation and
+    checkpoints around it): warmup
     steps while epoch < sup_only_epoch, the student -> teacher copy before
     every step of the first semi epoch (train_semi.py:233-237), semi steps
     after that.
@@ -375,13 +391,17 @@ def run_steps(
     `start_iter` (the host's copy of `state.step`, so choosing the branch
     reads nothing back from the device); yields (i_iter, metrics) after each
     step.  `mixes[j]` and `contras[j]`, when given, are the semi step's
-    injected (coin, boxes) and contrastive draws for batch j."""
+    injected (coin, draws) and contrastive draws for batch j.  With `seed`,
+    each step draws from `step_generator(seed, i_iter)` in place of
+    `generator`."""
     warmup = make_semi_warmup_step(cfg, steps_per_epoch)
     semi = make_semi_step(cfg, steps_per_epoch)
     sup_only_epoch = cfg.trainer.sup_only_epoch
     for j, (image_l, label_l, image_u) in enumerate(batches):
         i_iter = start_iter + j
         epoch = i_iter // steps_per_epoch
+        if seed is not None:
+            generator = step_generator(seed, i_iter, state.step.device)
         if epoch < sup_only_epoch:
             metrics = warmup(state, image_l, label_l, image_u, generator)
         else:

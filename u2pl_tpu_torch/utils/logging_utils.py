@@ -1,4 +1,5 @@
-"""Logger setup (port of u2pl_tpu/utils/logging_utils.py:init_log)."""
+"""Logger setup and windowed meters (port of
+u2pl_tpu/utils/logging_utils.py; reference utils.py:438-491)."""
 
 from __future__ import annotations
 
@@ -25,3 +26,32 @@ def init_log(name: str = "global", level=logging.INFO) -> logging.Logger:
     logger.addHandler(ch)
     logger.propagate = False
     return logger
+
+
+class AverageMeter:
+    """Windowed (length > 0) or cumulative average (reference
+    utils.py:438-468)."""
+
+    def __init__(self, length: int = 0):
+        self.length = length
+        self.reset()
+
+    def reset(self):
+        self.history = []
+        self.count = 0
+        self.sum = 0.0
+        self.val = 0.0
+        self.avg = 0.0
+
+    def update(self, val, num: int = 1):
+        if self.length > 0:
+            self.history.append(val)
+            if len(self.history) > self.length:
+                del self.history[0]
+            self.val = self.history[-1]
+            self.avg = sum(self.history) / len(self.history)
+        else:
+            self.val = val
+            self.sum += val * num
+            self.count += num
+            self.avg = self.sum / max(self.count, 1)
