@@ -9,7 +9,9 @@ Phases; any failure ends the run with a nonzero exit code:
   0. setup: the card's name and power limit, the kernels built from
      u2pl_tpu_torch/kernels/csrc with nvcc, and the yaml / PIL probe;
   1. each CUDA kernel against its plain PyTorch version at the serving and
-     training paths' shapes, on the card;
+     training paths' shapes, on the card; kernel A also bit-equal to the
+     rounded H-then-W formula (`resize_bilinear_rounded`) at every A_SHAPES
+     entry;
   2. the slice: the full VOC model of experiments/pascal/1464/ours (ResNet-101
      + DeepLabv3+, 21 classes, float32 as serve.py's default) from seeded
      random weights, saved as a reference-format .pth, loaded by InferEngine
@@ -18,6 +20,8 @@ Phases; any failure ends the run with a nonzero exit code:
      counts against zero;
   3. timings: the host's load and save per image, forwards at batch 1
      and 4, each kernel beside its plain version, peak device memory;
+     kernel A at the logits' and the decoder's shapes beside
+     F.interpolate, with torch.profiler's device time per call;
   4. the training slice: the same VOC config minus its `trainer.contrastive`
      block, full ResNet-101 student and EMA teacher from seeded random
      weights, 5 steps of 4 labeled + 4 unlabeled synthetic 513² images
@@ -39,7 +43,9 @@ Phases; any failure ends the run with a nonzero exit code:
      against plain versions, its selections and bank bit-equal;
   7. contrastive timings: the contrastive semi step's median, images/s and
      peak memory, and each K4-K6 kernel beside its plain version and, where
-     one exists, a single PyTorch call for the same function;
+     one exists, a single PyTorch call for the same function; K6's backward
+     timed as a plain call (`_infonce_bwd_cuda`, its gradient's allocation
+     included), through torch.autograd.grad and in torch.profiler's trace;
   8. the Cityscapes slice: experiments/cityscapes/744/ours as it stands
      (ResNet-101 + DeepLabv3+ with the aux head, 19 classes, OHEM on both
      heads, the contrastive branch with 12288 keys per class and a (19,
@@ -76,9 +82,12 @@ above and below thresh, an all-ignored map and fewer valid pixels than
 min_kept, and K3c (ClassMix) and K4r (radix key selection) bit-equal at the
 flagship's shapes, with tied draws, a single-class sample, keys tied at the
 threshold, valid 0xFFFFFFFF keys, a class under the cap and an empty one.
+Kernel times are CUDA events around back-to-back calls queued behind a
+device sleep (`cuda_ms`), so they time the card, not the host's launches.
 It prints a JSON line of kernels (each with its launches on the main paths,
 its error against its plain version, its time beside the plain version's,
-its bound and a library call's time), then one JSON line
+its bound and a library call's time; kernel A once per shape, the logits'
+and the decoder's), then one JSON line
 {"ok": true, "device": {...}} as the last line of its output.
 """
 
@@ -106,7 +115,7 @@ SEED = 0
 # phase 1 shapes: kernel A (B, C, H, W) -> (OH, OW); kernel B (C, H, W) -> (h, w)
 A_SHAPES = [
     ((4, 21, 129, 129), (513, 513)),  # serving: os4 logits -> input scale
-    ((2, 256, 65, 65), (129, 129)),  # decoder: os8 head -> os4
+    ((8, 256, 65, 65), (129, 129)),  # decoder: os8 -> os4, the semi step's 4 + 4 images
     ((2, 3, 97, 65), (513, 513)),
     ((2, 3, 7, 9), (33, 17)),
     ((2, 3, 1, 5), (4, 10)),
@@ -118,7 +127,9 @@ B_SHAPES = [
 ]
 # kernel A vs plain, max abs diff on randn inputs: the kernel rounds each
 # product and sum, but the plain version's matmul may fuse and reorder them
+# (against `resize_bilinear_rounded`, the same ops one by one: bit-equal)
 A_TOL = 1e-5
+FEATURES = 256  # the decoder's channels: kernel A's launches at 256 channels are its upsample
 NEAR_TIE = 1e-5  # kernel B: labels may differ only where top-2 gap <= this (relative)
 MIN_AGREEMENT = 0.999  # served mask vs plain-version path, per image
 # six requests: one full batch of 4 and a partial batch of 2
@@ -184,13 +195,17 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 30) -> float:
-    """Mean device ms per call of `fn` over `iters` back-to-back calls."""
+    """Mean device ms per call of `fn` over `iters` back-to-back calls.  A
+    ~20 ms device sleep is queued first, so the host enqueues the calls
+    while the card waits and the events time the device's work, not the
+    host's launch overhead (unless `fn` waits for the card itself)."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)  # clock cycles
     start.record()
     for _ in range(iters):
         fn()
@@ -199,28 +214,65 @@ def cuda_ms(fn, iters: int = 30) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms_profiled(fn, iters: int = 10):
+    """Device ms per call of `fn` from torch.profiler over `iters` calls:
+    the mean duration of each of the device's kernels, memsets and copies,
+    summed over them (each runs once per call; the trace may drop some
+    events), and their names with their counts; None when the trace shows
+    no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us, names = 0.0, {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.count:
+            total = getattr(ev, "self_device_time_total", None) or ev.self_cuda_time_total
+            us += total / ev.count
+            names[ev.key[:40]] = ev.count
+    return (us / 1e3, names) if us > 0 else None
+
+
+def profiled_text(prof) -> str:
+    if prof is None:
+        return "none in the trace"
+    ms, names = prof
+    return f"{ms:.4f} ms (device events seen: {names})"
+
+
 def phase1_kernels(dev):
     import torch
 
     from u2pl_tpu_torch.ops.resize import (
         resize_argmax, resize_argmax_plain, resize_bilinear, resize_bilinear_plain,
+        resize_bilinear_rounded,
     )
 
     g = torch.Generator(device=dev).manual_seed(SEED)
-    a_err = 0.0
+    a_err = {}
     for shape, out in A_SHAPES:
         x = torch.randn(*shape, device=dev, generator=g)
         y = resize_bilinear(x, out)
         torch.cuda.synchronize()
+        exact = resize_bilinear_rounded(x, out)
         ref = resize_bilinear_plain(x, out)
         torch.cuda.synchronize()
         if y.shape != ref.shape:
             fail(f"kernel A {shape}->{out}: shape {tuple(y.shape)} != {tuple(ref.shape)}")
+        same = torch.equal(y, exact)
         err = (y - ref).abs().max().item()
-        log(f"[phase 1] kernel A {shape} -> {out}: max abs diff {err:.3e} (bound {A_TOL})")
-        if not err <= A_TOL:
-            fail(f"kernel A {shape}->{out}: max abs diff {err} > {A_TOL}")
-        a_err = max(a_err, err)
+        log(f"[phase 1] kernel A {shape} -> {out}: bit-equal to the rounded H-then-W formula "
+            f"{same}; max abs diff to the plain version {err:.3e} (bound {A_TOL})")
+        if not same or not err <= A_TOL:
+            fail(f"kernel A {shape}->{out}: bit-equal {same}, max abs diff {err} (bound {A_TOL})")
+        a_err[shape] = err
+        del x, y, exact, ref
     b_err = 0
     for shape, out in B_SHAPES:
         x = torch.randn(*shape, device=dev, generator=g)
@@ -310,21 +362,21 @@ def phase2_slice(dev, card, tmp):
     engine.to_mask = lambda logit, size: (masks.append(to_mask(logit, size)), masks[-1])[1]
     writer = io.StringIO()
     torch.cuda.reset_peak_memory_stats(dev)
-    R.resize_bilinear.launches = 0
-    R.resize_argmax.launches = 0
+    zero_counters()
     t0 = time.monotonic()
     served = run_server(
         io.StringIO("".join(r + "\n" for r in reqs)), writer, engine,
         default_save_folder=out, batch_window_s=0.5,
     )
     serve_s = time.monotonic() - t0
-    launches = {"A": R.resize_bilinear.launches, "B": R.resize_argmax.launches}
+    launches = {a: n for a, n in read_counters().items() if a in ("A", "A_logits", "A_decoder", "B")}
     peak_serve = torch.cuda.max_memory_allocated(dev)
     engine.forward, engine.to_mask = forward, to_mask
 
     resp = [json.loads(line) for line in writer.getvalue().splitlines()]
     log(f"[phase 2] served {served} requests in {serve_s:.3f} s; batches {batches}; "
-        f"launches A={launches['A']} B={launches['B']}")
+        f"launches A={launches['A']} (logits {launches['A_logits']}, decoder "
+        f"{launches['A_decoder']}) B={launches['B']}")
     if [r["id"] for r in resp] != ["p0"] + [f"r{i}" for i in range(6)] + [None, "bye"]:
         fail(f"unexpected responses {resp}")
     if not (resp[0]["ok"] and resp[0]["served"] == 0 and resp[-1]["ok"]):
@@ -333,7 +385,7 @@ def phase2_slice(dev, card, tmp):
         fail(f"malformed line answered {resp[7]}")
     if batches != [4, 2] or served != 6 or len(masks) != 6:
         fail(f"batches {batches}, served {served}, masks {len(masks)}")
-    if launches["A"] <= 0 or launches["B"] <= 0:
+    if min(launches.values()) <= 0:
         fail(f"a kernel of the path was never launched: {launches}")
     for r, path, mask in zip(resp[1:7], images, masks):
         if not r["ok"] or r["batch_ms"] <= 0:
@@ -422,9 +474,12 @@ def phase3_timings(dev, card, engine, images, loaded, tmp):
         k = cuda_ms(lambda: R.resize_bilinear(x, out))
         p = cuda_ms(lambda: R.resize_bilinear_plain(x, out))
         lib = cuda_ms(lambda: F.interpolate(x, size=out, mode="bilinear", align_corners=True))
+        prof = device_ms_profiled(lambda: R.resize_bilinear(x, out))
         times[name] = (k, p, lib)
         log(f"[{card}] kernel A {shape} -> {out}: {k:.4f} ms; plain version {p:.4f} ms; "
-            f"F.interpolate(bilinear, align_corners=True) {lib:.4f} ms")
+            f"F.interpolate(bilinear, align_corners=True) {lib:.4f} ms; torch.profiler device "
+            f"time per call {profiled_text(prof)}")
+        del x
     logits = torch.randn(21, 513, 513, device=dev, generator=g)
     k = cuda_ms(lambda: R.resize_argmax(logits, (375, 500)))
     p = cuda_ms(lambda: R.resize_argmax_plain(logits, (375, 500)))
@@ -681,12 +736,23 @@ def _counter(name):
 
 
 def read_counters():
-    return {k: getattr(*_counter(k)) for k in COUNTERS}
+    """The launch counts, with kernel A's split by shape: the decoder's
+    upsample (FEATURES channels) and the logits' (serving, validation)."""
+    from u2pl_tpu_torch.ops.resize import resize_bilinear
+
+    out = {k: getattr(*_counter(k)) for k in COUNTERS}
+    out["A_decoder"] = sum(n for (shape, _), n in resize_bilinear.shapes.items()
+                           if shape[1] == FEATURES)
+    out["A_logits"] = out["A"] - out["A_decoder"]
+    return out
 
 
 def zero_counters():
+    from u2pl_tpu_torch.ops.resize import resize_bilinear
+
     for k in COUNTERS:
         setattr(*_counter(k), 0)
+    resize_bilinear.shapes.clear()
 
 
 def scalars(metrics):
@@ -1445,17 +1511,26 @@ def phase7_contrastive_timings(dev, card, cfg, state, batches, case):
                cuda_ms(lambda: tc.contra_infonce_plain(rep, *k6), 20))
     times["K6_fwd"] = fwd + (None,)
     lk, lp = tc.contra_infonce(rep, *k6), tc.contra_infonce_plain(rep, *k6)
-    # the library yardstick of the backward: index_add_ of the anchors'
-    # gradient rows into a zeroed (N, F) gradient (NHWC rows)
+    # the backward as a plain call (the gradient's allocation included), as
+    # the autograd engine's call, and in the profiler's trace
+    saved = lk.grad_fn.saved_tensors  # anchor_idx, active, valid_seg, gdir
+    one = torch.ones((), device=dev)
+    bwd = lambda: tc._infonce_bwd_cuda(*saved, one, tuple(rep.shape))  # noqa: E731
+    # the library yardstick: index_add_ of the anchors' gradient rows into
+    # a zeroed (N, F) gradient (NHWC rows)
     b, f = rep.shape[:2]
     rows = case["anchor_idx"].flatten().long()
     src = torch.randn(rows.numel(), f, device=dev)
     times["K6_bwd"] = (
-        cuda_ms(lambda: torch.autograd.grad(lk, rep, retain_graph=True), 20),
+        cuda_ms(bwd, 20),
         cuda_ms(lambda: torch.autograd.grad(lp, rep, retain_graph=True), 20),
         cuda_ms(lambda: torch.zeros(b * OS4 * OS4, f, device=dev).index_add_(0, rows, src), 20),
     )
-    del lk, lp
+    autograd_ms = cuda_ms(lambda: torch.autograd.grad(lk, rep, retain_graph=True), 20)
+    prof = device_ms_profiled(bwd)
+    log(f"[{card}] kernel K6_bwd through torch.autograd.grad: {autograd_ms:.4f} ms; "
+        f"torch.profiler device time per call of the plain call {profiled_text(prof)}")
+    del lk, lp, saved
     shapes = {
         "K4_masks": f"prob {tuple(case['prob'].shape)} -> (21, N) masks",
         "K4_select": f"({neg.shape[0]}, {neg.shape[1]}), k {k}",
@@ -1463,7 +1538,7 @@ def phase7_contrastive_timings(dev, card, cfg, state, batches, case):
         "K5": f"{int(case['n_sel'].sum())} keys into {tuple(case['bank'].keys.shape)} bf16",
         "K6_fwd": f"{int(case['active'].sum())} positions x {case['u_anchor'].shape[1]} x "
                   f"(1 + {ccfg.num_negatives})",
-        "K6_bwd": "the same, backward to the (8, 256, 129, 129) rep",
+        "K6_bwd": "the same, backward to the (8, 256, 129, 129) rep, as a plain call",
     }
     library = {"K4_select": "torch.sort(stable=True)", "K6_bwd": "index_add_ into (N, F) rows"}
     for name, (tk, tp, tl) in times.items():
@@ -1840,7 +1915,7 @@ def phase10_cli(dev, card, tmp):
     phase_s = time.monotonic() - t_phase
     log(f"[{card}] phase 10 (workspace, train_semi 2 epochs, resume, train_sup) in {phase_s:.1f} s; "
         f"peak device memory of the train_semi run {peak / 2**30:.2f} GiB")
-    total = {a: launches[a] + res_launches[a] + sup_launches[a] for a in COUNTERS}
+    total = {a: launches[a] + res_launches[a] + sup_launches[a] for a in launches}
     return paths, total, {"semi": summary, "resumed": resumed, "sup": sup, "ckpt_bytes": size,
                           "phase_s": phase_s}
 
@@ -1974,7 +2049,9 @@ def bounds(case, cfg):
     # operations per upsampled value: 9 for the bilinear taps (6 products,
     # 3 sums), plus the softmax / CE / entropy terms the function needs
     moved = {  # kernel -> (bytes, float32 operations)
-        "A": ((lo + hi) * 4, hi * 9),
+        "A_logits": ((lo + hi) * 4, hi * 9),
+        # the decoder's (8, 256, 65²) -> 129²
+        "A_decoder": (8 * 256 * (65 * 65 + 129 * 129) * 4, 8 * 256 * 129 * 129 * 9),
         "B": (21 * CROP * CROP * 4 + 375 * 500, 21 * 375 * 500 * 10),
         "A_bwd": ((8 * 256 * 129 * 129 + 8 * 256 * 65 * 65) * 4, 8 * 256 * 129 * 129 * 9),
         "C_fwd": (lo * 4 + px * 4, hi * 11),
@@ -2086,8 +2163,11 @@ def main() -> int:
                 + cli_launches[key] + variant_launches[key])
 
     report = {"kernels": [
-        entry("resize_bilinear_ac", "A", "resize.cu", "u2pl_tpu/ops/resize.py:76",
-              launches["A"] + runs("A"), a_err, "A_logits"),
+        entry("resize_bilinear_ac_logits", "A_logits", "resize.cu", "u2pl_tpu/ops/resize.py:76",
+              launches["A_logits"] + runs("A_logits"), a_err[A_SHAPES[0][0]], "A_logits"),
+        entry("resize_bilinear_ac_decoder", "A_decoder", "resize.cu",
+              "u2pl_tpu/ops/resize.py:76", launches["A_decoder"] + runs("A_decoder"),
+              a_err[A_SHAPES[1][0]], "A_decoder"),
         entry("resize_argmax_ac", "B", "resize.cu", "u2pl_tpu/serving.py:115",
               launches["B"] + runs("B"), b_err, "B"),
         entry("resize_bilinear_ac_bwd", "A_bwd", "resize.cu", "u2pl_tpu/ops/resize.py:76",

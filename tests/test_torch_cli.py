@@ -212,3 +212,45 @@ def test_profile_dir_writes_a_chrome_trace(tmp_path):
                               logging.getLogger("global"))
     with open(tmp_path / "trace" / "trace.json") as f:
         assert "traceEvents" in json.load(f)
+
+
+class SetupReached(Exception):
+    pass
+
+
+@pytest.fixture
+def no_launcher(monkeypatch):
+    for name in train_semi.WORLD_SIZE_VARS:
+        monkeypatch.delenv(name, raising=False)
+
+
+@pytest.mark.parametrize("module", [train_semi, train_sup], ids=["semi", "sup"])
+@pytest.mark.parametrize("var", ["WORLD_SIZE", "SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE"])
+def test_multi_process_launch_raises_before_any_state(monkeypatch, no_launcher, module, var):
+    """A launcher's world size above 1 raises before the config is read or
+    any state is built, naming the variable and the queue item that ports
+    multi-GPU: each process would otherwise train its own copy on device 0
+    and write the same checkpoints."""
+
+    def setup(*args, **kw):
+        raise AssertionError("setup ran under a multi-process launch")
+
+    monkeypatch.setattr(module, "setup", setup)
+    monkeypatch.setenv(var, "2")
+    with pytest.raises(RuntimeError, match=f"{var}=2: .*ROADMAP.md queue 1 item 6"):
+        module.main(["--config", "config.yaml", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("module", [train_semi, train_sup], ids=["semi", "sup"])
+def test_single_process_launch_still_starts(monkeypatch, no_launcher, module):
+    """A world size of 1 under every launcher's variable (a one-process
+    torchrun, a one-task SLURM or MPI job) goes on to the setup."""
+    for name in train_semi.WORLD_SIZE_VARS:
+        monkeypatch.setenv(name, "1")
+
+    def setup(*args, **kw):
+        raise SetupReached
+
+    monkeypatch.setattr(module, "setup", setup)
+    with pytest.raises(SetupReached):
+        module.main(["--config", "config.yaml", "--device", "cpu"])

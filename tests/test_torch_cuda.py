@@ -57,6 +57,35 @@ def test_kernel_a_matches_plain(insz, outsz, align):
     assert (got - ref).abs().max().item() <= 1e-5
 
 
+# chip_smoke.py's A_SHAPES (serving, decoder, odd), a 1-pixel input and an
+# output width that is not a multiple of 4
+A_EXACT_SHAPES = [
+    ((4, 21, 129, 129), (513, 513)),
+    ((8, 256, 65, 65), (129, 129)),
+    ((2, 3, 97, 65), (513, 513)),
+    ((2, 3, 7, 9), (33, 17)),
+    ((2, 3, 1, 5), (4, 10)),
+    ((2, 3, 1, 1), (6, 7)),
+    ((3, 5, 9, 7), (13, 30)),
+]
+
+
+@pytest.mark.parametrize("shape,outsz", A_EXACT_SHAPES)
+@pytest.mark.parametrize("align", [True, False])
+def test_kernel_a_bit_equal_to_rounded_formula(shape, outsz, align):
+    """Kernel A computes the H pass, then the W pass, each product and sum
+    rounded on its own: bit-equal to those ops one by one in torch."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(*shape, device=dev, generator=g)
+    n = tr.resize_bilinear.shapes[(shape, outsz)]
+    got = tr.resize_bilinear(x, outsz, align)
+    ref = tr.resize_bilinear_rounded(x, outsz, align)
+    torch.cuda.synchronize()
+    assert tr.resize_bilinear.shapes[(shape, outsz)] == n + 1
+    assert got.shape == ref.shape and torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("chw,outsz", ARGMAX_SHAPES)
 def test_kernel_b_matches_plain(chw, outsz):
     dev = _cuda()
@@ -81,6 +110,8 @@ def test_kernels_refuse_what_they_do_not_take():
         tr.resize_bilinear(x.double(), (4, 4))
     with pytest.raises(ValueError):
         tr.resize_bilinear(x.transpose(2, 3), (4, 4))
+    with pytest.raises(ValueError):  # the taps of 20000 columns exceed shared memory
+        tr.resize_bilinear(x, (4, 20000))
     with pytest.raises(TypeError):
         tr.resize_argmax(x[0].half(), (4, 4))
     with pytest.raises(ValueError):
@@ -424,25 +455,68 @@ def test_kernel_memobank_enqueue_bit_equal(dtype, b, c, h, w, k, queue, class0):
         assert torch.equal(getattr(got, name), getattr(ref, name)), name
 
 
+INFONCE_LAYOUTS = ["repeats", "one_pixel", "distinct", "shared_inactive", "across_positions"]
+
+
+def _anchor_draws(layout, dev, g, b, c, h, w, q, bank, b_j):
+    """(anchor_idx (C, Q) int32, active (C,) bool, valid_seg) with the draws
+    laid over the pixels as `layout` says:
+      repeats           disjoint anchor pixels per position, 8 each, drawn
+                        with repeats;
+      one_pixel         all of a position's draws on one pixel;
+      distinct          every draw on its own pixel;
+      shared_inactive   as repeats, and the inactive positions draw the
+                        active positions' pixels;
+      across_positions  every position draws from one pool of 2C pixels, so
+                        positions share pixels.
+    The last position is inactive (valid_seg C - 1), and so is any whose
+    bank class b_j is empty."""
+    n = b * h * w
+    perm = torch.randperm(n, device=dev, generator=g)
+    if layout == "one_pixel":
+        idx = perm[:c].view(c, 1).expand(c, q)
+    elif layout == "distinct":
+        idx = perm[: c * q].view(c, q)
+    elif layout == "across_positions":
+        idx = perm[: 2 * c][torch.randint(0, 2 * c, (c, q), device=dev, generator=g)]
+    else:
+        pix = perm[: c * 8].view(c, 8)
+        idx = pix.gather(1, torch.randint(0, 8, (c, q), device=dev, generator=g))
+    idx = idx.to(torch.int32).contiguous()
+    valid_seg = torch.tensor(c - 1, dtype=torch.int32, device=dev)
+    active = (torch.arange(c, device=dev) < valid_seg) & (bank.occupancy[b_j.long()] > 0)
+    if layout == "shared_inactive":
+        act = active.nonzero().flatten()
+        for k, j in enumerate((~active).nonzero().flatten().tolist()):
+            idx[j] = idx[act[k % act.numel()]].roll(k + 1)
+    return idx, active, valid_seg
+
+
+def _off_anchors(grad, idx, active):
+    """The gradient's rows (NHWC) at pixels no active draw hit."""
+    b, f, h, w = grad.shape
+    hit = torch.zeros(b * h * w, dtype=torch.bool, device=grad.device)
+    hit[idx[active].flatten().long()] = True
+    return grad.permute(0, 2, 3, 1).reshape(-1, f)[~hit]
+
+
+@pytest.mark.parametrize("layout", INFONCE_LAYOUTS)
 @pytest.mark.parametrize("b,c,h,w,q,m,cap", [(8, 21, 129, 129, 256, 50, 50000),
-                                             (3, 5, 9, 7, 16, 4, 20)])
-def test_kernel_infonce_fwd_bwd_match_plain(b, c, h, w, q, m, cap):
+                                             (3, 5, 9, 7, 16, 4, 20),
+                                             (4, 19, 193, 193, 256, 50, 50000)],
+                         ids=["voc", "small", "cityscapes"])
+def test_kernel_infonce_fwd_bwd_match_plain(b, c, h, w, q, m, cap, layout):
     from u2pl_tpu_torch.losses import contrastive as tc
 
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(11)
-    n = b * h * w
     bank = _prefilled_bank(dev, c, 256, min(cap, 30000), cap, torch.bfloat16)
     bank.occupancy[1] = 0  # an empty bank class
     rep = torch.randn(b, 256, h, w, device=dev, generator=g, requires_grad=True)
-    # disjoint anchor pixels per position, with repeated draws within one
-    pix = torch.randperm(n, device=dev, generator=g)[: c * 8].view(c, 8)
-    anchor_idx = pix.gather(1, torch.randint(0, 8, (c, q), device=dev, generator=g)).to(torch.int32)
     positive = torch.randn(c, 256, device=dev, generator=g)
     b_j = torch.randperm(c, device=dev, generator=g).to(torch.int32)
+    anchor_idx, active, valid_seg = _anchor_draws(layout, dev, g, b, c, h, w, q, bank, b_j)
     u_neg = torch.rand(c, q * m, device=dev, generator=g)
-    valid_seg = torch.tensor(c - 1, dtype=torch.int32, device=dev)
-    active = (torch.arange(c, device=dev) < valid_seg) & (bank.occupancy[b_j.long()] > 0)
     args = (anchor_idx, positive, bank, b_j, u_neg, active, valid_seg, 0.5)
     cnt = (tc.contra_infonce.fwd_launches, tc.contra_infonce.bwd_launches)
     loss = tc.contra_infonce(rep, *args)
@@ -457,10 +531,59 @@ def test_kernel_infonce_fwd_bwd_match_plain(b, c, h, w, q, m, cap):
     assert (grad - gref).abs().max().item() <= 1e-6 * gref.abs().max().item()
     again = torch.autograd.grad(tc.contra_infonce(rep, *args) * 3.0, rep)[0]
     assert torch.equal(again, grad)  # deterministic: no float atomics
+    assert not _off_anchors(grad, anchor_idx, active).any()
     # valid_seg <= 1: zero loss, zero gradient
     zero = tc.contra_infonce(rep, *args[:6], torch.tensor(1, dtype=torch.int32, device=dev), 0.5)
     (gz,) = torch.autograd.grad(zero, rep)
     assert zero.item() == 0.0 and not gz.any()
+
+
+@pytest.mark.parametrize("layout", INFONCE_LAYOUTS)
+def test_kernel_infonce_bwd_bit_equal_to_ordered_sums(layout):
+    """K6's backward alone, on random directions at the flagship shape: each
+    pixel's active draws summed from zero in (j, q) order, then one multiply
+    by g / max(valid_seg, 1) / Q, zero elsewhere: bit for bit."""
+    from u2pl_tpu_torch.losses import contrastive as tc
+
+    dev = _cuda()
+    b, c, h, w, q = 8, 21, 129, 129, 256
+    g = torch.Generator(device=dev).manual_seed(13)
+    bank = _prefilled_bank(dev, c, 256, 30000, 50000, torch.bfloat16)
+    bank.occupancy[1] = 0
+    b_j = torch.randperm(c, device=dev, generator=g).to(torch.int32)
+    idx, active, valid_seg = _anchor_draws(layout, dev, g, b, c, h, w, q, bank, b_j)
+    gdir = torch.randn(c, q, 256, device=dev, generator=g)
+    gout = torch.tensor(3.0, device=dev)
+    got = tc._infonce_bwd_cuda(idx, active, valid_seg, gdir, gout, (b, 256, h, w))
+    rows = torch.zeros(b * h * w, 256, device=dev)
+    for j in active.nonzero().flatten().tolist():
+        for k in range(q):
+            rows[idx[j, k].long()] += gdir[j, k]
+    coef = gout / valid_seg.float().clamp(min=1.0) / q
+    want = (rows * coef).view(b, h, w, 256).permute(0, 3, 1, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(tc._infonce_bwd_cuda(idx, active, valid_seg, gdir, gout, (b, 256, h, w)), got)
+
+
+def test_kernel_infonce_refuses_draws_over_the_capacity():
+    from u2pl_tpu_torch.losses import contrastive as tc
+
+    dev = _cuda()
+    c, q = 33, 256  # 8448 draws: above the backward's MAX_DRAWS
+    assert c * q > tc.MAX_DRAWS
+    bank = _prefilled_bank(dev, c, 256, 20, 20, torch.bfloat16)
+    rep = torch.randn(1, 256, 8, 8, device=dev, requires_grad=True)
+    idx = torch.zeros(c, q, dtype=torch.int32, device=dev)
+    active = torch.ones(c, dtype=torch.bool, device=dev)
+    valid_seg = torch.tensor(c, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="MAX_DRAWS|exceed"):
+        tc.contra_infonce(rep, idx, torch.randn(c, 256, device=dev), bank,
+                          torch.arange(c, dtype=torch.int32, device=dev),
+                          torch.rand(c, q * 2, device=dev), active, valid_seg, 0.5)
+    with pytest.raises(ValueError):
+        tc._infonce_bwd_cuda(idx, active, valid_seg, torch.zeros(c, q, 256, device=dev),
+                             torch.tensor(1.0, device=dev), (1, 256, 8, 8))
 
 
 def test_contrastive_kernels_refuse_what_they_do_not_take():

@@ -63,6 +63,21 @@ def test_resize_bilinear_plain_matches_jax(insz, outsz, align):
     )
 
 
+@pytest.mark.parametrize("insz,outsz", SIZES + [((1, 1), (6, 7)), ((9, 7), (13, 30))])
+@pytest.mark.parametrize("align", [True, False])
+def test_resize_bilinear_rounded_matches_jax(insz, outsz, align):
+    """The rounded H-then-W formula that the card tests hold kernel A to,
+    bit for bit, against the JAX function (and beside the plain version)."""
+    x = np.random.RandomState(1).randn(2, insz[0], insz[1], 3).astype(np.float32)
+    ref = np.asarray(jax_resize_bilinear(jnp.asarray(x), outsz, align_corners=align))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    got = tr.resize_bilinear_rounded(xt, outsz, align)
+    assert got.shape == (2, 3, *outsz)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref, rtol=1e-5, atol=1e-5)
+    plain = tr.resize_bilinear_plain(xt, outsz, align)
+    assert (got - plain).abs().max().item() <= 1e-5
+
+
 @pytest.mark.parametrize("insz,outsz", SIZES)
 def test_resize_numpy_is_the_jax_host_copy(insz, outsz):
     x = np.random.RandomState(1).randn(insz[0], insz[1], 3).astype(np.float32)

@@ -59,8 +59,8 @@ def load():
         # (rep, anchor_idx, pos, keys, occ, b_j, u_neg, active, valid_seg, ce,
         #  gdir, loss, B, F, HW, C, Q, M, cap, dtype, temperature, stream)
         "u2pl_contra_infonce_fwd": [p] * 12 + [i] * 8 + [f, p],
-        # (anchor_idx, active, valid_seg, gdir, g, grad_rep, B, F, HW, C, Q, stream)
-        "u2pl_contra_infonce_bwd": [p] * 6 + [i] * 5 + [p],
+        # (anchor_idx, active, valid_seg, gdir, g, sums, grad_rep, B, F, HW, C, Q, stream)
+        "u2pl_contra_infonce_bwd": [p] * 7 + [i] * 5 + [p],
         # (values, out, state, n, k, stream)
         "u2pl_kth_smallest": [p] * 3 + [i] * 2 + [p],
         # (x, labels, p_y, num_valid, idx_h, w_h, idx_w, w_w,

@@ -2,8 +2,7 @@
 //
 // A. u2pl_resize_bilinear_ac replaces u2pl_tpu/ops/resize.py:resize_bilinear
 //    (kernel family K1): (B, C, H, W) f32 -> (B, C, OH, OW) f32.  On the TPU
-//    it was two dense interpolation matmuls on the MXU; here each output
-//    element is a 4-tap gather.
+//    it was two dense interpolation matmuls on the MXU.
 // A-bwd. u2pl_resize_bilinear_ac_bwd is its adjoint (the VJP XLA derives
 //    from the two einsums): (B, C, OH, OW) f32 -> (B, C, H, W) f32.
 // B. u2pl_resize_argmax_ac replaces the host-side resize + argmax of
@@ -11,13 +10,37 @@
 //    argmax(-1)): one image's (C, H, W) f32 logits -> (OH, OW) uint8 labels.
 //
 // All three are bound by device-memory bytes, not arithmetic (4 taps and 3
-// lerps per output value).  The simple design: one thread per output pixel
-// in a grid-stride loop, the fastest thread index along the output row, so a
-// warp's stores are contiguous and its loads fall on a few neighbouring
-// input rows that L1/L2 serve after the first touch.  Kernel B keeps the
-// per-class values in registers: it reads the logits once and writes one
-// byte per pixel, where the unfused path writes and re-reads an
-// (OH, OW, C) f32 intermediate.
+// lerps per output value).
+//
+// Kernel A writes 88 MB at the serving shape (4, 21, 129²) -> 513² (28 us
+// at 3.35 TB/s) and 136 MB at the decoder's (8, 256, 65²) -> 129².  Its
+// first design ran one thread per output in a grid-stride loop: per value
+// two 32-bit divisions and two modulos by runtime sizes, 8 tap loads and 4
+// gathers, ~120 instructions for 4 bytes stored: 0.114 / 0.163 ms at the
+// serving / decoder shapes on an NVIDIA H100 80GB HBM3 at 700 W, a quarter
+// and a third of the bound (F.interpolate: 0.088 / 0.83 ms;
+// u2pl_tpu_torch/kernels/timing_ab.py).  This design takes the index work
+// out of the output loop, 0.038 / 0.095 ms there:
+// - a block owns a band of `rows` output rows of one plane (blockIdx.x =
+//   plane * bands + band; one division per block); the band is a
+//   contiguous range of the flat output;
+// - the block stages the column taps (lo, hi, 1 - frac, frac) of every
+//   output column in shared memory as one int4, ordered by column % 4 so
+//   that a warp reads them without bank conflicts, and the H pass of its
+//   rows T[r][c] = lerp2(a, x[h0, c], b, x[h1, c]) for every input column
+//   c, one warp per row: once per row, not four times per output value;
+// - each thread then owns aligned 4-float chunks of the band: per output
+//   one int4 of taps, 2 shared reads of T and one W lerp; the row and
+//   column of a chunk come from a float reciprocal corrected to the exact
+//   quotient;
+// - 16-byte streaming stores (__stcs: the output is larger than the 50 MB
+//   L2 and is read by the next kernel, not this one), scalar stores where
+//   a chunk wraps a row or crosses the band's ends.
+// The same products and sums, each rounded on its own, as common.cuh's
+// `upsampled` (H pass, then W pass), so the same bits as kernels C, D and
+// K7 evaluate inside themselves.  Shared memory per block: 16 B per output
+// column (rounded up to 4 columns) plus 4 B per input column and band row,
+// at most kResizeMaxShared.
 //
 // A-bwd is in gather form: one thread per INPUT element sums the output rows
 // and columns whose taps reach it, so no two threads write one address and
@@ -26,14 +49,14 @@
 // contiguous because lo is non-decreasing; the host passes them as
 // [start[0..H), end[0..H)] per axis.  The W reduction runs before the H one,
 // as in the einsum VJP.  For a 4x upsample each input element reads ~7x7
-// output values, which L1 mostly serves.
+// output values, which L1 mostly serves.  Kernel B keeps the per-class
+// values in registers: it reads the logits once and writes one byte per
+// pixel, where the unfused path writes and re-reads an (OH, OW, C) f32
+// intermediate.  Both run one thread per output in a grid-stride loop.
 //
 // Taps and index widths: see common.cuh.  Index arithmetic is 32-bit
-// unsigned (the wrappers refuse tensors of 2^31 elements or more, and a
-// grid-stride step is below 2^25): 64-bit division is a long instruction
-// sequence on the GPU, and the first version of kernel A, with 64-bit
-// indices, ran at 0.159 ms for (4, 21, 129, 129) -> 513² on an H100 80GB
-// HBM3 at 700 W.
+// unsigned (the wrappers refuse tensors of 2^31 elements or more): 64-bit
+// division is a long instruction sequence on the GPU.
 
 #include "common.cuh"
 
@@ -43,21 +66,81 @@ using u2pl::blocks_for;
 using u2pl::kThreads;
 using u2pl::lerp2;
 
-__global__ void resize_bilinear_ac_kernel(
+constexpr int kBandOutputs = 4096;        // outputs per block, about
+constexpr int kResizeMaxShared = 160 * 1024;  // bytes of taps and H-lerped rows
+
+// n / d for 0 <= n < 2^24 and d >= 1: a float estimate, off by at most one,
+// corrected to the exact quotient
+__device__ __forceinline__ int div_small(int n, int d, float inv_d) {
+  int q = (int)((float)n * inv_d);
+  const int r = n - q * d;
+  if (r < 0) --q;
+  else if (r >= d) ++q;
+  return q;
+}
+
+// shared-memory slot of output column ox's taps: the columns are stored
+// by ox % 4, so the lanes of a warp, each on its own 4 consecutive columns,
+// read 32 consecutive int4 (no bank conflicts)
+__device__ __forceinline__ int col_slot(int ox, int quarter) {
+  return (ox & 3) * quarter + (ox >> 2);
+}
+
+__global__ void __launch_bounds__(kThreads) resize_bilinear_ac_kernel(
     const float* __restrict__ x, float* __restrict__ y,
     const int* __restrict__ idx_h, const float* __restrict__ w_h,
-    const int* __restrict__ idx_w, const float* __restrict__ w_w,
-    int planes, int H, int W, int OH, int OW) {
-  const unsigned total = (unsigned)planes * OH * OW;
-  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += gridDim.x * blockDim.x) {
-    const int ox = (int)(i % OW);
-    const unsigned r = i / OW;
-    const int oy = (int)(r % OH);
-    const float* xp = x + (size_t)(r / OH) * H * W;
-    const u2pl::Taps t =
-        u2pl::load_taps(idx_h, w_h, idx_w, w_w, W, OH, OW, oy, ox);
-    y[i] = u2pl::upsampled(xp, t);
+    const int* __restrict__ idx_w, const float* __restrict__ w_w, int H, int W,
+    int OH, int OW, int rows, int bands, int quarter, float inv_ow) {
+  extern __shared__ int4 col[];  // (lo, hi, 1 - frac, frac) per output column
+  float* T = reinterpret_cast<float*>(col + 4 * quarter);  // the band's H-lerped rows
+  const int plane = blockIdx.x / bands;
+  const int oy0 = (blockIdx.x - plane * bands) * rows;
+  const int nr = min(rows, OH - oy0);
+  for (int ox = threadIdx.x; ox < OW; ox += kThreads) {
+    col[col_slot(ox, quarter)] = make_int4(idx_w[ox], idx_w[OW + ox],
+                                           __float_as_int(w_w[ox]),
+                                           __float_as_int(w_w[OW + ox]));
+  }
+  // the H pass: one warp per band row, the lanes along the input row
+  const float* xp = x + (size_t)plane * H * W;
+  for (int r = threadIdx.x >> 5; r < nr; r += kThreads / 32) {
+    const int oy = oy0 + r;
+    const float a = w_h[oy], b = w_h[OH + oy];
+    const float* x0 = xp + idx_h[oy] * W;
+    const float* x1 = xp + idx_h[OH + oy] * W;
+    float* Tr = T + r * W;
+    for (int c = threadIdx.x & 31; c < W; c += 32) Tr[c] = lerp2(a, x0[c], b, x1[c]);
+  }
+  __syncthreads();
+  const unsigned s = ((unsigned)plane * OH + oy0) * OW;  // the band's outputs [s, e)
+  const unsigned e = s + (unsigned)nr * OW;
+  for (unsigned k = (s & ~3u) + 4u * threadIdx.x; k < e; k += 4u * kThreads) {
+    const int local = (int)((k < s ? s : k) - s);
+    int r = div_small(local, OW, inv_ow);
+    int ox = local - r * OW;
+    if (k >= s && k + 4 <= e && ox + 4 <= OW) {  // 4 outputs of one row
+      const float* Tr = T + r * W;
+      float v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int4 t = col[col_slot(ox + i, quarter)];
+        v[i] = lerp2(__int_as_float(t.z), Tr[t.x], __int_as_float(t.w), Tr[t.y]);
+      }
+      __stcs(reinterpret_cast<float4*>(y + k), make_float4(v[0], v[1], v[2], v[3]));
+      continue;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // a band's ragged ends, a row's wrap
+      if (k + i >= s && k + i < e) {
+        const int4 t = col[col_slot(ox, quarter)];
+        const float* Tr = T + r * W;
+        y[k + i] = lerp2(__int_as_float(t.z), Tr[t.x], __int_as_float(t.w), Tr[t.y]);
+        if (++ox == OW) {
+          ox = 0;
+          ++r;
+        }
+      }
+    }
   }
 }
 
@@ -137,13 +220,28 @@ int u2pl_resize_bilinear_ac(const void* x, void* y, const void* idx_h,
                             const void* w_h, const void* idx_w, const void* w_w,
                             int planes, int H, int W, int OH, int OW,
                             void* stream) {
-  const long long total = (long long)planes * OH * OW;
-  if (total > 0) {
-    resize_bilinear_ac_kernel<<<blocks_for(total), kThreads, 0,
-                                (cudaStream_t)stream>>>(
-        (const float*)x, (float*)y, (const int*)idx_h, (const float*)w_h,
-        (const int*)idx_w, (const float*)w_w, planes, H, W, OH, OW);
+  if (planes <= 0 || OH <= 0 || OW <= 0) return (int)cudaGetLastError();
+  const int quarter = (OW + 3) / 4;
+  if (H <= 0 || W <= 0 || (long long)quarter * 64 + (long long)W * 4 > kResizeMaxShared) {
+    return (int)cudaErrorInvalidValue;
   }
+  // about kBandOutputs outputs per block, in bands of even height
+  const int target = min(OH, (kBandOutputs + OW - 1) / OW);
+  const int even = max(1, (OH + target / 2) / target);
+  int rows = (OH + even - 1) / even;
+  rows = min(rows, (kResizeMaxShared - quarter * 64) / (W * 4));
+  const int bands = (OH + rows - 1) / rows;
+  const int smem = quarter * 64 + rows * W * 4;
+  if (smem > 48 * 1024) {  // above the default dynamic shared memory of a block
+    const cudaError_t err = cudaFuncSetAttribute(
+        resize_bilinear_ac_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  resize_bilinear_ac_kernel<<<(unsigned)planes * bands, kThreads, smem,
+                              (cudaStream_t)stream>>>(
+      (const float*)x, (float*)y, (const int*)idx_h, (const float*)w_h,
+      (const int*)idx_w, (const float*)w_w, H, W, OH, OW, rows, bands, quarter,
+      1.0f / (float)OW);
   return (int)cudaGetLastError();
 }
 

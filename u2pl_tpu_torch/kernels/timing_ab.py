@@ -1,0 +1,154 @@
+"""Times kernel A and K6's backward of the u2pl_tpu_torch package in the
+checkout at --root, on one card: run it once per checkout, in turns, to set
+two versions of the kernels side by side in one call.
+
+    python u2pl_tpu_torch/kernels/timing_ab.py --root <checkout> --label <name>
+
+It is run by file path, not with -m, so that it imports the package of
+--root (the older checkout need not have this file).  It prints one JSON
+line: the card's name and power limit, and per kernel the device ms per
+call (CUDA events around back-to-back calls queued behind a device sleep,
+so the host's launch overhead does not count, and torch.profiler's mean
+device time per call), the time of the PyTorch call that computes the same
+function, and a sha256 of the result, equal across checkouts when the
+results are bit-equal.  The inputs come from seeded generators on the card:
+
+  A_logits   kernel A at the serving shape, (4, 21, 129²) -> 513²;
+             library: F.interpolate(bilinear, align_corners=True);
+  A_decoder  kernel A at the decoder's, (8, 256, 65²) -> 129² (the semi
+             step's 4 + 4 images);
+  K6_bwd     K6's backward as the package's autograd backward runs it (the
+             gradient's allocation included) at the flagship: a
+             (8, 256, 129, 129) rep, 21 positions x 256 draws, each
+             position's drawn from its own 2000 random pixels, valid_seg 20,
+             the last position inactive; library: torch.zeros of the (N, 256)
+             rows, then index_add_ of the draws' rows;
+  K6_bwd_no_draws  the same with every position inactive: the gradient's
+             zero write alone, in the kernel's store layout; library:
+             torch.zeros of the rep.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+import torch
+import torch.nn.functional as F
+
+
+def cuda_ms(fn, iters=30):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)  # clock cycles: the host queues the calls meanwhile
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profiled_ms(fn, iters=10):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0  # each device op's mean duration (each runs once per call)
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.count:
+            us += (getattr(ev, "self_device_time_total", None) or ev.self_cuda_time_total) / ev.count
+    return us / 1e3 if us > 0 else None
+
+
+def digest(t) -> str:
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", required=True, help="checkout whose u2pl_tpu_torch is timed")
+    ap.add_argument("--label", default="")
+    args = ap.parse_args()
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path = [p for p in sys.path if os.path.abspath(p or ".") != here]
+    sys.path.insert(0, os.path.abspath(args.root))
+    if not torch.cuda.is_available():
+        print("timing_ab: no CUDA card", file=sys.stderr)
+        return 1
+    from u2pl_tpu_torch import kernels
+    from u2pl_tpu_torch.losses import contrastive as tc
+    from u2pl_tpu_torch.ops import resize as R
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    lib = kernels.load()
+    out = {"label": args.label, "root": args.root, "card": card, "kernels": {}}
+    g = torch.Generator(device=dev).manual_seed(0)
+    for name, shape, size in (("A_logits", (4, 21, 129, 129), (513, 513)),
+                              ("A_decoder", (8, 256, 65, 65), (129, 129))):
+        x = torch.randn(*shape, device=dev, generator=g)
+        fn = lambda: R.resize_bilinear(x, size)  # noqa: E731
+        out["kernels"][name] = {
+            "ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn),
+            "library_ms": cuda_ms(lambda: F.interpolate(
+                x, size=size, mode="bilinear", align_corners=True)),
+            "sha256": digest(fn()),
+        }
+        del x
+
+    b, f, hw, c, q = 8, 256, 129 * 129, 21, 256
+    pools = torch.stack([torch.randperm(b * hw, device=dev, generator=g)[:2000] for _ in range(c)])
+    anchor_idx = pools.gather(1, torch.randint(0, 2000, (c, q), device=dev, generator=g))
+    anchor_idx = anchor_idx.to(torch.int32).contiguous()
+    active = torch.arange(c, device=dev) < c - 1
+    valid_seg = torch.tensor(c - 1, dtype=torch.int32, device=dev)
+    gdir = torch.randn(c, q, f, device=dev, generator=g)
+    one = torch.ones((), device=dev)
+    shape = (b, f, 129, 129)
+    if hasattr(tc, "_infonce_bwd_cuda"):
+        bwd = lambda: tc._infonce_bwd_cuda(anchor_idx, active, valid_seg, gdir, one, shape)  # noqa: E731
+    else:  # the first design's backward: a zeroed gradient, then its kernel
+        def bwd():
+            grad = torch.zeros(shape, device=dev)
+            tc._launch(lib, "u2pl_contra_infonce_bwd", "contra_infonce_bwd", dev,
+                       anchor_idx.data_ptr(), active.data_ptr(), valid_seg.data_ptr(),
+                       gdir.data_ptr(), one.data_ptr(), grad.data_ptr(), b, f, hw, c, q)
+            return grad
+    rows = anchor_idx.flatten().long()
+    src = gdir.view(c * q, f)
+    out["kernels"]["K6_bwd"] = {
+        "ms": cuda_ms(bwd, 20), "profiled_ms": profiled_ms(bwd),
+        "library_ms": cuda_ms(lambda: torch.zeros(b * hw, f, device=dev).index_add_(
+            0, rows, src), 20),
+        "sha256": digest(bwd()),
+    }
+    none = torch.zeros_like(active)
+    if hasattr(tc, "_infonce_bwd_cuda"):
+        empty = lambda: tc._infonce_bwd_cuda(anchor_idx, none, valid_seg, gdir, one, shape)  # noqa: E731
+    else:
+        active = none
+        empty = bwd
+    out["kernels"]["K6_bwd_no_draws"] = {
+        "ms": cuda_ms(empty, 20), "profiled_ms": profiled_ms(empty),
+        "library_ms": cuda_ms(lambda: torch.zeros(shape, device=dev), 20),
+        "sha256": digest(empty()),
+    }
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

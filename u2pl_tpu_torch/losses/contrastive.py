@@ -55,6 +55,7 @@ from u2pl_tpu_torch.ops.one_hot import label_onehot
 MAX_CLASSES = 32  # contra_pixel_masks keeps one pixel's C probabilities in registers
 MAX_KEYS = 16384  # select_keys sorts <= 16384 (priority, pixel) pairs in shared memory
 FEAT_DIM = 256  # contra_infonce: one warp per anchor, 8 features per lane
+MAX_DRAWS = 8192  # contra_infonce's backward keys a tile's draws by j*Q + q < 2^13
 EPS = 1e-8  # torch cosine-similarity eps
 
 
@@ -398,9 +399,10 @@ def contra_infonce(
     (each bank row one 16-byte load per lane), never writing the sample; an
     online softmax gives the CE and the anchor's gradient direction in one
     pass.  The loss is a fixed-order two-stage sum, read by nobody on the
-    host.  The backward scales the stored directions and sums each pixel's
-    duplicate draws in a fixed order into the rep gradient (no float
-    atomics)."""
+    host.  The backward sums each pixel's draws' stored directions in a
+    fixed order, scales them once and writes the whole rep gradient in one
+    pass, zero off the anchors (no float atomics, no zero fill first);
+    C * Q is at most MAX_DRAWS on the card."""
     c, q = anchor_idx.shape
     if (positive.shape != (c, rep.shape[1]) or b_j.shape != (c,) or active.shape != (c,)
             or u_neg.dim() != 2 or u_neg.shape[0] != c or u_neg.shape[1] % q):
@@ -434,6 +436,7 @@ class _ContraInfoNCE(torch.autograd.Function):
         cap = keys.shape[1]
         if f != FEAT_DIM or keys.shape != (c, cap, f) or valid_seg.numel() != 1:
             raise ValueError(f"contra_infonce: F must be {FEAT_DIM}; bank {tuple(keys.shape)}")
+        _check_draws(c, q)
         if keys.device != dev or not keys.is_contiguous():
             raise ValueError("contra_infonce: the bank must be contiguous on the rep's device")
         dtype_code = {torch.float32: 0, torch.bfloat16: 1}.get(keys.dtype)
@@ -461,19 +464,38 @@ class _ContraInfoNCE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         anchor_idx, active, valid_seg, gdir = ctx.saved_tensors
-        b, f, h, w = ctx.rep_shape
-        c, q = anchor_idx.shape
-        dev = gdir.device
-        from u2pl_tpu_torch.kernels import load
-
-        lib = load()
-        g = g.to(torch.float32).contiguous()
-        grad_rep = torch.zeros((b, f, h, w), dtype=torch.float32, device=dev)
-        _launch(lib, "u2pl_contra_infonce_bwd", "contra_infonce_bwd", dev,
-                anchor_idx.data_ptr(), active.data_ptr(), valid_seg.data_ptr(), gdir.data_ptr(),
-                g.data_ptr(), grad_rep.data_ptr(), b, f, h * w, c, q)
-        contra_infonce.bwd_launches += 1
+        grad_rep = _infonce_bwd_cuda(anchor_idx, active, valid_seg, gdir, g, ctx.rep_shape)
         return grad_rep, None, None, None, None, None, None, None, None, None
+
+
+def _check_draws(c: int, q: int) -> None:
+    if c * q > MAX_DRAWS:
+        raise ValueError(
+            f"contra_infonce: {c} positions x {q} queries = {c * q} draws exceed the "
+            f"backward kernel's {MAX_DRAWS}"
+        )
+
+
+def _infonce_bwd_cuda(anchor_idx, active, valid_seg, gdir, g, rep_shape) -> torch.Tensor:
+    """K6's backward on the card: the (B, F, h, w) f32 gradient of the rep
+    from the forward's stored directions `gdir` (C, Q, F) and the loss's
+    output gradient `g`; the kernel writes every element (torch.empty, no
+    zero fill)."""
+    b, f, h, w = rep_shape
+    c, q = anchor_idx.shape
+    _check_draws(c, q)
+    dev = gdir.device
+    from u2pl_tpu_torch.kernels import load
+
+    lib = load()
+    g = g.to(torch.float32).contiguous()
+    sums = torch.empty((c * q, f), dtype=torch.float32, device=dev)  # per-pixel sums
+    grad_rep = torch.empty((b, f, h, w), dtype=torch.float32, device=dev)
+    _launch(lib, "u2pl_contra_infonce_bwd", "contra_infonce_bwd", dev,
+            anchor_idx.data_ptr(), active.data_ptr(), valid_seg.data_ptr(), gdir.data_ptr(),
+            g.data_ptr(), sums.data_ptr(), grad_rep.data_ptr(), b, f, h * w, c, q)
+    contra_infonce.bwd_launches += 1
+    return grad_rep
 
 
 contra_infonce.fwd_launches = 0

@@ -16,7 +16,8 @@ verbatim below), so the port matches it — and torch's
 Dispatch: a CPU tensor takes the plain PyTorch version; a CUDA tensor
 launches the hand-written kernel (`kernels/csrc/resize.cu`) or raises —
 there is no fallback from the card to the plain version.  Each wrapper
-counts its kernel launches in `<wrapper>.launches`.
+counts its kernel launches in `<wrapper>.launches`; `resize_bilinear`
+also per (input shape, output size) in `resize_bilinear.shapes`.
 
 `resize_bilinear` is differentiable: an `autograd.Function` whose backward
 is the adjoint resize, kernel A-bwd (`resize_bilinear_bwd`) on the card and
@@ -25,6 +26,7 @@ the transposed einsums on the CPU.
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import Tuple
 
@@ -129,6 +131,25 @@ def resize_bilinear_plain(
     return y.to(x.dtype)
 
 
+def resize_bilinear_rounded(
+    x: torch.Tensor, size: Tuple[int, int], align_corners: bool = True
+) -> torch.Tensor:
+    """Kernel A's own arithmetic in torch ops, for checking it: the H pass
+    T = a * x[lo_h] + b * x[hi_h] per output row, then the W pass
+    p * T[lo_w] + q * T[hi_w], from the kernel's tap tables, each product
+    and sum a separate op and so rounded on its own.  On the card it is
+    bit-equal to kernel A (and to the upsample inside kernels C, D and
+    K7); it holds (B, C, OH, W) f32."""
+    _, _, h, w = x.shape
+    oh, ow = int(size[0]), int(size[1])
+    idx_h, w_h = _device_taps(h, oh, align_corners, x.device)
+    idx_w, w_w = _device_taps(w, ow, align_corners, x.device)
+    x = x.float()
+    lo_h, hi_h = idx_h[0].long(), idx_h[1].long()
+    t = x[:, :, lo_h] * w_h[0][:, None] + x[:, :, hi_h] * w_h[1][:, None]
+    return t[..., idx_w[0].long()] * w_w[0] + t[..., idx_w[1].long()] * w_w[1]
+
+
 def resize_bilinear_bwd_plain(
     gy: torch.Tensor, in_size: Tuple[int, int], align_corners: bool = True
 ) -> torch.Tensor:
@@ -151,6 +172,12 @@ def resize_argmax_plain(
     first-maximum argmax over C, as uint8 (h, w)."""
     y = resize_bilinear_plain(logits[None], size, align_corners)[0]
     return y.argmax(dim=0).to(torch.uint8)
+
+
+# kernel A stages 16 B of taps per output column (in groups of 4) and 4 B
+# per input column and band row in shared memory (kernels/csrc/resize.cu:
+# kResizeMaxShared)
+RESIZE_MAX_SHARED = 160 * 1024
 
 
 def _check_cuda_f32(x: torch.Tensor, ndim: int, name: str) -> None:
@@ -201,6 +228,9 @@ def _resize_bilinear_cuda(x: torch.Tensor, size, align_corners: bool) -> torch.T
     oh, ow = size
     if b * c * oh * ow >= 2**31:
         raise ValueError("resize_bilinear: output exceeds the int32 sizes")
+    if -(-ow // 4) * 64 + w * 4 > RESIZE_MAX_SHARED:
+        raise ValueError(f"resize_bilinear: widths {w} -> {ow} exceed the kernel's "
+                         f"{RESIZE_MAX_SHARED} bytes of shared memory")
     from u2pl_tpu_torch.kernels import check, load
 
     lib = load()
@@ -215,10 +245,12 @@ def _resize_bilinear_cuda(x: torch.Tensor, size, align_corners: bool) -> torch.T
         )
     check(lib, err, "resize_bilinear_ac launch")
     resize_bilinear.launches += 1
+    resize_bilinear.shapes[(tuple(x.shape), (oh, ow))] += 1
     return y
 
 
 resize_bilinear.launches = 0
+resize_bilinear.shapes = collections.Counter()
 
 
 def resize_bilinear_bwd(

@@ -61,7 +61,7 @@ class InferEngine:
         if str(dtype) != "float32":
             raise NotImplementedError(
                 f"dtype={dtype!r}: the port serves float32 only; the bfloat16 "
-                "forward is ROADMAP.md queue 1 item 1 (serving follow-ups)"
+                "forward is ROADMAP.md queue 1 item 3 (bf16)"
             )
         # float32 means float32: the JAX f32 path is the reference-exact
         # default, and cuDNN would otherwise run f32 convolutions in TF32

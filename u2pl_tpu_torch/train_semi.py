@@ -4,7 +4,8 @@ train_semi.py; reference train_semi.py).
     python -m u2pl_tpu_torch.train_semi --config <config.yaml> --seed 2
 
 The same flags as the reference (--config --seed --port --local_rank; the
-last two are accepted for launcher compatibility and unused on one card),
+last two are accepted for launcher compatibility and unused on one card:
+a launch of several processes raises, see `refuse_multi_process`),
 `--profile_dir` for a torch.profiler trace of steps 10-13, and `--device`
 (default: the card; `cpu` runs the plain versions of the kernels).
 Set U2PL_ALLOW_RANDOM_INIT=1 to train a config that requires ImageNet
@@ -61,6 +62,27 @@ def make_parser(description: str) -> argparse.ArgumentParser:
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on (default: the card)")
     return parser
+
+
+# the world size as torchrun / torch.distributed.launch, SLURM and Open MPI set it
+WORLD_SIZE_VARS = ("WORLD_SIZE", "SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE")
+
+
+def refuse_multi_process() -> None:
+    """Raise when a launcher started several processes.  The port trains on
+    one card: each process would train its own copy on device 0 and write
+    the same checkpoint files."""
+    for name in WORLD_SIZE_VARS:
+        try:
+            n = int(os.environ.get(name, ""))
+        except ValueError:
+            continue
+        if n > 1:
+            raise RuntimeError(
+                f"{name}={n}: the PyTorch port trains on one card in one process; "
+                "multi-GPU training (DDP, SyncBN, the bank's all_gather) is ROADMAP.md "
+                "queue 1 item 6. Launch a single process."
+            )
 
 
 parser = make_parser("Semi-Supervised Semantic Segmentation (PyTorch / CUDA)")
@@ -163,6 +185,7 @@ def new_summary(last_epoch: int, steps_per_epoch: int) -> Dict:
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     args = parser.parse_args(argv)
+    refuse_multi_process()
     logger = init_log("global", logging.INFO)
     cfg, device, tb = setup(args, logger)
 

@@ -22,7 +22,8 @@ from u2pl_tpu_torch.data.loader import build_loaders
 from u2pl_tpu_torch.train.state import create_train_state
 from u2pl_tpu_torch.train.steps import make_sup_step, step_generator
 from u2pl_tpu_torch.train_semi import (
-    StepClock, device_batches, end_of_epoch, end_of_steps, make_parser, new_summary, setup,
+    StepClock, device_batches, end_of_epoch, end_of_steps, make_parser, new_summary,
+    refuse_multi_process, setup,
 )
 from u2pl_tpu_torch.utils.checkpoint import load_encoder_pretrained, maybe_resume
 from u2pl_tpu_torch.utils.logging_utils import AverageMeter, init_log
@@ -32,6 +33,7 @@ parser = make_parser("Supervised Semantic Segmentation (PyTorch / CUDA)")
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     args = parser.parse_args(argv)
+    refuse_multi_process()
     logger = init_log("global", logging.INFO)
     cfg, device, tb = setup(args, logger)
 

@@ -96,8 +96,7 @@ def load_model_variables(
     if not path.endswith(".pth"):
         raise NotImplementedError(
             f"{path!r}: only reference torch .pth checkpoints are read by the "
-            "port; the msgpack .ckpt reader is ROADMAP.md queue 1 item 1 "
-            "(serving follow-ups)"
+            "port; the msgpack .ckpt reader is ROADMAP.md queue 1 item 4"
         )
     ckpt = _torch_load(path, device)
     key = "teacher_state" if prefer_teacher and "teacher_state" in ckpt else "model_state"
