@@ -28,10 +28,13 @@ Phases; any failure ends the run with a nonzero exit code:
      through `train.steps.run_steps` (2 warmup, 2 in the first semi epoch,
      1 in epoch 2), checked for finite losses, gradients reaching the ASPP
      and layer4, the teacher copy / EMA, teacher BN tracking and every
-     training kernel's launch count; then step 5 again from a copy of the
-     state, through the kernels and through the plain versions, compared;
+     training kernel's launch count (A-bwd once per step: the decoder's;
+     the logits' adjoint resize is inside C's backward); then step 5 again
+     from a copy of the state, through the kernels and through the plain
+     versions, compared;
   5. training timings: warmup and semi step medians, images/s, peak device
-     memory, each training kernel beside its plain version;
+     memory, each training kernel beside its plain version (C's backward,
+     fused with its adjoint resize, with torch.profiler's device time);
   6. the contrastive slice: the full `ours` config WITH trainer.contrastive
      (a (21, 50000, 256) bf16 memory bank, 8192 keys per class and step,
      256 queries, 50 negatives), 5 steps through `run_steps` (2 warmup, 3
@@ -58,7 +61,9 @@ Phases; any failure ends the run with a nonzero exit code:
      through the kernels and through the plain versions, compared; then 2
      steps of experiments/cityscapes/744/suponly through `make_sup_step`;
   9. Cityscapes timings: the semi step's median, images/s and peak memory,
-     and each OHEM kernel (K7) beside its plain version and a library call;
+     each OHEM kernel (K7) beside its plain version and a library call, and
+     C's backward at the main head (kept labels, the OHEM class weight) and
+     the aux head (kept labels);
  10. the trainer CLIs: a synthetic VOC-layout workspace (16 labeled, 16
      unlabeled and 4 val JPEG / PNG pairs of 500x375, from SEED) and
      `u2pl_tpu_torch.train_semi.main` on experiments/pascal/1464/ours as it
@@ -523,27 +528,45 @@ def phase1_train_kernels(dev):
         del x, y, gy, gx, ref, again
     errs["A_bwd"] = worst
 
-    # C forward and backward, ~10% of the labels ignored; all-ignored -> 0
+    # C forward and backward (fused with its adjoint resize) at the VOC CE's
+    # shape, the Cityscapes heads' (weighted on the main head, most pixels
+    # ignored as after OHEM) and an odd one; all-ignored -> 0
+    from u2pl_tpu_torch.losses.ohem import CITYSCAPES_OHEM_WEIGHT
+
+    city_w = torch.tensor(CITYSCAPES_OHEM_WEIGHT, dtype=torch.float32, device=dev)
     loss_err = grad_err = 0.0
-    for shape, out in (((4, 21, 129, 129), (513, 513)), ((3, 5, 9, 7), (33, 25))):
+    for shape, out, cw, ignore_frac in (
+            ((4, 21, 129, 129), (513, 513), None, 0.1),
+            ((CITY_B, 19, CITY_OS4, CITY_OS4), (CITY_CROP, CITY_CROP), city_w, 0.9),
+            ((CITY_B, 19, CITY_OS8, CITY_OS8), (CITY_CROP, CITY_CROP), None, 0.9),
+            ((3, 5, 9, 7), (33, 25), None, 0.1)):
         x = torch.randn(*shape, device=dev, generator=g, requires_grad=True)
         lab = torch.randint(0, shape[1], (shape[0],) + out, device=dev, generator=g,
                             dtype=torch.int32)
-        lab[torch.rand(lab.shape, device=dev, generator=g) < 0.1] = 255
-        loss = ce.upsample_cross_entropy(x, lab)
+        lab[torch.rand(lab.shape, device=dev, generator=g) < ignore_frac] = 255
+        loss = ce.upsample_cross_entropy(x, lab, 255, cw)
+        n_abwd = R.resize_bilinear_bwd.launches
         (gx,) = torch.autograd.grad(loss, x)
+        torch.cuda.synchronize()
+        if R.resize_bilinear_bwd.launches != n_abwd:
+            fail("kernel C's backward launched kernel A-bwd: it is fused with it")
         xp = x.detach().clone().requires_grad_(True)
-        ref = ce.upsample_cross_entropy_plain(xp, lab)
+        ref = ce.upsample_cross_entropy_plain(xp, lab, 255, cw)
         (gref,) = torch.autograd.grad(ref, xp)
+        gplain = ce.upsample_ce_bwd_plain(x.detach(), lab, cw)
         torch.cuda.synchronize()
         le_abs, ge_abs = abs(loss.item() - ref.item()), (gx - gref).abs().max().item()
         le, ge = le_abs / abs(ref.item()), ge_abs / gref.abs().max().item()
-        log(f"[phase 1] kernel C {shape} -> {out}: loss {loss.item():.6f} vs plain "
-            f"{ref.item():.6f}, rel diff {le:.3e} (bound {C_LOSS_TOL}); gradient max abs "
-            f"diff / max |grad| {ge:.3e} (bound {C_GRAD_TOL})")
-        if not (le <= C_LOSS_TOL and ge <= C_GRAD_TOL):
-            fail(f"kernel C {shape}: loss {le}, gradient {ge}")
+        gp = (gx - gplain).abs().max().item() / gplain.abs().max().item()
+        log(f"[phase 1] kernel C {shape} -> {out}{', weighted' if cw is not None else ''}, "
+            f"{ignore_frac:.0%} ignored: loss {loss.item():.6f} vs plain {ref.item():.6f}, rel "
+            f"diff {le:.3e} (bound {C_LOSS_TOL}); gradient max abs diff / max |grad| {ge:.3e} "
+            f"against autograd of the plain loss, {gp:.3e} against upsample_ce_bwd_plain "
+            f"(bound {C_GRAD_TOL})")
+        if not (le <= C_LOSS_TOL and ge <= C_GRAD_TOL and gp <= C_GRAD_TOL):
+            fail(f"kernel C {shape}: loss {le}, gradient {ge} / {gp}")
         loss_err, grad_err = max(loss_err, le_abs), max(grad_err, ge_abs)
+        del x, lab, loss, gx, xp, ref, gref, gplain
     x = torch.randn(4, 21, 129, 129, device=dev, generator=g, requires_grad=True)
     lab = torch.full((4, 513, 513), 255, dtype=torch.int32, device=dev)
     loss = ce.upsample_cross_entropy(x, lab)
@@ -755,6 +778,14 @@ def zero_counters():
     resize_bilinear.shapes.clear()
 
 
+def check_a_bwd_per_step(path, launches):
+    """Kernel A-bwd runs once per step, for the decoder's upsample: the
+    logits' adjoint resize lives inside kernel C's backward."""
+    if launches["A_bwd"] != TRAIN_STEPS:
+        fail(f"{path}: kernel A-bwd launched {launches['A_bwd']} times in {TRAIN_STEPS} steps "
+             f"(want one per step, the decoder's; C's backward is fused with its own)")
+
+
 def scalars(metrics):
     """The 0-d metrics of a step as floats (neg_cand is per class)."""
     return {k: v.item() for k, v in metrics.items() if v.dim() == 0}
@@ -956,6 +987,7 @@ def phase4_training(dev, card):
     missing = [k for k in TRAIN_COUNTERS if launches[k] <= 0]
     if missing:
         fail(f"a kernel of the training path was never launched: {missing}")
+    check_a_bwd_per_step("VOC training", launches)
     log(f"[{card}] peak device memory over the {TRAIN_STEPS} training steps: "
         f"{peak / 2**30:.2f} GiB")
 
@@ -1034,10 +1066,7 @@ def phase5_train_timings(dev, card, state, batches):
     with torch.no_grad():
         times["C_fwd"] = (cuda_ms(lambda: ce.upsample_cross_entropy(x, lab)),
                           cuda_ms(lambda: ce.upsample_cross_entropy_plain(x, lab)), None)
-    lk, lp = ce.upsample_cross_entropy(x, lab), ce.upsample_cross_entropy_plain(x, lab)
-    times["C_bwd"] = (cuda_ms(lambda: torch.autograd.grad(lk, x, retain_graph=True)),
-                      cuda_ms(lambda: torch.autograd.grad(lp, x, retain_graph=True)), None)
-    del lk, lp
+    times["C_bwd"] = c_bwd_timing(card, "C_bwd", x, lab, None)
     xd = x.detach()
     times["D"] = (cuda_ms(lambda: unsup.upsample_softmax_stats(xd, (CROP, CROP))),
                   cuda_ms(lambda: unsup.upsample_softmax_stats_plain(xd, (CROP, CROP))), None)
@@ -1056,7 +1085,7 @@ def phase5_train_timings(dev, card, state, batches):
         "A_bwd_decoder": "(8, 256, 129, 129) -> (8, 256, 65, 65)",
         "A_bwd_logits": "(4, 21, 513, 513) -> (4, 21, 129, 129)",
         "C_fwd": "(4, 21, 129, 129) -> 513², labels (4, 513, 513)",
-        "C_bwd": "the same, backward to the os4 logits (incl. A-bwd)",
+        "C_bwd": "the same, backward to the os4 logits (fused with its adjoint resize)",
         "D": "(4, 21, 129, 129) -> 513²",
         "E": "1 percentile of (4, 513, 513), ~85% valid",
         "K3": "cutmix (4, 3, 513, 513) + label + max-prob",
@@ -1065,6 +1094,32 @@ def phase5_train_timings(dev, card, state, batches):
         lib = "" if tl is None else f"; aten upsample_bilinear2d_backward {tl:.4f} ms"
         log(f"[{card}] kernel {k} {shapes[k]}: {tk:.4f} ms; plain version {tp:.4f} ms{lib}")
     return out, times
+
+
+# the pixels each timed C backward weighs (its labels' valid count), for
+# its bound: where coef is 0 the gradient needs no softmax
+C_BWD_VALID = {}
+
+
+def c_bwd_timing(card, key, x, lab, cw):
+    """Kernel C's backward (fused with its adjoint resize) through
+    torch.autograd.grad, as the step runs it, beside the plain route's
+    autograd backward; torch.profiler's device time logged beside it."""
+    import torch
+
+    from u2pl_tpu_torch.losses import ce
+
+    x = x.detach().requires_grad_(True)
+    lk = ce.upsample_cross_entropy(x, lab, 255, cw)
+    lp = ce.upsample_cross_entropy_plain(x, lab, 255, cw)
+    fused = lambda: torch.autograd.grad(lk, x, retain_graph=True)  # noqa: E731
+    out = (cuda_ms(fused), cuda_ms(lambda: torch.autograd.grad(lp, x, retain_graph=True)), None)
+    C_BWD_VALID[key] = int(((lab != 255) & (lab < x.shape[1])).sum())
+    log(f"[{card}] kernel {key} {tuple(x.shape)} -> {tuple(lab.shape[1:])}"
+        f"{', weighted' if cw is not None else ''}, {C_BWD_VALID[key]} of {lab.numel()} pixels "
+        f"valid: {out[0]:.4f} ms; plain route {out[1]:.4f} ms; torch.profiler: "
+        f"{profiled_text(device_ms_profiled(fused))}")
+    return out
 
 
 def contra_case(dev, cfg):
@@ -1384,6 +1439,7 @@ def phase6_contrastive(dev, card, cfg):
     missing = [name for name in (*TRAIN_COUNTERS, *CONTRA_COUNTERS) if launches[name] <= 0]
     if missing:
         fail(f"a kernel of the contrastive training path was never launched: {missing}")
+    check_a_bwd_per_step("VOC contrastive training", launches)
     log(f"[{card}] peak device memory over the {TRAIN_STEPS} contrastive training steps: "
         f"{peak / 2**30:.2f} GiB")
 
@@ -1643,6 +1699,7 @@ def phase8_cityscapes(dev, card, cfg):
     missing = [a for a in (*TRAIN_COUNTERS, *CONTRA_COUNTERS, *OHEM_COUNTERS) if launches[a] <= 0]
     if missing:
         fail(f"a kernel of the Cityscapes training path was never launched: {missing}")
+    check_a_bwd_per_step("Cityscapes training", launches)
     if any(launches[a] != 2 * TRAIN_STEPS for a in OHEM_COUNTERS):
         fail(f"the OHEM kernels did not run on both heads of every step: {launches}")
     log(f"[{card}] peak device memory over the {TRAIN_STEPS} Cityscapes training steps: "
@@ -1730,6 +1787,14 @@ def phase9_city_timings(dev, card, cfg, state, batches):
     k = min(p.numel(), min_kept)
     kth = quantile.kth_smallest(p, k)
     flat = p.reshape(-1)
+    # C's backward at the heads' shapes, on OHEM's kept labels (the main
+    # head's with the class weight that `use_weight` selects)
+    kept = ohem.ohem_kept_labels(x, lab, thresh, min_kept)
+    c_bwd = c_bwd_timing(card, "C_bwd_city_main", x, kept, ohem._class_weight(True, dev))
+    xa, laba = ohem_case(dev, g, CITY_OS8, 8.0, 4, 0.05)
+    c_bwd_aux = c_bwd_timing(card, "C_bwd_city_aux", xa,
+                             ohem.ohem_kept_labels(xa, laba, thresh, min_kept), None)
+    del xa, laba
     times = {
         "K7_prob": (cuda_ms(lambda: ohem.ohem_target_prob(x, lab)),
                     cuda_ms(lambda: ohem.ohem_target_prob_plain(x, lab)), None),
@@ -1748,6 +1813,7 @@ def phase9_city_timings(dev, card, cfg, state, batches):
     for name, (tk, tp, tl) in times.items():
         lib = "" if tl is None else f"; torch.kthvalue {tl:.4f} ms"
         log(f"[{card}] kernel {name} {shapes[name]}: {tk:.4f} ms; plain version {tp:.4f} ms{lib}")
+    times["C_bwd_city_main"], times["C_bwd_city_aux"] = c_bwd, c_bwd_aux
     return {"semi_ms": med, "img_s": imgs * 1e3 / med, "peak": peak}, times
 
 
@@ -2034,8 +2100,9 @@ def bounds(case, cfg):
     """{kernel: (bound ms, "bytes" or "operations")}: the least time the card
     could take for each timed call, the larger of the bytes it must move
     over the HBM rate and its operations over the float32 peak, from the
-    shapes (and, for K5 and K6, this run's selections) of the timed calls
-    (K7's: phase 9's Cityscapes main head)."""
+    shapes (and, for K5 and K6, this run's selections; for C's backward,
+    the valid pixels of its labels) of the timed calls (K7's and C bwd's
+    Cityscapes entries: phase 9's heads)."""
     c, n = case["pri"].shape
     ccfg = cfg.trainer.contrastive
     q, m, k = ccfg.num_queries, ccfg.num_negatives, ccfg.max_keys_per_class_per_step
@@ -2044,6 +2111,7 @@ def bounds(case, cfg):
     px = 4 * CROP * CROP
     cpx = CITY_B * CITY_CROP * CITY_CROP  # Cityscapes labels
     clo, chi = 19 * CITY_B * CITY_OS4 * CITY_OS4, 19 * cpx  # its 19-class logits, os4 / 769²
+    clo8 = 19 * CITY_B * CITY_OS8 * CITY_OS8  # the aux head's, os8
     sel = int(case["n_sel"].sum())
     act = int(case["active"].sum())
     # operations per upsampled value: 9 for the bilinear taps (6 products,
@@ -2055,7 +2123,12 @@ def bounds(case, cfg):
         "B": (21 * CROP * CROP * 4 + 375 * 500, 21 * 375 * 500 * 10),
         "A_bwd": ((8 * 256 * 129 * 129 + 8 * 256 * 65 * 65) * 4, 8 * 256 * 129 * 129 * 9),
         "C_fwd": (lo * 4 + px * 4, hi * 11),
-        "C_bwd": (2 * lo * 4 + px * 4, hi * 20),
+        # C bwd (fused with its adjoint resize): logits, labels and lse in,
+        # the logits' gradient out; the softmax only where a pixel is valid
+        "C_bwd": (2 * lo * 4 + 2 * px * 4, C_BWD_VALID["C_bwd"] * 21 * 20),
+        "C_bwd_city_main": (2 * clo * 4 + 2 * cpx * 4 + 19 * 4,
+                            C_BWD_VALID["C_bwd_city_main"] * 19 * 20),
+        "C_bwd_city_aux": (2 * clo8 * 4 + 2 * cpx * 4, C_BWD_VALID["C_bwd_city_aux"] * 19 * 20),
         "D": (lo * 4 + px * 12, hi * 16),
         "E": (px * 5, 0),
         "K3": (2 * px * (12 + 4 + 4), 0),
@@ -2147,6 +2220,10 @@ def main() -> int:
     times.update(contra_times)
     times.update(city_times)
     times.update(variant_times)
+    for key in ("C_bwd", "C_bwd_city_main", "C_bwd_city_aux"):
+        ms, plain_ms, _ = times[key]
+        log(f"[{card}] kernel {key}: {ms:.4f} ms, {ms / bound[key][0]:.1f}x its bound "
+            f"{bound[key][0]:.4f} ms ({bound[key][1]}); plain route {plain_ms:.4f} ms")
 
     def entry(name, key, source, replaces, launches_, err, timing):
         ms, plain_ms, library_ms = times[timing]

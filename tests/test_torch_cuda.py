@@ -188,6 +188,94 @@ def test_kernel_c_all_ignored_is_zero():
     assert loss.item() == 0.0 and not gx.any()
 
 
+# C's backward, fused with its adjoint resize: the existing shapes, scale 8,
+# a 37-row map in bands of 3 on a 132-SM card (a 1-row band at the edge),
+# odd sizes
+C_BWD_SHAPES = [
+    ((2, 21, 33, 33), (129, 129)),
+    ((3, 5, 9, 7), (33, 25)),
+    ((2, 3, 13, 13), (97, 97)),
+    ((8, 3, 37, 37), (145, 145)),
+    ((2, 5, 17, 23), (65, 90)),
+]
+
+
+@pytest.mark.parametrize("sms", [None, 4])
+@pytest.mark.parametrize("ignore_frac", [0.1, 0.9])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("shape,outsz", C_BWD_SHAPES)
+def test_kernel_c_bwd_matches_plain(shape, outsz, weighted, ignore_frac, sms, monkeypatch):
+    """sms None: the card's own plan; 4: bands of half an image or more."""
+    from u2pl_tpu_torch.losses import ce
+
+    dev = _cuda()
+    if sms is not None:
+        monkeypatch.setattr(ce, "_sm_count", lambda device: sms)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(*shape, device=dev, generator=g, requires_grad=True)
+    lab = _labels(g, shape[0], *outsz, shape[1], dev, ignore_frac)
+    cw = torch.rand(shape[1], device=dev, generator=g) if weighted else None
+    loss = ce.upsample_cross_entropy(x, lab, 255, cw)
+    n = (ce.upsample_cross_entropy.bwd_launches, tr.resize_bilinear_bwd.launches)
+    (gx,) = torch.autograd.grad(loss * 3.0, x, retain_graph=True)
+    torch.cuda.synchronize()
+    # one fused launch, no A-bwd
+    assert (ce.upsample_cross_entropy.bwd_launches, tr.resize_bilinear_bwd.launches) == (
+        n[0] + 1, n[1])
+    plain = ce.upsample_ce_bwd_plain(x.detach(), lab, cw, 255, 3.0)
+    xp = x.detach().clone().requires_grad_(True)
+    (auto,) = torch.autograd.grad(ce.upsample_cross_entropy_plain(xp, lab, 255, cw) * 3.0, xp)
+    for ref in (plain, auto):
+        assert (gx - ref).abs().max().item() <= 1e-6 * max(ref.abs().max().item(), 1e-30)
+    (again,) = torch.autograd.grad(loss * 3.0, x)
+    assert torch.equal(again, gx)  # deterministic: no atomics
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_kernel_c_bwd_all_ignored_is_zero(weighted):
+    from u2pl_tpu_torch.losses import ce
+
+    dev = _cuda()
+    x = torch.randn(2, 3, 13, 13, device=dev, requires_grad=True)
+    lab = torch.full((2, 97, 97), 255, dtype=torch.int32, device=dev)
+    cw = torch.ones(3, device=dev) if weighted else None
+    (gx,) = torch.autograd.grad(ce.upsample_cross_entropy(x, lab, 255, cw), x)
+    assert gx.shape == x.shape and not gx.any()
+
+
+def test_kernel_c_bwd_counts_labels_past_c_as_ignored():
+    from u2pl_tpu_torch.losses import ce
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(2, 5, 17, 23, device=dev, generator=g, requires_grad=True)
+    lab = _labels(g, 2, 65, 90, 5, dev)
+    past, ign = lab.clone(), lab.clone()
+    past[:, ::3] = 7
+    ign[:, ::3] = 255
+    (gp,) = torch.autograd.grad(ce.upsample_cross_entropy(x, past), x)
+    (gi,) = torch.autograd.grad(ce.upsample_cross_entropy(x, ign), x)
+    assert torch.equal(gp, gi)
+
+
+def test_kernel_c_bwd_allocates_no_full_resolution_gradient():
+    from u2pl_tpu_torch.losses import ce
+
+    dev = _cuda()
+    b, c, oh, ow = 4, 21, 513, 513
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(b, c, 129, 129, device=dev, generator=g, requires_grad=True)
+    lab = _labels(g, b, oh, ow, c, dev)
+    loss = ce.upsample_cross_entropy(x, lab)
+    torch.autograd.grad(loss, x, retain_graph=True)  # the tables, cached
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    (gx,) = torch.autograd.grad(loss, x)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(dev) - base < b * c * oh * ow * 4
+
+
 @pytest.mark.parametrize("shape,outsz", [((2, 21, 33, 33), (129, 129)), ((3, 5, 9, 7), (33, 25))])
 def test_kernel_d_matches_plain(shape, outsz):
     from u2pl_tpu_torch.losses import unsup

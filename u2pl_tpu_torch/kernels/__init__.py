@@ -32,9 +32,10 @@ def load():
         # (x, labels, cw, lse, part, stats, idx_h, w_h, idx_w, w_w,
         #  B, C, H, W, OH, OW, ignore, floor, stream)
         "u2pl_upsample_ce_fwd": [p] * 10 + [i] * 7 + [f, p],
-        # (x, labels, cw, lse, stats, gout, gfull, idx_h, w_h, idx_w, w_w,
-        #  B, C, H, W, OH, OW, ignore, floor, stream)
-        "u2pl_upsample_ce_bwd": [p] * 11 + [i] * 7 + [f, p],
+        # (x, labels, cw, lse, stats, gout, gx, idx_h, w_h, rng_h, idx_w, w_w,
+        #  rng_w, B, C, H, W, OH, OW, ignore, floor, rows, bands, span, log_s,
+        #  Q, stream)
+        "u2pl_upsample_ce_bwd": [p] * 13 + [i] * 7 + [f] + [i] * 5 + [p],
         # (x, maxprob, argmax, entropy, idx_h, w_h, idx_w, w_w,
         #  B, C, H, W, OH, OW, stream)
         "u2pl_upsample_softmax_stats": [p] * 8 + [i] * 6 + [p],

@@ -65,6 +65,7 @@ namespace {
 using u2pl::blocks_for;
 using u2pl::kThreads;
 using u2pl::lerp2;
+using u2pl::tap_weight;
 
 constexpr int kBandOutputs = 4096;        // outputs per block, about
 constexpr int kResizeMaxShared = 160 * 1024;  // bytes of taps and H-lerped rows
@@ -142,17 +143,6 @@ __global__ void __launch_bounds__(kThreads) resize_bilinear_ac_kernel(
       }
     }
   }
-}
-
-// weight of output index o on input index i: the dense matrix entry
-// (lo == hi only at a clamped edge, where frac == 0)
-__device__ __forceinline__ float tap_weight(const int* __restrict__ idx,
-                                            const float* __restrict__ w, int n,
-                                            int o, int i) {
-  float v = 0.0f;
-  if (idx[o] == i) v = w[o];
-  if (idx[n + o] == i) v = __fadd_rn(v, w[n + o]);
-  return v;
 }
 
 __global__ void resize_bilinear_ac_bwd_kernel(

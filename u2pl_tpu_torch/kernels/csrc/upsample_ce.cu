@@ -25,11 +25,43 @@
 // (sum, weight) pair of doubles per block; a single-block kernel adds the
 // pairs in a fixed order (two-stage, no float atomics, so the loss is the
 // same bit for bit from run to run) and writes [loss, denom] on the device.
-// The backward reads the upstream gradient from device memory (no host
-// sync), writes the full-resolution gradient (softmax - onehot) * w * g /
-// denom, and the wrapper reduces it to the os4 logits with kernel A-bwd.
-// That (B, C, H, W) round trip through HBM is the simple route; fusing it
-// into A-bwd is later work.
+//
+// C's backward is fused with the adjoint resize (kernel A-bwd of
+// resize.cu): it writes the gradient to the os4 logits, (B, C, h, w),
+// directly; the full-resolution gradient g = coef * (softmax - onehot),
+// coef = w[y] * gout / max(denom, floor) (88 MB f32 at 4 x 21 x 513²) lives
+// one output row at a time in shared memory and never reaches HBM.  A
+// block owns one image's band of `rows` input rows and walks, in ascending
+// order, the output rows whose taps reach the band (the A-bwd range table:
+// rows rng_h[iy0] .. rng_h[H + iy1 - 1]); the rows at the band's edge are
+// evaluated again by the neighbouring band (a halo of ~scale rows per
+// band), which is the price of needing no atomics.  Per output row oy:
+// - phase 1: g(oy, ox) of every class into shared memory (an item is one
+//   output column and 4 classes), from the H-lerped input rows T and the
+//   row's coef / lse / label, staged in shared memory by phase 2 of the row
+//   before (labels and lse read from HBM once per pixel, not once per
+//   class); no expf where coef == 0 (ignored pixels, OHEM's dropped pixels);
+// - phase 2: the next row's T and pixels, from global loads issued before
+//   phase 1 and held in registers meanwhile; then per (4 classes, input
+//   column) s = sum over the output columns reaching it of tapw * g, and
+//   acc[iy] += wy * s for the (at most two) band rows that oy reaches.
+// That is A-bwd's order of sums for each input element (oy ascending, s
+// over ox ascending, every product and sum rounded on its own) over C's
+// own expression for g, so the gradient is bit-equal to the unfused route
+// (C's full-resolution gradient, then A-bwd).  The g row is held in a slot
+// layout, column ox at (ox % S) * Q + ox / S with S ~ the upsample factor
+// and Q = 32 / S (mod 32), so that the lanes of a warp (consecutive ox in
+// phase 1, consecutive input columns ~S outputs apart in phase 2) hit
+// distinct banks.  The wrapper (losses/ce.py:_bwd_plan) picks the band
+// height so that one wave of 1024-thread blocks covers the batch (B x bands
+// <= the SMs), at 1 + 1 / rows times the unfused count of g evaluations.
+// The bytes (~20 MB at 4 x 21 x 513²) are not the bound: instruction issue
+// and the two barriers per output row are.  On an NVIDIA H100 80GB HBM3 at
+// 700 W it takes 0.119 / 0.111 / 0.152 ms at the VOC CE's / Cityscapes
+// main / aux heads' shapes, against 0.327 / 0.317 / 0.496 ms for the
+// unfused route (u2pl_tpu_torch/kernels/timing_ab.py); variants that
+// pipelined the rows (one barrier per row), gave each class its own warp
+// (no barrier), or took 4 output columns per item were no faster.
 
 #include <math.h>
 
@@ -39,8 +71,10 @@ namespace {
 
 using u2pl::blocks_for;
 using u2pl::kThreads;
+using u2pl::tap_weight;
 
 constexpr long long kReduceBlocks = 1024;  // partial sums of C's forward
+constexpr long long kBwdMaxShared = 232448;  // a block's shared memory on sm_90 (227 KB)
 
 __global__ void upsample_ce_fwd_kernel(
     const float* __restrict__ x, const int* __restrict__ labels,
@@ -128,41 +162,221 @@ __global__ void upsample_ce_finalize_kernel(const double* __restrict__ part,
   }
 }
 
-__global__ void upsample_ce_bwd_kernel(
+constexpr int kBwdThreads = 1024;
+constexpr int kGroup = 4;   // classes per item in both phases of a row
+constexpr int kPreT = 4;    // next-row H-lerp inputs held in registers per thread
+constexpr int kPrePx = 2;   // next-row pixels (label, lse) held per thread
+
+// (c, i) of item k of a (C, n) grid, advanced by the block's stride without
+// a division per item: dc = stride / n, di = stride % n
+struct GridWalk {
+  int c, i;
+  __device__ GridWalk(int k, int n) : c(k / n), i(k - (k / n) * n) {}
+  __device__ void next(int dc, int di, int n) {
+    c += dc;
+    i += di;
+    if (i >= n) {
+      i -= n;
+      ++c;
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kBwdThreads) upsample_ce_bwd_kernel(
     const float* __restrict__ x, const int* __restrict__ labels,
     const float* __restrict__ cw, const float* __restrict__ lse,
     const float* __restrict__ stats, const float* __restrict__ gout,
-    float* __restrict__ gfull, const int* __restrict__ idx_h,
-    const float* __restrict__ w_h, const int* __restrict__ idx_w,
-    const float* __restrict__ w_w, int B, int C, int H, int W, int OH, int OW,
-    int ignore, float floor_) {
-  const unsigned total = (unsigned)B * OH * OW;
-  const unsigned out_plane = (unsigned)OH * OW;
+    float* __restrict__ gx, const int* __restrict__ idx_h,
+    const float* __restrict__ w_h, const int* __restrict__ rng_h,
+    const int* __restrict__ idx_w, const float* __restrict__ w_w,
+    const int* __restrict__ rng_w, int C, int H, int W, int OH, int OW,
+    int ignore, float floor_, int rows, int bands, int span, int log_s,
+    int Q) {
+  extern __shared__ int2 col[];  // OW x (lo | hi << 16, frac) of the columns
+  const int S = 1 << log_s, SQ = S * Q, CW = C * W;
+  const int G = (C + kGroup - 1) / kGroup;         // class groups
+  float* g = reinterpret_cast<float*>(col + OW);  // G*kGroup x S x Q: g of one output row
+  float* T = g + G * kGroup * SQ;                 // C x W: H-lerped input rows
+  float* acc = T + CW;                            // C x rows x W: the band's gradient
+  float* coef = acc + C * rows * W;               // OW
+  float* lrow = coef + OW;                        // OW: lse
+  int* yrow = reinterpret_cast<int*>(lrow + OW);  // OW: labels
+  float* wtab = reinterpret_cast<float*>(yrow + OW);      // W x span: column tap weights
+  int* wstart = reinterpret_cast<int*>(wtab + W * span);  // W: first output column
+  int* wcount = wstart + W;                               // W: output columns
+  float* cws = reinterpret_cast<float*>(wcount + W);      // C: class weights x scale
+
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int b = blockIdx.x / bands;
+  const int iy0 = (blockIdx.x - b * bands) * rows;
+  const int iy1 = min(iy0 + rows, H);
+  const int oy_begin = rng_h[iy0], oy_end = rng_h[H + iy1 - 1];
   const int plane = H * W;
+  const float* xb = x + (size_t)b * C * plane;
+  const int* lab = labels + (size_t)b * OH * OW;
+  const float* lse_b = lse + (size_t)b * OH * OW;
   const float denom = stats[1];
   const float scale = denom > 0.0f ? gout[0] / fmaxf(denom, floor_) : 0.0f;
-  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += gridDim.x * blockDim.x) {
-    const int ox = (int)(i % OW);
-    const unsigned r = i / OW;
-    const int oy = (int)(r % OH);
-    const unsigned b = r / OH;
-    const float* xp = x + (size_t)b * C * plane;
-    float* gp = gfull + (size_t)b * C * out_plane + (size_t)oy * OW + ox;
-    const int y = labels[i];
+
+  for (int ox = tid; ox < OW; ox += nt) {
+    col[ox] = make_int2(idx_w[ox] | (idx_w[OW + ox] << 16), __float_as_int(w_w[OW + ox]));
+  }
+  for (int k = tid; k < W * span; k += nt) {
+    const int ix = k / span, j = k - ix * span;
+    const int s0 = rng_w[ix], n = rng_w[W + ix] - s0;
+    if (j == 0) {
+      wstart[ix] = s0;
+      wcount[ix] = n;
+    }
+    if (j < n) wtab[k] = tap_weight(idx_w, w_w, OW, s0 + j, ix);
+  }
+  // kernel C's coef of a valid pixel of class y: w[y] * gout / max(denom, floor)
+  for (int c = tid; c < C; c += nt) cws[c] = (cw ? cw[c] : 1.0f) * scale;
+  for (int k = tid; k < C * rows * W; k += nt) acc[k] = 0.0f;
+
+  auto put_pixel = [&](int ox, int y, float l) {
     const bool valid = y != ignore && y >= 0 && y < C;
-    const float coef = valid ? (cw ? cw[y] : 1.0f) * scale : 0.0f;
-    if (coef == 0.0f) {
-      for (int c = 0; c < C; ++c) gp[(size_t)c * out_plane] = 0.0f;
-      continue;
+    coef[ox] = valid ? cws[y] : 0.0f;
+    lrow[ox] = l;
+    yrow[ox] = y;
+  };
+  // the H-lerped inputs [k0, CW) and pixels [p0, OW) of row oy, read from
+  // device memory here
+  const int dcw = nt / W, diw = nt % W;
+  auto stage = [&](int oy, int k0, int p0) {
+    const float a = w_h[oy], bw = w_h[OH + oy];
+    const float* x0 = xb + idx_h[oy] * W;
+    const float* x1 = xb + idx_h[OH + oy] * W;
+    GridWalk it(k0, W);
+    for (int k = k0; k < CW; k += nt, it.next(dcw, diw, W)) {
+      const int off = it.c * plane + it.i;
+      T[k] = u2pl::lerp2(a, x0[off], bw, x1[off]);
     }
-    const u2pl::Taps t =
-        u2pl::load_taps(idx_h, w_h, idx_w, w_w, W, OH, OW, oy, ox);
-    const float l = lse[i];
-    for (int c = 0; c < C; ++c) {
-      const float p = expf(u2pl::upsampled(xp + (size_t)c * plane, t) - l);
-      gp[(size_t)c * out_plane] = coef * (c == y ? p - 1.0f : p);
+    for (int ox = p0; ox < OW; ox += nt) put_pixel(ox, lab[oy * OW + ox], lse_b[oy * OW + ox]);
+  };
+  __syncthreads();  // cws
+  if (oy_begin < oy_end) stage(oy_begin, tid, tid);
+  __syncthreads();
+
+  const int GO = G * OW, GW = G * W;
+  const int dco = nt / OW, dio = nt % OW;
+  for (int oy = oy_begin; oy < oy_end; ++oy) {
+    // the next row's device-memory reads, issued now and stored in phase 2
+    const bool more = oy + 1 < oy_end;
+    float xa[kPreT], xc[kPreT], ln[kPrePx];
+    int yn[kPrePx];
+    if (more) {
+      const float* x0 = xb + idx_h[oy + 1] * W;
+      const float* x1 = xb + idx_h[OH + oy + 1] * W;
+#pragma unroll
+      for (int j = 0; j < kPreT; ++j) {
+        const int k = tid + j * nt;
+        if (k < CW) {
+          const int c = k / W;
+          const int off = c * plane + (k - c * W);
+          xa[j] = x0[off];
+          xc[j] = x1[off];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kPrePx; ++j) {
+        const int ox = tid + j * nt;
+        if (ox < OW) {
+          yn[j] = lab[(oy + 1) * OW + ox];
+          ln[j] = lse_b[(oy + 1) * OW + ox];
+        }
+      }
     }
+
+    // phase 1: g of output row oy (kernel C's expression), kGroup classes
+    // of one output column per item
+    GridWalk it(tid, OW);
+    for (int k = tid; k < GO; k += nt, it.next(dco, dio, OW)) {
+      const int c0 = it.c * kGroup, ox = it.i;
+      float* gp = g + c0 * SQ + (ox & (S - 1)) * Q + (ox >> log_s);
+      const float coefv = coef[ox];
+      if (coefv == 0.0f) {
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) gp[u * SQ] = 0.0f;
+        continue;
+      }
+      const int2 t = col[ox];
+      const int t0 = t.x & 0xffff, t1 = t.x >> 16;
+      const float q = __int_as_float(t.y), p = __fsub_rn(1.0f, q);
+      const float l = lrow[ox];
+      const int y = yrow[ox];
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int c = c0 + u;
+        if (c < C) {
+          const float* Tc = T + c * W;
+          const float e = expf(u2pl::lerp2(p, Tc[t0], q, Tc[t1]) - l);
+          gp[u * SQ] = coefv * (c == y ? e - 1.0f : e);
+        }
+      }
+    }
+    __syncthreads();
+
+    // phase 2: the next row's inputs, then the adjoint of row oy onto the
+    // band: per (class, input column) s = sum of tapw * g over the output
+    // columns reaching it, ascending, then acc += wy * s on the band rows
+    // that oy reaches (lo, lo + 1)
+    if (more) {
+      const float a = w_h[oy + 1], bw = w_h[OH + oy + 1];
+#pragma unroll
+      for (int j = 0; j < kPreT; ++j) {
+        const int k = tid + j * nt;
+        if (k < CW) T[k] = u2pl::lerp2(a, xa[j], bw, xc[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < kPrePx; ++j) {
+        const int ox = tid + j * nt;
+        if (ox < OW) put_pixel(ox, yn[j], ln[j]);
+      }
+      if (CW > kPreT * nt || OW > kPrePx * nt) {  // what the registers did not hold
+        stage(oy + 1, tid + kPreT * nt, tid + kPrePx * nt);
+      }
+    }
+    const int lo = idx_h[oy];
+    const float w_lo = tap_weight(idx_h, w_h, OH, oy, lo);
+    const float w_hi = tap_weight(idx_h, w_h, OH, oy, lo + 1);
+    const bool in_lo = lo >= iy0 && lo < iy1;
+    const bool in_hi = lo + 1 >= iy0 && lo + 1 < iy1;
+    GridWalk jt(tid, W);
+    for (int k = tid; k < GW; k += nt, jt.next(dcw, diw, W)) {
+      const int c0 = jt.c * kGroup, ix = jt.i;
+      const float* gc = g + c0 * SQ;
+      const float* wt = wtab + ix * span;
+      const int s0 = wstart[ix], n = wcount[ix];
+      float s[kGroup];
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) s[u] = 0.0f;
+      for (int j = 0; j < n; ++j) {
+        const int o = s0 + j;
+        const float w = wt[j];
+        const float* go = gc + (o & (S - 1)) * Q + (o >> log_s);
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) s[u] = __fadd_rn(s[u], __fmul_rn(w, go[u * SQ]));
+      }
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        if (c0 + u < C) {
+          float* a = acc + ((c0 + u) * rows + lo - iy0) * W + ix;  // band row lo - iy0
+          if (in_lo) a[0] = __fadd_rn(a[0], __fmul_rn(w_lo, s[u]));
+          if (in_hi) a[W] = __fadd_rn(a[W], __fmul_rn(w_hi, s[u]));
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  const int nr = iy1 - iy0;
+  for (int k = tid; k < C * nr * W; k += nt) {
+    const int c = k / (nr * W);
+    const int rem = k - c * nr * W;
+    const int r = rem / W;
+    gx[((size_t)b * C + c) * plane + (size_t)(iy0 + r) * W + (rem - r * W)] =
+        acc[(c * rows + r) * W + rem - r * W];
   }
 }
 
@@ -240,22 +454,41 @@ int u2pl_upsample_ce_fwd(const void* x, const void* labels, const void* cw,
   return (int)cudaGetLastError();
 }
 
+// shared memory of the backward's block, in bytes (losses/ce.py:_bwd_smem)
+static long long bwd_smem(int C, int W, int OW, int rows, int span,
+                          int log_s, int Q) {
+  const long long planes = (C + kGroup - 1) / kGroup * kGroup;
+  return 8LL * OW + 4LL * (planes * (1 << log_s) * Q + (long long)C * W +
+                           (long long)C * rows * W + 3LL * OW +
+                           (long long)W * span + 2LL * W + C);
+}
+
 int u2pl_upsample_ce_bwd(const void* x, const void* labels, const void* cw,
                          const void* lse, const void* stats, const void* gout,
-                         void* gfull, const void* idx_h, const void* w_h,
-                         const void* idx_w, const void* w_w, int B, int C,
-                         int H, int W, int OH, int OW, int ignore,
-                         float floor_, void* stream) {
-  const long long total = (long long)B * OH * OW;
-  if (total > 0) {
-    upsample_ce_bwd_kernel<<<blocks_for(total), kThreads, 0,
-                             (cudaStream_t)stream>>>(
-        (const float*)x, (const int*)labels, (const float*)cw,
-        (const float*)lse, (const float*)stats, (const float*)gout,
-        (float*)gfull, (const int*)idx_h, (const float*)w_h,
-        (const int*)idx_w, (const float*)w_w, B, C, H, W, OH, OW, ignore,
-        floor_);
+                         void* gx, const void* idx_h, const void* w_h,
+                         const void* rng_h, const void* idx_w, const void* w_w,
+                         const void* rng_w, int B, int C, int H, int W, int OH,
+                         int OW, int ignore, float floor_, int rows, int bands,
+                         int span, int log_s, int Q, void* stream) {
+  if ((long long)B * C * H * W <= 0) return (int)cudaGetLastError();
+  if (OH <= 0 || OW <= 0 || W >= 32768 || rows <= 0 || bands != (H + rows - 1) / rows ||
+      span <= 0 || log_s < 0 || log_s > 5 || Q * (1 << log_s) < OW) {
+    return (int)cudaErrorInvalidValue;
   }
+  const long long smem = bwd_smem(C, W, OW, rows, span, log_s, Q);
+  if (smem > kBwdMaxShared) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {  // above the default dynamic shared memory of a block
+    const cudaError_t err = cudaFuncSetAttribute(
+        upsample_ce_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  upsample_ce_bwd_kernel<<<(unsigned)B * bands, kBwdThreads, (size_t)smem,
+                           (cudaStream_t)stream>>>(
+      (const float*)x, (const int*)labels, (const float*)cw, (const float*)lse,
+      (const float*)stats, (const float*)gout, (float*)gx, (const int*)idx_h,
+      (const float*)w_h, (const int*)rng_h, (const int*)idx_w, (const float*)w_w,
+      (const int*)rng_w, C, H, W, OH, OW, ignore, floor_, rows, bands, span,
+      log_s, Q);
   return (int)cudaGetLastError();
 }
 

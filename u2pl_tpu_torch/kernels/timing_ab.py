@@ -1,6 +1,7 @@
-"""Times kernel A and K6's backward of the u2pl_tpu_torch package in the
-checkout at --root, on one card: run it once per checkout, in turns, to set
-two versions of the kernels side by side in one call.
+"""Times kernel A, K6's backward and kernel C's backward of the
+u2pl_tpu_torch package in the checkout at --root, on one card: run it once
+per checkout, in turns, to set two versions of the kernels side by side in
+one call.
 
     python u2pl_tpu_torch/kernels/timing_ab.py --root <checkout> --label <name>
 
@@ -25,7 +26,14 @@ results are bit-equal.  The inputs come from seeded generators on the card:
              rows, then index_add_ of the draws' rows;
   K6_bwd_no_draws  the same with every position inactive: the gradient's
              zero write alone, in the kernel's store layout; library:
-             torch.zeros of the rep.
+             torch.zeros of the rep;
+  C_bwd_voc  kernel C's backward through torch.autograd.grad, as the step
+             runs it (the adjoint resize to the os4 logits included), at
+             the VOC CE's (4, 21, 129²) -> 513², 10% of the labels ignored;
+  C_bwd_city_main  the same at the Cityscapes main head, (2, 19, 193²) ->
+             769², on OHEM's kept labels (thresh 0.7, min_kept 100000) with
+             the OHEM class weight;
+  C_bwd_city_aux   the aux head, (2, 19, 97²) -> 769², on its kept labels.
 """
 
 from __future__ import annotations
@@ -146,6 +154,30 @@ def main() -> int:
         "library_ms": cuda_ms(lambda: torch.zeros(shape, device=dev), 20),
         "sha256": digest(empty()),
     }
+    from u2pl_tpu_torch.losses import ce, ohem
+
+    def ohem_head(hw, block):  # logits whose label class leads at most pixels
+        cells = torch.randint(0, 19, (2, -(-hw // block), -(-hw // block)), device=dev,
+                              generator=g, dtype=torch.int32)
+        lab_s = R.resize_nearest(cells, (hw, hw))
+        onehot = F.one_hot(lab_s.long(), 19).permute(0, 3, 1, 2).float()
+        x = (8.0 * onehot - 4.0 + 0.3 * torch.randn(2, 19, hw, hw, device=dev, generator=g))
+        lab = R.resize_nearest(lab_s, (769, 769)).contiguous()
+        lab[torch.rand(lab.shape, device=dev, generator=g) < 0.05] = 255
+        return x.contiguous(), ohem.ohem_kept_labels(x.contiguous(), lab, 0.7, 100000)
+
+    x = torch.randn(4, 21, 129, 129, device=dev, generator=g)
+    lab = torch.randint(0, 21, (4, 513, 513), device=dev, generator=g, dtype=torch.int32)
+    lab[torch.rand(lab.shape, device=dev, generator=g) < 0.1] = 255
+    cases = {"C_bwd_voc": (x, lab, None),
+             "C_bwd_city_main": (*ohem_head(193, 8), ohem._class_weight(True, dev)),
+             "C_bwd_city_aux": (*ohem_head(97, 4), None)}
+    for name, (x, lab, cw) in cases.items():
+        x = x.requires_grad_(True)
+        loss = ce.upsample_cross_entropy(x, lab, 255, cw)
+        fn = lambda: torch.autograd.grad(loss, x, retain_graph=True)[0]  # noqa: E731
+        out["kernels"][name] = {"ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn),
+                                "library_ms": None, "sha256": digest(fn())}
     print(json.dumps(out), flush=True)
     return 0
 

@@ -5,22 +5,29 @@ The JAX step upsamples the os4 logits to label size and then takes the CE;
 the port fuses the two: `upsample_cross_entropy(logits_os4, labels)` is
 `cross_entropy_ignore(_upsample(logits), labels)` with the upsample inside
 (kernel C, `kernels/csrc/upsample_ce.cu`, forward and backward), so on the
-card the (B, C, H, W) upsampled logits are never stored for the forward.
-On a CPU tensor it is the plain version: kernel A's plain resize, then
-`log_softmax` and a gather, differentiated by autograd.  Reductions are
-float32; the empty valid set gives 0, as in JAX.
+card the (B, C, H, W) upsampled logits are never stored: the forward
+reduces them per pixel, and the backward, fused with the adjoint resize,
+writes the gradient to the os4 logits from one full-resolution row at a
+time in shared memory.  On a CPU tensor it is the plain version: kernel
+A's plain resize, then `log_softmax` and a gather, differentiated by
+autograd (`upsample_ce_bwd_plain` is the backward written out).
+Reductions are float32; the empty valid set gives 0, as in JAX.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from u2pl_tpu_torch.ops.resize import (
     _check_cuda_f32,
+    _device_ranges,
     _device_taps,
-    resize_bilinear_bwd,
+    _ranges_np,
+    resize_bilinear_bwd_plain,
     resize_bilinear_plain,
 )
 
@@ -68,6 +75,35 @@ def upsample_cross_entropy_plain(
     return cross_entropy_ignore(up, labels, ignore_label, class_weight)
 
 
+def upsample_ce_bwd_plain(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    class_weight: Optional[torch.Tensor] = None,
+    ignore_label: int = 255,
+    g: Union[float, torch.Tensor] = 1.0,
+) -> torch.Tensor:
+    """Plain PyTorch version of kernel C's backward: the gradient of
+    `g * upsample_cross_entropy(logits, labels)` to the (B, C, h, w) logits.
+    It builds the full-resolution gradient coef * (softmax(up) - onehot(y)),
+    coef = w[y] g / max(denom, floor) and 0 where y is ignored or outside
+    [0, C), then applies A-bwd's plain version."""
+    c, h, w = logits.shape[1:]
+    up = resize_bilinear_plain(logits.float(), labels.shape[1:])
+    y = labels.long()
+    valid = (y != ignore_label) & (y >= 0) & (y < c)
+    safe = torch.where(valid, y, torch.zeros_like(y))
+    if class_weight is None:
+        wy, floor = valid.float(), 1.0
+    else:
+        wy, floor = class_weight.to(up)[safe] * valid, 1e-12
+    denom = wy.sum()
+    g = torch.as_tensor(g, dtype=torch.float32, device=up.device)
+    scale = torch.where(denom > 0, g / torch.clamp(denom, min=floor), torch.zeros_like(g))
+    onehot = torch.nn.functional.one_hot(safe, c).permute(0, 3, 1, 2).to(up)
+    gfull = (torch.softmax(up, dim=1) - onehot) * (wy * scale)[:, None]
+    return resize_bilinear_bwd_plain(gfull, (h, w))
+
+
 def upsample_cross_entropy(
     logits: torch.Tensor,
     labels: torch.Tensor,
@@ -100,6 +136,60 @@ def _check_ce_inputs(logits, labels, class_weight):
         _check_cuda_f32(class_weight, 1, "upsample_cross_entropy class_weight")
         if class_weight.shape[0] != c:
             raise ValueError("upsample_cross_entropy: one class weight per class")
+
+
+# shared memory a block of the fused backward may use: sm_90's 227 KB
+# (kernels/csrc/upsample_ce.cu:kBwdMaxShared)
+BWD_MAX_SHARED = 232448
+
+
+def _bwd_smem(c: int, w: int, ow: int, rows: int, span: int, log_s: int, q: int) -> int:
+    """Bytes of shared memory of one block of the fused backward: the column
+    taps, one output row of g in the slot layout (classes padded to groups
+    of 4), one row of H-lerped inputs, the band's accumulators, one row of
+    coef / lse / labels, the column tap weights and the class weights
+    (upsample_ce.cu:bwd_smem)."""
+    return 8 * ow + 4 * (-(-c // 4) * 4 * (1 << log_s) * q + c * w + c * rows * w + 3 * ow
+                         + w * span + 2 * w + c)
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_plan(b: int, c: int, h: int, w: int, oh: int, ow: int,
+              sms: int) -> Tuple[int, int, int, int, int]:
+    """The fused backward's launch: (rows, bands, span, log_s, q).
+
+    A block owns `rows` input rows of one image; the rows are the fewest
+    for which the B x bands blocks fit in one wave on `sms` SMs (fewer when
+    the block's shared memory would exceed BWD_MAX_SHARED).  span: the most
+    output columns reaching one input column, made odd so that lanes on
+    consecutive input columns read the tap-weight table on distinct banks.
+    A g row is stored with output column ox at (ox % S) * q + ox // S,
+    S = 2**log_s ~ the upsample factor (at most 8) and q = 32 / S (mod 32),
+    so that lanes ~S columns apart hit distinct banks."""
+    if w >= 32768:
+        raise ValueError(f"upsample_cross_entropy: width {w} exceeds the backward's 16-bit taps")
+    counts = np.diff(_ranges_np(w, ow, True), axis=0)[0]
+    span = max(int(counts.max()), 1) | 1
+    factor = (ow - 1) / max(w - 1, 1)
+    log_s = 0
+    while log_s < 3 and 2 ** (log_s + 1) <= factor + 0.5:
+        log_s += 1
+    s = 1 << log_s
+    q = -(-ow // s)
+    if s > 1:
+        q += (32 // s - q) % 32
+    rows = -(-h // min(h, max(1, sms // b)))
+    while rows > 1 and _bwd_smem(c, w, ow, rows, span, log_s, q) > BWD_MAX_SHARED:
+        rows -= 1
+    if _bwd_smem(c, w, ow, rows, span, log_s, q) > BWD_MAX_SHARED:
+        raise ValueError(f"upsample_cross_entropy: {c} classes at widths {w} -> {ow} exceed "
+                         f"the backward's {BWD_MAX_SHARED} bytes of shared memory")
+    return rows, -(-h // rows), span, log_s, q
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 class _UpsampleCE(torch.autograd.Function):
@@ -141,21 +231,25 @@ class _UpsampleCE(torch.autograd.Function):
         b, c, h, w = logits.shape
         oh, ow = labels.shape[1:]
         dev = logits.device
+        rows, bands, span, log_s, q = _bwd_plan(b, c, h, w, oh, ow, _sm_count(dev))
         idx_h, w_h = _device_taps(h, oh, True, dev)
         idx_w, w_w = _device_taps(w, ow, True, dev)
+        rng_h = _device_ranges(h, oh, True, dev)
+        rng_w = _device_ranges(w, ow, True, dev)
         g = g.to(torch.float32).contiguous()
-        gfull = torch.empty((b, c, oh, ow), dtype=torch.float32, device=dev)
+        gx = torch.empty_like(logits)
         cw = class_weight.data_ptr() if class_weight is not None else None
         with torch.cuda.device(dev):
             err = lib.u2pl_upsample_ce_bwd(
                 logits.data_ptr(), labels.data_ptr(), cw, lse.data_ptr(),
-                stats.data_ptr(), g.data_ptr(), gfull.data_ptr(), idx_h.data_ptr(),
-                w_h.data_ptr(), idx_w.data_ptr(), w_w.data_ptr(), b, c, h, w, oh, ow,
-                ctx.ignore_label, ctx.floor, torch.cuda.current_stream(dev).cuda_stream,
+                stats.data_ptr(), g.data_ptr(), gx.data_ptr(), idx_h.data_ptr(),
+                w_h.data_ptr(), rng_h.data_ptr(), idx_w.data_ptr(), w_w.data_ptr(),
+                rng_w.data_ptr(), b, c, h, w, oh, ow, ctx.ignore_label, ctx.floor,
+                rows, bands, span, log_s, q, torch.cuda.current_stream(dev).cuda_stream,
             )
         check(lib, err, "upsample_ce_bwd launch")
         upsample_cross_entropy.bwd_launches += 1
-        return resize_bilinear_bwd(gfull, (h, w)), None, None, None
+        return gx, None, None, None
 
 
 upsample_cross_entropy.fwd_launches = 0

@@ -102,13 +102,19 @@ def _device_ranges(
     in_size: int, out_size: int, align_corners: bool, device: torch.device
 ) -> torch.Tensor:
     """Kernel A-bwd's table on `device`: int32 [start; end], (2, in_size),
-    the output indices whose taps reach each input index (lo in {i-1, i};
-    contiguous because lo is non-decreasing)."""
+    the output indices whose taps reach each input index (`_ranges_np`)."""
+    return torch.from_numpy(_ranges_np(in_size, out_size, align_corners)).to(device)
+
+
+def _ranges_np(in_size: int, out_size: int, align_corners: bool) -> np.ndarray:
+    """int32 [start; end], (2, in_size): output indices [start[i], end[i])
+    are those whose taps reach input index i (lo in {i-1, i}; contiguous
+    because lo is non-decreasing)."""
     lo, _, _ = _interp_taps_np(in_size, out_size, align_corners)
     i = np.arange(in_size)
     start = np.searchsorted(lo, i - 1, side="left")
     end = np.searchsorted(lo, i, side="right")
-    return torch.from_numpy(np.stack([start, end]).astype(np.int32)).to(device)
+    return np.stack([start, end]).astype(np.int32)
 
 
 def _dense(in_size: int, out_size: int, align_corners: bool, like: torch.Tensor):
