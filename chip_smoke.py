@@ -11,7 +11,8 @@ Phases; any failure ends the run with a nonzero exit code:
   1. each CUDA kernel against its plain PyTorch version at the serving and
      training paths' shapes, on the card; kernel A also bit-equal to the
      rounded H-then-W formula (`resize_bilinear_rounded`) at every A_SHAPES
-     entry;
+     entry; kernel D at the VOC and Cityscapes steps' shapes, its max-prob +
+     argmax and its entropy calls bit-equal to its all-outputs call;
   2. the slice: the full VOC model of experiments/pascal/1464/ours (ResNet-101
      + DeepLabv3+, 21 classes, float32 as serve.py's default) from seeded
      random weights, saved as a reference-format .pth, loaded by InferEngine
@@ -29,12 +30,15 @@ Phases; any failure ends the run with a nonzero exit code:
      1 in epoch 2), checked for finite losses, gradients reaching the ASPP
      and layer4, the teacher copy / EMA, teacher BN tracking and every
      training kernel's launch count (A-bwd once per step: the decoder's;
-     the logits' adjoint resize is inside C's backward); then step 5 again
+     the logits' adjoint resize is inside C's backward; D twice per semi
+     step, once per output selection, and K4's key selection once where
+     the contrastive branch runs: phases 6 and 8 too); then step 5 again
      from a copy of the state, through the kernels and through the plain
      versions, compared;
   5. training timings: warmup and semi step medians, images/s, peak device
      memory, each training kernel beside its plain version (C's backward,
-     fused with its adjoint resize, with torch.profiler's device time);
+     fused with its adjoint resize, with torch.profiler's device time; D's
+     two calls of the semi step, max-prob + argmax and entropy, apart);
   6. the contrastive slice: the full `ours` config WITH trainer.contrastive
      (a (21, 50000, 256) bf16 memory bank, 8192 keys per class and step,
      256 queries, 50 negatives), 5 steps through `run_steps` (2 warmup, 3
@@ -63,7 +67,7 @@ Phases; any failure ends the run with a nonzero exit code:
   9. Cityscapes timings: the semi step's median, images/s and peak memory,
      each OHEM kernel (K7) beside its plain version and a library call, and
      C's backward at the main head (kept labels, the OHEM class weight) and
-     the aux head (kept labels);
+     the aux head (kept labels), and D's two calls at the Cityscapes shape;
  10. the trainer CLIs: a synthetic VOC-layout workspace (16 labeled, 16
      unlabeled and 4 val JPEG / PNG pairs of 500x375, from SEED) and
      `u2pl_tpu_torch.train_semi.main` on experiments/pascal/1464/ours as it
@@ -180,6 +184,9 @@ K7_NEAR = 1e-6  # a kept pixel may differ between routes only this close (relati
 # the card's published peaks (NVIDIA H100 SXM data sheet), for the bounds
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# expf / logf on the special-function units: 16 per SM per clock, 132 SMs
+# at the 1.98 GHz that the 67 TFLOP/s float32 peak assumes
+PEAK_SFU_S = 16 * 132 * 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -577,11 +584,16 @@ def phase1_train_kernels(dev):
         fail("kernel C: an all-ignored batch must give loss 0 and a zero gradient")
     errs["C_fwd"], errs["C_bwd"] = loss_err, grad_err
 
-    # D: max-prob, argmax, entropy
+    # D: max-prob, argmax, entropy, at the VOC and Cityscapes steps' shapes
+    # and an odd one; each output selection bit-equal to the all-outputs call
     worst = 0.0
-    for shape, out in (((4, 21, 129, 129), (513, 513)), ((3, 5, 9, 7), (33, 25))):
+    for shape, out in (((4, 21, 129, 129), (513, 513)),
+                       ((CITY_B, 19, CITY_OS4, CITY_OS4), (CITY_CROP, CITY_CROP)),
+                       ((3, 5, 9, 7), (33, 25))):
         x = torch.randn(*shape, device=dev, generator=g) * 3
         mp, am, ent = unsup.upsample_softmax_stats(x, out)
+        pmp, pam, pent = unsup.upsample_softmax_stats(x, out, outputs="prob")
+        emp, eam, eent = unsup.upsample_softmax_stats(x, out, outputs="entropy")
         rmp, ram, rent = unsup.upsample_softmax_stats_plain(x, out)
         top2 = R.resize_bilinear_plain(x, out).topk(2, dim=1).values
         near = (top2[:, 0] - top2[:, 1]) <= NEAR_TIE * top2[:, 0].abs().clamp(min=1.0)
@@ -589,12 +601,16 @@ def phase1_train_kernels(dev):
         e_mp = ((mp - rmp).abs() / rmp.abs()).max().item()
         e_ent = ((ent - rent).abs() / rent.abs().clamp(min=1e-3)).max().item()
         bad = int(((am != ram) & ~near).sum())
+        selected = (torch.equal(pmp, mp) and torch.equal(pam, am) and pent is None
+                    and emp is None and eam is None and torch.equal(eent, ent))
         log(f"[phase 1] kernel D {shape} -> {out}: max-prob rel {e_mp:.3e}, entropy rel "
             f"{e_ent:.3e} (bound {D_TOL}); argmax {int((am != ram).sum())} mismatches, {bad} "
-            f"outside the {int(near.sum())} near-tie pixels (bound 0)")
-        if not (e_mp <= D_TOL and e_ent <= D_TOL and bad == 0):
-            fail(f"kernel D {shape}: {e_mp} {e_ent} {bad}")
+            f"outside the {int(near.sum())} near-tie pixels (bound 0); the max-prob + argmax "
+            f"and the entropy calls bit-equal to the all-outputs call: {selected}")
+        if not (e_mp <= D_TOL and e_ent <= D_TOL and bad == 0 and selected):
+            fail(f"kernel D {shape}: {e_mp} {e_ent} {bad} {selected}")
         worst = max(worst, (mp - rmp).abs().max().item(), (ent - rent).abs().max().item())
+        del x, mp, am, ent, pmp, pam, eent, rmp, ram, rent, top2, near
     errs["D"] = worst
 
     # E: bit-equal to the masked sort, 1,052,676 values (4 x 513²)
@@ -767,15 +783,34 @@ def read_counters():
     out["A_decoder"] = sum(n for (shape, _), n in resize_bilinear.shapes.items()
                            if shape[1] == FEATURES)
     out["A_logits"] = out["A"] - out["A_decoder"]
+    from u2pl_tpu_torch.losses.unsup import upsample_softmax_stats
+
+    for sel in ("prob", "entropy"):  # kernel D's launches per output selection
+        out[f"D_{sel}"] = upsample_softmax_stats.selections[sel]
     return out
 
 
 def zero_counters():
+    from u2pl_tpu_torch.losses.unsup import upsample_softmax_stats
     from u2pl_tpu_torch.ops.resize import resize_bilinear
 
     for k in COUNTERS:
         setattr(*_counter(k), 0)
     resize_bilinear.shapes.clear()
+    upsample_softmax_stats.selections.clear()
+
+
+def check_per_semi_step(path, launches, semi_steps, contrastive):
+    """Per semi step, kernel D twice (max-prob + argmax for the pseudo-labels,
+    the entropy alone for the gate) and, with the contrastive branch, K4's
+    key selection once."""
+    want = {"D": 2 * semi_steps, "D_prob": semi_steps, "D_entropy": semi_steps}
+    if contrastive:
+        want["K4_select"] = semi_steps
+    got = {k: launches[k] for k in want}
+    log(f"[{path}] launches over {semi_steps} semi steps: {got} (want {want})")
+    if got != want:
+        fail(f"{path}: launches {got} over {semi_steps} semi steps, want {want}")
 
 
 def check_a_bwd_per_step(path, launches):
@@ -988,6 +1023,8 @@ def phase4_training(dev, card):
     if missing:
         fail(f"a kernel of the training path was never launched: {missing}")
     check_a_bwd_per_step("VOC training", launches)
+    check_per_semi_step("VOC training", launches,
+                        sum("drop_thresh" in m for _, m, _ in history), contrastive=False)
     log(f"[{card}] peak device memory over the {TRAIN_STEPS} training steps: "
         f"{peak / 2**30:.2f} GiB")
 
@@ -1068,8 +1105,10 @@ def phase5_train_timings(dev, card, state, batches):
                           cuda_ms(lambda: ce.upsample_cross_entropy_plain(x, lab)), None)
     times["C_bwd"] = c_bwd_timing(card, "C_bwd", x, lab, None)
     xd = x.detach()
-    times["D"] = (cuda_ms(lambda: unsup.upsample_softmax_stats(xd, (CROP, CROP))),
-                  cuda_ms(lambda: unsup.upsample_softmax_stats_plain(xd, (CROP, CROP))), None)
+    for sel in ("prob", "entropy"):  # the semi step's two calls
+        times[f"D_{sel}"] = (
+            cuda_ms(lambda: unsup.upsample_softmax_stats(xd, (CROP, CROP), outputs=sel)),
+            cuda_ms(lambda: unsup.upsample_softmax_stats_plain(xd, (CROP, CROP), sel)), None)
     ent = torch.rand(B_U, CROP, CROP, device=dev, generator=g)
     valid = torch.rand(B_U, CROP, CROP, device=dev, generator=g) < 0.85
     pct = torch.tensor([85.0], device=dev)
@@ -1086,7 +1125,8 @@ def phase5_train_timings(dev, card, state, batches):
         "A_bwd_logits": "(4, 21, 513, 513) -> (4, 21, 129, 129)",
         "C_fwd": "(4, 21, 129, 129) -> 513², labels (4, 513, 513)",
         "C_bwd": "the same, backward to the os4 logits (fused with its adjoint resize)",
-        "D": "(4, 21, 129, 129) -> 513²",
+        "D_prob": "(4, 21, 129, 129) -> 513², max-prob + argmax",
+        "D_entropy": "(4, 21, 129, 129) -> 513², entropy",
         "E": "1 percentile of (4, 513, 513), ~85% valid",
         "K3": "cutmix (4, 3, 513, 513) + label + max-prob",
     }
@@ -1440,6 +1480,8 @@ def phase6_contrastive(dev, card, cfg):
     if missing:
         fail(f"a kernel of the contrastive training path was never launched: {missing}")
     check_a_bwd_per_step("VOC contrastive training", launches)
+    check_per_semi_step("VOC contrastive training", launches,
+                        sum("low_thresh" in m for _, m, _ in history), contrastive=True)
     log(f"[{card}] peak device memory over the {TRAIN_STEPS} contrastive training steps: "
         f"{peak / 2**30:.2f} GiB")
 
@@ -1700,6 +1742,7 @@ def phase8_cityscapes(dev, card, cfg):
     if missing:
         fail(f"a kernel of the Cityscapes training path was never launched: {missing}")
     check_a_bwd_per_step("Cityscapes training", launches)
+    check_per_semi_step("Cityscapes training", launches, len(history), contrastive=True)
     if any(launches[a] != 2 * TRAIN_STEPS for a in OHEM_COUNTERS):
         fail(f"the OHEM kernels did not run on both heads of every step: {launches}")
     log(f"[{card}] peak device memory over the {TRAIN_STEPS} Cityscapes training steps: "
@@ -1805,7 +1848,18 @@ def phase9_city_timings(dev, card, cfg, state, batches):
                     cuda_ms(lambda: ohem.ohem_keep_labels_plain(lab, p, kth, nv, thresh, min_kept)),
                     None),
     }
+    from u2pl_tpu_torch.losses import unsup
+
+    xd = torch.randn(CITY_B, 19, CITY_OS4, CITY_OS4, device=dev, generator=g) * 3
+    out_hw = (CITY_CROP, CITY_CROP)
+    for sel in ("prob", "entropy"):  # the semi step's two calls of kernel D
+        times[f"D_city_{sel}"] = (
+            cuda_ms(lambda: unsup.upsample_softmax_stats(xd, out_hw, outputs=sel)),
+            cuda_ms(lambda: unsup.upsample_softmax_stats_plain(xd, out_hw, sel)), None)
+    del xd
     shapes = {
+        "D_city_prob": f"({CITY_B}, 19, {CITY_OS4}, {CITY_OS4}) -> {CITY_CROP}², max-prob + argmax",
+        "D_city_entropy": f"({CITY_B}, 19, {CITY_OS4}, {CITY_OS4}) -> {CITY_CROP}², entropy",
         "K7_prob": f"{tuple(x.shape)} -> {CITY_CROP}², labels {tuple(lab.shape)}",
         "K7_kth": f"k {k} of {p.numel()} p_y",
         "K7_keep": f"labels and p_y {tuple(lab.shape)}",
@@ -2099,7 +2153,8 @@ def variant_timings(card, inputs, k):
 def bounds(case, cfg):
     """{kernel: (bound ms, "bytes" or "operations")}: the least time the card
     could take for each timed call, the larger of the bytes it must move
-    over the HBM rate and its operations over the float32 peak, from the
+    over the HBM rate and its operations over the float32 peak (for D also
+    its expf / logf over the special-function units' rate), from the
     shapes (and, for K5 and K6, this run's selections; for C's backward,
     the valid pixels of its labels) of the timed calls (K7's and C bwd's
     Cityscapes entries: phase 9's heads)."""
@@ -2129,7 +2184,14 @@ def bounds(case, cfg):
         "C_bwd_city_main": (2 * clo * 4 + 2 * cpx * 4 + 19 * 4,
                             C_BWD_VALID["C_bwd_city_main"] * 19 * 20),
         "C_bwd_city_aux": (2 * clo8 * 4 + 2 * cpx * 4, C_BWD_VALID["C_bwd_city_aux"] * 19 * 20),
-        "D": (lo * 4 + px * 12, hi * 16),
+        # D per output selection: the os4 logits in, the selected outputs
+        # out; per upsampled value the taps and the softmax terms, one expf
+        # each (and per pixel the max-prob's expf and logf), plus a logf
+        # each for the entropy
+        "D_prob": (lo * 4 + px * 8, hi * 12, hi + 2 * px),
+        "D_entropy": (lo * 4 + px * 4, hi * 16, 2 * hi),
+        "D_city_prob": (clo * 4 + cpx * 8, chi * 12, chi + 2 * cpx),
+        "D_city_entropy": (clo * 4 + cpx * 4, chi * 16, 2 * chi),
         "E": (px * 5, 0),
         "K3": (2 * px * (12 + 4 + 4), 0),
         # K3c: K3's bytes and the (4, 21) draws
@@ -2148,8 +2210,9 @@ def bounds(case, cfg):
         "K7_keep": (cpx * 12, 0),
     }
     out = {}
-    for name, (nbytes, ops) in moved.items():
-        t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOPS
+    for name, (nbytes, ops, *sfu) in moved.items():
+        t_b = nbytes / PEAK_BYTES_S
+        t_o = max(ops / PEAK_F32_FLOPS, sum(sfu) / PEAK_SFU_S)
         out[name] = (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
     return out
 
@@ -2253,8 +2316,18 @@ def main() -> int:
               runs("C_fwd"), errs["C_fwd"], "C_fwd"),
         entry("upsample_ce_bwd", "C_bwd", "upsample_ce.cu", "u2pl_tpu/losses/ce.py:23",
               runs("C_bwd"), errs["C_bwd"], "C_bwd"),
-        entry("upsample_softmax_stats", "D", "upsample_ce.cu", "u2pl_tpu/losses/unsup.py:24",
-              runs("D"), errs["D"], "D"),
+        entry("upsample_softmax_stats_prob", "D_prob", "upsample_ce.cu",
+              "u2pl_tpu/train/steps.py:300", runs("D_prob") - city_launches["D_prob"], errs["D"],
+              "D_prob"),
+        entry("upsample_softmax_stats_entropy", "D_entropy", "upsample_ce.cu",
+              "u2pl_tpu/losses/unsup.py:24", runs("D_entropy") - city_launches["D_entropy"],
+              errs["D"], "D_entropy"),
+        entry("upsample_softmax_stats_prob_cityscapes", "D_city_prob", "upsample_ce.cu",
+              "u2pl_tpu/train/steps.py:300", city_launches["D_prob"], errs["D"],
+              "D_city_prob"),
+        entry("upsample_softmax_stats_entropy_cityscapes", "D_city_entropy", "upsample_ce.cu",
+              "u2pl_tpu/losses/unsup.py:24", city_launches["D_entropy"], errs["D"],
+              "D_city_entropy"),
         entry("masked_percentiles", "E", "quantile.cu", "u2pl_tpu/ops/quantile.py:136",
               runs("E"), errs["E"], "E"),
         entry("unsup_mix_boxes", "K3", "mixing.cu", "u2pl_tpu/ops/mixing.py:62",

@@ -221,6 +221,34 @@ def _radix_cases(n=300):
             ("empty class", many & (np.arange(C) != 3)[:, None], None)]
 
 
+# the flagship's (8 x 129²) and the Cityscapes configs' (4 x 193²) pixels
+# per class, and the card tests' sizes
+SELECT_PLAN_N = [133128, 148996, 1000, 37, 1, 8 * 97 * 97]
+
+
+@pytest.mark.parametrize("n", SELECT_PLAN_N)
+@pytest.mark.parametrize("k", [1, 16, 64, 700, 8192, 12288, 16384])
+def test_select_plan_covers_every_pixel(n, k):
+    """`select_keys`'s cluster plan: the 8 blocks' slices (multiples of 4
+    pixels, u16 offsets) partition [0, n); each block can hold every
+    survivor it may get, min(k, slice); the shared memory fits a block, for
+    1 to 32 classes (the plan does not depend on them)."""
+    for c in range(1, 33):
+        slice_, pixcap, smem = tc._select_plan(c, n, k)
+        assert slice_ % 4 == 0 and 0 < slice_ <= 65536
+        owned = np.zeros(n, np.int32)
+        for r in range(tc.SELECT_CLUSTER):
+            owned[r * slice_: min((r + 1) * slice_, n)] += 1
+        assert (owned == 1).all()
+        assert pixcap >= min(k, slice_)
+        assert smem == tc.SELECT_HEADER_BYTES + 4 * slice_ + 2 * pixcap
+        assert smem <= tc.SELECT_MAX_SHARED
+    with pytest.raises(ValueError, match="k"):
+        tc._select_plan(21, n, tc.MAX_KEYS + 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        tc._select_plan(21, 4_000_000, k)
+
+
 @pytest.mark.parametrize("case", range(5))
 @pytest.mark.parametrize("k", [16, 170, 400])
 def test_select_keys_radix_bit_equal(case, k):

@@ -295,6 +295,56 @@ def test_kernel_d_matches_plain(shape, outsz):
     assert am.dtype == torch.int32 and not ((am != ram) & ~near_tie).any()
 
 
+D_TOL = 1e-5  # chip_smoke.py's: relative, max-prob and entropy
+
+
+# the VOC step's (4, 21, 129²) -> 513², the Cityscapes step's (2, 19, 193²)
+# -> 769², and an odd shape whose rows do not split into 16-byte chunks
+D_SHAPES = [((4, 21, 129, 129), (513, 513)), ((2, 19, 193, 193), (769, 769)),
+            ((3, 5, 9, 7), (33, 25))]
+
+
+@pytest.mark.parametrize("outputs", ["prob", "entropy", "all"])
+@pytest.mark.parametrize("shape,outsz", D_SHAPES)
+def test_kernel_d_output_selection(shape, outsz, outputs):
+    """Kernel D writes only the selected outputs: bit-equal to the
+    all-outputs launch, within D_TOL of the plain version, argmax equal off
+    near-ties; one launch per call."""
+    from u2pl_tpu_torch.losses import unsup
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(*shape, device=dev, generator=g) * 3
+    full = unsup.upsample_softmax_stats(x, outsz)
+    n = unsup.upsample_softmax_stats.launches
+    got = unsup.upsample_softmax_stats(x, outsz, outputs=outputs)
+    torch.cuda.synchronize()
+    assert unsup.upsample_softmax_stats.launches == n + 1
+    keep = {"prob": (True, True, False), "entropy": (False, False, True),
+            "all": (True, True, True)}[outputs]
+    assert tuple(t is not None for t in got) == keep
+    for a, b in zip(got, full):
+        assert a is None or torch.equal(a, b)
+    rmp, ram, rent = unsup.upsample_softmax_stats_plain(x, outsz)
+    if keep[0]:
+        assert ((got[0] - rmp).abs() <= D_TOL * rmp.abs()).all()
+        top2 = tr.resize_bilinear_plain(x, outsz).topk(2, dim=1).values
+        near_tie = (top2[:, 0] - top2[:, 1]) <= 1e-5 * top2[:, 0].abs().clamp(min=1.0)
+        assert got[1].dtype == torch.int32 and not ((got[1] != ram) & ~near_tie).any()
+    if keep[2]:
+        assert ((got[2] - rent).abs() <= D_TOL * rent.abs().clamp(min=1e-3)).all()
+
+
+def test_kernel_d_refuses_what_it_cannot_hold():
+    from u2pl_tpu_torch.losses import unsup
+
+    dev = _cuda()
+    with pytest.raises(ValueError, match="classes"):
+        unsup.upsample_softmax_stats(torch.zeros(1, 33, 5, 5, device=dev), (9, 9))
+    with pytest.raises(ValueError, match="outputs"):
+        unsup.upsample_softmax_stats(torch.zeros(1, 3, 5, 5, device=dev), (9, 9), outputs="x")
+
+
 def _percentile_cases(dev):
     g = torch.Generator(device=dev).manual_seed(4)
     v = torch.rand(1000, device=dev, generator=g)
@@ -447,6 +497,35 @@ def test_kernel_select_keys_bit_equal(c, n, k, density, ties):
     for j in range(c):
         m = int(ref_n[j])
         assert torch.equal(idx[j, :m], ref_idx[j, :m]), j
+
+
+@pytest.mark.parametrize("c,n,k,density,ties,empty", [
+    (1, 133128, 8192, 0.3, False, False),  # one class, over the cap
+    (32, 133128, 8192, 0.3, True, True),  # the most classes, tied priorities
+    (21, 133128, 16384, 0.3, True, False),  # the largest k, over the cap, ties
+    (21, 148996, 12288, 0.3, False, True),  # the Cityscapes configs' pixels and cap
+    (21, 133128, 8192, 0.0, False, True),  # every class empty
+    (4, 9, 16384, 1.0, True, False),  # fewer pixels than one block's share
+])
+def test_kernel_select_keys_more_cases(c, n, k, density, ties, empty):
+    """select_keys bit-equal to the stable argsort at more shapes, one
+    launch per call, and zeros past each class's n_sel."""
+    from u2pl_tpu_torch.losses import contrastive as tc
+
+    dev = _cuda()
+    mask, pri = _select_inputs(dev, c, n, density, ties)
+    if empty:
+        mask[c - 1] = False
+    cnt = tc.select_keys.launches
+    idx, n_sel = tc.select_keys(mask, pri, k)
+    torch.cuda.synchronize()
+    assert tc.select_keys.launches == cnt + 1
+    ref_idx, ref_n = tc.select_keys_plain(mask, pri, k)
+    assert torch.equal(n_sel, ref_n)
+    for j in range(c):
+        m = int(ref_n[j])
+        assert torch.equal(idx[j, :m], ref_idx[j, :m]), j
+        assert not idx[j, m:].any(), j
 
 
 def _radix_inputs(dev, c, n, density, seed=8):

@@ -134,6 +134,37 @@ def test_upsample_softmax_stats_match_jax_step(shape, hw):
     )
 
 
+@pytest.mark.parametrize("outputs", ["prob", "entropy"])
+@pytest.mark.parametrize("shape,hw", CE_SHAPES)
+def test_upsample_softmax_stats_output_selection(shape, hw, outputs):
+    """`outputs` selects what kernel D computes: the selected tensors are
+    the all-outputs call's (bit-equal), the others None, and they match the
+    JAX step's at those points (steps.py:300-301 for "prob", unsup.py:24 for
+    "entropy"), rtol 1e-5 as above."""
+    x = (np.random.RandomState(6).randn(*shape) * 3).astype(np.float32)
+    xt = torch.from_numpy(x)
+    full = unsup.upsample_softmax_stats(xt, hw)
+    got = unsup.upsample_softmax_stats(xt, hw, outputs=outputs)
+    plain = unsup.upsample_softmax_stats_plain(xt, hw, outputs)
+    keep = (True, True, False) if outputs == "prob" else (False, False, True)
+    assert tuple(t is not None for t in got) == keep
+    for g, p, f, kept in zip(got, plain, full, keep):
+        if kept:
+            assert torch.equal(g, f) and torch.equal(p, f)
+        else:
+            assert g is None and p is None
+    pt = _upsample(jnp.asarray(x.transpose(0, 2, 3, 1)), hw)
+    if outputs == "prob":
+        ref_mp = jnp.exp(pt.max(axis=-1) - jax.nn.logsumexp(pt, axis=-1))
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(ref_mp), rtol=1e-5)
+        assert got[1].dtype == torch.int32
+    else:
+        np.testing.assert_allclose(got[2].numpy(), np.asarray(jax_entropy(pt)), rtol=1e-5,
+                                   atol=1e-6)
+    with pytest.raises(ValueError, match="outputs"):
+        unsup.upsample_softmax_stats(xt, hw, outputs="argmax")
+
+
 def test_unsupervised_loss_matches_jax():
     from u2pl_tpu.losses.unsup import compute_unsupervised_loss as jax_unsup
 

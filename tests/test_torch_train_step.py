@@ -640,6 +640,34 @@ def test_sup_step_matches_jax():
     assert_sup_step_close(sup_step_case(raw_cfg()), "sup step")
 
 
+@pytest.mark.parametrize("contrastive", [None, CONTRA])
+def test_semi_step_asks_kernel_d_for_what_it_uses(monkeypatch, contrastive):
+    """The semi step's two calls of kernel D (`upsample_softmax_stats`): the
+    pseudo-labels take max-prob + argmax and no entropy, the entropy gate
+    (and the contrastive thresholds) the entropy alone."""
+    from u2pl_tpu_torch.losses import unsup
+
+    cfg = parse_config(raw_cfg(contrastive=contrastive))
+    state = create_train_state(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    calls = []
+    original = unsup.upsample_softmax_stats
+
+    def recording(logits, size, outputs="all"):
+        out = original(logits, size, outputs)
+        calls.append((outputs, tuple(t is not None for t in out)))
+        return out
+
+    monkeypatch.setattr(unsup, "upsample_softmax_stats", recording)
+    img_l, lab_l, img_u = batches()[1]
+    batch = (torch.from_numpy(img_l).permute(0, 3, 1, 2).contiguous(), torch.from_numpy(lab_l),
+             torch.from_numpy(img_u).permute(0, 3, 1, 2).contiguous())
+    # iteration 1 of 1-step epochs: the first semi epoch (sup_only_epoch 1)
+    ((_, m),) = run_steps(state, [batch], 1, cfg, generator=torch.Generator().manual_seed(1),
+                          start_iter=1)
+    assert calls == [("prob", (True, True, False)), ("entropy", (False, False, True))]
+    assert "drop_thresh" in m and all(bool(torch.isfinite(v).all()) for v in m.values())
+
+
 def test_unported_branches_raise():
     from u2pl_tpu_torch.train.steps import make_semi_step, make_sup_step
 

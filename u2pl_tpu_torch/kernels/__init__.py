@@ -49,8 +49,8 @@ def load():
         # (prob, labels, low, high, anchor, negative, low_valid, counts,
         #  B, B_l, C, HW, ignore, delta_p, delta_n, low_rank, high_rank, stream)
         "u2pl_contra_pixel_masks": [p] * 8 + [i] * 5 + [f] * 2 + [i] * 2 + [p],
-        # (mask, pri, sel_idx, n_sel, state, C, N, K, stream)
-        "u2pl_contra_select_keys": [p] * 5 + [i] * 3 + [p],
+        # (mask, pri, sel_idx, n_sel, C, N, K, slice, pixcap, smem, stream)
+        "u2pl_contra_select_keys": [p] * 4 + [i] * 6 + [p],
         # (mask, keys, idx, n_sel, state, C, N, K, stream)
         "u2pl_contra_select_keys_radix": [p] * 5 + [i] * 3 + [p],
         # (mask, a_j, u, idx, count, C, N, Q, stream)
@@ -72,7 +72,6 @@ def load():
         "u2pl_upsample_ce_parts": [],
         "u2pl_quantile_max_queries": [],
         "u2pl_quantile_state_words": [],
-        "u2pl_select_keys_state_words": [i, i],
         "u2pl_select_keys_radix_state_words": [i],
     }
     for name, argtypes in signatures.items():

@@ -14,15 +14,32 @@
 //   they are exact in any block order.  Bound: memory, ~11 MB read and
 //   ~17 MB written (~9 us at 3.35 TB/s); the rank is C^2 compares per pixel.
 // select_keys: JAX sorts each class's priorities (masked-out pixels at +inf)
-//   and slices k.  Here the 64-bit key (order bits of the f32 priority << 32
-//   | pixel) is unique per pixel, so the k-th smallest masked key is found by
-//   an 8-bit radix descent over its 8 bytes (histograms as in kernel E,
-//   quantile.cu), every masked key at or under it is compacted (warp-
-//   aggregated atomics; the order does not matter), and one block per class
-//   sorts the <= k survivors in shared memory (bitonic, k <= 16384: 128 KB).
-//   Ascending (priority, pixel) is the stable argsort's order, so the slab is
-//   the argsort's, ties included.  Bound: memory, 9 passes over the mask and
-//   the priorities (~14 MB each).
+//   and slices k: the k smallest (priority, pixel) pairs, ascending.  The
+//   first design (18 launches: an 8-bit radix descent over a 64-bit key
+//   with a histogram pass over every row and a one-thread bin walk per
+//   level, a compaction, then a bitonic sort of <= k keys in one block per
+//   class, 21 of 132 SMs) took 0.214 ms at the flagship on an NVIDIA H100
+//   80GB HBM3 at 700 W, 49x its bytes bound; the dependent launches and
+//   the single-block sort held it back.  This design is one launch, one
+//   thread block cluster of 8 blocks per class (168 blocks at the
+//   flagship, 2 per SM): each block reads its eighth of the row from HBM
+//   once and keeps the order bits of its masked priorities in shared
+//   memory; the radix descent to the k-th smallest runs over those 32 bits
+//   (4 levels of 8), each level's 256-bin histograms summed across the
+//   cluster through distributed shared memory; the survivors (keys under
+//   the threshold, then the first ties at it in pixel order, which is the
+//   64-bit key's order) are compacted in pixel order in place, sorted by
+//   (key, pixel) per block (about k / 8 of them at the flagship; a bitonic
+//   sort whose strides under 32 run in a warp's registers), and placed
+//   by their rank over the cluster: their index plus a binary search in
+//   each other block's sorted survivors.  Ascending (priority, pixel) is
+//   the stable argsort's order, so the slab is the argsort's, ties
+//   included.  Bound: memory, one read of the mask and the priorities
+//   (~14 MB, 4.4 us).  0.087 ms at the flagship on that card
+//   (u2pl_tpu_torch/kernels/timing_ab.py; torch.sort(stable=True) 0.276):
+//   per block, the cross-block ranks take ~30% of the SM clocks (DSMEM
+//   serves scattered loads at a few per clock), the radix descent ~30%,
+//   the sort and the compaction ~25% (PERF.md).
 // select_keys_radix (K4r): per class, kk = min(k, N) and cnt = #mask; the
 //   (kk-1)-th smallest masked u32 key t by the same radix descent at 32 bits
 //   (4 levels of 8 bits, no sort); sel = cnt > kk ? mask & key <= t : mask;
@@ -38,30 +55,26 @@
 //   read their pixel (searchsorted(cumsum, r + 1) of JAX, with N - 1 where it
 //   finds none).  Bound: memory, one read of a (C, N) byte mask.
 
+#include <cooperative_groups.h>
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using u2pl::kThreads;
 
 constexpr int kMaxClasses = 32;
 constexpr int kBins = 256;
 constexpr int kMaxKeys = 16384;
-constexpr int kSortThreads = 1024;
 constexpr int kScanThreads = 1024;
 constexpr int kScanItems = 4;  // pixels per thread per chunk
 constexpr int kChunk = kScanThreads * kScanItems;
-constexpr int kStateWords = 8;  // per class: prefix (2 words), remaining, count, fill, all
 
 __device__ __forceinline__ unsigned order_key(float v) {
   const unsigned bits = __float_as_uint(v);
   return (bits >> 31) ? ~bits : (bits | 0x80000000u);
-}
-
-__device__ __forceinline__ unsigned long long pixel_key(float pri, int n) {
-  return ((unsigned long long)order_key(pri) << 32) | (unsigned)n;
 }
 
 // ---- contra_pixel_masks ----------------------------------------------------
@@ -124,172 +137,12 @@ __global__ void pixel_masks_kernel(
   }
 }
 
-// ---- select_keys -------------------------------------------------------------
-// state (u32 words, zeroed by the caller): histograms C x 256; per class
-// kStateWords words; then the (C, K) u64 compaction buffer.
-
-struct SelState {
-  unsigned* hist;
-  unsigned* cls;
-  unsigned long long* buf;
-};
-
-__device__ __forceinline__ SelState sel_state(unsigned* st, int C) {
-  SelState s;
-  s.hist = st;
-  s.cls = st + C * kBins;
-  s.buf = reinterpret_cast<unsigned long long*>(st + C * kBins + C * kStateWords);
-  return s;
-}
-
-__device__ __forceinline__ unsigned long long cls_prefix(const unsigned* cls) {
-  return ((unsigned long long)cls[1] << 32) | cls[0];
-}
-
-__global__ void sk_hist_kernel(const uint8_t* __restrict__ mask,
-                               const float* __restrict__ pri, int C, int N,
-                               int level, unsigned* __restrict__ st) {
-  __shared__ unsigned hist[kBins];
-  __shared__ unsigned count;
-  const int c = blockIdx.y;
-  SelState s = sel_state(st, C);
-  unsigned* cls = s.cls + c * kStateWords;
-  if (level > 0 && cls[5]) return;  // fewer keys than k: all are taken
-  for (int j = threadIdx.x; j < kBins; j += blockDim.x) hist[j] = 0;
-  if (threadIdx.x == 0) count = 0;
-  __syncthreads();
-  const unsigned long long prefix = cls_prefix(cls);
-  const int shift = 56 - 8 * level;
-  const uint8_t* m = mask + (size_t)c * N;
-  const float* pr = pri + (size_t)c * N;
-  unsigned my = 0;
-  for (int n = blockIdx.x * blockDim.x + threadIdx.x; n < N;
-       n += gridDim.x * blockDim.x) {
-    if (!m[n]) continue;
-    const unsigned long long key = pixel_key(pr[n], n);
-    ++my;
-    if (level == 0 || (key >> (shift + 8)) == (prefix >> (shift + 8))) {
-      atomicAdd(&hist[(key >> shift) & (kBins - 1)], 1u);
-    }
-  }
-  if (level == 0 && my) atomicAdd(&count, my);
-  __syncthreads();
-  for (int j = threadIdx.x; j < kBins; j += blockDim.x) {
-    if (hist[j]) atomicAdd(&s.hist[c * kBins + j], hist[j]);
-  }
-  if (level == 0 && threadIdx.x == 0 && count) atomicAdd(&cls[3], count);
-}
-
-// one thread per class: at level 0 it decides whether every masked key is
-// taken (count <= k), else it takes the first digit whose cumulative count
-// exceeds the remaining rank (the k-th smallest key has rank k - 1)
-__global__ void sk_select_kernel(int C, int K, int level,
-                                 unsigned* __restrict__ st) {
-  SelState s = sel_state(st, C);
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    unsigned* cls = s.cls + c * kStateWords;
-    unsigned* h = s.hist + c * kBins;
-    if (level == 0) {
-      cls[2] = (unsigned)(K - 1);
-      cls[5] = cls[3] <= (unsigned)K ? 1u : 0u;
-    }
-    if (!cls[5]) {
-      const int shift = 56 - 8 * level;
-      unsigned below = 0;
-      int sel = 0;
-      for (int b = 0; b < kBins; ++b) {
-        if (below + h[b] > cls[2]) {
-          sel = b;
-          break;
-        }
-        below += h[b];
-      }
-      cls[2] -= below;
-      const unsigned long long prefix =
-          cls_prefix(cls) | ((unsigned long long)sel << shift);
-      cls[0] = (unsigned)prefix;
-      cls[1] = (unsigned)(prefix >> 32);
-    }
-    for (int b = 0; b < kBins; ++b) h[b] = 0;
-  }
-}
-
-__global__ void sk_compact_kernel(const uint8_t* __restrict__ mask,
-                                  const float* __restrict__ pri, int C, int N,
-                                  int K, unsigned* __restrict__ st) {
-  const int c = blockIdx.y;
-  SelState s = sel_state(st, C);
-  unsigned* cls = s.cls + c * kStateWords;
-  const bool all = cls[5] != 0;
-  const unsigned long long thresh = cls_prefix(cls);
-  const uint8_t* m = mask + (size_t)c * N;
-  const float* pr = pri + (size_t)c * N;
-  unsigned long long* out = s.buf + (size_t)c * K;
-  const int lane = threadIdx.x & 31;
-  // whole warps walk the pixels together, for the warp-aggregated atomic
-  const int stride = gridDim.x * blockDim.x;
-  for (int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < N;
-       base += stride) {
-    const int n = base + lane;
-    unsigned long long key = 0;
-    bool take = false;
-    if (n < N && m[n]) {
-      key = pixel_key(pr[n], n);
-      take = all || key <= thresh;
-    }
-    const unsigned ballot = __ballot_sync(0xFFFFFFFFu, take);
-    if (!ballot) continue;
-    unsigned first = 0;
-    if (lane == 0) first = atomicAdd(&cls[4], (unsigned)__popc(ballot));
-    first = __shfl_sync(0xFFFFFFFFu, first, 0);
-    if (take) {
-      const unsigned pos = first + __popc(ballot & ((1u << lane) - 1u));
-      if (pos < (unsigned)K) out[pos] = key;
-    }
-  }
-}
-
-// one block per class: bitonic sort of the <= K survivors (padded with
-// all-ones keys to a power of two), then the pixel indices in order
-__global__ void sk_sort_kernel(int C, int K, int kpad, unsigned* __restrict__ st,
-                               int* __restrict__ sel_idx,
-                               int* __restrict__ n_sel) {
-  extern __shared__ unsigned long long keys[];
-  const int c = blockIdx.x;
-  SelState s = sel_state(st, C);
-  const unsigned* cls = s.cls + c * kStateWords;
-  const int n = min((int)cls[4], K);
-  const unsigned long long* src = s.buf + (size_t)c * K;
-  for (int i = threadIdx.x; i < kpad; i += blockDim.x) {
-    keys[i] = i < n ? src[i] : ~0ull;
-  }
-  __syncthreads();
-  for (int k = 2; k <= kpad; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < kpad; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const unsigned long long a = keys[i], b = keys[ixj];
-          const bool up = (i & k) == 0;
-          if ((a > b) == up) {
-            keys[i] = b;
-            keys[ixj] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int i = threadIdx.x; i < K; i += blockDim.x) {
-    sel_idx[(size_t)c * K + i] = i < n ? (int)(unsigned)keys[i] : 0;
-  }
-  if (threadIdx.x == 0) n_sel[c] = n;
-}
-
 // ---- block scan (select_keys_radix, sample_anchors) --------------------------
 
-// exclusive block scan of one int per thread (blockDim.x == kScanThreads);
-// returns the thread's exclusive prefix, *total the block's sum
+// exclusive block scan of one int per thread (blockDim.x == 32 * kWarps,
+// kScanThreads by default); returns the thread's exclusive prefix, *total
+// the block's sum
+template <int kWarps = kScanThreads / 32>
 __device__ __forceinline__ int block_exclusive_scan(int v, int* warp_tot,
                                                     int* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -302,18 +155,338 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* warp_tot,
   if (lane == 31) warp_tot[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    int t = warp_tot[lane];
+    int t = lane < kWarps ? warp_tot[lane] : 0;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
       const int y = __shfl_up_sync(0xFFFFFFFFu, t, o);
       if (lane >= o) t += y;
     }
-    warp_tot[lane] = t;  // inclusive over warps
+    if (lane < kWarps) warp_tot[lane] = t;  // inclusive over warps
   }
   __syncthreads();
   const int before = warp == 0 ? 0 : warp_tot[warp - 1];
-  *total = warp_tot[31];
+  *total = warp_tot[kWarps - 1];
   return before + x - v;
+}
+
+// ---- select_keys -------------------------------------------------------------
+// One cluster of kSelCluster blocks per class; block `rank` of class c owns
+// the pixels [rank * slice, (rank + 1) * slice) of row c (the host's plan:
+// losses/contrastive.py:_select_plan).  Keys are the order bits of the f32
+// priority, kSelSentinel outside the mask; the priority whose order bits
+// are 0xFFFFFFFF (the NaN 0x7FFFFFFF) counts as outside the mask.
+// Shared memory: two 256-bin histograms, kSelInfo ints, kSelWarps ints of
+// scan scratch, the slice's keys (u32), then the survivors' local pixels
+// (u16, pixcap of them).
+
+constexpr int kSelCluster = 8;
+constexpr int kSelThreads = 512;
+constexpr int kSelWarps = kSelThreads / 32;
+constexpr int kSelInfo = 8;  // masked count, ties, survivors, digit, below
+constexpr int kSelHeader = 2 * kBins * 4 + kSelInfo * 4 + 32 * 4;  // bytes, 16-aligned
+constexpr unsigned kSelSentinel = 0xFFFFFFFFu;
+constexpr int kSelMaxShared = 232448;  // a block's shared memory on sm_90 (227 KB)
+
+__device__ __forceinline__ unsigned long long sel_word(unsigned key, unsigned pixel) {
+  return ((unsigned long long)key << 32) | pixel;
+}
+
+// the masked pixels' keys, in rounds of 4 per thread: a warp-uniform walk
+// (the warps' shuffles and votes need every lane)
+template <typename F>
+__device__ __forceinline__ void sel_rounds(const unsigned* keys, int slice, F&& f) {
+  for (int r0 = 0; r0 < slice; r0 += 4 * kSelThreads) {
+    const int i0 = r0 + 4 * (int)threadIdx.x;
+    uint4 q = make_uint4(kSelSentinel, kSelSentinel, kSelSentinel, kSelSentinel);
+    if (i0 < slice) q = *reinterpret_cast<const uint4*>(keys + i0);
+    f(q);
+  }
+}
+
+// the bitonic steps of select_keys's sort inside one 64-slot tile, in a
+// warp's registers: lane l holds slots l and l + 32 (+inf at or past n).
+// `whole`: the merges of sizes 2 to 64 (the tile sorted); otherwise the
+// strides 16 to 1 that end each larger merge
+__device__ __forceinline__ void sel_tile_sort(unsigned* keys, unsigned short* pix, int n,
+                                              int tile, bool whole) {
+  const int lane = threadIdx.x & 31;
+  const int i0 = tile * 64 + lane, i1 = i0 + 32;
+  unsigned long long e0 = i0 < n ? sel_word(keys[i0], pix[i0]) : ~0ull;
+  unsigned long long e1 = i1 < n ? sel_word(keys[i1], pix[i1]) : ~0ull;
+  // slots s and s ^ m, the lower slot (bit `up` of s clear) taking the min
+  auto exchange = [&](int m, int up) {
+    const unsigned long long o0 = __shfl_xor_sync(0xFFFFFFFFu, e0, m);
+    const unsigned long long o1 = __shfl_xor_sync(0xFFFFFFFFu, e1, m);
+    const bool upper = lane & up;
+    e0 = (o0 < e0) != upper ? o0 : e0;
+    e1 = (o1 < e1) != upper ? o1 : e1;
+  };
+  if (whole) {
+    for (int lg = 1; lg <= 6; ++lg) {
+      if (lg <= 5) {
+        exchange((1 << lg) - 1, 1 << (lg - 1));  // the mirror inside 2^lg slots
+      } else {  // the mirror of 64: slot l against slot 63 - l, in lane 31 - l's e1
+        const unsigned long long o1 = __shfl_xor_sync(0xFFFFFFFFu, e1, 31);
+        const unsigned long long o0 = __shfl_xor_sync(0xFFFFFFFFu, e0, 31);
+        e0 = o1 < e0 ? o1 : e0;
+        e1 = o0 < e1 ? e1 : o0;
+      }
+      for (int lj = lg - 2; lj >= 0; --lj) exchange(1 << lj, 1 << lj);
+    }
+  } else {
+    for (int lj = 4; lj >= 0; --lj) exchange(1 << lj, 1 << lj);
+  }
+  if (i0 < n) {
+    keys[i0] = (unsigned)(e0 >> 32);
+    pix[i0] = (unsigned short)e0;
+  }
+  if (i1 < n) {
+    keys[i1] = (unsigned)(e1 >> 32);
+    pix[i1] = (unsigned short)e1;
+  }
+}
+
+__global__ void __cluster_dims__(kSelCluster, 1, 1) __launch_bounds__(kSelThreads, 2)
+select_keys_kernel(const uint8_t* __restrict__ mask, const float* __restrict__ pri,
+                   int* __restrict__ sel_idx, int* __restrict__ n_sel, int N, int K,
+                   int slice) {
+  extern __shared__ __align__(16) unsigned char sel_smem[];
+  unsigned* hist = reinterpret_cast<unsigned*>(sel_smem);  // 2 x kBins
+  int* info = reinterpret_cast<int*>(hist + 2 * kBins);
+  int* warp_tot = info + kSelInfo;
+  unsigned* keys = reinterpret_cast<unsigned*>(sel_smem + kSelHeader);
+  unsigned short* pix = reinterpret_cast<unsigned short*>(keys + slice);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int c = blockIdx.x / kSelCluster;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int base = rank * slice;
+  const int len = max(0, min(slice, N - base));
+  const uint8_t* m = mask + (size_t)c * N + base;
+  const float* pr = pri + (size_t)c * N + base;
+
+  // the slice's keys and its masked count, 4 pixels per thread and step:
+  // one 16-byte load of priorities and one 4-byte load of the mask where
+  // the row's length keeps them aligned, several steps' loads in flight
+  int mine = 0;
+  const bool vec = N % 4 == 0;
+#pragma unroll 4
+  for (int i0 = 4 * tid; i0 < slice; i0 += 4 * kSelThreads) {
+    unsigned k4[4];
+    if (vec && i0 + 4 <= len) {
+      const uchar4 mm = *reinterpret_cast<const uchar4*>(m + i0);
+      const float4 pp = *reinterpret_cast<const float4*>(pr + i0);
+      k4[0] = mm.x ? order_key(pp.x) : kSelSentinel;
+      k4[1] = mm.y ? order_key(pp.y) : kSelSentinel;
+      k4[2] = mm.z ? order_key(pp.z) : kSelSentinel;
+      k4[3] = mm.w ? order_key(pp.w) : kSelSentinel;
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u;
+        k4[u] = i < len && m[i] ? order_key(pr[i]) : kSelSentinel;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) mine += k4[u] != kSelSentinel;
+    *reinterpret_cast<uint4*>(keys + i0) = make_uint4(k4[0], k4[1], k4[2], k4[3]);
+  }
+  for (int i = tid; i < 2 * kBins; i += kSelThreads) hist[i] = 0;
+  int n_mine;
+  block_exclusive_scan<kSelWarps>(mine, warp_tot, &n_mine);
+  if (tid == 0) info[0] = n_mine;
+  cluster.sync();
+  int cnt = 0;
+#pragma unroll
+  for (int b = 0; b < kSelCluster; ++b) cnt += cluster.map_shared_rank(info, b)[0];
+  const int take = min(K, cnt);
+
+  // the survivors: the keys under T, then the first `ties` keys equal to T in
+  // pixel order; all masked keys when they are at most K
+  unsigned T = kSelSentinel;
+  int ties = 0;
+  if (cnt > K) {
+    // radix descent over the key's 4 bytes to the K-th smallest key: per
+    // level, a histogram of the keys under the prefix per block, summed over
+    // the cluster's blocks through distributed shared memory (the two
+    // buffers alternate, so one cluster barrier per level suffices)
+    int rem = K - 1;
+    unsigned prefix = 0;
+    for (int level = 0; level < 4; ++level) {
+      const int shift = 24 - 8 * level;
+      unsigned* h = hist + (level & 1) * kBins;
+      if (level >= 2) {
+        for (int i = tid; i < kBins; i += kSelThreads) h[i] = 0;
+        __syncthreads();
+      }
+      sel_rounds(keys, slice, [&](uint4 q) {
+        const unsigned v[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const bool in = v[u] != kSelSentinel &&
+                          (level == 0 || (v[u] >> (shift + 8)) == (prefix >> (shift + 8)));
+          const unsigned digit = (v[u] >> shift) & (kBins - 1);
+          const unsigned act = __ballot_sync(0xFFFFFFFFu, in);
+          if (in) {  // one atomic per distinct digit of the warp
+            const unsigned peers = __match_any_sync(act, digit);
+            if (lane == __ffs(peers) - 1) atomicAdd(&h[digit], (unsigned)__popc(peers));
+          }
+        }
+      });
+      cluster.sync();
+      int tot = 0;
+      if (tid < kBins) {
+#pragma unroll
+        for (int b = 0; b < kSelCluster; ++b) tot += (int)cluster.map_shared_rank(h, b)[tid];
+      }
+      int all_bins;
+      const int below = block_exclusive_scan<kSelWarps>(tot, warp_tot, &all_bins);
+      if (tid < kBins && below <= rem && rem < below + tot) {
+        info[3] = tid;
+        info[4] = below;
+      }
+      __syncthreads();
+      prefix |= (unsigned)info[3] << shift;
+      rem -= info[4];
+    }
+    T = prefix;
+    ties = rem + 1;
+    // the ties in the blocks before this one
+    int eq = 0;
+    sel_rounds(keys, slice, [&](uint4 q) {
+      eq += (q.x == T) + (q.y == T) + (q.z == T) + (q.w == T);
+    });
+    int n_eq;
+    block_exclusive_scan<kSelWarps>(eq, warp_tot, &n_eq);
+    if (tid == 0) info[1] = n_eq;
+    cluster.sync();
+  }
+  int tie_seen = 0;  // ties in pixel order before the current round
+  if (cnt > K) {
+    for (int b = 0; b < rank; ++b) tie_seen += cluster.map_shared_rank(info, b)[1];
+  }
+  const int ties_before = min(tie_seen, ties);
+
+  // compaction in pixel order, in place: round by round, each key read
+  // before the scan's barriers and written after them, at or below its slot
+  int n_lt = 0;
+  for (int r0 = 0; r0 < slice; r0 += 4 * kSelThreads) {
+    const int i0 = r0 + 4 * tid;
+    uint4 q = make_uint4(kSelSentinel, kSelSentinel, kSelSentinel, kSelSentinel);
+    if (i0 < slice) q = *reinterpret_cast<const uint4*>(keys + i0);
+    const unsigned v[4] = {q.x, q.y, q.z, q.w};
+    int lt = 0, eq = 0;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      lt += v[u] < T;
+      eq += v[u] == T && T != kSelSentinel;
+    }
+    int in_round;
+    const int excl = block_exclusive_scan<kSelWarps>(lt | (eq << 16), warp_tot, &in_round);
+    int at_lt = n_lt + (excl & 0xFFFF), tie = tie_seen + (excl >> 16);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const bool is_lt = v[u] < T;
+      const bool is_eq = v[u] == T && T != kSelSentinel;
+      if (is_lt || (is_eq && tie < ties)) {
+        const int at = at_lt + min(tie, ties) - ties_before;
+        keys[at] = v[u];
+        pix[at] = (unsigned short)(i0 + u);
+      }
+      at_lt += is_lt;
+      tie += is_eq;
+    }
+    n_lt += in_round & 0xFFFF;
+    tie_seen += in_round >> 16;
+    __syncthreads();
+  }
+  const int n_b = n_lt + min(tie_seen, ties) - ties_before;
+  if (tid == 0) info[2] = n_b;
+
+  // the block's survivors sorted by (key, pixel): a bitonic sort whose
+  // merges all run ascending (the first step of each compares i with its
+  // mirror), so the slots at or past n_b act as +inf and are never written.
+  // The steps inside a 64-slot tile run in a warp's registers (two slots
+  // per lane, shuffles, no block barrier): the whole sort of each tile
+  // first, then per merge the steps of stride < 32; the others on shared
+  // memory between barriers.
+  int log_pad = 0;
+  while ((1 << log_pad) < n_b) ++log_pad;
+  const int half_pad = (1 << log_pad) >> 1;
+  const int tiles = ((1 << log_pad) + 63) >> 6;
+  auto cas = [&](int a, int b) {
+    if (b < n_b) {
+      const unsigned ka = keys[a], kb = keys[b];
+      const unsigned short pa = pix[a], pb = pix[b];
+      if (sel_word(kb, pb) < sel_word(ka, pa)) {
+        keys[a] = kb;
+        keys[b] = ka;
+        pix[a] = pb;
+        pix[b] = pa;
+      }
+    }
+  };
+  const int warp = tid >> 5;
+  for (int tile = warp; tile < tiles; tile += kSelWarps) sel_tile_sort(keys, pix, n_b, tile, true);
+  __syncthreads();
+  for (int lg = 7; lg <= log_pad; ++lg) {
+    const int size = 1 << lg;
+    for (int t = tid; t < half_pad; t += kSelThreads) {
+      const int g = (t >> (lg - 1)) << lg, off = t & ((size >> 1) - 1);
+      cas(g + off, g + size - 1 - off);
+    }
+    __syncthreads();
+    for (int lj = lg - 2; lj >= 5; --lj) {
+      const int j = 1 << lj;
+      for (int t = tid; t < half_pad; t += kSelThreads) {
+        const int a = ((t >> lj) << (lj + 1)) + (t & (j - 1));
+        cas(a, a + j);
+      }
+      __syncthreads();
+    }
+    for (int tile = warp; tile < tiles; tile += kSelWarps) sel_tile_sort(keys, pix, n_b, tile, false);
+    __syncthreads();
+  }
+  cluster.sync();
+
+  // each survivor's rank over the cluster: its index here plus, per other
+  // block, the number of that block's survivors below it (binary searches
+  // in distributed shared memory, all blocks in lockstep)
+  int rn[kSelCluster];
+  int top = 0;
+#pragma unroll
+  for (int b = 0; b < kSelCluster; ++b) {
+    rn[b] = b == rank ? 0 : cluster.map_shared_rank(info, b)[2];
+    top = max(top, rn[b]);
+  }
+  int step_top = 1;
+  while (step_top <= top) step_top <<= 1;
+  int* out = sel_idx + (size_t)c * K;
+  for (int i = tid; i < n_b; i += kSelThreads) {
+    const unsigned long long w = sel_word(keys[i], (unsigned)(base + pix[i]));
+    int lo[kSelCluster];
+#pragma unroll
+    for (int b = 0; b < kSelCluster; ++b) lo[b] = 0;
+    for (int step = step_top >> 1; step > 0; step >>= 1) {
+#pragma unroll
+      for (int b = 0; b < kSelCluster; ++b) {
+        const int j = lo[b] + step;
+        if (j <= rn[b]) {
+          const unsigned k = cluster.map_shared_rank(keys, b)[j - 1];
+          const unsigned p = cluster.map_shared_rank(pix, b)[j - 1];
+          if (sel_word(k, (unsigned)(b * slice) + p) < w) lo[b] = j;
+        }
+      }
+    }
+    int at = i;
+#pragma unroll
+    for (int b = 0; b < kSelCluster; ++b) at += lo[b];
+    out[at] = base + pix[i];
+  }
+  for (int j = take + rank * kSelThreads + tid; j < K; j += kSelCluster * kSelThreads) out[j] = 0;
+  if (rank == 0 && tid == 0) n_sel[c] = take;
+  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
 // ---- select_keys_radix (K4r) -------------------------------------------------
@@ -494,38 +667,21 @@ int u2pl_contra_pixel_masks(const void* prob, const void* labels,
   return (int)cudaGetLastError();
 }
 
-int u2pl_select_keys_state_words(int C, int K) {
-  return C * kBins + C * kStateWords + 2 * C * K;
-}
-
+// the plan (losses/contrastive.py:_select_plan): kSelCluster blocks per class
+// of `slice` pixels each, pixcap survivors' pixels, smem bytes
 int u2pl_contra_select_keys(const void* mask, const void* pri, void* sel_idx,
-                            void* n_sel, void* state, int C, int N, int K,
-                            void* stream) {
-  if (C <= 0 || N <= 0 || K <= 0 || K > kMaxKeys) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid(u2pl::blocks_for(N, 128), C);
-  unsigned* st = (unsigned*)state;
-  for (int level = 0; level < 8; ++level) {
-    sk_hist_kernel<<<grid, kThreads, 0, s>>>((const uint8_t*)mask,
-                                             (const float*)pri, C, N, level, st);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    sk_select_kernel<<<1, 32, 0, s>>>(C, K, level, st);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+                            void* n_sel, int C, int N, int K, int slice,
+                            int pixcap, int smem, void* stream) {
+  if (C <= 0 || N <= 0 || K <= 0 || K > kMaxKeys || slice <= 0 || slice % 4 != 0 ||
+      (long long)slice * kSelCluster < N || slice > 65536 || pixcap < min(K, slice) ||
+      smem != kSelHeader + 4 * slice + 2 * pixcap || smem > kSelMaxShared) {
+    return (int)cudaErrorInvalidValue;
   }
-  sk_compact_kernel<<<grid, kThreads, 0, s>>>((const uint8_t*)mask,
-                                              (const float*)pri, C, N, K, st);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = cudaFuncSetAttribute(
+      select_keys_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  int kpad = 2;
-  while (kpad < K) kpad <<= 1;
-  const int smem = kpad * (int)sizeof(unsigned long long);
-  err = cudaFuncSetAttribute(sk_sort_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  sk_sort_kernel<<<C, kSortThreads, smem, s>>>(C, K, kpad, st, (int*)sel_idx,
-                                               (int*)n_sel);
+  select_keys_kernel<<<C * kSelCluster, kSelThreads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)mask, (const float*)pri, (int*)sel_idx, (int*)n_sel, N, K, slice);
   return (int)cudaGetLastError();
 }
 

@@ -10,58 +10,35 @@
 // D. u2pl_upsample_softmax_stats replaces the pseudo-label reductions of
 //    u2pl_tpu/train/steps.py:300-301 (max-prob exp(max - logsumexp) and the
 //    first-max argmax) and u2pl_tpu/losses/unsup.py:teacher_entropy (:24),
-//    applied to the upsampled teacher logits.
+//    applied to the upsampled teacher logits, each call computing the
+//    outputs its caller selects.
 //
 // Inputs: os4 logits (B, C, h, w) f32, labels (B, H, W) int32, the tap tables
-// of common.cuh.  One thread per output pixel computes its C upsampled
-// logits on the fly, exactly as kernel A would write them, and reduces over
-// them in registers: the (B, C, H, W) upsampled tensor (88 MB f32 at
-// 4 x 21 x 513²) is never written by C's forward or by D.  Each pass over C
-// re-evaluates the 4-tap lerps instead of keeping C values per thread (C is
-// a runtime size): the re-reads hit L1/L2, and the kernels stay bound by the
-// os4 reads and the per-pixel outputs.
+// of common.cuh.  Each kernel computes a pixel's C upsampled logits on the
+// fly, exactly as kernel A would write them, and reduces over them: the
+// (B, C, H, W) upsampled tensor (88 MB f32 at 4 x 21 x 513²) is never
+// written by C or by D.  C's forward runs one thread per output pixel and
+// re-evaluates the 4-tap lerps in each pass over C (the re-reads hit
+// L1/L2).
 //
-// C's forward writes the per-pixel logsumexp for the backward and one
-// (sum, weight) pair of doubles per block; a single-block kernel adds the
-// pairs in a fixed order (two-stage, no float atomics, so the loss is the
-// same bit for bit from run to run) and writes [loss, denom] on the device.
-//
-// C's backward is fused with the adjoint resize (kernel A-bwd of
-// resize.cu): it writes the gradient to the os4 logits, (B, C, h, w),
-// directly; the full-resolution gradient g = coef * (softmax - onehot),
-// coef = w[y] * gout / max(denom, floor) (88 MB f32 at 4 x 21 x 513²) lives
-// one output row at a time in shared memory and never reaches HBM.  A
-// block owns one image's band of `rows` input rows and walks, in ascending
-// order, the output rows whose taps reach the band (the A-bwd range table:
-// rows rng_h[iy0] .. rng_h[H + iy1 - 1]); the rows at the band's edge are
-// evaluated again by the neighbouring band (a halo of ~scale rows per
-// band), which is the price of needing no atomics.  Per output row oy:
-// - phase 1: g(oy, ox) of every class into shared memory (an item is one
-//   output column and 4 classes), from the H-lerped input rows T and the
-//   row's coef / lse / label, staged in shared memory by phase 2 of the row
-//   before (labels and lse read from HBM once per pixel, not once per
-//   class); no expf where coef == 0 (ignored pixels, OHEM's dropped pixels);
-// - phase 2: the next row's T and pixels, from global loads issued before
-//   phase 1 and held in registers meanwhile; then per (4 classes, input
-//   column) s = sum over the output columns reaching it of tapw * g, and
-//   acc[iy] += wy * s for the (at most two) band rows that oy reaches.
-// That is A-bwd's order of sums for each input element (oy ascending, s
-// over ox ascending, every product and sum rounded on its own) over C's
-// own expression for g, so the gradient is bit-equal to the unfused route
-// (C's full-resolution gradient, then A-bwd).  The g row is held in a slot
-// layout, column ox at (ox % S) * Q + ox / S with S ~ the upsample factor
-// and Q = 32 / S (mod 32), so that the lanes of a warp (consecutive ox in
-// phase 1, consecutive input columns ~S outputs apart in phase 2) hit
-// distinct banks.  The wrapper (losses/ce.py:_bwd_plan) picks the band
-// height so that one wave of 1024-thread blocks covers the batch (B x bands
-// <= the SMs), at 1 + 1 / rows times the unfused count of g evaluations.
-// The bytes (~20 MB at 4 x 21 x 513²) are not the bound: instruction issue
-// and the two barriers per output row are.  On an NVIDIA H100 80GB HBM3 at
-// 700 W it takes 0.119 / 0.111 / 0.152 ms at the VOC CE's / Cityscapes
-// main / aux heads' shapes, against 0.327 / 0.317 / 0.496 ms for the
-// unfused route (u2pl_tpu_torch/kernels/timing_ab.py); variants that
-// pipelined the rows (one barrier per row), gave each class its own warp
-// (no barrier), or took 4 output columns per item were no faster.
+// D writes only the outputs its caller asks for (the semi step's first call
+// takes max-prob + argmax, its second the entropy).  Its first design ran
+// one thread per pixel with three passes over C, each re-evaluating the
+// lerps (252 loads per pixel at C = 21), and wrote all three outputs:
+// 0.138 ms per call at the VOC shape (4, 21, 129²) -> 513² on an NVIDIA
+// H100 80GB HBM3 at 700 W, 25x its bytes bound.  The work is instruction
+// issue (the bytes are ~10-14 MB, 3-4 us), so this design cuts
+// instructions: a block owns 1024 consecutive output pixels, stages the
+// H-lerped input rows of the output rows they touch in shared memory (C x W
+// floats per row, once per block), and each thread evaluates a pixel's C
+// values with two shared reads and one lerp each, keeps them in registers
+// (the array sized to C exactly at the configs' 21 and 19 classes, else to
+// C in steps of 8, C <= 32), takes one expf per class (reused for the sum
+// and the entropy's p), and stores 4 pixels per 16-byte vector.  The
+// expressions and the class order are the first design's, so the outputs
+// are the same bits.  0.0375 / 0.059 ms for the max-prob + argmax / the
+// entropy call at VOC, 0.042 / 0.063 at Cityscapes' (2, 19, 193²) -> 769²
+// (u2pl_tpu_torch/kernels/timing_ab.py; PERF.md has the variants).
 
 #include <math.h>
 
@@ -69,7 +46,6 @@
 
 namespace {
 
-using u2pl::blocks_for;
 using u2pl::kThreads;
 using u2pl::tap_weight;
 
@@ -380,49 +356,241 @@ __global__ void __launch_bounds__(kBwdThreads) upsample_ce_bwd_kernel(
   }
 }
 
-__global__ void upsample_softmax_stats_kernel(
-    const float* __restrict__ x, float* __restrict__ maxprob,
-    int* __restrict__ argmax, float* __restrict__ entropy,
-    const int* __restrict__ idx_h, const float* __restrict__ w_h,
-    const int* __restrict__ idx_w, const float* __restrict__ w_w, int B, int C,
-    int H, int W, int OH, int OW) {
-  const unsigned total = (unsigned)B * OH * OW;
-  const int plane = H * W;
-  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += gridDim.x * blockDim.x) {
-    const int ox = (int)(i % OW);
-    const unsigned r = i / OW;
-    const int oy = (int)(r % OH);
-    const float* xp = x + (size_t)(r / OH) * C * plane;
-    const u2pl::Taps t =
-        u2pl::load_taps(idx_h, w_h, idx_w, w_w, W, OH, OW, oy, ox);
-    float m = 0.0f;
-    int arg = 0;
-    for (int c = 0; c < C; ++c) {
-      const float v = u2pl::upsampled(xp + (size_t)c * plane, t);
+// ---- D: upsample_softmax_stats --------------------------------------------
+// The outputs a call writes: kStatsProb (max-prob and argmax), kStatsEntropy
+// or both; the wrapper passes null for the others.
+constexpr int kStatsProb = 1;
+constexpr int kStatsEntropy = 2;
+constexpr int kStatsMaxClasses = 32;   // one pixel's C values live in registers
+constexpr int kStatsThreads = 256;
+constexpr int kStatsBlockOutputs = 4 * kStatsThreads;  // pixels per block: a chunk per thread
+constexpr int kStatsMaxShared = 96 * 1024;  // bytes of taps and H-lerped rows
+
+// n / d for 0 <= n < 2^24 and d >= 1 (resize.cu's div_small)
+__device__ __forceinline__ int stats_div(int n, int d, float inv_d) {
+  int q = (int)((float)n * inv_d);
+  const int r = n - q * d;
+  if (r < 0) --q;
+  else if (r >= d) ++q;
+  return q;
+}
+
+// the statistics of one output pixel from its row's H-lerped inputs Tr
+// (class c at Tr + c * W) and its column taps t = (lo, hi, 1 - frac, frac):
+// kernel D's first design's expressions in its class order, with each
+// upsampled value evaluated once and each exp(v - max) once
+template <int MAXC, int MODE, bool EXACT>
+__device__ __forceinline__ void stats_pixel(const float* __restrict__ Tr, int W,
+                                            int C, int4 t, float& mp, int& am,
+                                            float& en) {
+  const float p = __int_as_float(t.z), q = __int_as_float(t.w);
+  float v[MAXC];
+  float m = 0.0f;
+  int arg = 0;
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c) {
+    if (EXACT || c < C) {
+      v[c] = u2pl::lerp2(p, Tr[c * W + t.x], q, Tr[c * W + t.y]);
       // first maximum; a NaN counts as the maximum, the first NaN wins
       // (jnp.argmax / torch.argmax, as kernel B)
-      if (c == 0 || (m == m && (v > m || v != v))) {
-        m = v;
+      if (c == 0 || (m == m && (v[c] > m || v[c] != v[c]))) {
+        m = v[c];
         arg = c;
       }
     }
-    float s = 0.0f;
-    for (int c = 0; c < C; ++c) {
-      s += expf(u2pl::upsampled(xp + (size_t)c * plane, t) - m);
+  }
+  float s = 0.0f;
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c) {
+    if (EXACT || c < C) {
+      v[c] = expf(v[c] - m);
+      s += v[c];
     }
+  }
+  if (MODE & kStatsProb) {
     // steps.py:300: exp(max - logsumexp), logsumexp = max + log(sum)
-    maxprob[i] = expf(m - (m + logf(s)));
-    argmax[i] = arg;
+    mp = expf(m - (m + logf(s)));
+    am = arg;
+  }
+  if (MODE & kStatsEntropy) {
     // unsup.py:24-27: -sum p log(p + 1e-10), p = exp(v - max) / sum
     float e = 0.0f;
-    for (int c = 0; c < C; ++c) {
-      const float p =
-          expf(u2pl::upsampled(xp + (size_t)c * plane, t) - m) / s;
-      e += p * logf(p + 1e-10f);
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c) {
+      if (EXACT || c < C) {
+        const float pc = v[c] / s;
+        e += pc * logf(pc + 1e-10f);
+      }
     }
-    entropy[i] = -e;
+    en = -e;
   }
+}
+
+// a block owns `span` consecutive pixels [k0, k0 + span) of the flat
+// (B, OH, OW) output (span a multiple of 4, so every 4-pixel chunk is
+// 16-byte aligned): every thread gets the same number of chunks, whatever
+// OW is.  It stages the column taps (by column % 4, as kernel A), the row
+// taps of the flat output rows R0 + r that the span touches, and then
+// their H-lerped input rows T[r][c][ix] in shared memory: a thread takes
+// kStageBatch (class, column) items, issues their loads before it stores
+// any, and walks the rows for them (rows that share an input row then read
+// it from L1: the staging's L2 reads, not HBM, were its cost).  Each thread then
+// takes aligned 4-pixel chunks, one pixel at a time (the pixel's code is
+// emitted once: four copies of a C-unrolled pixel overflow the instruction
+// cache), and stores each output as one 16-byte vector.
+constexpr int kStageBatch = 8;
+
+template <int MAXC, int MODE, bool EXACT>
+__global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
+    const float* __restrict__ x, float* __restrict__ maxprob,
+    int* __restrict__ argmax, float* __restrict__ entropy,
+    const int* __restrict__ idx_h, const float* __restrict__ w_h,
+    const int* __restrict__ idx_w, const float* __restrict__ w_w, int C,
+    int H, int W, int OH, int OW, unsigned total, int span, int quarter,
+    int max_rows, float inv_ow) {
+  extern __shared__ int4 scol[];  // (lo, hi, 1 - frac, frac) per output column
+  int4* rtab = scol + 4 * quarter;  // per touched row: input row offsets, weights
+  float* T = reinterpret_cast<float*>(rtab + max_rows);
+  const unsigned k0 = blockIdx.x * (unsigned)span;
+  const unsigned k1 = min(k0 + (unsigned)span, total);
+  const unsigned R0 = k0 / OW;  // the first and last flat output rows
+  const int nr = (int)((k1 - 1) / OW - R0) + 1;
+  const int plane = H * W, CW = C * W;
+  for (int ox = threadIdx.x; ox < OW; ox += kStatsThreads) {
+    scol[(ox & 3) * quarter + (ox >> 2)] =
+        make_int4(idx_w[ox], idx_w[OW + ox], __float_as_int(w_w[ox]),
+                  __float_as_int(w_w[OW + ox]));
+  }
+  for (int r = threadIdx.x; r < nr; r += kStatsThreads) {
+    const unsigned R = R0 + r;
+    const int b = (int)(R / OH), oy = (int)(R - (unsigned)b * OH);
+    const int img = b * C * plane;
+    rtab[r] = make_int4(img + idx_h[oy] * W, img + idx_h[OH + oy] * W,
+                        __float_as_int(w_h[oy]), __float_as_int(w_h[OH + oy]));
+  }
+  __syncthreads();
+  // the H pass: a thread takes kStageBatch (class, column) items and walks
+  // the touched rows for them, so output rows that share an input row read
+  // it from L1 rather than again from L2
+  const float inv_w = 1.0f / (float)W;
+  for (int k = threadIdx.x; k < CW; k += kStageBatch * kStatsThreads) {
+    int off[kStageBatch];
+#pragma unroll
+    for (int j = 0; j < kStageBatch; ++j) {
+      const int kk = k + j * kStatsThreads;
+      const int c = stats_div(kk, W, inv_w);
+      off[j] = c * plane + kk - c * W;  // class c, column ix
+    }
+    for (int r = 0; r < nr; ++r) {
+      const int4 rt = rtab[r];
+      float x0[kStageBatch], x1[kStageBatch];
+#pragma unroll
+      for (int j = 0; j < kStageBatch; ++j) {
+        if (k + j * kStatsThreads < CW) {
+          x0[j] = x[rt.x + off[j]];
+          x1[j] = x[rt.y + off[j]];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kStageBatch; ++j) {
+        const int kk = k + j * kStatsThreads;
+        if (kk < CW) {
+          T[r * CW + kk] = u2pl::lerp2(__int_as_float(rt.z), x0[j], __int_as_float(rt.w), x1[j]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const unsigned base = R0 * OW;  // pixel local - base is in row local / OW of T
+  for (unsigned k = k0 + 4u * threadIdx.x; k < k1; k += 4u * kStatsThreads) {
+    const int local = (int)(k - base);
+    int r = stats_div(local, OW, inv_ow);
+    int ox = local - r * OW;
+    float mpv[4], env[4];
+    int amv[4];
+#pragma unroll 1
+    for (int i = 0; i < 4; ++i) {
+      float mp = 0.0f, en = 0.0f;
+      int am = 0;
+      if (k + i < k1) {
+        const int4 t = scol[(ox & 3) * quarter + (ox >> 2)];
+        stats_pixel<MAXC, MODE, EXACT>(T + r * CW, W, C, t, mp, am, en);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // register slots, not a local-memory array
+        if (j == i) {
+          mpv[j] = mp;
+          amv[j] = am;
+          env[j] = en;
+        }
+      }
+      if (++ox == OW) {  // the chunk runs on into the next row
+        ox = 0;
+        ++r;
+      }
+    }
+    if (k + 4 <= k1) {
+      if (MODE & kStatsProb) {
+        *reinterpret_cast<float4*>(maxprob + k) = make_float4(mpv[0], mpv[1], mpv[2], mpv[3]);
+        *reinterpret_cast<int4*>(argmax + k) = make_int4(amv[0], amv[1], amv[2], amv[3]);
+      }
+      if (MODE & kStatsEntropy) {
+        *reinterpret_cast<float4*>(entropy + k) = make_float4(env[0], env[1], env[2], env[3]);
+      }
+      continue;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // the output's last, partial chunk
+      if (k + j < k1) {
+        if (MODE & kStatsProb) {
+          maxprob[k + j] = mpv[j];
+          argmax[k + j] = amv[j];
+        }
+        if (MODE & kStatsEntropy) entropy[k + j] = env[j];
+      }
+    }
+  }
+}
+
+struct StatsArgs {
+  const float* x;
+  float* maxprob;
+  int* argmax;
+  float* entropy;
+  const int* idx_h;
+  const float* w_h;
+  const int* idx_w;
+  const float* w_w;
+  int C, H, W, OH, OW;
+  unsigned total;
+  int span, quarter, max_rows, smem;
+};
+
+template <int MAXC, int MODE, bool EXACT = false>
+cudaError_t launch_stats(const StatsArgs& a, cudaStream_t stream) {
+  auto kernel = upsample_softmax_stats_kernel<MAXC, MODE, EXACT>;
+  if (a.smem > 48 * 1024) {  // above the default dynamic shared memory of a block
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<(a.total + a.span - 1) / a.span, kStatsThreads, a.smem, stream>>>(
+      a.x, a.maxprob, a.argmax, a.entropy, a.idx_h, a.w_h, a.idx_w, a.w_w, a.C,
+      a.H, a.W, a.OH, a.OW, a.total, a.span, a.quarter, a.max_rows,
+      1.0f / (float)a.OW);
+  return cudaGetLastError();
+}
+
+// the configs' class counts exactly (no per-class guard), else the
+// smallest register array that holds C classes
+template <int MODE>
+cudaError_t launch_stats_mode(const StatsArgs& a, cudaStream_t stream) {
+  if (a.C == 21) return launch_stats<21, MODE, true>(a, stream);  // VOC
+  if (a.C == 19) return launch_stats<19, MODE, true>(a, stream);  // Cityscapes
+  if (a.C <= 8) return launch_stats<8, MODE>(a, stream);
+  if (a.C <= 16) return launch_stats<16, MODE>(a, stream);
+  if (a.C <= 24) return launch_stats<24, MODE>(a, stream);
+  return launch_stats<32, MODE>(a, stream);
 }
 
 }  // namespace
@@ -492,20 +660,45 @@ int u2pl_upsample_ce_bwd(const void* x, const void* labels, const void* cw,
   return (int)cudaGetLastError();
 }
 
+// maxprob and argmax both or neither, entropy or not (at least one output)
 int u2pl_upsample_softmax_stats(const void* x, void* maxprob, void* argmax,
                                 void* entropy, const void* idx_h,
                                 const void* w_h, const void* idx_w,
                                 const void* w_w, int B, int C, int H, int W,
                                 int OH, int OW, void* stream) {
-  const long long total = (long long)B * OH * OW;
-  if (total > 0) {
-    upsample_softmax_stats_kernel<<<blocks_for(total), kThreads, 0,
-                                    (cudaStream_t)stream>>>(
-        (const float*)x, (float*)maxprob, (int*)argmax, (float*)entropy,
-        (const int*)idx_h, (const float*)w_h, (const int*)idx_w,
-        (const float*)w_w, B, C, H, W, OH, OW);
+  const int mode = (maxprob ? kStatsProb : 0) | (entropy ? kStatsEntropy : 0);
+  if (!maxprob != !argmax || mode == 0 || C <= 0 || C > kStatsMaxClasses || H <= 0 ||
+      W <= 0) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  if (B <= 0 || OH <= 0 || OW <= 0) return (int)cudaGetLastError();
+  const long long total = (long long)B * OH * OW;
+  const int quarter = (OW + 3) / 4;
+  const long long taps = 64LL * quarter, row = 4LL * C * W + 16;
+  // kStatsBlockOutputs pixels per block, fewer where the rows they touch
+  // (at most span / OW + 2) do not fit in shared memory
+  int span = kStatsBlockOutputs;
+  while (span > 4 && taps + (span / OW + 2) * row > kStatsMaxShared) span /= 2;
+  const int max_rows = (int)min((long long)span / OW + 2, (long long)B * OH);
+  const long long smem = taps + max_rows * row;
+  if (total >= (1LL << 31) || OW >= (1 << 23) || smem > kStatsMaxShared ||
+      (long long)max_rows * C * W >= (1 << 24)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const StatsArgs a = {(const float*)x, (float*)maxprob, (int*)argmax, (float*)entropy,
+                       (const int*)idx_h, (const float*)w_h, (const int*)idx_w,
+                       (const float*)w_w, C, H, W, OH, OW, (unsigned)total, span,
+                       quarter, max_rows, (int)smem};
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  if (mode == kStatsProb) {
+    err = launch_stats_mode<kStatsProb>(a, st);
+  } else if (mode == kStatsEntropy) {
+    err = launch_stats_mode<kStatsEntropy>(a, st);
+  } else {
+    err = launch_stats_mode<kStatsProb | kStatsEntropy>(a, st);
+  }
+  return (int)err;
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-"""Times kernel A, K6's backward and kernel C's backward of the
-u2pl_tpu_torch package in the checkout at --root, on one card: run it once
+"""Times kernel A, K6's backward, kernel C's backward, kernel D and K4's key
+selection of the u2pl_tpu_torch package in the checkout at --root, on one card: run it once
 per checkout, in turns, to set two versions of the kernels side by side in
 one call.
 
@@ -33,13 +33,24 @@ results are bit-equal.  The inputs come from seeded generators on the card:
   C_bwd_city_main  the same at the Cityscapes main head, (2, 19, 193²) ->
              769², on OHEM's kept labels (thresh 0.7, min_kept 100000) with
              the OHEM class weight;
-  C_bwd_city_aux   the aux head, (2, 19, 97²) -> 769², on its kept labels.
+  C_bwd_city_aux   the aux head, (2, 19, 97²) -> 769², on its kept labels;
+  D_voc_prob, D_voc_entropy  kernel D as the semi step calls it at VOC,
+             (4, 21, 129²) -> 513²: max-prob + argmax (the pseudo-labels),
+             then the entropy alone (a checkout whose wrapper has no output
+             selection writes all three: its time is that call's, its hash
+             the selected outputs');
+  D_city_prob, D_city_entropy  the same at Cityscapes, (2, 19, 193²) -> 769²;
+  K4_select  select_keys at the flagship, a (21, 133128) negative mask of
+             ~0-30% density per class (one class empty) and uniform
+             priorities, k 8192; library: torch.sort(stable=True) of the
+             masked priorities.
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import os
 import subprocess
@@ -178,6 +189,34 @@ def main() -> int:
         fn = lambda: torch.autograd.grad(loss, x, retain_graph=True)[0]  # noqa: E731
         out["kernels"][name] = {"ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn),
                                 "library_ms": None, "sha256": digest(fn())}
+    from u2pl_tpu_torch.losses import unsup
+
+    selects = "outputs" in inspect.signature(unsup.upsample_softmax_stats).parameters
+    for label, shape, size in (("voc", (4, 21, 129, 129), (513, 513)),
+                               ("city", (2, 19, 193, 193), (769, 769))):
+        x = torch.randn(*shape, device=dev, generator=g) * 3
+        for outputs, keep in (("prob", (0, 1)), ("entropy", (2,))):
+            if selects:
+                fn = lambda: unsup.upsample_softmax_stats(x, size, outputs=outputs)  # noqa: E731
+            else:
+                fn = lambda: unsup.upsample_softmax_stats(x, size)  # noqa: E731
+            res = fn()
+            out["kernels"][f"D_{label}_{outputs}"] = {
+                "ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn), "library_ms": None,
+                "sha256": "-".join(digest(res[i]) for i in keep)}
+        del x
+    c, n, k = 21, 8 * 129 * 129, 8192
+    density = torch.rand(c, 1, device=dev, generator=g) * 0.3
+    density[c - 1] = 0.0
+    mask = torch.rand(c, n, device=dev, generator=g) < density
+    pri = torch.rand(c, n, device=dev, generator=g)
+    masked = torch.where(mask, pri, torch.full_like(pri, float("inf")))
+    fn = lambda: tc.select_keys(mask, pri, k)  # noqa: E731
+    idx, n_sel = fn()
+    out["kernels"]["K4_select"] = {
+        "ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn),
+        "library_ms": cuda_ms(lambda: torch.sort(masked, dim=1, stable=True)),
+        "sha256": digest(idx) + "-" + digest(n_sel), "n_sel": n_sel.tolist()}
     print(json.dumps(out), flush=True)
     return 0
 

@@ -26,7 +26,8 @@ The device functions and their kernels (CUDA C++, sm_90a):
                        stable descending ranks over C fused with the anchor,
                        negative and low-valid masks and their counts;
   select_keys          K4: per class the k smallest (priority, pixel) pairs
-                       of the negative mask, in ascending order;
+                       of the negative mask, in ascending order (one
+                       thread block cluster per class);
   select_keys_radix    K4r: per class the masked pixels whose u32 key is at
                        or under the k-th smallest, the first k in pixel
                        order (`select_keys: radix`);
@@ -53,7 +54,7 @@ from u2pl_tpu_torch.memobank import MemoryBank, gather_rows, memobank_enqueue, s
 from u2pl_tpu_torch.ops.one_hot import label_onehot
 
 MAX_CLASSES = 32  # contra_pixel_masks keeps one pixel's C probabilities in registers
-MAX_KEYS = 16384  # select_keys sorts <= 16384 (priority, pixel) pairs in shared memory
+MAX_KEYS = 16384  # select_keys keeps <= 16384 survivors per class
 FEAT_DIM = 256  # contra_infonce: one warp per anchor, 8 features per lane
 MAX_DRAWS = 8192  # contra_infonce's backward keys a tile's draws by j*Q + q < 2^13
 EPS = 1e-8  # torch cosine-similarity eps
@@ -191,16 +192,44 @@ def select_keys_plain(mask: torch.Tensor, pri: torch.Tensor, k: int):
     return order, n_sel
 
 
+# select_keys's kernel: one cluster of SELECT_CLUSTER blocks per class, each
+# holding its slice of the row's keys (u32) and its survivors' pixels (u16)
+# in shared memory behind a fixed header (kSelHeader in contrastive.cu)
+SELECT_CLUSTER = 8
+SELECT_HEADER_BYTES = 2 * 256 * 4 + 8 * 4 + 32 * 4
+SELECT_MAX_SHARED = 232448  # a block's shared memory on sm_90 (227 KB)
+
+
+def _select_plan(c: int, n: int, k: int) -> Tuple[int, int, int]:
+    """(slice, pixcap, smem) of `select_keys`'s kernel for a (c, n) mask and
+    k keys: block r of a class's cluster owns pixels [r * slice, (r + 1) *
+    slice) (slice a multiple of 4, so the 8 blocks cover the row; below
+    2^16, its pixels' u16 offsets), holds up to pixcap = min(k, slice)
+    survivors, in smem bytes of shared memory.  Raises where a block's
+    slice does not fit."""
+    if c <= 0 or n <= 0 or not 0 < k <= MAX_KEYS:
+        raise ValueError(f"select_keys: {c} classes, {n} pixels, k {k} (k <= {MAX_KEYS})")
+    slice_ = -(-n // SELECT_CLUSTER)
+    slice_ += -slice_ % 4
+    pixcap = min(k, slice_)
+    smem = SELECT_HEADER_BYTES + 4 * slice_ + 2 * pixcap
+    if slice_ > 65536 or smem > SELECT_MAX_SHARED:
+        raise ValueError(f"select_keys: {n} pixels per class need {smem} bytes of shared memory "
+                         f"per block (at most {SELECT_MAX_SHARED})")
+    return slice_, pixcap, smem
+
+
 def select_keys(mask: torch.Tensor, pri: torch.Tensor, k: int):
     """Per class c, the indices of the min(k, #mask[c]) pixels of mask[c]
     with the smallest (pri[c, n], n), in ascending order: JAX's
     `_select_keys_argsort` on the same priorities.  mask (C, N) bool; pri
     (C, N) f32.  Returns (sel_idx (C, k) int32, n_sel (C,) int32); only the
-    first n_sel[c] entries of row c are keys.
+    first n_sel[c] entries of row c are keys (zeros follow on the card).
 
-    On the card (k <= 16384): a radix selection of the k-th smallest 64-bit
-    key (priority order bits, pixel) per class, a compaction of the keys at
-    or under it, and a shared-memory sort of the <= k survivors."""
+    On the card (k <= 16384, N up to ~390,000 per class): one launch, a
+    cluster of 8 blocks per class (`_select_plan`) that finds the k-th
+    smallest priority by a radix descent in shared memory and sorts the
+    survivors (see `kernels/csrc/contrastive.cu`)."""
     c, n = mask.shape
     if pri.shape != (c, n) or k <= 0:
         raise ValueError(f"select_keys: mask {tuple(mask.shape)}, pri {tuple(pri.shape)}, k {k}")
@@ -213,15 +242,15 @@ def select_keys(mask: torch.Tensor, pri: torch.Tensor, k: int):
     _require(mask, dev, torch.bool, "select_keys mask")
     if k > MAX_KEYS:
         raise ValueError(f"select_keys: k {k} > {MAX_KEYS} (max_keys_per_class_per_step)")
+    slice_, pixcap, smem = _select_plan(c, n, k)
     from u2pl_tpu_torch.kernels import load
 
     lib = load()
     sel_idx = torch.empty((c, k), dtype=torch.int32, device=dev)
     n_sel = torch.empty((c,), dtype=torch.int32, device=dev)
-    state = torch.zeros(lib.u2pl_select_keys_state_words(c, k), dtype=torch.int32, device=dev)
     _launch(lib, "u2pl_contra_select_keys", "select_keys", dev,
             mask.data_ptr(), pri.data_ptr(), sel_idx.data_ptr(), n_sel.data_ptr(),
-            state.data_ptr(), c, n, k)
+            c, n, k, slice_, pixcap, smem)
     select_keys.launches += 1
     return sel_idx, n_sel
 

@@ -2,16 +2,18 @@
 statistics of upsampled teacher logits (port of u2pl_tpu/losses/unsup.py and
 of u2pl_tpu/train/steps.py:295-301).
 
-`upsample_softmax_stats(logits_os4, size)` returns, per pixel of the
-align-corners upsample to `size`, the max softmax probability, the
-first-max argmax and the entropy -sum p log(p + 1e-10): kernel D
-(`kernels/csrc/upsample_ce.cu`) on the card, which writes nothing of size
-(B, C, H, W); its plain version on a CPU tensor.
+`upsample_softmax_stats(logits_os4, size, outputs)` returns, per pixel of
+the align-corners upsample to `size`, the max softmax probability, the
+first-max argmax and the entropy -sum p log(p + 1e-10), or the part of
+them that `outputs` selects: kernel D (`kernels/csrc/upsample_ce.cu`) on
+the card, which writes nothing of size (B, C, H, W) and only the outputs
+asked for; its plain version on a CPU tensor.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import collections
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,52 +28,85 @@ def teacher_entropy(prob_logits: torch.Tensor) -> torch.Tensor:
     return -torch.sum(prob * torch.log(prob + 1e-10), dim=1)
 
 
+# the outputs a call of `upsample_softmax_stats` computes: max-prob and
+# argmax (the pseudo-labels, steps.py:300-301), the entropy (unsup.py:24),
+# or all three
+STATS_OUTPUTS = ("prob", "entropy", "all")
+MAX_STATS_CLASSES = 32  # kernel D keeps one pixel's C values in registers
+
+Stats = Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]
+
+
+def _check_outputs(outputs: str) -> Tuple[bool, bool]:
+    if outputs not in STATS_OUTPUTS:
+        raise ValueError(f"upsample_softmax_stats: outputs {outputs!r}, not one of {STATS_OUTPUTS}")
+    return outputs != "entropy", outputs != "prob"
+
+
 def upsample_softmax_stats_plain(
-    logits: torch.Tensor, size: Tuple[int, int]
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    logits: torch.Tensor, size: Tuple[int, int], outputs: str = "all"
+) -> Stats:
     """Plain PyTorch version of kernel D: kernel A's plain resize, then
-    exp(max - logsumexp), argmax and `teacher_entropy` over C."""
+    exp(max - logsumexp), argmax and `teacher_entropy` over C, each where
+    `outputs` asks for it (None in its place otherwise)."""
+    prob, ent = _check_outputs(outputs)
     up = resize_bilinear_plain(logits, size).float()
-    maxprob = torch.exp(up.amax(dim=1) - torch.logsumexp(up, dim=1))
-    return maxprob, up.argmax(dim=1).to(torch.int32), teacher_entropy(up)
+    maxprob = argmax = entropy = None
+    if prob:
+        maxprob = torch.exp(up.amax(dim=1) - torch.logsumexp(up, dim=1))
+        argmax = up.argmax(dim=1).to(torch.int32)
+    if ent:
+        entropy = teacher_entropy(up)
+    return maxprob, argmax, entropy
 
 
 @torch.no_grad()
 def upsample_softmax_stats(
-    logits: torch.Tensor, size: Tuple[int, int]
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    logits: torch.Tensor, size: Tuple[int, int], outputs: str = "all"
+) -> Stats:
     """(max-prob f32, argmax int32, entropy f32), each (B, H, W), of the
-    (B, C, h, w) logits upsampled to `size` (kernel D; no gradient)."""
+    (B, C, h, w) logits upsampled to `size` (kernel D; no gradient).
+    `outputs` selects what is computed and written: "prob" (max-prob and
+    argmax; entropy None), "entropy" (the others None) or "all"."""
+    prob, ent = _check_outputs(outputs)
     if logits.dim() != 4:
         raise ValueError(f"upsample_softmax_stats: expected NCHW, got {tuple(logits.shape)}")
     oh, ow = int(size[0]), int(size[1])
     if logits.device.type == "cpu":
-        return upsample_softmax_stats_plain(logits, (oh, ow))
+        return upsample_softmax_stats_plain(logits, (oh, ow), outputs)
     _check_cuda_f32(logits, 4, "upsample_softmax_stats")
     b, c, h, w = logits.shape
     if b * c * oh * ow >= 2**31:
         raise ValueError("upsample_softmax_stats: the upsampled logits exceed the int32 sizes")
+    if c > MAX_STATS_CLASSES:
+        raise ValueError(f"upsample_softmax_stats: {c} classes (at most {MAX_STATS_CLASSES})")
     from u2pl_tpu_torch.kernels import check, load
 
     lib = load()
     dev = logits.device
     idx_h, w_h = _device_taps(h, oh, True, dev)
     idx_w, w_w = _device_taps(w, ow, True, dev)
-    maxprob = torch.empty((b, oh, ow), dtype=torch.float32, device=dev)
-    argmax = torch.empty((b, oh, ow), dtype=torch.int32, device=dev)
-    entropy = torch.empty((b, oh, ow), dtype=torch.float32, device=dev)
+
+    def out(wanted: bool, dtype: torch.dtype) -> Optional[torch.Tensor]:
+        return torch.empty((b, oh, ow), dtype=dtype, device=dev) if wanted else None
+
+    maxprob, argmax = out(prob, torch.float32), out(prob, torch.int32)
+    entropy = out(ent, torch.float32)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         err = lib.u2pl_upsample_softmax_stats(
-            logits.data_ptr(), maxprob.data_ptr(), argmax.data_ptr(),
-            entropy.data_ptr(), idx_h.data_ptr(), w_h.data_ptr(), idx_w.data_ptr(),
-            w_w.data_ptr(), b, c, h, w, oh, ow, torch.cuda.current_stream(dev).cuda_stream,
+            logits.data_ptr(), ptr(maxprob), ptr(argmax), ptr(entropy), idx_h.data_ptr(),
+            w_h.data_ptr(), idx_w.data_ptr(), w_w.data_ptr(), b, c, h, w, oh, ow,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     check(lib, err, "upsample_softmax_stats launch")
     upsample_softmax_stats.launches += 1
+    upsample_softmax_stats.selections[outputs] += 1
     return maxprob, argmax, entropy
 
 
 upsample_softmax_stats.launches = 0
+upsample_softmax_stats.selections = collections.Counter()  # launches per `outputs`
 
 
 def compute_unsupervised_loss(

@@ -258,7 +258,8 @@ def make_semi_step(cfg: Config, steps_per_epoch: int) -> Callable:
             # ---- 1. pseudo-labels from the eval-mode teacher (:283-301)
             teacher.eval()
             pred_u_teacher = teacher(image_u)["pred"]
-            logits_u_aug, label_u_aug, _ = unsup.upsample_softmax_stats(pred_u_teacher, (h, w))
+            logits_u_aug, label_u_aug, _ = unsup.upsample_softmax_stats(
+                pred_u_teacher, (h, w), outputs="prob")
             del pred_u_teacher
 
             # ---- 2. strong augmentation on a 50% coin (:303-319)
@@ -283,7 +284,8 @@ def make_semi_step(cfg: Config, steps_per_epoch: int) -> Callable:
             # ---- teacher train-mode forward (:323-343): updates teacher BN
             teacher.train()
             t_out = teacher(image_all, generator=generator)
-            _, _, entropy = unsup.upsample_softmax_stats(t_out["pred"][b_l:], (h, w))
+            _, _, entropy = unsup.upsample_softmax_stats(t_out["pred"][b_l:], (h, w),
+                                                         outputs="entropy")
 
             # ---- the annealed drop percentile of the entropy, and the
             # contrastive thresholds with it, in one call (:352-406)
