@@ -36,9 +36,11 @@ Phases; any failure ends the run with a nonzero exit code:
      from a copy of the state, through the kernels and through the plain
      versions, compared;
   5. training timings: warmup and semi step medians, images/s, peak device
-     memory, each training kernel beside its plain version (C's backward,
-     fused with its adjoint resize, with torch.profiler's device time; D's
-     two calls of the semi step, max-prob + argmax and entropy, apart);
+     memory, each training kernel beside its plain version (A-bwd at the
+     VOC and Cityscapes decoders' shapes beside aten's own backward; C's
+     backward, fused with its adjoint resize, with torch.profiler's device
+     time; D's two calls of the semi step, max-prob + argmax and entropy,
+     apart);
   6. the contrastive slice: the full `ours` config WITH trainer.contrastive
      (a (21, 50000, 256) bf16 memory bank, 8192 keys per class and step,
      256 queries, 50 negatives), 5 steps through `run_steps` (2 warmup, 3
@@ -66,8 +68,9 @@ Phases; any failure ends the run with a nonzero exit code:
      steps of experiments/cityscapes/744/suponly through `make_sup_step`;
   9. Cityscapes timings: the semi step's median, images/s and peak memory,
      each OHEM kernel (K7) beside its plain version and a library call, and
-     C's backward at the main head (kept labels, the OHEM class weight) and
-     the aux head (kept labels), and D's two calls at the Cityscapes shape;
+     C's forward and backward at the main head (kept labels, the OHEM class
+     weight) and the aux head (kept labels), C's forward at the unsupervised
+     CE's, and D's two calls at the Cityscapes shape;
  10. the trainer CLIs: a synthetic VOC-layout workspace (16 labeled, 16
      unlabeled and 4 val JPEG / PNG pairs of 500x375, from SEED) and
      `u2pl_tpu_torch.train_semi.main` on experiments/pascal/1464/ours as it
@@ -511,10 +514,12 @@ def phase1_train_kernels(dev):
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     errs = {}
-    # A-bwd: the decoder's os8 -> os4 upsample and the logits' upsample
+    # A-bwd: the decoder's os8 -> os4 upsample at VOC and Cityscapes, and
+    # the logits' upsample
     worst = 0.0
-    for shape, out in (((8, 256, 65, 65), (129, 129)), ((4, 21, 129, 129), (513, 513)),
-                       ((2, 3, 33, 17), (7, 9))):
+    for shape, out in (((8, 256, 65, 65), (129, 129)),
+                       ((4, FEATURES, CITY_OS8, CITY_OS8), (CITY_OS4, CITY_OS4)),
+                       ((4, 21, 129, 129), (513, 513)), ((2, 3, 33, 17), (7, 9))):
         x = torch.randn(*shape, device=dev, generator=g, requires_grad=True)
         y = R.resize_bilinear(x, out)
         if not y.requires_grad:
@@ -800,11 +805,14 @@ def zero_counters():
     upsample_softmax_stats.selections.clear()
 
 
-def check_per_semi_step(path, launches, semi_steps, contrastive):
+def check_per_semi_step(path, launches, semi_steps, contrastive, heads=1):
     """Per semi step, kernel D twice (max-prob + argmax for the pseudo-labels,
     the entropy alone for the gate) and, with the contrastive branch, K4's
-    key selection once."""
-    want = {"D": 2 * semi_steps, "D_prob": semi_steps, "D_entropy": semi_steps}
+    key selection once; C's forward once per supervised head (`heads`: the
+    main head, and on Cityscapes the aux head) on every step and once more
+    for the unsupervised CE on a semi step."""
+    want = {"D": 2 * semi_steps, "D_prob": semi_steps, "D_entropy": semi_steps,
+            "C_fwd": TRAIN_STEPS * heads + semi_steps}
     if contrastive:
         want["K4_select"] = semi_steps
     got = {k: launches[k] for k in want}
@@ -1086,7 +1094,11 @@ def phase5_train_timings(dev, card, state, batches):
 
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
     times = {}
+    # A_bwd_logits: a shape no path launches since C's backward took in its
+    # adjoint resize; kept as the logits-scale reference
     for label, shape, out_hw in (("A_bwd_decoder", (8, 256, 65, 65), (129, 129)),
+                                 ("A_bwd_city", (4, FEATURES, CITY_OS8, CITY_OS8),
+                                  (CITY_OS4, CITY_OS4)),
                                  ("A_bwd_logits", (4, 21, 129, 129), (513, 513))):
         gy = torch.randn(shape[:2] + out_hw, device=dev, generator=g)
         times[label] = (
@@ -1122,6 +1134,7 @@ def phase5_train_timings(dev, card, state, batches):
                    None)
     shapes = {
         "A_bwd_decoder": "(8, 256, 129, 129) -> (8, 256, 65, 65)",
+        "A_bwd_city": f"(4, 256, {CITY_OS4}, {CITY_OS4}) -> (4, 256, {CITY_OS8}, {CITY_OS8})",
         "A_bwd_logits": "(4, 21, 513, 513) -> (4, 21, 129, 129)",
         "C_fwd": "(4, 21, 129, 129) -> 513², labels (4, 513, 513)",
         "C_bwd": "the same, backward to the os4 logits (fused with its adjoint resize)",
@@ -1742,7 +1755,15 @@ def phase8_cityscapes(dev, card, cfg):
     if missing:
         fail(f"a kernel of the Cityscapes training path was never launched: {missing}")
     check_a_bwd_per_step("Cityscapes training", launches)
-    check_per_semi_step("Cityscapes training", launches, len(history), contrastive=True)
+    check_per_semi_step("Cityscapes training", launches, len(history), contrastive=True,
+                        heads=2)
+    # C's forward per head: one after each OHEM call (main, aux), the rest
+    # the unsupervised CE
+    for name, hw in (("C_fwd_city_main", (CITY_OS4, CITY_OS4)),
+                     ("C_fwd_city_aux", (CITY_OS8, CITY_OS8))):
+        launches[name] = sum(h == hw for h, _ in kept)
+    launches["C_fwd_city_unsup"] = (launches["C_fwd"] - launches["C_fwd_city_main"]
+                                    - launches["C_fwd_city_aux"])
     if any(launches[a] != 2 * TRAIN_STEPS for a in OHEM_COUNTERS):
         fail(f"the OHEM kernels did not run on both heads of every step: {launches}")
     log(f"[{card}] peak device memory over the {TRAIN_STEPS} Cityscapes training steps: "
@@ -1800,7 +1821,7 @@ def phase8_cityscapes(dev, card, cfg):
 def phase9_city_timings(dev, card, cfg, state, batches):
     import torch
 
-    from u2pl_tpu_torch.losses import ohem
+    from u2pl_tpu_torch.losses import ce, ohem
     from u2pl_tpu_torch.ops import quantile
     from u2pl_tpu_torch.train.steps import make_semi_step
 
@@ -1835,9 +1856,24 @@ def phase9_city_timings(dev, card, cfg, state, batches):
     kept = ohem.ohem_kept_labels(x, lab, thresh, min_kept)
     c_bwd = c_bwd_timing(card, "C_bwd_city_main", x, kept, ohem._class_weight(True, dev))
     xa, laba = ohem_case(dev, g, CITY_OS8, 8.0, 4, 0.05)
-    c_bwd_aux = c_bwd_timing(card, "C_bwd_city_aux", xa,
-                             ohem.ohem_kept_labels(xa, laba, thresh, min_kept), None)
-    del xa, laba
+    kept_a = ohem.ohem_kept_labels(xa, laba, thresh, min_kept)
+    c_bwd_aux = c_bwd_timing(card, "C_bwd_city_aux", xa, kept_a, None)
+    # C's forward at the three heads of the step: OHEM main (kept labels,
+    # the class weight `use_weight` selects) and aux (kept labels), and the
+    # unsupervised CE (20% of the pseudo-labels dropped by the entropy gate)
+    xu = torch.randn(CITY_B, 19, CITY_OS4, CITY_OS4, device=dev, generator=g)
+    labu = torch.randint(0, 19, lab.shape, device=dev, generator=g, dtype=torch.int32)
+    labu[torch.rand(labu.shape, device=dev, generator=g) < 0.2] = 255
+    c_fwd, c_fwd_shapes = {}, {}
+    with torch.no_grad():
+        for name, (xc, lc, cw) in (("C_fwd_city_main", (x, kept, ohem._class_weight(True, dev))),
+                                   ("C_fwd_city_aux", (xa, kept_a, None)),
+                                   ("C_fwd_city_unsup", (xu, labu, None))):
+            c_fwd[name] = (cuda_ms(lambda: ce.upsample_cross_entropy(xc, lc, 255, cw)),
+                           cuda_ms(lambda: ce.upsample_cross_entropy_plain(xc, lc, 255, cw)), None)
+            c_fwd_shapes[name] = f"{tuple(xc.shape)} -> {tuple(lc.shape[1:])}" + (
+                ", weighted" if cw is not None else "")
+    del xa, laba, kept_a, xu, labu
     times = {
         "K7_prob": (cuda_ms(lambda: ohem.ohem_target_prob(x, lab)),
                     cuda_ms(lambda: ohem.ohem_target_prob_plain(x, lab)), None),
@@ -1863,7 +1899,9 @@ def phase9_city_timings(dev, card, cfg, state, batches):
         "K7_prob": f"{tuple(x.shape)} -> {CITY_CROP}², labels {tuple(lab.shape)}",
         "K7_kth": f"k {k} of {p.numel()} p_y",
         "K7_keep": f"labels and p_y {tuple(lab.shape)}",
+        **c_fwd_shapes,
     }
+    times.update(c_fwd)
     for name, (tk, tp, tl) in times.items():
         lib = "" if tl is None else f"; torch.kthvalue {tl:.4f} ms"
         log(f"[{card}] kernel {name} {shapes[name]}: {tk:.4f} ms; plain version {tp:.4f} ms{lib}")
@@ -2177,7 +2215,15 @@ def bounds(case, cfg):
         "A_decoder": (8 * 256 * (65 * 65 + 129 * 129) * 4, 8 * 256 * 129 * 129 * 9),
         "B": (21 * CROP * CROP * 4 + 375 * 500, 21 * 375 * 500 * 10),
         "A_bwd": ((8 * 256 * 129 * 129 + 8 * 256 * 65 * 65) * 4, 8 * 256 * 129 * 129 * 9),
-        "C_fwd": (lo * 4 + px * 4, hi * 11),
+        "A_bwd_city": ((4 * 256 * CITY_OS4 ** 2 + 4 * 256 * CITY_OS8 ** 2) * 4,
+                       4 * 256 * CITY_OS4 ** 2 * 9),
+        # C fwd: the os4 logits and the labels in, lse out; per upsampled
+        # value the taps, the max and the exp's argument, one expf each, and
+        # per pixel one logf
+        "C_fwd": (lo * 4 + px * 8, hi * 11, hi + px),
+        "C_fwd_city_main": (clo * 4 + cpx * 8 + 19 * 4, chi * 11, chi + cpx),
+        "C_fwd_city_aux": (clo8 * 4 + cpx * 8, chi * 11, chi + cpx),
+        "C_fwd_city_unsup": (clo * 4 + cpx * 8, chi * 11, chi + cpx),
         # C bwd (fused with its adjoint resize): logits, labels and lse in,
         # the logits' gradient out; the softmax only where a pixel is valid
         "C_bwd": (2 * lo * 4 + 2 * px * 4, C_BWD_VALID["C_bwd"] * 21 * 20),
@@ -2283,7 +2329,8 @@ def main() -> int:
     times.update(contra_times)
     times.update(city_times)
     times.update(variant_times)
-    for key in ("C_bwd", "C_bwd_city_main", "C_bwd_city_aux"):
+    for key in ("C_fwd", "C_fwd_city_main", "C_fwd_city_aux", "C_fwd_city_unsup",
+                "C_bwd", "C_bwd_city_main", "C_bwd_city_aux"):
         ms, plain_ms, _ = times[key]
         log(f"[{card}] kernel {key}: {ms:.4f} ms, {ms / bound[key][0]:.1f}x its bound "
             f"{bound[key][0]:.4f} ms ({bound[key][1]}); plain route {plain_ms:.4f} ms")
@@ -2311,9 +2358,14 @@ def main() -> int:
         entry("resize_argmax_ac", "B", "resize.cu", "u2pl_tpu/serving.py:115",
               launches["B"] + runs("B"), b_err, "B"),
         entry("resize_bilinear_ac_bwd", "A_bwd", "resize.cu", "u2pl_tpu/ops/resize.py:76",
-              runs("A_bwd"), errs["A_bwd"], "A_bwd_decoder"),
+              runs("A_bwd") - city_launches["A_bwd"], errs["A_bwd"], "A_bwd_decoder"),
+        entry("resize_bilinear_ac_bwd_cityscapes", "A_bwd_city", "resize.cu",
+              "u2pl_tpu/ops/resize.py:76", city_launches["A_bwd"], errs["A_bwd"], "A_bwd_city"),
         entry("upsample_ce_fwd", "C_fwd", "upsample_ce.cu", "u2pl_tpu/losses/ce.py:23",
-              runs("C_fwd"), errs["C_fwd"], "C_fwd"),
+              runs("C_fwd") - city_launches["C_fwd"], errs["C_fwd"], "C_fwd"),
+        *(entry(f"upsample_ce_fwd_cityscapes_{head}", f"C_fwd_city_{head}", "upsample_ce.cu",
+                "u2pl_tpu/losses/ce.py:23", city_launches[f"C_fwd_city_{head}"], errs["C_fwd"],
+                f"C_fwd_city_{head}") for head in ("main", "aux", "unsup")),
         entry("upsample_ce_bwd", "C_bwd", "upsample_ce.cu", "u2pl_tpu/losses/ce.py:23",
               runs("C_bwd"), errs["C_bwd"], "C_bwd"),
         entry("upsample_softmax_stats_prob", "D_prob", "upsample_ce.cu",

@@ -147,6 +147,72 @@ def test_kernel_a_bwd_matches_plain_adjoint(shape, outsz):
     assert torch.equal(again, gx)  # deterministic: no atomics
 
 
+def _ordered_adjoint(gy, h, w):
+    """A-bwd's sums in its order, one torch op per product and per sum (so
+    each rounded on its own): per output row the W sum over ascending output
+    columns from 0, then per input row the H sum over ascending output rows
+    from 0, with common.cuh's tap_weight values."""
+    import numpy as np
+
+    def table(n_in, n_out):  # (output index, weight, in range) per input index and slot
+        lo, hi, frac = tr._interp_taps_np(n_in, n_out, True)
+        w0, w1 = np.float32(1.0) - frac, frac
+        start, end = tr._ranges_np(n_in, n_out, True)
+        span = max(int((end - start).max()), 1)
+        o = np.minimum(start[None, :] + np.arange(span)[:, None], n_out - 1)  # (span, n_in)
+        i = np.arange(n_in)[None, :]
+        wt = np.where(lo[o] == i, w0[o], np.float32(0.0)).astype(np.float32)
+        wt = np.where(hi[o] == i, (wt + w1[o]).astype(np.float32), wt)
+        mask = start[None, :] + np.arange(span)[:, None] < end[None, :]
+        to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(gy.device)  # noqa: E731
+        return to(o.astype(np.int64)), to(wt), to(mask)
+
+    o_w, wt_w, m_w = table(w, gy.shape[3])
+    o_h, wt_h, m_h = table(h, gy.shape[2])
+    s = torch.zeros(gy.shape[:3] + (w,), device=gy.device)
+    for j in range(o_w.shape[0]):
+        s = torch.where(m_w[j], s + wt_w[j] * gy.index_select(3, o_w[j]), s)
+    gx = torch.zeros(gy.shape[:2] + (h, w), device=gy.device)
+    for j in range(o_h.shape[0]):
+        gx = torch.where(m_h[j][:, None], gx + wt_h[j][:, None] * s.index_select(2, o_h[j]), gx)
+    return gx
+
+
+# A-bwd: the decoder's adjoint at VOC and Cityscapes (whole planes, 4
+# column taps in registers), the logits' upsample and a scale-8 one (8 and
+# 16 taps: the kernel's table-reading form; the first in bands of 2 rows
+# and a last one of 1), a downsample, H = 1, W = 1, and 37 rows in bands
+# of 1 (of 13 with sms 4)
+A_BWD_EXACT_SHAPES = [
+    ((8, 256, 65, 65), (129, 129)),
+    ((4, 256, 97, 97), (193, 193)),
+    ((2, 5, 129, 129), (513, 513)),
+    ((2, 3, 13, 13), (97, 97)),
+    ((2, 3, 33, 17), (7, 9)),
+    ((2, 3, 1, 5), (4, 10)),
+    ((2, 3, 5, 1), (10, 4)),
+    ((8, 3, 37, 37), (145, 145)),
+]
+
+
+@pytest.mark.parametrize("sms", [None, 4])
+@pytest.mark.parametrize("shape,outsz", A_BWD_EXACT_SHAPES)
+def test_kernel_a_bwd_bit_equal_to_ordered_sums(shape, outsz, sms, monkeypatch):
+    """sms None: the card's own band plan; 4: fewer, taller bands."""
+    dev = _cuda()
+    if sms is not None:
+        monkeypatch.setattr(tr, "_sm_count", lambda device: sms)
+    g = torch.Generator(device=dev).manual_seed(11)
+    gy = torch.randn(shape[:2] + outsz, device=dev, generator=g)
+    n = tr.resize_bilinear_bwd.launches
+    got = tr.resize_bilinear_bwd(gy, shape[2:])
+    want = _ordered_adjoint(gy, *shape[2:])
+    torch.cuda.synchronize()
+    assert tr.resize_bilinear_bwd.launches == n + 1
+    assert got.shape == want.shape and torch.equal(got, want)
+    assert torch.equal(tr.resize_bilinear_bwd(gy, shape[2:]), got)
+
+
 def _labels(g, b, h, w, c, dev, ignore_frac=0.1):
     lab = torch.randint(0, c, (b, h, w), device=dev, generator=g, dtype=torch.int32)
     drop = torch.rand((b, h, w), device=dev, generator=g) < ignore_frac
@@ -186,6 +252,48 @@ def test_kernel_c_all_ignored_is_zero():
     loss = ce.upsample_cross_entropy(x, lab)
     (gx,) = torch.autograd.grad(loss, x)
     assert loss.item() == 0.0 and not gx.any()
+
+
+# C's forward at the configs' class counts (21, 19: the exact register
+# arrays), a count between them (27: C in steps of 8) and one above 32 (40:
+# no register array)
+C_FWD_SHAPES = [
+    ((2, 21, 33, 33), (129, 129)),
+    ((2, 19, 25, 25), (97, 97)),
+    ((3, 27, 9, 7), (33, 25)),
+    ((2, 40, 9, 9), (33, 33)),
+]
+
+
+@pytest.mark.parametrize("ignore_frac", [0.1, 0.9, 1.0])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("shape,outsz", C_FWD_SHAPES)
+def test_kernel_c_fwd_matches_plain_and_repeats(shape, outsz, weighted, ignore_frac):
+    """The loss within 1e-5 of the plain version (0 where every label is
+    ignored); labels >= C count as ignored; the loss, and the gradient C's
+    backward computes from the forward's saved lse, bit-equal run to run."""
+    from u2pl_tpu_torch.losses import ce
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(6)
+    c = shape[1]
+    x = torch.randn(*shape, device=dev, generator=g, requires_grad=True)
+    lab = _labels(g, shape[0], *outsz, c, dev, ignore_frac)
+    cw = torch.rand(c, device=dev, generator=g) if weighted else None
+    n = ce.upsample_cross_entropy.fwd_launches
+    loss = ce.upsample_cross_entropy(x, lab, 255, cw)
+    torch.cuda.synchronize()
+    assert ce.upsample_cross_entropy.fwd_launches == n + 1
+    ref = ce.upsample_cross_entropy_plain(x.detach(), lab, 255, cw)
+    assert abs(loss.item() - ref.item()) <= 1e-5 * abs(ref.item())
+    if ignore_frac == 1.0:
+        assert loss.item() == 0.0
+    past = torch.where(lab == 255, torch.full_like(lab, c + 2), lab)
+    assert torch.equal(ce.upsample_cross_entropy(x.detach(), past, 255, cw), loss.detach())
+    (gx,) = torch.autograd.grad(loss, x)
+    again = ce.upsample_cross_entropy(x, lab, 255, cw)
+    (gx2,) = torch.autograd.grad(again, x)
+    assert torch.equal(again.detach(), loss.detach()) and torch.equal(gx2, gx)
 
 
 # C's backward, fused with its adjoint resize: the existing shapes, scale 8,

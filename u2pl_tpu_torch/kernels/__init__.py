@@ -25,20 +25,21 @@ def load():
     signatures = {
         # (x, y, idx_h, w_h, idx_w, w_w, planes, H, W, OH, OW, stream)
         "u2pl_resize_bilinear_ac": [p] * 6 + [i] * 5 + [p],
-        # (gy, gx, idx_h, w_h, rng_h, idx_w, w_w, rng_w, planes, H, W, OH, OW, stream)
-        "u2pl_resize_bilinear_ac_bwd": [p] * 8 + [i] * 5 + [p],
+        # (gy, gx, idx_h, w_h, rng_h, idx_w, w_w, rng_w, planes, H, W, OH, OW,
+        #  rows, bands, wspan, stream)
+        "u2pl_resize_bilinear_ac_bwd": [p] * 8 + [i] * 8 + [p],
         # (x, out, idx_h, w_h, idx_w, w_w, C, H, W, OH, OW, stream)
         "u2pl_resize_argmax_ac": [p] * 6 + [i] * 5 + [p],
         # (x, labels, cw, lse, part, stats, idx_h, w_h, idx_w, w_w,
-        #  B, C, H, W, OH, OW, ignore, floor, stream)
-        "u2pl_upsample_ce_fwd": [p] * 10 + [i] * 7 + [f, p],
+        #  B, C, H, W, OH, OW, ignore, floor, span, max_rows, stream)
+        "u2pl_upsample_ce_fwd": [p] * 10 + [i] * 7 + [f, i, i, p],
         # (x, labels, cw, lse, stats, gout, gx, idx_h, w_h, rng_h, idx_w, w_w,
         #  rng_w, B, C, H, W, OH, OW, ignore, floor, rows, bands, span, log_s,
         #  Q, stream)
         "u2pl_upsample_ce_bwd": [p] * 13 + [i] * 7 + [f] + [i] * 5 + [p],
         # (x, maxprob, argmax, entropy, idx_h, w_h, idx_w, w_w,
-        #  B, C, H, W, OH, OW, stream)
-        "u2pl_upsample_softmax_stats": [p] * 8 + [i] * 6 + [p],
+        #  B, C, H, W, OH, OW, span, max_rows, stream)
+        "u2pl_upsample_softmax_stats": [p] * 8 + [i] * 8 + [p],
         # (values, mask, pct, out, state, n, K, stream)
         "u2pl_masked_percentiles": [p] * 5 + [i] * 2 + [p],
         # (img, lab, prob, boxes, img_out, lab_out, prob_out,
@@ -69,7 +70,6 @@ def load():
         "u2pl_ohem_target_prob": [p] * 8 + [i] * 7 + [p],
         # (labels, p_y, kth, num_valid, out, n, thresh, min_kept, ignore, stream)
         "u2pl_ohem_keep_labels": [p] * 5 + [i, f, i, i, p],
-        "u2pl_upsample_ce_parts": [],
         "u2pl_quantile_max_queries": [],
         "u2pl_quantile_state_words": [],
         "u2pl_select_keys_radix_state_words": [i],

@@ -42,17 +42,44 @@
 // column (rounded up to 4 columns) plus 4 B per input column and band row,
 // at most kResizeMaxShared.
 //
-// A-bwd is in gather form: one thread per INPUT element sums the output rows
-// and columns whose taps reach it, so no two threads write one address and
-// no float atomics are needed; the gradient is the same bit for bit from run
-// to run.  The rows reaching input row i are those with lo[o] in {i-1, i},
+// A-bwd is in gather form: each INPUT element sums the output rows and
+// columns whose taps reach it, so no two threads write one address and no
+// float atomics are needed; the gradient is the same bit for bit from run to
+// run.  The outputs reaching input index i are those with lo[o] in {i-1, i},
 // contiguous because lo is non-decreasing; the host passes them as
-// [start[0..H), end[0..H)] per axis.  The W reduction runs before the H one,
-// as in the einsum VJP.  For a 4x upsample each input element reads ~7x7
-// output values, which L1 mostly serves.  Kernel B keeps the per-class
-// values in registers: it reads the logits once and writes one byte per
-// pixel, where the unfused path writes and re-reads an (OH, OW, C) f32
-// intermediate.  Both run one thread per output in a grid-stride loop.
+// [start[0..n), end[0..n)] per axis.  The W reduction runs before the H one,
+// as in the einsum VJP: gx[iy][ix] = sum over oy of wy * S[oy][ix], S[oy][ix]
+// = sum over ox of wx * gy[oy][ox], each sum from 0 in ascending order.
+// Bytes bound it: 136 MB of gy read and 35 MB of gx written at the decoder's
+// (8, 256, 129²) -> 65² (0.051 ms at 3.35 TB/s).  Its first design ran one
+// thread per input element (two divisions and modulos per element, two tap
+// table lookups per (oy, ox) pair, every gy value fetched by ~4 threads):
+// 0.252 ms there on an NVIDIA H100 80GB HBM3 at 700 W.  This design streams:
+// - a thread owns one input column ix of a band of input rows of one plane
+//   (the whole plane at the decoder's shapes; ops/resize.py:_bwd_plan) and
+//   holds the column's tap weights in registers (at most 4 output columns
+//   reach it in every downsample and in an upsample of up to about 2x;
+//   wider columns read their weights from the tables);
+// - it walks the output rows that reach its band in ascending order: per
+//   row it loads the few gy values of its column's output range (the lanes
+//   of a warp, on consecutive columns, read one contiguous stretch of the
+//   row; kBwdRows rows' loads are issued before any is used), takes the W
+//   sum S,
+//   and adds wy * S to the two input rows the output row reaches (lo, lo + 1),
+//   kept in registers;
+// - when lo moves on, the input rows below it are complete and are stored
+//   (the lanes' stores are consecutive): no shared memory, no barrier.
+// 0.076 ms there (68% of the bound).  Kernel A's banded form (gy rows
+// staged in shared memory, W-reduced into S rows there, then gx from S)
+// took 0.154 ms: its index arithmetic and barriers, not its bytes, bound
+// it.  8 rows' loads in flight per thread need 80 registers, and VOC's
+// 133,120 threads then take two waves (PERF.md).  Same products and sums in
+// the same order as the first design, so the same bits.
+//
+// Kernel B keeps the per-class values in registers: it reads the logits
+// once and writes one byte per pixel, where the unfused path writes and
+// re-reads an (OH, OW, C) f32 intermediate.  It runs one thread per output
+// pixel in a grid-stride loop.
 //
 // Taps and index widths: see common.cuh.  Index arithmetic is 32-bit
 // unsigned (the wrappers refuse tensors of 2^31 elements or more): 64-bit
@@ -145,33 +172,87 @@ __global__ void __launch_bounds__(kThreads) resize_bilinear_ac_kernel(
   }
 }
 
-__global__ void resize_bilinear_ac_bwd_kernel(
+constexpr int kBwdRows = 4;  // gy rows whose loads a thread issues together
+
+// A-bwd: thread (plane, band, ix); MAXW 0 reads any number of column taps
+// from the tables, else holds at most MAXW in registers
+template <int MAXW>
+__global__ void __launch_bounds__(kThreads) resize_bilinear_ac_bwd_kernel(
     const float* __restrict__ gy, float* __restrict__ gx,
     const int* __restrict__ idx_h, const float* __restrict__ w_h,
     const int* __restrict__ rng_h, const int* __restrict__ idx_w,
-    const float* __restrict__ w_w, const int* __restrict__ rng_w, int planes,
-    int H, int W, int OH, int OW) {
-  const unsigned total = (unsigned)planes * H * W;
-  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += gridDim.x * blockDim.x) {
-    const int ix = (int)(i % W);
-    const unsigned r = i / W;
-    const int iy = (int)(r % H);
-    const float* g = gy + (size_t)(r / H) * OH * OW;
-    const int oy0 = rng_h[iy], oy1 = rng_h[H + iy];
-    const int ox0 = rng_w[ix], ox1 = rng_w[W + ix];
-    float acc = 0.0f;
-    for (int oy = oy0; oy < oy1; ++oy) {
-      const float wy = tap_weight(idx_h, w_h, OH, oy, iy);
-      const float* row = g + (size_t)oy * OW;
-      float s = 0.0f;
-      for (int ox = ox0; ox < ox1; ++ox) {
-        s = __fadd_rn(s, __fmul_rn(tap_weight(idx_w, w_w, OW, ox, ix), row[ox]));
+    const float* __restrict__ w_w, const int* __restrict__ rng_w, unsigned threads,
+    int H, int W, int OH, int OW, int rows, int bands) {
+  const unsigned t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= threads) return;
+  const unsigned pb = t / W;  // plane * bands + band
+  const int ix = (int)(t - pb * W);
+  const unsigned plane = pb / bands;
+  const int iy0 = (int)(pb - plane * bands) * rows;
+  const int iy1 = min(iy0 + rows, H);
+  const int ox0 = rng_w[ix], cnt = rng_w[W + ix] - ox0;
+  float wx[MAXW > 0 ? MAXW : 1];
+#pragma unroll
+  for (int j = 0; j < MAXW; ++j) wx[j] = j < cnt ? tap_weight(idx_w, w_w, OW, ox0 + j, ix) : 0.0f;
+  const float* g = gy + (size_t)plane * OH * OW + ox0;
+  float* out = gx + (size_t)plane * H * W + ix;
+  const int ob = rng_h[iy0], oe = rng_h[H + iy1 - 1];
+  // rows L and L + 1 take the current output row; rows [iy0, next) are stored
+  int L = ob < oe ? idx_h[ob] : iy1, next = iy0;
+  float a0 = 0.0f, a1 = 0.0f;
+  auto flush = [&](int upto) {  // store input rows [next, upto) of the band
+    for (; next < upto; ++next) out[(size_t)next * W] = next == L ? a0 : next == L + 1 ? a1 : 0.0f;
+  };
+  for (int oy0 = ob; oy0 < oe; oy0 += kBwdRows) {
+    float v[kBwdRows][MAXW > 0 ? MAXW : 1];
+    if constexpr (MAXW > 0) {
+#pragma unroll
+      for (int u = 0; u < kBwdRows; ++u) {
+#pragma unroll
+        for (int j = 0; j < MAXW; ++j) {
+          v[u][j] = oy0 + u < oe && j < cnt ? g[(size_t)(oy0 + u) * OW + j] : 0.0f;
+        }
       }
-      acc = __fadd_rn(acc, __fmul_rn(wy, s));
     }
-    gx[i] = acc;
+#pragma unroll
+    for (int u = 0; u < kBwdRows; ++u) {
+      const int oy = oy0 + u;
+      if (oy >= oe) break;
+      float s = 0.0f;
+      if constexpr (MAXW > 0) {
+#pragma unroll
+        for (int j = 0; j < MAXW; ++j) {
+          if (j < cnt) s = __fadd_rn(s, __fmul_rn(wx[j], v[u][j]));
+        }
+      } else {
+        const float* row = g + (size_t)oy * OW;
+        for (int j = 0; j < cnt; ++j) {
+          s = __fadd_rn(s, __fmul_rn(tap_weight(idx_w, w_w, OW, ox0 + j, ix), row[j]));
+        }
+      }
+      const int lo = idx_h[oy];
+      if (lo != L) {  // input rows below lo have all their output rows
+        flush(min(lo, iy1));
+        a0 = lo == L + 1 ? a1 : 0.0f;
+        a1 = 0.0f;
+        L = lo;
+      }
+      a0 = __fadd_rn(a0, __fmul_rn(tap_weight(idx_h, w_h, OH, oy, lo), s));
+      a1 = __fadd_rn(a1, __fmul_rn(tap_weight(idx_h, w_h, OH, oy, lo + 1), s));
+    }
   }
+  flush(iy1);
+}
+
+template <int MAXW>
+cudaError_t launch_bwd(const float* gy, float* gx, const int* idx_h, const float* w_h,
+                       const int* rng_h, const int* idx_w, const float* w_w,
+                       const int* rng_w, unsigned threads, int H, int W, int OH, int OW,
+                       int rows, int bands, cudaStream_t stream) {
+  resize_bilinear_ac_bwd_kernel<MAXW><<<(threads + kThreads - 1) / kThreads, kThreads, 0,
+                                        stream>>>(gy, gx, idx_h, w_h, rng_h, idx_w, w_w,
+                                                  rng_w, threads, H, W, OH, OW, rows, bands);
+  return cudaGetLastError();
 }
 
 __global__ void resize_argmax_ac_kernel(
@@ -235,20 +316,31 @@ int u2pl_resize_bilinear_ac(const void* x, void* y, const void* idx_h,
   return (int)cudaGetLastError();
 }
 
+// (rows, bands, wspan) from ops/resize.py:_bwd_plan: bands of `rows` input
+// rows, at most wspan output columns reaching one input column
 int u2pl_resize_bilinear_ac_bwd(const void* gy, void* gx, const void* idx_h,
                                 const void* w_h, const void* rng_h,
                                 const void* idx_w, const void* w_w,
                                 const void* rng_w, int planes, int H, int W,
-                                int OH, int OW, void* stream) {
-  const long long total = (long long)planes * H * W;
-  if (total > 0) {
-    resize_bilinear_ac_bwd_kernel<<<blocks_for(total), kThreads, 0,
-                                    (cudaStream_t)stream>>>(
-        (const float*)gy, (float*)gx, (const int*)idx_h, (const float*)w_h,
-        (const int*)rng_h, (const int*)idx_w, (const float*)w_w,
-        (const int*)rng_w, planes, H, W, OH, OW);
+                                int OH, int OW, int rows, int bands, int wspan,
+                                void* stream) {
+  if (planes <= 0 || H <= 0 || W <= 0) return (int)cudaGetLastError();
+  const long long threads = (long long)planes * bands * W;
+  if (OH <= 0 || OW <= 0 || rows <= 0 || bands != (H + rows - 1) / rows || wspan <= 0 ||
+      threads >= (1LL << 31)) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  const float* g = (const float*)gy;
+  float* x = (float*)gx;
+  const int *ih = (const int*)idx_h, *rh = (const int*)rng_h;
+  const int *iw = (const int*)idx_w, *rw = (const int*)rng_w;
+  const float *wh = (const float*)w_h, *ww = (const float*)w_w;
+  cudaStream_t st = (cudaStream_t)stream;
+  const unsigned n = (unsigned)threads;
+  if (wspan <= 4) {  // every downsample, an upsample of up to about 2x
+    return (int)launch_bwd<4>(g, x, ih, wh, rh, iw, ww, rw, n, H, W, OH, OW, rows, bands, st);
+  }
+  return (int)launch_bwd<0>(g, x, ih, wh, rh, iw, ww, rw, n, H, W, OH, OW, rows, bands, st);
 }
 
 int u2pl_resize_argmax_ac(const void* x, void* out, const void* idx_h,

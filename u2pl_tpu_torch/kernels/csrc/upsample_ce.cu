@@ -17,9 +17,18 @@
 // of common.cuh.  Each kernel computes a pixel's C upsampled logits on the
 // fly, exactly as kernel A would write them, and reduces over them: the
 // (B, C, H, W) upsampled tensor (88 MB f32 at 4 x 21 x 513²) is never
-// written by C or by D.  C's forward runs one thread per output pixel and
-// re-evaluates the 4-tap lerps in each pass over C (the re-reads hit
-// L1/L2).
+// written by C or by D.  C's forward is a mode of D's kernel (below): the
+// same staging and register layout, one expf per class, the labels read and
+// lse written 4 pixels per 16-byte vector, and per block the partial sums
+// of the weighted nll and the weight in double, added by a one-block
+// finalize in a fixed order (no float atomics: the loss does not depend on
+// the run).  Its first design, one thread per pixel that re-evaluated the
+// 4-tap lerps from device memory in each of two passes over C (168 tap
+// loads per pixel at C = 21), took 0.0776 ms at the VOC shape (4, 21, 129²)
+// -> 513² on an NVIDIA H100 80GB HBM3 at 700 W, ~14x its bound (an expf
+// per upsampled value and a logf per pixel on the special-function units);
+// this one 0.040 ms there, 0.037-0.044 at Cityscapes' heads, where, as in
+// D, the staging's L2 reads of the touched rows take the most.
 //
 // D writes only the outputs its caller asks for (the semi step's first call
 // takes max-prob + argmax, its second the entropy).  Its first design ran
@@ -40,6 +49,7 @@
 // entropy call at VOC, 0.042 / 0.063 at Cityscapes' (2, 19, 193²) -> 769²
 // (u2pl_tpu_torch/kernels/timing_ab.py; PERF.md has the variants).
 
+#include <limits.h>
 #include <math.h>
 
 #include "common.cuh"
@@ -49,64 +59,7 @@ namespace {
 using u2pl::kThreads;
 using u2pl::tap_weight;
 
-constexpr long long kReduceBlocks = 1024;  // partial sums of C's forward
 constexpr long long kBwdMaxShared = 232448;  // a block's shared memory on sm_90 (227 KB)
-
-__global__ void upsample_ce_fwd_kernel(
-    const float* __restrict__ x, const int* __restrict__ labels,
-    const float* __restrict__ cw, float* __restrict__ lse_out,
-    double* __restrict__ part, const int* __restrict__ idx_h,
-    const float* __restrict__ w_h, const int* __restrict__ idx_w,
-    const float* __restrict__ w_w, int B, int C, int H, int W, int OH, int OW,
-    int ignore) {
-  __shared__ double s_sum[kThreads];
-  __shared__ double s_w[kThreads];
-  const unsigned total = (unsigned)B * OH * OW;
-  const int plane = H * W;
-  double acc = 0.0, acc_w = 0.0;
-  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += gridDim.x * blockDim.x) {
-    const int ox = (int)(i % OW);
-    const unsigned r = i / OW;
-    const int oy = (int)(r % OH);
-    const float* xp = x + (size_t)(r / OH) * C * plane;
-    const u2pl::Taps t =
-        u2pl::load_taps(idx_h, w_h, idx_w, w_w, W, OH, OW, oy, ox);
-    const int y = labels[i];
-    const bool valid = y != ignore && y >= 0 && y < C;
-    float m = -INFINITY, vy = 0.0f;
-    for (int c = 0; c < C; ++c) {
-      const float v = u2pl::upsampled(xp + (size_t)c * plane, t);
-      m = fmaxf(m, v);
-      if (c == y) vy = v;
-    }
-    float s = 0.0f;
-    for (int c = 0; c < C; ++c) {
-      s += expf(u2pl::upsampled(xp + (size_t)c * plane, t) - m);
-    }
-    const float lse = m + logf(s);
-    lse_out[i] = lse;
-    if (valid) {
-      const float w = cw ? cw[y] : 1.0f;
-      acc += (double)((lse - vy) * w);
-      acc_w += (double)w;
-    }
-  }
-  s_sum[threadIdx.x] = acc;
-  s_w[threadIdx.x] = acc_w;
-  __syncthreads();
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-    if ((int)threadIdx.x < stride) {
-      s_sum[threadIdx.x] += s_sum[threadIdx.x + stride];
-      s_w[threadIdx.x] += s_w[threadIdx.x + stride];
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    part[blockIdx.x] = s_sum[0];
-    part[gridDim.x + blockIdx.x] = s_w[0];
-  }
-}
 
 // stats = [loss, denom]: the JAX normalisation, sum / max(denom, floor) where
 // denom > 0 and 0 otherwise (floor 1 for the plain count, 1e-12 weighted)
@@ -361,10 +314,12 @@ __global__ void __launch_bounds__(kBwdThreads) upsample_ce_bwd_kernel(
 // or both; the wrapper passes null for the others.
 constexpr int kStatsProb = 1;
 constexpr int kStatsEntropy = 2;
+constexpr int kStatsCE = 4;  // kernel C's forward: lse and the block's partial sums
 constexpr int kStatsMaxClasses = 32;   // one pixel's C values live in registers
 constexpr int kStatsThreads = 256;
-constexpr int kStatsBlockOutputs = 4 * kStatsThreads;  // pixels per block: a chunk per thread
-constexpr int kStatsMaxShared = 96 * 1024;  // bytes of taps and H-lerped rows
+// bytes of taps and H-lerped rows: what a block may use on sm_90 (227 KB)
+// less room for the static shared memory of C's reduction
+constexpr int kStatsMaxShared = 224 * 1024;
 
 // n / d for 0 <= n < 2^24 and d >= 1 (resize.cu's div_small)
 __device__ __forceinline__ int stats_div(int n, int d, float inv_d) {
@@ -426,6 +381,42 @@ __device__ __forceinline__ void stats_pixel(const float* __restrict__ Tr, int W,
   }
 }
 
+// kernel C's forward for one output pixel of label y: returns its
+// logsumexp and sets vy to its class-y value (0 where y is outside [0, C)),
+// the first design's expressions in its class order: m = fmaxf over the
+// classes from -inf, s = sum of expf(v - m), lse = m + logf(s).  MAXC 0
+// takes any C, evaluating each value again for the sum (the same bits).
+template <int MAXC, bool EXACT>
+__device__ __forceinline__ float ce_pixel(const float* __restrict__ Tr, int W, int C,
+                                          int4 t, int y, float& vy) {
+  const float p = __int_as_float(t.z), q = __int_as_float(t.w);
+  float m = -INFINITY, s = 0.0f;
+  vy = 0.0f;
+  if constexpr (MAXC == 0) {
+    for (int c = 0; c < C; ++c) {
+      const float v = u2pl::lerp2(p, Tr[c * W + t.x], q, Tr[c * W + t.y]);
+      m = fmaxf(m, v);
+      if (c == y) vy = v;
+    }
+    for (int c = 0; c < C; ++c) s += expf(u2pl::lerp2(p, Tr[c * W + t.x], q, Tr[c * W + t.y]) - m);
+  } else {
+    float v[MAXC];
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c) {
+      if (EXACT || c < C) {
+        v[c] = u2pl::lerp2(p, Tr[c * W + t.x], q, Tr[c * W + t.y]);
+        m = fmaxf(m, v[c]);
+        if (c == y) vy = v[c];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c) {
+      if (EXACT || c < C) s += expf(v[c] - m);
+    }
+  }
+  return m + logf(s);
+}
+
 // a block owns `span` consecutive pixels [k0, k0 + span) of the flat
 // (B, OH, OW) output (span a multiple of 4, so every 4-pixel chunk is
 // 16-byte aligned): every thread gets the same number of chunks, whatever
@@ -437,13 +428,20 @@ __device__ __forceinline__ void stats_pixel(const float* __restrict__ Tr, int W,
 // it from L1: the staging's L2 reads, not HBM, were its cost).  Each thread then
 // takes aligned 4-pixel chunks, one pixel at a time (the pixel's code is
 // emitted once: four copies of a C-unrolled pixel overflow the instruction
-// cache), and stores each output as one 16-byte vector.
+// cache), and stores each output as one 16-byte vector.  In kernel C's
+// forward (MODE kStatsCE) a thread reads its chunk's 4 labels as one
+// 16-byte vector, writes their lse as another, and sums its pixels' weighted
+// nll and weight in double; the block adds its threads' sums in a fixed
+// order (warp shuffles, then the warps in turn) into part[block] and
+// part[blocks + block].
 constexpr int kStageBatch = 8;
 
 template <int MAXC, int MODE, bool EXACT>
 __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
     const float* __restrict__ x, float* __restrict__ maxprob,
     int* __restrict__ argmax, float* __restrict__ entropy,
+    const int* __restrict__ labels, const float* __restrict__ cw,
+    double* __restrict__ part, int ignore,
     const int* __restrict__ idx_h, const float* __restrict__ w_h,
     const int* __restrict__ idx_w, const float* __restrict__ w_w, int C,
     int H, int W, int OH, int OW, unsigned total, int span, int quarter,
@@ -502,10 +500,23 @@ __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
   }
   __syncthreads();
   const unsigned base = R0 * OW;  // pixel local - base is in row local / OW of T
+  const bool vec = ((uintptr_t)labels & 15) == 0;
+  double acc = 0.0, acc_w = 0.0;  // kStatsCE: the thread's weighted nll and weight
   for (unsigned k = k0 + 4u * threadIdx.x; k < k1; k += 4u * kStatsThreads) {
     const int local = (int)(k - base);
     int r = stats_div(local, OW, inv_ow);
     int ox = local - r * OW;
+    int4 lab = make_int4(ignore, ignore, ignore, ignore);
+    if constexpr (MODE == kStatsCE) {
+      if (vec && k + 4 <= k1) {
+        lab = *reinterpret_cast<const int4*>(labels + k);
+      } else {
+        lab.x = labels[k];
+        if (k + 1 < k1) lab.y = labels[k + 1];
+        if (k + 2 < k1) lab.z = labels[k + 2];
+        if (k + 3 < k1) lab.w = labels[k + 3];
+      }
+    }
     float mpv[4], env[4];
     int amv[4];
 #pragma unroll 1
@@ -514,7 +525,18 @@ __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
       int am = 0;
       if (k + i < k1) {
         const int4 t = scol[(ox & 3) * quarter + (ox >> 2)];
-        stats_pixel<MAXC, MODE, EXACT>(T + r * CW, W, C, t, mp, am, en);
+        if constexpr (MODE == kStatsCE) {
+          const int y = i == 0 ? lab.x : i == 1 ? lab.y : i == 2 ? lab.z : lab.w;
+          float vy;
+          mp = ce_pixel<MAXC, EXACT>(T + r * CW, W, C, t, y, vy);  // the lse
+          if (y != ignore && y >= 0 && y < C) {
+            const float wy = cw ? cw[y] : 1.0f;
+            acc += (double)((mp - vy) * wy);
+            acc_w += (double)wy;
+          }
+        } else {
+          stats_pixel<MAXC, MODE, EXACT>(T + r * CW, W, C, t, mp, am, en);
+        }
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {  // register slots, not a local-memory array
@@ -530,8 +552,10 @@ __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
       }
     }
     if (k + 4 <= k1) {
-      if (MODE & kStatsProb) {
+      if (MODE & (kStatsProb | kStatsCE)) {  // kStatsCE: the lse
         *reinterpret_cast<float4*>(maxprob + k) = make_float4(mpv[0], mpv[1], mpv[2], mpv[3]);
+      }
+      if (MODE & kStatsProb) {
         *reinterpret_cast<int4*>(argmax + k) = make_int4(amv[0], amv[1], amv[2], amv[3]);
       }
       if (MODE & kStatsEntropy) {
@@ -542,21 +566,45 @@ __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) {  // the output's last, partial chunk
       if (k + j < k1) {
-        if (MODE & kStatsProb) {
-          maxprob[k + j] = mpv[j];
-          argmax[k + j] = amv[j];
-        }
+        if (MODE & (kStatsProb | kStatsCE)) maxprob[k + j] = mpv[j];
+        if (MODE & kStatsProb) argmax[k + j] = amv[j];
         if (MODE & kStatsEntropy) entropy[k + j] = env[j];
       }
+    }
+  }
+  if constexpr (MODE == kStatsCE) {
+    __shared__ double red[2][kStatsThreads / 32];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      acc += __shfl_down_sync(0xffffffffu, acc, o);
+      acc_w += __shfl_down_sync(0xffffffffu, acc_w, o);
+    }
+    if ((threadIdx.x & 31) == 0) {
+      red[0][threadIdx.x >> 5] = acc;
+      red[1][threadIdx.x >> 5] = acc_w;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      double a = 0.0, b = 0.0;
+      for (int j = 0; j < kStatsThreads / 32; ++j) {
+        a += red[0][j];
+        b += red[1][j];
+      }
+      part[blockIdx.x] = a;
+      part[gridDim.x + blockIdx.x] = b;
     }
   }
 }
 
 struct StatsArgs {
   const float* x;
-  float* maxprob;
+  float* maxprob;  // kStatsCE: the lse
   int* argmax;
   float* entropy;
+  const int* labels;  // kStatsCE: labels, class weights or null, partial sums
+  const float* cw;
+  double* part;
+  int ignore;
   const int* idx_h;
   const float* w_h;
   const int* idx_w;
@@ -575,14 +623,15 @@ cudaError_t launch_stats(const StatsArgs& a, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
   }
   kernel<<<(a.total + a.span - 1) / a.span, kStatsThreads, a.smem, stream>>>(
-      a.x, a.maxprob, a.argmax, a.entropy, a.idx_h, a.w_h, a.idx_w, a.w_w, a.C,
-      a.H, a.W, a.OH, a.OW, a.total, a.span, a.quarter, a.max_rows,
-      1.0f / (float)a.OW);
+      a.x, a.maxprob, a.argmax, a.entropy, a.labels, a.cw, a.part, a.ignore, a.idx_h,
+      a.w_h, a.idx_w, a.w_w, a.C, a.H, a.W, a.OH, a.OW, a.total, a.span, a.quarter,
+      a.max_rows, 1.0f / (float)a.OW);
   return cudaGetLastError();
 }
 
 // the configs' class counts exactly (no per-class guard), else the
-// smallest register array that holds C classes
+// smallest register array that holds C classes; C's forward takes any C
+// (MAXC 0: no register array)
 template <int MODE>
 cudaError_t launch_stats_mode(const StatsArgs& a, cudaStream_t stream) {
   if (a.C == 21) return launch_stats<21, MODE, true>(a, stream);  // VOC
@@ -590,35 +639,55 @@ cudaError_t launch_stats_mode(const StatsArgs& a, cudaStream_t stream) {
   if (a.C <= 8) return launch_stats<8, MODE>(a, stream);
   if (a.C <= 16) return launch_stats<16, MODE>(a, stream);
   if (a.C <= 24) return launch_stats<24, MODE>(a, stream);
+  if constexpr (MODE == kStatsCE) {
+    if (a.C > kStatsMaxClasses) return launch_stats<0, MODE>(a, stream);
+  }
   return launch_stats<32, MODE>(a, stream);
+}
+
+// a plan (span, max_rows) from losses/ce.py:_stats_plan: span a multiple of
+// 4, room for every row a span touches, within kStatsMaxShared; the block's
+// shared memory in *smem
+bool stats_plan_ok(int B, int C, int W, int OH, int OW, int span, int max_rows,
+                   int* smem) {
+  const long long total = (long long)B * OH * OW;
+  const long long bytes = 64LL * ((OW + 3) / 4) + (long long)max_rows * (4LL * C * W + 16);
+  *smem = (int)min(bytes, (long long)INT_MAX);
+  return span > 0 && span % 4 == 0 && total < (1LL << 31) && OW < (1 << 23) &&
+         max_rows >= min((long long)span / OW + 2, (long long)B * OH) &&
+         bytes <= kStatsMaxShared && (long long)max_rows * C * W < (1 << 24);
 }
 
 }  // namespace
 
 extern "C" {
 
-// part: 2 * u2pl_upsample_ce_parts() doubles; stats: 2 floats [loss, denom]
-int u2pl_upsample_ce_parts(void) { return (int)kReduceBlocks; }
-
+// part: 2 x ceil(B * OH * OW / span) doubles; stats: 2 floats [loss, denom];
+// (span, max_rows) from losses/ce.py:_stats_plan
 int u2pl_upsample_ce_fwd(const void* x, const void* labels, const void* cw,
                          void* lse, void* part, void* stats, const void* idx_h,
                          const void* w_h, const void* idx_w, const void* w_w,
                          int B, int C, int H, int W, int OH, int OW,
-                         int ignore, float floor_, void* stream) {
-  const long long total = (long long)B * OH * OW;
-  // a fixed grid: the per-block partial sums, and so the loss, do not
-  // depend on anything but the shapes
-  const int blocks = (int)kReduceBlocks;
-  if (total > 0) {
-    upsample_ce_fwd_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)x, (const int*)labels, (const float*)cw, (float*)lse,
-        (double*)part, (const int*)idx_h, (const float*)w_h,
-        (const int*)idx_w, (const float*)w_w, B, C, H, W, OH, OW, ignore);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    upsample_ce_finalize_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-        (const double*)part, blocks, floor_, (float*)stats);
+                         int ignore, float floor_, int span, int max_rows,
+                         void* stream) {
+  int smem = 0;
+  if (C <= 0 || H <= 0 || W <= 0 ||
+      !stats_plan_ok(B, C, W, OH, OW, span, max_rows, &smem)) {
+    return (int)cudaErrorInvalidValue;
   }
+  const long long total = (long long)B * OH * OW;
+  const int blocks = total > 0 ? (int)((total + span - 1) / span) : 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (blocks > 0) {
+    const StatsArgs a = {(const float*)x, (float*)lse, nullptr, nullptr, (const int*)labels,
+                         (const float*)cw, (double*)part, ignore, (const int*)idx_h,
+                         (const float*)w_h, (const int*)idx_w, (const float*)w_w, C, H, W,
+                         OH, OW, (unsigned)total, span, (OW + 3) / 4, max_rows, smem};
+    const cudaError_t err = launch_stats_mode<kStatsCE>(a, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  upsample_ce_finalize_kernel<<<1, kThreads, 0, st>>>((const double*)part, blocks, floor_,
+                                                     (float*)stats);
   return (int)cudaGetLastError();
 }
 
@@ -660,35 +729,25 @@ int u2pl_upsample_ce_bwd(const void* x, const void* labels, const void* cw,
   return (int)cudaGetLastError();
 }
 
-// maxprob and argmax both or neither, entropy or not (at least one output)
+// maxprob and argmax both or neither, entropy or not (at least one output);
+// (span, max_rows) from losses/ce.py:_stats_plan
 int u2pl_upsample_softmax_stats(const void* x, void* maxprob, void* argmax,
                                 void* entropy, const void* idx_h,
                                 const void* w_h, const void* idx_w,
                                 const void* w_w, int B, int C, int H, int W,
-                                int OH, int OW, void* stream) {
+                                int OH, int OW, int span, int max_rows,
+                                void* stream) {
   const int mode = (maxprob ? kStatsProb : 0) | (entropy ? kStatsEntropy : 0);
+  int smem = 0;
   if (!maxprob != !argmax || mode == 0 || C <= 0 || C > kStatsMaxClasses || H <= 0 ||
-      W <= 0) {
+      W <= 0 || !stats_plan_ok(B, C, W, OH, OW, span, max_rows, &smem)) {
     return (int)cudaErrorInvalidValue;
   }
   if (B <= 0 || OH <= 0 || OW <= 0) return (int)cudaGetLastError();
-  const long long total = (long long)B * OH * OW;
-  const int quarter = (OW + 3) / 4;
-  const long long taps = 64LL * quarter, row = 4LL * C * W + 16;
-  // kStatsBlockOutputs pixels per block, fewer where the rows they touch
-  // (at most span / OW + 2) do not fit in shared memory
-  int span = kStatsBlockOutputs;
-  while (span > 4 && taps + (span / OW + 2) * row > kStatsMaxShared) span /= 2;
-  const int max_rows = (int)min((long long)span / OW + 2, (long long)B * OH);
-  const long long smem = taps + max_rows * row;
-  if (total >= (1LL << 31) || OW >= (1 << 23) || smem > kStatsMaxShared ||
-      (long long)max_rows * C * W >= (1 << 24)) {
-    return (int)cudaErrorInvalidValue;
-  }
   const StatsArgs a = {(const float*)x, (float*)maxprob, (int*)argmax, (float*)entropy,
-                       (const int*)idx_h, (const float*)w_h, (const int*)idx_w,
-                       (const float*)w_w, C, H, W, OH, OW, (unsigned)total, span,
-                       quarter, max_rows, (int)smem};
+                       nullptr, nullptr, nullptr, 0, (const int*)idx_h, (const float*)w_h,
+                       (const int*)idx_w, (const float*)w_w, C, H, W, OH, OW,
+                       (unsigned)((long long)B * OH * OW), span, (OW + 3) / 4, max_rows, smem};
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (mode == kStatsProb) {

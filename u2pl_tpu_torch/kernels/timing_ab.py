@@ -1,5 +1,6 @@
-"""Times kernel A, K6's backward, kernel C's backward, kernel D and K4's key
-selection of the u2pl_tpu_torch package in the checkout at --root, on one card: run it once
+"""Times kernel A and its adjoint A-bwd, K6's backward, kernel C's forward
+and backward, kernel D and K4's key selection of the u2pl_tpu_torch package
+in the checkout at --root, on one card: run it once
 per checkout, in turns, to set two versions of the kernels side by side in
 one call.
 
@@ -43,7 +44,21 @@ results are bit-equal.  The inputs come from seeded generators on the card:
   K4_select  select_keys at the flagship, a (21, 133128) negative mask of
              ~0-30% density per class (one class empty) and uniform
              priorities, k 8192; library: torch.sort(stable=True) of the
-             masked priorities.
+             masked priorities;
+  A_bwd_voc  kernel A-bwd as the decoder's backward runs it at VOC,
+             (8, 256, 129²) -> 65²; library: aten upsample_bilinear2d_backward
+             (F.interpolate's own backward);
+  A_bwd_city the same at Cityscapes, (4, 256, 193²) -> 97²;
+  C_fwd_voc  kernel C's forward (no grad) at the VOC CE's (4, 21, 129²) ->
+             513², 10% of the labels ignored; its hash covers the loss and
+             the gradient C's backward computes from that forward's saved
+             lse, so a change in the lse bits shows;
+  C_fwd_city_main  the same at the Cityscapes main head, (2, 19, 193²) ->
+             769², on OHEM's kept labels with the OHEM class weight;
+  C_fwd_city_aux   the aux head, (2, 19, 97²) -> 769², on its kept labels;
+  C_fwd_city_unsup the unsupervised CE, (2, 19, 193²) -> 769², 20% of the
+             pseudo-labels dropped (the entropy gate's share at the first
+             semi epoch).
 """
 
 from __future__ import annotations
@@ -217,6 +232,35 @@ def main() -> int:
         "ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn),
         "library_ms": cuda_ms(lambda: torch.sort(masked, dim=1, stable=True)),
         "sha256": digest(idx) + "-" + digest(n_sel), "n_sel": n_sel.tolist()}
+    for name, shape, size in (("A_bwd_voc", (8, 256, 65, 65), (129, 129)),
+                              ("A_bwd_city", (4, 256, 97, 97), (193, 193))):
+        gy = torch.randn(shape[:2] + size, device=dev, generator=g)
+        fn = lambda: R.resize_bilinear_bwd(gy, shape[2:])  # noqa: E731
+        out["kernels"][name] = {
+            "ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn),
+            "library_ms": cuda_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
+                gy, list(size), list(shape), True)),
+            "sha256": digest(fn())}
+        del gy
+    x = torch.randn(4, 21, 129, 129, device=dev, generator=g)
+    lab = torch.randint(0, 21, (4, 513, 513), device=dev, generator=g, dtype=torch.int32)
+    lab[torch.rand(lab.shape, device=dev, generator=g) < 0.1] = 255
+    xu = torch.randn(2, 19, 193, 193, device=dev, generator=g)
+    labu = torch.randint(0, 19, (2, 769, 769), device=dev, generator=g, dtype=torch.int32)
+    labu[torch.rand(labu.shape, device=dev, generator=g) < 0.2] = 255
+    cases = {"C_fwd_voc": (x, lab, None),
+             "C_fwd_city_main": (*ohem_head(193, 8), ohem._class_weight(True, dev)),
+             "C_fwd_city_aux": (*ohem_head(97, 4), None),
+             "C_fwd_city_unsup": (xu, labu, None)}
+    for name, (x, lab, cw) in cases.items():
+        fn = lambda: ce.upsample_cross_entropy(x, lab, 255, cw)  # noqa: E731
+        with torch.no_grad():
+            ms, prof = cuda_ms(fn), profiled_ms(fn)
+        xg = x.clone().requires_grad_(True)
+        loss = ce.upsample_cross_entropy(xg, lab, 255, cw)
+        (grad,) = torch.autograd.grad(loss, xg)
+        out["kernels"][name] = {"ms": ms, "profiled_ms": prof, "library_ms": None,
+                                "sha256": digest(loss) + "-" + digest(grad)}
     print(json.dumps(out), flush=True)
     return 0
 

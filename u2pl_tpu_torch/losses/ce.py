@@ -27,6 +27,7 @@ from u2pl_tpu_torch.ops.resize import (
     _device_ranges,
     _device_taps,
     _ranges_np,
+    _sm_count,
     resize_bilinear_bwd_plain,
     resize_bilinear_plain,
 )
@@ -187,9 +188,31 @@ def _bwd_plan(b: int, c: int, h: int, w: int, oh: int, ow: int,
     return rows, -(-h // rows), span, log_s, q
 
 
-@functools.lru_cache(maxsize=8)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+# kernels C fwd and D (upsample_ce.cu: kStatsMaxShared): a block's bytes of
+# column taps and H-lerped input rows, and the output pixels it owns
+STATS_MAX_SHARED = 224 * 1024
+STATS_SPAN = 1024
+
+
+@functools.lru_cache(maxsize=64)
+def _stats_plan(b: int, c: int, w: int, oh: int, ow: int) -> Tuple[int, int, int]:
+    """The launch of C's forward and of D: (span, max_rows, smem bytes).
+
+    A block owns `span` consecutive output pixels (STATS_SPAN, halved while
+    the input rows they touch, at most span // ow + 2 of C x w floats, and
+    the column taps, 16 B per column in groups of 4, exceed
+    STATS_MAX_SHARED); max_rows is that row count (upsample_ce.cu:
+    stats_plan_ok)."""
+    taps, row = 64 * -(-ow // 4), 4 * c * w + 16
+    span = STATS_SPAN
+    while span > 4 and taps + (span // ow + 2) * row > STATS_MAX_SHARED:
+        span //= 2
+    max_rows = min(span // ow + 2, b * oh)
+    smem = taps + max_rows * row
+    if smem > STATS_MAX_SHARED or max_rows * c * w >= 2**24 or ow >= 2**23:
+        raise ValueError(f"upsample: {c} classes at widths {w} -> {ow} exceed the kernel's "
+                         f"{STATS_MAX_SHARED} bytes of shared memory")
+    return span, max_rows, smem
 
 
 class _UpsampleCE(torch.autograd.Function):
@@ -198,14 +221,15 @@ class _UpsampleCE(torch.autograd.Function):
         _check_ce_inputs(logits, labels, class_weight)
         from u2pl_tpu_torch.kernels import check, load
 
-        lib = load()
         b, c, h, w = logits.shape
         oh, ow = labels.shape[1:]
+        span, max_rows, _ = _stats_plan(b, c, w, oh, ow)
+        lib = load()
         dev = logits.device
         idx_h, w_h = _device_taps(h, oh, True, dev)
         idx_w, w_w = _device_taps(w, ow, True, dev)
         lse = torch.empty((b, oh, ow), dtype=torch.float32, device=dev)
-        part = torch.empty(2 * lib.u2pl_upsample_ce_parts(), dtype=torch.float64, device=dev)
+        part = torch.empty(2 * -(-(b * oh * ow) // span), dtype=torch.float64, device=dev)
         stats = torch.empty(2, dtype=torch.float32, device=dev)  # [loss, denom]
         floor = 1e-12 if class_weight is not None else 1.0
         cw = class_weight.data_ptr() if class_weight is not None else None
@@ -214,7 +238,8 @@ class _UpsampleCE(torch.autograd.Function):
                 logits.data_ptr(), labels.data_ptr(), cw, lse.data_ptr(),
                 part.data_ptr(), stats.data_ptr(), idx_h.data_ptr(), w_h.data_ptr(),
                 idx_w.data_ptr(), w_w.data_ptr(), b, c, h, w, oh, ow,
-                int(ignore_label), floor, torch.cuda.current_stream(dev).cuda_stream,
+                int(ignore_label), floor, span, max_rows,
+                torch.cuda.current_stream(dev).cuda_stream,
             )
         check(lib, err, "upsample_ce_fwd launch")
         upsample_cross_entropy.fwd_launches += 1

@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from u2pl_tpu_torch.losses.ce import upsample_cross_entropy
+from u2pl_tpu_torch.losses.ce import _stats_plan, upsample_cross_entropy
 from u2pl_tpu_torch.ops.resize import _check_cuda_f32, _device_taps, resize_bilinear_plain
 
 
@@ -80,6 +80,7 @@ def upsample_softmax_stats(
         raise ValueError("upsample_softmax_stats: the upsampled logits exceed the int32 sizes")
     if c > MAX_STATS_CLASSES:
         raise ValueError(f"upsample_softmax_stats: {c} classes (at most {MAX_STATS_CLASSES})")
+    span, max_rows, _ = _stats_plan(b, c, w, oh, ow)
     from u2pl_tpu_torch.kernels import check, load
 
     lib = load()
@@ -97,7 +98,7 @@ def upsample_softmax_stats(
         err = lib.u2pl_upsample_softmax_stats(
             logits.data_ptr(), ptr(maxprob), ptr(argmax), ptr(entropy), idx_h.data_ptr(),
             w_h.data_ptr(), idx_w.data_ptr(), w_w.data_ptr(), b, c, h, w, oh, ow,
-            torch.cuda.current_stream(dev).cuda_stream,
+            span, max_rows, torch.cuda.current_stream(dev).cuda_stream,
         )
     check(lib, err, "upsample_softmax_stats launch")
     upsample_softmax_stats.launches += 1

@@ -259,12 +259,37 @@ resize_bilinear.launches = 0
 resize_bilinear.shapes = collections.Counter()
 
 
+# kernel A-bwd (kernels/csrc/resize.cu): the threads per SM (of its 2048)
+# that keep enough gy loads in flight
+BWD_THREADS_PER_SM = 512
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_plan(planes: int, h: int, w: int, oh: int, ow: int, sms: int,
+              align_corners: bool = True) -> Tuple[int, int, int]:
+    """Kernel A-bwd's launch: (rows, bands, wspan).
+
+    A thread owns one input column of a band of `rows` input rows of one
+    plane and walks the output rows that reach the band (a band boundary's
+    rows are read by both bands).  `rows` is the tallest band for which the
+    planes x bands x w threads reach BWD_THREADS_PER_SM on each of `sms`
+    SMs, else 1 (the whole plane at the decoder's shapes).  wspan: the most
+    output columns reaching one input column (up to 4 the kernel holds the
+    tap weights in registers, else it reads them from the tables)."""
+    start_w, end_w = _ranges_np(w, ow, align_corners)
+    wspan = max(int((end_w - start_w).max()), 1)
+    target = sms * BWD_THREADS_PER_SM
+    rows = next((r for r in range(h, 1, -1) if planes * -(-h // r) * w >= target), 1)
+    return rows, -(-h // rows), wspan
+
+
 def resize_bilinear_bwd(
     gy: torch.Tensor, in_size: Tuple[int, int], align_corners: bool = True
 ) -> torch.Tensor:
     """Adjoint of `resize_bilinear`: the gradient (B, C, h, w) of an
     (h, w) -> gy's (H, W) resize, given the output gradient gy (kernel A-bwd:
-    gather form, deterministic)."""
+    gather form, a thread per input column of a band of input rows,
+    deterministic)."""
     if gy.dim() != 4:
         raise ValueError(f"resize_bilinear_bwd: expected NCHW, got {tuple(gy.shape)}")
     h, w = int(in_size[0]), int(in_size[1])
@@ -274,23 +299,31 @@ def resize_bilinear_bwd(
     b, c, oh, ow = gy.shape
     if b * c * h * w >= 2**31:
         raise ValueError("resize_bilinear_bwd: output exceeds the int32 sizes")
+    gx = torch.empty((b, c, h, w), dtype=gy.dtype, device=gy.device)
+    if gx.numel() == 0:
+        return gx
     from u2pl_tpu_torch.kernels import check, load
 
+    plan = _bwd_plan(b * c, h, w, oh, ow, _sm_count(gy.device), align_corners)
     lib = load()
     idx_h, w_h = _device_taps(h, oh, align_corners, gy.device)
     idx_w, w_w = _device_taps(w, ow, align_corners, gy.device)
     rng_h = _device_ranges(h, oh, align_corners, gy.device)
     rng_w = _device_ranges(w, ow, align_corners, gy.device)
-    gx = torch.empty((b, c, h, w), dtype=gy.dtype, device=gy.device)
     with torch.cuda.device(gy.device):
         err = lib.u2pl_resize_bilinear_ac_bwd(
             gy.data_ptr(), gx.data_ptr(), idx_h.data_ptr(), w_h.data_ptr(),
             rng_h.data_ptr(), idx_w.data_ptr(), w_w.data_ptr(), rng_w.data_ptr(),
-            b * c, h, w, oh, ow, torch.cuda.current_stream(gy.device).cuda_stream,
+            b * c, h, w, oh, ow, *plan, torch.cuda.current_stream(gy.device).cuda_stream,
         )
     check(lib, err, "resize_bilinear_ac_bwd launch")
     resize_bilinear_bwd.launches += 1
     return gx
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 resize_bilinear_bwd.launches = 0
