@@ -1125,7 +1125,10 @@ def phase5_train_timings(dev, card, state, batches):
     valid = torch.rand(B_U, CROP, CROP, device=dev, generator=g) < 0.85
     pct = torch.tensor([85.0], device=dev)
     times["E"] = (cuda_ms(lambda: quantile.masked_percentiles(ent, valid, pct)),
-                  cuda_ms(lambda: quantile.masked_percentiles_plain(ent, valid, pct)), None)
+                  cuda_ms(lambda: quantile.masked_percentiles_plain(ent, valid, pct)),
+                  # numpy-'linear' percentiles of the masked values: the same function
+                  cuda_ms(lambda: torch.quantile(ent[valid], pct / 100.0,
+                                                 interpolation="linear")))
     img = torch.randn(B_U, 3, CROP, CROP, device=dev, generator=g)
     boxes = mixing.draw_boxes(g, B_U, CROP, CROP)
     lab_u = lab.clone()
@@ -1143,8 +1146,9 @@ def phase5_train_timings(dev, card, state, batches):
         "E": "1 percentile of (4, 513, 513), ~85% valid",
         "K3": "cutmix (4, 3, 513, 513) + label + max-prob",
     }
+    library = {"E": "torch.quantile(values[mask], linear)"}
     for k, (tk, tp, tl) in times.items():
-        lib = "" if tl is None else f"; aten upsample_bilinear2d_backward {tl:.4f} ms"
+        lib = "" if tl is None else f"; {library.get(k, 'aten upsample_bilinear2d_backward')} {tl:.4f} ms"
         log(f"[{card}] kernel {k} {shapes[k]}: {tk:.4f} ms; plain version {tp:.4f} ms{lib}")
     return out, times
 
@@ -2207,6 +2211,20 @@ def bounds(case, cfg):
     clo8 = 19 * CITY_B * CITY_OS8 * CITY_OS8  # the aux head's, os8
     sel = int(case["n_sel"].sum())
     act = int(case["active"].sum())
+    # K5's reads as the card makes them: sel_idx is random in pixel space and
+    # the rep NCHW, so each feature read costs its 32-byte sector; the
+    # distinct sectors of the (B, F, h, w) f32 rep that the written rows'
+    # pixels touch, over all F planes
+    import torch
+
+    n_new = torch.minimum(case["n_sel"], torch.tensor(k, device=case["n_sel"].device))
+    first = torch.clamp(n_new - case["bank"].sizes, min=0)
+    rank = torch.arange(case["sel_idx"].shape[1], device=n_new.device)
+    written = (rank >= first[:, None]) & (rank < n_new[:, None])
+    pix = case["sel_idx"][written].long()
+    planes = (pix // hw * f)[:, None] + torch.arange(f, device=pix.device)
+    flat = planes * hw + (pix % hw)[:, None]
+    sectors = int(torch.unique(flat // 8).numel())
     # operations per upsampled value: 9 for the bilinear taps (6 products,
     # 3 sums), plus the softmax / CE / entropy terms the function needs
     moved = {  # kernel -> (bytes, float32 operations)
@@ -2247,6 +2265,7 @@ def bounds(case, cfg):
         "K4r": (c * n * 5 + c * k * 4 + c * 4, 0),  # mask + u32 keys in; idx + n_sel out
         "K4_anchors": (c * n + 2 * c * q * 4, 0),
         "K5": (sel * (f * 4 + 4 + f * 2), 0),
+        "K5_sectors": (sectors * 32 + sel * (4 + f * 2), 0),
         "K6_fwd": (act * q * (f * 4 + m * (f * 2 + 4)) + act * f * 4, act * q * (m + 1) * f * 4),
         "K6_bwd": (b * f * hw * 4 + act * q * (f * 4 + 4), 0),
         # K7 at the Cityscapes main head, timed in phase 9: p_y from the os4
@@ -2329,6 +2348,10 @@ def main() -> int:
     times.update(contra_times)
     times.update(city_times)
     times.update(variant_times)
+    ms = times["K5"][0]
+    log(f"[{card}] kernel K5: {ms:.4f} ms, {ms / bound['K5'][0]:.1f}x its row-bytes bound "
+        f"{bound['K5'][0]:.4f} ms, {ms / bound['K5_sectors'][0]:.1f}x its NCHW sector bound "
+        f"{bound['K5_sectors'][0]:.4f} ms")
     for key in ("C_fwd", "C_fwd_city_main", "C_fwd_city_aux", "C_fwd_city_unsup",
                 "C_bwd", "C_bwd_city_main", "C_bwd_city_aux"):
         ms, plain_ms, _ = times[key]
@@ -2396,8 +2419,9 @@ def main() -> int:
         entry("sample_anchors", "K4_anchors", "contrastive.cu",
               "u2pl_tpu/losses/contrastive.py:73", runs("K4_anchors"),
               errs["K4_anchors"], "K4_anchors"),
-        entry("memobank_enqueue", "K5", "memobank.cu", "u2pl_tpu/memobank.py:92",
-              runs("K5"), errs["K5"], "K5"),
+        {**entry("memobank_enqueue", "K5", "memobank.cu", "u2pl_tpu/memobank.py:92",
+                 runs("K5"), errs["K5"], "K5"),
+         "sector_bound_ms": bound["K5_sectors"][0]},
         entry("contra_infonce_fwd", "K6_fwd", "infonce.cu", "u2pl_tpu/losses/contrastive.py:168",
               runs("K6_fwd"), errs["K6_fwd"], "K6_fwd"),
         entry("contra_infonce_bwd", "K6_bwd", "infonce.cu", "u2pl_tpu/losses/contrastive.py:168",

@@ -730,6 +730,82 @@ def test_kernel_memobank_enqueue_bit_equal(dtype, b, c, h, w, k, queue, class0):
         assert torch.equal(getattr(got, name), getattr(ref, name)), name
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,c,h,w,k,queue,case", [
+    (8, 21, 129, 129, 8192, 30000, "one_class"),  # every row in one class, the rest empty
+    (2, 5, 9, 7, 40, 12, "over_size"),  # n_sel > size in every class
+    (2, 19, 33, 33, 2000, 700, "mixed"),  # wraps, n_sel > K, empty classes
+])
+def test_kernel_memobank_enqueue_more_cases(dtype, b, c, h, w, k, queue, case):
+    """K5's grid-stride over the written rows, bit-equal to the plain
+    version, twice in a row (the second call from the first's ptr and
+    occupancy, after its last block moved them)."""
+    from u2pl_tpu_torch.memobank import clone_bank, memobank_enqueue, memobank_enqueue_plain
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(14)
+    rep = torch.randn(b, 256, h, w, device=dev, generator=g)
+    bank = _prefilled_bank(dev, c, 256, queue, queue, dtype)
+    n = b * h * w
+    sel = torch.randint(0, n, (c, k), device=dev, generator=g, dtype=torch.int32)
+    if case == "one_class":
+        n_sel = torch.zeros(c, dtype=torch.int32, device=dev)
+        n_sel[3] = k
+    elif case == "over_size":
+        n_sel = torch.full((c,), k, dtype=torch.int32, device=dev)
+    else:
+        n_sel = torch.randint(0, k + 1, (c,), device=dev, generator=g, dtype=torch.int32)
+        n_sel[:4] = torch.tensor([0, k + 5, queue + 3, 0], dtype=torch.int32)
+    ref = clone_bank(bank)
+    for _ in range(2):
+        ref = memobank_enqueue_plain(ref, rep, sel, n_sel)
+        bank = memobank_enqueue(bank, rep, sel, n_sel)
+        torch.cuda.synchronize()
+        for name in ("keys", "ptr", "occupancy"):
+            assert torch.equal(getattr(bank, name), getattr(ref, name)), name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 7, 13, 50, 67])
+def test_kernel_infonce_fwd_groups_match_plain_and_repeat(dtype, m):
+    """K6's forward with M not a multiple of its key group (4 bf16 rows, 2
+    f32) and over two chunks of 32 keys, inactive positions and a bank
+    class of occupancy 1: the loss within the flagship test's tolerance,
+    the gradient within 1e-5 of its max, and the same loss and directions
+    bits on a second call."""
+    from u2pl_tpu_torch.losses import contrastive as tc
+
+    dev = _cuda()
+    b, c, h, w, q = 2, 9, 17, 15, 64
+    g = torch.Generator(device=dev).manual_seed(15)
+    bank = _prefilled_bank(dev, c, 256, 300, 300, dtype)
+    rep = torch.randn(b, 256, h, w, device=dev, generator=g, requires_grad=True)
+    positive = torch.randn(c, 256, device=dev, generator=g)
+    b_j = torch.randperm(c, device=dev, generator=g).to(torch.int32)
+    bank.occupancy[b_j[0].long()] = 0  # position 0 inactive, as is the last
+    bank.occupancy[b_j[1].long()] = 1  # position 1 draws row 0 only
+    anchor_idx, active, valid_seg = _anchor_draws("repeats", dev, g, b, c, h, w, q, bank, b_j)
+    u_neg = torch.rand(c, q * m, device=dev, generator=g)
+    args = (anchor_idx, positive, bank, b_j, u_neg, active, valid_seg, 0.5)
+    loss = tc.contra_infonce(rep, *args)
+    gdir = loss.grad_fn.saved_tensors[3][active]  # inactive positions' rows are not written
+    again = tc.contra_infonce(rep, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(loss, again) and torch.equal(gdir, again.grad_fn.saved_tensors[3][active])
+    assert not active[0] and not active[-1] and active[1]
+    ref = tc.contra_infonce_plain(rep.detach().clone().requires_grad_(True), *args)
+    assert ref.item() > 0
+    assert abs(loss.item() - ref.item()) <= 1e-5 * abs(ref.item())
+    (grad,) = torch.autograd.grad(loss, rep)
+    rp = rep.detach().clone().requires_grad_(True)
+    (gref,) = torch.autograd.grad(tc.contra_infonce_plain(rp, *args), rp)
+    # 1e-5 of max |grad|, as for the loss: at M = 67 this kernel and the
+    # first design (the same bits) are 1.5e-6 (bf16) / 1.9e-6 (f32) off the
+    # plain version's autograd, above the 1e-6 the flagship test meets at 50
+    ratio = (grad - gref).abs().max().item() / gref.abs().max().item()
+    assert ratio <= 1e-5, ratio
+
+
 INFONCE_LAYOUTS = ["repeats", "one_pixel", "distinct", "shared_inactive", "across_positions"]
 
 

@@ -1,17 +1,24 @@
-"""The host-side launch plans of kernel A-bwd (`ops/resize.py:_bwd_plan`)
-and of kernels C fwd and D (`losses/ce.py:_stats_plan`), on the CPU.
+"""The host-side launch plans of kernel A-bwd (`ops/resize.py:_bwd_plan`),
+of kernels C fwd and D (`losses/ce.py:_stats_plan`), of K6 fwd
+(`losses/contrastive.py:_infonce_group`) and K5 (`memobank.py:
+_enqueue_tile`), on the CPU.
 
 The kernels run only on the card (tests/test_torch_cuda.py); what they are
 given is computed here in Python, so these tests hold the plans to what the
 kernels assume: every input row's output range inside the rows its band
 walks, every C fwd / D block within shared memory, at the main path's
-shapes and every card test's shape, for several SM counts.
+shapes and every card test's shape, for several SM counts; K6 fwd's key
+groups within their registers, each key fetched before it is reduced and
+reduced once in key order; K5's tiles writing every row once.
 """
 
 import numpy as np
 import pytest
+import torch
 
+from u2pl_tpu_torch import memobank as mb
 from u2pl_tpu_torch.losses import ce
+from u2pl_tpu_torch.losses import contrastive as tc
 from u2pl_tpu_torch.ops import resize as tr
 from u2pl_tpu_torch.ops.resize import _interp_matrix_np, _ranges_np
 
@@ -105,3 +112,102 @@ def test_stats_plan_fits_every_row_a_block_touches(b, c, h, w, oh, ow):
 def test_stats_plan_refuses_what_shared_memory_cannot_hold():
     with pytest.raises(ValueError, match="64 classes at widths 1000"):
         ce._stats_plan(1, 64, 1000, 4000, 4000)
+
+
+# ---- K6 fwd (losses/contrastive.py:_infonce_group) and K5
+# (memobank.py:_enqueue_tile): the kernels' loops, walked here in Python
+
+def _infonce_key_schedule(m, g):
+    """The order in which K6 fwd's draw loop (infonce.cu:infonce_draw) fetches
+    and reduces its M keys in groups of g: a list of ("rows", chunk),
+    ("fetch", key) and ("reduce", key) events; rows of a chunk of 32 keys are
+    computed when the first group of the chunk is fetched."""
+    events = []
+
+    def fetch(g0):
+        if g0 % 32 == 0:
+            events.append(("rows", g0 // 32))
+        events.extend(("fetch", k) for k in range(g0, min(g0 + g, m)))
+
+    if m > 0:
+        fetch(0)
+    for g0 in range(0, m, g):
+        if g0 + g < m:
+            fetch(g0 + g)
+        events.extend(("reduce", k) for k in range(g0, min(g0 + g, m)))
+    return events
+
+
+@pytest.mark.parametrize("m", [0, 1, 7, 31, 32, 33, 50, 63, 64, 65, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_infonce_groups_fit_their_registers_and_reduce_every_key_in_order(m, dtype):
+    g = tc._infonce_group(dtype)
+    row_regs = {torch.bfloat16: 4, torch.float32: 8}[dtype]
+    assert 2 * g * row_regs <= tc.INFONCE_ROW_REGS and 32 % g == 0
+    assert g == {torch.bfloat16: 4, torch.float32: 2}[dtype]  # the kernel's instances
+    events = _infonce_key_schedule(m, g)
+    fetched = [k for e, k in events if e == "fetch"]
+    reduced = [k for e, k in events if e == "reduce"]
+    assert fetched == list(range(m)) and reduced == list(range(m))  # once each, in key order
+    chunks = [k for e, k in events if e == "rows"]
+    assert chunks == list(range(-(-m // 32)))
+    in_flight, seen_rows, most = set(), set(), 0
+    for e, k in events:
+        if e == "rows":
+            seen_rows.add(k)
+        elif e == "fetch":
+            assert k // 32 in seen_rows  # its row was computed first
+            in_flight.add(k)
+            most = max(most, len(in_flight))
+        else:
+            assert k in in_flight  # fetched before it is reduced
+            in_flight.remove(k)
+    assert most <= 2 * g and (m <= g or most > g)  # two groups in flight
+
+
+TILE_ROWS = 1024  # memobank.cu: kMaxTileRows, the rows a tile lists
+
+
+def _enqueue_rows(n_sel, ptr, sizes, k, pixels, tile, sel):
+    """The (class, rank, ring row) K5 writes (memobank.cu:mb_enqueue_kernel),
+    by tile: the written ranks (each class's newest min(n_new, size)) whose
+    pixel lies in the tile, the first TILE_ROWS listed, the rest written by
+    the thread that found them; and how many tiles overflowed."""
+    n_new = np.minimum(n_sel, k)
+    written, overflowed = [], 0
+    for t0 in range(0, pixels, tile):
+        listed = 0
+        for c in range(len(n_sel)):
+            for r in range(max(n_new[c] - sizes[c], 0), n_new[c]):
+                if t0 <= sel[c, r] < min(t0 + tile, pixels):
+                    listed += 1
+                    written.append((c, r, int((ptr[c] + r) % sizes[c])))
+        overflowed += listed > TILE_ROWS
+    return written, overflowed
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16, 1])
+@pytest.mark.parametrize("case", ["flagship", "wrap", "over_size", "one_class", "empty"])
+def test_enqueue_tiles_write_every_row_once(case, sms):
+    rng = np.random.RandomState(3)
+    c, k, pixels = (21, 8192, 8 * 129 * 129) if case in ("flagship", "one_class") else (5, 40, 90)
+    sizes = np.full(c, 50000 if c == 21 else 12)
+    ptr = rng.randint(0, sizes)
+    sel = np.stack([rng.permutation(pixels)[:k] if k <= pixels else rng.randint(0, pixels, k)
+                    for _ in range(c)])
+    n_sel = {"flagship": rng.randint(0, 2000, c),
+             "wrap": np.array([12, 7, 0, 11, 3]),  # rings wrap from a random ptr
+             "over_size": np.array([40, 13, 25, 0, 12]),  # more than the ring holds
+             "one_class": np.eye(c, dtype=int)[3] * k,  # 8192 rows of one class
+             "empty": np.zeros(c, dtype=int)}[case]
+    tile = mb._enqueue_tile(pixels, sms)
+    tiles = -(-pixels // tile)
+    assert tiles <= mb.ENQUEUE_TILES_PER_SM * sms and (tiles - 1) * tile < pixels
+    got, overflowed = _enqueue_rows(n_sel, ptr, sizes, k, pixels, tile, sel)
+    n_new = np.minimum(n_sel, k)
+    want = sorted((j, r, int((ptr[j] + r) % sizes[j])) for j in range(c)
+                  for r in range(max(n_new[j] - sizes[j], 0), n_new[j]))
+    assert sorted(got) == want and len(got) == len(set(got))
+    assert len({(j, row) for j, _, row in got}) == len(got)  # a ring row at most once
+    if case == "one_class" and sms == 1:
+        assert overflowed  # the rows past a tile's list are written too

@@ -56,11 +56,13 @@ def load():
         "u2pl_contra_select_keys_radix": [p] * 5 + [i] * 3 + [p],
         # (mask, a_j, u, idx, count, C, N, Q, stream)
         "u2pl_contra_sample_anchors": [p] * 5 + [i] * 3 + [p],
-        # (rep, sel_idx, n_sel, keys, ptr, occ, sizes, B, F, HW, C, K, cap, dtype, stream)
-        "u2pl_memobank_enqueue": [p] * 7 + [i] * 7 + [p],
+        # (rep, sel_idx, n_sel, keys, ptr, occ, sizes, ticket, B, F, HW, C, K,
+        #  cap, dtype, tile, stream)
+        "u2pl_memobank_enqueue": [p] * 8 + [i] * 8 + [p],
         # (rep, anchor_idx, pos, keys, occ, b_j, u_neg, active, valid_seg, ce,
-        #  gdir, loss, B, F, HW, C, Q, M, cap, dtype, temperature, stream)
-        "u2pl_contra_infonce_fwd": [p] * 12 + [i] * 8 + [f, p],
+        #  gdir, loss, ticket, B, F, HW, C, Q, M, cap, dtype, group, temperature,
+        #  stream)
+        "u2pl_contra_infonce_fwd": [p] * 13 + [i] * 9 + [f, p],
         # (anchor_idx, active, valid_seg, gdir, g, sums, grad_rep, B, F, HW, C, Q, stream)
         "u2pl_contra_infonce_bwd": [p] * 7 + [i] * 5 + [p],
         # (values, out, state, n, k, stream)
@@ -82,6 +84,21 @@ def load():
     lib.u2pl_error_string.restype = ctypes.c_char_p
     lib.build_seconds, lib.build_log = seconds, log
     return lib
+
+
+# the words of `tickets`: one per kernel that sums or updates in its last block
+TICKET_INFONCE_FWD = 0
+TICKET_MEMOBANK = 1
+
+
+@functools.lru_cache(maxsize=None)
+def tickets(device):
+    """Zeroed uint32 words on `device`, one per kernel whose last block to
+    finish takes over (TICKET_*): each block adds one with atomicInc, which
+    wraps at the grid size, so a word is 0 again after every launch."""
+    import torch
+
+    return torch.zeros(2, dtype=torch.int32, device=device)
 
 
 def check(lib, err: int, what: str) -> None:

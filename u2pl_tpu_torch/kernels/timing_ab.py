@@ -1,6 +1,6 @@
-"""Times kernel A and its adjoint A-bwd, K6's backward, kernel C's forward
-and backward, kernel D and K4's key selection of the u2pl_tpu_torch package
-in the checkout at --root, on one card: run it once
+"""Times kernel A and its adjoint A-bwd, K6's forward and backward, kernel
+C's forward and backward, kernel D, K4's key selection and K5 of the
+u2pl_tpu_torch package in the checkout at --root, on one card: run it once
 per checkout, in turns, to set two versions of the kernels side by side in
 one call.
 
@@ -58,7 +58,23 @@ results are bit-equal.  The inputs come from seeded generators on the card:
   C_fwd_city_aux   the aux head, (2, 19, 97²) -> 769², on its kept labels;
   C_fwd_city_unsup the unsupervised CE, (2, 19, 193²) -> 769², 20% of the
              pseudo-labels dropped (the entropy gate's share at the first
-             semi epoch).
+             semi epoch);
+  K6_fwd_voc K6's forward (no grad) at the flagship: a (8, 256, 129²) rep,
+             21 positions x 256 draws from 2000 random pixels each, 50 keys
+             each from a full (21, 50000, 256) bf16 bank, the last position
+             inactive; its hash covers the loss and the active positions'
+             saved directions (the inactive ones' rows are never written);
+  K6_fwd_voc_no_keys, K6_fwd_voc_one_pixel  the same with M = 0 (the
+             anchors, the positive, the directions and the loss alone), and
+             with every anchor on one pixel (its rows read from L2);
+  K6_fwd_city  the same at Cityscapes: a (4, 256, 193²) rep, 19 positions,
+             a (19, 50000, 256) bank;
+  K5_voc     K5's ring write of VOC_N_SEL keys (chip_smoke.py's flagship
+             selection counts) at random distinct pixels of a (8, 256, 129²)
+             rep into a full (21, 50000, 256) bf16 bank whose rings wrap; its
+             hash covers keys, ptr and occupancy after one call on a clone;
+  K5_city    the same with CITY_N_SEL (a Cityscapes semi step's counts, k
+             12288) from a (4, 256, 193²) rep into a (19, 50000, 256) bank.
 """
 
 from __future__ import annotations
@@ -73,6 +89,14 @@ import sys
 
 import torch
 import torch.nn.functional as F
+
+
+# K5's per-class selection counts: chip_smoke.py's flagship case (phase 1,
+# 18,051 keys) and a Cityscapes semi step's (phase 8, step 5: min(neg_cand,
+# 12288)), read from a chip_smoke.py log on an NVIDIA H100 80GB HBM3
+VOC_N_SEL = [8192, 475, 494, 479, 489, 510, 493, 507, 477, 473, 488, 484, 500, 459, 512,
+             530, 514, 512, 506, 469, 488]
+CITY_N_SEL = [0, 0, 0, 37, 0, 3053, 0, 66, 0, 1, 0, 5780, 16, 0, 0, 0, 150, 4, 1]
 
 
 def cuda_ms(fn, iters=30):
@@ -261,6 +285,57 @@ def main() -> int:
         (grad,) = torch.autograd.grad(loss, xg)
         out["kernels"][name] = {"ms": ms, "profiled_ms": prof, "library_ms": None,
                                 "sha256": digest(loss) + "-" + digest(grad)}
+    from u2pl_tpu_torch.memobank import clone_bank, init_memobank, memobank_enqueue
+
+    def bank_digest(bank):
+        return "-".join(digest(t) for t in (bank.keys.view(torch.int16), bank.ptr,
+                                            bank.occupancy))
+
+    for label, b, hw, n_sel, k in (("voc", 8, 129, VOC_N_SEL, 8192),
+                                   ("city", 4, 193, CITY_N_SEL, 12288)):
+        c, q, m = len(n_sel), 256, 50
+        n = b * hw * hw
+        bank = init_memobank(c, 256, dtype=torch.bfloat16, device=dev)
+        for j in range(c):
+            bank.keys[j].copy_(torch.randn(bank.keys.shape[1:], device=dev, generator=g))
+        bank.occupancy.copy_(bank.sizes)
+        bank.ptr.copy_(bank.sizes - k // 8)
+        rep = torch.randn(b, 256, hw, hw, device=dev, generator=g)
+        pools = torch.stack([torch.randperm(n, device=dev, generator=g)[:2000] for _ in range(c)])
+        anchor_idx = pools.gather(1, torch.randint(0, 2000, (c, q), device=dev, generator=g))
+        args = (anchor_idx.to(torch.int32).contiguous(),
+                torch.randn(c, 256, device=dev, generator=g), bank,
+                torch.randperm(c, device=dev, generator=g).to(torch.int32),
+                torch.rand(c, q * m, device=dev, generator=g),
+                torch.arange(c, device=dev) < c - 1,
+                torch.tensor(c - 1, dtype=torch.int32, device=dev), 0.5)
+        fn = lambda: tc.contra_infonce(rep, *args)  # noqa: E731
+        with torch.no_grad():
+            ms, prof = cuda_ms(fn, 20), profiled_ms(fn)
+        loss = tc.contra_infonce(rep.clone().requires_grad_(True), *args)
+        out["kernels"][f"K6_fwd_{label}"] = {
+            "ms": ms, "profiled_ms": prof, "library_ms": None,
+            "sha256": digest(loss) + "-" + digest(loss.grad_fn.saved_tensors[3][args[5]])}
+        del loss
+        if label == "voc":  # where the time goes: no keys; every anchor on one pixel
+            for name, part in (("no_keys", (args[0], *args[1:4], args[4][:, :0].contiguous())),
+                               ("one_pixel", (torch.zeros_like(args[0]), *args[1:5]))):
+                part = part + args[5:]
+                fn = lambda: tc.contra_infonce(rep, *part)  # noqa: E731
+                with torch.no_grad():
+                    out["kernels"][f"K6_fwd_voc_{name}"] = {
+                        "ms": cuda_ms(fn, 20), "profiled_ms": None, "library_ms": None,
+                        "sha256": digest(fn())}
+        sel = torch.stack([torch.randperm(n, device=dev, generator=g)[:k] for _ in range(c)])
+        enq = (rep, sel.to(torch.int32).contiguous(),
+               torch.tensor(n_sel, dtype=torch.int32, device=dev))
+        timed = clone_bank(bank)
+        fn = lambda: memobank_enqueue(timed, *enq)  # noqa: E731
+        out["kernels"][f"K5_{label}"] = {
+            "ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn), "library_ms": None,
+            "sha256": bank_digest(memobank_enqueue(clone_bank(bank), *enq)),
+            "keys": sum(n_sel)}
+        del bank, timed, rep
     print(json.dumps(out), flush=True)
     return 0
 

@@ -425,9 +425,10 @@ def contra_infonce(
     valid_seg <= 1.  A 0-d device tensor, differentiable in `rep`.
 
     On the card, kernel K6: one warp per anchor gathers its 1 + M rows
-    (each bank row one 16-byte load per lane), never writing the sample; an
-    online softmax gives the CE and the anchor's gradient direction in one
-    pass.  The loss is a fixed-order two-stage sum, read by nobody on the
+    (each bank row one 16-byte load per lane, `_infonce_group` rows issued
+    at a time), never writing the sample; an online softmax gives the CE
+    and the anchor's gradient direction in one pass.  The loss is a
+    fixed-order sum by the launch's last block, read by nobody on the
     host.  The backward sums each pixel's draws' stored directions in a
     fixed order, scales them once and writes the whole rep gradient in one
     pass, zero off the anchors (no float atomics, no zero fill first);
@@ -473,18 +474,20 @@ class _ContraInfoNCE(torch.autograd.Function):
             raise TypeError(f"contra_infonce: bank dtype {keys.dtype} (float32 or bfloat16)")
         if rep.numel() >= 2**31 or keys.numel() >= 2**31:
             raise ValueError("contra_infonce: the rep or the bank exceeds the int32 sizes")
-        from u2pl_tpu_torch.kernels import load
+        from u2pl_tpu_torch.kernels import TICKET_INFONCE_FWD, load, tickets
 
         lib = load()
         m = u_neg.shape[1] // q
         ce = torch.empty((c, q), dtype=torch.float32, device=dev)
         gdir = torch.empty((c, q, f), dtype=torch.float32, device=dev)
         loss = torch.empty((), dtype=torch.float32, device=dev)
+        ticket = tickets(dev)[TICKET_INFONCE_FWD]
         _launch(lib, "u2pl_contra_infonce_fwd", "contra_infonce_fwd", dev,
                 rep.data_ptr(), anchor_idx.data_ptr(), positive.data_ptr(), keys.data_ptr(),
                 occupancy.data_ptr(), b_j.data_ptr(), u_neg.data_ptr(), active.data_ptr(),
                 valid_seg.data_ptr(), ce.data_ptr(), gdir.data_ptr(), loss.data_ptr(),
-                b, f, h * w, c, q, m, cap, dtype_code, float(temperature))
+                ticket.data_ptr(), b, f, h * w, c, q, m, cap, dtype_code,
+                _infonce_group(keys.dtype), float(temperature))
         contra_infonce.fwd_launches += 1
         ctx.save_for_backward(anchor_idx, active, valid_seg, gdir)
         ctx.rep_shape = tuple(rep.shape)
@@ -495,6 +498,20 @@ class _ContraInfoNCE(torch.autograd.Function):
         anchor_idx, active, valid_seg, gdir = ctx.saved_tensors
         grad_rep = _infonce_bwd_cuda(anchor_idx, active, valid_seg, gdir, g, ctx.rep_shape)
         return grad_rep, None, None, None, None, None, None, None, None, None
+
+
+INFONCE_ROW_REGS = 32  # registers a lane of K6 fwd spends on the bank rows in flight
+
+
+def _infonce_group(dtype: torch.dtype) -> int:
+    """K6 fwd's bank rows per group: a warp has two groups in flight (one
+    being reduced, the next loading), which must fit INFONCE_ROW_REGS
+    registers a lane (a lane's 8 features of a row: 4 registers in bf16, 8
+    in f32): 4 rows in bf16, 2 in f32.  The kernel takes each dtype at
+    this size only (a template instance each); a group divides the 32 keys
+    whose rows the lanes compute at once."""
+    regs = {torch.bfloat16: 4, torch.float32: 8}[dtype]
+    return INFONCE_ROW_REGS // (2 * regs)
 
 
 def _check_draws(c: int, q: int) -> None:

@@ -128,6 +128,15 @@ def memobank_enqueue_plain(
     return enqueue_segments(bank, new_keys[:, None], n_sel[:, None])
 
 
+ENQUEUE_TILES_PER_SM = 2
+
+
+def _enqueue_tile(pixels: int, sms: int) -> int:
+    """K5's tile: the consecutive pixels of the rep one block owns (it
+    writes the selected rows at them), ENQUEUE_TILES_PER_SM tiles per SM."""
+    return max(1, -(-pixels // (ENQUEUE_TILES_PER_SM * sms)))
+
+
 def memobank_enqueue(
     bank: MemoryBank, rep_teacher: torch.Tensor, sel_idx: torch.Tensor, n_sel: torch.Tensor
 ) -> MemoryBank:
@@ -138,7 +147,9 @@ def memobank_enqueue(
 
     On the card, kernel K5: each selected row is read straight from the NCHW
     map, cast to the storage dtype and written at its ring row, so the
-    (C, K, F) slab is never written; a second launch moves `ptr` and
+    (C, K, F) slab is never written.  A block owns a tile of
+    `_enqueue_tile` consecutive pixels and writes the selected rows there,
+    reading the rep in pixel order; the launch's last block moves `ptr` and
     `occupancy`."""
     c, cap, f = bank.keys.shape
     if (sel_idx.dim() != 2 or sel_idx.shape[0] != c or n_sel.shape != (c,)
@@ -166,16 +177,18 @@ def memobank_enqueue(
         raise TypeError(f"memobank_enqueue: bank dtype {bank.keys.dtype} (float32 or bfloat16)")
     if bank.keys.numel() >= 2**31:
         raise ValueError("memobank_enqueue: the bank exceeds the int32 sizes")
-    from u2pl_tpu_torch.kernels import check, load
+    from u2pl_tpu_torch.kernels import TICKET_MEMOBANK, check, load, tickets
+    from u2pl_tpu_torch.ops.resize import _sm_count
 
     lib = load()
     b, _, h, w = rep_teacher.shape
+    k = sel_idx.shape[1]
     with torch.cuda.device(dev):
         err = lib.u2pl_memobank_enqueue(
             rep_teacher.data_ptr(), sel_idx.data_ptr(), n_sel.data_ptr(), bank.keys.data_ptr(),
             bank.ptr.data_ptr(), bank.occupancy.data_ptr(), bank.sizes.data_ptr(),
-            b, f, h * w, c, sel_idx.shape[1], cap, dtype_code,
-            torch.cuda.current_stream(dev).cuda_stream,
+            tickets(dev)[TICKET_MEMOBANK].data_ptr(), b, f, h * w, c, k, cap, dtype_code,
+            _enqueue_tile(b * h * w, _sm_count(dev)), torch.cuda.current_stream(dev).cuda_stream,
         )
     check(lib, err, "memobank_enqueue launch")
     memobank_enqueue.launches += 1
