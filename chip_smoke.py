@@ -12,7 +12,11 @@ Phases; any failure ends the run with a nonzero exit code:
      training paths' shapes, on the card; kernel A also bit-equal to the
      rounded H-then-W formula (`resize_bilinear_rounded`) at every A_SHAPES
      entry; kernel D at the VOC and Cityscapes steps' shapes, its max-prob +
-     argmax and its entropy calls bit-equal to its all-outputs call;
+     argmax and its entropy calls bit-equal to its all-outputs call; kernel
+     E (one cooperative launch, one block per SM) bit-equal to the masked
+     sort at 1 to 4 percents with ties, an empty mask, n = 1, n not a
+     multiple of its grid, under its block count and past its shared
+     memory;
   2. the slice: the full VOC model of experiments/pascal/1464/ours (ResNet-101
      + DeepLabv3+, 21 classes, float32 as serve.py's default) from seeded
      random weights, saved as a reference-format .pth, loaded by InferEngine
@@ -40,7 +44,7 @@ Phases; any failure ends the run with a nonzero exit code:
      VOC and Cityscapes decoders' shapes beside aten's own backward; C's
      backward, fused with its adjoint resize, with torch.profiler's device
      time; D's two calls of the semi step, max-prob + argmax and entropy,
-     apart);
+     apart; E at one percentile and at the contrastive step's three);
   6. the contrastive slice: the full `ours` config WITH trainer.contrastive
      (a (21, 50000, 256) bf16 memory bank, 8192 keys per class and step,
      256 queries, 50 negatives), 5 steps through `run_steps` (2 warmup, 3
@@ -67,10 +71,11 @@ Phases; any failure ends the run with a nonzero exit code:
      through the kernels and through the plain versions, compared; then 2
      steps of experiments/cityscapes/744/suponly through `make_sup_step`;
   9. Cityscapes timings: the semi step's median, images/s and peak memory,
-     each OHEM kernel (K7) beside its plain version and a library call, and
-     C's forward and backward at the main head (kept labels, the OHEM class
-     weight) and the aux head (kept labels), C's forward at the unsupervised
-     CE's, and D's two calls at the Cityscapes shape;
+     each OHEM kernel (K7; K7 prob at both heads) beside its plain version
+     and a library call, and C's forward and backward at the main head
+     (kept labels, the OHEM class weight) and the aux head (kept labels),
+     C's forward at the unsupervised CE's, D's two calls and E's
+     contrastive call at the Cityscapes shape;
  10. the trainer CLIs: a synthetic VOC-layout workspace (16 labeled, 16
      unlabeled and 4 val JPEG / PNG pairs of 500x375, from SEED) and
      `u2pl_tpu_torch.train_semi.main` on experiments/pascal/1464/ours as it
@@ -90,10 +95,11 @@ anchor draws; K5: the bank write; K6: the InfoNCE forward and backward)
 against their plain versions at the flagship shapes, on a prefilled bank
 that wraps, the OHEM kernels (K7: target-class probability, k-th
 smallest, kept labels) at the Cityscapes heads' shapes, with the k-th value
-above and below thresh, an all-ignored map and fewer valid pixels than
-min_kept, and K3c (ClassMix) and K4r (radix key selection) bit-equal at the
-flagship's shapes, with tied draws, a single-class sample, keys tied at the
-threshold, valid 0xFFFFFFFF keys, a class under the cap and an empty one.
+above and below thresh, k = 1 and k = n, an all-ignored map and fewer valid
+pixels than min_kept, and K3c (ClassMix) and K4r (radix key selection)
+bit-equal at the flagship's shapes, with tied draws, a single-class
+sample, keys tied at the threshold, valid 0xFFFFFFFF keys, a class under
+the cap and an empty one.
 Kernel times are CUDA events around back-to-back calls queued behind a
 device sleep (`cuda_ms`), so they time the card, not the host's launches.
 It prints a JSON line of kernels (each with its launches on the main paths,
@@ -618,23 +624,40 @@ def phase1_train_kernels(dev):
         del x, mp, am, ent, pmp, pam, eent, rmp, ram, rent, top2, near
     errs["D"] = worst
 
-    # E: bit-equal to the masked sort, 1,052,676 values (4 x 513²)
-    pct = torch.tensor([0.0, 37.5, 80.0, 100.0], device=dev)
-    n = B_U * CROP * CROP
-    ent = torch.rand(n, device=dev, generator=g) * 3
-    ent[: n // 4] = torch.randint(0, 9, (n // 4,), device=dev, generator=g).float() * 0.25
-    valid = torch.rand(n, device=dev, generator=g) < 0.85
-    one = torch.zeros(n, dtype=torch.bool, device=dev)
-    one[n // 3] = True
-    for name, v, m in (("1,052,676 values, ~85% valid, duplicates", ent, valid),
-                       ("empty mask", ent, torch.zeros_like(valid)), ("n = 1", ent, one)):
-        got = quantile.masked_percentiles(v, m, pct)
-        ref = quantile.masked_percentiles_plain(v, m, pct)
-        torch.cuda.synchronize()
-        log(f"[phase 1] kernel E {name}: {got.tolist()} vs plain {ref.tolist()}; bit-equal "
-            f"{torch.equal(got, ref)}")
-        if not torch.equal(got, ref):
-            fail(f"kernel E ({name}) is not bit-equal to the masked sort")
+    # E: bit-equal to the masked sort at 1 to 4 percents, 1,052,676 values
+    # (4 x 513²) with ties, an empty mask, n = 1, and n against the
+    # descent's grid (one block per SM): not a multiple of it, under its
+    # block count, past what its shared memory holds
+    from u2pl_tpu_torch.ops.resize import _sm_count
+
+    sms = _sm_count(dev)
+    grid, _, cap = quantile._descent_plan(1 << 30, sms)
+    pct = torch.tensor([0.0, 85.0, 37.5, 100.0], device=dev)
+    cases = []
+    for name, n in ((f"{B_U * CROP * CROP:,} values, ~85% valid, ties", B_U * CROP * CROP),
+                    (f"n = {1_182_722 + 3 * sms + 1:,}, not a multiple of the {grid} blocks",
+                     1_182_722 + 3 * sms + 1),
+                    (f"n = {sms // 2 + 1}, under the {grid} blocks", sms // 2 + 1),
+                    (f"n = {grid * cap + 12_345:,}, past the grid's shared memory "
+                     f"({grid * cap:,} keys)", grid * cap + 12_345)):
+        v = torch.rand(n, device=dev, generator=g) * 3
+        v[: n // 4] = torch.randint(0, 9, (n // 4,), device=dev, generator=g).float() * 0.25
+        cases.append((name, v, torch.rand(n, device=dev, generator=g) < 0.85))
+    ent, valid = cases[0][1:]
+    one = torch.zeros_like(valid)
+    one[valid.numel() // 3] = True
+    cases += [("empty mask", ent, torch.zeros_like(valid)), ("n = 1", ent, one)]
+    for name, v, m in cases:
+        for k in range(1, 5):
+            got = quantile.masked_percentiles(v, m, pct[:k])
+            ref = quantile.masked_percentiles_plain(v, m, pct[:k])
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                fail(f"kernel E ({name}, {k} percents) is not bit-equal to the masked sort: "
+                     f"{got.tolist()} vs {ref.tolist()}")
+        log(f"[phase 1] kernel E {name}: {got.tolist()} at 1-4 percents, each bit-equal to "
+            f"the masked sort")
+    del cases, v, one
     errs["E"] = 0.0
 
     # K3: cutmix and cutout, bit-equal
@@ -792,6 +815,11 @@ def read_counters():
 
     for sel in ("prob", "entropy"):  # kernel D's launches per output selection
         out[f"D_{sel}"] = upsample_softmax_stats.selections[sel]
+    from u2pl_tpu_torch.losses.ohem import ohem_target_prob
+
+    # K7 prob's launches per Cityscapes head, by the logits' (h, w)
+    out["K7_prob_main"] = ohem_target_prob.shapes[(CITY_OS4, CITY_OS4)]
+    out["K7_prob_aux"] = ohem_target_prob.shapes[(CITY_OS8, CITY_OS8)]
     return out
 
 
@@ -803,6 +831,9 @@ def zero_counters():
         setattr(*_counter(k), 0)
     resize_bilinear.shapes.clear()
     upsample_softmax_stats.selections.clear()
+    from u2pl_tpu_torch.losses.ohem import ohem_target_prob
+
+    ohem_target_prob.shapes.clear()
 
 
 def check_per_semi_step(path, launches, semi_steps, contrastive, heads=1):
@@ -1123,12 +1154,16 @@ def phase5_train_timings(dev, card, state, batches):
             cuda_ms(lambda: unsup.upsample_softmax_stats_plain(xd, (CROP, CROP), sel)), None)
     ent = torch.rand(B_U, CROP, CROP, device=dev, generator=g)
     valid = torch.rand(B_U, CROP, CROP, device=dev, generator=g) < 0.85
-    pct = torch.tensor([85.0], device=dev)
-    times["E"] = (cuda_ms(lambda: quantile.masked_percentiles(ent, valid, pct)),
-                  cuda_ms(lambda: quantile.masked_percentiles_plain(ent, valid, pct)),
-                  # numpy-'linear' percentiles of the masked values: the same function
-                  cuda_ms(lambda: torch.quantile(ent[valid], pct / 100.0,
-                                                 interpolation="linear")))
+    # one percentile (the step without the contrastive branch), and the
+    # contrastive step's three: the drop and the low / high entropy percents
+    # at epoch 1 of 80
+    for key, pct in (("E", [80.25]), ("E_3", [80.25, 19.75, 80.25])):
+        pct = torch.tensor(pct, device=dev)
+        times[key] = (cuda_ms(lambda: quantile.masked_percentiles(ent, valid, pct)),
+                      cuda_ms(lambda: quantile.masked_percentiles_plain(ent, valid, pct)),
+                      # numpy-'linear' percentiles of the masked values: the same function
+                      cuda_ms(lambda: torch.quantile(ent[valid], pct / 100.0,
+                                                     interpolation="linear")))
     img = torch.randn(B_U, 3, CROP, CROP, device=dev, generator=g)
     boxes = mixing.draw_boxes(g, B_U, CROP, CROP)
     lab_u = lab.clone()
@@ -1144,9 +1179,10 @@ def phase5_train_timings(dev, card, state, batches):
         "D_prob": "(4, 21, 129, 129) -> 513², max-prob + argmax",
         "D_entropy": "(4, 21, 129, 129) -> 513², entropy",
         "E": "1 percentile of (4, 513, 513), ~85% valid",
+        "E_3": "3 percentiles of (4, 513, 513), ~85% valid (the contrastive step's call)",
         "K3": "cutmix (4, 3, 513, 513) + label + max-prob",
     }
-    library = {"E": "torch.quantile(values[mask], linear)"}
+    library = {k: "torch.quantile(values[mask], linear)" for k in ("E", "E_3")}
     for k, (tk, tp, tl) in times.items():
         lib = "" if tl is None else f"; {library.get(k, 'aten upsample_bilinear2d_backward')} {tl:.4f} ms"
         log(f"[{card}] kernel {k} {shapes[k]}: {tk:.4f} ms; plain version {tp:.4f} ms{lib}")
@@ -1156,6 +1192,8 @@ def phase5_train_timings(dev, card, state, batches):
 # the pixels each timed C backward weighs (its labels' valid count), for
 # its bound: where coef is 0 the gradient needs no softmax
 C_BWD_VALID = {}
+# the valid pixels of phase 9's K7 prob heads: an ignored pixel needs no softmax
+K7_VALID = {}
 
 
 def c_bwd_timing(card, key, x, lab, cw):
@@ -1401,6 +1439,14 @@ def phase1_ohem_kernels(dev, cfg):
             fail(f"K7 ({name}): the case is not what it should show ({expect}): k-th "
                  f"{kth.item()}, valid {n_valid}, kept {n_kept}")
         prob_err = max(prob_err, (p - p_ref).abs().max().item())
+        if j == 0:  # the descent at its extreme ranks too
+            for kk in (1, p.numel()):
+                got, ref = quantile.kth_smallest(p, kk), quantile.kth_smallest_plain(p, kk)
+                torch.cuda.synchronize()
+                log(f"[phase 1] K7 kth, k {kk} of {p.numel()}: {got.item():.9g}, bit-equal to "
+                    f"the sort {torch.equal(got, ref)}")
+                if not torch.equal(got, ref):
+                    fail(f"K7 kth (k {kk}) is not bit-equal to the sort")
 
         # the whole loss: the kernel route against the plain route, and its
         # gradient against the plain CE of the kernel route's kept labels
@@ -1768,8 +1814,12 @@ def phase8_cityscapes(dev, card, cfg):
         launches[name] = sum(h == hw for h, _ in kept)
     launches["C_fwd_city_unsup"] = (launches["C_fwd"] - launches["C_fwd_city_main"]
                                     - launches["C_fwd_city_aux"])
-    if any(launches[a] != 2 * TRAIN_STEPS for a in OHEM_COUNTERS):
-        fail(f"the OHEM kernels did not run on both heads of every step: {launches}")
+    # each OHEM call launches each K7 kernel once, twice per semi step: K7
+    # prob once per head
+    if (any(launches[a] != 2 * TRAIN_STEPS for a in OHEM_COUNTERS)
+            or launches["K7_prob_main"] != TRAIN_STEPS or launches["K7_prob_aux"] != TRAIN_STEPS):
+        fail(f"the OHEM kernels did not run on both heads of every step (twice per semi "
+             f"step): {launches}")
     log(f"[{card}] peak device memory over the {TRAIN_STEPS} Cityscapes training steps: "
         f"{peak / 2**30:.2f} GiB")
 
@@ -1877,10 +1927,20 @@ def phase9_city_timings(dev, card, cfg, state, batches):
                            cuda_ms(lambda: ce.upsample_cross_entropy_plain(xc, lc, 255, cw)), None)
             c_fwd_shapes[name] = f"{tuple(xc.shape)} -> {tuple(lc.shape[1:])}" + (
                 ", weighted" if cw is not None else "")
-    del xa, laba, kept_a, xu, labu
+    del kept_a, xu, labu
+    K7_VALID["K7_prob"], K7_VALID["K7_prob_aux"] = int(nv), int((laba != 255).sum())
+    ent = torch.rand(CITY_B, CITY_CROP, CITY_CROP, device=dev, generator=g) * 3
+    valid = torch.rand(ent.shape, device=dev, generator=g) < 0.85
+    pct = torch.tensor([80.25, 19.75, 80.25], device=dev)  # the contrastive step's call
     times = {
         "K7_prob": (cuda_ms(lambda: ohem.ohem_target_prob(x, lab)),
                     cuda_ms(lambda: ohem.ohem_target_prob_plain(x, lab)), None),
+        "K7_prob_aux": (cuda_ms(lambda: ohem.ohem_target_prob(xa, laba)),
+                        cuda_ms(lambda: ohem.ohem_target_prob_plain(xa, laba)), None),
+        "E_city_3": (cuda_ms(lambda: quantile.masked_percentiles(ent, valid, pct)),
+                     cuda_ms(lambda: quantile.masked_percentiles_plain(ent, valid, pct)),
+                     cuda_ms(lambda: torch.quantile(ent[valid], pct / 100.0,
+                                                    interpolation="linear"))),
         "K7_kth": (cuda_ms(lambda: quantile.kth_smallest(p, k)),
                    cuda_ms(lambda: quantile.kth_smallest_plain(p, k)),
                    cuda_ms(lambda: torch.kthvalue(flat, k))),
@@ -1901,13 +1961,16 @@ def phase9_city_timings(dev, card, cfg, state, batches):
         "D_city_prob": f"({CITY_B}, 19, {CITY_OS4}, {CITY_OS4}) -> {CITY_CROP}², max-prob + argmax",
         "D_city_entropy": f"({CITY_B}, 19, {CITY_OS4}, {CITY_OS4}) -> {CITY_CROP}², entropy",
         "K7_prob": f"{tuple(x.shape)} -> {CITY_CROP}², labels {tuple(lab.shape)}",
+        "K7_prob_aux": f"{tuple(xa.shape)} -> {CITY_CROP}², labels {tuple(laba.shape)}",
+        "E_city_3": f"3 percentiles of {tuple(ent.shape)}, ~85% valid",
         "K7_kth": f"k {k} of {p.numel()} p_y",
         "K7_keep": f"labels and p_y {tuple(lab.shape)}",
         **c_fwd_shapes,
     }
     times.update(c_fwd)
+    library = {"K7_kth": "torch.kthvalue", "E_city_3": "torch.quantile(values[mask], linear)"}
     for name, (tk, tp, tl) in times.items():
-        lib = "" if tl is None else f"; torch.kthvalue {tl:.4f} ms"
+        lib = "" if tl is None else f"; {library[name]} {tl:.4f} ms"
         log(f"[{card}] kernel {name} {shapes[name]}: {tk:.4f} ms; plain version {tp:.4f} ms{lib}")
     times["C_bwd_city_main"], times["C_bwd_city_aux"] = c_bwd, c_bwd_aux
     return {"semi_ms": med, "img_s": imgs * 1e3 / med, "peak": peak}, times
@@ -2197,9 +2260,9 @@ def bounds(case, cfg):
     could take for each timed call, the larger of the bytes it must move
     over the HBM rate and its operations over the float32 peak (for D also
     its expf / logf over the special-function units' rate), from the
-    shapes (and, for K5 and K6, this run's selections; for C's backward,
-    the valid pixels of its labels) of the timed calls (K7's and C bwd's
-    Cityscapes entries: phase 9's heads)."""
+    shapes (and, for K5 and K6, this run's selections; for C's backward
+    and K7 prob, the valid pixels of its labels) of the timed calls (K7's
+    and C bwd's Cityscapes entries: phase 9's heads)."""
     c, n = case["pri"].shape
     ccfg = cfg.trainer.contrastive
     q, m, k = ccfg.num_queries, ccfg.num_negatives, ccfg.max_keys_per_class_per_step
@@ -2256,7 +2319,10 @@ def bounds(case, cfg):
         "D_entropy": (lo * 4 + px * 4, hi * 16, 2 * hi),
         "D_city_prob": (clo * 4 + cpx * 8, chi * 12, chi + 2 * cpx),
         "D_city_entropy": (clo * 4 + cpx * 4, chi * 16, 2 * chi),
+        # E: each value and its mask read once
         "E": (px * 5, 0),
+        "E_3": (px * 5, 0),
+        "E_city_3": (cpx * 5, 0),
         "K3": (2 * px * (12 + 4 + 4), 0),
         # K3c: K3's bytes and the (4, 21) draws
         "K3c": (2 * px * (12 + 4 + 4) + 4 * 21 * 4, 0),
@@ -2268,9 +2334,14 @@ def bounds(case, cfg):
         "K5_sectors": (sectors * 32 + sel * (4 + f * 2), 0),
         "K6_fwd": (act * q * (f * 4 + m * (f * 2 + 4)) + act * f * 4, act * q * (m + 1) * f * 4),
         "K6_bwd": (b * f * hw * 4 + act * q * (f * 4 + 4), 0),
-        # K7 at the Cityscapes main head, timed in phase 9: p_y from the os4
-        # logits and the labels; k-th smallest: one read of p_y; kept labels
-        "K7_prob": (clo * 4 + cpx * 8, chi * 11),
+        # K7 at the Cityscapes heads, timed in phase 9: p_y from the os4 (os8)
+        # logits and the labels, per valid pixel its 19 upsampled values, the
+        # max and the exp's argument, and one expf each (p_y's numerator is
+        # one of the sum's terms); k-th smallest: one read of p_y; kept labels
+        "K7_prob": (clo * 4 + cpx * 8, K7_VALID["K7_prob"] * 19 * 11,
+                    K7_VALID["K7_prob"] * 19),
+        "K7_prob_aux": (clo8 * 4 + cpx * 8, K7_VALID["K7_prob_aux"] * 19 * 11,
+                        K7_VALID["K7_prob_aux"] * 19),
         "K7_kth": (cpx * 4, 0),
         "K7_keep": (cpx * 12, 0),
     }
@@ -2403,8 +2474,15 @@ def main() -> int:
         entry("upsample_softmax_stats_entropy_cityscapes", "D_city_entropy", "upsample_ce.cu",
               "u2pl_tpu/losses/unsup.py:24", city_launches["D_entropy"], errs["D"],
               "D_city_entropy"),
+        # E: one percentile on the step without the contrastive branch (phase
+        # 4), three on the contrastive step (phases 6, 10, 11 at VOC, 8 at
+        # Cityscapes)
         entry("masked_percentiles", "E", "quantile.cu", "u2pl_tpu/ops/quantile.py:136",
-              runs("E"), errs["E"], "E"),
+              train_launches["E"], errs["E"], "E"),
+        entry("masked_percentiles_k3", "E_3", "quantile.cu", "u2pl_tpu/ops/quantile.py:136",
+              runs("E") - train_launches["E"] - city_launches["E"], errs["E"], "E_3"),
+        entry("masked_percentiles_cityscapes_k3", "E_city_3", "quantile.cu",
+              "u2pl_tpu/ops/quantile.py:136", city_launches["E"], errs["E"], "E_city_3"),
         entry("unsup_mix_boxes", "K3", "mixing.cu", "u2pl_tpu/ops/mixing.py:62",
               runs("K3"), errs["K3"], "K3"),
         entry("unsup_class_mix", "K3c", "mixing.cu", "u2pl_tpu/ops/mixing.py:44",
@@ -2426,8 +2504,11 @@ def main() -> int:
               runs("K6_fwd"), errs["K6_fwd"], "K6_fwd"),
         entry("contra_infonce_bwd", "K6_bwd", "infonce.cu", "u2pl_tpu/losses/contrastive.py:168",
               runs("K6_bwd"), errs["K6_bwd"], "K6_bwd"),
-        entry("ohem_target_prob", "K7_prob", "ohem.cu", "u2pl_tpu/losses/ohem.py:66",
-              city_launches["K7_prob"], errs["K7_prob"], "K7_prob"),
+        entry("ohem_target_prob", "K7_prob", "upsample_ce.cu", "u2pl_tpu/losses/ohem.py:66",
+              city_launches["K7_prob_main"], errs["K7_prob"], "K7_prob"),
+        entry("ohem_target_prob_aux", "K7_prob_aux", "upsample_ce.cu",
+              "u2pl_tpu/losses/ohem.py:66", city_launches["K7_prob_aux"], errs["K7_prob"],
+              "K7_prob_aux"),
         entry("kth_smallest", "K7_kth", "quantile.cu", "u2pl_tpu/losses/ohem.py:35",
               city_launches["K7_kth"], errs["K7_kth"], "K7_kth"),
         entry("ohem_keep_labels", "K7_keep", "ohem.cu", "u2pl_tpu/losses/ohem.py:76",

@@ -483,6 +483,75 @@ def test_kernel_e_bit_equal_to_plain():
         assert torch.equal(got, ref), (name, got, ref)
 
 
+def _descent_capacity(dev):
+    """The values the descent's grid holds in shared memory on this card."""
+    from u2pl_tpu_torch.ops import quantile
+
+    grid, _, cap = quantile._descent_plan(1 << 30, tr._sm_count(dev))
+    return grid * cap
+
+
+def _descent_cases(dev):
+    """Kernel E's grid cases: ties, an empty mask, n not a multiple of the
+    grid, n under the grid's block count, n past its shared memory."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    sms = tr._sm_count(dev)
+    cases = []
+    for name, n in (("ties", 1_052_676), ("n % grid != 0", 1_182_722 + 3 * sms + 1),
+                    ("n < grid", sms // 2 + 1), ("past shared memory",
+                                                 _descent_capacity(dev) + 12_345)):
+        v = torch.rand(n, device=dev, generator=g) * 3
+        v[: n // 4] = torch.randint(0, 9, (n // 4,), device=dev, generator=g).float() * 0.25
+        m = torch.rand(n, device=dev, generator=g) < 0.85
+        cases.append((name, v, m))
+    cases.append(("all masked", cases[0][1], torch.zeros_like(cases[0][2])))
+    return cases
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_kernel_e_descent_cases(k):
+    """One cooperative launch per call, bit-equal to the masked sort, and
+    the workspace left zero."""
+    from u2pl_tpu_torch.ops import quantile
+
+    dev = _cuda()
+    pct = torch.tensor([0.0, 85.0, 37.5, 100.0][:k], device=dev)
+    for name, v, m in _descent_cases(dev):
+        n = quantile.masked_percentiles.launches
+        got = quantile.masked_percentiles(v, m, pct)
+        torch.cuda.synchronize()
+        assert quantile.masked_percentiles.launches == n + 1
+        ref = quantile.masked_percentiles_plain(v, m, pct)
+        assert torch.equal(got, ref), (name, got, ref)
+        assert not quantile._workspace(v.device).any(), name
+
+
+def test_kernel_descent_layout_matches_the_host():
+    from u2pl_tpu_torch.kernels import load
+    from u2pl_tpu_torch.ops import quantile
+
+    _cuda()
+    lib = load()
+    assert lib.u2pl_quantile_digit_bits() == quantile.DESCENT_DIGIT_BITS
+    assert lib.u2pl_quantile_max_key_bytes() == quantile.DESCENT_KEY_BYTES
+
+
+def test_kernel_descent_refuses_a_grid_that_cannot_be_co_resident(monkeypatch):
+    """A grid past one block per SM raises through kernels.check; nothing
+    falls back."""
+    from u2pl_tpu_torch.ops import quantile
+
+    dev = _cuda()
+    v = torch.rand(10_000, device=dev)
+    _, slice_, cap = quantile._descent_plan(v.numel(), tr._sm_count(dev))
+    monkeypatch.setattr(quantile, "_descent_launch",
+                        lambda values: (4 * tr._sm_count(dev), slice_, cap))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        quantile.kth_smallest(v, 10)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        quantile.masked_percentiles(v, v > 0.5, torch.tensor([50.0], device=dev))
+
+
 @pytest.mark.parametrize("mode", ["cutmix", "cutout"])
 def test_kernel_k3_bit_equal_to_plain(mode):
     from u2pl_tpu_torch.ops import mixing
@@ -994,6 +1063,28 @@ def test_kernel_ohem_target_prob_matches_plain(shape, outsz):
     assert torch.equal(p[lab == 255], torch.ones_like(p[lab == 255]))
 
 
+def test_kernel_ohem_target_prob_counts_and_repeats():
+    """num_valid from the last block's ticket: right on repeated calls, 0 on
+    an all-ignored map, the ticket words back at 0; p_y the same bits on
+    every call (one launch each, counted by the logits' (h, w))."""
+    from u2pl_tpu_torch.kernels import TICKET_OHEM_PROB, tickets
+    from u2pl_tpu_torch.losses import ohem
+
+    dev = _cuda()
+    for shape, outsz in OHEM_SHAPES:
+        for ignore_frac in (0.05, 1.0):
+            x, lab = _ohem_inputs(dev, shape, outsz, ignore_frac=ignore_frac)
+            want = int((lab != 255).sum())
+            before = ohem.ohem_target_prob.shapes[tuple(x.shape[2:])]
+            first, nv0 = ohem.ohem_target_prob(x, lab)
+            for _ in range(3):
+                p, nv = ohem.ohem_target_prob(x, lab)
+                torch.cuda.synchronize()
+                assert int(nv) == int(nv0) == want and torch.equal(p, first)
+            assert not tickets(x.device)[TICKET_OHEM_PROB:TICKET_OHEM_PROB + 2].any()
+            assert ohem.ohem_target_prob.shapes[tuple(x.shape[2:])] == before + 4
+
+
 def _kth_cases(dev):
     g = torch.Generator(device=dev).manual_seed(13)
     n = 2 * 769 * 769
@@ -1018,6 +1109,23 @@ def test_kernel_kth_smallest_bit_equal_to_plain():
         assert got.dim() == 0 and torch.equal(got, ref), (v.numel(), k, got, ref)
     with pytest.raises(ValueError):
         quantile.kth_smallest(torch.rand(10, device=dev), 11)
+
+
+def test_kernel_kth_smallest_descent_cases():
+    """k = 1, k = n and the Cityscapes config's k (100000) at the heads'
+    n, n past the grid's shared memory, n under its block count."""
+    from u2pl_tpu_torch.ops import quantile
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(14)
+    for n in (2 * 769 * 769, _descent_capacity(dev) + 777, tr._sm_count(dev) - 1):
+        p = torch.rand(n, device=dev, generator=g)
+        p[torch.rand(n, device=dev, generator=g) < 0.05] = 1.0
+        for k in sorted({1, min(100000, n), n}):
+            got = quantile.kth_smallest(p, k)
+            torch.cuda.synchronize()
+            assert torch.equal(got, quantile.kth_smallest_plain(p, k)), (n, k)
+            assert not quantile._workspace(p.device).any()
 
 
 @pytest.mark.parametrize("min_kept,ignore_frac", [(10, 0.05), (100000, 0.05), (100000, 0.95),

@@ -1,7 +1,8 @@
 """The host-side launch plans of kernel A-bwd (`ops/resize.py:_bwd_plan`),
-of kernels C fwd and D (`losses/ce.py:_stats_plan`), of K6 fwd
-(`losses/contrastive.py:_infonce_group`) and K5 (`memobank.py:
-_enqueue_tile`), on the CPU.
+of kernels C fwd, D and K7 prob (`losses/ce.py:_stats_plan`), of K6 fwd
+(`losses/contrastive.py:_infonce_group`), K5 (`memobank.py:
+_enqueue_tile`) and the radix descent of E and K7 kth (`ops/quantile.py:
+_descent_plan`), on the CPU.
 
 The kernels run only on the card (tests/test_torch_cuda.py); what they are
 given is computed here in Python, so these tests hold the plans to what the
@@ -9,7 +10,8 @@ kernels assume: every input row's output range inside the rows its band
 walks, every C fwd / D block within shared memory, at the main path's
 shapes and every card test's shape, for several SM counts; K6 fwd's key
 groups within their registers, each key fetched before it is reduced and
-reduced once in key order; K5's tiles writing every row once.
+reduced once in key order; K5's tiles writing every row once; the
+descent's blocks holding every value once, within shared memory.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 from u2pl_tpu_torch import memobank as mb
 from u2pl_tpu_torch.losses import ce
 from u2pl_tpu_torch.losses import contrastive as tc
+from u2pl_tpu_torch.ops import quantile as tq
 from u2pl_tpu_torch.ops import resize as tr
 from u2pl_tpu_torch.ops.resize import _interp_matrix_np, _ranges_np
 
@@ -211,3 +214,26 @@ def test_enqueue_tiles_write_every_row_once(case, sms):
     assert len({(j, row) for j, _, row in got}) == len(got)  # a ring row at most once
     if case == "one_class" and sms == 1:
         assert overflowed  # the rows past a tile's list are written too
+
+
+# ---- the radix descent of E and K7 kth (ops/quantile.py:_descent_plan):
+# the values of VOC's and Cityscapes' maps, one value, fewer values than
+# blocks, a batch-8 Cityscapes map, and one past the grid's shared memory
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+@pytest.mark.parametrize("n", [1_052_676, 1_182_722, 1, 77, 8 * 769 * 769, 6_000_000])
+def test_descent_plan_holds_every_value_once(n, sms):
+    grid, slice_, cap = tq._descent_plan(n, sms)
+    assert grid == sms and slice_ % 4 == 0 and cap % 4 == 0 and 0 < cap <= slice_
+    assert 4 * cap <= tq.DESCENT_KEY_BYTES
+    held = np.zeros(n, np.int64)
+    in_smem = 0
+    for b in range(grid):  # as the kernel: base = b * slice, cnt = min(slice, n - base)
+        base = b * slice_
+        cnt = max(0, min(slice_, n - base))
+        held[base:base + cnt] += 1
+        in_smem += min(cnt, cap)
+    assert (held == 1).all()
+    assert slice_ < 4 + -(-n // grid)  # the least multiple of 4 that covers n
+    if n <= grid * tq.DESCENT_KEY_BYTES // 4 - 4 * grid:
+        assert in_smem == n  # no value is read again from global memory

@@ -254,6 +254,119 @@ def test_masked_percentiles_property_bit_equal(n, levels, seed):
     assert got.numpy().tobytes() == ref.tobytes()
 
 
+# ---- the radix descent of kernel E and K7 kth (kernels/csrc/quantile.cu),
+# walked in PyTorch in the kernel's digit layout --------------------------
+
+def _order_keys(v: torch.Tensor) -> torch.Tensor:
+    """u2pl_tpu/ops/quantile.py:_order_keys as int64 tensors of u32 keys."""
+    bits = v.float().reshape(-1).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(bits >> 31 == 1, ~bits & 0xFFFFFFFF, bits | 0x80000000)
+
+
+def _keys_to_f32(keys: torch.Tensor) -> torch.Tensor:
+    bits = torch.where(keys >> 31 == 0, ~keys & 0xFFFFFFFF, keys & 0x7FFFFFFF)
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def _descend(keys: torch.Tensor, rank: int) -> tuple[int, int, int]:
+    """quantile.cu's descent for one 0-based rank: (the rank-th smallest
+    key, the count of keys <= it, the smallest greater key or 0xFFFFFFFF),
+    the last two from the last level's histogram and the smallest key above
+    its group, as the kernel takes them."""
+    prefix, rem, up = 0, rank, 32
+    levels = -(-32 // quantile.DESCENT_DIGIT_BITS)
+    for level in range(levels):
+        shift = max(0, 32 - quantile.DESCENT_DIGIT_BITS * (level + 1))
+        group = keys if level == 0 else keys[(keys >> up) == (prefix >> up)]
+        hist = torch.bincount((group >> shift) & ((1 << (up - shift)) - 1),
+                              minlength=1 << (up - shift))
+        csum = torch.cumsum(hist, 0)
+        sel = int(torch.searchsorted(csum, torch.tensor(rem), right=True))
+        rem -= int(csum[sel] - hist[sel])
+        prefix |= sel << shift
+        if level < levels - 1:
+            up = shift
+    later = torch.nonzero(hist[sel + 1:])
+    if later.numel():
+        nxt = (prefix & ~((1 << up) - 1)) | (sel + 1 + int(later[0]))
+    else:
+        above = keys[(keys >> up) > (prefix >> up)]
+        nxt = int(above.min()) if above.numel() else 0xFFFFFFFF
+    return prefix, rank - rem + int(hist[sel]), nxt
+
+
+def _descent_percentiles(
+    values: torch.Tensor, mask: torch.Tensor, percents: torch.Tensor
+) -> torch.Tensor:
+    """Kernel E's algorithm, digit by digit: its ranks, its descent and its
+    interpolation in float32."""
+    keys = torch.where(mask.reshape(-1), _order_keys(values),
+                       torch.full((values.numel(),), 0xFF800000, dtype=torch.int64))
+    n = mask.sum().to(torch.int32)
+    pct = percents.to(torch.float32)
+    nm1 = torch.clamp(n - 1, min=0)
+    rank = pct / torch.full_like(pct, 100.0) * nm1.to(torch.float32)
+    lo = torch.floor(rank).to(torch.int32)
+    hi = torch.minimum(lo + 1, nm1)
+    frac = rank - lo.to(torch.float32)
+    out = []
+    for q in range(pct.shape[0]):
+        key, le, nxt = _descend(keys, min(max(int(lo[q]), 0), keys.numel() - 1))
+        v_lo, v_nxt = _keys_to_f32(torch.tensor([key, nxt]))
+        v_hi = v_lo if le > int(hi[q]) or int(hi[q]) == int(lo[q]) else v_nxt
+        out.append(v_lo + frac[q] * (v_hi - v_lo))
+    out = torch.stack(out)
+    return torch.where(n > 0, out, torch.full_like(out, float("inf")))
+
+
+def _descent_kth_smallest(values: torch.Tensor, k: int) -> torch.Tensor:
+    """K7 kth's algorithm: the descent at the rank k - 1."""
+    key, _, _ = _descend(_order_keys(values), k - 1)
+    return _keys_to_f32(torch.tensor([key]))[0]
+
+
+@pytest.mark.parametrize("name,values,mask", list(_percentile_maps()), ids=lambda v: v if isinstance(v, str) else "")
+def test_descent_percentiles_bit_equal_to_jax(name, values, mask):
+    """Kernel E's descent walked digit by digit (its layout, the count of
+    keys <= the selected one and the next greater key from the last
+    level's histogram) against the JAX masked_percentiles."""
+    pct = np.concatenate([[0.0, 37.5, 80.0, 100.0], _step_percents()[::37]]).astype(np.float32)
+    ref = np.asarray(jax_masked_percentiles(jnp.asarray(values), jnp.asarray(mask), jnp.asarray(pct)))
+    got = _descent_percentiles(torch.from_numpy(values), torch.from_numpy(mask), torch.from_numpy(pct))
+    assert got.dtype == torch.float32
+    assert got.numpy().tobytes() == ref.tobytes(), (name, got.numpy(), ref)
+
+
+@settings(max_examples=30, deadline=None)
+@given(
+    n=st.integers(0, 512),
+    levels=st.integers(1, 50),
+    seed=st.integers(0, 2**31 - 1),
+)
+def test_descent_percentiles_property_bit_equal(n, levels, seed):
+    rng = np.random.RandomState(seed)
+    values = (rng.randint(0, levels, 512) / levels - 0.3).astype(np.float32)
+    mask = rng.permutation(512) < n
+    pct = _step_percents()[rng.randint(0, 300, 4)]
+    ref = np.asarray(jax_masked_percentiles(jnp.asarray(values), jnp.asarray(mask), jnp.asarray(pct)))
+    got = _descent_percentiles(torch.from_numpy(values), torch.from_numpy(mask), torch.from_numpy(pct))
+    assert got.numpy().tobytes() == ref.tobytes()
+
+
+@pytest.mark.parametrize("name,values,mask", list(_percentile_maps()), ids=lambda v: v if isinstance(v, str) else "")
+def test_descent_kth_smallest_bit_equal_to_jax(name, values, mask):
+    """K7 kth's descent against the JAX _kth_smallest at k = 1, the middle
+    and n (a masked value is +inf there, as OHEM's ignored pixels are 1.0)."""
+    from u2pl_tpu.losses.ohem import _kth_smallest
+
+    v = np.where(mask, values, np.float32(np.inf)).astype(np.float32).reshape(-1)
+    for k in sorted({1, v.size // 2, v.size}):
+        ref = np.asarray(_kth_smallest(jnp.asarray(v), k))
+        got = _descent_kth_smallest(torch.from_numpy(v), k)
+        assert got.numpy().tobytes() == ref.tobytes(), (name, k)
+
+
 # ---- CutMix / Cutout: bit-equal with JAX's own draws -----------------------
 
 def _jax_box_uniforms(k_mix, b):

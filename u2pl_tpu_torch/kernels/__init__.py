@@ -40,8 +40,8 @@ def load():
         # (x, maxprob, argmax, entropy, idx_h, w_h, idx_w, w_w,
         #  B, C, H, W, OH, OW, span, max_rows, stream)
         "u2pl_upsample_softmax_stats": [p] * 8 + [i] * 8 + [p],
-        # (values, mask, pct, out, state, n, K, stream)
-        "u2pl_masked_percentiles": [p] * 5 + [i] * 2 + [p],
+        # (values, mask, pct, out, state, n, K, grid, slice, cap, stream)
+        "u2pl_masked_percentiles": [p] * 5 + [i] * 5 + [p],
         # (img, lab, prob, boxes, img_out, lab_out, prob_out,
         #  B, CI, H, W, cutout, ignore, stream)
         "u2pl_unsup_mix_boxes": [p] * 7 + [i] * 6 + [p],
@@ -65,14 +65,16 @@ def load():
         "u2pl_contra_infonce_fwd": [p] * 13 + [i] * 9 + [f, p],
         # (anchor_idx, active, valid_seg, gdir, g, sums, grad_rep, B, F, HW, C, Q, stream)
         "u2pl_contra_infonce_bwd": [p] * 7 + [i] * 5 + [p],
-        # (values, out, state, n, k, stream)
-        "u2pl_kth_smallest": [p] * 3 + [i] * 2 + [p],
-        # (x, labels, p_y, num_valid, idx_h, w_h, idx_w, w_w,
-        #  B, C, H, W, OH, OW, ignore, stream)
-        "u2pl_ohem_target_prob": [p] * 8 + [i] * 7 + [p],
+        # (values, out, state, n, k, grid, slice, cap, stream)
+        "u2pl_kth_smallest": [p] * 3 + [i] * 5 + [p],
+        # (x, labels, p_y, num_valid, ticket, idx_h, w_h, idx_w, w_w,
+        #  B, C, H, W, OH, OW, ignore, span, max_rows, stream)
+        "u2pl_ohem_target_prob": [p] * 9 + [i] * 9 + [p],
         # (labels, p_y, kth, num_valid, out, n, thresh, min_kept, ignore, stream)
         "u2pl_ohem_keep_labels": [p] * 5 + [i, f, i, i, p],
         "u2pl_quantile_max_queries": [],
+        "u2pl_quantile_digit_bits": [],
+        "u2pl_quantile_max_key_bytes": [],
         "u2pl_quantile_state_words": [],
         "u2pl_select_keys_radix_state_words": [i],
     }
@@ -86,19 +88,22 @@ def load():
     return lib
 
 
-# the words of `tickets`: one per kernel that sums or updates in its last block
+# the words of `tickets`: one per kernel that sums or updates in its last
+# block; K7 prob's ticket is followed by the word its blocks count into
 TICKET_INFONCE_FWD = 0
 TICKET_MEMOBANK = 1
+TICKET_OHEM_PROB = 2
 
 
 @functools.lru_cache(maxsize=None)
 def tickets(device):
     """Zeroed uint32 words on `device`, one per kernel whose last block to
     finish takes over (TICKET_*): each block adds one with atomicInc, which
-    wraps at the grid size, so a word is 0 again after every launch."""
+    wraps at the grid size, so a word is 0 again after every launch (and
+    the last block of K7 prob takes its count word back to 0)."""
     import torch
 
-    return torch.zeros(2, dtype=torch.int32, device=device)
+    return torch.zeros(4, dtype=torch.int32, device=device)
 
 
 def check(lib, err: int, what: str) -> None:

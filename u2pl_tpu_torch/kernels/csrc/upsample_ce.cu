@@ -48,6 +48,20 @@
 // are the same bits.  0.0375 / 0.059 ms for the max-prob + argmax / the
 // entropy call at VOC, 0.042 / 0.063 at Cityscapes' (2, 19, 193²) -> 769²
 // (u2pl_tpu_torch/kernels/timing_ab.py; PERF.md has the variants).
+//
+// K7 prob. u2pl_ohem_target_prob replaces u2pl_tpu/losses/ohem.py:66-75
+//    (OHEM's p_y = softmax(upsampled logits)[label], 1.0 at ignored pixels,
+//    and the count of valid pixels) as a third mode of D's kernel, on C's
+//    forward plan: it reads the labels as C's forward does, takes m, the
+//    sum and the label's value in C's expressions and class order and
+//    writes p_y = expf(vy - m) / s 4 pixels per 16-byte vector (the first
+//    design's bits); num_valid is counted in integers, one atomic per
+//    block, and moved out by the last block.  The first design, one thread
+//    per pixel evaluating its 19 upsampled values twice from device memory
+//    (~150 scattered loads per pixel), took 0.071 ms at Cityscapes' heads
+//    on an NVIDIA H100 80GB HBM3 at 700 W; this mode 0.042 / 0.032 ms at
+//    the main (2, 19, 193²) / aux (2, 19, 97²) head -> 769², ~8x its
+//    operations bound, as C's forward.
 
 #include <limits.h>
 #include <math.h>
@@ -315,6 +329,7 @@ __global__ void __launch_bounds__(kBwdThreads) upsample_ce_bwd_kernel(
 constexpr int kStatsProb = 1;
 constexpr int kStatsEntropy = 2;
 constexpr int kStatsCE = 4;  // kernel C's forward: lse and the block's partial sums
+constexpr int kStatsTargetProb = 8;  // K7 prob: p_y and the count of valid pixels
 constexpr int kStatsMaxClasses = 32;   // one pixel's C values live in registers
 constexpr int kStatsThreads = 256;
 // bytes of taps and H-lerped rows: what a block may use on sm_90 (227 KB)
@@ -381,16 +396,17 @@ __device__ __forceinline__ void stats_pixel(const float* __restrict__ Tr, int W,
   }
 }
 
-// kernel C's forward for one output pixel of label y: returns its
-// logsumexp and sets vy to its class-y value (0 where y is outside [0, C)),
-// the first design's expressions in its class order: m = fmaxf over the
-// classes from -inf, s = sum of expf(v - m), lse = m + logf(s).  MAXC 0
-// takes any C, evaluating each value again for the sum (the same bits).
+// the softmax terms of one output pixel of label y: returns m and sets s
+// and vy, its class-y value (0 where y is outside [0, C)), in the first
+// designs' expressions and class order: m = fmaxf over the classes from
+// -inf, s = sum of expf(v - m).  MAXC 0 takes any C, evaluating each value
+// again for the sum (the same bits).
 template <int MAXC, bool EXACT>
-__device__ __forceinline__ float ce_pixel(const float* __restrict__ Tr, int W, int C,
-                                          int4 t, int y, float& vy) {
+__device__ __forceinline__ float softmax_terms(const float* __restrict__ Tr, int W, int C,
+                                               int4 t, int y, float& vy, float& s) {
   const float p = __int_as_float(t.z), q = __int_as_float(t.w);
-  float m = -INFINITY, s = 0.0f;
+  float m = -INFINITY;
+  s = 0.0f;
   vy = 0.0f;
   if constexpr (MAXC == 0) {
     for (int c = 0; c < C; ++c) {
@@ -414,7 +430,29 @@ __device__ __forceinline__ float ce_pixel(const float* __restrict__ Tr, int W, i
       if (EXACT || c < C) s += expf(v[c] - m);
     }
   }
+  return m;
+}
+
+// kernel C's forward for one output pixel: its logsumexp m + logf(s)
+template <int MAXC, bool EXACT>
+__device__ __forceinline__ float ce_pixel(const float* __restrict__ Tr, int W, int C,
+                                          int4 t, int y, float& vy) {
+  float s;
+  const float m = softmax_terms<MAXC, EXACT>(Tr, W, C, t, y, vy, s);
   return m + logf(s);
+}
+
+// K7 prob for one output pixel: p_y = expf(vy - m) / s, the first K7
+// design's (ohem.py:71-72), and 1.0 where y is ignored or outside [0, C)
+template <int MAXC, bool EXACT>
+__device__ __forceinline__ float target_prob_pixel(const float* __restrict__ Tr, int W,
+                                                   int C, int4 t, int y, int ignore,
+                                                   unsigned& valid) {
+  if (y == ignore || y < 0 || y >= C) return 1.0f;
+  ++valid;
+  float vy, s;
+  const float m = softmax_terms<MAXC, EXACT>(Tr, W, C, t, y, vy, s);
+  return expf(vy - m) / s;
 }
 
 // a block owns `span` consecutive pixels [k0, k0 + span) of the flat
@@ -433,7 +471,12 @@ __device__ __forceinline__ float ce_pixel(const float* __restrict__ Tr, int W, i
 // 16-byte vector, writes their lse as another, and sums its pixels' weighted
 // nll and weight in double; the block adds its threads' sums in a fixed
 // order (warp shuffles, then the warps in turn) into part[block] and
-// part[blocks + block].
+// part[blocks + block].  In K7 prob (MODE kStatsTargetProb) it reads the
+// labels so too, writes p_y as a 16-byte vector, and counts its valid
+// pixels; each block adds its count into ticket[1] with one integer atomic
+// (exact, whatever the order), and the last block to finish (ticket[0],
+// kernels.tickets) moves the sum into num_valid and takes ticket[1] back
+// to 0: no zero-fill launch.
 constexpr int kStageBatch = 8;
 
 template <int MAXC, int MODE, bool EXACT>
@@ -441,8 +484,8 @@ __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
     const float* __restrict__ x, float* __restrict__ maxprob,
     int* __restrict__ argmax, float* __restrict__ entropy,
     const int* __restrict__ labels, const float* __restrict__ cw,
-    double* __restrict__ part, int ignore,
-    const int* __restrict__ idx_h, const float* __restrict__ w_h,
+    double* __restrict__ part, int* __restrict__ num_valid, unsigned* __restrict__ ticket,
+    int ignore, const int* __restrict__ idx_h, const float* __restrict__ w_h,
     const int* __restrict__ idx_w, const float* __restrict__ w_w, int C,
     int H, int W, int OH, int OW, unsigned total, int span, int quarter,
     int max_rows, float inv_ow) {
@@ -454,6 +497,8 @@ __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
   const unsigned R0 = k0 / OW;  // the first and last flat output rows
   const int nr = (int)((k1 - 1) / OW - R0) + 1;
   const int plane = H * W, CW = C * W;
+  __shared__ unsigned block_valid;  // kStatsTargetProb
+  if (threadIdx.x == 0) block_valid = 0;
   for (int ox = threadIdx.x; ox < OW; ox += kStatsThreads) {
     scol[(ox & 3) * quarter + (ox >> 2)] =
         make_int4(idx_w[ox], idx_w[OW + ox], __float_as_int(w_w[ox]),
@@ -502,12 +547,13 @@ __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
   const unsigned base = R0 * OW;  // pixel local - base is in row local / OW of T
   const bool vec = ((uintptr_t)labels & 15) == 0;
   double acc = 0.0, acc_w = 0.0;  // kStatsCE: the thread's weighted nll and weight
+  unsigned valid = 0;             // kStatsTargetProb: the thread's valid pixels
   for (unsigned k = k0 + 4u * threadIdx.x; k < k1; k += 4u * kStatsThreads) {
     const int local = (int)(k - base);
     int r = stats_div(local, OW, inv_ow);
     int ox = local - r * OW;
     int4 lab = make_int4(ignore, ignore, ignore, ignore);
-    if constexpr (MODE == kStatsCE) {
+    if constexpr (MODE == kStatsCE || MODE == kStatsTargetProb) {
       if (vec && k + 4 <= k1) {
         lab = *reinterpret_cast<const int4*>(labels + k);
       } else {
@@ -534,6 +580,9 @@ __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
             acc += (double)((mp - vy) * wy);
             acc_w += (double)wy;
           }
+        } else if constexpr (MODE == kStatsTargetProb) {
+          const int y = i == 0 ? lab.x : i == 1 ? lab.y : i == 2 ? lab.z : lab.w;
+          mp = target_prob_pixel<MAXC, EXACT>(T + r * CW, W, C, t, y, ignore, valid);
         } else {
           stats_pixel<MAXC, MODE, EXACT>(T + r * CW, W, C, t, mp, am, en);
         }
@@ -552,7 +601,7 @@ __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
       }
     }
     if (k + 4 <= k1) {
-      if (MODE & (kStatsProb | kStatsCE)) {  // kStatsCE: the lse
+      if (MODE & (kStatsProb | kStatsCE | kStatsTargetProb)) {  // the lse; p_y
         *reinterpret_cast<float4*>(maxprob + k) = make_float4(mpv[0], mpv[1], mpv[2], mpv[3]);
       }
       if (MODE & kStatsProb) {
@@ -566,7 +615,7 @@ __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) {  // the output's last, partial chunk
       if (k + j < k1) {
-        if (MODE & (kStatsProb | kStatsCE)) maxprob[k + j] = mpv[j];
+        if (MODE & (kStatsProb | kStatsCE | kStatsTargetProb)) maxprob[k + j] = mpv[j];
         if (MODE & kStatsProb) argmax[k + j] = amv[j];
         if (MODE & kStatsEntropy) entropy[k + j] = env[j];
       }
@@ -594,16 +643,30 @@ __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
       part[gridDim.x + blockIdx.x] = b;
     }
   }
+  if constexpr (MODE == kStatsTargetProb) {
+    valid = __reduce_add_sync(0xffffffffu, valid);
+    if ((threadIdx.x & 31) == 0 && valid) atomicAdd(&block_valid, valid);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      if (block_valid) atomicAdd(ticket + 1, block_valid);
+      __threadfence();  // the count before the ticket
+      if (atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1) {
+        *num_valid = (int)atomicExch(ticket + 1, 0u);
+      }
+    }
+  }
 }
 
 struct StatsArgs {
   const float* x;
-  float* maxprob;  // kStatsCE: the lse
+  float* maxprob;  // kStatsCE: the lse; kStatsTargetProb: p_y
   int* argmax;
   float* entropy;
   const int* labels;  // kStatsCE: labels, class weights or null, partial sums
   const float* cw;
   double* part;
+  int* num_valid;  // kStatsTargetProb: the count out, and its two ticket words
+  unsigned* ticket;
   int ignore;
   const int* idx_h;
   const float* w_h;
@@ -623,15 +686,15 @@ cudaError_t launch_stats(const StatsArgs& a, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
   }
   kernel<<<(a.total + a.span - 1) / a.span, kStatsThreads, a.smem, stream>>>(
-      a.x, a.maxprob, a.argmax, a.entropy, a.labels, a.cw, a.part, a.ignore, a.idx_h,
-      a.w_h, a.idx_w, a.w_w, a.C, a.H, a.W, a.OH, a.OW, a.total, a.span, a.quarter,
-      a.max_rows, 1.0f / (float)a.OW);
+      a.x, a.maxprob, a.argmax, a.entropy, a.labels, a.cw, a.part, a.num_valid, a.ticket,
+      a.ignore, a.idx_h, a.w_h, a.idx_w, a.w_w, a.C, a.H, a.W, a.OH, a.OW, a.total, a.span,
+      a.quarter, a.max_rows, 1.0f / (float)a.OW);
   return cudaGetLastError();
 }
 
 // the configs' class counts exactly (no per-class guard), else the
-// smallest register array that holds C classes; C's forward takes any C
-// (MAXC 0: no register array)
+// smallest register array that holds C classes; C's forward and K7 prob
+// take any C (MAXC 0: no register array)
 template <int MODE>
 cudaError_t launch_stats_mode(const StatsArgs& a, cudaStream_t stream) {
   if (a.C == 21) return launch_stats<21, MODE, true>(a, stream);  // VOC
@@ -639,7 +702,7 @@ cudaError_t launch_stats_mode(const StatsArgs& a, cudaStream_t stream) {
   if (a.C <= 8) return launch_stats<8, MODE>(a, stream);
   if (a.C <= 16) return launch_stats<16, MODE>(a, stream);
   if (a.C <= 24) return launch_stats<24, MODE>(a, stream);
-  if constexpr (MODE == kStatsCE) {
+  if constexpr (MODE == kStatsCE || MODE == kStatsTargetProb) {
     if (a.C > kStatsMaxClasses) return launch_stats<0, MODE>(a, stream);
   }
   return launch_stats<32, MODE>(a, stream);
@@ -680,9 +743,10 @@ int u2pl_upsample_ce_fwd(const void* x, const void* labels, const void* cw,
   cudaStream_t st = (cudaStream_t)stream;
   if (blocks > 0) {
     const StatsArgs a = {(const float*)x, (float*)lse, nullptr, nullptr, (const int*)labels,
-                         (const float*)cw, (double*)part, ignore, (const int*)idx_h,
-                         (const float*)w_h, (const int*)idx_w, (const float*)w_w, C, H, W,
-                         OH, OW, (unsigned)total, span, (OW + 3) / 4, max_rows, smem};
+                         (const float*)cw, (double*)part, nullptr, nullptr, ignore,
+                         (const int*)idx_h, (const float*)w_h, (const int*)idx_w,
+                         (const float*)w_w, C, H, W, OH, OW, (unsigned)total, span,
+                         (OW + 3) / 4, max_rows, smem};
     const cudaError_t err = launch_stats_mode<kStatsCE>(a, st);
     if (err != cudaSuccess) return (int)err;
   }
@@ -745,8 +809,8 @@ int u2pl_upsample_softmax_stats(const void* x, void* maxprob, void* argmax,
   }
   if (B <= 0 || OH <= 0 || OW <= 0) return (int)cudaGetLastError();
   const StatsArgs a = {(const float*)x, (float*)maxprob, (int*)argmax, (float*)entropy,
-                       nullptr, nullptr, nullptr, 0, (const int*)idx_h, (const float*)w_h,
-                       (const int*)idx_w, (const float*)w_w, C, H, W, OH, OW,
+                       nullptr, nullptr, nullptr, nullptr, nullptr, 0, (const int*)idx_h,
+                       (const float*)w_h, (const int*)idx_w, (const float*)w_w, C, H, W, OH, OW,
                        (unsigned)((long long)B * OH * OW), span, (OW + 3) / 4, max_rows, smem};
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
@@ -758,6 +822,28 @@ int u2pl_upsample_softmax_stats(const void* x, void* maxprob, void* argmax,
     err = launch_stats_mode<kStatsProb | kStatsEntropy>(a, st);
   }
   return (int)err;
+}
+
+// K7 prob: p_y (B, OH, OW) f32 and num_valid (one int32, written by the
+// launch); ticket: two zeroed u32 words of kernels.tickets, left zero;
+// (span, max_rows) from losses/ce.py:_stats_plan
+int u2pl_ohem_target_prob(const void* x, const void* labels, void* p_y,
+                          void* num_valid, void* ticket, const void* idx_h,
+                          const void* w_h, const void* idx_w, const void* w_w,
+                          int B, int C, int H, int W, int OH, int OW, int ignore,
+                          int span, int max_rows, void* stream) {
+  int smem = 0;
+  const long long total = (long long)B * OH * OW;
+  if (total <= 0 || C <= 0 || H <= 0 || W <= 0 ||
+      !stats_plan_ok(B, C, W, OH, OW, span, max_rows, &smem)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const StatsArgs a = {(const float*)x, (float*)p_y, nullptr, nullptr, (const int*)labels,
+                       nullptr, nullptr, (int*)num_valid, (unsigned*)ticket, ignore,
+                       (const int*)idx_h, (const float*)w_h, (const int*)idx_w,
+                       (const float*)w_w, C, H, W, OH, OW, (unsigned)total, span,
+                       (OW + 3) / 4, max_rows, smem};
+  return (int)launch_stats_mode<kStatsTargetProb>(a, (cudaStream_t)stream);
 }
 
 }  // extern "C"

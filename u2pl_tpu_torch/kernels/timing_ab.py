@@ -1,8 +1,8 @@
 """Times kernel A and its adjoint A-bwd, K6's forward and backward, kernel
-C's forward and backward, kernel D, K4's key selection and K5 of the
-u2pl_tpu_torch package in the checkout at --root, on one card: run it once
-per checkout, in turns, to set two versions of the kernels side by side in
-one call.
+C's forward and backward, kernel D, K4's key selection, K5, OHEM's K7 prob
+and K7 kth and kernel E of the u2pl_tpu_torch package in the checkout at
+--root, on one card: run it once per checkout, in turns, to set two
+versions of the kernels side by side in one call.
 
     python u2pl_tpu_torch/kernels/timing_ab.py --root <checkout> --label <name>
 
@@ -74,7 +74,26 @@ results are bit-equal.  The inputs come from seeded generators on the card:
              rep into a full (21, 50000, 256) bf16 bank whose rings wrap; its
              hash covers keys, ptr and occupancy after one call on a clone;
   K5_city    the same with CITY_N_SEL (a Cityscapes semi step's counts, k
-             12288) from a (4, 256, 193²) rep into a (19, 50000, 256) bank.
+             12288) from a (4, 256, 193²) rep into a (19, 50000, 256) bank;
+  K7_prob_city_main  K7 prob, OHEM's target-class probability, at the
+             Cityscapes main head, (2, 19, 193²) -> 769², labels of 8 x 8
+             cells of the head's grid, 5% ignored (chip_smoke.py's
+             ohem_case); its hash covers p_y and num_valid;
+  K7_prob_city_aux   the same at the aux head, (2, 19, 97²) -> 769², 4 x 4
+             cells;
+  K7_kth_city  K7 kth, the 100,000-th smallest of the main head's 2 x 769²
+             p_y; library: torch.kthvalue;
+  E_voc_1    kernel E, one percentile (80.25) of a (4, 513²) map, ~85%
+             valid, a quarter of it ties; library: torch.quantile of the
+             masked values (linear);
+  E_voc_3    the same with the contrastive step's three percents (80.25,
+             19.75, 80.25: the drop percent and the low / high entropy
+             percents at epoch 1 of 80);
+  E_city_3   the contrastive step's call at Cityscapes, (2, 769²);
+  A_decoder_city  kernel A at the Cityscapes decoder's upsample, (4, 256,
+             97²) -> 193², with its bytes bound; library: F.interpolate.
+The K5 rows carry their NCHW sector bound: the distinct 32-byte sectors of
+the rep that the written rows read, as chip_smoke.py:bounds counts them.
 """
 
 from __future__ import annotations
@@ -97,6 +116,7 @@ import torch.nn.functional as F
 VOC_N_SEL = [8192, 475, 494, 479, 489, 510, 493, 507, 477, 473, 488, 484, 500, 459, 512,
              530, 514, 512, 506, 469, 488]
 CITY_N_SEL = [0, 0, 0, 37, 0, 3053, 0, 66, 0, 1, 0, 5780, 16, 0, 0, 0, 150, 4, 1]
+PEAK_BYTES_S = 3.35e12  # the H100 SXM's HBM rate, for the bounds written beside two rows
 
 
 def cuda_ms(fn, iters=30):
@@ -206,7 +226,7 @@ def main() -> int:
     }
     from u2pl_tpu_torch.losses import ce, ohem
 
-    def ohem_head(hw, block):  # logits whose label class leads at most pixels
+    def ohem_inputs(hw, block):  # logits whose label class leads at most pixels
         cells = torch.randint(0, 19, (2, -(-hw // block), -(-hw // block)), device=dev,
                               generator=g, dtype=torch.int32)
         lab_s = R.resize_nearest(cells, (hw, hw))
@@ -214,7 +234,11 @@ def main() -> int:
         x = (8.0 * onehot - 4.0 + 0.3 * torch.randn(2, 19, hw, hw, device=dev, generator=g))
         lab = R.resize_nearest(lab_s, (769, 769)).contiguous()
         lab[torch.rand(lab.shape, device=dev, generator=g) < 0.05] = 255
-        return x.contiguous(), ohem.ohem_kept_labels(x.contiguous(), lab, 0.7, 100000)
+        return x.contiguous(), lab
+
+    def ohem_head(hw, block):
+        x, lab = ohem_inputs(hw, block)
+        return x, ohem.ohem_kept_labels(x, lab, 0.7, 100000)
 
     x = torch.randn(4, 21, 129, 129, device=dev, generator=g)
     lab = torch.randint(0, 21, (4, 513, 513), device=dev, generator=g, dtype=torch.int32)
@@ -331,11 +355,61 @@ def main() -> int:
                torch.tensor(n_sel, dtype=torch.int32, device=dev))
         timed = clone_bank(bank)
         fn = lambda: memobank_enqueue(timed, *enq)  # noqa: E731
+        # the NCHW sector bound (chip_smoke.py:bounds): the distinct 32-byte
+        # sectors of the rep that the written rows' pixels touch, the
+        # indices read and the bf16 rows written
+        n_new = torch.clamp(enq[2], max=k).long()
+        first = torch.clamp(n_new - bank.sizes.long(), min=0)
+        rank = torch.arange(sel.shape[1], device=dev)
+        pix = sel[(rank >= first[:, None]) & (rank < n_new[:, None])]
+        planes = (pix // (hw * hw) * 256)[:, None] + torch.arange(256, device=dev)
+        sectors = torch.unique((planes * (hw * hw) + (pix % (hw * hw))[:, None]) // 8).numel()
         out["kernels"][f"K5_{label}"] = {
             "ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn), "library_ms": None,
             "sha256": bank_digest(memobank_enqueue(clone_bank(bank), *enq)),
-            "keys": sum(n_sel)}
+            "keys": sum(n_sel),
+            "sector_bound_ms": (sectors * 32 + sum(n_sel) * (4 + 256 * 2)) / PEAK_BYTES_S * 1e3}
         del bank, timed, rep
+    from u2pl_tpu_torch.ops import quantile
+
+    for name, hw, block in (("K7_prob_city_main", 193, 8), ("K7_prob_city_aux", 97, 4)):
+        x, lab = ohem_inputs(hw, block)
+        fn = lambda: ohem.ohem_target_prob(x, lab)  # noqa: E731
+        p_y, nv = fn()
+        out["kernels"][name] = {"ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn),
+                                "library_ms": None,
+                                "sha256": digest(p_y) + "-" + digest(nv), "num_valid": int(nv)}
+        if name == "K7_prob_city_main":
+            flat = p_y.reshape(-1)
+            fn = lambda: quantile.kth_smallest(p_y, 100000)  # noqa: E731
+            out["kernels"]["K7_kth_city"] = {
+                "ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn),
+                "library_ms": cuda_ms(lambda: torch.kthvalue(flat, 100000)),
+                "sha256": digest(fn())}
+    for name, shape, pct in (("E_voc_1", (4, 513, 513), [80.25]),
+                             ("E_voc_3", (4, 513, 513), [80.25, 19.75, 80.25]),
+                             ("E_city_3", (2, 769, 769), [80.25, 19.75, 80.25])):
+        v = torch.rand(shape, device=dev, generator=g) * 3
+        v.view(-1)[: v.numel() // 4] = torch.randint(
+            0, 9, (v.numel() // 4,), device=dev, generator=g).float() * 0.25
+        m = torch.rand(shape, device=dev, generator=g) < 0.85
+        q = torch.tensor(pct, device=dev)
+        fn = lambda: quantile.masked_percentiles(v, m, q)  # noqa: E731
+        out["kernels"][name] = {
+            "ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn),
+            # numpy-'linear' percentiles of the masked values: the same function
+            "library_ms": cuda_ms(lambda: torch.quantile(v[m], q / 100.0,
+                                                         interpolation="linear")),
+            "sha256": digest(fn())}
+    # kernel A at the Cityscapes decoder's upsample, (4, 256, 97²) -> 193²
+    x = torch.randn(4, 256, 97, 97, device=dev, generator=g)
+    fn = lambda: R.resize_bilinear(x, (193, 193))  # noqa: E731
+    out["kernels"]["A_decoder_city"] = {
+        "ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn),
+        "library_ms": cuda_ms(lambda: F.interpolate(x, size=(193, 193), mode="bilinear",
+                                                    align_corners=True)),
+        "sha256": digest(fn()),
+        "bound_ms": 4 * 256 * (97 * 97 + 193 * 193) * 4 / PEAK_BYTES_S * 1e3}
     print(json.dumps(out), flush=True)
     return 0
 

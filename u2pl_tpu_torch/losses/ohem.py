@@ -7,7 +7,8 @@ NCHW logits at their own stride and upsamples inside, as
 `losses/ce.py:upsample_cross_entropy` does:
   * p_y = the softmax probability of each pixel's target class, 1.0 at
     ignored pixels, and the count of valid pixels (kernel
-    `ohem_target_prob`, `kernels/csrc/ohem.cu`);
+    `ohem_target_prob`, a mode of kernel D's staged kernel in
+    `kernels/csrc/upsample_ce.cu`, launched on C's forward plan);
   * kth = the min(n, min_kept)-th smallest p_y over all n pixels, ignored
     ones included (`ops/quantile.kth_smallest`, a radix selection);
   * when min_kept <= num_valid (and num_valid > 0) keep the pixels with
@@ -22,6 +23,7 @@ to the host.  On a CPU tensor `ohem_cross_entropy` is its plain version
 
 from __future__ import annotations
 
+import collections
 from typing import Optional, Tuple
 
 import torch
@@ -76,26 +78,32 @@ def ohem_target_prob(
     oh, ow = labels.shape[1:]
     if b * c * oh * ow >= 2**31:
         raise ValueError("ohem_target_prob: the upsampled logits exceed the int32 sizes")
-    from u2pl_tpu_torch.kernels import check, load
+    dev = logits.device
+    p_y = torch.empty((b, oh, ow), dtype=torch.float32, device=dev)
+    num_valid = torch.empty((), dtype=torch.int32, device=dev)
+    if labels.numel() == 0:
+        return p_y, num_valid.zero_()
+    from u2pl_tpu_torch.kernels import TICKET_OHEM_PROB, check, load, tickets
 
     lib = load()
-    dev = logits.device
+    span, max_rows, _ = ce._stats_plan(b, c, w, oh, ow)
     idx_h, w_h = _device_taps(h, oh, True, dev)
     idx_w, w_w = _device_taps(w, ow, True, dev)
-    p_y = torch.empty((b, oh, ow), dtype=torch.float32, device=dev)
-    num_valid = torch.zeros((), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.u2pl_ohem_target_prob(
             logits.data_ptr(), labels.data_ptr(), p_y.data_ptr(), num_valid.data_ptr(),
-            idx_h.data_ptr(), w_h.data_ptr(), idx_w.data_ptr(), w_w.data_ptr(),
-            b, c, h, w, oh, ow, int(ignore_label), torch.cuda.current_stream(dev).cuda_stream,
+            tickets(dev)[TICKET_OHEM_PROB].data_ptr(), idx_h.data_ptr(), w_h.data_ptr(),
+            idx_w.data_ptr(), w_w.data_ptr(), b, c, h, w, oh, ow, int(ignore_label),
+            span, max_rows, torch.cuda.current_stream(dev).cuda_stream,
         )
     check(lib, err, "ohem_target_prob launch")
     ohem_target_prob.launches += 1
+    ohem_target_prob.shapes[(h, w)] += 1
     return p_y, num_valid
 
 
 ohem_target_prob.launches = 0
+ohem_target_prob.shapes = collections.Counter()  # launches per logits' (h, w): per head
 
 
 def ohem_keep_labels_plain(

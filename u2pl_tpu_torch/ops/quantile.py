@@ -14,12 +14,17 @@ results go out as device tensors.
 
 `kth_smallest` is OHEM's order statistic (port of
 u2pl_tpu/losses/ohem.py:_kth_smallest): the same radix descent on the card
-(`u2pl_kth_smallest`, kernel E's histogram passes with a rank in place of a
-percent), a sort and an index on the CPU; bit-equal to JAX either way.
+(`u2pl_kth_smallest`, with a rank in place of a percent), a sort and an
+index on the CPU; bit-equal to JAX either way.
+
+Both run as one cooperative launch of one block per SM (`_descent_plan`)
+over a workspace per device that every call leaves zero (`_workspace`), so
+two calls on different streams of one device must not overlap.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -61,6 +66,38 @@ def masked_percentiles_plain(
     return percentile_from_sorted(*masked_sort(values, mask), percents)
 
 
+# quantile.cu: kDigit, kMaxKeyBytes
+DESCENT_DIGIT_BITS = 8
+DESCENT_KEY_BYTES = 176 * 1024
+
+
+@functools.lru_cache(maxsize=64)
+def _descent_plan(n: int, sms: int) -> Tuple[int, int, int]:
+    """The descent's launch for n values on `sms` SMs: (grid, slice, cap).
+
+    One block per SM; block b holds the values [b * slice, min((b + 1) *
+    slice, n)), slice the least multiple of 4 (16-byte loads) that covers n
+    with the grid, and keeps the first cap of them as keys in shared memory
+    (DESCENT_KEY_BYTES); it re-reads the rest at every level."""
+    slice_ = 4 * -(-n // (4 * sms))
+    return sms, slice_, min(slice_, DESCENT_KEY_BYTES // 4)
+
+
+def _descent_launch(values: torch.Tensor) -> Tuple[int, int, int]:
+    from u2pl_tpu_torch.ops.resize import _sm_count
+
+    return _descent_plan(values.numel(), _sm_count(values.device))
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace(device: torch.device) -> torch.Tensor:
+    """The descent's histograms and counters on `device`: zero, and left
+    zero by every launch (its last block clears them)."""
+    from u2pl_tpu_torch.kernels import load
+
+    return torch.zeros(load().u2pl_quantile_state_words(), dtype=torch.int32, device=device)
+
+
 def masked_percentiles(
     values: torch.Tensor, mask: torch.Tensor, percents: torch.Tensor
 ) -> torch.Tensor:
@@ -88,12 +125,12 @@ def masked_percentiles(
     if not 0 < k <= lib.u2pl_quantile_max_queries() or values.numel() == 0:
         raise ValueError(f"masked_percentiles: {k} percents of {values.numel()} values")
     dev = values.device
-    state = torch.zeros(lib.u2pl_quantile_state_words(), dtype=torch.int32, device=dev)
     out = torch.empty(k, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.u2pl_masked_percentiles(
             values.data_ptr(), mask.data_ptr(), percents.data_ptr(), out.data_ptr(),
-            state.data_ptr(), values.numel(), k, torch.cuda.current_stream(dev).cuda_stream,
+            _workspace(dev).data_ptr(), values.numel(), k, *_descent_launch(values),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     check(lib, err, "masked_percentiles launch")
     masked_percentiles.launches += 1
@@ -124,12 +161,11 @@ def kth_smallest(values: torch.Tensor, k: int) -> torch.Tensor:
 
     lib = load()
     dev = values.device
-    state = torch.zeros(lib.u2pl_quantile_state_words(), dtype=torch.int32, device=dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.u2pl_kth_smallest(
-            values.data_ptr(), out.data_ptr(), state.data_ptr(), n, int(k),
-            torch.cuda.current_stream(dev).cuda_stream,
+            values.data_ptr(), out.data_ptr(), _workspace(dev).data_ptr(), n, int(k),
+            *_descent_launch(values), torch.cuda.current_stream(dev).cuda_stream,
         )
     check(lib, err, "kth_smallest launch")
     kth_smallest.launches += 1
