@@ -35,8 +35,9 @@ Phases; any failure ends the run with a nonzero exit code:
      and layer4, the teacher copy / EMA, teacher BN tracking and every
      training kernel's launch count (A-bwd once per step: the decoder's;
      the logits' adjoint resize is inside C's backward; D twice per semi
-     step, once per output selection, and K4's key selection once where
-     the contrastive branch runs: phases 6 and 8 too); then step 5 again
+     step, once per output selection, and K4's masks, key selection and
+     anchor draws once each where the contrastive branch runs: phases 6
+     and 8 too); then step 5 again
      from a copy of the state, through the kernels and through the plain
      versions, compared;
   5. training timings: warmup and semi step medians, images/s, peak device
@@ -74,8 +75,9 @@ Phases; any failure ends the run with a nonzero exit code:
      each OHEM kernel (K7; K7 prob at both heads) beside its plain version
      and a library call, and C's forward and backward at the main head
      (kept labels, the OHEM class weight) and the aux head (kept labels),
-     C's forward at the unsupervised CE's, D's two calls and E's
-     contrastive call at the Cityscapes shape;
+     C's forward at the unsupervised CE's, D's two calls, E's
+     contrastive call and K4's masks and anchor draws (first held
+     bit-equal to their plain versions) at the Cityscapes shape;
  10. the trainer CLIs: a synthetic VOC-layout workspace (16 labeled, 16
      unlabeled and 4 val JPEG / PNG pairs of 500x375, from SEED) and
      `u2pl_tpu_torch.train_semi.main` on experiments/pascal/1464/ours as it
@@ -105,7 +107,8 @@ device sleep (`cuda_ms`), so they time the card, not the host's launches.
 It prints a JSON line of kernels (each with its launches on the main paths,
 its error against its plain version, its time beside the plain version's,
 its bound and a library call's time; kernel A once per shape, the logits'
-and the decoder's), then one JSON line
+and the decoder's; K4 masks and anchor draws at VOC and at Cityscapes,
+each with its own path's launches), then one JSON line
 {"ok": true, "device": {...}} as the last line of its output.
 """
 
@@ -839,13 +842,13 @@ def zero_counters():
 def check_per_semi_step(path, launches, semi_steps, contrastive, heads=1):
     """Per semi step, kernel D twice (max-prob + argmax for the pseudo-labels,
     the entropy alone for the gate) and, with the contrastive branch, K4's
-    key selection once; C's forward once per supervised head (`heads`: the
-    main head, and on Cityscapes the aux head) on every step and once more
-    for the unsupervised CE on a semi step."""
+    masks, key selection and anchor draws once each; C's forward once per
+    supervised head (`heads`: the main head, and on Cityscapes the aux head)
+    on every step and once more for the unsupervised CE on a semi step."""
     want = {"D": 2 * semi_steps, "D_prob": semi_steps, "D_entropy": semi_steps,
             "C_fwd": TRAIN_STEPS * heads + semi_steps}
     if contrastive:
-        want["K4_select"] = semi_steps
+        want.update(K4_masks=semi_steps, K4_select=semi_steps, K4_anchors=semi_steps)
     got = {k: launches[k] for k in want}
     log(f"[{path}] launches over {semi_steps} semi steps: {got} (want {want})")
     if got != want:
@@ -1194,6 +1197,8 @@ def phase5_train_timings(dev, card, state, batches):
 C_BWD_VALID = {}
 # the valid pixels of phase 9's K7 prob heads: an ignored pixel needs no softmax
 K7_VALID = {}
+# K4 masks' (bytes, compares) on the timed inputs (timing_ab.masks_needed)
+K4_MASKS_NEEDED = {}
 
 
 def c_bwd_timing(card, key, x, lab, cw):
@@ -1217,6 +1222,24 @@ def c_bwd_timing(card, key, x, lab, cw):
     return out
 
 
+def mask_inputs(g, b, b_l, c, hw):
+    """K4 masks' inputs from the generator `g` (on the card): the os4
+    softmax of b images (c classes, peaked), small labels (class 0 on ~60%
+    of the pixels, ~5% ignored), low / high masks, the first b_l images
+    labeled (their masks: the labeled pixels)."""
+    import torch
+
+    dev = g.device
+    rand = lambda *shape: torch.rand(*shape, device=dev, generator=g)  # noqa: E731
+    prob = torch.softmax(4 * torch.randn(b, c, hw, hw, device=dev, generator=g), dim=1)
+    labels = torch.randint(0, c, (b, hw, hw), device=dev, generator=g, dtype=torch.int32)
+    labels[rand(b, hw, hw) < 0.6] = 0
+    labels[rand(b, hw, hw) < 0.05] = 255
+    low, high = rand(b, hw, hw) < 0.7, rand(b, hw, hw) < 0.5
+    low[:b_l] = high[:b_l] = labels[:b_l] != 255
+    return prob, labels, low, high
+
+
 def contra_case(dev, cfg):
     """The contrastive loss's pieces at the flagship shapes, from SEED: the
     os4 softmax of 4 + 4 images (21 classes, peaked), small labels (class 0
@@ -1235,12 +1258,7 @@ def contra_case(dev, cfg):
     n = b * OS4 * OS4
     q, m = ccfg.num_queries, ccfg.num_negatives
     rand = lambda *shape: torch.rand(*shape, device=dev, generator=g)  # noqa: E731
-    prob = torch.softmax(4 * torch.randn(b, c, OS4, OS4, device=dev, generator=g), dim=1)
-    labels = torch.randint(0, c, (b, OS4, OS4), device=dev, generator=g, dtype=torch.int32)
-    labels[rand(b, OS4, OS4) < 0.6] = 0
-    labels[rand(b, OS4, OS4) < 0.05] = 255
-    low, high = rand(b, OS4, OS4) < 0.7, rand(b, OS4, OS4) < 0.5
-    low[:B_L] = high[:B_L] = labels[:B_L] != 255
+    prob, labels, low, high = mask_inputs(g, b, B_L, c, OS4)
     rep = torch.randn(b, f, OS4, OS4, device=dev, generator=g)
     rep_t = rep + 0.1 * torch.randn(b, f, OS4, OS4, device=dev, generator=g)
     bank = init_memobank(c, f, dtype=torch.bfloat16, device=dev)
@@ -1948,6 +1966,34 @@ def phase9_city_timings(dev, card, cfg, state, batches):
                     cuda_ms(lambda: ohem.ohem_keep_labels_plain(lab, p, kth, nv, thresh, min_kept)),
                     None),
     }
+    # K4's masks and anchor draws at the Cityscapes step's shapes, bit-equal
+    # to their plain versions, then timed
+    from u2pl_tpu_torch.kernels.timing_ab import masks_needed
+    from u2pl_tpu_torch.losses import contrastive as tc
+
+    ccfg = cfg.trainer.contrastive
+    masks = (*mask_inputs(g, 2 * CITY_B, CITY_B, 19, CITY_OS4), CITY_B, ccfg)
+    got, ref = tc.contra_pixel_masks(*masks), tc.contra_pixel_masks_plain(*masks)
+    a_j = torch.arange(19, dtype=torch.int32, device=dev)
+    u = torch.rand(19, ccfg.num_queries, device=dev, generator=g)
+    u[:, 0] = 0.99999994  # the largest draw below 1
+    anchors = (got[0], a_j, u)
+    got_a, ref_a = tc.sample_anchors(*anchors), tc.sample_anchors_plain(*anchors)
+    torch.cuda.synchronize()
+    same = (all(torch.equal(a, b) for a, b in zip(got, ref))
+            and all(torch.equal(a, b) for a, b in zip(got_a, ref_a)))
+    log(f"[phase 9] K4 contra_pixel_masks {tuple(masks[0].shape)} and sample_anchors "
+        f"{tuple(got[0].shape)} x {u.shape[1]} draws: bit-equal {same}; n_low_valid "
+        f"{got[3][0].tolist()}; neg_candidates {got[3][1].tolist()}; n_anchor {got_a[1].tolist()}")
+    if not same or not got[0].any() or not got[1].any():
+        fail("K4 masks or anchor draws at the Cityscapes shape differ from their plain versions "
+             "(or no anchors or negatives)")
+    times["K4_masks_city"] = (cuda_ms(lambda: tc.contra_pixel_masks(*masks)),
+                              cuda_ms(lambda: tc.contra_pixel_masks_plain(*masks)), None)
+    K4_MASKS_NEEDED["K4_masks_city"] = masks_needed(*masks)
+    times["K4_anchors_city"] = (cuda_ms(lambda: tc.sample_anchors(*anchors)),
+                                cuda_ms(lambda: tc.sample_anchors_plain(*anchors)), None)
+    del masks, got, ref, anchors
     from u2pl_tpu_torch.losses import unsup
 
     xd = torch.randn(CITY_B, 19, CITY_OS4, CITY_OS4, device=dev, generator=g) * 3
@@ -1965,6 +2011,8 @@ def phase9_city_timings(dev, card, cfg, state, batches):
         "E_city_3": f"3 percentiles of {tuple(ent.shape)}, ~85% valid",
         "K7_kth": f"k {k} of {p.numel()} p_y",
         "K7_keep": f"labels and p_y {tuple(lab.shape)}",
+        "K4_masks_city": f"prob ({2 * CITY_B}, 19, {CITY_OS4}, {CITY_OS4}) -> (19, N) masks",
+        "K4_anchors_city": f"(19, {2 * CITY_B * CITY_OS4 ** 2}) x {ccfg.num_queries} draws",
         **c_fwd_shapes,
     }
     times.update(c_fwd)
@@ -2272,6 +2320,7 @@ def bounds(case, cfg):
     cpx = CITY_B * CITY_CROP * CITY_CROP  # Cityscapes labels
     clo, chi = 19 * CITY_B * CITY_OS4 * CITY_OS4, 19 * cpx  # its 19-class logits, os4 / 769²
     clo8 = 19 * CITY_B * CITY_OS8 * CITY_OS8  # the aux head's, os8
+    ncity = 2 * CITY_B * CITY_OS4 * CITY_OS4  # the Cityscapes step's os4 pixels
     sel = int(case["n_sel"].sum())
     act = int(case["active"].sum())
     # K5's reads as the card makes them: sel_idx is random in pixel space and
@@ -2279,6 +2328,8 @@ def bounds(case, cfg):
     # distinct sectors of the (B, F, h, w) f32 rep that the written rows'
     # pixels touch, over all F planes
     import torch
+
+    from u2pl_tpu_torch.kernels.timing_ab import masks_needed
 
     n_new = torch.minimum(case["n_sel"], torch.tensor(k, device=case["n_sel"].device))
     first = torch.clamp(n_new - case["bank"].sizes, min=0)
@@ -2326,10 +2377,18 @@ def bounds(case, cfg):
         "K3": (2 * px * (12 + 4 + 4), 0),
         # K3c: K3's bytes and the (4, 21) draws
         "K3c": (2 * px * (12 + 4 + 4) + 4 * 21 * 4, 0),
-        "K4_masks": (b * hw * (21 * 4 + 4 + 2) + c * n * 6, n * c * c),
+        # K4 masks: what its timed inputs need (timing_ab.masks_needed): the
+        # (C, N) outputs, labels and low bits, the unlabeled images' high
+        # bits, all C probabilities of a pixel whose label rank is needed
+        # and p[L] alone of the other pixels that need it; C compares per
+        # ranked pixel
+        "K4_masks": masks_needed(case["prob"], case["labels"], case["low"], case["high"],
+                                 B_L, ccfg),
+        "K4_masks_city": K4_MASKS_NEEDED["K4_masks_city"],
         "K4_select": (c * n * 5 + c * k * 4, 0),
         "K4r": (c * n * 5 + c * k * 4 + c * 4, 0),  # mask + u32 keys in; idx + n_sel out
         "K4_anchors": (c * n + 2 * c * q * 4, 0),
+        "K4_anchors_city": (19 * ncity + 2 * 19 * q * 4, 0),
         "K5": (sel * (f * 4 + 4 + f * 2), 0),
         "K5_sectors": (sectors * 32 + sel * (4 + f * 2), 0),
         "K6_fwd": (act * q * (f * 4 + m * (f * 2 + 4)) + act * f * 4, act * q * (m + 1) * f * 4),
@@ -2488,15 +2547,21 @@ def main() -> int:
         entry("unsup_class_mix", "K3c", "mixing.cu", "u2pl_tpu/ops/mixing.py:44",
               runs("K3c"), errs["K3c"], "K3c"),
         entry("contra_pixel_masks", "K4_masks", "contrastive.cu",
-              "u2pl_tpu/losses/contrastive.py:50", runs("K4_masks"),
+              "u2pl_tpu/losses/contrastive.py:50", runs("K4_masks") - city_launches["K4_masks"],
               errs["K4_masks"], "K4_masks"),
+        entry("contra_pixel_masks_cityscapes", "K4_masks_city", "contrastive.cu",
+              "u2pl_tpu/losses/contrastive.py:50", city_launches["K4_masks"],
+              errs["K4_masks"], "K4_masks_city"),
         entry("select_keys", "K4_select", "contrastive.cu", "u2pl_tpu/losses/contrastive.py:89",
               runs("K4_select"), errs["K4_select"], "K4_select"),
         entry("select_keys_radix", "K4r", "contrastive.cu", "u2pl_tpu/losses/contrastive.py:106",
               runs("K4r"), errs["K4r"], "K4r"),
         entry("sample_anchors", "K4_anchors", "contrastive.cu",
-              "u2pl_tpu/losses/contrastive.py:73", runs("K4_anchors"),
-              errs["K4_anchors"], "K4_anchors"),
+              "u2pl_tpu/losses/contrastive.py:73",
+              runs("K4_anchors") - city_launches["K4_anchors"], errs["K4_anchors"], "K4_anchors"),
+        entry("sample_anchors_cityscapes", "K4_anchors_city", "contrastive.cu",
+              "u2pl_tpu/losses/contrastive.py:73", city_launches["K4_anchors"],
+              errs["K4_anchors"], "K4_anchors_city"),
         {**entry("memobank_enqueue", "K5", "memobank.cu", "u2pl_tpu/memobank.py:92",
                  runs("K5"), errs["K5"], "K5"),
          "sector_bound_ms": bound["K5_sectors"][0]},

@@ -143,23 +143,52 @@ def test_ranks_desc_matches_jax_with_ties():
     np.testing.assert_array_equal(torch.argsort(order, dim=1).numpy(), ref)
 
 
-def jax_masks(prob, labels, low, high, cfg):
+def jax_masks(prob, labels, low, high, cfg, num_labeled=B_L):
     """compute_contra_memobank_loss's masks and counts (contrastive.py:201-238),
-    the JAX expressions on JAX's own ops."""
-    onehot = jax_onehot(jnp.asarray(labels), C)
+    the JAX expressions on JAX's own ops, for NCHW numpy inputs."""
+    b, c, h, w = prob.shape
+    n = b * h * w
+    onehot = jax_onehot(jnp.asarray(labels), c)
     low_valid = onehot * jnp.asarray(low, jnp.float32)[..., None]
     high_valid = onehot * jnp.asarray(high, jnp.float32)[..., None]
     p = nhwc(prob)
     ranks = jc._ranks_desc(p)
-    pf, rf = p.reshape(N, C), ranks.reshape(N, C)
-    lvf, hvf, ohf = (x.reshape(N, C) for x in (low_valid > 0, high_valid > 0, onehot))
-    is_l = jnp.repeat(jnp.arange(B) < B_L, H * W)
+    pf, rf = p.reshape(n, c), ranks.reshape(n, c)
+    lvf, hvf, ohf = (x.reshape(n, c) for x in (low_valid > 0, high_valid > 0, onehot))
+    is_l = jnp.repeat(jnp.arange(b) < num_labeled, h * w)
     anchor = (pf > cfg.current_class_threshold) & lvf
     neg_high = (pf < cfg.current_class_negative_threshold) & hvf
     cm_u = (rf >= cfg.low_rank) & (rf < cfg.high_rank)
     cm_l = (rf < cfg.low_rank) & (ohf == 0)
     negative = neg_high & jnp.where(is_l[:, None], cm_l, cm_u)
     return [np.asarray(x) for x in (anchor.T, negative.T, lvf.T, lvf.sum(0), negative.sum(0))]
+
+
+def label_rank_masks(prob, labels, low, high, num_labeled, cfg, ignore=255):
+    """The masks and counts from each pixel's label class alone, as K4
+    masks' kernel computes them (contrastive.cu:pixel_masks_kernel): a pixel
+    with a label L in [0, C) other than `ignore` is low-valid at L where
+    `low`, an anchor where also p[L] > delta_p, and, on an unlabeled image
+    only, a negative where `high`, p[L] < delta_n and the stable descending
+    rank of L (#{d: p_d > p_L} + #{d < L: p_d == p_L}) is in [low_rank,
+    high_rank); every other entry is 0.  NCHW numpy in, (C, N) out."""
+    b, c, h, w = prob.shape
+    n = b * h * w
+    p = np.moveaxis(prob, 1, 0).reshape(c, n)
+    lab, lo, hi = labels.reshape(n), low.reshape(n), high.reshape(n)
+    valid = (lab >= 0) & (lab < c) & (lab != ignore)
+    cls = np.where(valid, lab, 0)
+    pl = p[cls, np.arange(n)]
+    d = np.arange(c)[:, None]
+    rank = ((p > pl) | ((d < cls) & (p == pl))).sum(0)
+    unlabeled = np.repeat(np.arange(b) >= num_labeled, h * w)
+    lv = valid & lo
+    anc = lv & (pl > cfg.current_class_threshold)
+    neg = (valid & hi & unlabeled & (pl < cfg.current_class_negative_threshold)
+           & (rank >= cfg.low_rank) & (rank < cfg.high_rank))
+    at = d == cls
+    anchor, negative, low_valid = at & anc, at & neg, at & lv
+    return [anchor, negative, low_valid, low_valid.sum(1), negative.sum(1)]
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -175,6 +204,72 @@ def test_pixel_masks_exact(seed):
     for name, g, r in zip(("anchor", "negative", "low_valid", "n_low_valid", "neg_cand"), got, ref):
         np.testing.assert_array_equal(g.numpy(), r, err_msg=name)
     assert ref[1].any() and ref[0].any() and not ref[1][:, : B_L * H * W].any()
+
+
+
+def _mask_case(seed, c, b=3, h=5, w=7):
+    """Seeded NCHW inputs for the mask cases: a softmax with ties at the
+    label class (half the pixels' label class tied with a lower class, some
+    pixels all tied), labels in [0, C), in [C, 255) and 255, low / high
+    masks."""
+    rng = np.random.RandomState(seed)
+    logits = (2.0 * rng.randn(b, c, h, w)).astype(np.float32)
+    prob = np.exp(logits - logits.max(1, keepdims=True))
+    prob = (prob / prob.sum(1, keepdims=True)).astype(np.float32)
+    labels = rng.randint(0, c, (b, h, w)).astype(np.int32)
+    bb, yy, xx = np.nonzero(rng.rand(b, h, w) < 0.5)
+    lab = labels[bb, yy, xx]
+    lower = np.where(lab > 0, lab - 1, np.minimum(lab + 1, c - 1))
+    prob[bb, lab, yy, xx] = prob[bb, lower, yy, xx]  # ties at the label class
+    prob[:, :, 0, :2] = np.float32(1.0 / c)  # every class tied
+    labels[rng.rand(b, h, w) < 0.1] = 255
+    labels[rng.rand(b, h, w) < 0.1] = c + 7  # in [C, 255): no class
+    labels[0, 0, 0] = c
+    low = rng.rand(b, h, w) < 0.7
+    high = rng.rand(b, h, w) < 0.7
+    return prob, labels, low, high
+
+
+# (C, num_labeled of 3 images, low_rank, high_rank, delta_n)
+MASK_CASES = [
+    (5, 1, 1, 3, 1.0),
+    (5, 0, 0, 5, 1.0),  # no labeled image; ranks at 0 and at C
+    (5, 3, 1, 3, 1.0),  # every image labeled: no negatives
+    (1, 1, 0, 1, 2.0),  # one class: rank 0 and p = 1 everywhere
+    (1, 0, 1, 2, 1.0),  # low_rank above the only rank
+    (32, 1, 3, 20, 0.3),
+    (32, 2, 0, 32, 1.0),
+    (21, 1, 21, 40, 1.0),  # ranks at and above C: no negatives
+    (19, 0, 3, 19, 0.05),
+]
+
+
+@pytest.mark.parametrize("case", range(len(MASK_CASES)))
+def test_pixel_masks_from_the_label_class_rank_alone(case):
+    """The premise of K4 masks' kernel: the label class's rank alone gives
+    every mask and count.  label_rank_masks (the kernel's algebra) against
+    contra_pixel_masks_plain (the all-class ranks) and the JAX masks, with
+    ties at the label class, labels in [C, 255) and 255, no and every image
+    labeled, C 1 and 32, low_rank / high_rank at 0, at C and above C."""
+    c, num_labeled, low_rank, high_rank, delta_n = MASK_CASES[case]
+    jcfg, cfg = cfgs(low_rank=low_rank, high_rank=high_rank, current_class_threshold=0.2,
+                     current_class_negative_threshold=delta_n)
+    prob, labels, low, high = _mask_case(case, c)
+    ref = jax_masks(prob, labels, low, high, jcfg, num_labeled)
+    mine = label_rank_masks(prob, labels, low, high, num_labeled, cfg)
+    anchor, negative, low_valid, counts = tc.contra_pixel_masks_plain(
+        torch.from_numpy(prob), torch.from_numpy(labels), torch.from_numpy(low),
+        torch.from_numpy(high), num_labeled, cfg)
+    plain = [anchor.numpy(), negative.numpy(), low_valid.numpy() > 0, counts[0].numpy(),
+             counts[1].numpy()]
+    assert low_valid.dtype == torch.float32 and set(np.unique(low_valid.numpy())) <= {0.0, 1.0}
+    for name, m, p, r in zip(("anchor", "negative", "low_valid", "n_low_valid", "neg_cand"),
+                             mine, plain, ref):
+        np.testing.assert_array_equal(m, r, err_msg=name)
+        np.testing.assert_array_equal(p, r, err_msg=name)
+    assert ref[2].any() and ref[0].any()
+    any_neg = num_labeled < 3 and low_rank < min(high_rank, c)
+    assert ref[4].any() == any_neg, ref[4]
 
 
 def _select_cases():

@@ -8,6 +8,8 @@ imports no JAX, so it also runs where JAX is not installed:
 (`--noconftest`: tests/conftest.py pins JAX to the CPU and imports it.)
 """
 
+import math
+
 import pytest
 import torch
 
@@ -602,8 +604,9 @@ def test_kernel_k3c_classmix_bit_equal_to_plain(b, c, h, w):
 
 # ---- the contrastive slice's kernels: K4, K5, K6 -----------------------------
 
-# (B, B_l, C, h, w): the flagship's os4 batch, and an odd one
-CONTRA_SHAPES = [(8, 4, 21, 129, 129), (3, 1, 5, 9, 7)]
+# (B, B_l, C, h, w): the flagship's os4 batch, an odd one, and the
+# Cityscapes configs' os4 batch
+CONTRA_SHAPES = [(8, 4, 21, 129, 129), (3, 1, 5, 9, 7), (4, 2, 19, 193, 193)]
 
 
 def _contra_inputs(dev, b, b_l, c, h, w, seed=6):
@@ -624,8 +627,30 @@ def _contra_cfg(**kw):
     return parse_config({"trainer": {"contrastive": raw}}).trainer.contrastive
 
 
+def _device_ops(fn):
+    """{device op name: count} of one call of `fn` in a torch.profiler trace
+    (after a first call outside it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.count}
+
+
+def _one_kernel(fn, name):
+    ops = _device_ops(fn)
+    assert len(ops) == 1 and name in next(iter(ops)) and next(iter(ops.values())) == 1, ops
+    assert not any("memset" in k.lower() for k in ops), ops
+
+
 @pytest.mark.parametrize("shape", CONTRA_SHAPES)
 def test_kernel_pixel_masks_bit_equal(shape):
+    from u2pl_tpu_torch.kernels import TICKET_CONTRA_MASKS, tickets
     from u2pl_tpu_torch.losses import contrastive as tc
 
     dev = _cuda()
@@ -640,6 +665,39 @@ def test_kernel_pixel_masks_bit_equal(shape):
     for name, x, y in zip(("anchor", "negative", "low_valid", "counts"), got, ref):
         assert x.dtype == y.dtype and torch.equal(x, y), name
     assert ref[0].any() and ref[1].any()
+    # one launch per call, no zero-fill: the counts' words go back to 0
+    again = tc.contra_pixel_masks(prob, labels, low, high, b_l, cfg)
+    assert all(torch.equal(x, y) for x, y in zip(again, got))
+    assert not tickets(dev)[TICKET_CONTRA_MASKS:].any()
+    _one_kernel(lambda: tc.contra_pixel_masks(prob, labels, low, high, b_l, cfg),
+                "pixel_masks_kernel")
+
+
+@pytest.mark.parametrize("ignore,num_labeled", [(255, 0), (255, 3), (2, 1)])
+def test_kernel_pixel_masks_views_and_labels(ignore, num_labeled):
+    """Inputs that are views at unaligned offsets (scalar loads; N a
+    multiple of 4, so the stores stay wide), labels in [C, 255) and an
+    ignore label inside [0, C), no and every image labeled."""
+    from u2pl_tpu_torch.losses import contrastive as tc
+
+    dev = _cuda()
+    b, c, h, w = 3, 5, 33, 32
+    _, prob, labels, low, high = _contra_inputs(dev, b, num_labeled, c, h, w)
+    labels[0, :3] = c + 9
+    n = b * h * w
+    lab_v = torch.empty(n + 1, dtype=torch.int32, device=dev)[1:].view(b, h, w)
+    lab_v.copy_(labels)
+    low_v = torch.empty(n + 1, dtype=torch.bool, device=dev)[1:].view(b, h, w)
+    low_v.copy_(low)
+    high_v = torch.empty(n + 3, dtype=torch.bool, device=dev)[3:].view(b, h, w)
+    high_v.copy_(high)
+    cfg = _contra_cfg(low_rank=1, high_rank=4)
+    args = (prob, lab_v, low_v, high_v, num_labeled, cfg, ignore)
+    got = tc.contra_pixel_masks(*args)
+    ref = tc.contra_pixel_masks_plain(*args)
+    for name, x, y in zip(("anchor", "negative", "low_valid", "counts"), got, ref):
+        assert torch.equal(x, y), name
+    assert ref[0].any() and ref[1].any() == (num_labeled < b)
 
 
 def _select_inputs(dev, c, n, density, ties, seed=7):
@@ -740,14 +798,22 @@ def test_kernel_select_keys_radix_bit_equal(c, n, k, density):
 
 
 @pytest.mark.parametrize("c,n,q,density", [(21, 133128, 256, 0.02), (5, 9000, 64, 0.3),
-                                           (4, 100, 33, 0.0)])
+                                           (4, 100, 33, 0.0), (19, 148996, 256, 0.02),
+                                           (3, 189, 40, 0.5), (5, 9008, 64, 0.3),
+                                           (5, 9002, 64, 0.3), (3, 1_000_003, 256, 0.3)])
 def test_kernel_sample_anchors_bit_equal(c, n, q, density):
+    """Row 0 empty, row 1 ~60% set (like class 0's anchors), the largest
+    draw below 1 in every row; words of gcd(n, 16) bytes (16 at n = 9008,
+    2 at 9002, 1 for the odd rows, of which 1,000,003 is past what a
+    prefix per word could hold); one launch per call, no zero-fill."""
     from u2pl_tpu_torch.losses import contrastive as tc
 
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(8)
     mask = torch.rand(c, n, device=dev, generator=g) < density
     mask[0] = False
+    mask[1] = torch.rand(n, device=dev, generator=g) < 0.6
+    assert tc._anchors_plan(n, mask.data_ptr())[0] == math.gcd(n, 16)
     a_j = torch.randperm(c, device=dev, generator=g).to(torch.int32)
     u = torch.rand(c, q, device=dev, generator=g)
     u[:, 0] = 0.99999994  # the largest draw below 1
@@ -756,6 +822,12 @@ def test_kernel_sample_anchors_bit_equal(c, n, q, density):
     torch.cuda.synchronize()
     assert tc.sample_anchors.launches == cnt + 1
     ref = tc.sample_anchors_plain(mask, a_j, u)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    _one_kernel(lambda: tc.sample_anchors(mask, a_j, u), "sample_anchors_kernel")
+    # a mask at an odd address: 1-byte words
+    odd = torch.empty(c * n + 1, dtype=torch.bool, device=dev)[1:].view(c, n)
+    odd.copy_(mask)
+    got = tc.sample_anchors(odd, a_j, u)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 

@@ -1,8 +1,9 @@
 """The host-side launch plans of kernel A-bwd (`ops/resize.py:_bwd_plan`),
 of kernels C fwd, D and K7 prob (`losses/ce.py:_stats_plan`), of K6 fwd
 (`losses/contrastive.py:_infonce_group`), K5 (`memobank.py:
-_enqueue_tile`) and the radix descent of E and K7 kth (`ops/quantile.py:
-_descent_plan`), on the CPU.
+_enqueue_tile`), the radix descent of E and K7 kth (`ops/quantile.py:
+_descent_plan`) and K4's masks and anchor draws (`losses/contrastive.py:
+_masks_plan`, `_anchors_plan`), on the CPU.
 
 The kernels run only on the card (tests/test_torch_cuda.py); what they are
 given is computed here in Python, so these tests hold the plans to what the
@@ -11,7 +12,10 @@ walks, every C fwd / D block within shared memory, at the main path's
 shapes and every card test's shape, for several SM counts; K6 fwd's key
 groups within their registers, each key fetched before it is reduced and
 reduced once in key order; K5's tiles writing every row once; the
-descent's blocks holding every value once, within shared memory.
+descent's blocks holding every value once, within shared memory; K4
+masks' threads taking every pixel once with aligned stores; K4 anchors'
+blocks and warps reading every word of a row once, aligned, and the draws
+served from their prefixes as the plain version serves them.
 """
 
 import numpy as np
@@ -237,3 +241,142 @@ def test_descent_plan_holds_every_value_once(n, sms):
     assert slice_ < 4 + -(-n // grid)  # the least multiple of 4 that covers n
     if n <= grid * tq.DESCENT_KEY_BYTES // 4 - 4 * grid:
         assert in_smem == n  # no value is read again from global memory
+
+
+# ---- K4 masks and anchor draws (losses/contrastive.py:_masks_plan,
+# _anchors_plan): the flagship's (8 x 129²) and the Cityscapes configs'
+# (4 x 193²) pixels, small odd ones, rows of 16- and 2-byte words, and an
+# odd row of 1,000,003 pixels (16 runs a warp)
+
+K4_N = [133128, 148996, 189, 100, 1, 4 * 97 * 97, 9008, 9002, 1_000_003]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16, 1])
+@pytest.mark.parametrize("n", K4_N)
+def test_masks_plan_takes_every_pixel_once_with_aligned_stores(n, sms):
+    """Walked as pixel_masks_kernel walks it: block k's trips start at
+    (k + i * blocks) * threads, thread t takes group start + t while it is
+    below ceil(n / 4); each group's pixels once; where the kernel's entry
+    stores wide (n % 4 == 0) each class row's 4 bytes start 4-aligned and
+    its 4 floats 16-aligned."""
+    threads, pix = tc.MASKS_THREADS, tc.MASKS_PIXELS
+    vec_out = n % pix == 0  # as u2pl_contra_pixel_masks decides it
+    for c in (1, 19, 21, 32):
+        blocks = tc._masks_plan(n, c, sms)
+        assert 1 <= blocks <= tc.MASKS_BLOCKS_PER_SM * sms
+        groups = -(-n // pix)
+        taken = np.zeros(n, np.int32)
+        for k in range(blocks):
+            for g0 in range(k * threads, groups, blocks * threads):
+                g = np.arange(g0, min(g0 + threads, groups))
+                for j in range(pix):
+                    p = g * pix + j
+                    np.add.at(taken, p[p < n], 1)
+                if vec_out:
+                    full = g[g * pix + pix <= n] * pix
+                    offs = (np.arange(c)[:, None] * n + full[None]).ravel()
+                    assert (offs % 4 == 0).all() and (offs * 4 % 16 == 0).all()
+        assert (taken == 1).all()
+    with pytest.raises(ValueError, match="classes"):
+        tc._masks_plan(n, 33, sms)
+    with pytest.raises(ValueError, match="2\\^31"):
+        tc._masks_plan(2**27, 32, sms)
+
+
+def _anchors_walk(row, u, vec, slice_):
+    """sample_anchors_kernel on one row, in its layout: the blocks of the
+    cluster, their warps' spans of `runs` runs of 32 words, a run per load,
+    each run's exclusive prefix within its warp, the warps' inclusive
+    totals, then each draw r = floor(u * n) served by the block, warp, run
+    (a binary search of the prefixes), word (the run counted again, 8 words
+    a round) and byte that hold it, N - 1 outside [0, n).  Returns (idx, n,
+    the words each block and warp read)."""
+    n_pix = row.shape[0]
+    words = n_pix // vec
+    counts = row.reshape(words, vec).sum(1).astype(np.int64)
+    warps = tc.ANCHORS_THREADS // 32
+    runs = -(-slice_ // tc.ANCHORS_THREADS)
+    blocks, read = [], []
+    for rank in range(tc.ANCHORS_CLUSTER):
+        first = rank * slice_
+        ln = max(0, min(slice_, words - first))
+        seg = np.zeros(warps * runs * tc.ANCHORS_RUN, np.int64)
+        seg[:ln] = counts[first:first + ln]
+        per_run = seg.reshape(warps, runs, tc.ANCHORS_RUN).sum(2)
+        pre = (np.cumsum(per_run, 1) - per_run).ravel()  # exclusive within each warp
+        warp_tot = np.cumsum(per_run.sum(1)).tolist()
+        read.extend(range(first, first + ln))
+        blocks.append((first, ln, pre, warp_tot))
+    n = sum(b[3][-1] for b in blocks)
+    idx = np.full(u.shape[0], -1, np.int64)
+    base = 0
+    for rank, (first, ln, pre, warp_tot) in enumerate(blocks):
+        tot = warp_tot[-1]
+        r = np.floor(u * np.float32(n)).astype(np.int64)  # u * n in f32, as __fmul_rn
+        for q in np.nonzero((r >= base) & (r < base + tot))[0]:
+            k = int(r[q] - base)
+            wp = next(w for w in range(warps) if warp_tot[w] > k)
+            k -= warp_tot[wp - 1] if wp else 0
+            lo = wp * runs + int(np.searchsorted(pre[wp * runs:(wp + 1) * runs], k,
+                                                 side="right")) - 1
+            k -= int(pre[lo])
+            i = lo * tc.ANCHORS_RUN
+            while True:  # rounds of 8 words, none past the block's words
+                c = [int(counts[first + i + e]) if i + e < ln else 0 for e in range(8)]
+                if k < sum(c):
+                    e = 0
+                    while k >= c[e]:
+                        k -= c[e]
+                        e += 1
+                    i += e
+                    break
+                k -= sum(c)
+                i += 8
+            assert lo * tc.ANCHORS_RUN <= i < min((lo + 1) * tc.ANCHORS_RUN, ln)
+            bits = row[(first + i) * vec:(first + i + 1) * vec]
+            idx[q] = (first + i) * vec + int(np.nonzero(bits)[0][k])
+        if rank == tc.ANCHORS_CLUSTER - 1:
+            idx[(r < 0) | (r >= n)] = n_pix - 1
+        base += tot
+    return idx, n, read
+
+
+@pytest.mark.parametrize("address", [0x7F0000000000, 0x7F0000000004, 0x7F0000000001])
+@pytest.mark.parametrize("n", K4_N)
+def test_anchors_plan_reads_every_word_once_and_serves_the_draws(n, address):
+    """_anchors_plan's words are vec-aligned for every row of a mask at
+    `address`; the cluster's blocks and their warps read every word once,
+    within shared memory; and the draws served from the prefixes, walked
+    as the kernel walks them, are sample_anchors_plain's, for an empty, a
+    sparse, a ~60% and a full row, u = 0 and the largest u below 1."""
+    vec, slice_, smem = tc._anchors_plan(n, address)
+    align = address & -address
+    assert vec in (1, 2, 4, 8, 16) and n % vec == 0 and min(align, 16) % vec == 0
+    runs = -(-slice_ // tc.ANCHORS_THREADS)
+    assert smem == tc.ANCHORS_HEADER_BYTES + 4 * (tc.ANCHORS_THREADS // 32) * runs
+    assert smem <= tc.ANCHORS_MAX_SHARED
+    assert slice_ * tc.ANCHORS_CLUSTER * vec >= n > (slice_ - 1) * tc.ANCHORS_CLUSTER * vec
+    rows = 3
+    assert all((address + r * n + w * vec) % vec == 0 for r in range(rows) for w in (0, 1, n // vec - 1))
+    rng = np.random.RandomState(n % 1000)
+    mask = np.stack([np.zeros(n, bool), rng.rand(n) < 0.002, rng.rand(n) < 0.6, np.ones(n, bool)])
+    u = rng.rand(mask.shape[0], 64).astype(np.float32)
+    u[:, 0] = np.float32(0.99999994)
+    u[:, 1] = 0.0
+    ref_idx, ref_n = tc.sample_anchors_plain(
+        torch.from_numpy(mask), torch.arange(mask.shape[0], dtype=torch.int32), torch.from_numpy(u))
+    for j in range(mask.shape[0]):
+        idx, cnt, read = _anchors_walk(mask[j].astype(np.uint8), u[j], vec, slice_)
+        assert sorted(read) == list(range(n // vec))
+        assert cnt == int(ref_n[j])
+        np.testing.assert_array_equal(idx, ref_idx[j].numpy())
+
+
+def test_anchors_plan_refuses_rows_past_shared_memory():
+    """An odd row (1-byte words) of 14,860,287 pixels is the longest whose
+    runs' prefixes fit a block's 227 KB; one more run per warp does not."""
+    assert tc._anchors_plan(14_860_287, 0x7F0000000000)[2] == tc.ANCHORS_MAX_SHARED
+    with pytest.raises(ValueError, match="shared memory"):
+        tc._anchors_plan(14_860_289, 0x7F0000000000)
+    assert tc._anchors_plan(133128, 0x7F0000000000)[:2] == (8, 2081)
+    assert tc._anchors_plan(148996, 0x7F0000000000)[:2] == (4, 4657)

@@ -7,12 +7,22 @@
 // Flagship shapes: N = 8 x 129 x 129 = 133,128 os4 pixels, C = 21 classes,
 // K = 8192 keys per class, Q = 256 draws per position.
 //
-// contra_pixel_masks: one thread per pixel holds its C probabilities in
-//   registers, counts each class's stable descending rank (the compare-count
-//   of _ranks_desc), and writes the (C, N) anchor, negative and low-valid
-//   masks; the per-class counts go through shared-memory integer atomics, so
-//   they are exact in any block order.  Bound: memory, ~11 MB read and
-//   ~17 MB written (~9 us at 3.35 TB/s); the rank is C^2 compares per pixel.
+// contra_pixel_masks: a pixel's masks are non-zero at its label class L at
+//   most, and negative never is on a labeled image (quirk 2 of the JAX
+//   module), so one rank per pixel, of L (C compares), decides all three;
+//   p[L] alone where no rank is needed.  A thread owns 4 pixels and writes
+//   their (C, 4) bytes / floats of the anchor, negative and low-valid rows
+//   as 4-byte and 16-byte stores; the per-class counts go through warp
+//   reductions and integer atomics and leave with the last block (no
+//   zero-fill).  Bound: memory, the bytes its inputs need
+//   (u2pl_tpu_torch/kernels/timing_ab.py:masks_needed: the (C, N) outputs,
+//   6 bytes a value, the labels and the masks, all C probabilities only
+//   where a rank is needed; ~20.5 MB on the flagship's timed inputs, 6.1 us
+//   at 3.35 TB/s).  0.0108 ms at the flagship, 0.0121-0.0123 at the
+//   Cityscapes step's (4, 19, 193²), on an NVIDIA H100 80GB HBM3 at 700 W
+//   (timing_ab.py); the first design (a thread per pixel ranking all C
+//   classes, C^2 compares, and a torch.zeros of the counts) took 0.0240 /
+//   0.0283 there (PERF.md).
 // select_keys: JAX sorts each class's priorities (masked-out pixels at +inf)
 //   and slices k: the k smallest (priority, pixel) pairs, ascending.  The
 //   first design (18 launches: an 8-bit radix descent over a 64-bit key
@@ -49,11 +59,20 @@
 //   searchsorted miss).  A tie at t admits the lower-indexed tied pixels, as
 //   in JAX.  Bound: memory, 5 passes over the mask and the keys (~3.5 MB
 //   each at the flagship's (21, 133128)).
-// sample_anchors: one block per position counts its anchor row, then scans
-//   it once in chunks of 4096 pixels, compacting each chunk's set pixels into
-//   shared memory, where the draws r = floor(u * n) that fall in the chunk
-//   read their pixel (searchsorted(cumsum, r + 1) of JAX, with N - 1 where it
-//   finds none).  Bound: memory, one read of a (C, N) byte mask.
+// sample_anchors: a cluster of 8 blocks per position reads its anchor row
+//   once, with loads as wide as the row's alignment, and keeps the prefix
+//   count of each run of 32 words in shared memory; the blocks' totals meet
+//   through distributed shared memory, and each draw r = floor(u * n) is
+//   served by a binary search and a recount of one run in the block that
+//   holds the r-th set pixel (searchsorted(cumsum, r + 1) of JAX, N - 1
+//   where it finds none).
+//   Bound: memory, one read of a (C, N) byte mask (0.0008 ms); a launch
+//   and one short read alone take ~3.7 us on that card.  0.0081 ms at the
+//   flagship, 0.0077 at Cityscapes' (19, 148996), on that card (a prefix
+//   per word and no recount: 0.0065 / 0.0077, but rows past 464,383
+//   one-byte words refused); the first design (one 1024-thread block per
+//   position, 21 of 132 SMs, walking its row in 33 serial chunks of block
+//   scans) took 0.0548 / 0.0611 there (PERF.md).
 
 #include <cooperative_groups.h>
 #include <math.h>
@@ -78,66 +97,139 @@ __device__ __forceinline__ unsigned order_key(float v) {
 }
 
 // ---- contra_pixel_masks ----------------------------------------------------
+// A thread owns kMaskPix consecutive pixels (a group; the host's plan:
+// losses/contrastive.py:_masks_plan).  Each pixel's outputs are non-zero in
+// one row at most, its label class L: anchor and low-valid need p[L] alone,
+// negative (never on a labeled image) the stable descending rank of L alone,
+// C compares.  The group's decisions are packed one byte per pixel (its L,
+// or kNoClass, and its anchor / negative / low-valid bits); per class a
+// byte compare picks the group's pixels of that class, and the row's bytes
+// go out as one 4-byte store per mask and one float4 for low-valid where
+// N % 4 == 0 (every row then starts 4-aligned), byte by byte otherwise.
+// The per-class counts: a warp reduction per class, shared partials per
+// block, integer atomics into 2C words of kernels.tickets, moved out by the
+// last block to finish (a ticket) and left zero: exact in any order, and no
+// zero-fill launch.
 
-__global__ void pixel_masks_kernel(
+constexpr int kMaskPix = 4;  // pixels per thread and group
+constexpr int kMaskThreads = 128;
+constexpr unsigned kNoClass = 0xFFu;
+
+template <int kC>  // the class count, or 0: C at run time (at most kMaxClasses)
+__global__ void __launch_bounds__(kMaskThreads) pixel_masks_kernel(
     const float* __restrict__ prob, const int* __restrict__ labels,
     const uint8_t* __restrict__ low, const uint8_t* __restrict__ high,
     uint8_t* __restrict__ anchor, uint8_t* __restrict__ negative,
-    float* __restrict__ low_valid, int* __restrict__ counts, int B, int B_l,
-    int C, int HW, int ignore, float delta_p, float delta_n, int low_rank,
-    int high_rank) {
-  __shared__ int s_lv[kMaxClasses];
-  __shared__ int s_neg[kMaxClasses];
-  if (threadIdx.x < kMaxClasses) {
-    s_lv[threadIdx.x] = 0;
-    s_neg[threadIdx.x] = 0;
-  }
+    float* __restrict__ low_valid, int* __restrict__ counts, unsigned* __restrict__ ticket,
+    int B, int B_l, int C_rt, int HW, int ignore, float delta_p, float delta_n, int low_rank,
+    int high_rank, bool vec_in, bool vec_out) {
+  const int C = kC > 0 ? kC : C_rt;
+  __shared__ int s_cnt[2 * kMaxClasses];  // [n_low_valid (C), negatives (C)]
+  __shared__ bool s_last;
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid < 2 * kMaxClasses) s_cnt[tid] = 0;
   __syncthreads();
   const int N = B * HW;
-  for (int n = blockIdx.x * blockDim.x + threadIdx.x; n < N;
-       n += gridDim.x * blockDim.x) {
-    const int b = n / HW;
-    const int p = n - b * HW;
-    const float* pr = prob + (size_t)b * C * HW + p;
-    float v[kMaxClasses];
+  const int groups = (N + kMaskPix - 1) / kMaskPix;
+  // block-uniform trips, so every lane takes part in the warp reductions
+  for (int g0 = blockIdx.x * kMaskThreads; g0 < groups; g0 += gridDim.x * kMaskThreads) {
+    const int g = g0 + tid;
+    const int n0 = g * kMaskPix;
+    const int cnt = g < groups ? min(kMaskPix, N - n0) : 0;
+    unsigned lw = kNoClass * 0x01010101u, aw = 0, gw = 0, vw = 0;  // byte j: pixel n0 + j
+    if (cnt > 0) {
+      int lab[kMaskPix];
+      unsigned lo = 0, hi = 0;  // byte j: low / high of pixel n0 + j
+      if (vec_in && cnt == kMaskPix) {
+        const int4 l4 = *reinterpret_cast<const int4*>(labels + n0);
+        lab[0] = l4.x;
+        lab[1] = l4.y;
+        lab[2] = l4.z;
+        lab[3] = l4.w;
+        lo = *reinterpret_cast<const unsigned*>(low + n0);
+        hi = *reinterpret_cast<const unsigned*>(high + n0);
+      } else {
 #pragma unroll
-    for (int c = 0; c < kMaxClasses; ++c) v[c] = c < C ? pr[(size_t)c * HW] : 0.f;
-    const int lab = labels[n];
-    const bool lo = low[n] != 0, hi = high[n] != 0;
-    const bool labeled = b < B_l;
-#pragma unroll
-    for (int c = 0; c < kMaxClasses; ++c) {
-      if (c < C) {
-        // stable descending rank: #{d: p_d > p_c} + #{d < c: p_d == p_c}
-        int rank = 0;
-#pragma unroll
-        for (int d = 0; d < kMaxClasses; ++d) {
-          if (d < C) rank += (v[d] > v[c]) || (d < c && v[d] == v[c]);
+        for (int j = 0; j < kMaskPix; ++j) {
+          lab[j] = j < cnt ? labels[n0 + j] : -1;
+          lo |= j < cnt ? (unsigned)low[n0 + j] << (8 * j) : 0u;
+          hi |= j < cnt ? (unsigned)high[n0 + j] << (8 * j) : 0u;
         }
-        const bool is_c = lab == c && lab != ignore;  // the one-hot of the label
-        const bool lv = is_c && lo;
-        const bool hv = is_c && hi;
-        const bool anc = v[c] > delta_p && lv;
-        const bool cls = labeled ? (rank < low_rank && !is_c)
-                                 : (rank >= low_rank && rank < high_rank);
-        const bool neg = v[c] < delta_n && hv && cls;
-        const size_t o = (size_t)c * N + n;
-        anchor[o] = anc;
-        negative[o] = neg;
-        low_valid[o] = lv ? 1.f : 0.f;
-        if (lv) atomicAdd(&s_lv[c], 1);
-        if (neg) atomicAdd(&s_neg[c], 1);
+      }
+      int b = n0 / HW, p = n0 - b * HW;
+#pragma unroll
+      for (int j = 0; j < kMaskPix; ++j) {
+        const int L = lab[j];
+        if (j < cnt && (unsigned)L < (unsigned)C && L != ignore) {
+          const bool lv = (lo >> (8 * j)) & 0xFFu;
+          const bool want_neg = b >= B_l && ((hi >> (8 * j)) & 0xFFu);
+          bool anc = false, neg = false;
+          if (lv || want_neg) {
+            const float* pr = prob + (size_t)b * C * HW + p;
+            const float vl = pr[(size_t)L * HW];
+            anc = lv && vl > delta_p;
+            if (want_neg && vl < delta_n) {
+              // the stable descending rank of L: #{d: p_d > p_L} + #{d < L: p_d == p_L}
+              int rank = 0;
+#pragma unroll
+              for (int d = 0; d < (kC > 0 ? kC : kMaxClasses); ++d) {
+                if (kC > 0 || d < C) {
+                  const float v = pr[(size_t)d * HW];
+                  rank += (v > vl) || (d < L && v == vl);
+                }
+              }
+              neg = rank >= low_rank && rank < high_rank;
+            }
+          }
+          lw = (lw & ~(0xFFu << (8 * j))) | ((unsigned)L << (8 * j));
+          aw |= (unsigned)anc << (8 * j);
+          gw |= (unsigned)neg << (8 * j);
+          vw |= (unsigned)lv << (8 * j);
+        }
+        if (++p == HW) {
+          p = 0;
+          ++b;
+        }
+      }
+    }
+#pragma unroll 4
+    for (int c = 0; c < C; ++c) {
+      const unsigned eq = __vcmpeq4(lw, (unsigned)c * 0x01010101u);  // 0xFF where L == c
+      const unsigned a = aw & eq, ng = gw & eq, v = vw & eq;
+      const size_t o = (size_t)c * N + n0;
+      if (vec_out && cnt == kMaskPix) {
+        *reinterpret_cast<unsigned*>(anchor + o) = a;
+        *reinterpret_cast<unsigned*>(negative + o) = ng;
+        *reinterpret_cast<float4*>(low_valid + o) = make_float4(
+            __uint_as_float((v & 1u) * 0x3f800000u), __uint_as_float(((v >> 8) & 1u) * 0x3f800000u),
+            __uint_as_float(((v >> 16) & 1u) * 0x3f800000u), __uint_as_float((v >> 24) * 0x3f800000u));
+      } else {
+        for (int j = 0; j < cnt; ++j) {
+          anchor[o + j] = (a >> (8 * j)) & 1u;
+          negative[o + j] = (ng >> (8 * j)) & 1u;
+          low_valid[o + j] = ((v >> (8 * j)) & 1u) ? 1.f : 0.f;
+        }
+      }
+      const int n_lv = (int)__reduce_add_sync(0xFFFFFFFFu, (unsigned)__popc(v));
+      const int n_neg = (int)__reduce_add_sync(0xFFFFFFFFu, (unsigned)__popc(ng));
+      if (lane == 0) {
+        if (n_lv) atomicAdd(&s_cnt[c], n_lv);
+        if (n_neg) atomicAdd(&s_cnt[C + c], n_neg);
       }
     }
   }
   __syncthreads();
-  if ((int)threadIdx.x < C) {
-    if (s_lv[threadIdx.x]) atomicAdd(&counts[threadIdx.x], s_lv[threadIdx.x]);
-    if (s_neg[threadIdx.x]) atomicAdd(&counts[C + threadIdx.x], s_neg[threadIdx.x]);
+  if (tid < 2 * C) {
+    if (s_cnt[tid]) atomicAdd(ticket + 1 + tid, (unsigned)s_cnt[tid]);
+    __threadfence();  // the counts before the ticket
   }
+  __syncthreads();
+  if (tid == 0) s_last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
+  __syncthreads();
+  if (s_last && tid < 2 * C) counts[tid] = (int)atomicExch(ticket + 1 + tid, 0u);
 }
 
-// ---- block scan (select_keys_radix, sample_anchors) --------------------------
+// ---- block scan (select_keys, select_keys_radix) ------------------------------
 
 // exclusive block scan of one int per thread (blockDim.x == 32 * kWarps,
 // kScanThreads by default); returns the thread's exclusive prefix, *total
@@ -599,71 +691,217 @@ __global__ void skr_compact_kernel(const uint8_t* __restrict__ mask,
 }
 
 // ---- sample_anchors --------------------------------------------------------
+// One cluster of kAncCluster blocks per position j; block `rank` owns the
+// words [rank * slice, (rank + 1) * slice) of row a_j[j], a word being the
+// row's alignment, vec = gcd(N, 16, the mask's address) bytes (the host's
+// plan: losses/contrastive.py:_anchors_plan).  Each warp reads a contiguous
+// span of `runs` runs of 32 words, a run per load, once (torch.bool stores
+// 0 / 1, so a 4-byte word's count is __popc(w & 0x01010101)), and keeps each
+// run's exclusive prefix within the warp in shared memory; one block scan
+// gives the warps' bases, and the cluster's blocks read each other's totals
+// through distributed shared memory for their base and the row's n.  A draw
+// r = floor(u * n) is served by the block whose pixels hold the r-th set
+// one: its warp by the scanned totals, its run by a binary search of the
+// prefixes, its word by counting the run's words again, kAncRescan loads at
+// a time, its pixel inside the word; r outside [0, n) (n = 0, or u * n
+// rounded up to n) gives N - 1, written by the last block.
+// Dynamic shared memory: kAncHeader bytes (the warps' inclusive totals, the
+// last one the block's), then the runs' prefixes (int), kAncWarps * runs.
 
-__global__ void sample_anchors_kernel(const uint8_t* __restrict__ mask,
-                                      const int* __restrict__ a_j,
-                                      const float* __restrict__ u,
-                                      int* __restrict__ idx,
-                                      int* __restrict__ count, int N, int Q) {
-  __shared__ int warp_tot[32];
-  __shared__ int pos[kChunk];
-  const int j = blockIdx.x;
-  const uint8_t* m = mask + (size_t)a_j[j] * N;
-  // pass 1: the number of set pixels
-  int mine = 0;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) mine += m[n] != 0;
-  int total;
-  block_exclusive_scan(mine, warp_tot, &total);
-  const float nf = (float)total;
-  for (int q = threadIdx.x; q < Q; q += blockDim.x) idx[(size_t)j * Q + q] = N - 1;
-  if (threadIdx.x == 0) count[j] = total;
-  __syncthreads();
-  // pass 2: chunks of kChunk pixels, kScanItems consecutive ones per thread
-  int base = 0;
-  for (int start = 0; start < N && base < total; start += kChunk) {
-    const int first = start + threadIdx.x * kScanItems;
-    int flags = 0, cnt = 0;
-#pragma unroll
-    for (int i = 0; i < kScanItems; ++i) {
-      const int n = first + i;
-      if (n < N && m[n]) {
-        flags |= 1 << i;
-        ++cnt;
-      }
-    }
-    int chunk_total;
-    int at = block_exclusive_scan(cnt, warp_tot, &chunk_total);
-#pragma unroll
-    for (int i = 0; i < kScanItems; ++i) {
-      if (flags & (1 << i)) pos[at++] = first + i;
-    }
-    __syncthreads();
-    for (int q = threadIdx.x; q < Q; q += blockDim.x) {
-      const int r = (int)floorf(__fmul_rn(u[(size_t)j * Q + q], nf));
-      if (r >= base && r < base + chunk_total) idx[(size_t)j * Q + q] = pos[r - base];
-    }
-    base += chunk_total;
-    __syncthreads();
+constexpr int kAncCluster = 8;
+constexpr int kAncThreads = 256;
+constexpr int kAncWarps = kAncThreads / 32;
+constexpr int kAncHeader = 256;  // bytes, >= kAncWarps * 4, 16-aligned
+constexpr int kAncRescan = 8;  // a run's words counted again per round of loads
+
+// the set pixels of the vec-byte word at p (p vec-aligned)
+template <int kVec>
+__device__ __forceinline__ void anc_load(const uint8_t* p, unsigned (&w)[4]) {
+  w[0] = w[1] = w[2] = w[3] = 0u;
+  if constexpr (kVec == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else if constexpr (kVec == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else if constexpr (kVec == 4) {
+    w[0] = *reinterpret_cast<const unsigned*>(p);
+  } else if constexpr (kVec == 2) {
+    w[0] = *reinterpret_cast<const unsigned short*>(p);
+  } else {
+    w[0] = *p;
   }
+}
+
+template <int kVec>
+__device__ __forceinline__ int anc_count(const unsigned (&w)[4]) {
+  int n = 0;
+#pragma unroll
+  for (int i = 0; i < (kVec + 3) / 4; ++i) n += __popc(w[i] & 0x01010101u);
+  return n;
+}
+
+template <int kVec>
+__global__ void __cluster_dims__(kAncCluster, 1, 1) __launch_bounds__(kAncThreads)
+sample_anchors_kernel(const uint8_t* __restrict__ mask, const int* __restrict__ a_j,
+                      const float* __restrict__ u, int* __restrict__ idx,
+                      int* __restrict__ count, int N, int Q, int slice) {
+  extern __shared__ __align__(16) unsigned char anc_smem[];
+  int* warp_tot = reinterpret_cast<int*>(anc_smem);  // kAncWarps inclusive totals
+  int* pre = reinterpret_cast<int*>(anc_smem + kAncHeader);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int j = blockIdx.x / kAncCluster;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint8_t* row = mask + (size_t)a_j[j] * N;
+  const int first = rank * slice;  // the block's first word
+  const int len = max(0, min(slice, N / kVec - first));
+  const int runs = (slice + kAncThreads - 1) / kAncThreads;  // per warp
+  const uint8_t* words = row + (size_t)first * kVec;
+
+  // each run's set pixels, its exclusive prefix within the warp; run k of
+  // the block holds its words [32 k, 32 k + 32)
+  int tally = 0;
+#pragma unroll 4
+  for (int r = 0; r < runs; ++r) {
+    const int i = (warp * runs + r) * 32 + lane;
+    int c = 0;
+    if (i < len) {
+      unsigned w[4];
+      anc_load<kVec>(words + (size_t)i * kVec, w);
+      c = anc_count<kVec>(w);
+    }
+    c = (int)__reduce_add_sync(0xFFFFFFFFu, (unsigned)c);
+    if (lane == 0) pre[warp * runs + r] = tally;
+    tally += c;
+  }
+  if (lane == 0) warp_tot[warp] = tally;
+  __syncthreads();
+  if (warp == 0) {
+    int t = lane < kAncWarps ? warp_tot[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xFFFFFFFFu, t, o);
+      if (lane >= o) t += y;
+    }
+    if (lane < kAncWarps) warp_tot[lane] = t;  // inclusive over the warps
+  }
+  __syncthreads();
+  const int tot = warp_tot[kAncWarps - 1];
+  cluster.sync();
+  int base = 0, n = 0;
+#pragma unroll
+  for (int b = 0; b < kAncCluster; ++b) {
+    const int t = cluster.map_shared_rank(warp_tot, b)[kAncWarps - 1];
+    n += t;
+    base += b < rank ? t : 0;
+  }
+  if (rank == 0 && tid == 0) count[j] = n;
+  const float nf = (float)n;
+  for (int q = tid; q < Q; q += kAncThreads) {
+    const int r = (int)floorf(__fmul_rn(u[(size_t)j * Q + q], nf));
+    if (r >= base && r < base + tot) {
+      int k = r - base;
+      int wp = 0;  // the warp whose words hold the k-th set pixel of the block
+      while (warp_tot[wp] <= k) ++wp;
+      k -= wp == 0 ? 0 : warp_tot[wp - 1];
+      // the last run of the warp whose prefix is <= k
+      int lo = wp * runs, hi = lo + runs - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (pre[mid] <= k) lo = mid;
+        else hi = mid - 1;
+      }
+      k -= pre[lo];
+      // the run's words counted again, kAncRescan at a time, to the word
+      // that holds the k-th set pixel (it lies in this run, below len)
+      int i = lo * 32;
+      for (;; i += kAncRescan) {
+        int c[kAncRescan], sum = 0;
+#pragma unroll
+        for (int e = 0; e < kAncRescan; ++e) {
+          c[e] = 0;
+          if (i + e < len) {
+            unsigned w[4];
+            anc_load<kVec>(words + (size_t)(i + e) * kVec, w);
+            c[e] = anc_count<kVec>(w);
+          }
+          sum += c[e];
+        }
+        if (k < sum) {
+          int at_word = 0;
+          bool found = false;
+#pragma unroll
+          for (int e = 0; e < kAncRescan; ++e) {
+            if (!found && k < c[e]) {
+              found = true;
+              at_word = e;
+            } else if (!found) {
+              k -= c[e];
+            }
+          }
+          i += at_word;
+          break;
+        }
+        k -= sum;
+      }
+      unsigned w[4];
+      anc_load<kVec>(words + (size_t)i * kVec, w);
+      int at = 0;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const int bit = (w[e >> 2] >> (8 * (e & 3))) & 1;
+        if (bit && k == 0) at = e;
+        k -= bit;
+      }
+      idx[(size_t)j * Q + q] = (first + i) * kVec + at;
+    } else if (rank == kAncCluster - 1 && !(r >= 0 && r < n)) {
+      idx[(size_t)j * Q + q] = N - 1;
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
 }  // namespace
 
 extern "C" {
 
+// the plan (losses/contrastive.py:_masks_plan): `blocks` blocks of
+// kMaskThreads threads, kMaskPix pixels a thread; ticket: 1 + 2 *
+// kMaxClasses zeroed u32 words of kernels.tickets, left zero.  Wide stores
+// where N % 4 == 0, wide loads where labels are 16-aligned and low and
+// high 4-aligned.
 int u2pl_contra_pixel_masks(const void* prob, const void* labels,
                             const void* low, const void* high, void* anchor,
                             void* negative, void* low_valid, void* counts,
-                            int B, int B_l, int C, int HW, int ignore,
+                            void* ticket, int B, int B_l, int C, int HW, int ignore,
                             float delta_p, float delta_n, int low_rank,
-                            int high_rank, void* stream) {
-  if (B <= 0 || HW <= 0 || C <= 0 || C > kMaxClasses) return (int)cudaErrorInvalidValue;
-  const int blocks = u2pl::blocks_for((long long)B * HW, 1024);
-  pixel_masks_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)prob, (const int*)labels, (const uint8_t*)low,
-      (const uint8_t*)high, (uint8_t*)anchor, (uint8_t*)negative,
-      (float*)low_valid, (int*)counts, B, B_l, C, HW, ignore, delta_p, delta_n,
-      low_rank, high_rank);
+                            int high_rank, int blocks, void* stream) {
+  if (B <= 0 || HW <= 0 || C <= 0 || C > kMaxClasses || blocks <= 0 ||
+      (long long)B * HW * C >= (1ll << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool vec_out = (B * HW) % kMaskPix == 0;
+  const bool vec_in = (uintptr_t)labels % 16 == 0 && (uintptr_t)low % 4 == 0 &&
+                      (uintptr_t)high % 4 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  auto launch = [&](auto kernel) {
+    kernel<<<blocks, kMaskThreads, 0, s>>>(
+        (const float*)prob, (const int*)labels, (const uint8_t*)low, (const uint8_t*)high,
+        (uint8_t*)anchor, (uint8_t*)negative, (float*)low_valid, (int*)counts,
+        (unsigned*)ticket, B, B_l, C, HW, ignore, delta_p, delta_n, low_rank, high_rank,
+        vec_in, vec_out);
+  };
+  // the configs' class counts at compile time: 0.0108 / 0.0121 ms against
+  // 0.0153 / 0.0158 for the run-time loop at the VOC / Cityscapes shapes
+  // (NVIDIA H100 80GB HBM3, 700 W; timing_ab.py, PERF.md)
+  if (C == 21) launch(pixel_masks_kernel<21>);  // VOC
+  else if (C == 19) launch(pixel_masks_kernel<19>);  // Cityscapes
+  else launch(pixel_masks_kernel<0>);
   return (int)cudaGetLastError();
 }
 
@@ -713,14 +951,35 @@ int u2pl_contra_select_keys_radix(const void* mask, const void* keys,
   return (int)cudaGetLastError();
 }
 
+// the plan (losses/contrastive.py:_anchors_plan): kAncCluster blocks per
+// position of `slice` words of vec bytes each, smem bytes
 int u2pl_contra_sample_anchors(const void* mask, const void* a_j,
                                const void* u, void* idx, void* count, int C,
-                               int N, int Q, void* stream) {
-  if (C <= 0 || N <= 0 || Q <= 0) return (int)cudaErrorInvalidValue;
-  sample_anchors_kernel<<<C, kScanThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)mask, (const int*)a_j, (const float*)u, (int*)idx,
-      (int*)count, N, Q);
-  return (int)cudaGetLastError();
+                               int N, int Q, int vec, int slice, int smem, void* stream) {
+  if (C <= 0 || N <= 0 || Q <= 0 || slice <= 0 || N % vec != 0 ||
+      (long long)slice * kAncCluster * vec < N ||
+      smem != kAncHeader + 4 * kAncWarps * ((slice + kAncThreads - 1) / kAncThreads) ||
+      smem > kSelMaxShared) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  auto launch = [&](auto kernel) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<C * kAncCluster, kAncThreads, smem, s>>>(
+        (const uint8_t*)mask, (const int*)a_j, (const float*)u, (int*)idx, (int*)count, N, Q,
+        slice);
+    return cudaGetLastError();
+  };
+  switch (vec) {
+    case 16: return (int)launch(sample_anchors_kernel<16>);
+    case 8: return (int)launch(sample_anchors_kernel<8>);
+    case 4: return (int)launch(sample_anchors_kernel<4>);
+    case 2: return (int)launch(sample_anchors_kernel<2>);
+    case 1: return (int)launch(sample_anchors_kernel<1>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 """Times kernel A and its adjoint A-bwd, K6's forward and backward, kernel
-C's forward and backward, kernel D, K4's key selection, K5, OHEM's K7 prob
-and K7 kth and kernel E of the u2pl_tpu_torch package in the checkout at
+C's forward and backward, kernel D, K4's key selection, masks and anchor
+draws, K5, OHEM's K7 prob and K7 kth and kernel E of the u2pl_tpu_torch
+package in the checkout at
 --root, on one card: run it once per checkout, in turns, to set two
 versions of the kernels side by side in one call.
 
@@ -91,9 +92,23 @@ results are bit-equal.  The inputs come from seeded generators on the card:
              percents at epoch 1 of 80);
   E_city_3   the contrastive step's call at Cityscapes, (2, 769²);
   A_decoder_city  kernel A at the Cityscapes decoder's upsample, (4, 256,
-             97²) -> 193², with its bytes bound; library: F.interpolate.
+             97²) -> 193², with its bytes bound; library: F.interpolate;
+  K4_masks_voc  contra_pixel_masks at the flagship: the os4 softmax of 4 + 4
+             images (21 classes, softmax of 4 x randn), labels with class 0
+             on ~60% of the pixels and ~5% ignored, low / high masks of ~70%
+             / ~50% (the labeled images': their labeled pixels), the VOC
+             `ours` config's ranks 3 / 20 and thresholds 0.3 / 1 (chip_smoke.py's
+             mask_inputs); its hash covers anchor, negative, low_valid and
+             counts;
+  K4_masks_city  the same at Cityscapes, 2 + 2 images of 193², 19 classes;
+  K4_anchors_voc  sample_anchors on the K4_masks_voc anchor mask, positions
+             0..20 on their own class, 256 draws each (the largest below 1
+             first); its hash covers idx and n;
+  K4_anchors_city  the same on the K4_masks_city anchor mask, 19 positions.
 The K5 rows carry their NCHW sector bound: the distinct 32-byte sectors of
-the rep that the written rows read, as chip_smoke.py:bounds counts them.
+the rep that the written rows read, as chip_smoke.py:bounds counts them;
+the K4 rows their bytes bound as chip_smoke.py:bounds counts it (K4 masks:
+the bytes its inputs need, `masks_needed`).
 """
 
 from __future__ import annotations
@@ -117,6 +132,27 @@ VOC_N_SEL = [8192, 475, 494, 479, 489, 510, 493, 507, 477, 473, 488, 484, 500, 4
              530, 514, 512, 506, 469, 488]
 CITY_N_SEL = [0, 0, 0, 37, 0, 3053, 0, 66, 0, 1, 0, 5780, 16, 0, 0, 0, 150, 4, 1]
 PEAK_BYTES_S = 3.35e12  # the H100 SXM's HBM rate, for the bounds written beside two rows
+
+
+def masks_needed(prob, labels, low, high, b_l, cfg, ignore=255):
+    """(bytes, compares) that contra_pixel_masks needs on these inputs: the
+    (C, N) anchor, negative and low-valid outputs (6 bytes a value); every
+    pixel's label and low bit, the unlabeled images' high bits; all C
+    probabilities of an unlabeled pixel whose label rank decides its
+    negative bit (a label in [0, C) other than `ignore`, high set, p[label]
+    < the negative threshold), p[label] alone of every other such pixel
+    with low set, or high set on an unlabeled image; C compares per ranked
+    pixel.  chip_smoke.py:bounds and the K4_masks rows count with it."""
+    b, c, h, w = prob.shape
+    hw = h * w
+    valid = (labels >= 0) & (labels < c) & (labels != ignore)
+    unlabeled = torch.arange(b, device=labels.device)[:, None, None] >= b_l
+    p_l = prob.gather(1, labels.clamp(0, c - 1).long()[:, None])[:, 0]
+    ranked = valid & unlabeled & high & (p_l < cfg.current_class_negative_threshold)
+    one = valid & ~ranked & (low | (unlabeled & high))
+    n_ranked, n_one = int(ranked.sum()), int(one.sum())
+    nbytes = c * b * hw * 6 + b * hw * 5 + (b - b_l) * hw + n_ranked * c * 4 + n_one * 4
+    return nbytes, n_ranked * c
 
 
 def cuda_ms(fn, iters=30):
@@ -410,6 +446,37 @@ def main() -> int:
                                                     align_corners=True)),
         "sha256": digest(fn()),
         "bound_ms": 4 * 256 * (97 * 97 + 193 * 193) * 4 / PEAK_BYTES_S * 1e3}
+    from u2pl_tpu_torch.config import parse_config
+
+    ccfg = parse_config({"trainer": {"contrastive": {
+        "low_rank": 3, "high_rank": 20, "current_class_threshold": 0.3,
+        "current_class_negative_threshold": 1}}}).trainer.contrastive
+    for label, b_l, c, hw in (("voc", 4, 21, 129), ("city", 2, 19, 193)):
+        b, q = 2 * b_l, 256
+        n = b * hw * hw
+        prob = torch.softmax(4 * torch.randn(b, c, hw, hw, device=dev, generator=g), dim=1)
+        lab = torch.randint(0, c, (b, hw, hw), device=dev, generator=g, dtype=torch.int32)
+        lab[torch.rand(lab.shape, device=dev, generator=g) < 0.6] = 0
+        lab[torch.rand(lab.shape, device=dev, generator=g) < 0.05] = 255
+        low = torch.rand(lab.shape, device=dev, generator=g) < 0.7
+        high = torch.rand(lab.shape, device=dev, generator=g) < 0.5
+        low[:b_l] = high[:b_l] = lab[:b_l] != 255
+        fn = lambda: tc.contra_pixel_masks(prob, lab, low, high, b_l, ccfg)  # noqa: E731
+        res = fn()
+        out["kernels"][f"K4_masks_{label}"] = {
+            "ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn), "library_ms": None,
+            "sha256": "-".join(digest(t) for t in res), "counts": res[3].tolist(),
+            "bound_ms": masks_needed(prob, lab, low, high, b_l, ccfg)[0] / PEAK_BYTES_S * 1e3}
+        a_j = torch.arange(c, dtype=torch.int32, device=dev)
+        u = torch.rand(c, q, device=dev, generator=g)
+        u[:, 0] = 0.99999994
+        fn = lambda: tc.sample_anchors(res[0], a_j, u)  # noqa: E731
+        idx, cnt = fn()
+        out["kernels"][f"K4_anchors_{label}"] = {
+            "ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn), "library_ms": None,
+            "sha256": digest(idx) + "-" + digest(cnt), "n": cnt.tolist(),
+            "bound_ms": (c * n + 2 * c * q * 4) / PEAK_BYTES_S * 1e3}
+        del prob, lab, low, high, res
     print(json.dumps(out), flush=True)
     return 0
 

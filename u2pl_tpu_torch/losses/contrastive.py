@@ -23,8 +23,9 @@ Random draws are inputs: `draws = (pri, u_anchor, u_neg)`, float32 in
 
 The device functions and their kernels (CUDA C++, sm_90a):
   contra_pixel_masks   K4 (`kernels/csrc/contrastive.cu`): per pixel the
-                       stable descending ranks over C fused with the anchor,
-                       negative and low-valid masks and their counts;
+                       stable descending rank of its label class fused with
+                       the anchor, negative and low-valid masks and their
+                       counts;
   select_keys          K4: per class the k smallest (priority, pixel) pairs
                        of the negative mask, in ascending order (one
                        thread block cluster per class);
@@ -32,7 +33,8 @@ The device functions and their kernels (CUDA C++, sm_90a):
                        or under the k-th smallest, the first k in pixel
                        order (`select_keys: radix`);
   sample_anchors       K4: per position the with-replacement anchor draws
-                       mapped to set pixels of the anchor mask;
+                       mapped to set pixels of the anchor mask (one thread
+                       block cluster per position);
   memobank_enqueue     K5 (`memobank.py`, `kernels/csrc/memobank.cu`);
   contra_infonce       K6 (`kernels/csrc/infonce.cu`): the bank sample, the
                        cosines, the log-softmax CE to the positive and the
@@ -45,6 +47,7 @@ leaves it to XLA.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -53,7 +56,7 @@ from u2pl_tpu_torch.config import ContrastiveCfg
 from u2pl_tpu_torch.memobank import MemoryBank, gather_rows, memobank_enqueue, sample
 from u2pl_tpu_torch.ops.one_hot import label_onehot
 
-MAX_CLASSES = 32  # contra_pixel_masks keeps one pixel's C probabilities in registers
+MAX_CLASSES = 32  # contra_pixel_masks: a class fits a byte, its counts 2 x 32 ticket words
 MAX_KEYS = 16384  # select_keys keeps <= 16384 survivors per class
 FEAT_DIM = 256  # contra_infonce: one warp per anchor, 8 features per lane
 MAX_DRAWS = 8192  # contra_infonce's backward keys a tile's draws by j*Q + q < 2^13
@@ -120,6 +123,30 @@ def contra_pixel_masks_plain(
     return anchor, negative, low_valid_f.to(torch.float32), counts
 
 
+# contra_pixel_masks's kernel: MASKS_PIXELS consecutive pixels a thread,
+# MASKS_THREADS threads a block (kMaskPix, kMaskThreads in contrastive.cu)
+MASKS_PIXELS = 4
+MASKS_THREADS = 128
+MASKS_BLOCKS_PER_SM = 8
+
+
+def _masks_plan(n: int, c: int, sms: int) -> int:
+    """The blocks of `contra_pixel_masks`'s kernel for n pixels and c
+    classes on `sms` SMs: thread t of block k takes the group of
+    MASKS_PIXELS pixels at (k + i * blocks) * MASKS_THREADS + t, for i =
+    0, 1, ... while it is below ceil(n / MASKS_PIXELS).  (The kernel's
+    entry stores a group's bytes in one 4-byte store per mask and its
+    low-valid values in one 16-byte store where n is a multiple of
+    MASKS_PIXELS, so that every class row starts 4-aligned.)  Raises where
+    the (c, n) outputs exceed int32 offsets or c the byte a class is held
+    in."""
+    if n <= 0 or not 0 < c <= MAX_CLASSES or c * n >= 2**31:
+        raise ValueError(f"contra_pixel_masks: {c} classes (at most {MAX_CLASSES}) x {n} pixels "
+                         f"(under 2^31 values)")
+    groups = -(-n // MASKS_PIXELS)
+    return max(1, min(-(-groups // MASKS_THREADS), MASKS_BLOCKS_PER_SM * sms))
+
+
 def contra_pixel_masks(
     prob: torch.Tensor,
     labels: torch.Tensor,
@@ -154,21 +181,23 @@ def contra_pixel_masks(
     _require(labels, dev, torch.int32, "contra_pixel_masks labels")
     _require(low_mask, dev, torch.bool, "contra_pixel_masks low_mask")
     _require(high_mask, dev, torch.bool, "contra_pixel_masks high_mask")
-    if c > MAX_CLASSES:
-        raise ValueError(f"contra_pixel_masks: {c} classes (at most {MAX_CLASSES})")
-    from u2pl_tpu_torch.kernels import load
+    from u2pl_tpu_torch.kernels import TICKET_CONTRA_MASKS, load, tickets
+    from u2pl_tpu_torch.ops.resize import _sm_count
 
     lib = load()
     n = b * h * w
+    blocks = _masks_plan(n, c, _sm_count(dev))
     anchor = torch.empty((c, n), dtype=torch.bool, device=dev)
     negative = torch.empty((c, n), dtype=torch.bool, device=dev)
     low_valid = torch.empty((c, n), dtype=torch.float32, device=dev)
-    counts = torch.zeros((2, c), dtype=torch.int32, device=dev)
+    counts = torch.empty((2, c), dtype=torch.int32, device=dev)
     _launch(lib, "u2pl_contra_pixel_masks", "contra_pixel_masks", dev,
             prob.data_ptr(), labels.data_ptr(), low_mask.data_ptr(), high_mask.data_ptr(),
             anchor.data_ptr(), negative.data_ptr(), low_valid.data_ptr(), counts.data_ptr(),
-            b, num_labeled, c, h * w, int(ignore_label), float(cfg.current_class_threshold),
-            float(cfg.current_class_negative_threshold), int(cfg.low_rank), int(cfg.high_rank))
+            tickets(dev)[TICKET_CONTRA_MASKS].data_ptr(), b, num_labeled, c, h * w,
+            int(ignore_label), float(cfg.current_class_threshold),
+            float(cfg.current_class_negative_threshold), int(cfg.low_rank), int(cfg.high_rank),
+            blocks)
     contra_pixel_masks.launches += 1
     return anchor, negative, low_valid, counts
 
@@ -336,15 +365,47 @@ def sample_anchors_plain(mask: torch.Tensor, a_j: torch.Tensor, u: torch.Tensor)
     return torch.clamp(idx, 0, mask.shape[1] - 1).to(torch.int32), n
 
 
+# sample_anchors's kernel: a cluster of ANCHORS_CLUSTER blocks of
+# ANCHORS_THREADS threads per position, each holding the prefixes (int) of
+# its slice's runs of ANCHORS_RUN words in shared memory behind a fixed
+# header (kAncCluster, kAncThreads, kAncHeader in contrastive.cu)
+ANCHORS_CLUSTER = 8
+ANCHORS_THREADS = 256
+ANCHORS_RUN = 32
+ANCHORS_HEADER_BYTES = 256
+ANCHORS_MAX_SHARED = SELECT_MAX_SHARED
+
+
+def _anchors_plan(n: int, address: int) -> Tuple[int, int, int]:
+    """(vec, slice, smem) of `sample_anchors`'s kernel for rows of n pixels
+    of a mask at byte `address`: a word is vec = gcd(n, 16, address's
+    alignment) bytes, so every row, and every word of it, starts
+    vec-aligned; block r of a position's cluster owns the words [r * slice,
+    (r + 1) * slice) of the row's n / vec, each of its warps ceil(slice /
+    ANCHORS_THREADS) runs of ANCHORS_RUN words, the runs' prefixes in smem
+    bytes of shared memory.  Raises where they do not fit (rows of more
+    than 14,860,288 pixels at 1-byte words)."""
+    if n <= 0:
+        raise ValueError(f"sample_anchors: {n} pixels")
+    vec = math.gcd(math.gcd(n, 16), address & -address if address else 16)
+    slice_ = -(-(n // vec) // ANCHORS_CLUSTER)
+    runs = -(-slice_ // ANCHORS_THREADS)
+    smem = ANCHORS_HEADER_BYTES + 4 * (ANCHORS_THREADS // 32) * runs  # each warp's runs
+    if smem > ANCHORS_MAX_SHARED:
+        raise ValueError(f"sample_anchors: rows of {n} pixels need {smem} bytes of shared memory "
+                         f"per block (at most {ANCHORS_MAX_SHARED})")
+    return vec, slice_, smem
+
+
 def sample_anchors(mask: torch.Tensor, a_j: torch.Tensor, u: torch.Tensor):
     """Position j draws u.shape[1] anchors with replacement from the set
     pixels of mask[a_j[j]]: r = floor(u * n) in f32, then the r-th set
     pixel (N - 1 when there is none).  mask (C, N) bool; a_j (C,) int32;
     u (C, Q) f32.  Returns (anchor_idx (C, Q) int32, n_anchor (C,) int32).
 
-    On the card: one block per position counts the row, then scans it once,
-    chunk by chunk, compacting the set pixels of each chunk into shared
-    memory where the draws that fall in the chunk read their pixel."""
+    On the card: one launch, a cluster of 8 blocks per position
+    (`_anchors_plan`) that reads its row once and serves each draw from the
+    block holding its pixel (see `kernels/csrc/contrastive.cu`)."""
     c, n = mask.shape
     if a_j.shape != (c,) or u.dim() != 2 or u.shape[0] != c:
         raise ValueError(f"sample_anchors: mask {tuple(mask.shape)}, a_j {tuple(a_j.shape)}, "
@@ -357,6 +418,7 @@ def sample_anchors(mask: torch.Tensor, a_j: torch.Tensor, u: torch.Tensor):
     dev = u.device
     _require(mask, dev, torch.bool, "sample_anchors mask")
     _require(a_j, dev, torch.int32, "sample_anchors a_j")
+    vec, slice_, smem = _anchors_plan(n, mask.data_ptr())
     from u2pl_tpu_torch.kernels import load
 
     lib = load()
@@ -365,7 +427,7 @@ def sample_anchors(mask: torch.Tensor, a_j: torch.Tensor, u: torch.Tensor):
     count = torch.empty((c,), dtype=torch.int32, device=dev)
     _launch(lib, "u2pl_contra_sample_anchors", "sample_anchors", dev,
             mask.data_ptr(), a_j.data_ptr(), u.data_ptr(), idx.data_ptr(), count.data_ptr(),
-            c, n, q)
+            c, n, q, vec, slice_, smem)
     sample_anchors.launches += 1
     return idx, count
 
