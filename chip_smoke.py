@@ -735,6 +735,7 @@ def phase1_variant_kernels(dev, negative, k):
 
     g = torch.Generator(device=dev).manual_seed(SEED + 17)
     img, lab, prob, u = classmix_case(dev, g)
+    before = (mixing.generate_unsup_data.classmix_launches, tc.select_keys_radix.launches)
     got = mixing.generate_unsup_data(img, lab, prob, u, "classmix")
     ref = mixing.generate_unsup_data_plain(img, lab, prob, u, "classmix")
     sel = mixing.class_half_mask_plain(lab, u, u.shape[1])
@@ -764,6 +765,10 @@ def phase1_variant_kernels(dev, negative, k):
     if not same or not planted:
         fail("kernel K4r (select_keys_radix) is not bit-equal to its plain version "
              "(or a planted case is missing)")
+    after = (mixing.generate_unsup_data.classmix_launches, tc.select_keys_radix.launches)
+    if (after[0] - before[0], after[1] - before[1]) != (1, 1):
+        fail(f"K3c / K4r launched {after[0] - before[0]} / {after[1] - before[1]} times for one "
+             f"call each")
     return {"K3c": 0.0, "K4r": 0.0}, {"classmix": (img, lab, prob, u), "radix": (mask, keys)}
 
 
@@ -2241,6 +2246,10 @@ def phase11_variant(dev, card, tmp, paths):
             summary["mious"]) != 1:
         fail(f"the variant run: kernels never launched {missing}, or K3 / K4 select ran "
              f"({[launches[a] for a in off]}), or B {launches['B']}")
+    per_step = {a: launches[a] for a in VARIANT_COUNTERS}
+    if per_step != {a: summary["steps"] for a in VARIANT_COUNTERS}:
+        fail(f"the variant run: K3c / K4r launches {per_step} over {summary['steps']} semi steps "
+             f"(want one each per semi step)")
 
     # its last step again, the ClassMix and contrastive draws injected (coin heads)
     cfg, spe, i_iter = before_last["cfg"], before_last["steps_per_epoch"], before_last["i_iter"]

@@ -383,6 +383,159 @@ def test_select_keys_radix_bit_equal(case, k):
         assert ((kv <= t[:, None]).sum(1) > k).any()
 
 
+def _radix_walk(mask, keys, k, slice_, held):
+    """select_keys_radix_kernel on one row, in its layout: the 8 blocks of
+    the cluster, each its slice in chunks of 128 pixels (lane l of a chunk's
+    warp its pixels 4 l .. 4 l + 3), its masked count and its histogram of
+    the keys' top byte from the one read; the counts summed over the
+    cluster; when the row is over the cap, the descent's 4 levels of 8 bits,
+    each level's blocks' histograms of the keys under the prefix summed (as
+    through distributed shared memory) and the digit picked where the
+    exclusive scan of the bins passes the rank kk - 1; the selection as 4
+    ballot words per chunk; the blocks' counts and bases; per segment of
+    512 chunks an exclusive scan of the chunks' counts, and each lane's
+    selected pixels written at its block's, chunk's and lower lanes' count,
+    below k; N - 1 from min(total, k) on.  The held chunks and the re-read
+    ones hold the same values, so `held` only checks the plan.  Returns
+    (idx, n_sel, the pixels each block read)."""
+    n = mask.shape[0]
+    u32 = keys.view(np.uint32).astype(np.int64)
+    kk = min(k, n)
+    blocks = []
+    for rank in range(tc.RADIX_CLUSTER):
+        base = rank * slice_
+        ln = max(0, min(slice_, n - base))
+        chunks = -(-ln // tc.RADIX_CHUNK)
+        m = np.zeros(chunks * tc.RADIX_CHUNK, bool)
+        kv = np.zeros(chunks * tc.RADIX_CHUNK, np.int64)
+        m[:ln], kv[:ln] = mask[base:base + ln], u32[base:base + ln]
+        blocks.append({"base": base, "read": range(base, base + ln), "chunks": chunks,
+                       "m": m, "k": kv, "hist": np.bincount(kv[m] >> 24, minlength=256)})
+        assert held <= -(-slice_ // tc.RADIX_CHUNK)
+    counts = [int(b["m"].sum()) for b in blocks]
+    cnt = sum(counts)
+    t, every = 0xFFFFFFFF, cnt <= kk
+    if not every:
+        rem, prefix = kk - 1, 0
+        for level in range(4):
+            shift = 24 - 8 * level
+            if level:
+                for b in blocks:
+                    under = b["m"] & ((b["k"] >> (shift + 8)) == (prefix >> (shift + 8)))
+                    b["hist"] = np.bincount((b["k"][under] >> shift) & 255, minlength=256)
+            tot = sum(b["hist"] for b in blocks)
+            below = np.cumsum(tot) - tot
+            digit = int(np.nonzero((below <= rem) & (rem < below + tot))[0][0])
+            prefix |= digit << shift
+            rem -= int(below[digit])
+        t = prefix
+    for b in blocks:
+        b["sel"] = b["m"] & (every | (b["k"] <= t))
+    sel_counts = counts if every else [int(b["sel"].sum()) for b in blocks]
+    total = sum(sel_counts)
+    out = np.full(k, -1, np.int64)
+    lanes = np.arange(32)
+    lt = (1 << lanes) - 1  # the lanes below each lane
+    for rank, b in enumerate(blocks):
+        seg_base = sum(sel_counts[:rank])
+        bits = b["sel"].reshape(b["chunks"], 32, 4)  # (chunk, lane, u)
+        words = (bits.astype(np.int64) << lanes[None, :, None]).sum(1)  # (chunk, u): ballots
+        for s0 in range(0, b["chunks"], tc.RADIX_THREADS):
+            if seg_base >= k:
+                break
+            w = words[s0:s0 + tc.RADIX_THREADS]
+            cc = np.bitwise_count(w).sum(1)
+            ex = np.cumsum(cc) - cc
+            for j in range(w.shape[0]):
+                at0 = seg_base + int(ex[j])
+                if at0 >= k:
+                    continue
+                at = at0 + np.bitwise_count(w[j][None, :] & lt[:, None]).sum(1)  # per lane
+                for lane in range(32):
+                    a = int(at[lane])
+                    for u in range(4):
+                        if (w[j, u] >> lane) & 1:
+                            if a < k:
+                                out[a] = b["base"] + (s0 + j) * tc.RADIX_CHUNK + 4 * lane + u
+                            a += 1
+            seg_base += int(cc.sum())
+    out[min(total, k):] = n - 1
+    assert (out >= 0).all()
+    return out, min(cnt, k), [b["read"] for b in blocks]
+
+
+def _radix_walk_cases():
+    """(name, mask (C, n), keys (C, n) int32 or None for JAX's own): the
+    planted cases of `_radix_cases`, and 4 rows of 5003 pixels, several
+    chunks per block: 40 keys tied at the rank-100 key (139 at or under it
+    at k 100), 60 masked keys 0xFFFFFFFF (the threshold itself at k 1500),
+    a sparse row under the cap from k 400 with one masked 0xFFFFFFFF, an
+    empty row."""
+    cases = _radix_cases()
+    rng = np.random.RandomState(9)
+    n = 5003
+    mask = rng.rand(4, n) < np.array([0.4, 0.3, 0.05, 0.0])[:, None]
+    keys = rng.randint(-2**31, 2**31, (4, n)).astype(np.int32)
+    u32 = keys.view(np.uint32)
+    on = np.nonzero(mask[0])[0]
+    t = np.sort(u32[0, on])[99]
+    keys[0, on[rng.permutation(on.size)[:40]]] = np.uint32(t).view(np.int32)  # ties at t
+    on1 = np.nonzero(mask[1])[0]
+    keys[1, on1[-60:]] = -1  # the threshold is 0xFFFFFFFF at k 1500
+    keys[2, np.nonzero(mask[2])[0][0]] = -1  # taken once the row is under the cap
+    cases.append(("chunks: ties, 0xFFFFFFFF, under the cap, empty", mask, keys))
+    return cases
+
+
+@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("k", [16, 100, 400, 1500, 6000])
+def test_select_keys_radix_walk_bit_equal(case, k):
+    """K4r's cluster algorithm, walked as the kernel walks it
+    (`_radix_walk`, on `_radix_plan`'s slices), against JAX's
+    `_select_keys_radix` (its `bits` handed the same keys) and
+    `select_keys_radix_plain`: idx and n_sel bit-equal, every pixel read
+    once; k from under every class's count to past N."""
+    name, mask, keys = _radix_walk_cases()[case]
+    c, n = mask.shape
+    rng_keys = jax.random.split(jax.random.PRNGKey(40 + case), c)
+    if keys is None:
+        keys = jax_keys(rng_keys, n)
+    slice_, held, smem = tc._radix_plan(c, n, k)
+    plain_idx, plain_n = tc.select_keys_radix_plain(torch.from_numpy(mask),
+                                                     torch.from_numpy(keys), k)
+    with pytest.MonkeyPatch.context() as mp:
+        for j in range(c):
+            idx, n_sel, read = _radix_walk(mask[j], keys[j], k, slice_, held)
+            assert sorted(p for r in read for p in r) == list(range(n))
+            mp.setattr(jax.random, "bits",
+                       lambda key, shape, dtype, _k=keys[j]: jnp.asarray(_k.view(np.uint32)))
+            ref_idx, ref_valid = jc._select_keys_radix(jnp.asarray(mask[j]), rng_keys[j], k)
+            np.testing.assert_array_equal(idx, np.asarray(ref_idx), err_msg=f"{name} {j}")
+            assert n_sel == int(np.asarray(ref_valid).sum()) == int(plain_n[j]), (name, j)
+            np.testing.assert_array_equal(idx, plain_idx[j].numpy(), err_msg=f"{name} {j}")
+
+
+@pytest.mark.parametrize("n,density,k", [(1_000_003, 0.001, 1500), (1_000_003, 0.3, 9000),
+                                         (600_000, 0.002, 1100), (1, 1.0, 3)])
+def test_select_keys_radix_walk_past_shared_memory(n, density, k):
+    """Rows whose slices are not held whole (1,000,003 and 600,000 pixels:
+    8 blocks of 977 / 586 chunks, 432 held) and whose compaction runs in
+    two segments of 512 chunks, under and over the cap; and a row of one
+    pixel: the walk bit-equal to `select_keys_radix_plain`."""
+    rng = np.random.RandomState(n % 97)
+    mask = rng.rand(1, n) < density
+    keys = rng.randint(-2**31, 2**31, (1, n)).astype(np.int32)
+    slice_, held, smem = tc._radix_plan(1, n, k)
+    assert smem <= tc.RADIX_MAX_SHARED
+    if n > 1:
+        assert held < -(-slice_ // tc.RADIX_CHUNK) and slice_ > tc.RADIX_THREADS * tc.RADIX_CHUNK
+    idx, n_sel, read = _radix_walk(mask[0], keys[0], k, slice_, held)
+    ref_idx, ref_n = tc.select_keys_radix_plain(torch.from_numpy(mask), torch.from_numpy(keys), k)
+    assert sum(len(r) for r in read) == n
+    assert n_sel == int(ref_n[0])
+    np.testing.assert_array_equal(idx, ref_idx[0].numpy())
+
+
 @pytest.mark.parametrize("density", [0.0, 0.002, 0.3, 1.0])
 def test_sample_anchors_bit_equal(density):
     rng = np.random.RandomState(3)

@@ -573,11 +573,12 @@ def test_kernel_k3_bit_equal_to_plain(mode):
         assert torch.equal(a, b)
 
 
-def _classmix_inputs(dev, b, c, h, w, seed=13):
-    """Images, pseudo-labels (some 255, sample 1 a single class), max-probs
-    and the (B, C) draws, with ties among a sample's draws."""
+def _classmix_inputs(dev, b, c, h, w, seed=13, ci=3):
+    """Images of `ci` channels, pseudo-labels (some 255, sample 1 a single
+    class), max-probs and the (B, C) draws, with ties among a sample's
+    draws."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    img = torch.randn(b, 3, h, w, device=dev, generator=g)
+    img = torch.randn(b, ci, h, w, device=dev, generator=g)
     lab = torch.randint(0, c, (b, h, w), device=dev, generator=g, dtype=torch.int32)
     lab[torch.rand(b, h, w, device=dev, generator=g) < 0.05] = 255
     lab[1 % b] = 3
@@ -587,19 +588,38 @@ def _classmix_inputs(dev, b, c, h, w, seed=13):
     return img, lab, prob, u
 
 
-@pytest.mark.parametrize("b,c,h,w", [(4, 21, 513, 513), (3, 5, 33, 29), (1, 64, 9, 7)])
-def test_kernel_k3c_classmix_bit_equal_to_plain(b, c, h, w):
+@pytest.mark.parametrize("b,c,h,w,all_ignored,ci", [
+    (4, 21, 513, 513, False, 3), (3, 5, 33, 29, False, 3), (1, 64, 9, 7, False, 3),
+    (2, 21, 769, 769, False, 3),  # the Cityscapes crop (odd planes: no 16-byte alignment)
+    (3, 21, 65, 65, True, 3),  # every label 255: only class C - 1 present, nothing kept
+    (64, 64, 65, 65, False, 3),  # the wrapper's limits, MAX_BATCH and MAX_CLASSES
+    (3, 7, 40, 33, False, 1), (2, 7, 40, 33, False, 4),  # other channel counts: read in place
+])
+def test_kernel_k3c_classmix_bit_equal_to_plain(b, c, h, w, all_ignored, ci):
+    """Bit-equal to the plain version, in one cooperative launch per call
+    (a profiler trace shows one kernel, no memset or zero fill), its ticket
+    and presence words back to 0 after every call."""
+    from u2pl_tpu_torch.kernels import TICKET_CLASSMIX, tickets
     from u2pl_tpu_torch.ops import mixing
 
     dev = _cuda()
-    img, lab, prob, u = _classmix_inputs(dev, b, c, h, w)
+    img, lab, prob, u = _classmix_inputs(dev, b, c, h, w, ci=ci)
+    if all_ignored:
+        lab.fill_(255)
     n = mixing.generate_unsup_data.classmix_launches
     got = mixing.generate_unsup_data(img, lab, prob, u, "classmix")
     torch.cuda.synchronize()
     assert mixing.generate_unsup_data.classmix_launches == n + 1
+    assert not tickets(dev)[TICKET_CLASSMIX:].any()
     ref = mixing.generate_unsup_data_plain(img, lab, prob, u, "classmix")
     for a, r in zip(got, ref):
         assert torch.equal(a, r)
+    if all_ignored:
+        assert torch.equal(got[1], torch.roll(lab, -1, 0))
+    again = mixing.generate_unsup_data(img, lab, prob, u, "classmix")
+    assert all(torch.equal(a, r) for a, r in zip(again, got))
+    _one_kernel(lambda: mixing.generate_unsup_data(img, lab, prob, u, "classmix"),
+                "unsup_class_mix_kernel")
 
 
 # ---- the contrastive slice's kernels: K4, K5, K6 -----------------------------
@@ -770,7 +790,7 @@ def _radix_inputs(dev, c, n, density, seed=8):
     g = torch.Generator(device=dev).manual_seed(seed)
     mask = torch.rand(c, n, device=dev, generator=g) < density
     keys = torch.randint(0, 2**32, (c, n), device=dev, generator=g, dtype=torch.int64)
-    keys[0, ::7] = keys[0, 0]  # many equal keys in class 0
+    keys[0, 7::7] = keys[0, 0]  # many equal keys in class 0
     keys[1, :5] = 0xFFFFFFFF
     mask[1, :5] = True
     mask[c - 1] = False
@@ -780,11 +800,19 @@ def _radix_inputs(dev, c, n, density, seed=8):
 @pytest.mark.parametrize("c,n,k,density", [
     (21, 133128, 8192, 0.3),  # the flagship: over the cap
     (21, 133128, 8192, 0.03),  # under the cap
+    (19, 148996, 12288, 0.3),  # the Cityscapes configs' rows and cap
     (5, 1000, 16, 0.5),
     (5, 1000, 143, 1.0),  # the planted tie lands at the threshold
     (3, 37, 64, 1.0),  # fewer pixels than k
+    (3, 1_000_003, 8192, 0.3),  # a row past shared memory: chunks read again, two segments
+    (3, 1_000_003, 400_000, 0.3),  # ... and under a cap past MAX_KEYS
+    (2, 1, 5, 1.0),  # one pixel
 ])
 def test_kernel_select_keys_radix_bit_equal(c, n, k, density):
+    """Bit-equal to the plain version, in one launch per call (a profiler
+    trace shows one kernel, no memset or zero fill), leaving every ticket
+    word at 0."""
+    from u2pl_tpu_torch.kernels import tickets
     from u2pl_tpu_torch.losses import contrastive as tc
 
     dev = _cuda()
@@ -795,6 +823,8 @@ def test_kernel_select_keys_radix_bit_equal(c, n, k, density):
     assert tc.select_keys_radix.launches == cnt + 1
     ref_idx, ref_n = tc.select_keys_radix_plain(mask, keys, k)
     assert torch.equal(n_sel, ref_n) and torch.equal(idx, ref_idx)
+    assert not tickets(dev).any()
+    _one_kernel(lambda: tc.select_keys_radix(mask, keys, k), "select_keys_radix_kernel")
 
 
 @pytest.mark.parametrize("c,n,q,density", [(21, 133128, 256, 0.02), (5, 9000, 64, 0.3),

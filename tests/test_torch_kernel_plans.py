@@ -15,7 +15,10 @@ reduced once in key order; K5's tiles writing every row once; the
 descent's blocks holding every value once, within shared memory; K4
 masks' threads taking every pixel once with aligned stores; K4 anchors'
 blocks and warps reading every word of a row once, aligned, and the draws
-served from their prefixes as the plain version serves them.
+served from their prefixes as the plain version serves them; K4r's blocks
+owning every pixel once, as many chunks held as shared memory takes, no
+row refused; K3c's blocks taking every pixel once, co-resident, within
+shared memory.
 """
 
 import numpy as np
@@ -25,6 +28,7 @@ import torch
 from u2pl_tpu_torch import memobank as mb
 from u2pl_tpu_torch.losses import ce
 from u2pl_tpu_torch.losses import contrastive as tc
+from u2pl_tpu_torch.ops import mixing as tm
 from u2pl_tpu_torch.ops import quantile as tq
 from u2pl_tpu_torch.ops import resize as tr
 from u2pl_tpu_torch.ops.resize import _interp_matrix_np, _ranges_np
@@ -380,3 +384,91 @@ def test_anchors_plan_refuses_rows_past_shared_memory():
         tc._anchors_plan(14_860_289, 0x7F0000000000)
     assert tc._anchors_plan(133128, 0x7F0000000000)[:2] == (8, 2081)
     assert tc._anchors_plan(148996, 0x7F0000000000)[:2] == (4, 4657)
+
+
+# ---- K4r (losses/contrastive.py:_radix_plan): the flagship's and the
+# Cityscapes configs' rows, the card tests' (a row past shared memory, a
+# row of 37 under k), N = 1, and rows far past shared memory
+
+RADIX_N = [133128, 148996, 442368, 442369, 1_000_003, 1000, 37, 1, 8 * 97 * 97, 10_000_000,
+           2**31 - 100]
+
+
+@pytest.mark.parametrize("n", RADIX_N)
+@pytest.mark.parametrize("k", [1, 16, 8192, 12288, 16385, 2_000_000])
+def test_radix_plan_covers_every_pixel_and_holds_what_fits(n, k):
+    """`select_keys_radix`'s cluster plan: the 8 blocks' slices (multiples
+    of 4) own every pixel once; a block holds every chunk of its slice while
+    they fit in shared memory (slices up to 55,296 pixels: rows up to
+    442,368), else as many as fit, the rest read again; the plan does not
+    depend on C (1 to 32) or k (k > N included), and refuses no row."""
+    chunk, cluster = tc.RADIX_CHUNK, tc.RADIX_CLUSTER
+    for c in (1, 19, 21, 32):
+        slice_, held, smem = tc._radix_plan(c, n, k)
+        assert (slice_, held, smem) == tc._radix_plan(1, n, 1)
+    assert slice_ % 4 == 0 and slice_ * cluster >= n > (slice_ - 4) * cluster
+    if n < 10**6:
+        owned = np.zeros(n, np.int32)
+        for r in range(cluster):
+            owned[r * slice_: min((r + 1) * slice_, n)] += 1
+        assert (owned == 1).all()
+    chunks = -(-slice_ // chunk)
+    assert smem == tc.RADIX_HEADER_BYTES + held * tc.RADIX_CHUNK_BYTES <= tc.RADIX_MAX_SHARED
+    assert 0 < held <= chunks
+    whole = held == chunks
+    assert whole == (n <= 442368)
+    if not whole:  # as many as fit: the C entry's check
+        assert smem + tc.RADIX_CHUNK_BYTES > tc.RADIX_MAX_SHARED
+    # the kernel's 4-pixel quads start 4-aligned in every row where n % 4 == 0
+    if n % 4 == 0:
+        assert all((r * slice_ + j * chunk + 4 * lane) % 4 == 0
+                   for r in range(cluster) for j in (0, chunks - 1) for lane in (0, 31))
+
+
+def test_radix_plan_refuses_only_what_is_no_row():
+    for c, n, k in ((0, 10, 1), (1, 0, 1), (1, 10, 0), (1, 2**31, 1)):
+        with pytest.raises(ValueError):
+            tc._radix_plan(c, n, k)
+
+
+# ---- K3c (ops/mixing.py:_classmix_plan): the flagship's (4, 513²), the
+# Cityscapes configs' (2, 769²), the card tests' shapes, B = 64 at 65²
+
+CLASSMIX_SHAPES = [(4, 513, 513), (2, 769, 769), (4, 129, 129), (3, 33, 29), (1, 9, 7),
+                   (64, 65, 65), (64, 513, 513), (1, 1, 1), (2, 257, 255)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16, 1])
+@pytest.mark.parametrize("b,h,w", CLASSMIX_SHAPES)
+def test_classmix_plan_takes_every_position_once_co_resident(b, h, w, sms):
+    """K3c's cooperative grid: at most MIX_BLOCKS_PER_SM blocks per SM (the
+    co-resident count the C entry checks) and no more than b * h * w /
+    MIX_THREADS, each of the h * w positions owned by one block (in every
+    sample), no block empty; a block holds the draws and the labels of at
+    most MIX_MAX_HELD / b positions (all of its span at the configs'
+    shapes: B 4 at 513², B 2 at 769²), two blocks an SM within its shared
+    memory, and reads the rest again."""
+    hw = h * w
+    for c in (2, 19, 21, 64):
+        grid, span, held, smem = tm._classmix_plan(b, h, w, c, sms)
+        assert 1 <= grid <= tm.MIX_BLOCKS_PER_SM * sms
+        assert grid == 1 or grid <= b * hw // tm.MIX_THREADS
+        assert grid * span >= hw > (grid - 1) * span  # no block empty
+        assert held == min(span, tm.MIX_MAX_HELD // b) and b * held <= tm.MIX_MAX_HELD
+        assert smem == 4 * b * (c + held) <= tm.MIX_MAX_SHARED
+        assert tm.MIX_BLOCKS_PER_SM * (smem + 2 * 64 * 8) <= 228 * 1024
+        if (b, h, w) in ((4, 513, 513), (2, 769, 769)) and sms >= 114:
+            assert held == span
+        owned = np.zeros(hw, np.int32)
+        for g in range(grid):
+            owned[min(g * span, hw):min((g + 1) * span, hw)] += 1
+        assert (owned == 1).all()
+
+
+def test_classmix_plan_refuses_past_its_limits():
+    with pytest.raises(ValueError, match="samples"):
+        tm._classmix_plan(65, 9, 7, 21, 132)
+    with pytest.raises(ValueError, match="2\\^32"):
+        tm._classmix_plan(64, 8193, 8193, 21, 132)
+    with pytest.raises(ValueError, match="classes"):
+        tm._classmix_plan(4, 9, 7, 65, 132)

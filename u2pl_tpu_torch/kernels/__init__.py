@@ -45,16 +45,17 @@ def load():
         # (img, lab, prob, boxes, img_out, lab_out, prob_out,
         #  B, CI, H, W, cutout, ignore, stream)
         "u2pl_unsup_mix_boxes": [p] * 7 + [i] * 6 + [p],
-        # (img, lab, prob, u, present, img_out, lab_out, prob_out, B, CI, H, W, C, stream)
-        "u2pl_unsup_class_mix": [p] * 8 + [i] * 5 + [p],
+        # (img, lab, prob, u, ticket, img_out, lab_out, prob_out, B, CI, H, W, C,
+        #  grid, span, held, smem, stream)
+        "u2pl_unsup_class_mix": [p] * 8 + [i] * 9 + [p],
         # (prob, labels, low, high, anchor, negative, low_valid, counts, ticket,
         #  B, B_l, C, HW, ignore, delta_p, delta_n, low_rank, high_rank,
         #  blocks, stream)
         "u2pl_contra_pixel_masks": [p] * 9 + [i] * 5 + [f] * 2 + [i] * 3 + [p],
         # (mask, pri, sel_idx, n_sel, C, N, K, slice, pixcap, smem, stream)
         "u2pl_contra_select_keys": [p] * 4 + [i] * 6 + [p],
-        # (mask, keys, idx, n_sel, state, C, N, K, stream)
-        "u2pl_contra_select_keys_radix": [p] * 5 + [i] * 3 + [p],
+        # (mask, keys, idx, n_sel, C, N, K, slice, held, smem, stream)
+        "u2pl_contra_select_keys_radix": [p] * 4 + [i] * 6 + [p],
         # (mask, a_j, u, idx, count, C, N, Q, vec, slice, smem, stream)
         "u2pl_contra_sample_anchors": [p] * 5 + [i] * 6 + [p],
         # (rep, sel_idx, n_sel, keys, ptr, occ, sizes, ticket, B, F, HW, C, K,
@@ -77,7 +78,6 @@ def load():
         "u2pl_quantile_digit_bits": [],
         "u2pl_quantile_max_key_bytes": [],
         "u2pl_quantile_state_words": [],
-        "u2pl_select_keys_radix_state_words": [i],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -91,12 +91,14 @@ def load():
 
 # the words of `tickets`: one per kernel that sums or updates in its last
 # block; K7 prob's ticket is followed by the word its blocks count into,
-# K4 masks' by the 2 x 32 words of its per-class counts
+# K4 masks' by the 2 x 32 words of its per-class counts, K3c's by the 64
+# u64 presence words of its samples (8-aligned: the tensor is)
 TICKET_INFONCE_FWD = 0
 TICKET_MEMOBANK = 1
 TICKET_OHEM_PROB = 2
 TICKET_CONTRA_MASKS = 4
-TICKET_WORDS = TICKET_CONTRA_MASKS + 1 + 2 * 32
+TICKET_CLASSMIX = TICKET_CONTRA_MASKS + 1 + 2 * 32
+TICKET_WORDS = TICKET_CLASSMIX + 1 + 2 * 64
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,8 +106,8 @@ def tickets(device):
     """Zeroed uint32 words on `device`, one per kernel whose last block to
     finish takes over (TICKET_*): each block adds one with atomicInc, which
     wraps at the grid size, so a word is 0 again after every launch (and
-    the last blocks of K7 prob and K4 masks take their count words back
-    to 0)."""
+    the last blocks of K7 prob, K4 masks and K3c take their count and
+    presence words back to 0)."""
     import torch
 
     return torch.zeros(TICKET_WORDS, dtype=torch.int32, device=device)

@@ -50,15 +50,27 @@
 //   per block, the cross-block ranks take ~30% of the SM clocks (DSMEM
 //   serves scattered loads at a few per clock), the radix descent ~30%,
 //   the sort and the compaction ~25% (PERF.md).
-// select_keys_radix (K4r): per class, kk = min(k, N) and cnt = #mask; the
-//   (kk-1)-th smallest masked u32 key t by the same radix descent at 32 bits
-//   (4 levels of 8 bits, no sort); sel = cnt > kk ? mask & key <= t : mask;
-//   then one block per class scans its row in pixel order, chunk by chunk
-//   (a block-wide exclusive scan of the chunk's selected pixels), and writes
-//   the first k selected positions, padding with N - 1 (JAX's clipped
-//   searchsorted miss).  A tie at t admits the lower-indexed tied pixels, as
-//   in JAX.  Bound: memory, 5 passes over the mask and the keys (~3.5 MB
-//   each at the flagship's (21, 133128)).
+// select_keys_radix (K4r): per class, kk = min(k, N) and cnt = #mask; when
+//   cnt > kk the masked pixels whose u32 key is at or under the rank-(kk-1)
+//   masked key t, else every masked pixel; the first k of them in pixel order,
+//   N - 1 past them (JAX's clipped searchsorted miss); a tie at t admits the
+//   lower-indexed tied pixels, as in JAX.  The first design (10 launches: a
+//   torch.zeros of its state, per 8-bit level a histogram pass over every row
+//   and a one-thread bin walk, then one block per class compacting its row
+//   chunk by chunk, 21 of 132 SMs) took 0.168 ms at the flagship's (21,
+//   133128), k 8192, and 0.176 at Cityscapes' (19, 148996), k 12288, by
+//   timing_ab.py's clock on an NVIDIA H100 80GB HBM3 at 700 W.  This design
+//   is one launch, one cluster of 8 blocks per class: each block reads its
+//   eighth of the row from HBM once, keeps the raw keys and the mask bits in
+//   shared memory and counts the masked pixels and the first level's
+//   histogram on the way; the cluster sums the counts through distributed
+//   shared memory, and only a class over the cap runs the descent (3 more
+//   levels over the held keys); the compaction writes each block's selected
+//   pixels at its base from ballots.  No zero-fill.  Bound: memory, one read
+//   of the mask and the keys (~14 MB, 4.4 us).  0.0303 ms at the flagship
+//   (15 of 21 classes over the cap), 0.0297 at Cityscapes, on that card;
+//   a launch and the one read take ~0.010, the descent and the count ~0.014,
+//   the compaction ~0.006 (cut-short builds; PERF.md).
 // sample_anchors: a cluster of 8 blocks per position reads its anchor row
 //   once, with loads as wide as the row's alignment, and keeps the prefix
 //   count of each run of 32 words in shared memory; the blocks' totals meet
@@ -82,14 +94,10 @@
 namespace {
 
 namespace cg = cooperative_groups;
-using u2pl::kThreads;
 
 constexpr int kMaxClasses = 32;
 constexpr int kBins = 256;
 constexpr int kMaxKeys = 16384;
-constexpr int kScanThreads = 1024;
-constexpr int kScanItems = 4;  // pixels per thread per chunk
-constexpr int kChunk = kScanThreads * kScanItems;
 
 __device__ __forceinline__ unsigned order_key(float v) {
   const unsigned bits = __float_as_uint(v);
@@ -231,10 +239,9 @@ __global__ void __launch_bounds__(kMaskThreads) pixel_masks_kernel(
 
 // ---- block scan (select_keys, select_keys_radix) ------------------------------
 
-// exclusive block scan of one int per thread (blockDim.x == 32 * kWarps,
-// kScanThreads by default); returns the thread's exclusive prefix, *total
-// the block's sum
-template <int kWarps = kScanThreads / 32>
+// exclusive block scan of one int per thread (blockDim.x == 32 * kWarps);
+// returns the thread's exclusive prefix, *total the block's sum
+template <int kWarps>
 __device__ __forceinline__ int block_exclusive_scan(int v, int* warp_tot,
                                                     int* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -582,112 +589,274 @@ select_keys_kernel(const uint8_t* __restrict__ mask, const float* __restrict__ p
 }
 
 // ---- select_keys_radix (K4r) -------------------------------------------------
-// state (u32 words, zeroed by the caller): histograms C x 256, then per class
-// kRxStateWords words: prefix, remaining rank, count, all-taken flag
+// One cluster of kRxCluster blocks per class; block `rank` owns the pixels
+// [rank * slice, (rank + 1) * slice) of row c, walked in chunks of kRxChunk
+// pixels, a chunk per warp: lane l holds the chunk's pixels 4 l .. 4 l + 3
+// (the host's plan: losses/contrastive.py:_radix_plan).  The first `held`
+// chunks of the slice stay in shared memory as read: the raw u32 keys, and
+// the mask as 4 ballot words per chunk (bit l of word u: pixel 4 l + u),
+// which the count pass overwrites with the selection's; the chunks past
+// them are read again from global memory by every pass.  The mask is its
+// own bit, so a masked key 0xFFFFFFFF counts and is taken like any other.
+// Dynamic shared memory: two 256-bin histograms, kRxInfo ints, 32 ints of
+// scan scratch, kRxSeg chunk counts, then the held chunks' words and keys.
 
-constexpr int kRxStateWords = 4;
+constexpr int kRxCluster = 8;
+constexpr int kRxThreads = 512;
+constexpr int kRxWarps = kRxThreads / 32;
+constexpr int kRxChunk = 128;          // pixels per chunk: 4 per lane
+constexpr int kRxUnroll = 4;           // chunks a warp loads at once in the first read
+constexpr int kRxSeg = kRxThreads;     // chunks per segment of the write pass
+constexpr int kRxInfo = 16;            // masked count, selected count, -, digit, below
+constexpr int kRxHeader = 2 * kBins * 4 + kRxInfo * 4 + 32 * 4 + kRxSeg * 4;  // bytes, 16-aligned
+constexpr int kRxChunkBytes = kRxChunk * 4 + 16;  // keys and 4 mask words
 
-__global__ void skr_hist_kernel(const uint8_t* __restrict__ mask,
-                                const unsigned* __restrict__ keys, int C,
-                                int N, int level, unsigned* __restrict__ st) {
-  __shared__ unsigned hist[kBins];
-  __shared__ unsigned count;
-  const int c = blockIdx.y;
-  unsigned* cls = st + C * kBins + c * kRxStateWords;
-  if (level > 0 && cls[3]) return;  // at most kk keys: all are taken
-  for (int j = threadIdx.x; j < kBins; j += blockDim.x) hist[j] = 0;
-  if (threadIdx.x == 0) count = 0;
-  __syncthreads();
-  const unsigned prefix = cls[0];
-  const int shift = 24 - 8 * level;
-  const uint8_t* m = mask + (size_t)c * N;
-  const unsigned* kc = keys + (size_t)c * N;
-  unsigned my = 0;
-  for (int n = blockIdx.x * blockDim.x + threadIdx.x; n < N;
-       n += gridDim.x * blockDim.x) {
-    if (!m[n]) continue;
-    const unsigned key = kc[n];
-    ++my;
-    if (level == 0 || (key >> (shift + 8)) == (prefix >> (shift + 8))) {
-      atomicAdd(&hist[(key >> shift) & (kBins - 1)], 1u);
+// lane's 4 pixels of the chunk at i0 (relative to the block's first pixel)
+// from global memory: keys in k, mask bits in mb (bit u: pixel i0 + u)
+__device__ __forceinline__ void rx_load(const uint8_t* m, const unsigned* keys, int i0, int len,
+                                        bool vec, unsigned (&k)[4], unsigned& mb) {
+  if (vec && i0 + 4 <= len) {
+    const uchar4 mm = *reinterpret_cast<const uchar4*>(m + i0);
+    const uint4 q = *reinterpret_cast<const uint4*>(keys + i0);
+    k[0] = q.x;
+    k[1] = q.y;
+    k[2] = q.z;
+    k[3] = q.w;
+    mb = (mm.x != 0) | (mm.y != 0) << 1 | (mm.z != 0) << 2 | (mm.w != 0) << 3;
+  } else {
+    mb = 0;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u;
+      k[u] = 0;
+      if (i < len) {
+        k[u] = keys[i];
+        mb |= (unsigned)(m[i] != 0) << u;
+      }
     }
   }
-  if (level == 0 && my) atomicAdd(&count, my);
-  __syncthreads();
-  for (int j = threadIdx.x; j < kBins; j += blockDim.x) {
-    if (hist[j]) atomicAdd(&st[c * kBins + j], hist[j]);
-  }
-  if (level == 0 && threadIdx.x == 0 && count) atomicAdd(&cls[2], count);
 }
 
-// one thread per class: at level 0 it decides whether every masked key is
-// taken (count <= kk), else it appends the digit of the rank-(kk-1) key
-__global__ void skr_select_kernel(int C, int KK, int level,
-                                  unsigned* __restrict__ st) {
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    unsigned* cls = st + C * kBins + c * kRxStateWords;
-    unsigned* h = st + c * kBins;
-    if (level == 0) {
-      cls[1] = (unsigned)(KK - 1);
-      cls[3] = cls[2] <= (unsigned)KK ? 1u : 0u;
+__device__ __forceinline__ uint4 rx_ballots(unsigned bits) {
+  return make_uint4(__ballot_sync(0xFFFFFFFFu, bits & 1u), __ballot_sync(0xFFFFFFFFu, bits & 2u),
+                    __ballot_sync(0xFFFFFFFFu, bits & 4u), __ballot_sync(0xFFFFFFFFu, bits & 8u));
+}
+
+__device__ __forceinline__ unsigned rx_lane_bits(uint4 w, int lane) {
+  return ((w.x >> lane) & 1u) | ((w.y >> lane) & 1u) << 1 | ((w.z >> lane) & 1u) << 2 |
+         ((w.w >> lane) & 1u) << 3;
+}
+
+__global__ void __cluster_dims__(kRxCluster, 1, 1) __launch_bounds__(kRxThreads, 2)
+select_keys_radix_kernel(const uint8_t* __restrict__ mask, const unsigned* __restrict__ keys,
+                         int* __restrict__ sel_idx, int* __restrict__ n_sel, int N, int K,
+                         int slice, int held, bool vec) {
+  extern __shared__ __align__(16) unsigned char rx_smem[];
+  unsigned* hist = reinterpret_cast<unsigned*>(rx_smem);  // 2 x kBins
+  int* info = reinterpret_cast<int*>(hist + 2 * kBins);
+  int* warp_tot = info + kRxInfo;
+  int* seg = warp_tot + 32;  // a segment's chunk counts, then their bases
+  uint4* words = reinterpret_cast<uint4*>(rx_smem + kRxHeader);  // per held chunk
+  uint4* held_keys = words + held;  // 32 per held chunk, lane l's at [32 j + l]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int c = blockIdx.x / kRxCluster;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int base = rank * slice;
+  const int len = max(0, min(slice, N - base));
+  const int chunks = (len + kRxChunk - 1) / kRxChunk;
+  const uint8_t* m = mask + (size_t)c * N + base;
+  const unsigned* kc = keys + (size_t)c * N + base;
+  // the lane's keys and mask bits of chunk j
+  auto quad = [&](int j, unsigned (&k)[4], unsigned& mb) {
+    if (j < held) {
+      const uint4 q = held_keys[32 * j + lane];
+      k[0] = q.x;
+      k[1] = q.y;
+      k[2] = q.z;
+      k[3] = q.w;
+      mb = rx_lane_bits(words[j], lane);
+    } else {
+      rx_load(m, kc, j * kRxChunk + 4 * lane, len, vec, k, mb);
     }
-    if (!cls[3]) {
-      const int shift = 24 - 8 * level;
-      unsigned below = 0;
-      int sel = 0;
-      for (int b = 0; b < kBins; ++b) {
-        if (below + h[b] > cls[1]) {
-          sel = b;
-          break;
+  };
+
+  for (int i = tid; i < 2 * kBins; i += kRxThreads) hist[i] = 0;
+  __syncthreads();
+
+  // the one read from HBM: the held chunks kept, the masked count, and the
+  // first level's histogram (by the keys' top byte) on the way
+  int mine = 0;
+  for (int j0 = warp; j0 < chunks; j0 += kRxWarps * kRxUnroll) {
+    unsigned k[kRxUnroll][4], mb[kRxUnroll];
+#pragma unroll
+    for (int r = 0; r < kRxUnroll; ++r) {
+      const int j = j0 + r * kRxWarps;
+      mb[r] = 0;
+      if (j < chunks) rx_load(m, kc, j * kRxChunk + 4 * lane, len, vec, k[r], mb[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kRxUnroll; ++r) {
+      const int j = j0 + r * kRxWarps;  // warp-uniform
+      if (j < chunks) {
+        const uint4 w = rx_ballots(mb[r]);
+        if (j < held) {
+          held_keys[32 * j + lane] = make_uint4(k[r][0], k[r][1], k[r][2], k[r][3]);
+          if (lane == 0) words[j] = w;
         }
-        below += h[b];
+        mine += __popc(mb[r]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if ((mb[r] >> u) & 1u) atomicAdd(&hist[k[r][u] >> 24], 1u);
+        }
       }
-      cls[1] -= below;
-      cls[0] |= (unsigned)sel << shift;
     }
-    for (int b = 0; b < kBins; ++b) h[b] = 0;
   }
-}
+  int n_mine;
+  block_exclusive_scan<kRxWarps>(mine, warp_tot, &n_mine);
+  if (tid == 0) info[0] = n_mine;
+  cluster.sync();
+  int cnt = 0, before = 0;
+#pragma unroll
+  for (int b = 0; b < kRxCluster; ++b) {
+    const int v = cluster.map_shared_rank(info, b)[0];
+    cnt += v;
+    before += b < rank ? v : 0;
+  }
+  const int kk = min(K, N);
+  const bool all = cnt <= kk;  // every masked pixel is taken: no descent
+  unsigned t = 0xFFFFFFFFu;
+  int total = cnt, block_base = before;
+  if (!all) {
+    // the rank-(kk - 1) masked key: per level, the blocks' 256-bin
+    // histograms of the keys under the prefix, summed over the cluster
+    // through distributed shared memory, and the digit picked by a block
+    // scan in every block (the two buffers alternate, so one cluster
+    // barrier per level suffices; level 0's came with the first read)
+    int rem = kk - 1;
+    unsigned prefix = 0;
+    for (int level = 0; level < 4; ++level) {
+      const int shift = 24 - 8 * level;
+      unsigned* h = hist + (level & 1) * kBins;
+      if (level > 0) {
+        if (level >= 2) {
+          for (int i = tid; i < kBins; i += kRxThreads) h[i] = 0;
+          __syncthreads();
+        }
+        const unsigned hi = prefix >> (shift + 8);
+        for (int j = warp; j < chunks; j += kRxWarps) {
+          unsigned k[4], mb;
+          quad(j, k, mb);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (((mb >> u) & 1u) && (k[u] >> (shift + 8)) == hi) {
+              atomicAdd(&h[(k[u] >> shift) & (kBins - 1)], 1u);
+            }
+          }
+        }
+        cluster.sync();
+      }
+      int tot = 0;
+      if (tid < kBins) {
+#pragma unroll
+        for (int b = 0; b < kRxCluster; ++b) tot += (int)cluster.map_shared_rank(h, b)[tid];
+      }
+      int all_bins;
+      const int below = block_exclusive_scan<kRxWarps>(tot, warp_tot, &all_bins);
+      if (tid < kBins && below <= rem && rem < below + tot) {
+        info[3] = tid;
+        info[4] = below;
+      }
+      __syncthreads();
+      prefix |= (unsigned)info[3] << shift;
+      rem -= info[4];
+    }
+    t = prefix;
+    // the selection (masked, key <= t) per chunk: the held chunks' mask
+    // words become its words; the block's count meets the others' for the
+    // blocks' bases
+    int sel_mine = 0;
+    for (int j = warp; j < chunks; j += kRxWarps) {
+      unsigned k[4], mb;
+      quad(j, k, mb);
+      unsigned s = 0;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) s |= (unsigned)(((mb >> u) & 1u) && k[u] <= t) << u;
+      if (j < held) {
+        const uint4 w = rx_ballots(s);
+        if (lane == 0) words[j] = w;
+      }
+      sel_mine += __popc(s);
+    }
+    int n_sel_b;
+    block_exclusive_scan<kRxWarps>(sel_mine, warp_tot, &n_sel_b);
+    if (tid == 0) info[1] = n_sel_b;
+    cluster.sync();
+    total = 0;
+    block_base = 0;
+#pragma unroll
+    for (int b = 0; b < kRxCluster; ++b) {
+      const int v = cluster.map_shared_rank(info, b)[1];
+      total += v;
+      block_base += b < rank ? v : 0;
+    }
+  }
+  // the selection's 4 words of chunk j (warp-uniform j)
+  auto sel_words = [&](int j) {
+    if (j < held) return words[j];
+    unsigned k[4], mb;
+    rx_load(m, kc, j * kRxChunk + 4 * lane, len, vec, k, mb);
+    unsigned s = 0;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) s |= (unsigned)(((mb >> u) & 1u) && (all || k[u] <= t)) << u;
+    return rx_ballots(s);
+  };
 
-// one block per class (kScanThreads threads): the first K selected pixels in
-// pixel order, then N - 1 up to K
-__global__ void skr_compact_kernel(const uint8_t* __restrict__ mask,
-                                   const unsigned* __restrict__ keys, int C,
-                                   int N, int K, const unsigned* __restrict__ st,
-                                   int* __restrict__ idx,
-                                   int* __restrict__ n_sel) {
-  __shared__ int warp_tot[32];
-  const int c = blockIdx.x;
-  const unsigned* cls = st + C * kBins + c * kRxStateWords;
-  const bool all = cls[3] != 0;
-  const unsigned thresh = cls[0];
-  const uint8_t* m = mask + (size_t)c * N;
-  const unsigned* kc = keys + (size_t)c * N;
-  int* out = idx + (size_t)c * K;
-  int base = 0;
-  for (int start = 0; start < N && base < K; start += kChunk) {
-    const int first = start + threadIdx.x * kScanItems;
-    int flags = 0, cnt = 0;
+  // compaction in pixel order: per segment of kRxSeg chunks, a block scan
+  // of the chunks' counts, then each warp writes its chunks' selected
+  // pixels below k at the block's base, the chunk's and the lane's
+  int* out = sel_idx + (size_t)c * K;
+  int seg_base = block_base;
+  for (int s0 = 0; s0 < chunks && seg_base < K; s0 += kRxSeg) {  // block-uniform
+    const int s1 = min(chunks, s0 + kRxSeg);
+    for (int j = s0 + warp; j < s1; j += kRxWarps) {
+      const uint4 w = sel_words(j);
+      if (lane == 0) seg[j - s0] = __popc(w.x) + __popc(w.y) + __popc(w.z) + __popc(w.w);
+    }
+    __syncthreads();
+    const int v = tid < s1 - s0 ? seg[tid] : 0;
+    int seg_tot;
+    const int ex = block_exclusive_scan<kRxWarps>(v, warp_tot, &seg_tot);
+    if (tid < s1 - s0) seg[tid] = ex;
+    __syncthreads();
+    for (int j = s0 + warp; j < s1; j += kRxWarps) {
+      const int at0 = seg_base + seg[j - s0];
+      if (at0 >= K) continue;  // warp-uniform
+      const uint4 w = sel_words(j);
+      const unsigned lt = (1u << lane) - 1u;
+      int at = at0 + __popc(w.x & lt) + __popc(w.y & lt) + __popc(w.z & lt) + __popc(w.w & lt);
+      const unsigned bits = rx_lane_bits(w, lane);
+      const int pix = base + j * kRxChunk + 4 * lane;
 #pragma unroll
-    for (int i = 0; i < kScanItems; ++i) {
-      const int n = first + i;
-      if (n < N && m[n] && (all || kc[n] <= thresh)) {
-        flags |= 1 << i;
-        ++cnt;
+      for (int u = 0; u < 4; ++u) {
+        if ((bits >> u) & 1u) {
+          if (at < K) out[at] = pix + u;
+          ++at;
+        }
       }
     }
-    int chunk_total;
-    int at = base + block_exclusive_scan(cnt, warp_tot, &chunk_total);
-#pragma unroll
-    for (int i = 0; i < kScanItems; ++i) {
-      if ((flags & (1 << i)) && at < K) out[at] = first + i;
-      at += (flags >> i) & 1;
-    }
-    base += chunk_total;
-    __syncthreads();
+    seg_base += seg_tot;
+    __syncthreads();  // the next segment rewrites seg
   }
-  for (int j = min(base, K) + threadIdx.x; j < K; j += blockDim.x) out[j] = N - 1;
-  if (threadIdx.x == 0) n_sel[c] = (int)min(cls[2], (unsigned)K);
+  // past the selection, N - 1 (JAX's clipped searchsorted miss), spread
+  // over the cluster
+  for (long long j = (long long)min(total, K) + rank * kRxThreads + tid; j < K;
+       j += kRxCluster * kRxThreads) {
+    out[j] = N - 1;
+  }
+  if (rank == 0 && tid == 0) n_sel[c] = min(cnt, K);
+  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
 // ---- sample_anchors --------------------------------------------------------
@@ -923,31 +1092,27 @@ int u2pl_contra_select_keys(const void* mask, const void* pri, void* sel_idx,
   return (int)cudaGetLastError();
 }
 
-int u2pl_select_keys_radix_state_words(int C) {
-  return C * kBins + C * kRxStateWords;
-}
-
-int u2pl_contra_select_keys_radix(const void* mask, const void* keys,
-                                  void* idx, void* n_sel, void* state, int C,
-                                  int N, int K, void* stream) {
-  if (C <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid(u2pl::blocks_for(N, 128), C);
-  unsigned* st = (unsigned*)state;
-  const int kk = K < N ? K : N;
-  for (int level = 0; level < 4; ++level) {
-    skr_hist_kernel<<<grid, kThreads, 0, s>>>((const uint8_t*)mask,
-                                              (const unsigned*)keys, C, N,
-                                              level, st);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    skr_select_kernel<<<1, 32, 0, s>>>(C, kk, level, st);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+// the plan (losses/contrastive.py:_radix_plan): kRxCluster blocks per class
+// of `slice` pixels each, the first `held` chunks of a slice in smem bytes of
+// shared memory (as many as fit); wide loads where N % 4 == 0 and the
+// pointers allow them
+int u2pl_contra_select_keys_radix(const void* mask, const void* keys, void* idx, void* n_sel,
+                                  int C, int N, int K, int slice, int held, int smem,
+                                  void* stream) {
+  const int chunks = slice > 0 ? (slice + kRxChunk - 1) / kRxChunk : 0;
+  if (C <= 0 || N <= 0 || K <= 0 || slice <= 0 || slice % 4 != 0 ||
+      (long long)slice * kRxCluster < N || held < 0 || held > chunks ||
+      smem != kRxHeader + held * kRxChunkBytes || smem > kSelMaxShared ||
+      (held < chunks && smem + kRxChunkBytes <= kSelMaxShared)) {
+    return (int)cudaErrorInvalidValue;
   }
-  skr_compact_kernel<<<C, kScanThreads, 0, s>>>(
-      (const uint8_t*)mask, (const unsigned*)keys, C, N, K, st, (int*)idx,
-      (int*)n_sel);
+  const bool vec = N % 4 == 0 && (uintptr_t)mask % 4 == 0 && (uintptr_t)keys % 16 == 0;
+  cudaError_t err = cudaFuncSetAttribute(select_keys_radix_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  select_keys_radix_kernel<<<C * kRxCluster, kRxThreads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)mask, (const unsigned*)keys, (int*)idx, (int*)n_sel, N, K, slice, held,
+      vec);
   return (int)cudaGetLastError();
 }
 

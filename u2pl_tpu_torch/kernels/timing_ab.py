@@ -1,7 +1,7 @@
 """Times kernel A and its adjoint A-bwd, K6's forward and backward, kernel
 C's forward and backward, kernel D, K4's key selection, masks and anchor
-draws, K5, OHEM's K7 prob and K7 kth and kernel E of the u2pl_tpu_torch
-package in the checkout at
+draws, K5, OHEM's K7 prob and K7 kth, kernel E, K4r (radix key selection)
+and K3c (ClassMix) of the u2pl_tpu_torch package in the checkout at
 --root, on one card: run it once per checkout, in turns, to set two
 versions of the kernels side by side in one call.
 
@@ -104,7 +104,23 @@ results are bit-equal.  The inputs come from seeded generators on the card:
   K4_anchors_voc  sample_anchors on the K4_masks_voc anchor mask, positions
              0..20 on their own class, 256 draws each (the largest below 1
              first); its hash covers idx and n;
-  K4_anchors_city  the same on the K4_masks_city anchor mask, 19 positions.
+  K4_anchors_city  the same on the K4_masks_city anchor mask, 19 positions;
+  K4r_voc    select_keys_radix (`select_keys: radix`) at the flagship: a
+             (21, 133128) mask like K4_select's (~0-30% density per class,
+             the last class empty) with u32 keys, k 8192, 64 more masked keys
+             of the class with the most candidates tied at its rank-k key and
+             a masked key 0xFFFFFFFF in the next one (chip_smoke.py's
+             radix_case); library: torch.topk(largest=False, sorted=False) of
+             the masked keys as int64 (the same set up to ties, not in pixel
+             order); its hash covers idx and n_sel;
+  K4r_city   the same at the Cityscapes configs' (19, 148996), k 12288;
+  K3c_voc    ClassMix (`apply_aug: classmix`) of (4, 3, 513²) images, their
+             pseudo-labels (21 classes, ~5% 255, sample 1 a single class)
+             and max-probs, (4, 21) draws with ties in sample 0 (chip_smoke.py's
+             classmix_case); its hash covers image, label and max-prob;
+  K3c_city   the same at Cityscapes, (2, 3, 769²), 19 classes.
+The K4r and K3c rows carry their bytes bound, as chip_smoke.py:bounds
+counts it (each input read once, each output written once).
 The K5 rows carry their NCHW sector bound: the distinct 32-byte sectors of
 the rep that the written rows read, as chip_smoke.py:bounds counts them;
 the K4 rows their bytes bound as chip_smoke.py:bounds counts it (K4 masks:
@@ -477,6 +493,46 @@ def main() -> int:
             "sha256": digest(idx) + "-" + digest(cnt), "n": cnt.tolist(),
             "bound_ms": (c * n + 2 * c * q * 4) / PEAK_BYTES_S * 1e3}
         del prob, lab, low, high, res
+    for label, c, n, k in (("voc", 21, 8 * 129 * 129, 8192), ("city", 19, 4 * 193 * 193, 12288)):
+        density = torch.rand(c, 1, device=dev, generator=g) * 0.3
+        density[c - 1] = 0.0
+        mask = torch.rand(c, n, device=dev, generator=g) < density
+        keys = torch.randint(-2**31, 2**31, (c, n), device=dev, generator=g, dtype=torch.int64)
+        u32 = keys & 0xFFFFFFFF
+        tie, top = torch.argsort(mask.sum(1), descending=True)[:2].tolist()
+        kv = torch.where(mask[tie], u32[tie], torch.full_like(u32[tie], 2**32 - 1))
+        t = int(torch.kthvalue(kv, k).values)
+        above = torch.nonzero(mask[tie] & (u32[tie] > t)).flatten()[:64]
+        keys[tie, above] = t - 2**32 if t >= 2**31 else t
+        keys[top, torch.nonzero(mask[top]).flatten()[0]] = -1
+        keys = keys.to(torch.int32)
+        masked = torch.where(mask, keys.to(torch.int64) & 0xFFFFFFFF,
+                             torch.full((c, n), 2**32 - 1, dtype=torch.int64, device=dev))
+        fn = lambda: tc.select_keys_radix(mask, keys, k)  # noqa: E731
+        idx, n_sel = fn()
+        out["kernels"][f"K4r_{label}"] = {
+            "ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn),
+            "library_ms": cuda_ms(lambda: torch.topk(masked, k, dim=1, largest=False,
+                                                     sorted=False)),
+            "sha256": digest(idx) + "-" + digest(n_sel), "n_sel": n_sel.tolist(),
+            "bound_ms": (c * n * 5 + c * k * 4 + c * 4) / PEAK_BYTES_S * 1e3}
+        del mask, keys, masked, kv
+    from u2pl_tpu_torch.ops import mixing
+
+    for label, b, c, hw in (("voc", 4, 21, 513), ("city", 2, 19, 769)):
+        img = torch.randn(b, 3, hw, hw, device=dev, generator=g)
+        lab = torch.randint(0, c, (b, hw, hw), device=dev, generator=g, dtype=torch.int32)
+        lab[torch.rand(lab.shape, device=dev, generator=g) < 0.05] = 255
+        lab[1] = 7
+        prob = torch.rand(b, hw, hw, device=dev, generator=g)
+        u = torch.rand(b, c, device=dev, generator=g)
+        u[0, 1::3] = u[0, 0]
+        fn = lambda: mixing.generate_unsup_data(img, lab, prob, u, "classmix")  # noqa: E731
+        out["kernels"][f"K3c_{label}"] = {
+            "ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn), "library_ms": None,
+            "sha256": "-".join(digest(t) for t in fn()),
+            "bound_ms": (2 * b * hw * hw * (12 + 4 + 4) + b * c * 4) / PEAK_BYTES_S * 1e3}
+        del img, lab, prob
     print(json.dumps(out), flush=True)
     return 0
 

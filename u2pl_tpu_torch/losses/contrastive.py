@@ -31,7 +31,8 @@ The device functions and their kernels (CUDA C++, sm_90a):
                        thread block cluster per class);
   select_keys_radix    K4r: per class the masked pixels whose u32 key is at
                        or under the k-th smallest, the first k in pixel
-                       order (`select_keys: radix`);
+                       order (`select_keys: radix`; one thread block
+                       cluster per class);
   sample_anchors       K4: per position the with-replacement anchor draws
                        mapped to set pixels of the anchor mask (one thread
                        block cluster per position);
@@ -311,6 +312,38 @@ def select_keys_radix_plain(mask: torch.Tensor, keys: torch.Tensor, k: int):
     return torch.clamp(idx, 0, n - 1).to(torch.int32), torch.clamp(cnt, max=k).to(torch.int32)
 
 
+# select_keys_radix's kernel: one cluster of RADIX_CLUSTER blocks of
+# RADIX_THREADS threads per class; a block walks its slice in chunks of
+# RADIX_CHUNK pixels and holds as many of them as fit in shared memory (their
+# u32 keys and 4 mask words each) behind a fixed header (kRxCluster,
+# kRxThreads, kRxChunk, kRxHeader, kRxChunkBytes in contrastive.cu)
+RADIX_CLUSTER = 8
+RADIX_THREADS = 512
+RADIX_CHUNK = 128
+RADIX_HEADER_BYTES = 2 * 256 * 4 + 16 * 4 + 32 * 4 + RADIX_THREADS * 4
+RADIX_CHUNK_BYTES = RADIX_CHUNK * 4 + 16
+RADIX_MAX_SHARED = SELECT_MAX_SHARED
+
+
+def _radix_plan(c: int, n: int, k: int) -> Tuple[int, int, int]:
+    """(slice, held, smem) of `select_keys_radix`'s kernel for a (c, n) mask
+    and k keys: block r of a class's cluster owns pixels [r * slice, (r + 1)
+    * slice) (slice a multiple of 4, so the 8 blocks cover the row and every
+    4-pixel quad starts aligned where n % 4 == 0), walked in chunks of
+    RADIX_CHUNK pixels, of which the first `held` stay in shared memory, as
+    many as fit in smem bytes: every chunk of the slice while it is held
+    whole (up to 55,296 pixels a block, rows of ~442,000 pixels); the chunks
+    past them are read again from global memory.  No row length is
+    refused."""
+    if c <= 0 or not 0 < n < 2**31 - 64 or k <= 0:
+        raise ValueError(f"select_keys_radix: {c} classes, {n} pixels, k {k}")
+    slice_ = -(-n // RADIX_CLUSTER)
+    slice_ += -slice_ % 4
+    chunks = -(-slice_ // RADIX_CHUNK)
+    held = min(chunks, (RADIX_MAX_SHARED - RADIX_HEADER_BYTES) // RADIX_CHUNK_BYTES)
+    return slice_, held, RADIX_HEADER_BYTES + held * RADIX_CHUNK_BYTES
+
+
 def select_keys_radix(mask: torch.Tensor, keys: torch.Tensor, k: int):
     """Per class c, with kk = min(k, N) and cnt = #mask[c]: when cnt > kk
     the masked pixels whose u32 key (keys[c, n], unsigned) is at or under
@@ -320,9 +353,11 @@ def select_keys_radix(mask: torch.Tensor, keys: torch.Tensor, k: int):
     int64 in [0, 2^32)).  Returns (sel_idx (C, k) int32, n_sel (C,) int32
     = min(cnt, k)); only the first n_sel[c] entries of row c are keys.
 
-    On the card, kernel K4r: a 32-bit radix select of the threshold (four
-    8-bit histogram levels per class), then one block per class compacts
-    its row in pixel order."""
+    On the card, kernel K4r: one launch, a cluster of 8 blocks per class
+    (`_radix_plan`) that reads its row once, keeps the keys in shared
+    memory, finds the threshold by a radix descent only when the class is
+    over the cap, and compacts in pixel order (see
+    `kernels/csrc/contrastive.cu`)."""
     c, n = mask.shape
     if keys.shape != (c, n) or k <= 0:
         raise ValueError(f"select_keys_radix: mask {tuple(mask.shape)}, keys "
@@ -335,15 +370,15 @@ def select_keys_radix(mask: torch.Tensor, keys: torch.Tensor, k: int):
     keys = keys.contiguous()
     _require(keys, dev, torch.int32, "select_keys_radix keys")
     _require(mask, dev, torch.bool, "select_keys_radix mask")
+    slice_, held, smem = _radix_plan(c, n, k)
     from u2pl_tpu_torch.kernels import load
 
     lib = load()
     sel_idx = torch.empty((c, k), dtype=torch.int32, device=dev)
     n_sel = torch.empty((c,), dtype=torch.int32, device=dev)
-    state = torch.zeros(lib.u2pl_select_keys_radix_state_words(c), dtype=torch.int32, device=dev)
     _launch(lib, "u2pl_contra_select_keys_radix", "select_keys_radix", dev,
             mask.data_ptr(), keys.data_ptr(), sel_idx.data_ptr(), n_sel.data_ptr(),
-            state.data_ptr(), c, n, k)
+            c, n, k, slice_, held, smem)
     select_keys_radix.launches += 1
     return sel_idx, n_sel
 

@@ -131,6 +131,36 @@ def generate_unsup_data_plain(
     )
 
 
+# K3c's kernel: one cooperative launch of MIX_BLOCKS_PER_SM blocks of
+# MIX_THREADS threads per SM at most, each owning a span of the H x W
+# positions in every sample and holding up to MIX_MAX_HELD of their labels
+# in shared memory (kMixThreads, kMixMaxShared in mixing.cu)
+MIX_THREADS = 512
+MIX_BLOCKS_PER_SM = 2
+MIX_MAX_HELD = 16384
+MIX_MAX_SHARED = 80 * 1024
+
+
+def _classmix_plan(b: int, h: int, w: int, c: int, sms: int) -> Tuple[int, int, int, int]:
+    """(grid, span, held, smem) of K3c's cooperative kernel for (b, h, w)
+    labels and c classes on `sms` SMs: block g owns the positions [g * span,
+    (g + 1) * span) of the h * w plane in every sample (grid * span covers
+    them, no block empty; at most MIX_BLOCKS_PER_SM blocks per SM, so the
+    grid is co-resident, and no more blocks than b * h * w / MIX_THREADS);
+    it keeps the (b, c) draws and the labels of its first `held` positions
+    (b * held <= MIX_MAX_HELD) in smem bytes of shared memory, and reads the
+    rest again in the blend.  Raises past the kernel's 32-bit pixel index."""
+    hw = h * w
+    if not 0 < b <= MAX_BATCH or not 0 < b * hw < 2**32 or not 0 < c <= MAX_CLASSES:
+        raise ValueError(f"generate_unsup_data: classmix of {b} samples of {h} x {w}, {c} "
+                         f"classes (at most {MAX_BATCH} samples, {MAX_CLASSES} classes, under "
+                         f"2^32 pixels)")
+    grid = max(1, min(MIX_BLOCKS_PER_SM * sms, b * hw // MIX_THREADS, hw))
+    span = -(-hw // grid)
+    held = min(span, MIX_MAX_HELD // b)
+    return -(-hw // span), span, held, 4 * b * (c + held)
+
+
 def generate_unsup_data(
     data: torch.Tensor,
     target: torch.Tensor,
@@ -178,12 +208,18 @@ def generate_unsup_data(
         if c > MAX_CLASSES or b > MAX_BATCH:
             raise ValueError(f"generate_unsup_data: classmix takes at most {MAX_CLASSES} "
                              f"classes and {MAX_BATCH} samples, got {c} and {b}")
-        present = torch.zeros((b,), dtype=torch.int64, device=data.device)
+        if target.numel() == 0:
+            return img_out, lab_out, prob_out
+        from u2pl_tpu_torch.kernels import TICKET_CLASSMIX, tickets
+        from u2pl_tpu_torch.ops.resize import _sm_count
+
+        grid, span, held, smem = _classmix_plan(b, h, w, c, _sm_count(data.device))
         with torch.cuda.device(data.device):
             err = lib.u2pl_unsup_class_mix(
                 data.data_ptr(), target.data_ptr(), logits.data_ptr(), draws.data_ptr(),
-                present.data_ptr(), img_out.data_ptr(), lab_out.data_ptr(), prob_out.data_ptr(),
-                b, data.shape[1], h, w, c, torch.cuda.current_stream(data.device).cuda_stream,
+                tickets(data.device)[TICKET_CLASSMIX].data_ptr(), img_out.data_ptr(),
+                lab_out.data_ptr(), prob_out.data_ptr(), b, data.shape[1], h, w, c, grid, span,
+                held, smem, torch.cuda.current_stream(data.device).cuda_stream,
             )
         check(lib, err, "unsup_class_mix launch")
         generate_unsup_data.classmix_launches += 1
