@@ -11,7 +11,9 @@ Phases; any failure ends the run with a nonzero exit code:
   1. each CUDA kernel against its plain PyTorch version at the serving and
      training paths' shapes, on the card; kernel A also bit-equal to the
      rounded H-then-W formula (`resize_bilinear_rounded`) at every A_SHAPES
-     entry; kernel D at the VOC and Cityscapes steps' shapes, its max-prob +
+     entry (the request images' and the Cityscapes eval crops' shapes
+     among them), kernel B at identity sizes equal to argmax; kernel D at
+     the VOC and Cityscapes steps' shapes, its max-prob +
      argmax and its entropy calls bit-equal to its all-outputs call; kernel
      E (one cooperative launch, one block per SM) bit-equal to the masked
      sort at 1 to 4 percents with ties, an empty mask, n = 1, n not a
@@ -20,13 +22,17 @@ Phases; any failure ends the run with a nonzero exit code:
   2. the slice: the full VOC model of experiments/pascal/1464/ours (ResNet-101
      + DeepLabv3+, 21 classes, float32 as serve.py's default) from seeded
      random weights, saved as a reference-format .pth, loaded by InferEngine
-     and driven through run_server with six JPEG requests; the served masks
-     are checked against the plain-version path and both kernels' launch
-     counts against zero;
-  3. timings: the host's load and save per image, forwards at batch 1
+     and driven through run_server with six JPEG requests (each image
+     uploaded, normalised and resized to 513² on the card by kernel A); the
+     loaded images are checked against the numpy route, the served masks
+     against the plain-version path (numpy load, plain resizes) and the
+     kernels' launches per image and batch;
+  3. timings: a request's load on the card beside the numpy route, the
+     save per image, a request's latency at batch 1, forwards at batch 1
      and 4, each kernel beside its plain version, peak device memory;
-     kernel A at the logits' and the decoder's shapes beside
-     F.interpolate, with torch.profiler's device time per call;
+     kernel A at the logits', the decoder's, a request image's and the
+     Cityscapes eval crops' shapes beside F.interpolate, with
+     torch.profiler's device time per call;
   4. the training slice: the same VOC config minus its `trainer.contrastive`
      block, full ResNet-101 student and EMA teacher from seeded random
      weights, 5 steps of 4 labeled + 4 unlabeled synthetic 513² images
@@ -91,7 +97,16 @@ Phases; any failure ends the run with a nonzero exit code:
  11. the variant: the same workspace with apply_aug classmix,
      contrastive.select_keys radix and sup_only_epoch 0, one epoch; the
      K3c and K4r kernels must launch; its last step again through the
-     kernels and through the plain versions, compared.
+     kernels and through the plain versions, compared;
+ 12. eval and infer: `u2pl_tpu_torch.eval` on phase 10's workspace (val
+     images of four sizes) and ckpt_best.pth at scales 1.0 and 0.75 / 1.0
+     / 1.25, `u2pl_tpu_torch.infer` at batch 1 and 3; then a Cityscapes
+     workspace of two 1024x2048 images and the `ours` config at full width
+     from seeded random weights, eval at base_size 2048, scale 1.0 (8
+     crops of 769² in one forward) and infer at 769²; every run again
+     through the plain versions and the numpy load, masks compared, with
+     seconds per image, launches of A and B per image and the mIoU; the
+     VOC evals once more with every shape seen.
 Phase 1 also holds the contrastive kernels (K4: pixel masks, key selection,
 anchor draws; K5: the bank write; K6: the InfoNCE forward and backward)
 against their plain versions at the flagship shapes, on a prefilled bank
@@ -102,12 +117,16 @@ pixels than min_kept, and K3c (ClassMix) and K4r (radix key selection)
 bit-equal at the flagship's shapes, with tied draws, a single-class
 sample, keys tied at the threshold, valid 0xFFFFFFFF keys, a class under
 the cap and an empty one.
+Phases 4, 6, 8 and 11 compare a step through the two routes: the teacher's
+pseudo-labels may differ between them only at near ties of the upsampled
+logits, and the plain route then takes the kernel route's (`both_routes`).
 Kernel times are CUDA events around back-to-back calls queued behind a
 device sleep (`cuda_ms`), so they time the card, not the host's launches.
 It prints a JSON line of kernels (each with its launches on the main paths,
 its error against its plain version, its time beside the plain version's,
-its bound and a library call's time; kernel A once per shape, the logits'
-and the decoder's; K4 masks and anchor draws at VOC and at Cityscapes,
+its bound and a library call's time; kernel A once per shape, the logits',
+the decoder's, a request image's and the Cityscapes eval crops'; K4 masks
+and anchor draws at VOC and at Cityscapes,
 each with its own path's launches), then one JSON line
 {"ok": true, "device": {...}} as the last line of its output.
 """
@@ -134,17 +153,25 @@ VOC_SUP_CONFIG = os.path.join(ROOT, "experiments", "pascal", "1464", "suponly", 
 SEED = 0
 
 # phase 1 shapes: kernel A (B, C, H, W) -> (OH, OW); kernel B (C, H, W) -> (h, w)
+A_IMAGE = ((1, 3, 375, 500), (513, 513))  # a served VOC request image -> the input scale
+A_EVAL_CROP = ((8, 19, 193, 193), (769, 769))  # Cityscapes eval: 8 crops' os4 logits
 A_SHAPES = [
     ((4, 21, 129, 129), (513, 513)),  # serving: os4 logits -> input scale
     ((8, 256, 65, 65), (129, 129)),  # decoder: os8 -> os4, the semi step's 4 + 4 images
     ((2, 3, 97, 65), (513, 513)),
     ((2, 3, 7, 9), (33, 17)),
     ((2, 3, 1, 5), (4, 10)),
+    A_IMAGE,
+    ((1, 3, 1024, 2048), (769, 769)),  # a served Cityscapes request image
+    A_EVAL_CROP,
 ]
 B_SHAPES = [
     ((21, 513, 513), (375, 500)),
     ((21, 513, 513), (500, 333)),
     ((21, 513, 513), (7, 9)),
+    # identity sizes (eval's multi-scale total): the taps are exact, so B is argmax
+    ((21, 375, 500), (375, 500)),
+    ((19, 1024, 2048), (1024, 2048)),
 ]
 # kernel A vs plain, max abs diff on randn inputs: the kernel rounds each
 # product and sum, but the plain version's matmul may fuse and reorder them
@@ -316,7 +343,13 @@ def phase1_kernels(dev):
         )
         if bad.any():
             fail(f"kernel B {shape}->{out}: {int(bad.sum())} mismatches off near-ties")
+        if out == shape[1:]:
+            exact = torch.equal(m, x.argmax(dim=0).to(torch.uint8))
+            log(f"[phase 1] kernel B at identity size {out}: equal to argmax {exact}")
+            if not exact:
+                fail(f"kernel B at identity size {out} differs from argmax")
         b_err = max(b_err, err)
+        del x, m, ref, top2
     return a_err, b_err
 
 
@@ -337,15 +370,34 @@ def synthetic_jpegs(folder: str):
     return paths
 
 
+def random_weights_pth(cfg, path):
+    """A reference-format .pth (model_state = teacher_state) of `cfg.net`
+    at full width from seeded random weights, BN statistics drawn too;
+    returns the parameter count."""
+    import torch
+
+    from u2pl_tpu_torch.models import build_model
+
+    g = torch.Generator().manual_seed(SEED)
+    model = build_model(cfg.net, device="cpu", generator=g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0.0, 0.1, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    sd = model.state_dict()
+    torch.save({"epoch": 0, "model_state": sd, "teacher_state": sd, "best_miou": 0.0}, path)
+    return sum(p.numel() for p in model.parameters())
+
+
 def phase2_slice(dev, card, tmp):
     import numpy as np
     import torch
     from PIL import Image
 
     from u2pl_tpu_torch.config import load_config
-    from u2pl_tpu_torch.models import build_model
     from u2pl_tpu_torch.ops import resize as R
-    from u2pl_tpu_torch.serving import InferEngine, run_server
+    from u2pl_tpu_torch.serving import InferEngine, load_image_plain, run_server
 
     cfg = load_config(VOC_CONFIG)
     log(
@@ -356,18 +408,8 @@ def phase2_slice(dev, card, tmp):
         f"served in float32 (config dtype {cfg.net.dtype})"
     )
     t0 = time.monotonic()
-    g = torch.Generator().manual_seed(SEED)
-    model = build_model(cfg.net, device="cpu", generator=g)
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, torch.nn.BatchNorm2d):
-                m.running_mean.normal_(0.0, 0.1, generator=g)
-                m.running_var.uniform_(0.5, 1.5, generator=g)
-    sd = model.state_dict()
-    n_params = sum(p.numel() for p in model.parameters())
     pth = os.path.join(tmp, "ckpt_best.pth")
-    torch.save({"epoch": 0, "model_state": sd, "teacher_state": sd, "best_miou": 0.0}, pth)
-    del model, sd
+    n_params = random_weights_pth(cfg, pth)
     engine = InferEngine(cfg, pth, batch_size=4, dtype="float32", device=dev)
     log(f"[phase 2] {n_params} parameters; model built, saved, loaded in "
         f"{time.monotonic() - t0:.1f}s")
@@ -393,14 +435,15 @@ def phase2_slice(dev, card, tmp):
         default_save_folder=out, batch_window_s=0.5,
     )
     serve_s = time.monotonic() - t0
-    launches = {a: n for a, n in read_counters().items() if a in ("A", "A_logits", "A_decoder", "B")}
+    launches = {a: n for a, n in read_counters().items()
+                if a in ("A", "A_logits", "A_decoder", "A_image", "B")}
     peak_serve = torch.cuda.max_memory_allocated(dev)
     engine.forward, engine.to_mask = forward, to_mask
 
     resp = [json.loads(line) for line in writer.getvalue().splitlines()]
     log(f"[phase 2] served {served} requests in {serve_s:.3f} s; batches {batches}; "
-        f"launches A={launches['A']} (logits {launches['A_logits']}, decoder "
-        f"{launches['A_decoder']}) B={launches['B']}")
+        f"launches A={launches['A']} (request images {launches['A_image']}, logits "
+        f"{launches['A_logits']}, decoder {launches['A_decoder']}) B={launches['B']}")
     if [r["id"] for r in resp] != ["p0"] + [f"r{i}" for i in range(6)] + [None, "bye"]:
         fail(f"unexpected responses {resp}")
     if not (resp[0]["ok"] and resp[0]["served"] == 0 and resp[-1]["ok"]):
@@ -411,6 +454,9 @@ def phase2_slice(dev, card, tmp):
         fail(f"batches {batches}, served {served}, masks {len(masks)}")
     if min(launches.values()) <= 0:
         fail(f"a kernel of the path was never launched: {launches}")
+    if (launches["A_image"], launches["A_logits"], launches["B"]) != (6, 2, 6):
+        fail(f"want kernel A once per request image and per batch and B once per image: "
+             f"{launches}")
     for r, path, mask in zip(resp[1:7], images, masks):
         if not r["ok"] or r["batch_ms"] <= 0:
             fail(f"infer response {r}")
@@ -422,15 +468,22 @@ def phase2_slice(dev, card, tmp):
         if mask.shape != (h, w) or mask.max() >= cfg.net.num_classes:
             fail(f"mask {mask.shape} max {mask.max()} for {(h, w)}")
 
-    # the same requests through the plain versions of both kernels
+    # the request images on the card (kernel A) against the numpy route
     loaded = [engine.load(p) for p in images]
+    load_err = max((img - load_image_plain(p, engine.mean, engine.std, engine.input_scale, dev)[0])
+                   .abs().max().item() for (img, _), p in zip(loaded, images))
+    log(f"[phase 2] request images loaded on the card vs the numpy route: max abs diff "
+        f"{load_err:.3e} (bound {A_TOL})")
+    if not load_err <= A_TOL:
+        fail(f"the request image's load on the card differs from the numpy route by {load_err}")
+    # the same requests through the plain versions of both kernels and the numpy load
     before = (R.resize_bilinear.launches, R.resize_argmax.launches)
     agreement = []
     with torch.inference_mode(), plain_versions():
-        for i in range(0, len(loaded), 4):
-            chunk = loaded[i : i + 4]
-            x = torch.from_numpy(np.stack([img for img, _ in chunk])).to(dev)
-            logits = engine.model(x.permute(0, 3, 1, 2).contiguous())["pred"]
+        plain_loaded = [engine.load(p) for p in images]
+        for i in range(0, len(plain_loaded), 4):
+            chunk = plain_loaded[i : i + 4]
+            logits = engine.model(torch.stack([img for img, _ in chunk]))["pred"]
             up = R.resize_bilinear_plain(logits, engine.input_scale)
             if not torch.isfinite(up).all():
                 fail("non-finite logits")
@@ -456,21 +509,32 @@ def phase3_timings(dev, card, engine, images, loaded, tmp):
     import torch.nn.functional as F
 
     from u2pl_tpu_torch.ops import resize as R
+    from u2pl_tpu_torch.serving import load_image_plain
 
-    # the host's share of a request: decode + normalize + resize to 513²
-    # (engine.load), and mask encoding (two PNG writes)
-    load_ms, save_ms = [], []
+    # a request's load: decode, upload, normalise and resize to 513² on the
+    # card (engine.load, kernel A), beside the numpy route (decode,
+    # normalise, resize on the host, upload), each synchronised; and mask
+    # encoding (two PNG writes)
+    load_ms, plain_load_ms, save_ms = [], [], []
     for path, (_, size) in zip(images, loaded):
         t0 = time.perf_counter()
         engine.load(path)
+        torch.cuda.synchronize()
         load_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        load_image_plain(path, engine.mean, engine.std, engine.input_scale, dev)
+        torch.cuda.synchronize()
+        plain_load_ms.append((time.perf_counter() - t0) * 1e3)
         mask = np.zeros(size, np.uint8)
         t0 = time.perf_counter()
         engine.save_mask(mask, path, os.path.join(tmp, "timing"))
         save_ms.append((time.perf_counter() - t0) * 1e3)
-    log(f"[host of the {card} machine] per image: load (decode, normalize, resize "
-        f"to 513² in numpy) median {statistics.median(load_ms):.1f} ms, "
-        f"save_mask median {statistics.median(save_ms):.1f} ms, over {len(images)} images")
+    log(f"[{card}] per request image, load on the card (decode, upload, normalise, kernel A "
+        f"to 513²): median {statistics.median(load_ms):.2f} ms (min {min(load_ms):.2f}, max "
+        f"{max(load_ms):.2f}); the numpy route (resize on the host): median "
+        f"{statistics.median(plain_load_ms):.1f} ms (min {min(plain_load_ms):.1f}, max "
+        f"{max(plain_load_ms):.1f}); save_mask median {statistics.median(save_ms):.1f} ms, over "
+        f"{len(images)} images")
     imgs = [img for img, _ in loaded]
     fwd = {}
     for bs in (1, 4):
@@ -491,9 +555,22 @@ def phase3_timings(dev, card, engine, images, loaded, tmp):
             f"{bs * 1e3 / fwd[bs]:.2f} img/s; peak memory "
             f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB"
         )
+    # a request's latency at batch 1: load, forward, mask (kernel B), two PNGs
+    latency = []
+    for path in images * 2:
+        t0 = time.perf_counter()
+        img, size = engine.load(path)
+        logits = engine.forward([img])
+        engine.save_mask(engine.to_mask(logits[0], size), path, os.path.join(tmp, "latency"))
+        latency.append((time.perf_counter() - t0) * 1e3)
+    latency = latency[len(images):]  # the second pass: every shape seen before
+    log(f"[{card}] request latency at batch 1 (load on the card, forward, kernel B, two PNGs): "
+        f"median {statistics.median(latency):.2f} ms (min {min(latency):.2f}, max "
+        f"{max(latency):.2f}) over {len(latency)} requests")
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     times = {}  # name -> (kernel ms, plain ms, library ms or None)
-    for name, (shape, out) in (("A_logits", A_SHAPES[0]), ("A_decoder", A_SHAPES[1])):
+    for name, (shape, out) in (("A_logits", A_SHAPES[0]), ("A_decoder", A_SHAPES[1]),
+                               ("A_image", A_IMAGE), ("A_eval_crop", A_EVAL_CROP)):
         x = torch.randn(*shape, device=dev, generator=g)
         k = cuda_ms(lambda: R.resize_bilinear(x, out))
         p = cuda_ms(lambda: R.resize_bilinear_plain(x, out))
@@ -812,13 +889,17 @@ def _counter(name):
 
 def read_counters():
     """The launch counts, with kernel A's split by shape: the decoder's
-    upsample (FEATURES channels) and the logits' (serving, validation)."""
+    upsample (FEATURES channels), the request and eval images' (3
+    channels), the Cityscapes eval crops' logits (A_EVAL_CROP) and the other
+    logits' (serving, validation, whole-image eval)."""
     from u2pl_tpu_torch.ops.resize import resize_bilinear
 
     out = {k: getattr(*_counter(k)) for k in COUNTERS}
     out["A_decoder"] = sum(n for (shape, _), n in resize_bilinear.shapes.items()
                            if shape[1] == FEATURES)
-    out["A_logits"] = out["A"] - out["A_decoder"]
+    out["A_image"] = sum(n for (shape, _), n in resize_bilinear.shapes.items() if shape[1] == 3)
+    out["A_eval_crop"] = resize_bilinear.shapes[A_EVAL_CROP]
+    out["A_logits"] = out["A"] - out["A_decoder"] - out["A_image"] - out["A_eval_crop"]
     from u2pl_tpu_torch.losses.unsup import upsample_softmax_stats
 
     for sel in ("prob", "entropy"):  # kernel D's launches per output selection
@@ -875,8 +956,11 @@ def scalars(metrics):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route every kernel of the serving forward and the training step
-    through its plain version."""
+    """Route every kernel of the serving forward, the eval path and the
+    training step through its plain version, and the request image's load
+    through the numpy route."""
+    import u2pl_tpu_torch.eval as eval_cli
+    import u2pl_tpu_torch.evallib.slide as slide
     import u2pl_tpu_torch.losses.ce as ce
     import u2pl_tpu_torch.losses.contrastive as contrastive
     import u2pl_tpu_torch.losses.unsup as unsup
@@ -885,10 +969,17 @@ def plain_versions():
     import u2pl_tpu_torch.models.decoder as decoder
     import u2pl_tpu_torch.ops.mixing as mixing
     import u2pl_tpu_torch.ops.quantile as quantile
-    from u2pl_tpu_torch.ops.resize import resize_bilinear_plain
+    import u2pl_tpu_torch.serving as serving
+    from u2pl_tpu_torch.ops.resize import resize_argmax_plain, resize_bilinear_plain
 
     swaps = [
         (decoder, "resize_bilinear", resize_bilinear_plain),
+        (slide, "resize_bilinear", resize_bilinear_plain),
+        (slide, "resize_argmax", resize_argmax_plain),
+        (serving, "resize_bilinear", resize_bilinear_plain),
+        (serving, "resize_argmax", resize_argmax_plain),
+        (serving, "load_image", serving.load_image_plain),
+        (eval_cli, "load_image", serving.load_image_plain),
         (ce, "upsample_cross_entropy", ce.upsample_cross_entropy_plain),
         (ohem, "ohem_cross_entropy", ohem.ohem_cross_entropy_plain),
         (unsup, "upsample_cross_entropy", ce.upsample_cross_entropy_plain),
@@ -954,16 +1045,49 @@ def _params_equal(a, b):
     return all(torch.equal(p, q) for p, q in zip(a.parameters(), b.parameters()))
 
 
-def both_routes(snapshot, run):
+@contextlib.contextmanager
+def shared_pseudo_labels(route, labels):
+    """Within a semi step: records the route's pseudo-labels (kernel D's
+    argmax, the step's `outputs="prob"` call) and the teacher logits they
+    come from in labels[route]; the plain route returns the kernel route's
+    labels in place of its own."""
+    from u2pl_tpu_torch.losses import unsup
+
+    stats = unsup.upsample_softmax_stats
+
+    def tap(logits, size, outputs="all"):
+        out = stats(logits, size, outputs)
+        if outputs != "prob":
+            return out
+        labels[route] = (logits.detach().clone(), out[1])
+        return out if route == "kernels" else (out[0], labels["kernels"][1], out[2])
+
+    tap.__dict__ = stats.__dict__  # the kernel counts its launches on the module's name
+    unsup.upsample_softmax_stats = tap
+    try:
+        yield
+    finally:
+        unsup.upsample_softmax_stats = stats
+
+
+def both_routes(snapshot, run, what):
     """`run(state, route)` (one step, returning its metrics) on a copy of
     `snapshot` with dropout off, through the kernels and through the plain
     versions: {route: (metrics, the student's update per parameter, the
-    state after)}.  Fails if the plain route launched a kernel."""
+    state after)}.  Fails if the plain route launched a kernel.
+
+    The teacher's pseudo-labels may differ between the routes only at near
+    ties of the upsampled logits, as kernel D's argmax may in phase 1; the
+    plain route takes the kernel route's.  One label flipped at a near tie
+    changes ClassMix's mask, hence the student's input, and the contrastive
+    masks: con_loss then moves past CON_LOSS_TOL through the labels'
+    rounding, not through a difference of the kernels the step is held to."""
     import torch
 
     from u2pl_tpu_torch.models.decoder import Dropout2d
+    from u2pl_tpu_torch.ops.resize import resize_bilinear_plain
 
-    runs = {}
+    runs, labels = {}, {}
     for route in ("kernels", "plain"):
         st = copy.deepcopy(snapshot)
         for mm in list(st.student.modules()) + list(st.teacher.modules()):
@@ -972,11 +1096,23 @@ def both_routes(snapshot, run):
         before = {a: p.detach().clone() for a, p in st.student.named_parameters()}
         counts = read_counters()
         with plain_versions() if route == "plain" else contextlib.nullcontext():
-            m = run(st, route)
+            with shared_pseudo_labels(route, labels):
+                m = run(st, route)
         torch.cuda.synchronize()
         if route == "plain" and read_counters() != counts:
             fail("the plain-version step launched a kernel")
         runs[route] = (m, {a: p.detach() - before[a] for a, p in st.student.named_parameters()}, st)
+    (_, lk), (logits, lp) = labels["kernels"], labels["plain"]
+    top2 = resize_bilinear_plain(logits, tuple(lk.shape[1:])).topk(2, dim=1).values
+    gap = top2[:, 0] - top2[:, 1]
+    near = gap <= NEAR_TIE * top2[:, 0].abs().clamp(min=1.0)
+    flips = lk != lp
+    bad = int((flips & ~near).sum())
+    log(f"[{what}] the teacher's pseudo-labels, kernels vs plain versions: {int(flips.sum())} of "
+        f"{lk.numel()} differ, {bad} outside the {int(near.sum())} near ties (bound 0; smallest "
+        f"top-2 gap {gap.min().item():.3e}); the plain route took the kernel route's")
+    if bad:
+        fail(f"{what}: {bad} pseudo-labels differ between the routes outside near ties")
     return runs
 
 
@@ -1080,7 +1216,7 @@ def phase4_training(dev, card):
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     mix = (torch.tensor(True, device=dev), mixing.draw_boxes(g, B_U, CROP, CROP))
     step = make_semi_step(cfg, STEPS_PER_EPOCH)
-    runs = both_routes(snapshot, lambda st, route: step(st, *batches[-1], mix=mix))
+    runs = both_routes(snapshot, lambda st, route: step(st, *batches[-1], mix=mix), "phase 4")
     del snapshot
     (mk, dk, _), (mp, dp, _) = runs["kernels"], runs["plain"]
     mk, mp = scalars(mk), scalars(mp)
@@ -1593,7 +1729,7 @@ def phase6_contrastive(dev, card, cfg):
         finally:
             contrastive.compute_contra_memobank_loss = original
 
-    runs = both_routes(snapshot, run)
+    runs = both_routes(snapshot, run, "phase 6")
     del snapshot
     (mk, dk, sk), (mp, dp, sp) = runs["kernels"], runs["plain"]
     nk, np_ = mk["neg_cand"].tolist(), mp["neg_cand"].tolist()
@@ -1852,7 +1988,8 @@ def phase8_cityscapes(dev, card, cfg):
     mix = (torch.tensor(True, device=dev), mixing.draw_boxes(g, CITY_B, CITY_CROP, CITY_CROP))
     draws = draw_contrastive(g, cfg, 2 * CITY_B * CITY_OS4 * CITY_OS4)
     step = make_semi_step(cfg, STEPS_PER_EPOCH)
-    runs = both_routes(snapshot, lambda st, route: step(st, *batches[-1], mix=mix, contra=draws))
+    runs = both_routes(snapshot, lambda st, route: step(st, *batches[-1], mix=mix, contra=draws),
+                       "phase 8")
     del snapshot
     (mk, dk, _), (mp, dp, _) = runs["kernels"], runs["plain"]
     del runs
@@ -2033,6 +2170,7 @@ def phase9_city_timings(dev, card, cfg, state, batches):
 CLI_LABELED = CLI_UNLABELED = 16
 CLI_VAL = 4
 CLI_IMAGE = (375, 500)  # VOC's most common image size, (h, w)
+CLI_VAL_SIZES = [CLI_IMAGE, (500, 333), (281, 500), (333, 500)]  # VOC val sizes, for eval
 # 4 steps per epoch of 4 + 4 images; 2 epochs, the first of them warmup
 CLI_OVERRIDES = {"dataset.n_sup": 16, "dataset.pool_size": 32, "trainer.epochs": 2,
                  "trainer.sup_only_epoch": 1}
@@ -2056,9 +2194,10 @@ def random_init_allowed():
             os.environ["U2PL_ALLOW_RANDOM_INIT"] = old
 
 
-def run_cli(module, cfg_path):
-    """`module.main` on the card (seed SEED), in process: (summary, the log
-    lines, the launch counts of the run, counted from 0)."""
+def run_cli(module, cfg_path, args=None):
+    """`module.main` on the card, in process, with `args` after the config
+    (default: the trainers' seed SEED): (summary, the log lines, the launch
+    counts of the run, counted from 0)."""
     import logging
 
     lines = []
@@ -2069,7 +2208,8 @@ def run_cli(module, cfg_path):
     zero_counters()
     try:
         with random_init_allowed():
-            summary = module.main(["--config", cfg_path, "--seed", str(SEED)])
+            summary = module.main(["--config", cfg_path] + (
+                ["--seed", str(SEED)] if args is None else list(args)))
     finally:
         logger.removeHandler(rec)
     import torch
@@ -2107,9 +2247,10 @@ def phase10_cli(dev, card, tmp):
 
     t_phase = time.monotonic()
     paths = make_voc_workspace(os.path.join(tmp, "voc"), CLI_LABELED, CLI_UNLABELED, CLI_VAL,
-                               size=CLI_IMAGE, seed=SEED)
-    log(f"[phase 10] synthetic VOC workspace: {CLI_LABELED} labeled, {CLI_UNLABELED} unlabeled "
-        f"and {CLI_VAL} val JPEG / PNG pairs of {CLI_IMAGE[1]}x{CLI_IMAGE[0]}, made in "
+                               size=CLI_IMAGE, seed=SEED, val_sizes=CLI_VAL_SIZES)
+    log(f"[phase 10] synthetic VOC workspace: {CLI_LABELED} labeled and {CLI_UNLABELED} "
+        f"unlabeled JPEG / PNG pairs of {CLI_IMAGE[1]}x{CLI_IMAGE[0]}, {CLI_VAL} val of (h, w) "
+        f"{CLI_VAL_SIZES}, made in "
         f"{time.monotonic() - t_phase:.1f} s; config {os.path.relpath(VOC_CONFIG, ROOT)} with "
         f"{CLI_OVERRIDES}")
     exp = os.path.join(tmp, "exp_semi")
@@ -2265,7 +2406,7 @@ def phase11_variant(dev, card, tmp, paths):
                                      mixes=[mix], contras=[draws])
         return next(iter(steps))[1]
 
-    runs = both_routes(before_last.pop("state"), run)
+    runs = both_routes(before_last.pop("state"), run, "phase 11")
     (mk, dk, _), (mp, dp, _) = runs["kernels"], runs["plain"]
     del runs
     mk, mp = scalars(mk), scalars(mp)
@@ -2282,6 +2423,154 @@ def phase11_variant(dev, card, tmp, paths):
         fail(f"variant step {i_iter}: parameter update differs from the plain route: {tight}")
     torch.cuda.empty_cache()
     return launches, summary
+
+
+# phase 12: the eval and infer CLIs
+EVAL_SCALES = [0.75, 1.0, 1.25]
+CITY_EVAL_IMAGE = (1024, 2048)  # Cityscapes' size, (h, w)
+CITY_EVAL_VAL = 2
+
+
+def gray_pngs(folder):
+    import numpy as np
+    from PIL import Image
+
+    return {n: np.asarray(Image.open(os.path.join(folder, n))) for n in sorted(os.listdir(folder))}
+
+
+def agreement(got, want):
+    """Pixel agreement per image of two {name: mask} dicts, checked."""
+    if list(got) != list(want):
+        fail(f"mask files {list(got)} != {list(want)}")
+    out = []
+    for name, g in got.items():
+        if g.shape != want[name].shape:
+            fail(f"{name}: mask {g.shape} != {want[name].shape}")
+        out.append(float((g == want[name]).mean()))
+    return out
+
+
+def phase12_eval(dev, card, tmp, paths):
+    """`u2pl_tpu_torch.eval` and `.infer` on the card: VOC on phase 10's
+    workspace and ckpt_best.pth at one and three scales, infer at batch 1
+    and 3; Cityscapes on a workspace of 1024x2048 images with seeded random
+    weights of the `ours` config at full width (base_size 2048, 8 crops of
+    769²), and its infer at 769²; each run also through the plain versions
+    and the numpy load, the masks compared."""
+    import torch
+
+    from u2pl_tpu_torch import eval as eval_cli
+    from u2pl_tpu_torch import infer as infer_cli
+    from u2pl_tpu_torch.config import load_config
+    from u2pl_tpu_torch.data.synthetic import make_cityscapes_workspace, write_config
+    from u2pl_tpu_torch.serving import InferEngine
+    from u2pl_tpu_torch.utils.checkpoint import CKPT_BEST_NAME
+
+    total = {}
+    infer_masks = []
+    to_mask = InferEngine.to_mask
+
+    def recording(self, logits, size):
+        infer_masks.append(to_mask(self, logits, size))
+        return infer_masks[-1]
+
+    def run(name, module, cfg_path, args, n_images, classes):
+        """The run through the kernels, then through the plain versions;
+        returns the kernels' summary."""
+        outs = {}
+        for route in ("kernels", "plain"):
+            out = os.path.join(tmp, "eval_out", f"{name}_{route}")
+            infer_masks.clear()
+            argv = list(args) + ["--save_folder", out]
+            InferEngine.to_mask = recording
+            try:
+                if route == "kernels":
+                    t0 = time.monotonic()
+                    summary, _, launches = run_cli(module, cfg_path, argv)
+                    run_s = time.monotonic() - t0
+                else:  # the counters are read outside plain_versions, which swaps them away
+                    zero_counters()
+                    with plain_versions():
+                        summary = module.main(["--config", cfg_path] + argv)
+                    torch.cuda.synchronize()
+                    launches = read_counters()
+            finally:
+                InferEngine.to_mask = to_mask
+            masks = (gray_pngs(os.path.join(out, "gray")) if module is eval_cli
+                     else {str(i): m for i, m in enumerate(infer_masks)})
+            outs[route] = (summary, launches, masks)
+            if route == "kernels":
+                for a in ("A", "A_image", "A_logits", "A_eval_crop", "B"):
+                    total[a] = total.get(a, 0) + launches[a]
+                main_launches, main_s = launches, run_s
+        (summary, launches, masks), (plain, plain_launches, plain_masks) = outs.values()
+        if plain_launches["A"] or plain_launches["B"]:
+            fail(f"{name}: the plain route launched A {plain_launches['A']} / B "
+                 f"{plain_launches['B']} times")
+        agree = agreement(masks, plain_masks)
+        if len(masks) != n_images or summary["images"] != n_images or min(agree) < MIN_AGREEMENT:
+            fail(f"{name}: {len(masks)} masks of {n_images}, agreement with the plain route "
+                 f"{agree}")
+        if any(m.max() >= classes for m in masks.values()):
+            fail(f"{name}: a label past {classes} classes")
+        sec = summary["seconds"]
+        per_image = sec if module is eval_cli else [sum(sec) / n_images]
+        log(f"[{card}] {name}: {n_images} images in {main_s:.1f} s (the CLI, model build and "
+            f"load included); seconds per image {[round(t, 4) for t in per_image]} ("
+            + ("each; the first forwards at a shape included" if module is eval_cli
+               else "the mean over the run") + "); per image launches A "
+            f"{main_launches['A'] / n_images:g} (images {main_launches['A_image'] / n_images:g}, "
+            f"logits {main_launches['A_logits'] / n_images:g}, eval crops "
+            f"{main_launches['A_eval_crop'] / n_images:g}), B {main_launches['B'] / n_images:g}; "
+            f"masks vs the plain route, pixel agreement per image {agree} (bound "
+            f"{MIN_AGREEMENT})" + (f"; mIoU {summary['miou']:.4f}, plain route "
+                                    f"{plain['miou']:.4f}" if "miou" in summary else ""))
+        if main_launches["B"] != n_images:
+            fail(f"{name}: kernel B launched {main_launches['B']} times for {n_images} images")
+        return summary
+
+    t_phase = time.monotonic()
+    voc_cfg = os.path.join(tmp, "exp_semi", "config.yaml")
+    ckpt = os.path.join(tmp, "exp_semi", "checkpoints", CKPT_BEST_NAME)
+    flat = ["--model_path", ckpt]
+    one = run("eval VOC, scales 1.0", eval_cli, voc_cfg, flat + ["--scales", "1.0"], CLI_VAL, 21)
+    three = run(f"eval VOC, scales {EVAL_SCALES}", eval_cli, voc_cfg,
+                flat + ["--scales", *map(str, EVAL_SCALES)], CLI_VAL, 21)
+    # again: every image size and scale has been forwarded once in this
+    # process, so no first-forward cost of a new shape is in these seconds
+    for scales in (["1.0"], list(map(str, EVAL_SCALES))):
+        run(f"eval VOC again, scales {scales}", eval_cli, voc_cfg, flat + ["--scales", *scales],
+            CLI_VAL, 21)
+    masks = {}
+    for bs in (1, 3):
+        run(f"infer VOC, batch {bs}", infer_cli, voc_cfg, flat + ["--batch_size", str(bs)],
+            CLI_VAL, 21)
+        masks[bs] = {str(i): m for i, m in enumerate(infer_masks)}
+    same = agreement(masks[3], masks[1])
+    log(f"[phase 12] infer masks at batch 3 vs batch 1, pixel agreement per image {same}")
+    if min(same) < MIN_AGREEMENT:
+        fail(f"infer masks depend on the batch size: {same}")
+
+    city = make_cityscapes_workspace(os.path.join(tmp, "city"), 0, 0, CITY_EVAL_VAL,
+                                     size=CITY_EVAL_IMAGE, seed=SEED)
+    city_cfg = write_config(CITY_CONFIG, city, os.path.join(tmp, "exp_city"), {})
+    pth = os.path.join(tmp, "exp_city", "city_random.pth")
+    n_params = random_weights_pth(load_config(city_cfg), pth)
+    log(f"[phase 12] Cityscapes workspace: {CITY_EVAL_VAL} val images of "
+        f"{CITY_EVAL_IMAGE[1]}x{CITY_EVAL_IMAGE[0]}; {os.path.relpath(CITY_CONFIG, ROOT)} as it "
+        f"stands, {n_params} parameters from seeded random weights")
+    city_eval = run("eval Cityscapes, base_size 2048, scales 1.0", eval_cli, city_cfg,
+                    ["--model_path", pth, "--base_size", "2048", "--scales", "1.0"],
+                    CITY_EVAL_VAL, 19)
+    run("infer Cityscapes (769²), batch 1", infer_cli, city_cfg, ["--model_path", pth],
+        CITY_EVAL_VAL, 19)
+    if total["A_eval_crop"] != CITY_EVAL_VAL:
+        fail(f"kernel A at the eval crops {A_EVAL_CROP}: {total['A_eval_crop']} launches for "
+             f"{CITY_EVAL_VAL} images (want one, 8 crops in one forward, per image)")
+    log(f"[{card}] phase 12 (eval and infer, each also on the plain route) in "
+        f"{time.monotonic() - t_phase:.1f} s; launches of the kernels' runs {total}")
+    torch.cuda.empty_cache()
+    return total, {"voc_1": one, "voc_3": three, "city": city_eval}
 
 
 def variant_timings(card, inputs, k):
@@ -2352,6 +2641,11 @@ def bounds(case, cfg):
     # 3 sums), plus the softmax / CE / entropy terms the function needs
     moved = {  # kernel -> (bytes, float32 operations)
         "A_logits": ((lo + hi) * 4, hi * 9),
+        # a request image (1, 3, 375, 500) -> 513²; the Cityscapes eval's 8
+        # crops' (19, 193²) logits -> 769²
+        "A_image": ((3 * 375 * 500 + 3 * CROP * CROP) * 4, 3 * CROP * CROP * 9),
+        "A_eval_crop": (8 * 19 * (CITY_OS4 ** 2 + CITY_CROP ** 2) * 4,
+                        8 * 19 * CITY_CROP ** 2 * 9),
         # the decoder's (8, 256, 65²) -> 129²
         "A_decoder": (8 * 256 * (65 * 65 + 129 * 129) * 4, 8 * 256 * 129 * 129 * 9),
         "B": (21 * CROP * CROP * 4 + 375 * 500, 21 * 375 * 500 * 10),
@@ -2480,6 +2774,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="u2pl_chip_smoke_cli_") as tmp:
         paths, cli_launches, _ = phase10_cli(dev, card, tmp)
         variant_launches, _ = phase11_variant(dev, card, tmp, paths)
+        eval_launches, _ = phase12_eval(dev, card, tmp, paths)
     bound = bounds(case, ccfg)
 
     csrc = "u2pl_tpu_torch/kernels/csrc/"
@@ -2506,10 +2801,11 @@ def main() -> int:
 
     # launches: each path's run counted from 0 just before it (serving,
     # training without and with the contrastive branch, Cityscapes
-    # training, the CLIs' runs and the classmix + radix run), summed per kernel
+    # training, the CLIs' runs, the classmix + radix run and the eval and
+    # infer runs), summed per kernel
     def runs(key):
         return (train_launches[key] + contra_launches[key] + city_launches[key]
-                + cli_launches[key] + variant_launches[key])
+                + cli_launches[key] + variant_launches[key] + eval_launches.get(key, 0))
 
     report = {"kernels": [
         entry("resize_bilinear_ac_logits", "A_logits", "resize.cu", "u2pl_tpu/ops/resize.py:76",
@@ -2517,6 +2813,11 @@ def main() -> int:
         entry("resize_bilinear_ac_decoder", "A_decoder", "resize.cu",
               "u2pl_tpu/ops/resize.py:76", launches["A_decoder"] + runs("A_decoder"),
               a_err[A_SHAPES[1][0]], "A_decoder"),
+        entry("resize_bilinear_ac_image", "A_image", "resize.cu", "u2pl_tpu/ops/resize.py:76",
+              launches["A_image"] + runs("A_image"), a_err[A_IMAGE[0]], "A_image"),
+        entry("resize_bilinear_ac_eval_crops", "A_eval_crop", "resize.cu",
+              "u2pl_tpu/ops/resize.py:76", runs("A_eval_crop"), a_err[A_EVAL_CROP[0]],
+              "A_eval_crop"),
         entry("resize_argmax_ac", "B", "resize.cu", "u2pl_tpu/serving.py:115",
               launches["B"] + runs("B"), b_err, "B"),
         entry("resize_bilinear_ac_bwd", "A_bwd", "resize.cu", "u2pl_tpu/ops/resize.py:76",

@@ -105,6 +105,54 @@ def test_kernel_b_matches_plain(chw, outsz):
     assert not ((got != ref) & ~near_tie).any()
 
 
+@pytest.mark.parametrize("hw,outsz", [((375, 500), (513, 513)), ((500, 333), (513, 513)),
+                                      ((1024, 2048), (769, 769)), ((281, 500), (210, 375))])
+def test_kernel_a_on_a_normalised_image(tmp_path, hw, outsz):
+    """The request image's load (`serving.load_image`): uploaded as uint8,
+    normalised on the card bit-equal to the numpy route, then resized by
+    kernel A within 1e-5 of the numpy route's host resize (about an ulp
+    of |x| < 3) and bit-equal to the rounded H-then-W formula."""
+    import numpy as np
+    from PIL import Image
+
+    from u2pl_tpu_torch.serving import load_image, load_image_plain
+
+    dev = _cuda()
+    mean = np.asarray([123.675, 116.28, 103.53], np.float32)
+    std = np.asarray([58.395, 57.12, 57.375], np.float32)
+    path = str(tmp_path / "img.png")
+    rng = np.random.RandomState(0)
+    Image.fromarray((rng.rand(*hw, 3) * 255).astype(np.uint8)).save(path)
+    plain, size = load_image_plain(path, mean, std, None, dev)
+    got, size_ = load_image(path, mean, std, None, dev)
+    assert size == size_ == hw and torch.equal(got, plain)
+    n = tr.resize_bilinear.shapes[((1, 3) + hw, outsz)]
+    got, _ = load_image(path, mean, std, outsz, dev)
+    torch.cuda.synchronize()
+    assert tr.resize_bilinear.shapes[((1, 3) + hw, outsz)] == n + 1
+    want, _ = load_image_plain(path, mean, std, outsz, dev)
+    assert got.shape == want.shape == (3,) + outsz
+    assert (got - want).abs().max().item() <= 1e-5
+    exact = tr.resize_bilinear_rounded(plain[None], outsz)[0]
+    assert torch.equal(got, exact)
+
+
+@pytest.mark.parametrize("chw", [(21, 375, 500), (19, 1024, 2048), (5, 7, 9), (2, 1, 1)])
+def test_kernel_b_at_identity_size_is_argmax(chw):
+    """Eval's multi-scale total goes to kernel B at its own size: the
+    align-corners taps are the identity, so the labels are the first-maximum
+    argmax exactly (ties planted)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(*chw, device=dev, generator=g)
+    x[1] = torch.where(torch.rand(chw[1:], device=dev, generator=g) < 0.1, x[0], x[1])
+    n = tr.resize_argmax.launches
+    got = tr.resize_argmax(x, chw[1:])
+    torch.cuda.synchronize()
+    assert tr.resize_argmax.launches == n + 1
+    assert torch.equal(got, x.argmax(dim=0).to(torch.uint8))
+
+
 def test_kernels_refuse_what_they_do_not_take():
     dev = _cuda()
     x = torch.randn(2, 3, 8, 8, device=dev)

@@ -136,13 +136,22 @@ def test_forward_and_mask_match_jax_engine(ws):
     """The engine API without files: same normalized inputs, logits on the
     port's device, masks from the port's resize + argmax."""
     _, _, _, jax_engine, engine, images = ws
+    from u2pl_tpu_torch.serving import load_image_plain
+
     loaded = [engine.load(p) for p in images]
-    for (img, size), p in zip(loaded, images):
-        jimg, jsize = jax_engine.load(p)
-        assert size == jsize
-        np.testing.assert_array_equal(img, jimg)
+    jloaded = [jax_engine.load(p) for p in images]
+    for (img, size), (jimg, jsize), p in zip(loaded, jloaded, images):
+        assert size == jsize and tuple(img.shape) == (3, 513, 513)
+        # the engine's route: normalised as JAX does (the same IEEE ops), then
+        # kernel A's plain version on this CPU tensor, two taps against numpy's
+        # dense einsum: about an ulp apart
+        np.testing.assert_allclose(img.permute(1, 2, 0).numpy(), jimg, rtol=0, atol=1e-5)
+        # the plain route is the JAX engine's own, to the bit
+        plain, psize = load_image_plain(p, engine.mean, engine.std, engine.input_scale, "cpu")
+        assert psize == jsize
+        np.testing.assert_array_equal(plain.permute(1, 2, 0).numpy(), jimg)
     got = engine.forward([img for img, _ in loaded])
-    ref = jax_engine.forward([img for img, _ in loaded])
+    ref = jax_engine.forward([img for img, _ in jloaded])
     assert tuple(got.shape) == (3, C, 513, 513)
     # 1e-3, looser than test_torch_model's 1e-4 at 65²: at 513² these logits
     # reach ~100 and the two frameworks' f32 sum orders differ by ~2e-4
@@ -173,7 +182,9 @@ def test_unported_options_raise(ws, tmp_path):
     _, cfg, pth, _, _, _ = ws
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InferEngine(cfg, str(pth), dtype="bfloat16", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the .ckpt reader is ported (tests/test_torch_msgpack_ckpt.py): a
+    # missing file is reported as such
+    with pytest.raises(FileNotFoundError):
         InferEngine(cfg, str(tmp_path / "ckpt.ckpt"), device="cpu")
 
 

@@ -685,13 +685,18 @@ def test_unported_branches_raise():
 
 def test_entry_points_default_to_the_card():
     """`build_model`, `create_train_state` and `init_memobank` put their
-    tensors on the card unless the caller names the CPU."""
+    tensors on the card unless the caller names the CPU, and so do the eval
+    and infer CLIs unless `--device cpu` is given."""
     import inspect
 
+    from u2pl_tpu_torch import eval as eval_cli
+    from u2pl_tpu_torch import infer as infer_cli
     from u2pl_tpu_torch.memobank import init_memobank
 
     for fn in (build_model, create_train_state, init_memobank):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    for cli in (eval_cli, infer_cli):
+        assert cli.get_parser().parse_args([]).device == "cuda", cli.__name__
 
 
 def test_steps_module_imports_no_jax():
@@ -706,7 +711,9 @@ mods = [m.name for m in pkgutil.walk_packages(u2pl_tpu_torch.__path__, "u2pl_tpu
 assert {"u2pl_tpu_torch.train.steps", "u2pl_tpu_torch.memobank",
         "u2pl_tpu_torch.losses.ohem", "u2pl_tpu_torch.train_semi", "u2pl_tpu_torch.train_sup",
         "u2pl_tpu_torch.data.loader", "u2pl_tpu_torch.data.native",
-        "u2pl_tpu_torch.train.validate", "u2pl_tpu_torch.utils.checkpoint"} <= set(mods), mods
+        "u2pl_tpu_torch.train.validate", "u2pl_tpu_torch.utils.checkpoint",
+        "u2pl_tpu_torch.eval", "u2pl_tpu_torch.infer",
+        "u2pl_tpu_torch.utils.msgpack_ckpt"} <= set(mods), mods
 for m in mods:
     importlib.import_module(m)
 import chip_smoke

@@ -13,9 +13,12 @@ EOF also shuts the server down; consecutive `infer` requests are
 micro-batched up to `batch_size`.  Preprocessing and mask encoding match
 the JAX engine: align-corners resize to the fixed 513/769 input scale,
 argmax at the original resolution, gray + Pascal-colormap PNGs (the
-reference's always-pascal quirk).  On the card the forward's final
-upsample is kernel A and `to_mask` is kernel B (resize + argmax fused);
-the logits never leave the device.
+reference's always-pascal quirk).  On the card the request image is
+uploaded as decoded (uint8), normalised there and resized to the input
+scale by kernel A (`load_image`; `load_image_plain` is the JAX engine's
+numpy route), the forward's final upsample is kernel A and `to_mask` is
+kernel B (resize + argmax fused); neither the image nor the logits take
+a host resize.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import os
 import queue
 import threading
 import time
-from typing import IO, List, Optional, Tuple, Union
+from typing import IO, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,7 +37,7 @@ from PIL import Image
 from u2pl_tpu_torch.evallib.colormap import colorize, create_pascal_label_colormap
 from u2pl_tpu_torch.evallib.slide import make_net_process
 from u2pl_tpu_torch.models import build_model
-from u2pl_tpu_torch.ops.resize import resize_argmax, resize_bilinear_numpy
+from u2pl_tpu_torch.ops.resize import resize_argmax, resize_bilinear, resize_bilinear_numpy
 from u2pl_tpu_torch.utils.checkpoint import load_eval_variables
 
 
@@ -45,6 +48,46 @@ def input_scale_for(cfg) -> Tuple[int, int]:
     ):
         return (769, 769)
     return (513, 513)
+
+
+def load_image(
+    path: str,
+    mean: np.ndarray,
+    std: np.ndarray,
+    size: Optional[Sequence[int]],
+    device: Union[str, torch.device],
+) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """Decode `path` and return it normalised as (3, H, W) float32 on
+    `device`, resized to `size` (align corners; kernel A on the card) unless
+    `size` is None, with the decoded (h, w).  The uint8 image is uploaded
+    and normalised there in float32 as the JAX engine does on the host,
+    `(x - mean) / std` (u2pl_tpu/serving.py:97-99): the same IEEE operations,
+    so the same values."""
+    image = np.array(Image.open(path).convert("RGB"))  # writable, for from_numpy
+    x = torch.from_numpy(image).to(device).permute(2, 0, 1).contiguous().float()
+    mean_t = torch.as_tensor(mean, dtype=torch.float32, device=x.device)[:, None, None]
+    std_t = torch.as_tensor(std, dtype=torch.float32, device=x.device)[:, None, None]
+    x = (x - mean_t) / std_t
+    if size is not None:
+        x = resize_bilinear(x[None], size, align_corners=True)[0]
+    return x, image.shape[:2]
+
+
+def load_image_plain(
+    path: str,
+    mean: np.ndarray,
+    std: np.ndarray,
+    size: Optional[Sequence[int]],
+    device: Union[str, torch.device],
+) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """Plain version of `load_image`: the JAX engine's host route (numpy
+    normalise, `resize_bilinear_numpy`), then the upload."""
+    image = np.asarray(Image.open(path).convert("RGB"), np.float32)
+    hw = image.shape[:2]
+    image = (image - mean) / std
+    if size is not None:
+        image = resize_bilinear_numpy(image, size, align_corners=True)
+    return torch.from_numpy(np.ascontiguousarray(image.transpose(2, 0, 1))).to(device), hw
 
 
 class InferEngine:
@@ -88,22 +131,21 @@ class InferEngine:
         """One full-batch forward (cuDNN algorithm choice, kernel build,
         index tables); returns seconds."""
         t0 = time.monotonic()
-        zeros = np.zeros((self.batch_size,) + self.input_scale + (3,), np.float32)
-        self._net_process(zeros)
+        self._net_process(torch.zeros((self.batch_size, 3) + self.input_scale,
+                                      device=self.device))
         self._sync()
         return time.monotonic() - t0
 
-    def load(self, image_path: str) -> Tuple[np.ndarray, Tuple[int, int]]:
-        """Decode + normalize + resize one image to the serving scale."""
-        image = np.asarray(Image.open(image_path).convert("RGB"), np.float32)
-        size = image.shape[:2]
-        image = (image - self.mean) / self.std
-        return resize_bilinear_numpy(image, self.input_scale, True), size
+    def load(self, image_path: str) -> Tuple[torch.Tensor, Tuple[int, int]]:
+        """Decode + normalize + resize one image to the serving scale:
+        (3, H, W) on the engine's device, and the image's (h, w)."""
+        return load_image(image_path, self.mean, self.std, self.input_scale, self.device)
 
-    def forward(self, images: List[np.ndarray]) -> torch.Tensor:
-        """Batched forward -> (n, C, H, W) logits on the device.  Waits for
-        the device, so a caller's clock around it measures the forward."""
-        logits = self._net_process(np.stack(images))
+    def forward(self, images: List[torch.Tensor]) -> torch.Tensor:
+        """Batched forward of `load`'s images -> (n, C, H, W) logits on the
+        device.  Waits for the device, so a caller's clock around it
+        measures the forward."""
+        logits = self._net_process(torch.stack(images))
         self._sync()
         self.served += len(images)
         return logits

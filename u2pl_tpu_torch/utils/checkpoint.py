@@ -13,8 +13,10 @@ CPU, atomically (`.tmp` + `os.replace`).
 auto_resume > pretrain precedence as train_semi.py:138-154; a resume loads
 onto the state's device.  `pretrain` loads weights only (no optimizer
 state, no step); the ImageNet encoder warm start loads into both encoders
-with strict=False.  The JAX package's msgpack `.ckpt` files are not read:
-that reader needs flax / msgpack (ROADMAP.md).
+with strict=False.  Eval and serving also read the JAX package's msgpack
+`.ckpt` files (`utils/msgpack_ckpt.py`, no flax needed), teacher
+preferred; resuming or warm-starting training from a `.ckpt` is not ported
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
-from u2pl_tpu_torch.utils.convert_jax import strip_module_prefix
+from u2pl_tpu_torch.utils.convert_jax import flax_to_torch, strip_module_prefix
+from u2pl_tpu_torch.utils.msgpack_ckpt import read_msgpack_ckpt
 
 log = logging.getLogger("global")
 
@@ -79,6 +82,10 @@ def save_checkpoint(path: str, state, epoch: int, best_miou: float,
 
 
 def _torch_load(path: str, device) -> Dict[str, Any]:
+    if path.endswith(".ckpt"):
+        raise NotImplementedError(
+            f"{path!r}: training resumes or warm-starts from the port's .pth only; "
+            "resuming from the JAX package's .ckpt is ROADMAP.md queue 1 item 4")
     if not os.path.isfile(path):
         raise FileNotFoundError(f"no torch checkpoint at '{path}'")
     # weights_only=False as in the JAX package: reference checkpoints pickle
@@ -91,13 +98,17 @@ def load_model_variables(
     prefer_teacher: bool = True,
     device: Union[str, torch.device] = "cpu",
 ) -> Dict[str, torch.Tensor]:
-    """The state dict of a reference-format `.pth` checkpoint on `device`,
-    `teacher_state` preferred (reference eval.py:123), else `model_state`."""
+    """The state dict of a checkpoint on `device`, `teacher_state` preferred
+    (reference eval.py:123), else `model_state`: a reference-format `.pth`,
+    or else, as the JAX package reads any other name, its msgpack `.ckpt`,
+    whose {params, batch_stats} go through `flax_to_torch`."""
     if not path.endswith(".pth"):
-        raise NotImplementedError(
-            f"{path!r}: only reference torch .pth checkpoints are read by the "
-            "port; the msgpack .ckpt reader is ROADMAP.md queue 1 item 4"
-        )
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"no checkpoint at '{path}'")
+        payload = read_msgpack_ckpt(path)
+        key = "teacher_state" if prefer_teacher and "teacher_state" in payload else "model_state"
+        log.info(f"=> load checkpoint[{key}] from {path}")
+        return {k: v.to(device) for k, v in flax_to_torch(payload[key]).items()}
     ckpt = _torch_load(path, device)
     key = "teacher_state" if prefer_teacher and "teacher_state" in ckpt else "model_state"
     log.info(f"=> load torch checkpoint[{key}] from {path}")

@@ -123,7 +123,7 @@ def flax_to_torch(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
     for path, val in _leaves(variables):
         subpath = path[1:]  # drop the 'params' / 'batch_stats' collection
-        arr = np.asarray(val, np.float32)
+        arr = np.array(val, np.float32)  # a copy: `val` may be a read-only view
         if subpath[-1] == "kernel" and arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         key = _translate(subpath)
