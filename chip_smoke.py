@@ -107,6 +107,19 @@ Phases; any failure ends the run with a nonzero exit code:
      through the plain versions and the numpy load, masks compared, with
      seconds per image, launches of A and B per image and the mIoU; the
      VOC evals once more with every shape seen.
+ 13. bfloat16: phases 1-12 pin net.dtype float32 (every experiment config
+     says bfloat16: `load_f32`, F32_OVERRIDE); this phase holds each bf16
+     kernel mode against its plain bf16 version at the paths' full shapes
+     (A wide and narrow bit-equal to `resize_bilinear_rounded`, A-bwd, C
+     bwd and K6 bwd equal but at bf16 rounding boundaries, C fwd, D and K7
+     prob against the statistics of kernel A's rounded upsample, K5
+     bit-equal) and times it beside its f32 mode; then the VOC `ours`
+     config as it stands, in bf16, 5 steps through `run_steps` with their
+     launches, its semi step's time and peak memory, and step 5 again
+     through the kernels, the plain versions and the kernels in f32 (the
+     routes held within BF16_ROUTE_SHARE of that bf16-vs-f32 gap); then 2
+     Cityscapes `ours` semi steps in bf16 (OHEM on both heads) and the
+     step's time.
 Phase 1 also holds the contrastive kernels (K4: pixel masks, key selection,
 anchor draws; K5: the bank write; K6: the InfoNCE forward and backward)
 against their plain versions at the flagship shapes, on a prefilled bank
@@ -126,8 +139,9 @@ It prints a JSON line of kernels (each with its launches on the main paths,
 its error against its plain version, its time beside the plain version's,
 its bound and a library call's time; kernel A once per shape, the logits',
 the decoder's, a request image's and the Cityscapes eval crops'; K4 masks
-and anchor draws at VOC and at Cityscapes,
-each with its own path's launches), then one JSON line
+and anchor draws at VOC and at Cityscapes; each bf16 mode with its f32
+mode's time as `f32_ms`, each with its own path's launches), then one
+JSON line
 {"ok": true, "device": {...}} as the last line of its output.
 """
 
@@ -1003,11 +1017,23 @@ def plain_versions():
             setattr(m, n, f)
 
 
-def train_config():
-    """The VOC `ours` config without its contrastive block (float32)."""
+# phases 1-12 train and serve in float32 whatever the configs' net.dtype
+# (bfloat16 in all of them), as they did before the port had bf16; phase 13
+# trains in the configs' bfloat16
+F32_OVERRIDE = {"net.dtype": "float32"}
+
+
+def load_f32(path):
+    """The config at `path` with net.dtype float32."""
     from u2pl_tpu_torch.config import load_config
 
-    cfg = load_config(VOC_CONFIG)
+    cfg = load_config(path)
+    return dataclasses.replace(cfg, net=dataclasses.replace(cfg.net, dtype="float32"))
+
+
+def train_config():
+    """The VOC `ours` config without its contrastive block (float32)."""
+    cfg = load_f32(VOC_CONFIG)
     return dataclasses.replace(cfg, trainer=dataclasses.replace(cfg.trainer, contrastive=None))
 
 
@@ -1070,7 +1096,7 @@ def shared_pseudo_labels(route, labels):
         unsup.upsample_softmax_stats = stats
 
 
-def both_routes(snapshot, run, what):
+def both_routes(snapshot, run, what, bf16=False):
     """`run(state, route)` (one step, returning its metrics) on a copy of
     `snapshot` with dropout off, through the kernels and through the plain
     versions: {route: (metrics, the student's update per parameter, the
@@ -1081,7 +1107,9 @@ def both_routes(snapshot, run, what):
     plain route takes the kernel route's.  One label flipped at a near tie
     changes ClassMix's mask, hence the student's input, and the contrastive
     masks: con_loss then moves past CON_LOSS_TOL through the labels'
-    rounding, not through a difference of the kernels the step is held to."""
+    rounding, not through a difference of the kernels the step is held to.
+    `bf16`: the logits are bf16, and a near tie is a top-2 gap of at most one
+    bf16 ulp (the routes round the upsample at its boundaries apart)."""
     import torch
 
     from u2pl_tpu_torch.models.decoder import Dropout2d
@@ -1103,9 +1131,12 @@ def both_routes(snapshot, run, what):
             fail("the plain-version step launched a kernel")
         runs[route] = (m, {a: p.detach() - before[a] for a, p in st.student.named_parameters()}, st)
     (_, lk), (logits, lp) = labels["kernels"], labels["plain"]
-    top2 = resize_bilinear_plain(logits, tuple(lk.shape[1:])).topk(2, dim=1).values
+    top2 = resize_bilinear_plain(logits, tuple(lk.shape[1:])).float().topk(2, dim=1).values
     gap = top2[:, 0] - top2[:, 1]
-    near = gap <= NEAR_TIE * top2[:, 0].abs().clamp(min=1.0)
+    if bf16:
+        near = gap <= bf16_ulp(top2[:, 0])
+    else:
+        near = gap <= NEAR_TIE * top2[:, 0].abs().clamp(min=1.0)
     flips = lk != lp
     bad = int((flips & ~near).sum())
     log(f"[{what}] the teacher's pseudo-labels, kernels vs plain versions: {int(flips.sum())} of "
@@ -2007,7 +2038,7 @@ def phase8_cityscapes(dev, card, cfg):
         fail(f"step {TRAIN_STEPS}: parameter update differs from the plain route: {tight}")
 
     # the supervised baseline: experiments/cityscapes/744/suponly, make_sup_step
-    sup_cfg = load_config(CITY_SUP_CONFIG)
+    sup_cfg = load_f32(CITY_SUP_CONFIG)
     sup_state = create_train_state(sup_cfg, device=dev,
                                    generator=torch.Generator().manual_seed(SEED + 1))
     sup_step = make_sup_step(sup_cfg, STEPS_PER_EPOCH)
@@ -2173,7 +2204,7 @@ CLI_IMAGE = (375, 500)  # VOC's most common image size, (h, w)
 CLI_VAL_SIZES = [CLI_IMAGE, (500, 333), (281, 500), (333, 500)]  # VOC val sizes, for eval
 # 4 steps per epoch of 4 + 4 images; 2 epochs, the first of them warmup
 CLI_OVERRIDES = {"dataset.n_sup": 16, "dataset.pool_size": 32, "trainer.epochs": 2,
-                 "trainer.sup_only_epoch": 1}
+                 "trainer.sup_only_epoch": 1, **F32_OVERRIDE}
 VARIANT_OVERRIDES = {**CLI_OVERRIDES, "trainer.epochs": 1, "trainer.sup_only_epoch": 0,
                      "trainer.unsupervised.apply_aug": "classmix",
                      "trainer.contrastive.select_keys": "radix"}
@@ -2316,7 +2347,7 @@ def phase10_cli(dev, card, tmp):
     # the supervised CLI on suponly, one epoch
     sup_exp = os.path.join(tmp, "exp_sup")
     sup_path = write_config(VOC_SUP_CONFIG, paths, sup_exp,
-                            {"dataset.n_sup": 16, "trainer.epochs": 1})
+                            {"dataset.n_sup": 16, "trainer.epochs": 1, **F32_OVERRIDE})
     t0 = time.monotonic()
     sup, lines, sup_launches = run_cli(train_sup, sup_path)
     sup_s = time.monotonic() - t0
@@ -2601,6 +2632,445 @@ def variant_timings(card, inputs, k):
     return times
 
 
+# ---- phase 13: bfloat16 -------------------------------------------------------
+
+BF16_FLIP_FRAC = 0.01  # A-bwd, C bwd: a share of the elements one bf16 ulp apart, at most
+K6_BF16_FLIP_FRAC = 0.02  # K6 bwd: each draw's row rounded, then the rows added in bf16
+BF16_STEPS = 5  # the bf16 VOC run: 2 warmup, 3 semi steps, as phases 4 and 6
+CITY_BF16_STEPS = 2  # the bf16 Cityscapes run: 2 semi steps (sup_only_epoch 0)
+# the bf16 step through the kernels against the plain versions: each loss,
+# threshold and the update within this share of the step's own bf16-vs-f32
+# gap (the same snapshot and inputs through the kernels in f32); the
+# measured spread and the bound's derivation are in CHANGES.md
+BF16_ROUTE_SHARE = 0.5
+
+
+def bf16_ulp(x):
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    import torch
+
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def bf16_flips(what, got, want, max_frac, row_dim=None):
+    """Two bf16 results of the same f32 values summed in another order:
+    equal but at bf16 rounding boundaries, there one bf16 ulp apart (of the
+    larger magnitude, or along `row_dim` (a dim or dims) of the largest
+    there), in at most `max_frac` of the elements.  Returns the max abs
+    difference."""
+    import torch
+
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16 or got.shape != want.shape:
+        fail(f"{what}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+    a, b = got.float(), want.float()
+    diff = a != b
+    scale = torch.maximum(a.abs(), b.abs())
+    if row_dim is not None:
+        scale = scale.amax(dim=row_dim, keepdim=True).expand_as(scale)
+    over = int(((a - b).abs() > bf16_ulp(scale))[diff].sum())
+    frac = diff.float().mean().item()
+    err = (a - b).abs().max().item()
+    log(f"[phase 13] {what}: {int(diff.sum())} of {diff.numel()} elements one bf16 ulp apart "
+        f"({frac:.2e}; bound {max_frac}), {over} beyond one ulp (bound 0), max abs diff {err:.3e}")
+    if over or frac > max_frac:
+        fail(f"{what}: kernel and plain version differ beyond the bf16 rounding boundaries")
+    return err
+
+
+def rounded_stats(x, size):
+    """Kernel D's statistics of kernel A's bf16 upsample (the bits C, D and
+    K7 compute inside), in torch ops."""
+    import torch
+
+    from u2pl_tpu_torch.losses import unsup
+    from u2pl_tpu_torch.ops.resize import resize_bilinear_rounded
+
+    up = resize_bilinear_rounded(x, size).float()
+    return (torch.exp(up.amax(dim=1) - torch.logsumexp(up, dim=1)),
+            up.argmax(dim=1).to(torch.int32), unsup.teacher_entropy(up))
+
+
+def bf16_kernels(dev, card, case, cfg):
+    """Each bf16 mode against its plain bf16 version at the paths' full
+    shapes, timed beside its f32 mode: ({key: max abs err}, {key: (ms,
+    plain ms, library ms)}, {key: f32 ms})."""
+    import torch
+    import torch.nn.functional as F
+
+    from u2pl_tpu_torch.losses import ce, ohem, unsup
+    from u2pl_tpu_torch.losses import contrastive as tc
+    from u2pl_tpu_torch.memobank import clone_bank, memobank_enqueue, memobank_enqueue_plain
+    from u2pl_tpu_torch.ops import resize as R
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    errs, times, f32 = {}, {}, {}
+    # A: the decoder's wide upsamples (VOC, Cityscapes) and the logits' narrow
+    # one, each bit-equal to its rounded formula (the wide one to the plain
+    # einsums too: every product exact)
+    for key, shape, out_hw in (("A_decoder_bf16", (8, 256, 65, 65), (OS4, OS4)),
+                               ("A_decoder_city_bf16", (4, 256, CITY_OS8, CITY_OS8),
+                                (CITY_OS4, CITY_OS4)),
+                               ("A_logits_bf16", (4, 21, OS4, OS4), (CROP, CROP))):
+        x = (3 * torch.randn(shape, device=dev, generator=g)).to(bf)
+        wide = R._wide(bf, shape[1], shape[2:], out_hw, True)
+        y = R.resize_bilinear(x, out_hw)
+        same = torch.equal(y, R.resize_bilinear_rounded(x, out_hw))
+        if wide:
+            same = same and torch.equal(y, R.resize_bilinear_plain(x, out_hw))
+        log(f"[phase 13] kernel A bf16 ({'wide' if wide else 'narrow'}) {shape} -> {out_hw}: "
+            f"bit-equal to its rounded formula{' and the plain einsums' if wide else ''} {same}")
+        if not same:
+            fail(f"kernel A bf16 at {shape}: not bit-equal to its plain version")
+        errs[key] = 0.0
+        x32 = x.float()
+        times[key] = (cuda_ms(lambda: R.resize_bilinear(x, out_hw)),
+                      cuda_ms(lambda: R.resize_bilinear_plain(x, out_hw)),
+                      cuda_ms(lambda: F.interpolate(x, out_hw, mode="bilinear",
+                                                    align_corners=True)))
+        f32[key] = cuda_ms(lambda: R.resize_bilinear(x32, out_hw))
+        del x, x32, y
+    # A-bwd: the decoder's adjoints (wide: the W sum rounded to bf16)
+    for key, shape, out_hw in (("A_bwd_bf16", (8, 256, 65, 65), (OS4, OS4)),
+                               ("A_bwd_city_bf16", (4, 256, CITY_OS8, CITY_OS8),
+                                (CITY_OS4, CITY_OS4))):
+        gy = torch.randn(shape[:2] + out_hw, device=dev, generator=g).to(bf)
+        errs[key] = bf16_flips(f"kernel A-bwd bf16 {shape[:2] + out_hw} -> {shape}",
+                               R.resize_bilinear_bwd(gy, shape[2:]),
+                               R.resize_bilinear_bwd_plain(gy, shape[2:]), BF16_FLIP_FRAC)
+        gy32 = gy.float()
+        times[key] = (cuda_ms(lambda: R.resize_bilinear_bwd(gy, shape[2:]), 20),
+                      cuda_ms(lambda: R.resize_bilinear_bwd_plain(gy, shape[2:]), 20),
+                      cuda_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
+                          gy, list(out_hw), list(shape), True), 20))
+        f32[key] = cuda_ms(lambda: R.resize_bilinear_bwd(gy32, shape[2:]), 20)
+        del gy, gy32
+    # C fwd / bwd and D at the VOC step's (4, 21, 129²) -> 513²
+    x = (3 * torch.randn(4, 21, OS4, OS4, device=dev, generator=g)).to(bf)
+    lab = torch.randint(0, 21, (4, CROP, CROP), device=dev, generator=g, dtype=torch.int32)
+    lab[torch.rand(lab.shape, device=dev, generator=g) < 0.1] = 255
+    up = R.resize_bilinear_rounded(x, (CROP, CROP))
+    with torch.no_grad():
+        loss = ce.upsample_cross_entropy(x, lab)
+        via_a = ce.cross_entropy_ignore(up, lab)
+        plain = ce.upsample_cross_entropy_plain(x, lab)
+    errs["C_fwd_bf16"] = abs(loss.item() - via_a.item())
+    rel = errs["C_fwd_bf16"] / abs(via_a.item())
+    log(f"[phase 13] kernel C fwd bf16: {loss.item():.7f}; on kernel A's rounded upsample "
+        f"{via_a.item():.7f} (rel {rel:.3e}, bound {C_LOSS_TOL}); plain version (einsum "
+        f"upsample) {plain.item():.7f}")
+    if rel > C_LOSS_TOL:
+        fail("kernel C fwd bf16 differs from its plain version")
+    xg = x.detach().requires_grad_(True)
+    (gk,) = torch.autograd.grad(ce.upsample_cross_entropy(xg, lab), xg)
+    # the ulp of each (image, class) plane's largest: the kernel and the plain
+    # version round the full-resolution gradient at its boundaries apart, and
+    # the adjoint's sums of those terms may cancel to a small element
+    errs["C_bwd_bf16"] = bf16_flips("kernel C bwd bf16 (4, 21, 129²) <- 513²", gk,
+                                    ce.upsample_ce_bwd_plain(x, lab), BF16_FLIP_FRAC,
+                                    row_dim=(2, 3))
+    x32 = x.float()
+    with torch.no_grad():
+        times["C_fwd_bf16"] = (cuda_ms(lambda: ce.upsample_cross_entropy(x, lab)),
+                               cuda_ms(lambda: ce.upsample_cross_entropy_plain(x, lab)), None)
+        f32["C_fwd_bf16"] = cuda_ms(lambda: ce.upsample_cross_entropy(x32, lab))
+    times["C_bwd_bf16"] = c_bwd_timing(card, "C_bwd_bf16", x, lab, None)
+    f32["C_bwd_bf16"] = c_bwd_timing(card, "C_bwd_bf16_as_f32", x32, lab, None)[0]
+    mp, am, ent = unsup.upsample_softmax_stats(x, (CROP, CROP), outputs="all")
+    rmp, ram, rent = rounded_stats(x, (CROP, CROP))
+    e_mp = ((mp - rmp).abs() / rmp).max().item()
+    e_en = ((ent - rent).abs() / rent.abs().clamp(min=1e-3)).max().item()
+    e_am = int((am != ram).sum())
+    errs["D_bf16"] = max((mp - rmp).abs().max().item(), (ent - rent).abs().max().item())
+    log(f"[phase 13] kernel D bf16 against the statistics of kernel A's rounded upsample: "
+        f"max-prob rel {e_mp:.3e}, entropy rel {e_en:.3e} (bound {D_TOL}), argmax differs at "
+        f"{e_am} pixels (bound 0: exact ties keep the first class)")
+    if e_mp > D_TOL or e_en > D_TOL or e_am:
+        fail("kernel D bf16 differs from its plain version")
+    for sel in ("prob", "entropy"):
+        times[f"D_{sel}_bf16"] = (
+            cuda_ms(lambda: unsup.upsample_softmax_stats(x, (CROP, CROP), outputs=sel)),
+            cuda_ms(lambda: unsup.upsample_softmax_stats_plain(x, (CROP, CROP), sel)), None)
+        f32[f"D_{sel}_bf16"] = cuda_ms(
+            lambda: unsup.upsample_softmax_stats(x32, (CROP, CROP), outputs=sel))
+    del x, x32, xg, gk, up, mp, am, ent, rmp, ram, rent
+    # K7 prob at the Cityscapes heads
+    for key, hw in (("K7_prob_bf16", CITY_OS4), ("K7_prob_aux_bf16", CITY_OS8)):
+        xc, labc = ohem_case(dev, g, hw, 8.0, 4, 0.05)
+        xc = xc.to(bf)
+        p_y, nv = ohem.ohem_target_prob(xc, labc)
+        up = R.resize_bilinear_rounded(xc, (CITY_CROP, CITY_CROP))
+        rp, rnv = ohem._target_prob(up, labc, 255)
+        e = ((p_y - rp).abs() / rp).max().item()
+        errs[key] = (p_y - rp).abs().max().item()
+        log(f"[phase 13] kernel K7 prob bf16 {tuple(xc.shape)} -> {CITY_CROP}²: p_y rel {e:.3e} "
+            f"(bound {D_TOL}) against the softmax of kernel A's rounded upsample; num_valid "
+            f"{int(nv)} vs {int(rnv)}")
+        if e > D_TOL or int(nv) != int(rnv):
+            fail("kernel K7 prob bf16 differs from its plain version")
+        K7_VALID[key] = int(rnv)
+        xc32 = xc.float()
+        times[key] = (cuda_ms(lambda: ohem.ohem_target_prob(xc, labc)),
+                      cuda_ms(lambda: ohem.ohem_target_prob_plain(xc, labc)), None)
+        f32[key] = cuda_ms(lambda: ohem.ohem_target_prob(xc32, labc))
+        del xc, xc32, labc, p_y, rp, up
+    # K5: the flagship's write from a bf16 teacher rep into the bf16 bank
+    enq = (case["rep_t"].to(bf), case["sel_idx"], case["n_sel"])
+    bk = memobank_enqueue(clone_bank(case["bank"]), *enq)
+    bp = memobank_enqueue_plain(clone_bank(case["bank"]), *enq)
+    same = all(torch.equal(getattr(bk, a), getattr(bp, a)) for a in ("keys", "ptr", "occupancy"))
+    log(f"[phase 13] kernel K5 bf16 rep {tuple(enq[0].shape)}, {int(case['n_sel'].sum())} keys: "
+        f"bank bit-equal to the plain version {same}")
+    if not same:
+        fail("kernel K5 bf16 differs from its plain version")
+    errs["K5_bf16"] = 0.0
+    bank_k, bank_p, bank_f = (clone_bank(case["bank"]) for _ in range(3))
+    enq32 = (case["rep_t"],) + enq[1:]
+    times["K5_bf16"] = (cuda_ms(lambda: memobank_enqueue(bank_k, *enq)),
+                        cuda_ms(lambda: memobank_enqueue_plain(bank_p, *enq)), None)
+    f32["K5_bf16"] = cuda_ms(lambda: memobank_enqueue(bank_f, *enq32))
+    del bk, bp, bank_k, bank_p, bank_f, enq, enq32
+    # K6 forward / backward on a bf16 rep and the bf16 bank (JAX's dot-first path)
+    k6 = (case["anchor_idx"], case["positive"], case["bank"], case["b_j"], case["u_neg"],
+          case["active"], case["valid_seg"], cfg.trainer.contrastive.temperature)
+    rep = case["rep"].to(bf).requires_grad_(True)
+    lk = tc.contra_infonce(rep, *k6)
+    (gk,) = torch.autograd.grad(lk, rep)
+    rp = rep.detach().clone().requires_grad_(True)
+    lp = tc.contra_infonce_plain(rp, *k6)
+    (gp,) = torch.autograd.grad(lp, rp)
+    rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    errs["K6_fwd_bf16"] = abs(lk.item() - lp.item())
+    log(f"[phase 13] kernel K6 fwd bf16 rep, bf16 bank: loss {lk.item():.6f} vs plain "
+        f"{lp.item():.6f} (rel {rel:.3e}, bound {K6_LOSS_TOL})")
+    if rel > K6_LOSS_TOL:
+        fail("kernel K6 fwd bf16 differs from its plain version")
+    errs["K6_bwd_bf16"] = bf16_flips("kernel K6 bwd bf16 (8, 256, 129²) rep gradient", gk, gp,
+                                     K6_BF16_FLIP_FRAC, row_dim=1)
+    del gk, gp, rp
+    rep32 = case["rep"].clone().requires_grad_(True)
+    with torch.no_grad():
+        times["K6_fwd_bf16"] = (cuda_ms(lambda: tc.contra_infonce(rep, *k6), 20),
+                                cuda_ms(lambda: tc.contra_infonce_plain(rep, *k6), 20), None)
+        f32["K6_fwd_bf16"] = cuda_ms(lambda: tc.contra_infonce(rep32, *k6), 20)
+    lk, lp, l32 = (tc.contra_infonce(rep, *k6), tc.contra_infonce_plain(rep, *k6),
+                   tc.contra_infonce(rep32, *k6))
+    one = torch.ones((), device=dev)
+    saved, saved32 = lk.grad_fn.saved_tensors, l32.grad_fn.saved_tensors
+    b, f = rep.shape[:2]
+    rows = case["anchor_idx"].flatten().long()
+    src = torch.randn(rows.numel(), f, device=dev, generator=g).to(bf)
+    times["K6_bwd_bf16"] = (
+        cuda_ms(lambda: tc._infonce_bwd_cuda(*saved, one, tuple(rep.shape), bf), 20),
+        cuda_ms(lambda: torch.autograd.grad(lp, rep, retain_graph=True), 20),
+        cuda_ms(lambda: torch.zeros(b * OS4 * OS4, f, device=dev, dtype=bf).index_add_(
+            0, rows, src), 20))
+    f32["K6_bwd_bf16"] = cuda_ms(lambda: tc._infonce_bwd_cuda(*saved32, one, tuple(rep.shape)), 20)
+    del lk, lp, l32, saved, saved32, rep, rep32
+    library = {**{k: "F.interpolate bf16" for k in
+                  ("A_decoder_bf16", "A_decoder_city_bf16", "A_logits_bf16")},
+               **{k: "aten upsample_bilinear2d_backward bf16" for k in
+                  ("A_bwd_bf16", "A_bwd_city_bf16")},
+               "K6_bwd_bf16": "index_add_ of bf16 rows"}
+    for key, (tk, tp, tl) in times.items():
+        lib = "" if tl is None else f"; {library[key]} {tl:.4f} ms"
+        log(f"[{card}] kernel {key}: {tk:.4f} ms (its f32 mode {f32[key]:.4f} ms); plain version "
+            f"{tp:.4f} ms{lib}")
+    return errs, times, f32
+
+
+def bf16_voc_training(dev, card):
+    """The flagship semi step with contrastive in bf16: BF16_STEPS steps of the
+    VOC `ours` config as it stands (net.dtype bfloat16) through `run_steps`,
+    its step times, then step 5 again through the kernels and the plain
+    versions (and through the kernels in f32, for the bf16 gap the routes
+    are held to)."""
+    import torch
+
+    from u2pl_tpu_torch.config import load_config
+    from u2pl_tpu_torch.models.builder import computing_in
+    from u2pl_tpu_torch.models.decoder import Dropout2d
+    from u2pl_tpu_torch.ops import mixing
+    from u2pl_tpu_torch.train.state import create_train_state
+    from u2pl_tpu_torch.train.steps import draw_contrastive, make_semi_step, run_steps
+
+    cfg = load_config(VOC_CONFIG)
+    if cfg.net.dtype != "bfloat16":
+        fail(f"{VOC_CONFIG}: net.dtype {cfg.net.dtype}, the bf16 phase expects bfloat16")
+    state = create_train_state(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    if state.student.dtype != torch.bfloat16 or state.teacher.dtype != torch.bfloat16:
+        fail("the bf16 config built a model that does not compute in bf16")
+    log(f"[phase 13] config {os.path.relpath(VOC_CONFIG, ROOT)} as it stands: net.dtype "
+        f"{cfg.net.dtype} (float32 parameters, EMA and optimizer; bf16 compute), contrastive "
+        f"with a {cfg.trainer.contrastive.queue_dtype} bank; {B_L}+{B_U} images of {CROP}², "
+        f"{BF16_STEPS} steps")
+    batches = synthetic_batches(dev, BF16_STEPS)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    history, snapshot = [], None
+    for i_iter, m in run_steps(state, batches, STEPS_PER_EPOCH, cfg, generator=gen):
+        history.append((i_iter, scalars(m)))
+        if i_iter == BF16_STEPS - 2:
+            snapshot = copy.deepcopy(state)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    peak_run = torch.cuda.max_memory_allocated(dev)
+    for i_iter, m in history:
+        semi = "low_thresh" in m
+        log(f"[phase 13] bf16 step {i_iter} ({'semi' if semi else 'warmup'}): "
+            + ", ".join(f"{a} {v:.6g}" for a, v in m.items()))
+        if not all(v == v and abs(v) != float("inf") for v in m.values()):
+            fail(f"bf16 step {i_iter}: non-finite metrics {m}")
+        if semi and not m["con_loss"] > 0:
+            fail(f"bf16 step {i_iter}: con_loss {m['con_loss']} is not > 0")
+    if not all(p.dtype == torch.float32 for p in state.student.parameters()):
+        fail("bf16 training changed the parameters' dtype")
+    missing = [k for k in (*TRAIN_COUNTERS, *CONTRA_COUNTERS) if launches[k] <= 0]
+    if missing:
+        fail(f"a kernel of the bf16 training path was never launched: {missing}")
+    check_a_bwd_per_step("VOC bf16 training", launches)
+    check_per_semi_step("VOC bf16 training", launches,
+                        sum("low_thresh" in m for _, m in history), contrastive=True)
+    log(f"[phase 13] bf16 launches {launches}")
+    # the step's time, as phase 7 times the f32 one
+    step = make_semi_step(cfg, STEPS_PER_EPOCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = []
+    for i in range(2 + 7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, *batches[i % len(batches)], gen)
+        torch.cuda.synchronize()
+        if i >= 2:
+            runs.append((time.perf_counter() - t0) * 1e3)
+    med, imgs = statistics.median(runs), B_L + B_U
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[{card}] bf16 contrastive semi step ({imgs} images of {CROP}², synchronised): median "
+        f"{med:.1f} ms over {len(runs)} runs after 2 (min {min(runs):.1f}, max {max(runs):.1f}); "
+        f"{imgs * 1e3 / med:.2f} img/s; peak device memory {peak / 2**30:.2f} GiB (over the "
+        f"{BF16_STEPS} run steps {peak_run / 2**30:.2f} GiB)")
+    del state
+
+    # step 5 again: kernels, plain versions, and the kernels in f32
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    mix = (torch.tensor(True, device=dev), mixing.draw_boxes(g, B_U, CROP, CROP))
+    draws = draw_contrastive(g, cfg, (B_L + B_U) * OS4 * OS4)
+
+    def run(st, route):
+        return step(st, *batches[-1], mix=mix, contra=draws)
+
+    runs2 = both_routes(snapshot, run, "phase 13", bf16=True)
+    st32 = copy.deepcopy(snapshot)
+    for mm in list(st32.student.modules()) + list(st32.teacher.modules()):
+        if isinstance(mm, Dropout2d):
+            mm.p = 0.0
+    before = {a: p.detach().clone() for a, p in st32.student.named_parameters()}
+    with computing_in(st32.student, torch.float32), computing_in(st32.teacher, torch.float32):
+        m32 = scalars(run(st32, "kernels"))
+    d32 = {a: p.detach() - before[a] for a, p in st32.student.named_parameters()}
+    del st32, snapshot
+    (mk, dk, _), (mp, dp, _) = runs2["kernels"], runs2["plain"]
+    mk, mp = scalars(mk), scalars(mp)
+    names = ("sup_loss", "uns_loss", "con_loss", "drop_thresh", "high_thresh")
+    route = {a: abs(mk[a] - mp[a]) for a in names}
+    gap = {a: abs(mk[a] - m32[a]) for a in names}
+    l2 = lambda d, e: sum(((d[a] - e[a]).float() ** 2).sum().item() for a in d) ** 0.5  # noqa: E731
+    upd_route, upd_gap = l2(dk, dp), l2(dk, d32)
+    share = {a: route[a] / max(gap[a], 1e-30) for a in names}
+    log(f"[phase 13] bf16 step {BF16_STEPS} again: kernels {mk}; plain {mp}; the kernels in f32 "
+        f"{m32}; |kernels - plain| {route}; |bf16 - f32| {gap}; share {share} (bound "
+        f"{BF16_ROUTE_SHARE}); update L2 kernels - plain {upd_route:.4e}, bf16 - f32 "
+        f"{upd_gap:.4e} (share {upd_route / max(upd_gap, 1e-30):.3e})")
+    if any(v > BF16_ROUTE_SHARE for v in share.values()) or upd_route > BF16_ROUTE_SHARE * upd_gap:
+        fail("the bf16 step through the kernels and through the plain versions differ by more "
+             f"than {BF16_ROUTE_SHARE} of the step's bf16-vs-f32 gap")
+    return launches, {"semi_ms": med, "img_s": imgs * 1e3 / med, "peak": peak,
+                      "route": route, "gap": gap, "update": (upd_route, upd_gap)}
+
+
+def bf16_city_training(dev, card):
+    """The Cityscapes `ours` config as it stands (bf16, OHEM on the main and
+    aux heads, contrastive), CITY_BF16_STEPS semi steps of 2 + 2 images at
+    769² through `run_steps`: finite losses, the OHEM kernels on both heads
+    of every step, the time per step and the peak memory."""
+    import torch
+
+    from u2pl_tpu_torch.config import load_config
+    from u2pl_tpu_torch.train.state import create_train_state
+    from u2pl_tpu_torch.train.steps import make_semi_step, run_steps
+
+    cfg = load_config(CITY_CONFIG)
+    cfg = dataclasses.replace(cfg, trainer=dataclasses.replace(cfg.trainer, sup_only_epoch=0))
+    if cfg.net.dtype != "bfloat16":
+        fail(f"{CITY_CONFIG}: net.dtype {cfg.net.dtype}, the bf16 phase expects bfloat16")
+    state = create_train_state(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    batches = synthetic_batches(dev, CITY_BF16_STEPS, CITY_B, CITY_CROP, cfg.net.num_classes,
+                                SEED + 12)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    times, history = [], []
+    t0 = time.perf_counter()
+    for i_iter, m in run_steps(state, batches, STEPS_PER_EPOCH, cfg, generator=gen):
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        history.append(scalars(m))
+        t0 = time.perf_counter()
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    for i, m in enumerate(history):
+        log(f"[phase 13] bf16 Cityscapes step {i} (semi): " + ", ".join(
+            f"{a} {v:.6g}" for a, v in m.items()))
+        if not all(v == v and abs(v) != float("inf") for v in m.values()) or not m["con_loss"] > 0:
+            fail(f"bf16 Cityscapes step {i}: metrics {m}")
+    want = {"K7_prob_main": CITY_BF16_STEPS, "K7_prob_aux": CITY_BF16_STEPS,
+            "K7_kth": 2 * CITY_BF16_STEPS, "K7_keep": 2 * CITY_BF16_STEPS}
+    got = {k: launches[k] for k in want}
+    log(f"[phase 13] bf16 Cityscapes launches {launches}; OHEM {got} (want {want})")
+    if got != want:
+        fail(f"bf16 Cityscapes: OHEM launches {got}, want {want}")
+    # the step's time, as phase 9 times the f32 one, after the run's steps
+    step = make_semi_step(cfg, STEPS_PER_EPOCH)
+    runs = []
+    for i in range(2 + 5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, *batches[i % len(batches)], gen)
+        torch.cuda.synchronize()
+        if i >= 2:
+            runs.append((time.perf_counter() - t0) * 1e3)
+    med, imgs = statistics.median(runs), 2 * CITY_B
+    log(f"[{card}] bf16 Cityscapes semi step (OHEM, contrastive; {imgs} images of {CITY_CROP}², "
+        f"synchronised): median {med:.1f} ms over {len(runs)} runs after the run's "
+        f"{CITY_BF16_STEPS} and 2 more (min {min(runs):.1f}, max {max(runs):.1f}; the run's "
+        f"{[round(t, 1) for t in times]}); {imgs * 1e3 / med:.2f} img/s; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB (over the run's steps "
+        f"{peak / 2**30:.2f} GiB)")
+    del state
+    return launches, {"semi_ms": med, "img_s": imgs * 1e3 / med, "peak": peak}
+
+
+def phase13_bf16(dev, card, case, cfg):
+    """bfloat16: every bf16 kernel mode against its plain version at full
+    shapes and timed, the VOC flagship contrastive step and a Cityscapes
+    step in bf16 ({key: launches summed over both runs}, errs, times, f32
+    times, the runs' summaries)."""
+    import torch
+
+    log(f"[phase 13] bfloat16 (JAX's rounding points: u2pl_tpu_torch/train/steps.py)")
+    errs, times, f32 = bf16_kernels(dev, card, case, cfg)
+    torch.cuda.empty_cache()
+    voc_launches, voc = bf16_voc_training(dev, card)
+    torch.cuda.empty_cache()
+    city_launches, city = bf16_city_training(dev, card)
+    torch.cuda.empty_cache()
+    return voc_launches, city_launches, errs, times, f32, voc, city
+
+
 def bounds(case, cfg):
     """{kernel: (bound ms, "bytes" or "operations")}: the least time the card
     could take for each timed call, the larger of the bytes it must move
@@ -2706,6 +3176,27 @@ def bounds(case, cfg):
                         K7_VALID["K7_prob_aux"] * 19),
         "K7_kth": (cpx * 4, 0),
         "K7_keep": (cpx * 12, 0),
+        # the bf16 modes: the same work, each bf16 tensor at 2 bytes (labels,
+        # lse, p_y, the stats and K6's directions stay f32)
+        "A_decoder_bf16": (8 * 256 * (65 * 65 + 129 * 129) * 2, 8 * 256 * 129 * 129 * 9),
+        "A_decoder_city_bf16": (4 * 256 * (CITY_OS8 ** 2 + CITY_OS4 ** 2) * 2,
+                                4 * 256 * CITY_OS4 ** 2 * 9),
+        "A_logits_bf16": ((lo + hi) * 2, hi * 9),
+        "A_bwd_bf16": ((8 * 256 * 129 * 129 + 8 * 256 * 65 * 65) * 2, 8 * 256 * 129 * 129 * 9),
+        "A_bwd_city_bf16": ((4 * 256 * CITY_OS4 ** 2 + 4 * 256 * CITY_OS8 ** 2) * 2,
+                            4 * 256 * CITY_OS4 ** 2 * 9),
+        "C_fwd_bf16": (lo * 2 + px * 8, hi * 11, hi + px),
+        "C_bwd_bf16": (2 * lo * 2 + 2 * px * 4, C_BWD_VALID["C_bwd_bf16"] * 21 * 20),
+        "D_prob_bf16": (lo * 2 + px * 8, hi * 12, hi + 2 * px),
+        "D_entropy_bf16": (lo * 2 + px * 4, hi * 16, 2 * hi),
+        "K7_prob_bf16": (clo * 2 + cpx * 8, K7_VALID["K7_prob_bf16"] * 19 * 11,
+                         K7_VALID["K7_prob_bf16"] * 19),
+        "K7_prob_aux_bf16": (clo8 * 2 + cpx * 8, K7_VALID["K7_prob_aux_bf16"] * 19 * 11,
+                             K7_VALID["K7_prob_aux_bf16"] * 19),
+        "K5_bf16": (sel * (f * 2 + 4 + f * 2), 0),
+        "K6_fwd_bf16": (act * q * (f * 2 + m * (f * 2 + 4)) + act * f * 4,
+                        act * q * (m + 1) * f * 4),
+        "K6_bwd_bf16": (b * f * hw * 2 + act * q * (2 * f * 4 + 4), 0),
     }
     out = {}
     for name, (nbytes, ops, *sfu) in moved.items():
@@ -2744,9 +3235,7 @@ def main() -> int:
 
     a_err, b_err = phase1_kernels(dev)
     errs = phase1_train_kernels(dev)
-    from u2pl_tpu_torch.config import load_config
-
-    ccfg = load_config(VOC_CONFIG)  # the `ours` config as it stands, contrastive included
+    ccfg = load_f32(VOC_CONFIG)  # the `ours` config as it stands (f32), contrastive included
     contra_errs, case = phase1_contrastive_kernels(dev, ccfg)
     errs.update(contra_errs)
     k = ccfg.trainer.contrastive.max_keys_per_class_per_step
@@ -2754,7 +3243,7 @@ def main() -> int:
     errs.update(variant_errs)
     variant_times = variant_timings(card, variant_inputs, k)
     del variant_inputs
-    city_cfg = load_config(CITY_CONFIG)  # as it stands: OHEM, aux head, contrastive
+    city_cfg = load_f32(CITY_CONFIG)  # as it stands (f32): OHEM, aux head, contrastive
     errs.update(phase1_ohem_kernels(dev, city_cfg))
     with tempfile.TemporaryDirectory(prefix="u2pl_chip_smoke_") as tmp:
         engine, images, loaded, launches = phase2_slice(dev, card, tmp)
@@ -2764,17 +3253,21 @@ def main() -> int:
     _, train_times = phase5_train_timings(dev, card, state, batches)
     del state, batches
     state, batches, contra_launches, _ = phase6_contrastive(dev, card, ccfg)
-    _, contra_times = phase7_contrastive_timings(dev, card, ccfg, state, batches, case)
+    contra_times_run, contra_times = phase7_contrastive_timings(dev, card, ccfg, state, batches,
+                                                                case)
     del state, batches
     torch.cuda.empty_cache()
     state, batches, city_launches, _ = phase8_cityscapes(dev, card, city_cfg)
-    _, city_times = phase9_city_timings(dev, card, city_cfg, state, batches)
+    city_times_run, city_times = phase9_city_timings(dev, card, city_cfg, state, batches)
     del state, batches
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="u2pl_chip_smoke_cli_") as tmp:
         paths, cli_launches, _ = phase10_cli(dev, card, tmp)
         variant_launches, _ = phase11_variant(dev, card, tmp, paths)
         eval_launches, _ = phase12_eval(dev, card, tmp, paths)
+    torch.cuda.empty_cache()
+    bf_voc, bf_city, bf_errs, bf_times, bf_f32, bf_voc_run, bf_city_run = phase13_bf16(
+        dev, card, case, ccfg)
     bound = bounds(case, ccfg)
 
     csrc = "u2pl_tpu_torch/kernels/csrc/"
@@ -2782,6 +3275,15 @@ def main() -> int:
     times.update(contra_times)
     times.update(city_times)
     times.update(variant_times)
+    times.update(bf_times)
+    log(f"[{card}] bf16 beside f32, VOC contrastive semi step ({B_L}+{B_U} at {CROP}²): "
+        f"{bf_voc_run['semi_ms']:.1f} ms, {bf_voc_run['img_s']:.2f} img/s, peak "
+        f"{bf_voc_run['peak'] / 2**30:.2f} GiB (bf16) vs {contra_times_run['semi_ms']:.1f} ms, "
+        f"{contra_times_run['img_s']:.2f} img/s, peak {contra_times_run['peak'] / 2**30:.2f} GiB "
+        f"(f32, phase 7); Cityscapes semi step ({CITY_B}+{CITY_B} at {CITY_CROP}²): bf16 "
+        f"{bf_city_run['semi_ms']:.1f} ms, {bf_city_run['img_s']:.2f} img/s, peak "
+        f"{bf_city_run['peak'] / 2**30:.2f} GiB vs f32 {city_times_run['semi_ms']:.1f} ms "
+        f"(phase 9)")
     ms = times["K5"][0]
     log(f"[{card}] kernel K5: {ms:.4f} ms, {ms / bound['K5'][0]:.1f}x its row-bytes bound "
         f"{bound['K5'][0]:.4f} ms, {ms / bound['K5_sectors'][0]:.1f}x its NCHW sector bound "
@@ -2795,9 +3297,15 @@ def main() -> int:
     def entry(name, key, source, replaces, launches_, err, timing):
         ms, plain_ms, library_ms = times[timing]
         bound_ms, bound_by = bound[key]
-        return {"name": name, "route": "cuda", "source": csrc + source, "replaces": replaces,
-                "launches": launches_, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+        out = {"name": name, "route": "cuda", "source": csrc + source, "replaces": replaces,
+               "launches": launches_, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+        if timing in bf_f32:  # a bf16 mode: its f32 mode's time in the same call
+            out["f32_ms"] = bf_f32[timing]
+        return out
+
+    def bf(key):  # launches in phase 13's bf16 runs (VOC and Cityscapes)
+        return bf_voc[key] + bf_city[key]
 
     # launches: each path's run counted from 0 just before it (serving,
     # training without and with the contrastive branch, Cityscapes
@@ -2888,6 +3396,46 @@ def main() -> int:
               city_launches["K7_kth"], errs["K7_kth"], "K7_kth"),
         entry("ohem_keep_labels", "K7_keep", "ohem.cu", "u2pl_tpu/losses/ohem.py:76",
               city_launches["K7_keep"], errs["K7_keep"], "K7_keep"),
+        # the bf16 modes (phase 13): launches on its bf16 training runs; the
+        # logits' narrow upsample runs on no training path (C, D and K7
+        # upsample inside themselves), and serves the next slice
+        entry("resize_bilinear_ac_decoder_bf16", "A_decoder_bf16", "resize.cu",
+              "u2pl_tpu/ops/resize.py:76", bf_voc["A_decoder"], bf_errs["A_decoder_bf16"],
+              "A_decoder_bf16"),
+        entry("resize_bilinear_ac_decoder_cityscapes_bf16", "A_decoder_city_bf16", "resize.cu",
+              "u2pl_tpu/ops/resize.py:76", bf_city["A_decoder"], bf_errs["A_decoder_city_bf16"],
+              "A_decoder_city_bf16"),
+        entry("resize_bilinear_ac_logits_bf16", "A_logits_bf16", "resize.cu",
+              "u2pl_tpu/ops/resize.py:76", bf("A_logits"), bf_errs["A_logits_bf16"],
+              "A_logits_bf16"),
+        entry("resize_bilinear_ac_bwd_bf16", "A_bwd_bf16", "resize.cu",
+              "u2pl_tpu/ops/resize.py:76", bf_voc["A_bwd"], bf_errs["A_bwd_bf16"], "A_bwd_bf16"),
+        entry("resize_bilinear_ac_bwd_cityscapes_bf16", "A_bwd_city_bf16", "resize.cu",
+              "u2pl_tpu/ops/resize.py:76", bf_city["A_bwd"], bf_errs["A_bwd_city_bf16"],
+              "A_bwd_city_bf16"),
+        entry("upsample_ce_fwd_bf16", "C_fwd_bf16", "upsample_ce.cu", "u2pl_tpu/losses/ce.py:23",
+              bf("C_fwd"), bf_errs["C_fwd_bf16"], "C_fwd_bf16"),
+        entry("upsample_ce_bwd_bf16", "C_bwd_bf16", "upsample_ce.cu", "u2pl_tpu/losses/ce.py:23",
+              bf("C_bwd"), bf_errs["C_bwd_bf16"], "C_bwd_bf16"),
+        entry("upsample_softmax_stats_prob_bf16", "D_prob_bf16", "upsample_ce.cu",
+              "u2pl_tpu/train/steps.py:300", bf("D_prob"), bf_errs["D_bf16"], "D_prob_bf16"),
+        entry("upsample_softmax_stats_entropy_bf16", "D_entropy_bf16", "upsample_ce.cu",
+              "u2pl_tpu/losses/unsup.py:24", bf("D_entropy"), bf_errs["D_bf16"],
+              "D_entropy_bf16"),
+        entry("ohem_target_prob_bf16", "K7_prob_bf16", "upsample_ce.cu",
+              "u2pl_tpu/losses/ohem.py:66", bf_city["K7_prob_main"], bf_errs["K7_prob_bf16"],
+              "K7_prob_bf16"),
+        entry("ohem_target_prob_aux_bf16", "K7_prob_aux_bf16", "upsample_ce.cu",
+              "u2pl_tpu/losses/ohem.py:66", bf_city["K7_prob_aux"], bf_errs["K7_prob_aux_bf16"],
+              "K7_prob_aux_bf16"),
+        entry("memobank_enqueue_bf16", "K5_bf16", "memobank.cu", "u2pl_tpu/memobank.py:92",
+              bf("K5"), bf_errs["K5_bf16"], "K5_bf16"),
+        entry("contra_infonce_fwd_bf16", "K6_fwd_bf16", "infonce.cu",
+              "u2pl_tpu/losses/contrastive.py:168", bf("K6_fwd"), bf_errs["K6_fwd_bf16"],
+              "K6_fwd_bf16"),
+        entry("contra_infonce_bwd_bf16", "K6_bwd_bf16", "infonce.cu",
+              "u2pl_tpu/losses/contrastive.py:168", bf("K6_bwd"), bf_errs["K6_bwd_bf16"],
+              "K6_bwd_bf16"),
     ]}
     log(card)
     log(json.dumps(report))

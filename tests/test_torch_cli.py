@@ -163,7 +163,8 @@ def test_train_semi_end_to_end(uninterrupted):
     for name in (CKPT_NAME, CKPT_BEST_NAME):
         assert os.path.isfile(os.path.join(exp, "checkpoints", name)), name
     text = "\n".join(lines)
-    assert "training in float32" in text and "Iter [0/8]" in text  # logged every 10 steps
+    # the flagship's net.dtype: bfloat16, as the JAX trainer takes it
+    assert "training in bfloat16" in text and "Iter [0/8]" in text  # logged every 10 steps
     assert text.count(" * class [") == 2 * C
     assert " * epoch 0 mIoU" in text and " * epoch 1 mIoU" in text
     assert text.count("Currently, the best val result is") == 2

@@ -1323,3 +1323,198 @@ def test_ohem_cross_entropy_matches_plain(shape, outsz, use_weight):
     (gs,) = torch.autograd.grad(same * 3.0, xs)
     assert abs(loss.item() - ref.item()) <= 1e-5 * abs(ref.item())
     assert (gk - gs).abs().max().item() <= 1e-6 * gs.abs().max().item()
+
+
+# ---- bfloat16 modes (A, A-bwd, C, D / K7 prob, K5, K6) -----------------------
+
+def _bf16_ulp(x):
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def assert_bf16_flips(got, want, max_frac=0.01, row_dim=None):
+    """Two bf16 results of the same f32 values summed in other orders: equal
+    but at rounding boundaries, there one bf16 ulp apart, in at most
+    `max_frac` of the elements.  The ulp is of the larger magnitude; with
+    `row_dim` (a dim or dims), of the largest there (a gradient whose
+    terms, each rounded to bf16, may cancel to a small element)."""
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    a, b = got.float(), want.float()
+    diff = a != b
+    scale = torch.maximum(a.abs(), b.abs())
+    if row_dim is not None:
+        scale = scale.amax(dim=row_dim, keepdim=True).expand_as(scale)
+    assert ((a - b).abs() <= _bf16_ulp(scale))[diff].all()
+    assert diff.float().mean().item() <= max_frac
+
+
+# the decoder's upsamples (wide: 256 channels, bf16-exact weights) and the
+# logits' (narrow), at small shapes, and an odd narrow one
+BF16_A_SHAPES = [((2, 256, 33, 33), (65, 65)), ((2, 64, 49, 49), (97, 97)),
+                 ((2, 21, 33, 33), (129, 129)), ((3, 5, 9, 7), (13, 30))]
+
+
+@pytest.mark.parametrize("shape,outsz", BF16_A_SHAPES)
+def test_kernel_a_bf16_bit_equal_to_rounded_formula(shape, outsz):
+    """Kernel A's bf16 modes: the wide branch rounds its H pass to bf16, the
+    narrow one only the output; bit-equal to `resize_bilinear_rounded` on
+    the bf16 input (its ops one by one, in f32, rounded where the kernel
+    rounds)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(20)
+    x = (torch.randn(*shape, device=dev, generator=g) * 3).to(torch.bfloat16)
+    assert tr._wide(x.dtype, shape[1], shape[2:], outsz, True) == (shape[1] >= 64)
+    n = tr.resize_bilinear.launches
+    got = tr.resize_bilinear(x, outsz)
+    torch.cuda.synchronize()
+    assert tr.resize_bilinear.launches == n + 1 and got.dtype == torch.bfloat16
+    assert torch.equal(got, tr.resize_bilinear_rounded(x, outsz))
+    if shape[1] >= 64:  # every product exact: the plain einsums give the same bits
+        assert torch.equal(got, tr.resize_bilinear_plain(x, outsz))
+
+
+@pytest.mark.parametrize("shape,outsz", BF16_A_SHAPES)
+def test_kernel_a_bwd_bf16_matches_plain(shape, outsz):
+    """A-bwd's bf16 modes against the plain adjoint in bf16 (the wide
+    branch's W sum rounded to bf16 in both): the same values summed in
+    another order, so equal but at bf16 rounding boundaries."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(21)
+    gy = torch.randn(shape[:2] + outsz, device=dev, generator=g).to(torch.bfloat16)
+    n = tr.resize_bilinear_bwd.launches
+    got = tr.resize_bilinear_bwd(gy, shape[2:])
+    torch.cuda.synchronize()
+    assert tr.resize_bilinear_bwd.launches == n + 1
+    assert_bf16_flips(got, tr.resize_bilinear_bwd_plain(gy, shape[2:]))
+    assert torch.equal(tr.resize_bilinear_bwd(gy, shape[2:]), got)
+
+
+def _rounded_stats(x, outsz):
+    """Kernel D's statistics of kernel A's bf16 upsample (the bits D
+    computes inside), in torch ops."""
+    from u2pl_tpu_torch.losses import unsup
+
+    up = tr.resize_bilinear_rounded(x, outsz).float()
+    mp = torch.exp(up.amax(dim=1) - torch.logsumexp(up, dim=1))
+    return mp, up.argmax(dim=1).to(torch.int32), unsup.teacher_entropy(up)
+
+
+@pytest.mark.parametrize("shape,outsz", [((2, 21, 33, 33), (129, 129)), ((2, 19, 25, 25), (97, 97)),
+                                         ((3, 5, 9, 7), (33, 25))])
+def test_kernel_c_d_k7_bf16_match_the_rounded_upsample(shape, outsz):
+    """C fwd, D and K7 prob in bf16: their softmax terms of kernel A's
+    bf16-rounded upsample, as the f32 modes' of its f32 one (rtol 1e-5);
+    the argmax of the rounded values, exact ties to the first class, equal."""
+    from u2pl_tpu_torch.losses import ce, ohem, unsup
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(22)
+    x = (torch.randn(*shape, device=dev, generator=g) * 3).to(torch.bfloat16)
+    x[:, 1] = x[:, 0]  # exact ties
+    lab = _labels(g, shape[0], *outsz, shape[1], dev)
+    mp, am, ent = unsup.upsample_softmax_stats(x, outsz, outputs="all")
+    rmp, ram, rent = _rounded_stats(x, outsz)
+    assert ((mp - rmp).abs() <= 1e-5 * rmp).all()
+    assert ((ent - rent).abs() <= 1e-5 * rent.abs().clamp(min=1e-3)).all()
+    assert torch.equal(am, ram) and (am != 1).all()
+    loss = ce.upsample_cross_entropy(x, lab)
+    ref = ce.cross_entropy_ignore(tr.resize_bilinear_rounded(x, outsz), lab)
+    assert abs(loss.item() - ref.item()) <= 1e-5 * abs(ref.item())
+    p_y, nv = ohem.ohem_target_prob(x, lab)
+    rp, rnv = ohem._target_prob(tr.resize_bilinear_rounded(x, outsz), lab, 255)
+    assert torch.equal(nv, rnv) and ((p_y - rp).abs() <= 1e-5 * rp).all()
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("shape,outsz", [((2, 21, 33, 33), (129, 129)), ((3, 5, 9, 7), (33, 25))])
+def test_kernel_c_bwd_bf16_matches_plain(shape, outsz, weighted):
+    """C's backward in bf16 against `upsample_ce_bwd_plain` in bf16 (the
+    full-resolution gradient rounded to bf16 in both, the adjoint summed in
+    another order): equal but at bf16 rounding boundaries."""
+    from u2pl_tpu_torch.losses import ce
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(23)
+    x = (torch.randn(*shape, device=dev, generator=g) * 3).to(torch.bfloat16).requires_grad_(True)
+    lab = _labels(g, shape[0], *outsz, shape[1], dev)
+    cw = torch.rand(shape[1], device=dev, generator=g) if weighted else None
+    n = ce.upsample_cross_entropy.bwd_launches
+    (gx,) = torch.autograd.grad(ce.upsample_cross_entropy(x, lab, 255, cw) * 3.0, x)
+    torch.cuda.synchronize()
+    assert ce.upsample_cross_entropy.bwd_launches == n + 1 and gx.dtype == torch.bfloat16
+    # per (image, class) plane: the full-resolution terms, rounded apart at
+    # their boundaries, may cancel to a small element of the adjoint's sum
+    assert_bf16_flips(gx, ce.upsample_ce_bwd_plain(x.detach(), lab, cw, 255, 3.0),
+                      row_dim=(2, 3))
+
+
+@pytest.mark.parametrize("bank_dtype", [torch.bfloat16, torch.float32])
+def test_kernel_memobank_enqueue_bf16_rep_bit_equal(bank_dtype):
+    """K5 on a bf16 rep: the rows copied into a bf16 bank, widened into an
+    f32 one, bit-equal to the plain version."""
+    from u2pl_tpu_torch.memobank import clone_bank, memobank_enqueue, memobank_enqueue_plain
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(24)
+    rep = torch.randn(4, 256, 33, 33, device=dev, generator=g).to(torch.bfloat16)
+    bank = _prefilled_bank(dev, 5, 256, 300, 500, bank_dtype)
+    sel = torch.stack([torch.randperm(4 * 33 * 33, device=dev, generator=g)[:400]
+                       for _ in range(5)]).to(torch.int32)
+    n_sel = torch.tensor([400, 17, 0, 300, 399], dtype=torch.int32, device=dev)
+    ref = memobank_enqueue_plain(clone_bank(bank), rep, sel, n_sel)
+    got = memobank_enqueue(bank, rep, sel, n_sel)
+    torch.cuda.synchronize()
+    for name in ("keys", "ptr", "occupancy"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+@pytest.mark.parametrize("bank_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["repeats", "one_pixel", "across_positions"])
+def test_kernel_infonce_bf16_rep_matches_plain(bank_dtype, layout):
+    """K6 on a bf16 rep: the loss rtol 1e-5 of the plain version's (its f32
+    arithmetic in another order); the bf16 gradient (each draw's row
+    rounded, a bf16 bank's negatives' part rounded apart, a pixel's rows
+    added in bf16 in (j, q) order) equal but at bf16 rounding boundaries."""
+    from u2pl_tpu_torch.losses import contrastive as tc
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(25)
+    b, c, h, w, q, m = 4, 5, 17, 17, 32, 8
+    bank = _prefilled_bank(dev, c, 256, 300, 500, bank_dtype)
+    rep = torch.randn(b, 256, h, w, device=dev, generator=g).to(torch.bfloat16).requires_grad_(True)
+    positive = torch.randn(c, 256, device=dev, generator=g)
+    b_j = torch.randperm(c, device=dev, generator=g).to(torch.int32)
+    anchor_idx, active, valid_seg = _anchor_draws(layout, dev, g, b, c, h, w, q, bank, b_j)
+    u_neg = torch.rand(c, q * m, device=dev, generator=g)
+    args = (anchor_idx, positive, bank, b_j, u_neg, active, valid_seg, 0.5)
+    loss = tc.contra_infonce(rep, *args)
+    (grad,) = torch.autograd.grad(loss * 3.0, rep)
+    torch.cuda.synchronize()
+    assert grad.dtype == torch.bfloat16
+    rp = rep.detach().clone().requires_grad_(True)
+    ref = tc.contra_infonce_plain(rp, *args)
+    (gref,) = torch.autograd.grad(ref * 3.0, rp)
+    assert abs(loss.item() - ref.item()) <= 1e-5 * abs(ref.item())
+    assert_bf16_flips(grad, gref, max_frac=0.02, row_dim=1)
+    again = torch.autograd.grad(tc.contra_infonce(rep, *args) * 3.0, rep)[0]
+    assert torch.equal(again, grad)
+    assert not _off_anchors(grad.float(), anchor_idx, active).any()
+
+
+def test_bf16_wrappers_refuse_other_dtypes():
+    """A wrapper takes the dtypes it has a mode for, and raises on others."""
+    from u2pl_tpu_torch.losses import ce, unsup
+
+    dev = _cuda()
+    x = torch.randn(2, 5, 9, 9, device=dev)
+    lab = torch.zeros(2, 33, 33, dtype=torch.int32, device=dev)
+    for bad in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            tr.resize_bilinear(x.to(bad), (17, 17))
+        with pytest.raises(TypeError):
+            ce.upsample_cross_entropy(x.to(bad), lab)
+        with pytest.raises(TypeError):
+            unsup.upsample_softmax_stats(x.to(bad), (33, 33))
+    with pytest.raises(TypeError):  # kernel B has no bf16 mode yet
+        tr.resize_argmax(x[0].to(torch.bfloat16), (17, 17))

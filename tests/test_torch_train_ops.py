@@ -118,6 +118,21 @@ def test_upsample_softmax_stats_match_jax_step(shape, hw):
     # messages carry the margins, so a failure elsewhere says which one moved
     up_diff = float(np.abs(np.moveaxis(np.asarray(pt), -1, 1)
                            - resize_bilinear_plain(torch.from_numpy(x), hw).numpy()).max())
+    # each side against float64 statistics of JAX's own upsample (each was
+    # 3.4e-7 from it where this test was once seen failing): names the side
+    # that moved
+    p64 = np.moveaxis(np.asarray(pt, np.float64), -1, 1)
+    top = p64.max(axis=1)
+    lse = top + np.log(np.exp(p64 - top[:, None]).sum(axis=1))
+    mp64 = np.exp(top - lse)
+    prob64 = np.exp(p64 - lse[:, None])
+    ent64 = -(prob64 * np.log(prob64 + 1e-10)).sum(axis=1)
+    sides = {"port": (mp.numpy(), ent.numpy()), "jax": (np.asarray(ref_mp), np.asarray(ref_ent))}
+    for side, (side_mp, side_ent) in sides.items():
+        np.testing.assert_allclose(side_mp, mp64, rtol=1e-5,
+                                   err_msg=f"{side} max-prob off the float64 reference")
+        np.testing.assert_allclose(side_ent, ent64, rtol=1e-5, atol=1e-6,
+                                   err_msg=f"{side} entropy off the float64 reference")
     np.testing.assert_allclose(mp.numpy(), np.asarray(ref_mp), rtol=1e-5,
                                err_msg=f"upsample max abs diff {up_diff}")
     np.testing.assert_allclose(ent.numpy(), np.asarray(ref_ent), rtol=1e-5, atol=1e-6,

@@ -101,7 +101,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if args.dtype != "float32":
         raise NotImplementedError(
             f"--dtype {args.dtype}: the port evaluates float32 only; the bfloat16 "
-            "forward is ROADMAP.md queue 1 item 3 (bf16)")
+            "forward of serve / eval / infer is ROADMAP.md queue 1 item 2 (bf16), "
+            "the slice after bf16 training")
     cfg = load_config(args.config)
     logger = init_log("main-logger", logging.INFO)
     logger.info(args)
@@ -123,7 +124,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     data_list, colormap = build_data_list(cfg)
     # the port has one BatchNorm for one card: eval builds without SyncBN as
     # the reference does (eval.py:120)
-    model = build_model(cfg.net, device=device)
+    model = build_model(cfg.net, device=device, dtype=torch.float32)
     load_eval_variables(model, args.model_path)
     net_process = make_net_process(model)
     is_city = "cityscapes" in cfg.dataset.type

@@ -37,7 +37,9 @@ def get_parser():
                         help="images per forward; the last, partial batch runs as it is")
     parser.add_argument("--dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"],
-                        help="forward compute dtype (bfloat16 is not ported yet and raises)")
+                        help="forward compute dtype (bfloat16 raises: the bf16 forward of "
+                             "serve / eval / infer is the slice after bf16 training, "
+                             "ROADMAP.md queue 1 item 2)")
     parser.add_argument("--compilation_cache_dir", type=str, default="",
                         help="accepted for parity with the JAX CLI; ignored")
     parser.add_argument("--device", type=str, default="cuda",

@@ -23,23 +23,23 @@ def load():
     lib = ctypes.CDLL(path)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
-        # (x, y, idx_h, w_h, idx_w, w_w, planes, H, W, OH, OW, stream)
-        "u2pl_resize_bilinear_ac": [p] * 6 + [i] * 5 + [p],
+        # (x, y, idx_h, w_h, idx_w, w_w, planes, H, W, OH, OW, mode, stream)
+        "u2pl_resize_bilinear_ac": [p] * 6 + [i] * 6 + [p],
         # (gy, gx, idx_h, w_h, rng_h, idx_w, w_w, rng_w, planes, H, W, OH, OW,
-        #  rows, bands, wspan, stream)
-        "u2pl_resize_bilinear_ac_bwd": [p] * 8 + [i] * 8 + [p],
+        #  rows, bands, wspan, mode, stream)
+        "u2pl_resize_bilinear_ac_bwd": [p] * 8 + [i] * 9 + [p],
         # (x, out, idx_h, w_h, idx_w, w_w, C, H, W, OH, OW, stream)
         "u2pl_resize_argmax_ac": [p] * 6 + [i] * 5 + [p],
         # (x, labels, cw, lse, part, stats, idx_h, w_h, idx_w, w_w,
-        #  B, C, H, W, OH, OW, ignore, floor, span, max_rows, stream)
-        "u2pl_upsample_ce_fwd": [p] * 10 + [i] * 7 + [f, i, i, p],
+        #  B, C, H, W, OH, OW, ignore, floor, span, max_rows, dtype, stream)
+        "u2pl_upsample_ce_fwd": [p] * 10 + [i] * 7 + [f, i, i, i, p],
         # (x, labels, cw, lse, stats, gout, gx, idx_h, w_h, rng_h, idx_w, w_w,
         #  rng_w, B, C, H, W, OH, OW, ignore, floor, rows, bands, span, log_s,
-        #  Q, stream)
-        "u2pl_upsample_ce_bwd": [p] * 13 + [i] * 7 + [f] + [i] * 5 + [p],
+        #  Q, dtype, stream)
+        "u2pl_upsample_ce_bwd": [p] * 13 + [i] * 7 + [f] + [i] * 6 + [p],
         # (x, maxprob, argmax, entropy, idx_h, w_h, idx_w, w_w,
-        #  B, C, H, W, OH, OW, span, max_rows, stream)
-        "u2pl_upsample_softmax_stats": [p] * 8 + [i] * 8 + [p],
+        #  B, C, H, W, OH, OW, span, max_rows, dtype, stream)
+        "u2pl_upsample_softmax_stats": [p] * 8 + [i] * 9 + [p],
         # (values, mask, pct, out, state, n, K, grid, slice, cap, stream)
         "u2pl_masked_percentiles": [p] * 5 + [i] * 5 + [p],
         # (img, lab, prob, boxes, img_out, lab_out, prob_out,
@@ -59,19 +59,20 @@ def load():
         # (mask, a_j, u, idx, count, C, N, Q, vec, slice, smem, stream)
         "u2pl_contra_sample_anchors": [p] * 5 + [i] * 6 + [p],
         # (rep, sel_idx, n_sel, keys, ptr, occ, sizes, ticket, B, F, HW, C, K,
-        #  cap, dtype, tile, stream)
-        "u2pl_memobank_enqueue": [p] * 8 + [i] * 8 + [p],
+        #  cap, dtype, rep_dtype, tile, stream)
+        "u2pl_memobank_enqueue": [p] * 8 + [i] * 9 + [p],
         # (rep, anchor_idx, pos, keys, occ, b_j, u_neg, active, valid_seg, ce,
-        #  gdir, loss, ticket, B, F, HW, C, Q, M, cap, dtype, group, temperature,
-        #  stream)
-        "u2pl_contra_infonce_fwd": [p] * 13 + [i] * 9 + [f, p],
-        # (anchor_idx, active, valid_seg, gdir, g, sums, grad_rep, B, F, HW, C, Q, stream)
-        "u2pl_contra_infonce_bwd": [p] * 7 + [i] * 5 + [p],
+        #  gdir, loss, ticket, B, F, HW, C, Q, M, cap, dtype, rep_dtype, group,
+        #  temperature, stream)
+        "u2pl_contra_infonce_fwd": [p] * 13 + [i] * 10 + [f, p],
+        # (anchor_idx, active, valid_seg, gdir, g, sums, grad_rep, B, F, HW, C, Q,
+        #  rep_dtype, split, stream)
+        "u2pl_contra_infonce_bwd": [p] * 7 + [i] * 7 + [p],
         # (values, out, state, n, k, grid, slice, cap, stream)
         "u2pl_kth_smallest": [p] * 3 + [i] * 5 + [p],
         # (x, labels, p_y, num_valid, ticket, idx_h, w_h, idx_w, w_w,
-        #  B, C, H, W, OH, OW, ignore, span, max_rows, stream)
-        "u2pl_ohem_target_prob": [p] * 9 + [i] * 9 + [p],
+        #  B, C, H, W, OH, OW, ignore, span, max_rows, dtype, stream)
+        "u2pl_ohem_target_prob": [p] * 9 + [i] * 10 + [p],
         # (labels, p_y, kth, num_valid, out, n, thresh, min_kept, ignore, stream)
         "u2pl_ohem_keep_labels": [p] * 5 + [i, f, i, i, p],
         "u2pl_quantile_max_queries": [],

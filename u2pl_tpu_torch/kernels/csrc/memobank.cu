@@ -43,6 +43,14 @@
 // sector seems to cost about a 64-byte DRAM access.  One scan over the
 // flattened rows (a class search per row) instead of one per class was
 // slower (PERF.md, section 6).
+//
+// bfloat16 rep (the teacher's representation under a bf16 model): JAX
+// gathers the keys in the rep's dtype (contrastive.py:259) and the bank
+// casts them on write, so a bf16 bank takes an exact copy and an f32 bank
+// the widened values.  The kernel reads the rep as R = __nv_bfloat16
+// (half the sector bytes), widens each value to f32 exactly and stores it
+// as above: the same rows, bit for bit.  One kernel: R is a template
+// parameter, picked by the host's `rep_dtype` code.
 
 #include <cuda_bf16.h>
 
@@ -78,8 +86,9 @@ __device__ __forceinline__ void store8(void* keys, long long row, int F, int f0,
   }
 }
 
+template <typename R>
 __global__ void __launch_bounds__(kThreads) mb_enqueue_kernel(
-    const float* __restrict__ rep, const int* __restrict__ sel_idx,
+    const R* __restrict__ rep, const int* __restrict__ sel_idx,
     const int* __restrict__ n_sel, void* __restrict__ keys, int* __restrict__ ptr,
     int* __restrict__ occ, const int* __restrict__ sizes, unsigned* ticket, int F, int HW,
     int C, int K, int cap, int dtype, int tile, int pixels) {
@@ -125,11 +134,11 @@ __global__ void __launch_bounds__(kThreads) mb_enqueue_kernel(
           tile_row[slot] = row;
         } else {  // a tile denser than the list: this thread writes the row alone
           const int b = pix[u] / HW;
-          const float* src = rep + (size_t)b * F * HW + (pix[u] - b * HW);
+          const R* src = rep + (size_t)b * F * HW + (pix[u] - b * HW);
           for (int f0 = 0; f0 < F; f0 += 8) {
             float v[8];
 #pragma unroll
-            for (int i = 0; i < 8; ++i) v[i] = src[(size_t)(f0 + i) * HW];
+            for (int i = 0; i < 8; ++i) v[i] = u2pl::to_f32(src[(size_t)(f0 + i) * HW]);
             store8(keys, row, F, f0, v, dtype);
           }
         }
@@ -150,9 +159,9 @@ __global__ void __launch_bounds__(kThreads) mb_enqueue_kernel(
         const int s = it % n, f0 = (it / n) * 8;
         const int pix = tile_pix[s];
         const int b = pix / HW;
-        const float* src = rep + (size_t)b * F * HW + (pix - b * HW) + (size_t)f0 * HW;
+        const R* src = rep + (size_t)b * F * HW + (pix - b * HW) + (size_t)f0 * HW;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) v[u][i] = src[(size_t)i * HW];
+        for (int i = 0; i < 8; ++i) v[u][i] = u2pl::to_f32(src[(size_t)i * HW]);
       }
     }
 #pragma unroll
@@ -180,19 +189,28 @@ extern "C" {
 int u2pl_memobank_enqueue(const void* rep, const void* sel_idx,
                           const void* n_sel, void* keys, void* ptr, void* occ,
                           const void* sizes, void* ticket, int B, int F, int HW, int C,
-                          int K, int cap, int dtype, int tile, void* stream) {
+                          int K, int cap, int dtype, int rep_dtype, int tile, void* stream) {
+  // dtype: the bank's, rep_dtype: the rep's (0 float32, 1 bfloat16)
   if (B <= 0 || F <= 0 || F % 8 || HW <= 0 || C <= 0 || K <= 0 || cap <= 0 ||
-      tile <= 0 || (dtype != 0 && dtype != 1)) {
+      tile <= 0 || (dtype != 0 && dtype != 1) || (rep_dtype != 0 && rep_dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   const int pixels = B * HW;
   const int blocks = (pixels + tile - 1) / tile;
   const int smem = 4 * C * (int)sizeof(int);
   if (smem > 32 * 1024) return (int)cudaErrorInvalidValue;
-  mb_enqueue_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)rep, (const int*)sel_idx, (const int*)n_sel, keys, (int*)ptr,
-      (int*)occ, (const int*)sizes, (unsigned*)ticket, F, HW, C, K, cap, dtype, tile,
-      pixels);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (rep_dtype == 1) {
+    mb_enqueue_kernel<__nv_bfloat16><<<blocks, kThreads, smem, st>>>(
+        (const __nv_bfloat16*)rep, (const int*)sel_idx, (const int*)n_sel, keys, (int*)ptr,
+        (int*)occ, (const int*)sizes, (unsigned*)ticket, F, HW, C, K, cap, dtype, tile,
+        pixels);
+  } else {
+    mb_enqueue_kernel<float><<<blocks, kThreads, smem, st>>>(
+        (const float*)rep, (const int*)sel_idx, (const int*)n_sel, keys, (int*)ptr,
+        (int*)occ, (const int*)sizes, (unsigned*)ticket, F, HW, C, K, cap, dtype, tile,
+        pixels);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -81,6 +81,18 @@
 // re-reads an (OH, OW, C) f32 intermediate.  It runs one thread per output
 // pixel in a grid-stride loop.
 //
+// bfloat16 modes (the JAX function under a bf16 model, u2pl_tpu/ops/
+// resize.py:76-123): A and A-bwd take T = __nv_bfloat16 in and out, with
+// the arithmetic in f32.  The narrow branch (fewer than 64 channels, or
+// weights not exact in bf16) is the f32 path with only the output rounded to
+// bf16.  The wide branch (the decoder's 256-channel os8 -> os4 upsample:
+// every weight a bf16, every product exact in f32) also rounds the
+// separable intermediate to bf16 between the passes, as the JAX einsums
+// do: the H pass's T rows in A, and in A-bwd the W sum S before it enters
+// the H sum (the transposed einsums' convert_element_type).  The host picks
+// the branch (ops/resize.py:_wide).  One kernel per function: the element
+// type and the branch are template parameters.
+//
 // Taps and index widths: see common.cuh.  Index arithmetic is 32-bit
 // unsigned (the wrappers refuse tensors of 2^31 elements or more): 64-bit
 // division is a long instruction sequence on the GPU.
@@ -92,7 +104,11 @@ namespace {
 using u2pl::blocks_for;
 using u2pl::kThreads;
 using u2pl::lerp2;
+using u2pl::round_bf16;
+using u2pl::store4_cs;
+using u2pl::store_as;
 using u2pl::tap_weight;
+using u2pl::to_f32;
 
 constexpr int kBandOutputs = 4096;        // outputs per block, about
 constexpr int kResizeMaxShared = 160 * 1024;  // bytes of taps and H-lerped rows
@@ -114,13 +130,16 @@ __device__ __forceinline__ int col_slot(int ox, int quarter) {
   return (ox & 3) * quarter + (ox >> 2);
 }
 
+// T: the element type (float; __nv_bfloat16 in the bf16 modes); WIDE rounds
+// the H pass to bf16
+template <typename T, bool WIDE>
 __global__ void __launch_bounds__(kThreads) resize_bilinear_ac_kernel(
-    const float* __restrict__ x, float* __restrict__ y,
+    const T* __restrict__ x, T* __restrict__ y,
     const int* __restrict__ idx_h, const float* __restrict__ w_h,
     const int* __restrict__ idx_w, const float* __restrict__ w_w, int H, int W,
     int OH, int OW, int rows, int bands, int quarter, float inv_ow) {
   extern __shared__ int4 col[];  // (lo, hi, 1 - frac, frac) per output column
-  float* T = reinterpret_cast<float*>(col + 4 * quarter);  // the band's H-lerped rows
+  float* Trows = reinterpret_cast<float*>(col + 4 * quarter);  // the band's H-lerped rows
   const int plane = blockIdx.x / bands;
   const int oy0 = (blockIdx.x - plane * bands) * rows;
   const int nr = min(rows, OH - oy0);
@@ -130,14 +149,17 @@ __global__ void __launch_bounds__(kThreads) resize_bilinear_ac_kernel(
                                            __float_as_int(w_w[OW + ox]));
   }
   // the H pass: one warp per band row, the lanes along the input row
-  const float* xp = x + (size_t)plane * H * W;
+  const T* xp = x + (size_t)plane * H * W;
   for (int r = threadIdx.x >> 5; r < nr; r += kThreads / 32) {
     const int oy = oy0 + r;
     const float a = w_h[oy], b = w_h[OH + oy];
-    const float* x0 = xp + idx_h[oy] * W;
-    const float* x1 = xp + idx_h[OH + oy] * W;
-    float* Tr = T + r * W;
-    for (int c = threadIdx.x & 31; c < W; c += 32) Tr[c] = lerp2(a, x0[c], b, x1[c]);
+    const T* x0 = xp + idx_h[oy] * W;
+    const T* x1 = xp + idx_h[OH + oy] * W;
+    float* Tr = Trows + r * W;
+    for (int c = threadIdx.x & 31; c < W; c += 32) {
+      const float v = lerp2(a, to_f32(x0[c]), b, to_f32(x1[c]));
+      Tr[c] = WIDE ? round_bf16(v) : v;
+    }
   }
   __syncthreads();
   const unsigned s = ((unsigned)plane * OH + oy0) * OW;  // the band's outputs [s, e)
@@ -147,22 +169,22 @@ __global__ void __launch_bounds__(kThreads) resize_bilinear_ac_kernel(
     int r = div_small(local, OW, inv_ow);
     int ox = local - r * OW;
     if (k >= s && k + 4 <= e && ox + 4 <= OW) {  // 4 outputs of one row
-      const float* Tr = T + r * W;
+      const float* Tr = Trows + r * W;
       float v[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int4 t = col[col_slot(ox + i, quarter)];
         v[i] = lerp2(__int_as_float(t.z), Tr[t.x], __int_as_float(t.w), Tr[t.y]);
       }
-      __stcs(reinterpret_cast<float4*>(y + k), make_float4(v[0], v[1], v[2], v[3]));
+      store4_cs(y + k, v);
       continue;
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {  // a band's ragged ends, a row's wrap
       if (k + i >= s && k + i < e) {
         const int4 t = col[col_slot(ox, quarter)];
-        const float* Tr = T + r * W;
-        y[k + i] = lerp2(__int_as_float(t.z), Tr[t.x], __int_as_float(t.w), Tr[t.y]);
+        const float* Tr = Trows + r * W;
+        store_as(y + k + i, lerp2(__int_as_float(t.z), Tr[t.x], __int_as_float(t.w), Tr[t.y]));
         if (++ox == OW) {
           ox = 0;
           ++r;
@@ -175,10 +197,11 @@ __global__ void __launch_bounds__(kThreads) resize_bilinear_ac_kernel(
 constexpr int kBwdRows = 4;  // gy rows whose loads a thread issues together
 
 // A-bwd: thread (plane, band, ix); MAXW 0 reads any number of column taps
-// from the tables, else holds at most MAXW in registers
-template <int MAXW>
+// from the tables, else holds at most MAXW in registers; T and WIDE as in A
+// (WIDE rounds each W sum to bf16)
+template <int MAXW, typename T, bool WIDE>
 __global__ void __launch_bounds__(kThreads) resize_bilinear_ac_bwd_kernel(
-    const float* __restrict__ gy, float* __restrict__ gx,
+    const T* __restrict__ gy, T* __restrict__ gx,
     const int* __restrict__ idx_h, const float* __restrict__ w_h,
     const int* __restrict__ rng_h, const int* __restrict__ idx_w,
     const float* __restrict__ w_w, const int* __restrict__ rng_w, unsigned threads,
@@ -194,14 +217,16 @@ __global__ void __launch_bounds__(kThreads) resize_bilinear_ac_bwd_kernel(
   float wx[MAXW > 0 ? MAXW : 1];
 #pragma unroll
   for (int j = 0; j < MAXW; ++j) wx[j] = j < cnt ? tap_weight(idx_w, w_w, OW, ox0 + j, ix) : 0.0f;
-  const float* g = gy + (size_t)plane * OH * OW + ox0;
-  float* out = gx + (size_t)plane * H * W + ix;
+  const T* g = gy + (size_t)plane * OH * OW + ox0;
+  T* out = gx + (size_t)plane * H * W + ix;
   const int ob = rng_h[iy0], oe = rng_h[H + iy1 - 1];
   // rows L and L + 1 take the current output row; rows [iy0, next) are stored
   int L = ob < oe ? idx_h[ob] : iy1, next = iy0;
   float a0 = 0.0f, a1 = 0.0f;
   auto flush = [&](int upto) {  // store input rows [next, upto) of the band
-    for (; next < upto; ++next) out[(size_t)next * W] = next == L ? a0 : next == L + 1 ? a1 : 0.0f;
+    for (; next < upto; ++next) {
+      store_as(out + (size_t)next * W, next == L ? a0 : next == L + 1 ? a1 : 0.0f);
+    }
   };
   for (int oy0 = ob; oy0 < oe; oy0 += kBwdRows) {
     float v[kBwdRows][MAXW > 0 ? MAXW : 1];
@@ -210,7 +235,7 @@ __global__ void __launch_bounds__(kThreads) resize_bilinear_ac_bwd_kernel(
       for (int u = 0; u < kBwdRows; ++u) {
 #pragma unroll
         for (int j = 0; j < MAXW; ++j) {
-          v[u][j] = oy0 + u < oe && j < cnt ? g[(size_t)(oy0 + u) * OW + j] : 0.0f;
+          v[u][j] = oy0 + u < oe && j < cnt ? to_f32(g[(size_t)(oy0 + u) * OW + j]) : 0.0f;
         }
       }
     }
@@ -225,11 +250,12 @@ __global__ void __launch_bounds__(kThreads) resize_bilinear_ac_bwd_kernel(
           if (j < cnt) s = __fadd_rn(s, __fmul_rn(wx[j], v[u][j]));
         }
       } else {
-        const float* row = g + (size_t)oy * OW;
+        const T* row = g + (size_t)oy * OW;
         for (int j = 0; j < cnt; ++j) {
-          s = __fadd_rn(s, __fmul_rn(tap_weight(idx_w, w_w, OW, ox0 + j, ix), row[j]));
+          s = __fadd_rn(s, __fmul_rn(tap_weight(idx_w, w_w, OW, ox0 + j, ix), to_f32(row[j])));
         }
       }
+      if (WIDE) s = round_bf16(s);
       const int lo = idx_h[oy];
       if (lo != L) {  // input rows below lo have all their output rows
         flush(min(lo, iy1));
@@ -244,15 +270,50 @@ __global__ void __launch_bounds__(kThreads) resize_bilinear_ac_bwd_kernel(
   flush(iy1);
 }
 
-template <int MAXW>
-cudaError_t launch_bwd(const float* gy, float* gx, const int* idx_h, const float* w_h,
-                       const int* rng_h, const int* idx_w, const float* w_w,
-                       const int* rng_w, unsigned threads, int H, int W, int OH, int OW,
-                       int rows, int bands, cudaStream_t stream) {
-  resize_bilinear_ac_bwd_kernel<MAXW><<<(threads + kThreads - 1) / kThreads, kThreads, 0,
-                                        stream>>>(gy, gx, idx_h, w_h, rng_h, idx_w, w_w,
-                                                  rng_w, threads, H, W, OH, OW, rows, bands);
+struct ResizeArgs {
+  const void* x;  // A: x, A-bwd: gy
+  void* y;        // A: y, A-bwd: gx
+  const int* idx_h;
+  const float* w_h;
+  const int* rng_h;
+  const int* idx_w;
+  const float* w_w;
+  const int* rng_w;
+  int H, W, OH, OW;
+};
+
+template <typename T, bool WIDE>
+cudaError_t launch_fwd(const ResizeArgs& a, unsigned blocks, int smem, int rows, int bands,
+                       int quarter, cudaStream_t stream) {
+  auto kernel = resize_bilinear_ac_kernel<T, WIDE>;
+  if (smem > 48 * 1024) {  // above the default dynamic shared memory of a block
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<blocks, kThreads, smem, stream>>>((const T*)a.x, (T*)a.y, a.idx_h, a.w_h, a.idx_w,
+                                             a.w_w, a.H, a.W, a.OH, a.OW, rows, bands,
+                                             quarter, 1.0f / (float)a.OW);
   return cudaGetLastError();
+}
+
+template <int MAXW, typename T, bool WIDE>
+cudaError_t launch_bwd(const ResizeArgs& a, unsigned threads, int rows, int bands,
+                       cudaStream_t stream) {
+  resize_bilinear_ac_bwd_kernel<MAXW, T, WIDE>
+      <<<(threads + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+          (const T*)a.x, (T*)a.y, a.idx_h, a.w_h, a.rng_h, a.idx_w, a.w_w, a.rng_w, threads,
+          a.H, a.W, a.OH, a.OW, rows, bands);
+  return cudaGetLastError();
+}
+
+template <typename T, bool WIDE>
+cudaError_t launch_bwd_span(const ResizeArgs& a, unsigned threads, int rows, int bands,
+                            int wspan, cudaStream_t stream) {
+  if (wspan <= 4) {  // every downsample, an upsample of up to about 2x
+    return launch_bwd<4, T, WIDE>(a, threads, rows, bands, stream);
+  }
+  return launch_bwd<0, T, WIDE>(a, threads, rows, bands, stream);
 }
 
 __global__ void resize_argmax_ac_kernel(
@@ -287,10 +348,15 @@ __global__ void resize_argmax_ac_kernel(
 
 extern "C" {
 
+// the modes of A and A-bwd (ops/resize.py:_resize_mode): f32, the bf16
+// narrow branch, the bf16 wide branch
+enum { kModeF32 = 0, kModeBf16 = 1, kModeBf16Wide = 2 };
+
 int u2pl_resize_bilinear_ac(const void* x, void* y, const void* idx_h,
                             const void* w_h, const void* idx_w, const void* w_w,
-                            int planes, int H, int W, int OH, int OW,
+                            int planes, int H, int W, int OH, int OW, int mode,
                             void* stream) {
+  if (mode < kModeF32 || mode > kModeBf16Wide) return (int)cudaErrorInvalidValue;
   if (planes <= 0 || OH <= 0 || OW <= 0) return (int)cudaGetLastError();
   const int quarter = (OW + 3) / 4;
   if (H <= 0 || W <= 0 || (long long)quarter * 64 + (long long)W * 4 > kResizeMaxShared) {
@@ -303,17 +369,17 @@ int u2pl_resize_bilinear_ac(const void* x, void* y, const void* idx_h,
   rows = min(rows, (kResizeMaxShared - quarter * 64) / (W * 4));
   const int bands = (OH + rows - 1) / rows;
   const int smem = quarter * 64 + rows * W * 4;
-  if (smem > 48 * 1024) {  // above the default dynamic shared memory of a block
-    const cudaError_t err = cudaFuncSetAttribute(
-        resize_bilinear_ac_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
+  const ResizeArgs a = {x, y, (const int*)idx_h, (const float*)w_h, nullptr,
+                        (const int*)idx_w, (const float*)w_w, nullptr, H, W, OH, OW};
+  const unsigned blocks = (unsigned)planes * bands;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mode == kModeBf16Wide) {
+    return (int)launch_fwd<__nv_bfloat16, true>(a, blocks, smem, rows, bands, quarter, st);
   }
-  resize_bilinear_ac_kernel<<<(unsigned)planes * bands, kThreads, smem,
-                              (cudaStream_t)stream>>>(
-      (const float*)x, (float*)y, (const int*)idx_h, (const float*)w_h,
-      (const int*)idx_w, (const float*)w_w, H, W, OH, OW, rows, bands, quarter,
-      1.0f / (float)OW);
-  return (int)cudaGetLastError();
+  if (mode == kModeBf16) {
+    return (int)launch_fwd<__nv_bfloat16, false>(a, blocks, smem, rows, bands, quarter, st);
+  }
+  return (int)launch_fwd<float, false>(a, blocks, smem, rows, bands, quarter, st);
 }
 
 // (rows, bands, wspan) from ops/resize.py:_bwd_plan: bands of `rows` input
@@ -323,24 +389,26 @@ int u2pl_resize_bilinear_ac_bwd(const void* gy, void* gx, const void* idx_h,
                                 const void* idx_w, const void* w_w,
                                 const void* rng_w, int planes, int H, int W,
                                 int OH, int OW, int rows, int bands, int wspan,
-                                void* stream) {
+                                int mode, void* stream) {
+  if (mode < kModeF32 || mode > kModeBf16Wide) return (int)cudaErrorInvalidValue;
   if (planes <= 0 || H <= 0 || W <= 0) return (int)cudaGetLastError();
   const long long threads = (long long)planes * bands * W;
   if (OH <= 0 || OW <= 0 || rows <= 0 || bands != (H + rows - 1) / rows || wspan <= 0 ||
       threads >= (1LL << 31)) {
     return (int)cudaErrorInvalidValue;
   }
-  const float* g = (const float*)gy;
-  float* x = (float*)gx;
-  const int *ih = (const int*)idx_h, *rh = (const int*)rng_h;
-  const int *iw = (const int*)idx_w, *rw = (const int*)rng_w;
-  const float *wh = (const float*)w_h, *ww = (const float*)w_w;
+  const ResizeArgs a = {gy, gx, (const int*)idx_h, (const float*)w_h, (const int*)rng_h,
+                        (const int*)idx_w, (const float*)w_w, (const int*)rng_w,
+                        H, W, OH, OW};
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned n = (unsigned)threads;
-  if (wspan <= 4) {  // every downsample, an upsample of up to about 2x
-    return (int)launch_bwd<4>(g, x, ih, wh, rh, iw, ww, rw, n, H, W, OH, OW, rows, bands, st);
+  if (mode == kModeBf16Wide) {
+    return (int)launch_bwd_span<__nv_bfloat16, true>(a, n, rows, bands, wspan, st);
   }
-  return (int)launch_bwd<0>(g, x, ih, wh, rh, iw, ww, rw, n, H, W, OH, OW, rows, bands, st);
+  if (mode == kModeBf16) {
+    return (int)launch_bwd_span<__nv_bfloat16, false>(a, n, rows, bands, wspan, st);
+  }
+  return (int)launch_bwd_span<float, false>(a, n, rows, bands, wspan, st);
 }
 
 int u2pl_resize_argmax_ac(const void* x, void* out, const void* idx_h,

@@ -63,6 +63,20 @@
 //    the main (2, 19, 193²) / aux (2, 19, 97²) head -> 769², ~8x its
 //    operations bound, as C's forward.
 
+// bfloat16 modes (the semi and supervised steps under a bf16 model): the
+// logits In = __nv_bfloat16.  JAX upsamples them in the narrow branch of
+// u2pl_tpu/ops/resize.py (f32 taps, each upsampled value rounded to bf16)
+// and takes every reduction on the f32 cast of those values
+// (ce.py:36-46, steps.py:295-301, unsup.py:24, ohem.py:66-75).  So each
+// kernel reads bf16, interpolates in f32 as in f32 mode, rounds every
+// upsampled value to bf16 (`up_value`) and then runs the f32 mode's
+// statistics unchanged; an argmax over the rounded values keeps the first
+// of exact ties.  C's backward rounds each full-resolution gradient value
+// coef (softmax - onehot) to bf16, where the VJP of the astype to f32
+// rounds the cotangent, sums the adjoint in f32 and writes a bf16
+// gradient (the narrow branch's VJP: f32 einsums, one rounding at the
+// end).  One kernel per function: In is a template parameter.
+
 #include <limits.h>
 #include <math.h>
 
@@ -71,7 +85,18 @@
 namespace {
 
 using u2pl::kThreads;
+using u2pl::round_bf16;
+using u2pl::store_as;
 using u2pl::tap_weight;
+using u2pl::to_f32;
+
+// one upsampled value from its H-lerped inputs: rounded to bf16 in the
+// bf16 modes (BF), as the narrow branch's output is
+template <bool BF>
+__device__ __forceinline__ float up_value(float p, float a, float q, float b) {
+  const float v = u2pl::lerp2(p, a, q, b);
+  return BF ? round_bf16(v) : v;
+}
 
 constexpr long long kBwdMaxShared = 232448;  // a block's shared memory on sm_90 (227 KB)
 
@@ -125,17 +150,19 @@ struct GridWalk {
   }
 };
 
+template <typename In>
 __global__ void __launch_bounds__(kBwdThreads) upsample_ce_bwd_kernel(
-    const float* __restrict__ x, const int* __restrict__ labels,
+    const In* __restrict__ x, const int* __restrict__ labels,
     const float* __restrict__ cw, const float* __restrict__ lse,
     const float* __restrict__ stats, const float* __restrict__ gout,
-    float* __restrict__ gx, const int* __restrict__ idx_h,
+    In* __restrict__ gx, const int* __restrict__ idx_h,
     const float* __restrict__ w_h, const int* __restrict__ rng_h,
     const int* __restrict__ idx_w, const float* __restrict__ w_w,
     const int* __restrict__ rng_w, int C, int H, int W, int OH, int OW,
     int ignore, float floor_, int rows, int bands, int span, int log_s,
     int Q) {
   extern __shared__ int2 col[];  // OW x (lo | hi << 16, frac) of the columns
+  constexpr bool BF = sizeof(In) == 2;
   const int S = 1 << log_s, SQ = S * Q, CW = C * W;
   const int G = (C + kGroup - 1) / kGroup;         // class groups
   float* g = reinterpret_cast<float*>(col + OW);  // G*kGroup x S x Q: g of one output row
@@ -155,7 +182,7 @@ __global__ void __launch_bounds__(kBwdThreads) upsample_ce_bwd_kernel(
   const int iy1 = min(iy0 + rows, H);
   const int oy_begin = rng_h[iy0], oy_end = rng_h[H + iy1 - 1];
   const int plane = H * W;
-  const float* xb = x + (size_t)b * C * plane;
+  const In* xb = x + (size_t)b * C * plane;
   const int* lab = labels + (size_t)b * OH * OW;
   const float* lse_b = lse + (size_t)b * OH * OW;
   const float denom = stats[1];
@@ -188,12 +215,12 @@ __global__ void __launch_bounds__(kBwdThreads) upsample_ce_bwd_kernel(
   const int dcw = nt / W, diw = nt % W;
   auto stage = [&](int oy, int k0, int p0) {
     const float a = w_h[oy], bw = w_h[OH + oy];
-    const float* x0 = xb + idx_h[oy] * W;
-    const float* x1 = xb + idx_h[OH + oy] * W;
+    const In* x0 = xb + idx_h[oy] * W;
+    const In* x1 = xb + idx_h[OH + oy] * W;
     GridWalk it(k0, W);
     for (int k = k0; k < CW; k += nt, it.next(dcw, diw, W)) {
       const int off = it.c * plane + it.i;
-      T[k] = u2pl::lerp2(a, x0[off], bw, x1[off]);
+      T[k] = u2pl::lerp2(a, to_f32(x0[off]), bw, to_f32(x1[off]));
     }
     for (int ox = p0; ox < OW; ox += nt) put_pixel(ox, lab[oy * OW + ox], lse_b[oy * OW + ox]);
   };
@@ -209,16 +236,16 @@ __global__ void __launch_bounds__(kBwdThreads) upsample_ce_bwd_kernel(
     float xa[kPreT], xc[kPreT], ln[kPrePx];
     int yn[kPrePx];
     if (more) {
-      const float* x0 = xb + idx_h[oy + 1] * W;
-      const float* x1 = xb + idx_h[OH + oy + 1] * W;
+      const In* x0 = xb + idx_h[oy + 1] * W;
+      const In* x1 = xb + idx_h[OH + oy + 1] * W;
 #pragma unroll
       for (int j = 0; j < kPreT; ++j) {
         const int k = tid + j * nt;
         if (k < CW) {
           const int c = k / W;
           const int off = c * plane + (k - c * W);
-          xa[j] = x0[off];
-          xc[j] = x1[off];
+          xa[j] = to_f32(x0[off]);
+          xc[j] = to_f32(x1[off]);
         }
       }
 #pragma unroll
@@ -253,8 +280,9 @@ __global__ void __launch_bounds__(kBwdThreads) upsample_ce_bwd_kernel(
         const int c = c0 + u;
         if (c < C) {
           const float* Tc = T + c * W;
-          const float e = expf(u2pl::lerp2(p, Tc[t0], q, Tc[t1]) - l);
-          gp[u * SQ] = coefv * (c == y ? e - 1.0f : e);
+          const float e = expf(up_value<BF>(p, Tc[t0], q, Tc[t1]) - l);
+          const float gv = coefv * (c == y ? e - 1.0f : e);
+          gp[u * SQ] = BF ? round_bf16(gv) : gv;
         }
       }
     }
@@ -318,8 +346,8 @@ __global__ void __launch_bounds__(kBwdThreads) upsample_ce_bwd_kernel(
     const int c = k / (nr * W);
     const int rem = k - c * nr * W;
     const int r = rem / W;
-    gx[((size_t)b * C + c) * plane + (size_t)(iy0 + r) * W + (rem - r * W)] =
-        acc[(c * rows + r) * W + rem - r * W];
+    store_as(gx + ((size_t)b * C + c) * plane + (size_t)(iy0 + r) * W + (rem - r * W),
+             acc[(c * rows + r) * W + rem - r * W]);
   }
 }
 
@@ -349,7 +377,7 @@ __device__ __forceinline__ int stats_div(int n, int d, float inv_d) {
 // (class c at Tr + c * W) and its column taps t = (lo, hi, 1 - frac, frac):
 // kernel D's first design's expressions in its class order, with each
 // upsampled value evaluated once and each exp(v - max) once
-template <int MAXC, int MODE, bool EXACT>
+template <int MAXC, int MODE, bool EXACT, bool BF>
 __device__ __forceinline__ void stats_pixel(const float* __restrict__ Tr, int W,
                                             int C, int4 t, float& mp, int& am,
                                             float& en) {
@@ -360,7 +388,7 @@ __device__ __forceinline__ void stats_pixel(const float* __restrict__ Tr, int W,
 #pragma unroll
   for (int c = 0; c < MAXC; ++c) {
     if (EXACT || c < C) {
-      v[c] = u2pl::lerp2(p, Tr[c * W + t.x], q, Tr[c * W + t.y]);
+      v[c] = up_value<BF>(p, Tr[c * W + t.x], q, Tr[c * W + t.y]);
       // first maximum; a NaN counts as the maximum, the first NaN wins
       // (jnp.argmax / torch.argmax, as kernel B)
       if (c == 0 || (m == m && (v[c] > m || v[c] != v[c]))) {
@@ -401,7 +429,7 @@ __device__ __forceinline__ void stats_pixel(const float* __restrict__ Tr, int W,
 // designs' expressions and class order: m = fmaxf over the classes from
 // -inf, s = sum of expf(v - m).  MAXC 0 takes any C, evaluating each value
 // again for the sum (the same bits).
-template <int MAXC, bool EXACT>
+template <int MAXC, bool EXACT, bool BF>
 __device__ __forceinline__ float softmax_terms(const float* __restrict__ Tr, int W, int C,
                                                int4 t, int y, float& vy, float& s) {
   const float p = __int_as_float(t.z), q = __int_as_float(t.w);
@@ -410,17 +438,17 @@ __device__ __forceinline__ float softmax_terms(const float* __restrict__ Tr, int
   vy = 0.0f;
   if constexpr (MAXC == 0) {
     for (int c = 0; c < C; ++c) {
-      const float v = u2pl::lerp2(p, Tr[c * W + t.x], q, Tr[c * W + t.y]);
+      const float v = up_value<BF>(p, Tr[c * W + t.x], q, Tr[c * W + t.y]);
       m = fmaxf(m, v);
       if (c == y) vy = v;
     }
-    for (int c = 0; c < C; ++c) s += expf(u2pl::lerp2(p, Tr[c * W + t.x], q, Tr[c * W + t.y]) - m);
+    for (int c = 0; c < C; ++c) s += expf(up_value<BF>(p, Tr[c * W + t.x], q, Tr[c * W + t.y]) - m);
   } else {
     float v[MAXC];
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) {
       if (EXACT || c < C) {
-        v[c] = u2pl::lerp2(p, Tr[c * W + t.x], q, Tr[c * W + t.y]);
+        v[c] = up_value<BF>(p, Tr[c * W + t.x], q, Tr[c * W + t.y]);
         m = fmaxf(m, v[c]);
         if (c == y) vy = v[c];
       }
@@ -434,24 +462,24 @@ __device__ __forceinline__ float softmax_terms(const float* __restrict__ Tr, int
 }
 
 // kernel C's forward for one output pixel: its logsumexp m + logf(s)
-template <int MAXC, bool EXACT>
+template <int MAXC, bool EXACT, bool BF>
 __device__ __forceinline__ float ce_pixel(const float* __restrict__ Tr, int W, int C,
                                           int4 t, int y, float& vy) {
   float s;
-  const float m = softmax_terms<MAXC, EXACT>(Tr, W, C, t, y, vy, s);
+  const float m = softmax_terms<MAXC, EXACT, BF>(Tr, W, C, t, y, vy, s);
   return m + logf(s);
 }
 
 // K7 prob for one output pixel: p_y = expf(vy - m) / s, the first K7
 // design's (ohem.py:71-72), and 1.0 where y is ignored or outside [0, C)
-template <int MAXC, bool EXACT>
+template <int MAXC, bool EXACT, bool BF>
 __device__ __forceinline__ float target_prob_pixel(const float* __restrict__ Tr, int W,
                                                    int C, int4 t, int y, int ignore,
                                                    unsigned& valid) {
   if (y == ignore || y < 0 || y >= C) return 1.0f;
   ++valid;
   float vy, s;
-  const float m = softmax_terms<MAXC, EXACT>(Tr, W, C, t, y, vy, s);
+  const float m = softmax_terms<MAXC, EXACT, BF>(Tr, W, C, t, y, vy, s);
   return expf(vy - m) / s;
 }
 
@@ -479,9 +507,9 @@ __device__ __forceinline__ float target_prob_pixel(const float* __restrict__ Tr,
 // to 0: no zero-fill launch.
 constexpr int kStageBatch = 8;
 
-template <int MAXC, int MODE, bool EXACT>
+template <int MAXC, int MODE, bool EXACT, typename In>
 __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
-    const float* __restrict__ x, float* __restrict__ maxprob,
+    const In* __restrict__ x, float* __restrict__ maxprob,
     int* __restrict__ argmax, float* __restrict__ entropy,
     const int* __restrict__ labels, const float* __restrict__ cw,
     double* __restrict__ part, int* __restrict__ num_valid, unsigned* __restrict__ ticket,
@@ -490,6 +518,7 @@ __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
     int H, int W, int OH, int OW, unsigned total, int span, int quarter,
     int max_rows, float inv_ow) {
   extern __shared__ int4 scol[];  // (lo, hi, 1 - frac, frac) per output column
+  constexpr bool BF = sizeof(In) == 2;
   int4* rtab = scol + 4 * quarter;  // per touched row: input row offsets, weights
   float* T = reinterpret_cast<float*>(rtab + max_rows);
   const unsigned k0 = blockIdx.x * (unsigned)span;
@@ -530,8 +559,8 @@ __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
 #pragma unroll
       for (int j = 0; j < kStageBatch; ++j) {
         if (k + j * kStatsThreads < CW) {
-          x0[j] = x[rt.x + off[j]];
-          x1[j] = x[rt.y + off[j]];
+          x0[j] = to_f32(x[rt.x + off[j]]);
+          x1[j] = to_f32(x[rt.y + off[j]]);
         }
       }
 #pragma unroll
@@ -574,7 +603,7 @@ __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
         if constexpr (MODE == kStatsCE) {
           const int y = i == 0 ? lab.x : i == 1 ? lab.y : i == 2 ? lab.z : lab.w;
           float vy;
-          mp = ce_pixel<MAXC, EXACT>(T + r * CW, W, C, t, y, vy);  // the lse
+          mp = ce_pixel<MAXC, EXACT, BF>(T + r * CW, W, C, t, y, vy);  // the lse
           if (y != ignore && y >= 0 && y < C) {
             const float wy = cw ? cw[y] : 1.0f;
             acc += (double)((mp - vy) * wy);
@@ -582,9 +611,9 @@ __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
           }
         } else if constexpr (MODE == kStatsTargetProb) {
           const int y = i == 0 ? lab.x : i == 1 ? lab.y : i == 2 ? lab.z : lab.w;
-          mp = target_prob_pixel<MAXC, EXACT>(T + r * CW, W, C, t, y, ignore, valid);
+          mp = target_prob_pixel<MAXC, EXACT, BF>(T + r * CW, W, C, t, y, ignore, valid);
         } else {
-          stats_pixel<MAXC, MODE, EXACT>(T + r * CW, W, C, t, mp, am, en);
+          stats_pixel<MAXC, MODE, EXACT, BF>(T + r * CW, W, C, t, mp, am, en);
         }
       }
 #pragma unroll
@@ -658,7 +687,7 @@ __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
 }
 
 struct StatsArgs {
-  const float* x;
+  const void* x;  // float or __nv_bfloat16 (the launch's In)
   float* maxprob;  // kStatsCE: the lse; kStatsTargetProb: p_y
   int* argmax;
   float* entropy;
@@ -677,16 +706,16 @@ struct StatsArgs {
   int span, quarter, max_rows, smem;
 };
 
-template <int MAXC, int MODE, bool EXACT = false>
+template <int MAXC, int MODE, bool EXACT, typename In>
 cudaError_t launch_stats(const StatsArgs& a, cudaStream_t stream) {
-  auto kernel = upsample_softmax_stats_kernel<MAXC, MODE, EXACT>;
+  auto kernel = upsample_softmax_stats_kernel<MAXC, MODE, EXACT, In>;
   if (a.smem > 48 * 1024) {  // above the default dynamic shared memory of a block
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
     if (err != cudaSuccess) return err;
   }
   kernel<<<(a.total + a.span - 1) / a.span, kStatsThreads, a.smem, stream>>>(
-      a.x, a.maxprob, a.argmax, a.entropy, a.labels, a.cw, a.part, a.num_valid, a.ticket,
+      (const In*)a.x, a.maxprob, a.argmax, a.entropy, a.labels, a.cw, a.part, a.num_valid, a.ticket,
       a.ignore, a.idx_h, a.w_h, a.idx_w, a.w_w, a.C, a.H, a.W, a.OH, a.OW, a.total, a.span,
       a.quarter, a.max_rows, 1.0f / (float)a.OW);
   return cudaGetLastError();
@@ -695,17 +724,24 @@ cudaError_t launch_stats(const StatsArgs& a, cudaStream_t stream) {
 // the configs' class counts exactly (no per-class guard), else the
 // smallest register array that holds C classes; C's forward and K7 prob
 // take any C (MAXC 0: no register array)
-template <int MODE>
-cudaError_t launch_stats_mode(const StatsArgs& a, cudaStream_t stream) {
-  if (a.C == 21) return launch_stats<21, MODE, true>(a, stream);  // VOC
-  if (a.C == 19) return launch_stats<19, MODE, true>(a, stream);  // Cityscapes
-  if (a.C <= 8) return launch_stats<8, MODE>(a, stream);
-  if (a.C <= 16) return launch_stats<16, MODE>(a, stream);
-  if (a.C <= 24) return launch_stats<24, MODE>(a, stream);
+template <int MODE, typename In>
+cudaError_t launch_stats_in(const StatsArgs& a, cudaStream_t stream) {
+  if (a.C == 21) return launch_stats<21, MODE, true, In>(a, stream);  // VOC
+  if (a.C == 19) return launch_stats<19, MODE, true, In>(a, stream);  // Cityscapes
+  if (a.C <= 8) return launch_stats<8, MODE, false, In>(a, stream);
+  if (a.C <= 16) return launch_stats<16, MODE, false, In>(a, stream);
+  if (a.C <= 24) return launch_stats<24, MODE, false, In>(a, stream);
   if constexpr (MODE == kStatsCE || MODE == kStatsTargetProb) {
-    if (a.C > kStatsMaxClasses) return launch_stats<0, MODE>(a, stream);
+    if (a.C > kStatsMaxClasses) return launch_stats<0, MODE, false, In>(a, stream);
   }
-  return launch_stats<32, MODE>(a, stream);
+  return launch_stats<32, MODE, false, In>(a, stream);
+}
+
+// the logits' dtype: 0 float32, 1 bfloat16 (losses/ce.py:LOGIT_DTYPES)
+template <int MODE>
+cudaError_t launch_stats_mode(const StatsArgs& a, int dtype, cudaStream_t stream) {
+  if (dtype == 1) return launch_stats_in<MODE, __nv_bfloat16>(a, stream);
+  return launch_stats_in<MODE, float>(a, stream);
 }
 
 // a plan (span, max_rows) from losses/ce.py:_stats_plan: span a multiple of
@@ -721,6 +757,40 @@ bool stats_plan_ok(int B, int C, int W, int OH, int OW, int span, int max_rows,
          bytes <= kStatsMaxShared && (long long)max_rows * C * W < (1 << 24);
 }
 
+struct BwdArgs {
+  const void* x;  // float or __nv_bfloat16 (the launch's In), as gx
+  const int* labels;
+  const float* cw;
+  const float* lse;
+  const float* stats;
+  const float* gout;
+  void* gx;
+  const int* idx_h;
+  const float* w_h;
+  const int* rng_h;
+  const int* idx_w;
+  const float* w_w;
+  const int* rng_w;
+  int C, H, W, OH, OW, ignore;
+  float floor_;
+  int rows, bands, span, log_s, Q;
+};
+
+template <typename In>
+cudaError_t launch_bwd(const BwdArgs& a, unsigned blocks, int smem, cudaStream_t stream) {
+  auto kernel = upsample_ce_bwd_kernel<In>;
+  if (smem > 48 * 1024) {  // above the default dynamic shared memory of a block
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<blocks, kBwdThreads, (size_t)smem, stream>>>(
+      (const In*)a.x, a.labels, a.cw, a.lse, a.stats, a.gout, (In*)a.gx, a.idx_h, a.w_h,
+      a.rng_h, a.idx_w, a.w_w, a.rng_w, a.C, a.H, a.W, a.OH, a.OW, a.ignore, a.floor_,
+      a.rows, a.bands, a.span, a.log_s, a.Q);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -731,10 +801,10 @@ int u2pl_upsample_ce_fwd(const void* x, const void* labels, const void* cw,
                          void* lse, void* part, void* stats, const void* idx_h,
                          const void* w_h, const void* idx_w, const void* w_w,
                          int B, int C, int H, int W, int OH, int OW,
-                         int ignore, float floor_, int span, int max_rows,
+                         int ignore, float floor_, int span, int max_rows, int dtype,
                          void* stream) {
   int smem = 0;
-  if (C <= 0 || H <= 0 || W <= 0 ||
+  if (C <= 0 || H <= 0 || W <= 0 || (dtype != 0 && dtype != 1) ||
       !stats_plan_ok(B, C, W, OH, OW, span, max_rows, &smem)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -742,12 +812,12 @@ int u2pl_upsample_ce_fwd(const void* x, const void* labels, const void* cw,
   const int blocks = total > 0 ? (int)((total + span - 1) / span) : 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (blocks > 0) {
-    const StatsArgs a = {(const float*)x, (float*)lse, nullptr, nullptr, (const int*)labels,
+    const StatsArgs a = {x, (float*)lse, nullptr, nullptr, (const int*)labels,
                          (const float*)cw, (double*)part, nullptr, nullptr, ignore,
                          (const int*)idx_h, (const float*)w_h, (const int*)idx_w,
                          (const float*)w_w, C, H, W, OH, OW, (unsigned)total, span,
                          (OW + 3) / 4, max_rows, smem};
-    const cudaError_t err = launch_stats_mode<kStatsCE>(a, st);
+    const cudaError_t err = launch_stats_mode<kStatsCE>(a, dtype, st);
     if (err != cudaSuccess) return (int)err;
   }
   upsample_ce_finalize_kernel<<<1, kThreads, 0, st>>>((const double*)part, blocks, floor_,
@@ -770,27 +840,24 @@ int u2pl_upsample_ce_bwd(const void* x, const void* labels, const void* cw,
                          const void* rng_h, const void* idx_w, const void* w_w,
                          const void* rng_w, int B, int C, int H, int W, int OH,
                          int OW, int ignore, float floor_, int rows, int bands,
-                         int span, int log_s, int Q, void* stream) {
+                         int span, int log_s, int Q, int dtype, void* stream) {
   if ((long long)B * C * H * W <= 0) return (int)cudaGetLastError();
-  if (OH <= 0 || OW <= 0 || W >= 32768 || rows <= 0 || bands != (H + rows - 1) / rows ||
-      span <= 0 || log_s < 0 || log_s > 5 || Q * (1 << log_s) < OW) {
+  if (OH <= 0 || OW <= 0 || W >= 32768 || (dtype != 0 && dtype != 1) || rows <= 0 ||
+      bands != (H + rows - 1) / rows || span <= 0 || log_s < 0 || log_s > 5 ||
+      Q * (1 << log_s) < OW) {
     return (int)cudaErrorInvalidValue;
   }
   const long long smem = bwd_smem(C, W, OW, rows, span, log_s, Q);
   if (smem > kBwdMaxShared) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {  // above the default dynamic shared memory of a block
-    const cudaError_t err = cudaFuncSetAttribute(
-        upsample_ce_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  upsample_ce_bwd_kernel<<<(unsigned)B * bands, kBwdThreads, (size_t)smem,
-                           (cudaStream_t)stream>>>(
-      (const float*)x, (const int*)labels, (const float*)cw, (const float*)lse,
-      (const float*)stats, (const float*)gout, (float*)gx, (const int*)idx_h,
-      (const float*)w_h, (const int*)rng_h, (const int*)idx_w, (const float*)w_w,
-      (const int*)rng_w, C, H, W, OH, OW, ignore, floor_, rows, bands, span,
-      log_s, Q);
-  return (int)cudaGetLastError();
+  const BwdArgs a = {x, (const int*)labels, (const float*)cw, (const float*)lse,
+                     (const float*)stats, (const float*)gout, gx, (const int*)idx_h,
+                     (const float*)w_h, (const int*)rng_h, (const int*)idx_w,
+                     (const float*)w_w, (const int*)rng_w, C, H, W, OH, OW, ignore,
+                     floor_, rows, bands, span, log_s, Q};
+  const unsigned blocks = (unsigned)B * bands;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1) return (int)launch_bwd<__nv_bfloat16>(a, blocks, (int)smem, st);
+  return (int)launch_bwd<float>(a, blocks, (int)smem, st);
 }
 
 // maxprob and argmax both or neither, entropy or not (at least one output);
@@ -799,27 +866,28 @@ int u2pl_upsample_softmax_stats(const void* x, void* maxprob, void* argmax,
                                 void* entropy, const void* idx_h,
                                 const void* w_h, const void* idx_w,
                                 const void* w_w, int B, int C, int H, int W,
-                                int OH, int OW, int span, int max_rows,
+                                int OH, int OW, int span, int max_rows, int dtype,
                                 void* stream) {
   const int mode = (maxprob ? kStatsProb : 0) | (entropy ? kStatsEntropy : 0);
   int smem = 0;
-  if (!maxprob != !argmax || mode == 0 || C <= 0 || C > kStatsMaxClasses || H <= 0 ||
+  if (!maxprob != !argmax || mode == 0 || C <= 0 || (dtype != 0 && dtype != 1) ||
+      C > kStatsMaxClasses || H <= 0 ||
       W <= 0 || !stats_plan_ok(B, C, W, OH, OW, span, max_rows, &smem)) {
     return (int)cudaErrorInvalidValue;
   }
   if (B <= 0 || OH <= 0 || OW <= 0) return (int)cudaGetLastError();
-  const StatsArgs a = {(const float*)x, (float*)maxprob, (int*)argmax, (float*)entropy,
+  const StatsArgs a = {x, (float*)maxprob, (int*)argmax, (float*)entropy,
                        nullptr, nullptr, nullptr, nullptr, nullptr, 0, (const int*)idx_h,
                        (const float*)w_h, (const int*)idx_w, (const float*)w_w, C, H, W, OH, OW,
                        (unsigned)((long long)B * OH * OW), span, (OW + 3) / 4, max_rows, smem};
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (mode == kStatsProb) {
-    err = launch_stats_mode<kStatsProb>(a, st);
+    err = launch_stats_mode<kStatsProb>(a, dtype, st);
   } else if (mode == kStatsEntropy) {
-    err = launch_stats_mode<kStatsEntropy>(a, st);
+    err = launch_stats_mode<kStatsEntropy>(a, dtype, st);
   } else {
-    err = launch_stats_mode<kStatsProb | kStatsEntropy>(a, st);
+    err = launch_stats_mode<kStatsProb | kStatsEntropy>(a, dtype, st);
   }
   return (int)err;
 }
@@ -831,19 +899,19 @@ int u2pl_ohem_target_prob(const void* x, const void* labels, void* p_y,
                           void* num_valid, void* ticket, const void* idx_h,
                           const void* w_h, const void* idx_w, const void* w_w,
                           int B, int C, int H, int W, int OH, int OW, int ignore,
-                          int span, int max_rows, void* stream) {
+                          int span, int max_rows, int dtype, void* stream) {
   int smem = 0;
   const long long total = (long long)B * OH * OW;
-  if (total <= 0 || C <= 0 || H <= 0 || W <= 0 ||
+  if (total <= 0 || C <= 0 || H <= 0 || W <= 0 || (dtype != 0 && dtype != 1) ||
       !stats_plan_ok(B, C, W, OH, OW, span, max_rows, &smem)) {
     return (int)cudaErrorInvalidValue;
   }
-  const StatsArgs a = {(const float*)x, (float*)p_y, nullptr, nullptr, (const int*)labels,
+  const StatsArgs a = {x, (float*)p_y, nullptr, nullptr, (const int*)labels,
                        nullptr, nullptr, (int*)num_valid, (unsigned*)ticket, ignore,
                        (const int*)idx_h, (const float*)w_h, (const int*)idx_w,
                        (const float*)w_w, C, H, W, OH, OW, (unsigned)total, span,
                        (OW + 3) / 4, max_rows, smem};
-  return (int)launch_stats_mode<kStatsTargetProb>(a, (cudaStream_t)stream);
+  return (int)launch_stats_mode<kStatsTargetProb>(a, dtype, (cudaStream_t)stream);
 }
 
 }  // extern "C"

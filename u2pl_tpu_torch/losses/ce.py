@@ -12,6 +12,13 @@ time in shared memory.  On a CPU tensor it is the plain version: kernel
 A's plain resize, then `log_softmax` and a gather, differentiated by
 autograd (`upsample_ce_bwd_plain` is the backward written out).
 Reductions are float32; the empty valid set gives 0, as in JAX.
+
+bfloat16 logits (a bf16 model): JAX's upsample is then the narrow branch
+of its resize, each upsampled value rounded to bf16, and the CE takes their
+f32 cast (ce.py:36-46); the gradient rounds the full-resolution cotangent
+to bf16 (the VJP of that cast), takes the adjoint resize in f32 and gives
+bf16 logits' gradients.  Kernel C has a bf16 mode that rounds at those
+points; the plain versions round there too.
 """
 
 from __future__ import annotations
@@ -23,7 +30,8 @@ import numpy as np
 import torch
 
 from u2pl_tpu_torch.ops.resize import (
-    _check_cuda_f32,
+    F32_BF16,
+    _check_cuda,
     _device_ranges,
     _device_taps,
     _ranges_np,
@@ -87,9 +95,11 @@ def upsample_ce_bwd_plain(
     `g * upsample_cross_entropy(logits, labels)` to the (B, C, h, w) logits.
     It builds the full-resolution gradient coef * (softmax(up) - onehot(y)),
     coef = w[y] g / max(denom, floor) and 0 where y is ignored or outside
-    [0, C), then applies A-bwd's plain version."""
+    [0, C), then applies A-bwd's plain version.  bf16 logits: `up` is the
+    bf16 upsample, the full-resolution gradient is rounded to bf16, the
+    adjoint is f32 and the result bf16."""
     c, h, w = logits.shape[1:]
-    up = resize_bilinear_plain(logits.float(), labels.shape[1:])
+    up = resize_bilinear_plain(logits, labels.shape[1:]).float()
     y = labels.long()
     valid = (y != ignore_label) & (y >= 0) & (y < c)
     safe = torch.where(valid, y, torch.zeros_like(y))
@@ -102,7 +112,9 @@ def upsample_ce_bwd_plain(
     scale = torch.where(denom > 0, g / torch.clamp(denom, min=floor), torch.zeros_like(g))
     onehot = torch.nn.functional.one_hot(safe, c).permute(0, 3, 1, 2).to(up)
     gfull = (torch.softmax(up, dim=1) - onehot) * (wy * scale)[:, None]
-    return resize_bilinear_bwd_plain(gfull, (h, w))
+    if logits.dtype != torch.float32:
+        gfull = gfull.to(logits.dtype).float()
+    return resize_bilinear_bwd_plain(gfull, (h, w)).to(logits.dtype)
 
 
 def upsample_cross_entropy(
@@ -112,8 +124,9 @@ def upsample_cross_entropy(
     class_weight: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """`cross_entropy_ignore(resize_bilinear(logits, labels' H, W), labels)`
-    (kernel C on the card).  logits (B, C, h, w) float32; labels (B, H, W)
-    int32; returns a 0-d device tensor, differentiable in `logits` only."""
+    (kernel C on the card).  logits (B, C, h, w) float32 or bfloat16 (JAX's
+    bf16 rounding points, module docstring); labels (B, H, W) int32;
+    returns a 0-d f32 device tensor, differentiable in `logits` only."""
     if logits.dim() != 4 or labels.dim() != 3 or labels.shape[0] != logits.shape[0]:
         raise ValueError(
             f"upsample_cross_entropy: logits {tuple(logits.shape)}, labels "
@@ -124,8 +137,12 @@ def upsample_cross_entropy(
     return _UpsampleCE.apply(logits, labels, ignore_label, class_weight)
 
 
+# the logits' dtypes of kernels C, D and K7 prob (upsample_ce.cu's `dtype`)
+LOGIT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
 def _check_ce_inputs(logits, labels, class_weight):
-    _check_cuda_f32(logits, 4, "upsample_cross_entropy")
+    _check_cuda(logits, 4, "upsample_cross_entropy", F32_BF16)
     if labels.device != logits.device or labels.dtype != torch.int32:
         raise TypeError("upsample_cross_entropy: labels must be int32 on the logits' device")
     if not labels.is_contiguous():
@@ -134,7 +151,7 @@ def _check_ce_inputs(logits, labels, class_weight):
     if b * c * labels.shape[1] * labels.shape[2] >= 2**31:
         raise ValueError("upsample_cross_entropy: the upsampled logits exceed the int32 sizes")
     if class_weight is not None:
-        _check_cuda_f32(class_weight, 1, "upsample_cross_entropy class_weight")
+        _check_cuda(class_weight, 1, "upsample_cross_entropy class_weight")
         if class_weight.shape[0] != c:
             raise ValueError("upsample_cross_entropy: one class weight per class")
 
@@ -238,7 +255,7 @@ class _UpsampleCE(torch.autograd.Function):
                 logits.data_ptr(), labels.data_ptr(), cw, lse.data_ptr(),
                 part.data_ptr(), stats.data_ptr(), idx_h.data_ptr(), w_h.data_ptr(),
                 idx_w.data_ptr(), w_w.data_ptr(), b, c, h, w, oh, ow,
-                int(ignore_label), floor, span, max_rows,
+                int(ignore_label), floor, span, max_rows, LOGIT_DTYPES[logits.dtype],
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         check(lib, err, "upsample_ce_fwd launch")
@@ -270,7 +287,8 @@ class _UpsampleCE(torch.autograd.Function):
                 stats.data_ptr(), g.data_ptr(), gx.data_ptr(), idx_h.data_ptr(),
                 w_h.data_ptr(), rng_h.data_ptr(), idx_w.data_ptr(), w_w.data_ptr(),
                 rng_w.data_ptr(), b, c, h, w, oh, ow, ctx.ignore_label, ctx.floor,
-                rows, bands, span, log_s, q, torch.cuda.current_stream(dev).cuda_stream,
+                rows, bands, span, log_s, q, LOGIT_DTYPES[logits.dtype],
+                torch.cuda.current_stream(dev).cuda_stream,
             )
         check(lib, err, "upsample_ce_bwd launch")
         upsample_cross_entropy.bwd_launches += 1

@@ -44,6 +44,15 @@ Each wrapper takes its plain PyTorch version on a CPU tensor and launches
 its kernel on a CUDA tensor, or raises; `<wrapper>.launches` counts the
 launches.  The prototype masked mean stays a matmul (`torch.bmm`), as JAX
 leaves it to XLA.
+
+bfloat16 reps (a bf16 model): the prototype is JAX's bf16 x bf16 product
+with f32 accumulation (:243-249), here a `bmm` of the f32-widened
+operands (exact, where a bf16 `bmm` would round its output); the keys go
+to the bank in the rep's dtype (K5); the anchors are the f32 cast of bf16
+rows (:286), whose VJP rounds each row's gradient to bf16 and scatter-adds
+the rows in bf16 (`_AnchorRows`); with a bf16 bank the cosine is JAX's
+dot-first form (:325-360), with an f32 bank normalise-then-dot.  K6 has a
+bf16-rep mode of each.
 """
 
 from __future__ import annotations
@@ -54,7 +63,13 @@ from typing import Tuple
 import torch
 
 from u2pl_tpu_torch.config import ContrastiveCfg
-from u2pl_tpu_torch.memobank import MemoryBank, gather_rows, memobank_enqueue, sample
+from u2pl_tpu_torch.memobank import (
+    BANK_DTYPE_CODES,
+    MemoryBank,
+    gather_rows,
+    memobank_enqueue,
+    sample,
+)
 from u2pl_tpu_torch.ops.one_hot import label_onehot
 
 MAX_CLASSES = 32  # contra_pixel_masks: a class fits a byte, its counts 2 x 32 ticket words
@@ -175,9 +190,9 @@ def contra_pixel_masks(
     if prob.device.type == "cpu":
         return contra_pixel_masks_plain(prob, labels, low_mask, high_mask, num_labeled, cfg,
                                         ignore_label)
-    from u2pl_tpu_torch.ops.resize import _check_cuda_f32
+    from u2pl_tpu_torch.ops.resize import _check_cuda
 
-    _check_cuda_f32(prob, 4, "contra_pixel_masks")
+    _check_cuda(prob, 4, "contra_pixel_masks")
     dev = prob.device
     _require(labels, dev, torch.int32, "contra_pixel_masks labels")
     _require(low_mask, dev, torch.bool, "contra_pixel_masks low_mask")
@@ -265,9 +280,9 @@ def select_keys(mask: torch.Tensor, pri: torch.Tensor, k: int):
         raise ValueError(f"select_keys: mask {tuple(mask.shape)}, pri {tuple(pri.shape)}, k {k}")
     if mask.device.type == "cpu":
         return select_keys_plain(mask, pri, k)
-    from u2pl_tpu_torch.ops.resize import _check_cuda_f32
+    from u2pl_tpu_torch.ops.resize import _check_cuda
 
-    _check_cuda_f32(pri, 2, "select_keys pri")
+    _check_cuda(pri, 2, "select_keys pri")
     dev = pri.device
     _require(mask, dev, torch.bool, "select_keys mask")
     if k > MAX_KEYS:
@@ -447,9 +462,9 @@ def sample_anchors(mask: torch.Tensor, a_j: torch.Tensor, u: torch.Tensor):
                          f"u {tuple(u.shape)}")
     if mask.device.type == "cpu":
         return sample_anchors_plain(mask, a_j, u)
-    from u2pl_tpu_torch.ops.resize import _check_cuda_f32
+    from u2pl_tpu_torch.ops.resize import _check_cuda
 
-    _check_cuda_f32(u, 2, "sample_anchors u")
+    _check_cuda(u, 2, "sample_anchors u")
     dev = u.device
     _require(mask, dev, torch.bool, "sample_anchors mask")
     _require(a_j, dev, torch.int32, "sample_anchors a_j")
@@ -472,6 +487,49 @@ sample_anchors.launches = 0
 
 # ---- the InfoNCE tail (K6: contra_infonce) ---------------------------------
 
+class _AnchorRows(torch.autograd.Function):
+    """`rep_f[idx].astype(f32)` of a bf16 NCHW rep with JAX's VJP: each
+    (C, Q) row's f32 cotangent rounded to bf16 (the astype), then the
+    gather's scatter-add into a bf16 zero map, the rows added in their
+    (C, Q) order, each add rounded to bf16 (XLA's scatter-add on the CPU,
+    tests/test_torch_bf16.py)."""
+
+    @staticmethod
+    def forward(ctx, rep, idx):
+        ctx.save_for_backward(idx)
+        ctx.rep_shape, ctx.rep_dtype = tuple(rep.shape), rep.dtype
+        return gather_rows(rep, idx).to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        b, f, h, w = ctx.rep_shape
+        rows = g.reshape(-1, f).to(ctx.rep_dtype)
+        flat = idx.reshape(-1).long()
+        # each update's rank among the earlier updates of its pixel: the
+        # updates of one rank hit distinct pixels, so rank by rank the adds
+        # run in the scatter's order
+        order = torch.argsort(flat, stable=True)
+        ranked = flat[order]
+        rank = torch.empty_like(flat)
+        rank[order] = torch.arange(flat.numel(), device=flat.device) - torch.searchsorted(
+            ranked, ranked)
+        out = torch.zeros((b * h * w, f), dtype=ctx.rep_dtype, device=g.device)
+        for k in range(int(rank.max()) + 1 if flat.numel() else 0):
+            sel = rank == k
+            at = flat[sel]
+            out[at] = (out[at].float() + rows[sel].float()).to(ctx.rep_dtype)
+        return out.view(b, h, w, f).permute(0, 3, 1, 2).contiguous(), None
+
+
+def anchor_rows(rep: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The f32 anchor rows rep_f[idx] of an NCHW rep, (*idx.shape, F),
+    differentiable in `rep` as JAX's gather and astype are."""
+    if rep.dtype == torch.float32:
+        return gather_rows(rep, idx)
+    return _AnchorRows.apply(rep, idx)
+
+
 def contra_infonce_plain(
     rep: torch.Tensor,
     anchor_idx: torch.Tensor,
@@ -483,19 +541,34 @@ def contra_infonce_plain(
     valid_seg: torch.Tensor,
     temperature: float,
 ) -> torch.Tensor:
-    """Plain PyTorch version of `contra_infonce`: the JAX f32 path
-    (contrastive.py:283-378): gather, sample, normalize, dot, log-softmax;
-    differentiated by autograd.  Materialises (C, Q, 1 + M, F) f32."""
+    """Plain PyTorch version of `contra_infonce`: the JAX function
+    (contrastive.py:283-378): gather, sample, normalize, dot, log-softmax
+    (the f32 path), or with a bf16 rep and a bf16 bank its dot-first path;
+    differentiated by autograd (`anchor_rows`).  Materialises
+    (C, Q, 1 + M, F) f32."""
     c, q = anchor_idx.shape
     f = rep.shape[1]
-    anchor = gather_rows(rep, anchor_idx).to(torch.float32)  # (C, Q, F)
+    anchor = anchor_rows(rep, anchor_idx)  # (C, Q, F) f32
     negs = sample(bank, u_neg, dtype=None)[0][b_j.long()]  # the bank of class b_j
     negs = negs.to(torch.float32).reshape(c, q, -1, f)
     pos = positive[:, None, None, :].expand(c, q, 1, f)
-    all_feat = torch.cat([pos, negs], dim=2)
-    a_n = anchor / torch.clamp(torch.linalg.vector_norm(anchor, dim=-1, keepdim=True), min=EPS)
-    f_n = all_feat / torch.clamp(torch.linalg.vector_norm(all_feat, dim=-1, keepdim=True), min=EPS)
-    logits = torch.einsum("cqf,cqkf->cqk", a_n, f_n) / temperature
+    norm = torch.linalg.vector_norm
+    if rep.dtype == torch.bfloat16 and bank.keys.dtype == torch.bfloat16:
+        # dot-first: bf16 products, exact in f32, summed in f32; the norms
+        # apart (contrastive.py:325-360)
+        a_norm = torch.clamp(norm(anchor, dim=-1, keepdim=True), min=EPS)
+        # the anchor's cast to bf16 (exact here): its VJP rounds the
+        # negatives' part of the anchor gradient to bf16
+        dot_neg = torch.einsum("cqf,cqkf->cqk", anchor.to(torch.bfloat16).float(), negs)
+        neg_norm = torch.clamp(torch.sqrt(torch.einsum("cqkf,cqkf->cqk", negs, negs)), min=EPS)
+        dot_pos = torch.einsum("cqf,cqkf->cqk", anchor, pos)
+        pos_norm = torch.clamp(norm(pos, dim=-1), min=EPS)
+        logits = torch.cat([dot_pos / pos_norm, dot_neg / neg_norm], dim=-1) / a_norm / temperature
+    else:
+        all_feat = torch.cat([pos, negs], dim=2)
+        a_n = anchor / torch.clamp(norm(anchor, dim=-1, keepdim=True), min=EPS)
+        f_n = all_feat / torch.clamp(norm(all_feat, dim=-1, keepdim=True), min=EPS)
+        logits = torch.einsum("cqf,cqkf->cqk", a_n, f_n) / temperature
     ce = -torch.log_softmax(logits, dim=-1)[..., 0].mean(dim=-1)  # (C,)
     vs = valid_seg.to(torch.float32)
     loss = torch.where(active, ce, torch.zeros_like(ce)).sum() / torch.clamp(vs, min=1.0)
@@ -514,7 +587,7 @@ def contra_infonce(
     temperature: float,
 ) -> torch.Tensor:
     """The InfoNCE loss of the anchors: per position j and draw q, the anchor
-    row rep[anchor_idx[j, q]] (NCHW, f32) against the positive
+    row rep[anchor_idx[j, q]] (NCHW, f32 or bf16) against the positive
     `positive[j]` and M = u_neg.shape[1] / Q bank keys of class b_j, rows
     floor(u_neg[b_j, q*M + m] * max(occ, 1)); cosines (eps 1e-8) over
     `temperature`, CE to the positive, the mean over q, summed over the
@@ -548,11 +621,11 @@ class _ContraInfoNCE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, rep, anchor_idx, positive, keys, occupancy, b_j, u_neg, active,
                 valid_seg, temperature):
-        from u2pl_tpu_torch.ops.resize import _check_cuda_f32
+        from u2pl_tpu_torch.ops.resize import F32_BF16, _check_cuda
 
-        _check_cuda_f32(rep, 4, "contra_infonce rep")
-        _check_cuda_f32(positive, 2, "contra_infonce positive")
-        _check_cuda_f32(u_neg, 2, "contra_infonce u_neg")
+        _check_cuda(rep, 4, "contra_infonce rep", F32_BF16)
+        _check_cuda(positive, 2, "contra_infonce positive")
+        _check_cuda(u_neg, 2, "contra_infonce u_neg")
         dev = rep.device
         for name, t, dt in (("anchor_idx", anchor_idx, torch.int32), ("occupancy", occupancy, torch.int32),
                             ("b_j", b_j, torch.int32), ("active", active, torch.bool),
@@ -566,7 +639,7 @@ class _ContraInfoNCE(torch.autograd.Function):
         _check_draws(c, q)
         if keys.device != dev or not keys.is_contiguous():
             raise ValueError("contra_infonce: the bank must be contiguous on the rep's device")
-        dtype_code = {torch.float32: 0, torch.bfloat16: 1}.get(keys.dtype)
+        dtype_code = BANK_DTYPE_CODES.get(keys.dtype)
         if dtype_code is None:
             raise TypeError(f"contra_infonce: bank dtype {keys.dtype} (float32 or bfloat16)")
         if rep.numel() >= 2**31 or keys.numel() >= 2**31:
@@ -576,7 +649,10 @@ class _ContraInfoNCE(torch.autograd.Function):
         lib = load()
         m = u_neg.shape[1] // q
         ce = torch.empty((c, q), dtype=torch.float32, device=dev)
-        gdir = torch.empty((c, q, f), dtype=torch.float32, device=dev)
+        # a bf16 rep on a bf16 bank: the negatives' part of each direction
+        # apart, at gdir[1] (infonce.cu: kSplit)
+        split = rep.dtype == keys.dtype == torch.bfloat16
+        gdir = torch.empty((2, c, q, f) if split else (c, q, f), dtype=torch.float32, device=dev)
         loss = torch.empty((), dtype=torch.float32, device=dev)
         ticket = tickets(dev)[TICKET_INFONCE_FWD]
         _launch(lib, "u2pl_contra_infonce_fwd", "contra_infonce_fwd", dev,
@@ -584,16 +660,17 @@ class _ContraInfoNCE(torch.autograd.Function):
                 occupancy.data_ptr(), b_j.data_ptr(), u_neg.data_ptr(), active.data_ptr(),
                 valid_seg.data_ptr(), ce.data_ptr(), gdir.data_ptr(), loss.data_ptr(),
                 ticket.data_ptr(), b, f, h * w, c, q, m, cap, dtype_code,
-                _infonce_group(keys.dtype), float(temperature))
+                BANK_DTYPE_CODES[rep.dtype], _infonce_group(keys.dtype), float(temperature))
         contra_infonce.fwd_launches += 1
         ctx.save_for_backward(anchor_idx, active, valid_seg, gdir)
-        ctx.rep_shape = tuple(rep.shape)
+        ctx.rep_shape, ctx.rep_dtype = tuple(rep.shape), rep.dtype
         return loss
 
     @staticmethod
     def backward(ctx, g):
         anchor_idx, active, valid_seg, gdir = ctx.saved_tensors
-        grad_rep = _infonce_bwd_cuda(anchor_idx, active, valid_seg, gdir, g, ctx.rep_shape)
+        grad_rep = _infonce_bwd_cuda(anchor_idx, active, valid_seg, gdir, g, ctx.rep_shape,
+                                     ctx.rep_dtype)
         return grad_rep, None, None, None, None, None, None, None, None, None
 
 
@@ -619,11 +696,13 @@ def _check_draws(c: int, q: int) -> None:
         )
 
 
-def _infonce_bwd_cuda(anchor_idx, active, valid_seg, gdir, g, rep_shape) -> torch.Tensor:
-    """K6's backward on the card: the (B, F, h, w) f32 gradient of the rep
-    from the forward's stored directions `gdir` (C, Q, F) and the loss's
-    output gradient `g`; the kernel writes every element (torch.empty, no
-    zero fill)."""
+def _infonce_bwd_cuda(anchor_idx, active, valid_seg, gdir, g, rep_shape,
+                      rep_dtype=torch.float32) -> torch.Tensor:
+    """K6's backward on the card: the (B, F, h, w) gradient of the rep, in
+    its dtype (f32 or bf16, module docstring), from the forward's stored
+    directions `gdir` (C, Q, F), or (2, C, Q, F) with the negatives' parts
+    apart (a bf16 rep on a bf16 bank), and the loss's output gradient `g`;
+    the kernel writes every element (torch.empty, no zero fill)."""
     b, f, h, w = rep_shape
     c, q = anchor_idx.shape
     _check_draws(c, q)
@@ -633,10 +712,11 @@ def _infonce_bwd_cuda(anchor_idx, active, valid_seg, gdir, g, rep_shape) -> torc
     lib = load()
     g = g.to(torch.float32).contiguous()
     sums = torch.empty((c * q, f), dtype=torch.float32, device=dev)  # per-pixel sums
-    grad_rep = torch.empty((b, f, h, w), dtype=torch.float32, device=dev)
+    grad_rep = torch.empty((b, f, h, w), dtype=rep_dtype, device=dev)
     _launch(lib, "u2pl_contra_infonce_bwd", "contra_infonce_bwd", dev,
             anchor_idx.data_ptr(), active.data_ptr(), valid_seg.data_ptr(), gdir.data_ptr(),
-            g.data_ptr(), sums.data_ptr(), grad_rep.data_ptr(), b, f, h * w, c, q)
+            g.data_ptr(), sums.data_ptr(), grad_rep.data_ptr(), b, f, h * w, c, q,
+            BANK_DTYPE_CODES[rep_dtype], int(gdir.dim() == 4))
     contra_infonce.bwd_launches += 1
     return grad_rep
 

@@ -17,7 +17,9 @@ NCHW logits at their own stride and upsamples inside, as
   * the mean CE over the kept labels, the main head optionally with the
     19-class weights (kernel C, forward and backward).
 No gradient flows through the selection, as in JAX.  Nothing is read back
-to the host.  On a CPU tensor `ohem_cross_entropy` is its plain version
+to the host.  On bf16 logits p_y is taken from the f32 cast of the
+bf16-rounded upsample (ohem.py:66-75) and the CE is kernel C's bf16 mode.
+On a CPU tensor `ohem_cross_entropy` is its plain version
 (`ohem_cross_entropy_plain`); on the card each kernel launches or raises.
 """
 
@@ -30,7 +32,7 @@ import torch
 
 from u2pl_tpu_torch.losses import ce
 from u2pl_tpu_torch.ops import quantile
-from u2pl_tpu_torch.ops.resize import _check_cuda_f32, _device_taps, resize_bilinear_plain
+from u2pl_tpu_torch.ops.resize import F32_BF16, _check_cuda, _device_taps, resize_bilinear_plain
 
 # use_weight=True vector (reference loss_helper.py:464-486; the JAX
 # package's CITYSCAPES_OHEM_WEIGHT, u2pl_tpu/losses/ohem.py:28)
@@ -72,7 +74,7 @@ def ohem_target_prob(
         )
     if logits.device.type == "cpu":
         return ohem_target_prob_plain(logits, labels, ignore_label)
-    _check_cuda_f32(logits, 4, "ohem_target_prob")
+    _check_cuda(logits, 4, "ohem_target_prob", F32_BF16)
     _check_labels(labels, logits.device, "ohem_target_prob")
     b, c, h, w = logits.shape
     oh, ow = labels.shape[1:]
@@ -94,7 +96,8 @@ def ohem_target_prob(
             logits.data_ptr(), labels.data_ptr(), p_y.data_ptr(), num_valid.data_ptr(),
             tickets(dev)[TICKET_OHEM_PROB].data_ptr(), idx_h.data_ptr(), w_h.data_ptr(),
             idx_w.data_ptr(), w_w.data_ptr(), b, c, h, w, oh, ow, int(ignore_label),
-            span, max_rows, torch.cuda.current_stream(dev).cuda_stream,
+            span, max_rows, ce.LOGIT_DTYPES[logits.dtype],
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     check(lib, err, "ohem_target_prob launch")
     ohem_target_prob.launches += 1
@@ -142,7 +145,7 @@ def ohem_keep_labels(
         raise ValueError(f"ohem_keep_labels: p_y {tuple(p_y.shape)}, labels {tuple(labels.shape)}")
     if labels.device.type == "cpu":
         return ohem_keep_labels_plain(labels, p_y, kth, num_valid, thresh, min_kept, ignore_label)
-    _check_cuda_f32(p_y, p_y.dim(), "ohem_keep_labels p_y")
+    _check_cuda(p_y, p_y.dim(), "ohem_keep_labels p_y")
     _check_labels(labels, p_y.device, "ohem_keep_labels")
     scalars_ok = (kth.numel() == num_valid.numel() == 1 and kth.dtype == torch.float32
                   and num_valid.dtype == torch.int32
@@ -222,7 +225,8 @@ def ohem_cross_entropy(
     use_weight: bool = False,
 ) -> torch.Tensor:
     """The JAX `ohem_cross_entropy` of `resize_bilinear(logits, labels'
-    (H, W))`: logits (B, C, h, w) float32, labels (B, H, W) int32; a 0-d
+    (H, W))`: logits (B, C, h, w) float32 or bfloat16, labels (B, H, W)
+    int32; a 0-d
     device tensor, differentiable in `logits` only."""
     if logits.dim() != 4 or labels.dim() != 3 or labels.shape[0] != logits.shape[0]:
         raise ValueError(

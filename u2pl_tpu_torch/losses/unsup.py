@@ -7,7 +7,9 @@ the align-corners upsample to `size`, the max softmax probability, the
 first-max argmax and the entropy -sum p log(p + 1e-10), or the part of
 them that `outputs` selects: kernel D (`kernels/csrc/upsample_ce.cu`) on
 the card, which writes nothing of size (B, C, H, W) and only the outputs
-asked for; its plain version on a CPU tensor.
+asked for; its plain version on a CPU tensor.  On bf16 logits both take
+the statistics of the bf16-rounded upsample (steps.py:289-301, :352), and
+the argmax keeps the first of exactly tied classes.
 """
 
 from __future__ import annotations
@@ -17,8 +19,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from u2pl_tpu_torch.losses.ce import _stats_plan, upsample_cross_entropy
-from u2pl_tpu_torch.ops.resize import _check_cuda_f32, _device_taps, resize_bilinear_plain
+from u2pl_tpu_torch.losses.ce import LOGIT_DTYPES, _stats_plan, upsample_cross_entropy
+from u2pl_tpu_torch.ops.resize import F32_BF16, _check_cuda, _device_taps, resize_bilinear_plain
 
 
 def teacher_entropy(prob_logits: torch.Tensor) -> torch.Tensor:
@@ -46,8 +48,9 @@ def _check_outputs(outputs: str) -> Tuple[bool, bool]:
 def upsample_softmax_stats_plain(
     logits: torch.Tensor, size: Tuple[int, int], outputs: str = "all"
 ) -> Stats:
-    """Plain PyTorch version of kernel D: kernel A's plain resize, then
-    exp(max - logsumexp), argmax and `teacher_entropy` over C, each where
+    """Plain PyTorch version of kernel D: kernel A's plain resize (in the
+    logits' dtype), then exp(max - logsumexp), argmax (the first of tied
+    maxima) and `teacher_entropy` over C of its f32 cast, each where
     `outputs` asks for it (None in its place otherwise)."""
     prob, ent = _check_outputs(outputs)
     up = resize_bilinear_plain(logits, size).float()
@@ -65,7 +68,8 @@ def upsample_softmax_stats(
     logits: torch.Tensor, size: Tuple[int, int], outputs: str = "all"
 ) -> Stats:
     """(max-prob f32, argmax int32, entropy f32), each (B, H, W), of the
-    (B, C, h, w) logits upsampled to `size` (kernel D; no gradient).
+    (B, C, h, w) float32 or bfloat16 logits upsampled to `size` (kernel D;
+    no gradient).
     `outputs` selects what is computed and written: "prob" (max-prob and
     argmax; entropy None), "entropy" (the others None) or "all"."""
     prob, ent = _check_outputs(outputs)
@@ -74,7 +78,7 @@ def upsample_softmax_stats(
     oh, ow = int(size[0]), int(size[1])
     if logits.device.type == "cpu":
         return upsample_softmax_stats_plain(logits, (oh, ow), outputs)
-    _check_cuda_f32(logits, 4, "upsample_softmax_stats")
+    _check_cuda(logits, 4, "upsample_softmax_stats", F32_BF16)
     b, c, h, w = logits.shape
     if b * c * oh * ow >= 2**31:
         raise ValueError("upsample_softmax_stats: the upsampled logits exceed the int32 sizes")
@@ -98,7 +102,8 @@ def upsample_softmax_stats(
         err = lib.u2pl_upsample_softmax_stats(
             logits.data_ptr(), ptr(maxprob), ptr(argmax), ptr(entropy), idx_h.data_ptr(),
             w_h.data_ptr(), idx_w.data_ptr(), w_w.data_ptr(), b, c, h, w, oh, ow,
-            span, max_rows, torch.cuda.current_stream(dev).cuda_stream,
+            span, max_rows, LOGIT_DTYPES[logits.dtype],
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     check(lib, err, "upsample_softmax_stats launch")
     upsample_softmax_stats.launches += 1

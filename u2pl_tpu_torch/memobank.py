@@ -28,6 +28,8 @@ from typing import Tuple, Union
 import torch
 
 BANK_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the kernels' code of a bank's or a rep's dtype (memobank.cu, infonce.cu)
+BANK_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @dataclass
@@ -142,7 +144,9 @@ def memobank_enqueue(
 ) -> MemoryBank:
     """Enqueue, per class c, the teacher representation rows at pixels
     sel_idx[c, :n_sel[c]] into the ring, in that order.  rep_teacher
-    (B, F, h, w) float32 NCHW; sel_idx (C, K) int32 flat pixel indices;
+    (B, F, h, w) float32 or bfloat16 NCHW (a bf16 row is copied into a bf16
+    bank exactly and widened into an f32 one, as JAX's gather in the rep's
+    dtype and the bank's cast do); sel_idx (C, K) int32 flat pixel indices;
     n_sel (C,) int32 (<= K).  In place; the counts stay on the device.
 
     On the card, kernel K5: each selected row is read straight from the NCHW
@@ -161,9 +165,9 @@ def memobank_enqueue(
     rep_teacher = rep_teacher.detach()
     if rep_teacher.device.type == "cpu":
         return memobank_enqueue_plain(bank, rep_teacher, sel_idx, n_sel)
-    from u2pl_tpu_torch.ops.resize import _check_cuda_f32
+    from u2pl_tpu_torch.ops.resize import F32_BF16, _check_cuda
 
-    _check_cuda_f32(rep_teacher, 4, "memobank_enqueue rep_teacher")
+    _check_cuda(rep_teacher, 4, "memobank_enqueue rep_teacher", F32_BF16)
     dev = rep_teacher.device
     for name, t, dt in (("sel_idx", sel_idx, torch.int32), ("n_sel", n_sel, torch.int32),
                         ("ptr", bank.ptr, torch.int32), ("occupancy", bank.occupancy, torch.int32),
@@ -172,7 +176,7 @@ def memobank_enqueue(
             raise ValueError(f"memobank_enqueue: {name} must be contiguous {dt} on {dev}")
     if bank.keys.device != dev or not bank.keys.is_contiguous():
         raise ValueError("memobank_enqueue: the bank must be contiguous on the rep's device")
-    dtype_code = {torch.float32: 0, torch.bfloat16: 1}.get(bank.keys.dtype)
+    dtype_code = BANK_DTYPE_CODES.get(bank.keys.dtype)
     if dtype_code is None:
         raise TypeError(f"memobank_enqueue: bank dtype {bank.keys.dtype} (float32 or bfloat16)")
     if bank.keys.numel() >= 2**31:
@@ -188,7 +192,8 @@ def memobank_enqueue(
             rep_teacher.data_ptr(), sel_idx.data_ptr(), n_sel.data_ptr(), bank.keys.data_ptr(),
             bank.ptr.data_ptr(), bank.occupancy.data_ptr(), bank.sizes.data_ptr(),
             tickets(dev)[TICKET_MEMOBANK].data_ptr(), b, f, h * w, c, k, cap, dtype_code,
-            _enqueue_tile(b * h * w, _sm_count(dev)), torch.cuda.current_stream(dev).cuda_stream,
+            BANK_DTYPE_CODES[rep_teacher.dtype], _enqueue_tile(b * h * w, _sm_count(dev)),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     check(lib, err, "memobank_enqueue launch")
     memobank_enqueue.launches += 1

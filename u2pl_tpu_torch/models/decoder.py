@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from u2pl_tpu_torch.models.resnet import conv1x1, conv3x3, norm
@@ -26,7 +27,9 @@ class Dropout2d(nn.Module):
     global RNG.  `SegModel.forward(x, generator)` sets the generator for the
     length of one forward; in train mode with p > 0 and no generator it
     raises.  flax's `Dropout(broadcast_dims=(1, 2))` is the same function,
-    `where(keep, x / (1 - p), 0)`."""
+    `where(keep, x / (1 - p), 0)`; on a bf16 input the division is by
+    1 - p rounded to bf16, in bf16, as the weak-typed constant is there
+    (the keep probability of the draw stays float32)."""
 
     def __init__(self, p: float = 0.1):
         super().__init__()
@@ -42,12 +45,23 @@ class Dropout2d(nn.Module):
                 "as model(x, generator=g)"
             )
         keep_p = 1.0 - self.p
-        probs = torch.full(x.shape[:2] + (1, 1), keep_p, dtype=x.dtype, device=x.device)
+        probs = torch.full(x.shape[:2] + (1, 1), keep_p, dtype=torch.float32, device=x.device)
         keep = torch.bernoulli(probs, generator=self.generator).bool()
-        return torch.where(keep, x / keep_p, torch.zeros((), dtype=x.dtype, device=x.device))
+        divisor = keep_p if x.dtype == torch.float32 else torch.tensor(keep_p, dtype=x.dtype)
+        return torch.where(keep, x / divisor, torch.zeros((), dtype=x.dtype, device=x.device))
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
+
+
+class ImagePool(nn.Module):
+    """The ASPP image pool's global mean, taken in float32 and cast to the
+    input's dtype (u2pl_tpu/models/decoder.py:55-59)."""
+
+    def forward(self, x):
+        if x.dtype == torch.float32:
+            return F.adaptive_avg_pool2d(x, 1)
+        return x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
 
 
 class ASPP(nn.Module):
@@ -56,7 +70,7 @@ class ASPP(nn.Module):
         # image-pool branch: f32 mean -> 1x1 -> BN -> ReLU, broadcast back
         # (the reference's align-corners upsample of a 1x1 map)
         self.conv1 = nn.Sequential(
-            nn.AdaptiveAvgPool2d(1), conv1x1(in_planes, inner_planes),
+            ImagePool(), conv1x1(in_planes, inner_planes),
             norm(inner_planes), nn.ReLU(),
         )
         self.conv2 = nn.Sequential(

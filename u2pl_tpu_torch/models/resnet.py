@@ -6,9 +6,19 @@ Module names are the reference torch names (`conv1.{0,1,3,4,6}`, `bn1`,
 keys `u2pl_tpu.utils.convert_torch._translate` emits, so reference `.pth`
 checkpoints and `utils.convert_jax.flax_to_torch` output load strictly.
 
+bfloat16 compute (`net.dtype: bfloat16`) follows the JAX package's flax
+policy, not autocast: parameters stay float32; a `Conv2d` on a bf16 input
+casts its kernel and bias to bf16, convolves to a bf16 output and adds the
+bias to it apart, in bf16, as flax `Conv(dtype=bf16)` does; `BatchNorm2d`
+takes its statistics and normalises in float32 and casts the result once
+(flax 0.12.3 `_normalize`).  Each layer computes in its input's dtype, and
+`SegModel` casts the image to its compute dtype; on a float32 input every
+layer is its float32 self, bit for bit.
+
 Not ported: the space-to-depth stem lowering (a TPU lane-filling rewrite
-taken under bfloat16 only) and the `valid_hw` masked forward (it exists to
-avoid XLA recompiles per image size).
+taken under bfloat16 only: the same linear map, summed in another order)
+and the `valid_hw` masked forward (it exists to avoid XLA recompiles per
+image size).
 """
 
 from __future__ import annotations
@@ -20,14 +30,28 @@ import torch.nn.functional as F
 from torch import nn
 
 
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` on a float32 input; on a bf16 input flax's `Conv` under
+    `dtype=bf16`: kernel and bias cast to bf16, the convolution's output in
+    bf16, then the bias added to it (rounded again, unlike a fused bias)."""
+
+    def forward(self, x):
+        if x.dtype == torch.float32:
+            return super().forward(x)
+        y = self._conv_forward(x, self.weight.to(x.dtype), None)
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype)[:, None, None]
+        return y
+
+
 def conv3x3(cin: int, cout: int, stride: int = 1, dilation: int = 1, bias=False):
-    return nn.Conv2d(
+    return Conv2d(
         cin, cout, 3, stride=stride, padding=dilation, dilation=dilation, bias=bias
     )
 
 
 def conv1x1(cin: int, cout: int, stride: int = 1, bias=False):
-    return nn.Conv2d(cin, cout, 1, stride=stride, bias=bias)
+    return Conv2d(cin, cout, 1, stride=stride, bias=bias)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -35,9 +59,16 @@ class BatchNorm2d(nn.BatchNorm2d):
     towards the BIASED batch variance (flax, u2pl_tpu/models/resnet.py:45-63),
     where torch's `BatchNorm2d` takes the unbiased one, larger by n/(n-1) —
     14% at n = 8 in the ASPP image-pool BN of a 4+4 step.  Normalisation
-    itself (by the biased batch variance) is torch's own."""
+    itself (by the biased batch variance) is torch's own.  A bf16 input is
+    normalised in float32 (its statistics too) and the result cast back
+    once, as flax's `_normalize` does under `dtype=bf16`."""
 
     def forward(self, x):
+        if x.dtype != torch.float32:
+            return self._forward_f32(x.float()).to(x.dtype)
+        return self._forward_f32(x)
+
+    def _forward_f32(self, x):
         if not self.training:
             return super().forward(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)

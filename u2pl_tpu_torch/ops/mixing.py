@@ -190,10 +190,10 @@ def generate_unsup_data(
         )
     if data.device.type == "cpu":
         return generate_unsup_data_plain(data, target, logits, draws, mode, ignore_label)
-    from u2pl_tpu_torch.ops.resize import _check_cuda_f32
+    from u2pl_tpu_torch.ops.resize import _check_cuda
 
-    _check_cuda_f32(data, 4, "generate_unsup_data")
-    _check_cuda_f32(logits, 3, "generate_unsup_data logits")
+    _check_cuda(data, 4, "generate_unsup_data")
+    _check_cuda(logits, 3, "generate_unsup_data logits")
     if target.device != data.device or target.dtype != torch.int32 or not target.is_contiguous():
         raise TypeError("generate_unsup_data: target must be contiguous int32 on the card")
     from u2pl_tpu_torch.kernels import check, load
@@ -203,7 +203,7 @@ def generate_unsup_data(
         torch.empty_like(data), torch.empty_like(target), torch.empty_like(logits)
     )
     if mode == "classmix":
-        _check_cuda_f32(draws, 2, "generate_unsup_data classmix draws")
+        _check_cuda(draws, 2, "generate_unsup_data classmix draws")
         c = draws.shape[1]
         if c > MAX_CLASSES or b > MAX_BATCH:
             raise ValueError(f"generate_unsup_data: classmix takes at most {MAX_CLASSES} "

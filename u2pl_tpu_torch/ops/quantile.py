@@ -112,10 +112,10 @@ def masked_percentiles(
         )
     if values.device.type == "cpu":
         return masked_percentiles_plain(values, mask, percents)
-    from u2pl_tpu_torch.ops.resize import _check_cuda_f32
+    from u2pl_tpu_torch.ops.resize import _check_cuda
 
-    _check_cuda_f32(values, values.dim(), "masked_percentiles")
-    _check_cuda_f32(percents, 1, "masked_percentiles percents")
+    _check_cuda(values, values.dim(), "masked_percentiles")
+    _check_cuda(percents, 1, "masked_percentiles percents")
     if mask.device != values.device or not mask.is_contiguous():
         raise ValueError("masked_percentiles: a contiguous mask on the values' device")
     from u2pl_tpu_torch.kernels import check, load
@@ -154,9 +154,9 @@ def kth_smallest(values: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"kth_smallest: k {k} of {n} values")
     if values.device.type == "cpu":
         return kth_smallest_plain(values, k)
-    from u2pl_tpu_torch.ops.resize import _check_cuda_f32
+    from u2pl_tpu_torch.ops.resize import _check_cuda
 
-    _check_cuda_f32(values, values.dim(), "kth_smallest")
+    _check_cuda(values, values.dim(), "kth_smallest")
     from u2pl_tpu_torch.kernels import check, load
 
     lib = load()

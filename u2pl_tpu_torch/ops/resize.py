@@ -22,6 +22,14 @@ also per (input shape, output size) in `resize_bilinear.shapes`.
 `resize_bilinear` is differentiable: an `autograd.Function` whose backward
 is the adjoint resize, kernel A-bwd (`resize_bilinear_bwd`) on the card and
 the transposed einsums on the CPU.
+
+bfloat16 (the JAX function under a bf16 model, u2pl_tpu/ops/resize.py:76):
+A and A-bwd take bf16 in and give bf16 out, computing in f32.  The wide
+branch, at least 64 channels with bf16-exact weights on both axes
+(`_wide`: the decoder's os8 -> os4 upsample), rounds the separable
+intermediate to bf16 between the two passes; every other bf16 call is the
+narrow branch, the f32 path with its output rounded to bf16.  Kernel A
+takes float32 or bfloat16; kernel B float32 only.
 """
 
 from __future__ import annotations
@@ -85,6 +93,30 @@ def _interp_taps_np(
 
 
 @functools.lru_cache(maxsize=256)
+def _bf16_exact(in_size: int, out_size: int, align_corners: bool) -> bool:
+    """True when every weight of the 1-D interpolation matrix is a bf16
+    value (the JAX package's `_bf16_exact`, u2pl_tpu/ops/resize.py:65)."""
+    w = torch.from_numpy(_interp_matrix_np(in_size, out_size, align_corners))
+    return bool(torch.equal(w.to(torch.bfloat16).to(torch.float32), w))
+
+
+def _wide(dtype: torch.dtype, c: int, in_hw, out_hw, align_corners: bool) -> bool:
+    """Whether a resize of `c` channels (h, w) -> (oh, ow) in `dtype` takes
+    JAX's bf16 wide branch (u2pl_tpu/ops/resize.py:101-106)."""
+    return (dtype == torch.bfloat16 and c >= 64
+            and _bf16_exact(int(in_hw[0]), int(out_hw[0]), align_corners)
+            and _bf16_exact(int(in_hw[1]), int(out_hw[1]), align_corners))
+
+
+def _resize_mode(dtype: torch.dtype, c: int, in_hw, out_hw, align_corners: bool) -> int:
+    """The mode code of kernels A and A-bwd (kernels/csrc/resize.cu): 0
+    float32, 1 the bf16 narrow branch, 2 the bf16 wide branch."""
+    if dtype == torch.float32:
+        return 0
+    return 2 if _wide(dtype, c, in_hw, out_hw, align_corners) else 1
+
+
+@functools.lru_cache(maxsize=256)
 def _device_taps(
     in_size: int, out_size: int, align_corners: bool, device: torch.device
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -127,12 +159,16 @@ def resize_bilinear_plain(
     x: torch.Tensor, size: Tuple[int, int], align_corners: bool = True
 ) -> torch.Tensor:
     """Plain PyTorch version of kernel A: two einsum passes with the dense
-    interpolation matrices, H first, as the JAX function does (NCHW)."""
-    _, _, h, w = x.shape
+    interpolation matrices, H first, as the JAX function does (NCHW); in
+    f32, the result cast to x's dtype, and in the bf16 wide branch the
+    intermediate rounded to bf16 too (every product there is exact)."""
+    _, c, h, w = x.shape
     oh, ow = int(size[0]), int(size[1])
     wh = _dense(h, oh, align_corners, x)
     ww = _dense(w, ow, align_corners, x)
     y = torch.einsum("oh,bchw->bcow", wh, x.float())
+    if _wide(x.dtype, c, (h, w), (oh, ow), align_corners):
+        y = y.to(x.dtype).float()
     y = torch.einsum("pw,bcow->bcop", ww, y)
     return y.to(x.dtype)
 
@@ -145,15 +181,21 @@ def resize_bilinear_rounded(
     p * T[lo_w] + q * T[hi_w], from the kernel's tap tables, each product
     and sum a separate op and so rounded on its own.  On the card it is
     bit-equal to kernel A (and to the upsample inside kernels C, D and
-    K7); it holds (B, C, OH, W) f32."""
-    _, _, h, w = x.shape
+    K7); it holds (B, C, OH, W) f32.  A bf16 `x` gives kernel A's bf16
+    mode: T rounded to bf16 in the wide branch, the result in bf16 (the
+    upsample of C, D and K7 is the narrow branch)."""
+    _, c, h, w = x.shape
     oh, ow = int(size[0]), int(size[1])
+    wide = _wide(x.dtype, c, (h, w), (oh, ow), align_corners)
     idx_h, w_h = _device_taps(h, oh, align_corners, x.device)
     idx_w, w_w = _device_taps(w, ow, align_corners, x.device)
-    x = x.float()
+    dtype, x = x.dtype, x.float()
     lo_h, hi_h = idx_h[0].long(), idx_h[1].long()
     t = x[:, :, lo_h] * w_h[0][:, None] + x[:, :, hi_h] * w_h[1][:, None]
-    return t[..., idx_w[0].long()] * w_w[0] + t[..., idx_w[1].long()] * w_w[1]
+    if wide:
+        t = t.to(dtype).float()
+    y = t[..., idx_w[0].long()] * w_w[0] + t[..., idx_w[1].long()] * w_w[1]
+    return y if dtype == torch.float32 else y.to(dtype)
 
 
 def resize_bilinear_bwd_plain(
@@ -161,12 +203,16 @@ def resize_bilinear_bwd_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of kernel A-bwd: the adjoint of
     `resize_bilinear_plain`, the two einsums with the transposed dense
-    matrices in reverse order (W first), as XLA's VJP of the JAX function."""
-    _, _, oh, ow = gy.shape
+    matrices in reverse order (W first), as XLA's VJP of the JAX function;
+    in the bf16 wide branch the W sum rounded to bf16 (its jaxpr's
+    convert_element_type), the result in gy's dtype."""
+    _, c, oh, ow = gy.shape
     h, w = int(in_size[0]), int(in_size[1])
     wh = _dense(h, oh, align_corners, gy)
     ww = _dense(w, ow, align_corners, gy)
     g = torch.einsum("pw,bcop->bcow", ww, gy.float())
+    if _wide(gy.dtype, c, (h, w), (oh, ow), align_corners):
+        g = g.to(gy.dtype).float()
     g = torch.einsum("oh,bcow->bchw", wh, g)
     return g.to(gy.dtype)
 
@@ -186,11 +232,19 @@ def resize_argmax_plain(
 RESIZE_MAX_SHARED = 160 * 1024
 
 
-def _check_cuda_f32(x: torch.Tensor, ndim: int, name: str) -> None:
+F32 = (torch.float32,)
+F32_BF16 = (torch.float32, torch.bfloat16)
+
+
+def _check_cuda(x: torch.Tensor, ndim: int, name: str, dtypes=F32) -> None:
+    """Raise unless `x` is a contiguous CUDA tensor of `ndim` dims in one
+    of `dtypes` (the dtypes the wrapper's kernel has a mode for) whose
+    element count fits int32."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel takes float32, got {x.dtype}")
+    if x.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{name}: the CUDA kernel takes {names}, got {x.dtype}")
     if x.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim}-D input, got {tuple(x.shape)}")
     if not x.is_contiguous():
@@ -206,7 +260,8 @@ def resize_bilinear(
 
     Same values as the JAX `resize_bilinear` on the NHWC transpose; the
     (h, w) == input size case returns `x` itself, as there.  Differentiable
-    in `x` (backward: `resize_bilinear_bwd`)."""
+    in `x` (backward: `resize_bilinear_bwd`).  float32, or bfloat16 in the
+    JAX package's bf16 branches (module docstring)."""
     if x.dim() != 4:
         raise ValueError(f"resize_bilinear: expected NCHW, got {tuple(x.shape)}")
     oh, ow = int(size[0]), int(size[1])
@@ -229,7 +284,7 @@ class _ResizeBilinear(torch.autograd.Function):
 
 
 def _resize_bilinear_cuda(x: torch.Tensor, size, align_corners: bool) -> torch.Tensor:
-    _check_cuda_f32(x, 4, "resize_bilinear")
+    _check_cuda(x, 4, "resize_bilinear", F32_BF16)
     b, c, h, w = x.shape
     oh, ow = size
     if b * c * oh * ow >= 2**31:
@@ -247,6 +302,7 @@ def _resize_bilinear_cuda(x: torch.Tensor, size, align_corners: bool) -> torch.T
         err = lib.u2pl_resize_bilinear_ac(
             x.data_ptr(), y.data_ptr(), idx_h.data_ptr(), w_h.data_ptr(),
             idx_w.data_ptr(), w_w.data_ptr(), b * c, h, w, oh, ow,
+            _resize_mode(x.dtype, c, (h, w), (oh, ow), align_corners),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     check(lib, err, "resize_bilinear_ac launch")
@@ -295,7 +351,7 @@ def resize_bilinear_bwd(
     h, w = int(in_size[0]), int(in_size[1])
     if gy.device.type == "cpu":
         return resize_bilinear_bwd_plain(gy, (h, w), align_corners)
-    _check_cuda_f32(gy, 4, "resize_bilinear_bwd")
+    _check_cuda(gy, 4, "resize_bilinear_bwd", F32_BF16)
     b, c, oh, ow = gy.shape
     if b * c * h * w >= 2**31:
         raise ValueError("resize_bilinear_bwd: output exceeds the int32 sizes")
@@ -314,7 +370,8 @@ def resize_bilinear_bwd(
         err = lib.u2pl_resize_bilinear_ac_bwd(
             gy.data_ptr(), gx.data_ptr(), idx_h.data_ptr(), w_h.data_ptr(),
             rng_h.data_ptr(), idx_w.data_ptr(), w_w.data_ptr(), rng_w.data_ptr(),
-            b * c, h, w, oh, ow, *plan, torch.cuda.current_stream(gy.device).cuda_stream,
+            b * c, h, w, oh, ow, *plan, _resize_mode(gy.dtype, c, (h, w), (oh, ow), align_corners),
+            torch.cuda.current_stream(gy.device).cuda_stream,
         )
     check(lib, err, "resize_bilinear_ac_bwd launch")
     resize_bilinear_bwd.launches += 1
@@ -343,7 +400,7 @@ def resize_argmax(
     oh, ow = int(size[0]), int(size[1])
     if logits.device.type == "cpu":
         return resize_argmax_plain(logits, (oh, ow), align_corners)
-    _check_cuda_f32(logits, 3, "resize_argmax")
+    _check_cuda(logits, 3, "resize_argmax")
     if oh * ow >= 2**31:
         raise ValueError("resize_argmax: output exceeds the int32 sizes")
     from u2pl_tpu_torch.kernels import check, load

@@ -104,7 +104,8 @@ class InferEngine:
         if str(dtype) != "float32":
             raise NotImplementedError(
                 f"dtype={dtype!r}: the port serves float32 only; the bfloat16 "
-                "forward is ROADMAP.md queue 1 item 3 (bf16)"
+                "forward of serve / eval / infer is ROADMAP.md queue 1 item 2 "
+                "(bf16), the slice after bf16 training"
             )
         # float32 means float32: the JAX f32 path is the reference-exact
         # default, and cuDNN would otherwise run f32 convolutions in TF32
@@ -118,7 +119,7 @@ class InferEngine:
         self.mean = np.asarray(cfg.dataset.mean, np.float32)
         self.std = np.asarray(cfg.dataset.std, np.float32)
         self.colormap = create_pascal_label_colormap()
-        self.model = build_model(cfg.net, device=self.device)
+        self.model = build_model(cfg.net, device=self.device, dtype=torch.float32)
         load_eval_variables(self.model, model_path)
         self._net_process = make_net_process(self.model)
         self.served = 0

@@ -37,6 +37,58 @@ radix`, anchor and bank draws) come from the `generator` passed to the
 step; `mix=(coin, draws)` and `contra=(pri, u_anchor, u_neg)` inject them
 instead.  `contrastive.anchor_ema` raises NotImplementedError: it is a
 later slice (ROADMAP.md).
+
+bfloat16 (`net.dtype: bfloat16`).  The JAX package's policy is not
+autocast: it rounds at fixed points, and the port rounds where it does.
+Read from the jaxprs of the JAX functions on bf16 inputs
+(`jax.make_jaxpr(jax.vjp(...))`: the train-mode forward and its VJP, the
+VJPs of `sup_tail` / `unsup_tail` (steps.py:417-428), of
+`ohem_supervised_loss` and of `compute_contra_memobank_loss`), the
+convert_element_type equations are:
+
+  model (a resnet10 DeepLabv3+ with aux head; per flax layer):
+    f32 -> bf16  the image, at the first conv;
+    f32 -> bf16  each conv kernel (33) and each conv bias (9), the bias
+                 then added to the bf16 conv output in bf16;
+    bf16 -> f32  each BN input (x - mean promotes); the statistics and
+                 (x - mean) * (rsqrt(var + eps) * scale) + bias in f32;
+    f32 -> bf16  each BN output, once;
+    f32 -> bf16  the ASPP image pool's f32 mean (decoder.py:55-59);
+    bf16         Dropout2d's x / (1 - p), p's complement a bf16 constant;
+    f32 <-> bf16 the wide resize's intermediate (decoder os8 -> os4);
+    VJP: each BN's input cotangent computed in f32 and cast to bf16, the
+    cotangents of a value used twice added in bf16 (add_any), each conv
+    kernel's and bias's cotangent cast back to f32 for the f32 params.
+  sup_tail / unsup_tail / OHEM (per head):
+    bf16 -> f32 -> bf16  the narrow resize of the logits (f32 taps, one
+                 rounding of each upsampled value);
+    bf16 -> f32  the CE's / OHEM's logits (p_y from these f32 values);
+    VJP: the full-resolution f32 cotangent cast to bf16; two CE terms on
+    one head (use_weight) added in bf16; cast to f32 for the transposed
+    einsums; the os4 gradient cast to bf16.
+  semi step: the teacher's upsampled logits stay bf16 (narrow branch);
+    max-prob from their f32 cast, the argmax on the bf16 values (exact ties
+    to the first class); the teacher's pred / rep stay bf16, softmax on
+    the f32 cast; the entropy from the bf16 upsample (steps.py:289-352).
+  contrastive (bf16 rep and bank):
+    bool -> bf16 the low-valid mask, a bf16 x bf16 prototype matmul with
+                 f32 accumulation (exact products);
+    bf16         the keys gathered, written to the bank in its dtype;
+    bf16 -> f32  the anchor rows (:286); f32 -> bf16 again for the
+                 dot-first cosine with bf16 negatives (f32 accumulation);
+    VJP: each anchor row's f32 cotangent cast to bf16 and scatter-added in
+    bf16, the rows in (C, Q) order, each add rounded.
+
+The port holds these: the model's layers (models/resnet.py, decoder.py),
+the bf16 modes of kernels A, A-bwd (ops/resize.py), C, D and K7 prob
+(losses/ce.py, unsup.py, ohem.py), K5 (memobank.py) and K6
+(losses/contrastive.py), and their plain versions.  Everything else here
+is dtype-blind: the steps take the model's bf16 outputs where JAX takes
+them, and the optimizer, the EMA and the checkpoints keep the float32
+parameters.  Kept as divergence sources: the two use_weight CE terms are
+added after their adjoints (bf16 at os4, not at full resolution); the
+space-to-depth stem conv (the same map) is not ported; sums are taken in
+another order than XLA's.
 """
 
 from __future__ import annotations

@@ -2,7 +2,9 @@
 reference train_semi.py:595-654).
 
 Each val batch (center crops, float32 or uint8 normalized on the device)
-goes through the model in eval mode in float32; each image's os4 logits
+goes through the model in eval mode in float32, whatever the model's
+compute dtype (JAX validates a float32 `model_eval` on the bf16 trainer's
+parameters, train_semi.py:96-99); each image's os4 logits
 are resized to its label's size and arg-maxed by kernel B
 (`ops.resize.resize_argmax`, one launch per image: no (C, H, W) upsample
 is written); the per-class intersection / union counts accumulate on the
@@ -20,6 +22,7 @@ import torch
 
 from u2pl_tpu_torch.config import Config
 from u2pl_tpu_torch.evallib.metrics import intersection_and_union_device
+from u2pl_tpu_torch.models.builder import computing_in
 from u2pl_tpu_torch.ops.resize import resize_argmax
 from u2pl_tpu_torch.train.steps import make_normalizer
 
@@ -36,7 +39,8 @@ def accumulate_val_sums(model, val_loader, cfg: Config, epoch: int,
     for images, labels in val_loader.epoch(epoch):
         x = normalize(torch.from_numpy(images).to(device).permute(0, 3, 1, 2).contiguous())
         lab = torch.from_numpy(labels).to(device)
-        pred = model(x.float())["pred"]
+        with computing_in(model, torch.float32):
+            pred = model(x.float())["pred"]
         for i in range(pred.shape[0]):
             mask = resize_argmax(pred[i].contiguous(), tuple(lab.shape[1:]))
             a, u, _ = intersection_and_union_device(mask, lab[i], c, ignore)

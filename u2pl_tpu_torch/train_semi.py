@@ -19,8 +19,11 @@ step late, and logged every 10 steps with the scalars of tb.py.  After
 each epoch, validation (the student during warmup, the teacher after it),
 then `ckpt_best.pth` when the mIoU improved and `ckpt.pth` always.
 
-The port trains float32 (TF32 off) whatever `net.dtype` says; bf16 is a
-later slice.  `sync_bn` on one card is plain BN.  `main(argv)` runs in
+The port trains in the config's `net.dtype`, as the JAX trainer does:
+float32 (TF32 off), or bfloat16 under the JAX package's rounding points
+(models/builder.py, train/steps.py) with float32 parameters, optimizer,
+EMA and checkpoints; in-training validation runs a float32 forward either
+way.  `sync_bn` on one card is plain BN.  `main(argv)` runs in
 process and returns a summary of the run.
 """
 
@@ -91,15 +94,16 @@ parser.add_argument("--profile_dir", type=str, default="",
 
 
 def setup(args, logger: logging.Logger):
-    """Config, device (float32: TF32 off), scalar writer and save dir."""
+    """Config, device (TF32 off: float32 means float32), scalar writer and
+    save dir."""
     cfg = load_config(args.config)
     device = torch.device(args.device)
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     logger.info(pprint.pformat(cfg))
-    logger.info(f"training in float32 on {device} (config net.dtype {cfg.net.dtype}; bfloat16 "
-                f"is not ported); sync_bn {cfg.net.sync_bn} on one card is plain BN")
+    logger.info(f"training in {cfg.net.dtype} on {device} (net.dtype; validation in float32); "
+                f"sync_bn {cfg.net.sync_bn} on one card is plain BN")
     tb = ScalarWriter(osp.join(cfg.exp_path, "log/events_seg/"
                                + datetime.now().strftime("%Y%m%d_%H%M%S")))
     os.makedirs(cfg.save_path, exist_ok=True)

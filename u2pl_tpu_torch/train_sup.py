@@ -3,7 +3,7 @@ train_sup.py; reference train_sup.py).
 
     python -m u2pl_tpu_torch.train_sup --config <config.yaml> --seed 2
 
-The flags, float32 training, per-step generators, validation and
+The flags, training in `net.dtype`, per-step generators, validation and
 checkpoints of `u2pl_tpu_torch.train_semi`, with `make_sup_step` on the
 labeled loader and no teacher (the checkpoints have no teacher_state, so an
 evaluator reads the student).  `main(argv)` runs in process and returns a
