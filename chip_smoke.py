@@ -120,6 +120,25 @@ Phases; any failure ends the run with a nonzero exit code:
      routes held within BF16_ROUTE_SHARE of that bf16-vs-f32 gap); then 2
      Cityscapes `ours` semi steps in bf16 (OHEM on both heads) and the
      step's time.
+ 14. bfloat16 serving, infer and eval (`--dtype bfloat16`): kernel B's
+     bf16 mode against its f32 mode on the exact upcast at the VOC and
+     Cityscapes serving shapes (labels equal at every pixel) and kernel
+     A's bf16 -> f32 mode against its f32 mode at VOC eval's per-scale
+     logits (bit-equal), A's narrow bf16 mode at VOC eval's decoder and
+     logits shapes against its rounded formula (bit-equal), each timed
+     beside its f32 mode; then
+     `InferEngine(dtype="bfloat16")` on the VOC `ours` config at full
+     width from seeded random weights: `run_server` on six JPEGs with its
+     launches, the masks through the kernels against the plain versions
+     on the same bf16 logits, batch-1 latency (p50, p99), masks/s at batch
+     8 and peak memory beside a float32 engine, and the bf16-vs-f32 mask
+     agreement (printed, not gated); `u2pl_tpu_torch.eval --dtype
+     bfloat16` on phase 10's workspace at 1 and 3 scales (also through the
+     plain versions on the kernel route's own bf16 logits, masks equal but
+     at near-ties, then again with every size seen) and on phase 12's
+     Cityscapes workspace (the same), with seconds per image, launches of each mode
+     per image and the mIoU beside phase 12's f32 one; `u2pl_tpu_torch.infer
+     --dtype bfloat16` at batch 3 and on Cityscapes.
 Phase 1 also holds the contrastive kernels (K4: pixel masks, key selection,
 anchor draws; K5: the bank write; K6: the InfoNCE forward and backward)
 against their plain versions at the flagship shapes, on a prefilled bank
@@ -905,10 +924,17 @@ def read_counters():
     """The launch counts, with kernel A's split by shape: the decoder's
     upsample (FEATURES channels), the request and eval images' (3
     channels), the Cityscapes eval crops' logits (A_EVAL_CROP) and the other
-    logits' (serving, validation, whole-image eval)."""
-    from u2pl_tpu_torch.ops.resize import resize_bilinear
+    logits' (serving, validation, whole-image eval); and by mode: A's
+    narrow bf16 mode and its bf16 -> f32 mode, B per logits dtype."""
+    import torch
+
+    from u2pl_tpu_torch.ops.resize import resize_argmax, resize_bilinear
 
     out = {k: getattr(*_counter(k)) for k in COUNTERS}
+    out["A_bf16_narrow"], out["A_bf16_f32"] = resize_bilinear.modes[1], resize_bilinear.modes[3]
+    out["A_bf16_wide"] = resize_bilinear.modes[2]
+    out["B_bf16"] = resize_argmax.dtypes[torch.bfloat16]
+    out["B_f32"] = resize_argmax.dtypes[torch.float32]
     out["A_decoder"] = sum(n for (shape, _), n in resize_bilinear.shapes.items()
                            if shape[1] == FEATURES)
     out["A_image"] = sum(n for (shape, _), n in resize_bilinear.shapes.items() if shape[1] == 3)
@@ -928,11 +954,13 @@ def read_counters():
 
 def zero_counters():
     from u2pl_tpu_torch.losses.unsup import upsample_softmax_stats
-    from u2pl_tpu_torch.ops.resize import resize_bilinear
+    from u2pl_tpu_torch.ops.resize import resize_argmax, resize_bilinear
 
     for k in COUNTERS:
         setattr(*_counter(k), 0)
     resize_bilinear.shapes.clear()
+    resize_bilinear.modes.clear()
+    resize_argmax.dtypes.clear()
     upsample_softmax_stats.selections.clear()
     from u2pl_tpu_torch.losses.ohem import ohem_target_prob
 
@@ -3071,6 +3099,437 @@ def phase13_bf16(dev, card, case, cfg):
     return voc_launches, city_launches, errs, times, f32, voc, city
 
 
+# ---- phase 14: bfloat16 serving, infer and eval -------------------------------
+
+# kernel B's bf16 mode at the served VOC and Cityscapes shapes, and kernel
+# A's bf16-in, f32-out mode at VOC eval's per-scale logits of a 500x375
+# image (scales 0.75 and 1.25) back to (375, 500)
+B_BF16_SHAPES = {"B_bf16": ((21, CROP, CROP), (375, 500)),
+                 "B_city_bf16": ((19, CITY_CROP, CITY_CROP), CITY_EVAL_IMAGE)}
+A_BF16_F32_SHAPES = [((1, 21, 281, 375), (375, 500)), ((1, 21, 469, 625), (375, 500))]
+# kernel A's narrow bf16 mode at VOC eval's shapes of a 375x500 image at
+# scale 1.0 (sizes that are multiples of nothing): the decoder's upsample
+# (its align-corners weights not bf16-exact, so narrow) and the logits'
+A_NARROW_EVAL = {"A_decoder_eval_bf16": ((1, FEATURES, 47, 63), (94, 125)),
+                 "A_logits_eval_bf16": ((1, 21, 94, 125), (375, 500))}
+LATENCY_PASSES = 8  # batch-1 requests per dtype: the six images, eight times
+BATCH8 = 8
+
+
+def bf16_inference_kernels(dev, card):
+    """Kernel B's bf16 mode against its f32 mode on the exact upcast (labels
+    equal at every pixel, ties planted), A's bf16 -> f32 mode against its
+    f32 mode on the upcast (bit-equal) and A's narrow bf16 mode at VOC
+    eval's decoder and logits shapes against its rounded formula
+    (bit-equal), each timed beside its f32 mode and its plain version:
+    ({key: err}, {key: (ms, plain ms, library ms)}, {key: f32 ms})."""
+    import torch
+    import torch.nn.functional as F
+
+    from u2pl_tpu_torch.ops import resize as R
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    errs, times, f32 = {}, {}, {}
+    for key, (shape, out) in A_NARROW_EVAL.items():
+        x = (3 * torch.randn(shape, device=dev, generator=g)).to(torch.bfloat16)
+        if R._wide(torch.bfloat16, shape[1], shape[2:], out, True):
+            fail(f"kernel A bf16 at {shape} -> {out}: wide, not the narrow mode eval runs")
+        y = R.resize_bilinear(x, out)
+        same = y.dtype == torch.bfloat16 and torch.equal(y, R.resize_bilinear_rounded(x, out))
+        log(f"[phase 14] kernel A bf16 (narrow) {shape} -> {out}: bit-equal to its rounded "
+            f"formula {same}")
+        if not same:
+            fail(f"kernel A narrow bf16 at {shape} -> {out}: not bit-equal to its rounded formula")
+        errs[key] = 0.0
+        x32 = x.float()
+        times[key] = (cuda_ms(lambda: R.resize_bilinear(x, out)),
+                      cuda_ms(lambda: R.resize_bilinear_plain(x, out)),
+                      cuda_ms(lambda: F.interpolate(x, out, mode="bilinear", align_corners=True)))
+        f32[key] = cuda_ms(lambda: R.resize_bilinear(x32, out))
+        log(f"[{card}] kernel A bf16 (narrow) {shape} -> {out}: {times[key][0]:.4f} ms; its f32 "
+            f"mode {f32[key]:.4f} ms; plain version {times[key][1]:.4f} ms; F.interpolate bf16 "
+            f"{times[key][2]:.4f} ms")
+        del x, x32, y
+    for key, (chw, out) in B_BF16_SHAPES.items():
+        x = (4 * torch.randn(chw, device=dev, generator=g)).to(torch.bfloat16)
+        x[1] = torch.where(torch.rand(chw[1:], device=dev, generator=g) < 0.1, x[0], x[1])
+        x32 = x.float()
+        got, want = R.resize_argmax(x, out), R.resize_argmax(x32, out)
+        diff = int((got != want).sum())
+        log(f"[phase 14] kernel B bf16 {chw} -> {out}: {diff} labels differ from its f32 mode on "
+            f"the exact upcast (bound 0; ties planted on a tenth of the pixels)")
+        if diff:
+            fail(f"kernel B bf16 at {chw}: {diff} labels differ from its f32 mode on the upcast")
+        errs[key] = float(diff)
+        times[key] = (cuda_ms(lambda: R.resize_argmax(x, out)),
+                      cuda_ms(lambda: R.resize_argmax_plain(x, out), 10), None)
+        f32[key] = cuda_ms(lambda: R.resize_argmax(x32, out))
+        log(f"[{card}] kernel B bf16 {chw} -> {out}: {times[key][0]:.4f} ms; its f32 mode "
+            f"{f32[key]:.4f} ms; plain version {times[key][1]:.4f} ms")
+        del x, x32, got, want
+    for shape, out in A_BF16_F32_SHAPES:
+        x = (3 * torch.randn(shape, device=dev, generator=g)).to(torch.bfloat16)
+        x32 = x.float()
+        y = R.resize_bilinear(x, out, out_dtype=torch.float32)
+        same = (y.dtype == torch.float32 and torch.equal(y, R.resize_bilinear(x32, out))
+                and torch.equal(y, R.resize_bilinear_rounded(x32, out)))
+        log(f"[phase 14] kernel A bf16 -> f32 {shape} -> {out}: bit-equal to its f32 mode on the "
+            f"exact upcast and to the rounded formula {same}")
+        if not same:
+            fail(f"kernel A bf16 -> f32 at {shape}: not bit-equal to its f32 mode on the upcast")
+        errs["A_bf16_f32"] = 0.0
+    # timed at the larger, scale 1.25 (the last shape)
+    times["A_bf16_f32"] = (
+        cuda_ms(lambda: R.resize_bilinear(x, out, out_dtype=torch.float32)),
+        cuda_ms(lambda: R.resize_bilinear_plain(x, out, out_dtype=torch.float32)), None)
+    f32["A_bf16_f32"] = cuda_ms(lambda: R.resize_bilinear(x32, out))
+    log(f"[{card}] kernel A bf16 -> f32 {shape} -> {out}: {times['A_bf16_f32'][0]:.4f} ms; its "
+        f"f32 mode on the upcast {f32['A_bf16_f32']:.4f} ms; plain version "
+        f"{times['A_bf16_f32'][1]:.4f} ms")
+    return errs, times, f32
+
+
+def decoder_narrow(launches):
+    """Kernel A's narrow bf16 launches on the decoder's upsample (FEATURES
+    channels) in a bf16 run: narrow where its weights are not bf16-exact,
+    at most eval image sizes; else wide (the logits, 21 or 19 channels, are
+    never wide)."""
+    return launches["A_decoder"] - launches["A_bf16_wide"]
+
+
+def logits_narrow(launches):
+    """Kernel A's narrow bf16 launches on the logits in a bf16 run: all
+    narrow ones less the decoder's."""
+    return launches["A_bf16_narrow"] - decoder_narrow(launches)
+
+
+def pooled_agreement(got, want):
+    """The share of all pixels where two {name: mask} dicts agree."""
+    agreement(got, want)  # the same files and shapes
+    same = sum(int((g == want[n]).sum()) for n, g in got.items())
+    return same / sum(g.size for g in got.values())
+
+
+def nearest_rank(values, q):
+    """The q-quantile of `values` by nearest rank."""
+    import math
+
+    return sorted(values)[max(0, math.ceil(q * len(values)) - 1)]
+
+
+def bf16_serving(dev, card, tmp):
+    """`InferEngine(dtype="bfloat16")` on the VOC `ours` config at full width
+    from seeded random weights: `run_server` on six 500x375-class JPEGs
+    with its launches counted from 0, the masks through the kernels against
+    the plain versions on the same bf16 logits, then batch-1 latency (p50,
+    p99), masks/s at batch 8 and peak memory beside a float32 engine on the
+    same weights, and the share of pixels where the two dtypes' masks
+    agree.  Returns the run's launches and its numbers."""
+    import numpy as np
+    import torch
+
+    from u2pl_tpu_torch.config import load_config
+    from u2pl_tpu_torch.ops import resize as R
+    from u2pl_tpu_torch.serving import InferEngine, run_server
+
+    cfg = load_config(VOC_CONFIG)
+    pth = os.path.join(tmp, "bf16_serve.pth")
+    random_weights_pth(cfg, pth)
+    engines = {dt: InferEngine(cfg, pth, batch_size=4, dtype=dt, device=dev)
+               for dt in ("bfloat16", "float32")}
+    engine = engines["bfloat16"]
+    if engine.model.dtype != torch.bfloat16 or any(
+            p.dtype != torch.float32 for p in engine.model.parameters()):
+        fail("InferEngine(dtype='bfloat16') did not build a bf16-compute model with f32 parameters")
+    for e in engines.values():
+        e.warmup()
+    folder = os.path.join(tmp, "bf16_requests")
+    os.makedirs(folder, exist_ok=True)
+    images = synthetic_jpegs(folder)
+    reqs = [json.dumps({"op": "infer", "id": f"r{i}", "image": p}) for i, p in enumerate(images)]
+    reqs.append(json.dumps({"op": "shutdown", "id": "bye"}))
+    logits, masks = [], []
+    forward, to_mask = engine.forward, engine.to_mask
+
+    def recording_forward(imgs):
+        out = forward(imgs)
+        logits.extend(out)
+        return out
+
+    def recording_to_mask(logit, size):
+        masks.append((to_mask(logit, size), size))
+        return masks[-1][0]
+
+    engine.forward, engine.to_mask = recording_forward, recording_to_mask
+    writer = io.StringIO()
+    zero_counters()
+    served = run_server(io.StringIO("".join(r + "\n" for r in reqs)), writer, engine,
+                        default_save_folder=os.path.join(tmp, "bf16_served"), batch_window_s=0.5)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    engine.forward, engine.to_mask = forward, to_mask
+    resp = [json.loads(line) for line in writer.getvalue().splitlines()]
+    want = {"A_image": len(images), "logits narrow": 2, "B_bf16": len(images)}
+    got = {"A_image": launches["A_image"], "logits narrow": logits_narrow(launches),
+           "B_bf16": launches["B_bf16"]}
+    log(f"[phase 14] bf16 server: {served} requests, logits {logits[0].dtype}; launches {got} "
+        f"(want {want}: kernel A on each request image in f32, A's narrow bf16 mode once per "
+        f"batch on the logits, B's bf16 mode once per image)")
+    if served != len(images) or not all(r["ok"] for r in resp) or len(masks) != len(images):
+        fail(f"bf16 server: {served} served, responses {resp}")
+    if got != want or any(lg.dtype != torch.bfloat16 for lg in logits):
+        fail(f"bf16 server: launches {got}, want {want}; logits {logits[0].dtype}")
+    # the masks through kernel B and through its plain version, from the
+    # same bf16 logits: equal but where the f32 resize of the upcast has a
+    # top-2 gap within rounding (the plain version's matmul sums in another
+    # order)
+    off = near_ties = 0
+    with torch.inference_mode():
+        for lg, (mask, size) in zip(logits, masks):
+            plain = R.resize_argmax_plain(lg, size).cpu().numpy()
+            top2 = R.resize_bilinear_plain(lg[None].float(), size)[0].topk(2, dim=0).values
+            near = ((top2[0] - top2[1]) <= NEAR_TIE * top2[0].abs().clamp(min=1.0)).cpu().numpy()
+            off += int(((plain != mask) & ~near).sum())
+            near_ties += int(((plain != mask) & near).sum())
+    log(f"[phase 14] bf16 served masks, kernels vs plain versions on the same bf16 logits: "
+        f"{off} labels differ off near-ties (bound 0), {near_ties} at near-ties")
+    if off:
+        fail(f"bf16 served masks: {off} labels differ from the plain versions off near-ties")
+    # latency at batch 1 and masks/s at batch 8, each dtype in turn
+    numbers, dtype_masks = {}, {}
+    for dt, e in engines.items():
+        img, _ = e.load(images[0])
+        fwd = []
+        for k in range(2 + 12):  # the forward alone at batch 1 (it waits for the card)
+            t0 = time.perf_counter()
+            e.forward([img])
+            if k >= 2:
+                fwd.append((time.perf_counter() - t0) * 1e3)
+        lat, dtype_masks[dt] = [], []
+        for k in range(LATENCY_PASSES + 1):
+            for path in images:
+                t0 = time.perf_counter()
+                img, size = e.load(path)
+                m = e.to_mask(e.forward([img])[0], size)
+                e.save_mask(m, path, os.path.join(tmp, f"latency_{dt}"))
+                if k:  # the first pass: every shape's first forward
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                else:
+                    dtype_masks[dt].append(m)
+        loaded = [e.load(p) for p in (images + images)[:BATCH8]]
+        batch = [img for img, _ in loaded]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        runs = []
+        for k in range(2 + 6):
+            t0 = time.perf_counter()
+            for lg, (_, size) in zip(e.forward(batch), loaded):
+                e.to_mask(lg, size)
+            if k >= 2:
+                runs.append((time.perf_counter() - t0) * 1e3)
+        numbers[dt] = {"p50": statistics.median(lat), "p99": nearest_rank(lat, 0.99),
+                       "forward_ms": statistics.median(fwd),
+                       "n": len(lat), "masks_s": BATCH8 * 1e3 / statistics.median(runs),
+                       "batch8_ms": statistics.median(runs),
+                       "peak": torch.cuda.max_memory_allocated(dev)}
+    agree = [float((a == b).mean()) for a, b in zip(dtype_masks["bfloat16"], dtype_masks["float32"])]
+    for dt, n in numbers.items():
+        log(f"[{card}] {dt} serving, VOC 513², full width: request latency at batch 1 (load on the "
+            f"card, forward, kernel B, two PNGs) p50 {n['p50']:.2f} ms, p99 {n['p99']:.2f} ms "
+            f"(nearest rank over {n['n']} requests: their max); the forward alone at batch 1 "
+            f"(copy in, model, upsample) median {n['forward_ms']:.2f} ms; batch 8 (forward, then "
+            f"kernel B per image): {n['batch8_ms']:.2f} ms, {n['masks_s']:.2f} masks/s; peak device memory "
+            f"{n['peak'] / 2**20:.1f} MiB (both engines' weights resident)")
+    log(f"[phase 14] bf16 vs f32 served masks, pixel agreement per image {agree} (not gated)")
+    for e in engines.values():
+        del e.model
+    del engines, engine, logits
+    torch.cuda.empty_cache()
+    return launches, {**numbers, "agree": agree}
+
+
+def phase14_bf16_inference(dev, card, tmp, f32_evals):
+    """bfloat16 serving, infer and eval on the card (`--dtype bfloat16`):
+    the new kernel modes checked and timed; `InferEngine(dtype="bfloat16")`
+    served, timed beside f32 (`bf16_serving`); `u2pl_tpu_torch.eval --dtype
+    bfloat16` on phase 10's workspace at scales 1.0 and 0.75 / 1.0 / 1.25
+    (each also through the plain versions, then again with every size
+    seen, kernels only) and on phase 12's Cityscapes workspace at scale
+    1.0 (also through the plain versions); `u2pl_tpu_torch.infer --dtype
+    bfloat16` at batch 3 and on the Cityscapes workspace at 769² (kernels
+    only: the plain route's numpy resize of each request image takes ~1
+    s).  Returns ({key: launches summed over the phase's runs}, errs,
+    times, f32 times, the runs' numbers)."""
+    import torch
+
+    import u2pl_tpu_torch.evallib.slide as slide
+    from u2pl_tpu_torch import eval as eval_cli
+    from u2pl_tpu_torch import infer as infer_cli
+    from u2pl_tpu_torch.ops import resize as R
+    from u2pl_tpu_torch.utils.checkpoint import CKPT_BEST_NAME
+
+    t_phase = time.monotonic()
+    log("[phase 14] bfloat16 serving, infer and eval (rounding points: "
+        "u2pl_tpu_torch/evallib/slide.py)")
+    errs, times, f32 = bf16_inference_kernels(dev, card)
+    serve_launches, serving = bf16_serving(dev, card, tmp)
+    total = {k: serve_launches[k] for k in BF16_INFER_KEYS + ("A_decoder", "A_bf16_wide")}
+
+    def run(name, module, cfg_path, args, n_images, plain=True, f32_name=None):
+        """The CLI in bf16 through the kernels (launches counted from 0), and
+        an eval also through the plain versions on the kernel route's own
+        bf16 logits (`net_process`'s outputs, recorded and replayed: the
+        comparison is post-forward), its masks equal to the kernels' but at
+        near-ties; the share of pixels where the bf16 masks differ from
+        phase 12's f32 run `f32_name` is printed: (summary, launches)."""
+        argv = list(args) + ["--dtype", "bfloat16"]
+        out = os.path.join(tmp, "eval_out", f"bf16 {name}")
+        compare = plain and module is eval_cli
+        logits, masks, plain_masks = [], [], []
+        make, argmax = eval_cli.make_net_process, slide.resize_argmax
+
+        def recording_make(model):
+            inner = make(model)
+
+            def net_process(images):
+                logits.append(inner(images))
+                return logits[-1]
+
+            return net_process
+
+        def recording_argmax(x, size, align_corners=True):
+            masks.append(argmax(x, size, align_corners=align_corners))
+            return masks[-1]
+
+        def replaying_make(model):
+            recorded = iter(logits)
+
+            def net_process(images):
+                lg = next(recorded)
+                if lg.shape[0] != images.shape[0] or lg.shape[2:] != images.shape[2:]:
+                    fail(f"bf16 {name}: the plain route asked for {tuple(images.shape)}, the "
+                         f"kernel route gave {tuple(lg.shape)}")
+                return lg
+
+            return net_process
+
+        def plain_argmax(x, size, align_corners=True):
+            top2 = R.resize_bilinear_plain(x[None].float(), size, align_corners)[0]
+            top2 = top2.topk(2, dim=0).values
+            near = (top2[0] - top2[1]) <= NEAR_TIE * top2[0].abs().clamp(min=1.0)
+            plain_masks.append((R.resize_argmax_plain(x, size, align_corners), near))
+            return plain_masks[-1][0]
+
+        t0 = time.monotonic()
+        if compare:
+            eval_cli.make_net_process, slide.resize_argmax = recording_make, recording_argmax
+        try:
+            summary, _, launches = run_cli(module, cfg_path,
+                                           argv + ["--save_folder", out + "_kernels"])
+        finally:
+            eval_cli.make_net_process, slide.resize_argmax = make, argmax
+        run_s = time.monotonic() - t0
+        for k in total:
+            total[k] += launches[k]
+        per = {k: launches[k] / n_images for k in BF16_INFER_KEYS}
+        per["A_bf16_narrow on the logits"] = logits_narrow(launches) / n_images
+        per["A_bf16_narrow on the decoder"] = decoder_narrow(launches) / n_images
+        text = (f"[{card}] bf16 {name}: {n_images} images in {run_s:.1f} s (the CLI, model build "
+                f"and load included); seconds per image "
+                f"{[round(t, 4) for t in summary['seconds']]}; per image launches {per}")
+        if compare:
+            zero_counters()
+            try:
+                with plain_versions():
+                    eval_cli.make_net_process, slide.resize_argmax = replaying_make, plain_argmax
+                    psum = module.main(["--config", cfg_path] + argv
+                                       + ["--save_folder", out + "_plain"])
+            finally:
+                eval_cli.make_net_process, slide.resize_argmax = make, argmax
+            torch.cuda.synchronize()
+            if any(read_counters()[k] for k in ("A", "B")):
+                fail(f"bf16 {name}: the plain route launched a kernel")
+            if len(masks) != n_images or len(plain_masks) != n_images:
+                fail(f"bf16 {name}: {len(masks)} kernel and {len(plain_masks)} plain masks for "
+                     f"{n_images} images")
+            off = sum(int(((m != p) & ~near).sum()) for m, (p, near) in zip(masks, plain_masks))
+            ties = sum(int(((m != p) & near).sum()) for m, (p, near) in zip(masks, plain_masks))
+            f32_masks = gray_pngs(os.path.join(tmp, "eval_out", f"{f32_name}_kernels", "gray"))
+            gap = 1 - pooled_agreement(gray_pngs(out + "_kernels/gray"), f32_masks)
+            text += (f"; masks vs the plain versions on the same bf16 logits: {off} labels differ "
+                     f"off near-ties (bound 0), {ties} at near-ties; mIoU {summary['miou']:.4f}, "
+                     f"plain versions {psum['miou']:.4f}; bf16 vs phase 12's f32 masks differ in "
+                     f"a share {gap:.3e} of the pixels (not gated)")
+            if off:
+                fail(f"bf16 {name}: {off} labels differ from the plain versions off near-ties")
+        log(text)
+        if summary["images"] != n_images or launches["B"] != n_images:
+            fail(f"bf16 {name}: {summary['images']} images, B launches {launches['B']}")
+        return summary, launches
+
+    voc_cfg = os.path.join(tmp, "exp_semi", "config.yaml")
+    flat = ["--model_path", os.path.join(tmp, "exp_semi", "checkpoints", CKPT_BEST_NAME)]
+    evals = {}
+    for key, scales in (("voc_1", ["1.0"]), ("voc_3", list(map(str, EVAL_SCALES)))):
+        f32_name = "eval VOC, scales " + ("1.0" if key == "voc_1" else str(EVAL_SCALES))
+        evals[key], launches = run(f"eval VOC, scales {scales}", eval_cli, voc_cfg,
+                                   flat + ["--scales", *scales], CLI_VAL, f32_name=f32_name)
+        # per image and scale the logits' narrow upsample; per scale off 1.0
+        # their bf16 -> f32 resize back; B on one scale's bf16 logits, or on
+        # the f32 total
+        one = len(scales) == 1
+        want = {"logits narrow": CLI_VAL * len(scales),
+                "A_bf16_f32": CLI_VAL * sum(s != "1.0" for s in scales),
+                "B_bf16": CLI_VAL if one else 0, "B_f32": 0 if one else CLI_VAL}
+        got = {k: launches[k] for k in want if k in launches}
+        got["logits narrow"] = logits_narrow(launches)
+        if got != want:
+            fail(f"bf16 eval {scales}: launches {got}, want {want}")
+    for scales in (["1.0"], list(map(str, EVAL_SCALES))):
+        run(f"eval VOC again (every size seen), scales {scales}", eval_cli, voc_cfg,
+            flat + ["--scales", *scales], CLI_VAL, plain=False)
+    city_cfg = os.path.join(tmp, "exp_city", "config.yaml")
+    city_name = "eval Cityscapes, base_size 2048, scales 1.0"
+    evals["city"], launches = run(
+        city_name, eval_cli, city_cfg,
+        ["--model_path", os.path.join(tmp, "exp_city", "city_random.pth"),
+         "--base_size", str(max(CITY_EVAL_IMAGE)), "--scales", "1.0"], CITY_EVAL_VAL,
+        f32_name=city_name)
+    if logits_narrow(launches) != CITY_EVAL_VAL or launches["B_f32"] != CITY_EVAL_VAL:
+        fail(f"bf16 Cityscapes eval: A narrow on the logits {logits_narrow(launches)} (the "
+             f"crops', one forward per image), B f32 {launches['B_f32']} (the canvas)")
+    _, launches = run("infer VOC, batch 3", infer_cli, voc_cfg, flat + ["--batch_size", "3"],
+                      CLI_VAL, plain=False)
+    if launches["B_bf16"] != CLI_VAL or logits_narrow(launches) != 2:
+        fail(f"bf16 infer at batch 3: B bf16 {launches['B_bf16']}, A narrow on the logits "
+             f"{logits_narrow(launches)} (want {CLI_VAL}, 2)")
+    # kernel B's bf16 mode at the Cityscapes serving shape, (19, 769²) ->
+    # 1024x2048
+    _, launches = run("infer Cityscapes (769²), batch 1", infer_cli, city_cfg,
+                      ["--model_path", os.path.join(tmp, "exp_city", "city_random.pth")],
+                      CITY_EVAL_VAL, plain=False)
+    city_b = launches["B_bf16"]
+    if city_b != CITY_EVAL_VAL:
+        fail(f"bf16 Cityscapes infer: B bf16 {city_b} (want {CITY_EVAL_VAL})")
+    log(f"[phase 14] bf16 vs f32 mIoU: " + ", ".join(
+        f"{k} {evals[k]['miou']:.4f} vs {f32_evals[k]['miou']:.4f}" for k in evals))
+    missing = [k for k in BF16_INFER_KEYS if total[k] <= 0]
+    missing += [k for k, n in (("A narrow on the logits", logits_narrow(total)),
+                               ("A narrow on the decoder", decoder_narrow(total))) if n <= 0]
+    if missing:
+        fail(f"a kernel of the bf16 inference path was never launched: {missing}")
+    log(f"[{card}] phase 14 (bf16 serving, eval and infer) in {time.monotonic() - t_phase:.1f} s; "
+        f"launches of the kernels' runs {total}")
+    return total, errs, times, f32, {"serving": serving, "evals": evals, "city_b": city_b}
+
+
+# the kernels (and modes) of the bf16 inference path: A on the request and
+# eval images (f32), A's narrow bf16 mode on the logits, its bf16 -> f32
+# mode on eval's per-scale logits, B's bf16 mode on one scale's logits and
+# its f32 mode on eval's f32 totals and canvases
+BF16_INFER_KEYS = ("A_image", "A_bf16_narrow", "A_bf16_f32", "B_bf16", "B_f32")
+
+
 def bounds(case, cfg):
     """{kernel: (bound ms, "bytes" or "operations")}: the least time the card
     could take for each timed call, the larger of the bytes it must move
@@ -3197,6 +3656,14 @@ def bounds(case, cfg):
         "K6_fwd_bf16": (act * q * (f * 2 + m * (f * 2 + 4)) + act * f * 4,
                         act * q * (m + 1) * f * 4),
         "K6_bwd_bf16": (b * f * hw * 2 + act * q * (2 * f * 4 + 4), 0),
+        # phase 14: B reads the bf16 logits and writes a byte per pixel; A
+        # bf16 -> f32 reads bf16 and writes f32; A narrow at the decoder's
+        # VOC eval shape reads and writes bf16
+        "A_decoder_eval_bf16": (FEATURES * (47 * 63 + 94 * 125) * 2, FEATURES * 94 * 125 * 9),
+        "B_bf16": (21 * CROP * CROP * 2 + 375 * 500, 21 * 375 * 500 * 10),
+        "B_city_bf16": (19 * CITY_CROP ** 2 * 2 + CITY_EVAL_IMAGE[0] * CITY_EVAL_IMAGE[1],
+                        19 * CITY_EVAL_IMAGE[0] * CITY_EVAL_IMAGE[1] * 10),
+        "A_bf16_f32": (21 * 469 * 625 * 2 + 21 * 375 * 500 * 4, 21 * 375 * 500 * 9),
     }
     out = {}
     for name, (nbytes, ops, *sfu) in moved.items():
@@ -3264,11 +3731,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="u2pl_chip_smoke_cli_") as tmp:
         paths, cli_launches, _ = phase10_cli(dev, card, tmp)
         variant_launches, _ = phase11_variant(dev, card, tmp, paths)
-        eval_launches, _ = phase12_eval(dev, card, tmp, paths)
+        eval_launches, f32_evals = phase12_eval(dev, card, tmp, paths)
+        torch.cuda.empty_cache()
+        bf_voc, bf_city, bf_errs, bf_times, bf_f32, bf_voc_run, bf_city_run = phase13_bf16(
+            dev, card, case, ccfg)
+        # phase 14 evaluates on phases 10 and 12's workspaces
+        inf_launches, inf_errs, inf_times, inf_f32, inf_run = phase14_bf16_inference(
+            dev, card, tmp, f32_evals)
     torch.cuda.empty_cache()
-    bf_voc, bf_city, bf_errs, bf_times, bf_f32, bf_voc_run, bf_city_run = phase13_bf16(
-        dev, card, case, ccfg)
     bound = bounds(case, ccfg)
+    bf_errs.update(inf_errs)
+    bf_f32.update(inf_f32)
 
     csrc = "u2pl_tpu_torch/kernels/csrc/"
     times.update(train_times)
@@ -3276,6 +3749,13 @@ def main() -> int:
     times.update(city_times)
     times.update(variant_times)
     times.update(bf_times)
+    times.update(inf_times)
+    srv = inf_run["serving"]
+    log(f"[{card}] bf16 beside f32, VOC serving at 513² (phase 14): batch-1 latency p50 "
+        f"{srv['bfloat16']['p50']:.2f} / p99 {srv['bfloat16']['p99']:.2f} ms vs "
+        f"{srv['float32']['p50']:.2f} / {srv['float32']['p99']:.2f} ms; batch 8 "
+        f"{srv['bfloat16']['masks_s']:.2f} vs {srv['float32']['masks_s']:.2f} masks/s; peak "
+        f"{srv['bfloat16']['peak'] / 2**20:.1f} vs {srv['float32']['peak'] / 2**20:.1f} MiB")
     log(f"[{card}] bf16 beside f32, VOC contrastive semi step ({B_L}+{B_U} at {CROP}²): "
         f"{bf_voc_run['semi_ms']:.1f} ms, {bf_voc_run['img_s']:.2f} img/s, peak "
         f"{bf_voc_run['peak'] / 2**30:.2f} GiB (bf16) vs {contra_times_run['semi_ms']:.1f} ms, "
@@ -3396,9 +3876,12 @@ def main() -> int:
               city_launches["K7_kth"], errs["K7_kth"], "K7_kth"),
         entry("ohem_keep_labels", "K7_keep", "ohem.cu", "u2pl_tpu/losses/ohem.py:76",
               city_launches["K7_keep"], errs["K7_keep"], "K7_keep"),
-        # the bf16 modes (phase 13): launches on its bf16 training runs; the
-        # logits' narrow upsample runs on no training path (C, D and K7
-        # upsample inside themselves), and serves the next slice
+        # the bf16 modes (phase 13): launches on its bf16 training runs; A's
+        # narrow mode runs on the logits of phase 14's bf16 serving, eval and
+        # infer runs (C, D and K7 upsample inside themselves) and on the
+        # decoder's upsample at eval image sizes, each row with its own
+        # launches (its time: phase 13's shape for the logits, phase 14's
+        # VOC eval shape for the decoder)
         entry("resize_bilinear_ac_decoder_bf16", "A_decoder_bf16", "resize.cu",
               "u2pl_tpu/ops/resize.py:76", bf_voc["A_decoder"], bf_errs["A_decoder_bf16"],
               "A_decoder_bf16"),
@@ -3406,8 +3889,13 @@ def main() -> int:
               "u2pl_tpu/ops/resize.py:76", bf_city["A_decoder"], bf_errs["A_decoder_city_bf16"],
               "A_decoder_city_bf16"),
         entry("resize_bilinear_ac_logits_bf16", "A_logits_bf16", "resize.cu",
-              "u2pl_tpu/ops/resize.py:76", bf("A_logits"), bf_errs["A_logits_bf16"],
-              "A_logits_bf16"),
+              "u2pl_tpu/ops/resize.py:76",
+              logits_narrow(bf_voc) + logits_narrow(bf_city) + logits_narrow(inf_launches),
+              bf_errs["A_logits_bf16"], "A_logits_bf16"),
+        entry("resize_bilinear_ac_decoder_eval_bf16", "A_decoder_eval_bf16", "resize.cu",
+              "u2pl_tpu/ops/resize.py:76",
+              decoder_narrow(bf_voc) + decoder_narrow(bf_city) + decoder_narrow(inf_launches),
+              bf_errs["A_decoder_eval_bf16"], "A_decoder_eval_bf16"),
         entry("resize_bilinear_ac_bwd_bf16", "A_bwd_bf16", "resize.cu",
               "u2pl_tpu/ops/resize.py:76", bf_voc["A_bwd"], bf_errs["A_bwd_bf16"], "A_bwd_bf16"),
         entry("resize_bilinear_ac_bwd_cityscapes_bf16", "A_bwd_city_bf16", "resize.cu",
@@ -3436,6 +3924,17 @@ def main() -> int:
         entry("contra_infonce_bwd_bf16", "K6_bwd_bf16", "infonce.cu",
               "u2pl_tpu/losses/contrastive.py:168", bf("K6_bwd"), bf_errs["K6_bwd_bf16"],
               "K6_bwd_bf16"),
+        # phase 14's modes, with their launches on its bf16 serving, eval and
+        # infer runs: B on bf16 logits (at the VOC and Cityscapes serving
+        # shapes, the latter from its Cityscapes infer run), A bf16 in, f32 out
+        entry("resize_argmax_ac_bf16", "B_bf16", "resize.cu", "u2pl_tpu/serving.py:115",
+              inf_launches["B_bf16"] - inf_run["city_b"], bf_errs["B_bf16"], "B_bf16"),
+        entry("resize_argmax_ac_cityscapes_bf16", "B_city_bf16", "resize.cu",
+              "u2pl_tpu/serving.py:115", inf_run["city_b"], bf_errs["B_city_bf16"],
+              "B_city_bf16"),
+        entry("resize_bilinear_ac_bf16_to_f32", "A_bf16_f32", "resize.cu",
+              "u2pl_tpu/ops/resize.py:217", inf_launches["A_bf16_f32"], bf_errs["A_bf16_f32"],
+              "A_bf16_f32"),
     ]}
     log(card)
     log(json.dumps(report))

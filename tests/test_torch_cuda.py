@@ -1516,5 +1516,66 @@ def test_bf16_wrappers_refuse_other_dtypes():
             ce.upsample_cross_entropy(x.to(bad), lab)
         with pytest.raises(TypeError):
             unsup.upsample_softmax_stats(x.to(bad), (33, 33))
-    with pytest.raises(TypeError):  # kernel B has no bf16 mode yet
-        tr.resize_argmax(x[0].to(torch.bfloat16), (17, 17))
+    for bad in (torch.float16, torch.float64):  # kernel B: float32 or bfloat16
+        with pytest.raises(TypeError):
+            tr.resize_argmax(x[0].to(bad), (17, 17))
+        with pytest.raises(TypeError):  # A's f32-out mode takes bf16 alone
+            tr.resize_bilinear(x.to(bad), (17, 17), out_dtype=torch.float32)
+    with pytest.raises(TypeError):  # no f32 -> bf16 mode
+        tr.resize_bilinear(x, (17, 17), out_dtype=torch.bfloat16)
+
+
+# kernel B's bf16 mode: the serving shapes (VOC 513² -> a 500x375 image,
+# Cityscapes 769² -> 1024x2048), eval's identity size and odd ones
+B_BF16_SHAPES = [((21, 513, 513), (375, 500)), ((19, 769, 769), (1024, 2048)),
+                 ((21, 375, 500), (375, 500)), ((5, 7, 9), (13, 30)), ((3, 1, 5), (4, 10))]
+
+
+@pytest.mark.parametrize("chw,outsz", B_BF16_SHAPES)
+def test_kernel_b_bf16_equals_its_f32_mode_on_the_upcast(chw, outsz):
+    """Kernel B on bf16 logits widens each tap on load and computes as its
+    f32 mode: the labels equal the f32 mode's on `logits.float()` at every
+    pixel, ties planted (two classes equal on a tenth of the pixels)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = (torch.randn(*chw, device=dev, generator=g) * 4).to(torch.bfloat16)
+    x[1] = torch.where(torch.rand(chw[1:], device=dev, generator=g) < 0.1, x[0], x[1])
+    n, nb = tr.resize_argmax.launches, tr.resize_argmax.dtypes[torch.bfloat16]
+    got = tr.resize_argmax(x, outsz)
+    torch.cuda.synchronize()
+    assert tr.resize_argmax.launches == n + 1 and got.dtype == torch.uint8
+    assert tr.resize_argmax.dtypes[torch.bfloat16] == nb + 1
+    assert torch.equal(got, tr.resize_argmax(x.float(), outsz))
+    # the plain version upcasts first too: labels differ from it only at
+    # f32 near-ties of the upcast's resize (its einsum sums in another order)
+    ref = tr.resize_argmax_plain(x, outsz)
+    top2 = tr.resize_bilinear_plain(x[None].float(), outsz)[0].topk(2, dim=0).values
+    near_tie = (top2[0] - top2[1]) <= 1e-5 * top2[0].abs().clamp(min=1.0)
+    assert not ((got != ref) & ~near_tie).any()
+
+
+# kernel A's bf16 -> f32 mode: VOC eval's per-scale logits back to a
+# 500x375 image, the logits' shape in serving, and odd ones
+A_BF16_F32_SHAPES = [((1, 21, 281, 375), (375, 500)), ((1, 21, 469, 625), (375, 500)),
+                     ((2, 21, 33, 33), (129, 129)), ((1, 256, 33, 33), (65, 65)),
+                     ((3, 5, 9, 7), (13, 30)), ((1, 3, 1, 5), (4, 10))]
+
+
+@pytest.mark.parametrize("shape,outsz", A_BF16_F32_SHAPES)
+def test_kernel_a_bf16_to_f32_bit_equal_to_its_f32_mode(shape, outsz):
+    """Kernel A's bf16-in, f32-out mode (`out_dtype=torch.float32`): the
+    f32 mode on the exact upcast, bit for bit, with no rounding (not even
+    the wide branch's at 256 channels), and so `resize_bilinear_rounded` of
+    `x.float()`."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(22)
+    x = (torch.randn(*shape, device=dev, generator=g) * 3).to(torch.bfloat16)
+    n, n3 = tr.resize_bilinear.launches, tr.resize_bilinear.modes[3]
+    got = tr.resize_bilinear(x, outsz, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert tr.resize_bilinear.launches == n + 1 and tr.resize_bilinear.modes[3] == n3 + 1
+    assert got.dtype == torch.float32 and got.shape == shape[:2] + outsz
+    assert torch.equal(got, tr.resize_bilinear(x.float(), outsz))
+    assert torch.equal(got, tr.resize_bilinear_rounded(x.float(), outsz))
+    same = tr.resize_bilinear(x, shape[2:], out_dtype=torch.float32)  # identity: the upcast
+    assert same.dtype == torch.float32 and torch.equal(same, x.float())

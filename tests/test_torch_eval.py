@@ -355,12 +355,20 @@ def test_load_image_matches_numpy_route(tmp_path, size):
 
 @pytest.mark.parametrize("port, jax_cli", [(eval_cli, jax_eval_cli), (infer_cli, jax_infer_cli)])
 def test_cli_flags_are_the_jax_flags_and_device(ws, port, jax_cli):
-    """Every flag of the root CLI, plus `--device`; bfloat16 raises, naming
-    the roadmap."""
+    """Every flag of the root CLI, plus `--device`; `--dtype` takes JAX's
+    choices, bfloat16 runs (tests/test_torch_bf16_infer.py holds its masks
+    to JAX's) and float16 is refused."""
     def flags(parser):
         return {o for a in parser._actions for o in a.option_strings}
 
     assert flags(port.get_parser()) == flags(jax_cli.get_parser()) | {"--device"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.main(["--config", ws.cfgs["voc"], "--model_path", ws.ckpt, "--dtype", "bfloat16",
-                   "--device", "cpu", "--save_folder", os.path.join(ws.root, "bf16")])
+    dtype = next(a for a in port.get_parser()._actions if "--dtype" in a.option_strings)
+    assert dtype.choices == ["float32", "bfloat16"] and dtype.default == "float32"
+    with pytest.raises(SystemExit):
+        port.get_parser().parse_args(["--dtype", "float16"])
+    folder = os.path.join(ws.root, f"bf16_{port.__name__}")
+    summary = port.main(["--config", ws.cfgs["voc"], "--model_path", ws.ckpt, "--dtype",
+                         "bfloat16", "--device", "cpu", "--save_folder", folder])
+    assert summary["images"] == len(VOC_SIZES)
+    assert sorted(os.listdir(os.path.join(folder, "gray"))) and len(
+        os.listdir(os.path.join(folder, "gray"))) == len(VOC_SIZES)

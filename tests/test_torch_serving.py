@@ -176,12 +176,27 @@ def test_teacher_state_is_preferred(ws):
 
 
 def test_unported_options_raise(ws, tmp_path):
-    from u2pl_tpu_torch.config import parse_config
+    """bfloat16 is ported: the engine builds a bf16-compute model with f32
+    parameters and serves bf16 logits; any other dtype raises, naming the
+    two."""
     from u2pl_tpu_torch.serving import InferEngine
 
-    _, cfg, pth, _, _, _ = ws
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferEngine(cfg, str(pth), dtype="bfloat16", device="cpu")
+    _, cfg, pth, _, engine, images = ws
+    bf16 = InferEngine(cfg, str(pth), dtype="bfloat16", device="cpu")
+    assert bf16.model.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in bf16.model.parameters())
+    img, size = bf16.load(images[2])
+    logits = bf16.forward([img])
+    assert logits.dtype == torch.bfloat16 and tuple(logits.shape) == (1, C, 513, 513)
+    mask = bf16.to_mask(logits[0], size)
+    assert mask.dtype == np.uint8 and mask.shape == size
+    # near the f32 engine's mask (tests/test_torch_bf16_infer.py holds it to JAX's)
+    assert (mask == engine.to_mask(engine.forward([img])[0], size)).mean() > 0.9
+    for dtype in ("float16", torch.float16):
+        with pytest.raises(ValueError) as refused:
+            InferEngine(cfg, str(pth), dtype=dtype, device="cpu")
+        assert "float32" in str(refused.value) and "bfloat16" in str(refused.value)
+    assert InferEngine(cfg, str(pth), dtype=torch.bfloat16, device="cpu").dtype == torch.bfloat16
     # the .ckpt reader is ported (tests/test_torch_msgpack_ckpt.py): a
     # missing file is reported as such
     with pytest.raises(FileNotFoundError):

@@ -5,16 +5,17 @@ the root eval.py).
         --model_path checkpoints/ckpt_best.pth --base_size 2048 --scales 1.0
 
 The root CLI's flags, plus `--device` (default `cuda`; `cpu` only when
-asked).  The model is built without SyncBN, in float32 with TF32 off,
-teacher preferred, from a reference-format `.pth` or the JAX package's
-`.ckpt`.  Cityscapes takes the overlapping crop grid averaged by visit
+asked).  The model is built without SyncBN, computing in `--dtype`
+(float32 with TF32 off by default; bfloat16 with float32 parameters, as
+the root CLI), teacher preferred, from a reference-format `.pth` or the
+JAX package's `.ckpt`.  Cityscapes takes the overlapping crop grid averaged by visit
 counts, VOC the whole image; every scale's resize, the canvas and the
 final resize + argmax run on the device (`evallib/slide.py`).  Gray and
 colour PNG masks are written, intersection and union are counted on the
 device, and per-class IoU and mIoU are logged as the root CLI logs them.
 `--no_bucket`, `--names_path` and `--compilation_cache_dir` are accepted
-and do nothing (the port compiles no XLA programs); `--dtype bfloat16`
-raises.  `main(argv)` runs in process and returns a summary.
+and do nothing (the port compiles no XLA programs).  `main(argv)` runs in
+process and returns a summary.
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ def get_parser():
                         "each image at its own size")
     parser.add_argument("--dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"],
-                        help="forward compute dtype (bfloat16 is not ported yet and raises)")
+                        help="forward compute dtype (bfloat16: float32 parameters, "
+                        "bf16 forward)")
     parser.add_argument("--compilation_cache_dir", type=str, default="",
                         help="accepted for parity with the JAX CLI; ignored")
     parser.add_argument("--device", type=str, default="cuda",
@@ -98,15 +100,11 @@ def build_data_list(cfg):
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     args = get_parser().parse_args(argv)
-    if args.dtype != "float32":
-        raise NotImplementedError(
-            f"--dtype {args.dtype}: the port evaluates float32 only; the bfloat16 "
-            "forward of serve / eval / infer is ROADMAP.md queue 1 item 2 (bf16), "
-            "the slice after bf16 training")
     cfg = load_config(args.config)
     logger = init_log("main-logger", logging.INFO)
     logger.info(args)
-    # float32 means float32: cuDNN would otherwise run f32 convolutions in TF32
+    # float32 means float32: cuDNN would otherwise run f32 convolutions in
+    # TF32 (bf16 convolutions do not use it)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device(args.device)
@@ -124,7 +122,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     data_list, colormap = build_data_list(cfg)
     # the port has one BatchNorm for one card: eval builds without SyncBN as
     # the reference does (eval.py:120)
-    model = build_model(cfg.net, device=device, dtype=torch.float32)
+    model = build_model(cfg.net, device=device, dtype=args.dtype)
     load_eval_variables(model, args.model_path)
     net_process = make_net_process(model)
     is_city = "cityscapes" in cfg.dataset.type

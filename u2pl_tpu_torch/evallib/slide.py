@@ -25,6 +25,21 @@ takes the summed total at its own size, where the align-corners taps are
 the identity and exact.  The bucketed whole-image forward of the JAX
 package (slide.py:35-101) is not ported: it exists to avoid XLA
 recompiles.
+
+A bfloat16 model (`--dtype bfloat16`) rounds where the JAX package's does.
+The jaxpr of `make_net_process`'s `fwd` (u2pl_tpu/evallib/slide.py:116-119)
+for a bf16 model, from the classifier's last conv on: the conv and its
+bias add in bf16, then `convert_element_type` bf16 -> f32 (exact), the two
+f32 interpolation dots, and one `convert_element_type` f32 -> bf16 of the
+upsampled logits: the narrow resize's single rounding, kernel A's narrow
+bf16 mode here.  After `fwd`, every JAX resize of those logits is
+`resize_bilinear_numpy`, which widens them to f32 first
+(u2pl_tpu/ops/resize.py:233), and the canvas, the multi-scale total and
+the argmax are numpy f32: nothing is rounded again.  So here the logits
+leave `net_process` in bf16; the crop grid adds them into its f32 canvas
+by exact upcast (`pred += lg`, as numpy's f32 += bf16), a scale's resize
+back to (h, w) is kernel A's bf16-in, f32-out mode, the total is f32, and
+kernel B takes a single scale's bf16 logits, widening each on load.
 """
 
 from __future__ import annotations
@@ -44,8 +59,9 @@ MAX_CROPS_PER_FORWARD = 32
 
 def make_net_process(model: torch.nn.Module) -> Callable:
     """Returns f(images (B, 3, H, W) float32 on the model's device) ->
-    logits (B, C, H, W) there, upsampled to the input size (kernel A on
-    the card).
+    logits (B, C, H, W) there in the model's compute dtype, upsampled to the
+    input size (kernel A on the card; a bf16 model's logits take its narrow
+    bf16 mode, rounded once, as JAX's).
 
     Unlike the JAX version there is no compiled program per batch shape to
     reuse, so a partial batch is run as it is, not zero-padded."""
@@ -60,8 +76,10 @@ def make_net_process(model: torch.nn.Module) -> Callable:
 
 
 def _resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """(C, H, W) -> (C, h, w), align corners (kernel A on the card)."""
-    return resize_bilinear(x[None].contiguous(), (h, w), align_corners=True)[0]
+    """(C, H, W) -> (C, h, w) float32, align corners (kernel A on the card;
+    bf16 logits take its bf16-in, f32-out mode: `resize_bilinear_numpy`)."""
+    return resize_bilinear(x[None].contiguous(), (h, w), align_corners=True,
+                           out_dtype=torch.float32)[0]
 
 
 def crop_grid_logits(
@@ -99,7 +117,7 @@ def crop_grid_logits(
     pred = torch.zeros((classes, new_h, new_w), dtype=torch.float32, device=image.device)
     count = torch.zeros((new_h, new_w), dtype=torch.float32, device=image.device)
     for (s_h, s_w), lg in zip(coords, logits):
-        pred[:, s_h:s_h + crop_h, s_w:s_w + crop_w] += lg
+        pred[:, s_h:s_h + crop_h, s_w:s_w + crop_w] += lg.float()  # bf16: exact
         count[s_h:s_h + crop_h, s_w:s_w + crop_w] += 1
     pred /= count
     return pred[:, ph0:ph0 + ori_h, pw0:pw0 + ori_w]
@@ -129,8 +147,10 @@ def scale_whole_process(
 
 def _argmax_over_scales(scales, logits_at: Callable, h: int, w: int) -> torch.Tensor:
     """uint8 (h, w) first-maximum argmax of the sum over `scales` of each
-    scale's logits (`logits_at(scale)`, at their own size) resized to (h, w):
-    kernel B on the one scale's logits, or on the total at its own size."""
+    scale's logits (`logits_at(scale)`, at their own size, f32 or bf16)
+    resized to (h, w) in f32: kernel B on the one scale's logits, or on the
+    f32 total at its own size.  The sum is JAX's, scales in order (JAX adds
+    the first to zeros: the same value)."""
     if len(scales) == 1:
         return resize_argmax(logits_at(scales[0]).contiguous(), (h, w), align_corners=True)
     total = None

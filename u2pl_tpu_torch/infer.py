@@ -10,9 +10,10 @@ device, `--batch_size` images go through one forward (the last, partial
 batch runs as it is), and each mask is the resize back to the image's size
 fused with the argmax (kernel B).  Gray and colour PNGs are written under
 the image's own name, with the Pascal colormap whatever the dataset (the
-reference's quirk, infer.py:102).  `--compilation_cache_dir` is accepted
-and ignored; `--dtype bfloat16` raises.  `main(argv)` runs in process and
-returns a summary.
+reference's quirk, infer.py:102).  `--dtype bfloat16` runs the forward in
+bf16 with float32 parameters, as the root CLI does (the masks from the
+exact upcast of the bf16 logits).  `--compilation_cache_dir` is accepted
+and ignored.  `main(argv)` runs in process and returns a summary.
 """
 
 from __future__ import annotations
@@ -37,9 +38,8 @@ def get_parser():
                         help="images per forward; the last, partial batch runs as it is")
     parser.add_argument("--dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"],
-                        help="forward compute dtype (bfloat16 raises: the bf16 forward of "
-                             "serve / eval / infer is the slice after bf16 training, "
-                             "ROADMAP.md queue 1 item 2)")
+                        help="forward compute dtype (bfloat16: float32 parameters, "
+                             "bf16 forward)")
     parser.add_argument("--compilation_cache_dir", type=str, default="",
                         help="accepted for parity with the JAX CLI; ignored")
     parser.add_argument("--device", type=str, default="cuda",

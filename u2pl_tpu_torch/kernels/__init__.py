@@ -28,8 +28,8 @@ def load():
         # (gy, gx, idx_h, w_h, rng_h, idx_w, w_w, rng_w, planes, H, W, OH, OW,
         #  rows, bands, wspan, mode, stream)
         "u2pl_resize_bilinear_ac_bwd": [p] * 8 + [i] * 9 + [p],
-        # (x, out, idx_h, w_h, idx_w, w_w, C, H, W, OH, OW, stream)
-        "u2pl_resize_argmax_ac": [p] * 6 + [i] * 5 + [p],
+        # (x, out, idx_h, w_h, idx_w, w_w, C, H, W, OH, OW, dtype, stream)
+        "u2pl_resize_argmax_ac": [p] * 6 + [i] * 6 + [p],
         # (x, labels, cw, lse, part, stats, idx_h, w_h, idx_w, w_w,
         #  B, C, H, W, OH, OW, ignore, floor, span, max_rows, dtype, stream)
         "u2pl_upsample_ce_fwd": [p] * 10 + [i] * 7 + [f, i, i, i, p],

@@ -7,7 +7,8 @@
 //    from the two einsums): (B, C, OH, OW) f32 -> (B, C, H, W) f32.
 // B. u2pl_resize_argmax_ac replaces the host-side resize + argmax of
 //    u2pl_tpu/serving.py:InferEngine.to_mask (resize_bilinear_numpy, then
-//    argmax(-1)): one image's (C, H, W) f32 logits -> (OH, OW) uint8 labels.
+//    argmax(-1)): one image's (C, H, W) f32 or bf16 logits -> (OH, OW)
+//    uint8 labels.
 //
 // All three are bound by device-memory bytes, not arithmetic (4 taps and 3
 // lerps per output value).
@@ -93,6 +94,15 @@
 // the branch (ops/resize.py:_wide).  One kernel per function: the element
 // type and the branch are template parameters.
 //
+// bf16 inference (u2pl_tpu/evallib/slide.py, u2pl_tpu/serving.py under
+// --dtype bfloat16): after the forward and its narrow upsample, the JAX
+// package resizes the bf16 logits with resize_bilinear_numpy, which widens
+// them to f32 first (u2pl_tpu/ops/resize.py:233) and rounds nothing after.
+// So B reads bf16 logits and widens each tap on load, then runs the f32
+// arithmetic and argmax (its labels are the f32 mode's on the exact
+// upcast); and A has a bf16-in, f32-out mode (kModeBf16F32) for the
+// multi-scale sum of eval: the f32 mode on the exact upcast.
+//
 // Taps and index widths: see common.cuh.  Index arithmetic is 32-bit
 // unsigned (the wrappers refuse tensors of 2^31 elements or more): 64-bit
 // division is a long instruction sequence on the GPU.
@@ -130,11 +140,12 @@ __device__ __forceinline__ int col_slot(int ox, int quarter) {
   return (ox & 3) * quarter + (ox >> 2);
 }
 
-// T: the element type (float; __nv_bfloat16 in the bf16 modes); WIDE rounds
-// the H pass to bf16
-template <typename T, bool WIDE>
+// T: the input's element type (float; __nv_bfloat16 in the bf16 modes), O
+// the output's (T, or float from bf16 in kModeBf16F32); WIDE rounds the H
+// pass to bf16
+template <typename T, typename O, bool WIDE>
 __global__ void __launch_bounds__(kThreads) resize_bilinear_ac_kernel(
-    const T* __restrict__ x, T* __restrict__ y,
+    const T* __restrict__ x, O* __restrict__ y,
     const int* __restrict__ idx_h, const float* __restrict__ w_h,
     const int* __restrict__ idx_w, const float* __restrict__ w_w, int H, int W,
     int OH, int OW, int rows, int bands, int quarter, float inv_ow) {
@@ -282,16 +293,16 @@ struct ResizeArgs {
   int H, W, OH, OW;
 };
 
-template <typename T, bool WIDE>
+template <typename T, typename O, bool WIDE>
 cudaError_t launch_fwd(const ResizeArgs& a, unsigned blocks, int smem, int rows, int bands,
                        int quarter, cudaStream_t stream) {
-  auto kernel = resize_bilinear_ac_kernel<T, WIDE>;
+  auto kernel = resize_bilinear_ac_kernel<T, O, WIDE>;
   if (smem > 48 * 1024) {  // above the default dynamic shared memory of a block
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<blocks, kThreads, smem, stream>>>((const T*)a.x, (T*)a.y, a.idx_h, a.w_h, a.idx_w,
+  kernel<<<blocks, kThreads, smem, stream>>>((const T*)a.x, (O*)a.y, a.idx_h, a.w_h, a.idx_w,
                                              a.w_w, a.H, a.W, a.OH, a.OW, rows, bands,
                                              quarter, 1.0f / (float)a.OW);
   return cudaGetLastError();
@@ -316,8 +327,10 @@ cudaError_t launch_bwd_span(const ResizeArgs& a, unsigned threads, int rows, int
   return launch_bwd<0, T, WIDE>(a, threads, rows, bands, stream);
 }
 
+// T: the logits' element type (float, or __nv_bfloat16 widened on load)
+template <typename T>
 __global__ void resize_argmax_ac_kernel(
-    const float* __restrict__ x, uint8_t* __restrict__ out,
+    const T* __restrict__ x, uint8_t* __restrict__ out,
     const int* __restrict__ idx_h, const float* __restrict__ w_h,
     const int* __restrict__ idx_w, const float* __restrict__ w_w,
     int C, int H, int W, int OH, int OW) {
@@ -349,14 +362,14 @@ __global__ void resize_argmax_ac_kernel(
 extern "C" {
 
 // the modes of A and A-bwd (ops/resize.py:_resize_mode): f32, the bf16
-// narrow branch, the bf16 wide branch
-enum { kModeF32 = 0, kModeBf16 = 1, kModeBf16Wide = 2 };
+// narrow branch, the bf16 wide branch, and (A only) bf16 in, f32 out
+enum { kModeF32 = 0, kModeBf16 = 1, kModeBf16Wide = 2, kModeBf16F32 = 3 };
 
 int u2pl_resize_bilinear_ac(const void* x, void* y, const void* idx_h,
                             const void* w_h, const void* idx_w, const void* w_w,
                             int planes, int H, int W, int OH, int OW, int mode,
                             void* stream) {
-  if (mode < kModeF32 || mode > kModeBf16Wide) return (int)cudaErrorInvalidValue;
+  if (mode < kModeF32 || mode > kModeBf16F32) return (int)cudaErrorInvalidValue;
   if (planes <= 0 || OH <= 0 || OW <= 0) return (int)cudaGetLastError();
   const int quarter = (OW + 3) / 4;
   if (H <= 0 || W <= 0 || (long long)quarter * 64 + (long long)W * 4 > kResizeMaxShared) {
@@ -373,13 +386,17 @@ int u2pl_resize_bilinear_ac(const void* x, void* y, const void* idx_h,
                         (const int*)idx_w, (const float*)w_w, nullptr, H, W, OH, OW};
   const unsigned blocks = (unsigned)planes * bands;
   cudaStream_t st = (cudaStream_t)stream;
+  using bf16 = __nv_bfloat16;
   if (mode == kModeBf16Wide) {
-    return (int)launch_fwd<__nv_bfloat16, true>(a, blocks, smem, rows, bands, quarter, st);
+    return (int)launch_fwd<bf16, bf16, true>(a, blocks, smem, rows, bands, quarter, st);
   }
   if (mode == kModeBf16) {
-    return (int)launch_fwd<__nv_bfloat16, false>(a, blocks, smem, rows, bands, quarter, st);
+    return (int)launch_fwd<bf16, bf16, false>(a, blocks, smem, rows, bands, quarter, st);
   }
-  return (int)launch_fwd<float, false>(a, blocks, smem, rows, bands, quarter, st);
+  if (mode == kModeBf16F32) {
+    return (int)launch_fwd<bf16, float, false>(a, blocks, smem, rows, bands, quarter, st);
+  }
+  return (int)launch_fwd<float, float, false>(a, blocks, smem, rows, bands, quarter, st);
 }
 
 // (rows, bands, wspan) from ops/resize.py:_bwd_plan: bands of `rows` input
@@ -411,15 +428,26 @@ int u2pl_resize_bilinear_ac_bwd(const void* gy, void* gx, const void* idx_h,
   return (int)launch_bwd_span<float, false>(a, n, rows, bands, wspan, st);
 }
 
+// dtype: 0 float32 logits, 1 bfloat16 (widened on load)
 int u2pl_resize_argmax_ac(const void* x, void* out, const void* idx_h,
                           const void* w_h, const void* idx_w, const void* w_w,
-                          int C, int H, int W, int OH, int OW, void* stream) {
+                          int C, int H, int W, int OH, int OW, int dtype, void* stream) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const long long total = (long long)OH * OW;
   if (total > 0) {
-    resize_argmax_ac_kernel<<<blocks_for(total), kThreads, 0,
-                              (cudaStream_t)stream>>>(
-        (const float*)x, (uint8_t*)out, (const int*)idx_h, (const float*)w_h,
-        (const int*)idx_w, (const float*)w_w, C, H, W, OH, OW);
+    const int blocks = blocks_for(total);
+    cudaStream_t st = (cudaStream_t)stream;
+    const int* ih = (const int*)idx_h;
+    const int* iw = (const int*)idx_w;
+    const float* wh = (const float*)w_h;
+    const float* ww = (const float*)w_w;
+    if (dtype == 1) {
+      resize_argmax_ac_kernel<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(
+          (const __nv_bfloat16*)x, (uint8_t*)out, ih, wh, iw, ww, C, H, W, OH, OW);
+    } else {
+      resize_argmax_ac_kernel<float><<<blocks, kThreads, 0, st>>>(
+          (const float*)x, (uint8_t*)out, ih, wh, iw, ww, C, H, W, OH, OW);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -28,8 +28,16 @@ A and A-bwd take bf16 in and give bf16 out, computing in f32.  The wide
 branch, at least 64 channels with bf16-exact weights on both axes
 (`_wide`: the decoder's os8 -> os4 upsample), rounds the separable
 intermediate to bf16 between the two passes; every other bf16 call is the
-narrow branch, the f32 path with its output rounded to bf16.  Kernel A
-takes float32 or bfloat16; kernel B float32 only.
+narrow branch, the f32 path with its output rounded to bf16.
+
+bfloat16 inference (`--dtype bfloat16`): after the forward and its narrow
+upsample the JAX package resizes bf16 logits with `resize_bilinear_numpy`,
+which widens them to f32 first (u2pl_tpu/ops/resize.py:233) and rounds
+nothing after.  So kernel B takes float32 or bfloat16 logits, the latter
+widened exactly (its labels are those of the f32 mode on `logits.float()`),
+and kernel A has a bf16-in, f32-out mode, chosen by
+`resize_bilinear(x, size, out_dtype=torch.float32)`: the f32 mode on the
+exact upcast.  Kernel A takes float32 or bfloat16 in.
 """
 
 from __future__ import annotations
@@ -108,11 +116,15 @@ def _wide(dtype: torch.dtype, c: int, in_hw, out_hw, align_corners: bool) -> boo
             and _bf16_exact(int(in_hw[1]), int(out_hw[1]), align_corners))
 
 
-def _resize_mode(dtype: torch.dtype, c: int, in_hw, out_hw, align_corners: bool) -> int:
+def _resize_mode(dtype: torch.dtype, c: int, in_hw, out_hw, align_corners: bool,
+                 out_dtype: torch.dtype = None) -> int:
     """The mode code of kernels A and A-bwd (kernels/csrc/resize.cu): 0
-    float32, 1 the bf16 narrow branch, 2 the bf16 wide branch."""
+    float32, 1 the bf16 narrow branch, 2 the bf16 wide branch, 3 (A only)
+    bf16 in and f32 out, with no rounding (`out_dtype` float32)."""
     if dtype == torch.float32:
         return 0
+    if out_dtype == torch.float32:
+        return 3
     return 2 if _wide(dtype, c, in_hw, out_hw, align_corners) else 1
 
 
@@ -156,21 +168,35 @@ def _dense(in_size: int, out_size: int, align_corners: bool, like: torch.Tensor)
 
 
 def resize_bilinear_plain(
-    x: torch.Tensor, size: Tuple[int, int], align_corners: bool = True
+    x: torch.Tensor, size: Tuple[int, int], align_corners: bool = True,
+    out_dtype: torch.dtype = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of kernel A: two einsum passes with the dense
     interpolation matrices, H first, as the JAX function does (NCHW); in
-    f32, the result cast to x's dtype, and in the bf16 wide branch the
-    intermediate rounded to bf16 too (every product there is exact)."""
+    f32, the result cast to `out_dtype` (x's dtype by default), and in the
+    bf16 wide branch the intermediate rounded to bf16 too (every product
+    there is exact).  bf16 `x` with `out_dtype` float32 is the f32 version
+    on the exact upcast."""
     _, c, h, w = x.shape
     oh, ow = int(size[0]), int(size[1])
+    out_dtype = _out_dtype(x, out_dtype)
     wh = _dense(h, oh, align_corners, x)
     ww = _dense(w, ow, align_corners, x)
     y = torch.einsum("oh,bchw->bcow", wh, x.float())
-    if _wide(x.dtype, c, (h, w), (oh, ow), align_corners):
+    if _wide(out_dtype, c, (h, w), (oh, ow), align_corners):
         y = y.to(x.dtype).float()
     y = torch.einsum("pw,bcow->bcop", ww, y)
-    return y.to(x.dtype)
+    return y.to(out_dtype)
+
+
+def _out_dtype(x: torch.Tensor, out_dtype) -> torch.dtype:
+    """Kernel A's output dtype: x's own, or float32 from bfloat16."""
+    if out_dtype is None or out_dtype == x.dtype:
+        return x.dtype
+    if (x.dtype, out_dtype) != (torch.bfloat16, torch.float32):
+        raise TypeError(f"resize_bilinear: no mode from {x.dtype} to {out_dtype}; "
+                        "out_dtype is the input's dtype, or float32 from bfloat16")
+    return out_dtype
 
 
 def resize_bilinear_rounded(
@@ -221,8 +247,10 @@ def resize_argmax_plain(
     logits: torch.Tensor, size: Tuple[int, int], align_corners: bool = True
 ) -> torch.Tensor:
     """Plain PyTorch version of kernel B: resize (C, H, W) logits, then the
-    first-maximum argmax over C, as uint8 (h, w)."""
-    y = resize_bilinear_plain(logits[None], size, align_corners)[0]
+    first-maximum argmax over C, as uint8 (h, w).  bf16 logits are widened
+    first and resized in f32, as `resize_bilinear_numpy` does: nothing is
+    rounded after the upcast."""
+    y = resize_bilinear_plain(logits[None].float(), size, align_corners)[0]
     return y.argmax(dim=0).to(torch.uint8)
 
 
@@ -254,17 +282,29 @@ def _check_cuda(x: torch.Tensor, ndim: int, name: str, dtypes=F32) -> None:
 
 
 def resize_bilinear(
-    x: torch.Tensor, size: Tuple[int, int], align_corners: bool = True
+    x: torch.Tensor, size: Tuple[int, int], align_corners: bool = True,
+    out_dtype: torch.dtype = None,
 ) -> torch.Tensor:
     """Bilinear resize of NCHW `x` to spatial `size` (h, w) (kernel A).
 
     Same values as the JAX `resize_bilinear` on the NHWC transpose; the
     (h, w) == input size case returns `x` itself, as there.  Differentiable
     in `x` (backward: `resize_bilinear_bwd`).  float32, or bfloat16 in the
-    JAX package's bf16 branches (module docstring)."""
+    JAX package's bf16 branches (module docstring).  `out_dtype` float32
+    on bfloat16 `x` is the inference mode: the f32 resize of the exact
+    upcast (`resize_bilinear_numpy` on bf16 logits), not differentiable."""
     if x.dim() != 4:
         raise ValueError(f"resize_bilinear: expected NCHW, got {tuple(x.shape)}")
     oh, ow = int(size[0]), int(size[1])
+    out_dtype = _out_dtype(x, out_dtype)
+    if out_dtype != x.dtype:
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise ValueError("resize_bilinear: the bfloat16 -> float32 mode has no backward")
+        if (oh, ow) == tuple(x.shape[2:]):
+            return x.to(out_dtype)
+        if x.device.type == "cpu":
+            return resize_bilinear_plain(x, (oh, ow), align_corners, out_dtype)
+        return _resize_bilinear_cuda(x, (oh, ow), align_corners, out_dtype)
     if (oh, ow) == tuple(x.shape[2:]):
         return x
     return _ResizeBilinear.apply(x, (oh, ow), align_corners)
@@ -283,8 +323,10 @@ class _ResizeBilinear(torch.autograd.Function):
         return resize_bilinear_bwd(gy.contiguous(), ctx.in_size, ctx.align_corners), None, None
 
 
-def _resize_bilinear_cuda(x: torch.Tensor, size, align_corners: bool) -> torch.Tensor:
+def _resize_bilinear_cuda(x: torch.Tensor, size, align_corners: bool,
+                          out_dtype: torch.dtype = None) -> torch.Tensor:
     _check_cuda(x, 4, "resize_bilinear", F32_BF16)
+    out_dtype = _out_dtype(x, out_dtype)
     b, c, h, w = x.shape
     oh, ow = size
     if b * c * oh * ow >= 2**31:
@@ -297,22 +339,24 @@ def _resize_bilinear_cuda(x: torch.Tensor, size, align_corners: bool) -> torch.T
     lib = load()
     idx_h, w_h = _device_taps(h, oh, align_corners, x.device)
     idx_w, w_w = _device_taps(w, ow, align_corners, x.device)
-    y = torch.empty((b, c, oh, ow), dtype=x.dtype, device=x.device)
+    y = torch.empty((b, c, oh, ow), dtype=out_dtype, device=x.device)
+    mode = _resize_mode(x.dtype, c, (h, w), (oh, ow), align_corners, out_dtype)
     with torch.cuda.device(x.device):
         err = lib.u2pl_resize_bilinear_ac(
             x.data_ptr(), y.data_ptr(), idx_h.data_ptr(), w_h.data_ptr(),
-            idx_w.data_ptr(), w_w.data_ptr(), b * c, h, w, oh, ow,
-            _resize_mode(x.dtype, c, (h, w), (oh, ow), align_corners),
+            idx_w.data_ptr(), w_w.data_ptr(), b * c, h, w, oh, ow, mode,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     check(lib, err, "resize_bilinear_ac launch")
     resize_bilinear.launches += 1
     resize_bilinear.shapes[(tuple(x.shape), (oh, ow))] += 1
+    resize_bilinear.modes[mode] += 1
     return y
 
 
 resize_bilinear.launches = 0
 resize_bilinear.shapes = collections.Counter()
+resize_bilinear.modes = collections.Counter()  # launches per `_resize_mode` code
 
 
 # kernel A-bwd (kernels/csrc/resize.cu): the threads per SM (of its 2048)
@@ -391,7 +435,8 @@ def resize_argmax(
 ) -> torch.Tensor:
     """Resize one image's (C, H, W) logits to `size` (h, w) and take the
     first-maximum argmax over C -> uint8 (h, w) (kernel B).  On the card no
-    (h, w, C) intermediate is ever written."""
+    (h, w, C) intermediate is ever written.  float32 or bfloat16 logits; bf16
+    is widened exactly and resized in f32 (module docstring)."""
     if logits.dim() != 3:
         raise ValueError(f"resize_argmax: expected CHW, got {tuple(logits.shape)}")
     c, h, w = logits.shape
@@ -400,7 +445,7 @@ def resize_argmax(
     oh, ow = int(size[0]), int(size[1])
     if logits.device.type == "cpu":
         return resize_argmax_plain(logits, (oh, ow), align_corners)
-    _check_cuda(logits, 3, "resize_argmax")
+    _check_cuda(logits, 3, "resize_argmax", F32_BF16)
     if oh * ow >= 2**31:
         raise ValueError("resize_argmax: output exceeds the int32 sizes")
     from u2pl_tpu_torch.kernels import check, load
@@ -413,14 +458,17 @@ def resize_argmax(
         err = lib.u2pl_resize_argmax_ac(
             logits.data_ptr(), out.data_ptr(), idx_h.data_ptr(), w_h.data_ptr(),
             idx_w.data_ptr(), w_w.data_ptr(), c, h, w, oh, ow,
+            int(logits.dtype == torch.bfloat16),
             torch.cuda.current_stream(logits.device).cuda_stream,
         )
     check(lib, err, "resize_argmax_ac launch")
     resize_argmax.launches += 1
+    resize_argmax.dtypes[logits.dtype] += 1
     return out
 
 
 resize_argmax.launches = 0
+resize_argmax.dtypes = collections.Counter()  # launches per logits dtype
 
 
 def resize_bilinear_numpy(

@@ -6,8 +6,9 @@
 
 Same flags and protocol as the JAX server (u2pl_tpu_torch/serving.py).
 Responses go to stdout, one JSON line per request; logs go to stderr.
-`--dtype` accepts float32 only for now; `--compilation_cache_dir` is
-accepted and ignored (the port compiles no XLA programs).
+`--dtype bfloat16` runs the forward in bf16 with float32 parameters, as the
+JAX server does; `--compilation_cache_dir` is accepted and ignored (the
+port compiles no XLA programs).
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ def get_parser():
         type=str,
         default="float32",
         choices=["float32", "bfloat16"],
-        help="forward compute dtype (bfloat16 is not ported yet and raises)",
+        help="forward compute dtype (bfloat16: float32 parameters, bf16 forward)",
     )
     parser.add_argument(
         "--compilation_cache_dir",

@@ -18,7 +18,11 @@ uploaded as decoded (uint8), normalised there and resized to the input
 scale by kernel A (`load_image`; `load_image_plain` is the JAX engine's
 numpy route), the forward's final upsample is kernel A and `to_mask` is
 kernel B (resize + argmax fused); neither the image nor the logits take
-a host resize.
+a host resize.  `dtype="bfloat16"` (serve / infer `--dtype bfloat16`) runs
+the forward in bf16 with float32 parameters, as the JAX engine does: the
+logits come out in bf16 (kernel A's narrow bf16 mode), and kernel B widens
+them exactly and resizes in f32, as the JAX engine's `to_mask` does
+(`evallib/slide.py` lists the rounding points).
 """
 
 from __future__ import annotations
@@ -91,7 +95,8 @@ def load_image_plain(
 
 
 class InferEngine:
-    """Resident inference: one model on one device, loaded once."""
+    """Resident inference: one model on one device, loaded once, computing
+    in `dtype` ("float32" or "bfloat16", as the JAX engine's)."""
 
     def __init__(
         self,
@@ -101,15 +106,9 @@ class InferEngine:
         dtype: str = "float32",
         device: Union[str, torch.device] = "cuda",
     ):
-        if str(dtype) != "float32":
-            raise NotImplementedError(
-                f"dtype={dtype!r}: the port serves float32 only; the bfloat16 "
-                "forward of serve / eval / infer is ROADMAP.md queue 1 item 2 "
-                "(bf16), the slice after bf16 training"
-            )
         # float32 means float32: the JAX f32 path is the reference-exact
         # default, and cuDNN would otherwise run f32 convolutions in TF32
-        # (about three decimal digits).
+        # (about three decimal digits).  bf16 convolutions do not use TF32.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg = cfg
@@ -119,7 +118,8 @@ class InferEngine:
         self.mean = np.asarray(cfg.dataset.mean, np.float32)
         self.std = np.asarray(cfg.dataset.std, np.float32)
         self.colormap = create_pascal_label_colormap()
-        self.model = build_model(cfg.net, device=self.device, dtype=torch.float32)
+        self.model = build_model(cfg.net, device=self.device, dtype=dtype)
+        self.dtype = self.model.dtype
         load_eval_variables(self.model, model_path)
         self._net_process = make_net_process(self.model)
         self.served = 0
@@ -144,15 +144,16 @@ class InferEngine:
 
     def forward(self, images: List[torch.Tensor]) -> torch.Tensor:
         """Batched forward of `load`'s images -> (n, C, H, W) logits on the
-        device.  Waits for the device, so a caller's clock around it
-        measures the forward."""
+        device, in the engine's dtype.  Waits for the device, so a caller's
+        clock around it measures the forward."""
         logits = self._net_process(torch.stack(images))
         self._sync()
         self.served += len(images)
         return logits
 
     def to_mask(self, logits: torch.Tensor, size: Tuple[int, int]) -> np.ndarray:
-        """(C, H, W) logits -> (h, w) uint8 labels at the original size."""
+        """(C, H, W) f32 or bf16 logits -> (h, w) uint8 labels at the
+        original size (kernel B; bf16 widened exactly, resized in f32)."""
         return resize_argmax(logits, size, align_corners=True).cpu().numpy()
 
     def save_mask(
