@@ -592,6 +592,29 @@ def test_loss_gradient_bank_match_jax(seed, strict):
     assert_equal(gbank, rbank)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_loss_in_float64_matches_jax(seed):
+    """A float64 rep takes the plain f32 path's arithmetic in float64 (the
+    reference the card's K6 is held against): a float64 loss and gradient
+    within the f32 bounds of JAX's, the selections and the bank bit-equal."""
+    (rl, rg, rbank, rinfo), _ = run_both(seed)
+    _, cfg = cfgs()
+    rep, rep_t, prob, labels, low, high = inputs(seed)
+    bank = banks(seed)[1]
+    t = torch.from_numpy
+    rep64 = t(rep).double().requires_grad_(True)
+    draws = jax_draws(jax.random.PRNGKey(100 + seed), cfg.num_queries, cfg.num_negatives)
+    bank, loss, info = tc.compute_contra_memobank_loss(
+        rep64, t(labels[:B_L]), t(labels[B_L:]), t(prob[:B_L]), t(prob[B_L:]), t(low), t(high),
+        cfg, bank, t(rep_t), draws, return_info=True)
+    (g,) = torch.autograd.grad(loss, rep64)
+    assert loss.dtype == g.dtype == torch.float64
+    np.testing.assert_allclose(loss.item(), rl, rtol=1e-5)
+    np.testing.assert_allclose(g.numpy(), rg, rtol=0, atol=1e-5 * np.abs(rg).max())
+    np.testing.assert_array_equal(info["neg_candidates"].numpy(), np.asarray(rinfo["neg_candidates"]))
+    assert_equal(bank, rbank)
+
+
 def test_loss_matches_jax_over_the_key_cap():
     """More negative candidates than max_keys_per_class_per_step, and a
     bank that wraps."""

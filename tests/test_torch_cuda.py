@@ -88,6 +88,39 @@ def test_kernel_a_bit_equal_to_rounded_formula(shape, outsz, align):
     assert got.shape == ref.shape and torch.equal(got, ref)
 
 
+# kernel A with few planes (ops/resize.py:_fwd_plan's direct kernel): the
+# VOC and Cityscapes request images, VOC eval's image at scales 0.75 and
+# 1.25, and 9 / 10 planes at the logits' shape, on either side of the plan's
+# switch to the band kernel
+A_FEW_PLANE_SHAPES = [
+    ((1, 3, 375, 500), (513, 513)),
+    ((1, 3, 1024, 2048), (769, 769)),
+    ((1, 3, 375, 500), (281, 375)),
+    ((1, 3, 375, 500), (469, 625)),
+    ((9, 1, 129, 129), (513, 513)),
+    ((1, 10, 129, 129), (513, 513)),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,outsz", A_FEW_PLANE_SHAPES)
+def test_kernel_a_few_planes_bit_equal_to_rounded_formula(shape, outsz, dtype):
+    """Kernel A's direct kernel gives the bits of its rounded formula, in
+    f32 and in the bf16 narrow mode (fewer than 64 channels); so does the
+    band kernel past the switch."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = (torch.randn(*shape, device=dev, generator=g) * 3).to(dtype)
+    planes = shape[0] * shape[1]
+    plan = tr._fwd_plan(planes, *shape[2:], *outsz, tr._sm_count(dev))
+    assert (plan == (0, 0)) == (planes < 10 or shape[2] != 129)
+    n = tr.resize_bilinear.launches
+    got = tr.resize_bilinear(x, outsz)
+    torch.cuda.synchronize()
+    assert tr.resize_bilinear.launches == n + 1 and got.dtype == dtype
+    assert torch.equal(got, tr.resize_bilinear_rounded(x, outsz))
+
+
 @pytest.mark.parametrize("chw,outsz", ARGMAX_SHAPES)
 def test_kernel_b_matches_plain(chw, outsz):
     dev = _cuda()
@@ -1134,6 +1167,47 @@ def test_kernel_infonce_bwd_bit_equal_to_ordered_sums(layout):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(tc._infonce_bwd_cuda(idx, active, valid_seg, gdir, gout, (b, 256, h, w)), got)
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("layout,b,h,w", [("repeats", 8, 129, 129), ("one_pixel", 8, 129, 129),
+                                          ("across_positions", 8, 129, 129),
+                                          ("repeats", 3, 9, 7), ("across_positions", 2, 37, 29)])
+def test_kernel_infonce_bwd_bf16_bit_equal_to_ordered_sums(layout, b, h, w, split):
+    """K6's backward into a bf16 rep gradient, on random directions: each
+    active draw's row coef * d rounded to bf16 (split: d * coef plus the
+    negatives' part dn * coef rounded to bf16 first, then the row rounded),
+    a pixel's rows added in bf16 from zero, each add rounded, in ascending
+    w = j * Q + q; zero elsewhere: bit for bit.  h * w = 16641, 63 and 1073
+    are not multiples of 8."""
+    from u2pl_tpu_torch.losses import contrastive as tc
+
+    dev = _cuda()
+    c, q = 21, 256
+    g = torch.Generator(device=dev).manual_seed(14)
+    bank = _prefilled_bank(dev, c, 256, 30000, 50000, torch.bfloat16)
+    bank.occupancy[1] = 0
+    b_j = torch.randperm(c, device=dev, generator=g).to(torch.int32)
+    idx, active, valid_seg = _anchor_draws(layout, dev, g, b, c, h, w, q, bank, b_j)
+    gdir = torch.randn(*((2,) if split else ()), c, q, 256, device=dev, generator=g)
+    gout = torch.tensor(3.0, device=dev)
+    shape = (b, 256, h, w)
+    got = tc._infonce_bwd_cuda(idx, active, valid_seg, gdir, gout, shape, torch.bfloat16)
+    coef = gout / valid_seg.float().clamp(min=1.0) / q
+    rows = torch.zeros(b * h * w, 256, device=dev)
+    for j in active.nonzero().flatten().tolist():
+        for k in range(q):
+            if split:
+                d = gdir[0, j, k] * coef + (gdir[1, j, k] * coef).bfloat16().float()
+            else:
+                d = gdir[j, k] * coef
+            p = idx[j, k].long()
+            rows[p] = (rows[p] + d.bfloat16().float()).bfloat16().float()
+    want = rows.bfloat16().view(b, h, w, 256).permute(0, 3, 1, 2)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    again = tc._infonce_bwd_cuda(idx, active, valid_seg, gdir, gout, shape, torch.bfloat16)
+    assert torch.equal(again, got)
 
 
 def test_kernel_infonce_refuses_draws_over_the_capacity():

@@ -1,5 +1,9 @@
-"""The host-side launch plans of kernel A-bwd (`ops/resize.py:_bwd_plan`),
-of kernels C fwd, D and K7 prob (`losses/ce.py:_stats_plan`), of K6 fwd
+"""The host-side launch plans of kernel A (`ops/resize.py:_fwd_plan`: the
+band plan at many planes, the direct kernel at few, within shared memory)
+and K6 bwd (`losses/contrastive.py:_infonce_bwd_tile`, its chunk table and
+stores walked as the kernel makes them: every element once), of kernel
+A-bwd (`ops/resize.py:_bwd_plan`), of kernels C fwd, D and K7 prob
+(`losses/ce.py:_stats_plan`), of K6 fwd
 (`losses/contrastive.py:_infonce_group`), K5 (`memobank.py:
 _enqueue_tile`), the radix descent of E and K7 kth (`ops/quantile.py:
 _descent_plan`) and K4's masks and anchor draws (`losses/contrastive.py:
@@ -472,3 +476,165 @@ def test_classmix_plan_refuses_past_its_limits():
         tm._classmix_plan(64, 8193, 8193, 21, 132)
     with pytest.raises(ValueError, match="classes"):
         tm._classmix_plan(4, 9, 7, 65, 132)
+
+
+# ---- kernel A (ops/resize.py:_fwd_plan) -------------------------------------
+
+def _band_plan(h, w, oh, ow):
+    """Kernel A's band plan as the C entry computed it before the plan moved
+    to the host: about 4096 outputs a band, bands of even height, as many
+    rows as RESIZE_MAX_SHARED holds."""
+    quarter = -(-ow // 4)
+    target = min(oh, -(-4096 // ow))
+    even = max(1, (oh + target // 2) // target)
+    rows = min(-(-oh // even), (tr.RESIZE_MAX_SHARED - quarter * 64) // (w * 4))
+    return rows, -(-oh // rows)
+
+
+# (planes, h, w, oh, ow, rows, bands) of that band plan at the paths' many-plane
+# shapes: the VOC logits (4 x 21), the decoders (8 x 256 at VOC, 4 x 256 at
+# Cityscapes) and the Cityscapes eval crops (8 x 19)
+A_MANY_PLANES = [
+    (84, 129, 129, 513, 513, 9, 57),
+    (2048, 65, 65, 129, 129, 33, 4),
+    (1024, 97, 97, 193, 193, 22, 9),
+    (152, 193, 193, 769, 769, 7, 110),
+]
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("planes,h,w,oh,ow,rows,bands", A_MANY_PLANES)
+def test_a_fwd_plan_keeps_the_band_plan_at_many_planes(planes, h, w, oh, ow, rows, bands, sms):
+    assert _band_plan(h, w, oh, ow) == (rows, bands)
+    assert tr._fwd_plan(planes, h, w, oh, ow, sms) == (rows, bands)
+
+
+# (h, w, oh, ow) of the 3-plane images: the VOC and Cityscapes request
+# images and VOC eval's image at scales 0.75 and 1.25; small odd shapes
+A_FEW_PLANES = [(375, 500, 513, 513), (1024, 2048, 769, 769), (375, 500, 281, 375),
+                (375, 500, 469, 625), (7, 9, 33, 17), (1, 5, 4, 10)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16])
+@pytest.mark.parametrize("h,w,oh,ow", A_FEW_PLANES)
+def test_a_fwd_plan_takes_the_direct_kernel_for_few_planes(h, w, oh, ow, sms):
+    """At 3 planes the band plan's blocks are fewer than FWD_BLOCKS_PER_SM
+    an SM at the request and eval images on 114 or 132 SMs: (0, 0), the
+    direct kernel, whose grid (a 256-thread block per 256 output pixels,
+    common.cuh: kThreads) then fills every SM; where they are not, the
+    band plan."""
+    rows, bands = _band_plan(h, w, oh, ow)
+    plan = tr._fwd_plan(3, h, w, oh, ow, sms)
+    if 3 * bands < tr.FWD_BLOCKS_PER_SM * sms:
+        assert plan == (0, 0)
+    else:
+        assert plan == (rows, bands)
+    if sms >= 114 and oh > 100:
+        assert plan == (0, 0) and -(-oh * ow // 256) >= sms
+
+
+@pytest.mark.parametrize("planes", [1, 3, 9, 10, 21, 84])
+def test_a_fwd_plan_switches_where_the_band_plan_is_too_few_blocks(planes):
+    """At (129², 513²) the band plan's 57 bands make 9 planes 513 blocks,
+    under 4 x 132: 9 planes and fewer take the direct kernel, 10 and more
+    the band plan."""
+    plan = tr._fwd_plan(planes, 129, 129, 513, 513, 132)
+    assert plan == ((9, 57) if planes >= 10 else (0, 0))
+
+
+@pytest.mark.parametrize("planes", [1, 3, 84, 2048])
+@pytest.mark.parametrize("h,w,oh,ow", A_FEW_PLANES + [(129, 129, 513, 513), (65, 65, 129, 129),
+                                                       (1, 1, 100000, 1), (9, 7, 13, 30),
+                                                       (2, 4000, 3, 8000)])
+def test_a_fwd_plan_bands_fit_shared_memory(planes, h, w, oh, ow):
+    """A band plan's taps and H-lerped rows fit RESIZE_MAX_SHARED, and its
+    bands cover every output row once."""
+    rows, bands = tr._fwd_plan(planes, h, w, oh, ow, 132)
+    if (rows, bands) == (0, 0):
+        assert planes * _band_plan(h, w, oh, ow)[1] < tr.FWD_BLOCKS_PER_SM * 132
+        return
+    assert 1 <= rows <= oh and bands == -(-oh // rows) and (bands - 1) * rows < oh
+    assert -(-ow // 4) * 64 + rows * w * 4 <= tr.RESIZE_MAX_SHARED
+
+
+@pytest.mark.parametrize("n_in,n_out", [(375, 513), (2048, 769), (1, 6), (513, 129), (5, 1)])
+def test_a_direct_taps_are_the_band_kernels_packed(n_in, n_out):
+    """The direct kernel's int4 per output index is the band kernel's
+    (lo, hi, 1 - frac, frac), bit for bit."""
+    packed = tr._device_taps4(n_in, n_out, True, torch.device("cpu"))
+    idx, w = tr._device_taps(n_in, n_out, True, torch.device("cpu"))
+    assert packed.shape == (n_out, 4) and packed.dtype == torch.int32 and packed.is_contiguous()
+    assert torch.equal(packed[:, :2].T, idx)
+    assert torch.equal(packed[:, 2:].contiguous().view(torch.float32).T, w)
+
+
+# ---- K6 bwd (losses/contrastive.py:_infonce_bwd_tile): its stores walked --
+
+def _infonce_bwd_walk(b, hw, tile, itemsize, hits):
+    """K6 bwd's chunk table and stores as its blocks make them
+    (infonce.cu:infonce_bwd_kernel): per block a tile of pixels of one
+    image; the warp of a segment (a hit pixel p) writes p's field at
+    (alignment m, chunk (p + m) // V, element (p + m) % V) for every m < V;
+    the store loop walks the 256 plane rows [e0, e0 + np) in 16-byte chunks
+    of V = 16 / itemsize elements, chunk k of a row with e0 % V = m holding
+    tile pixels k * V - m + e, and reads element e's field.  Returns the
+    count of writes per element of the flat (b, 256, hw) gradient, and
+    whether every written element read its own pixel's field (its pixel + 1
+    where it has a draw, 0 elsewhere)."""
+    v = 16 // itemsize
+    writes = np.zeros(b * 256 * hw, np.int64)
+    fields_right = True
+    hit = np.zeros(b * hw, bool)
+    hit[hits] = True
+    tiles = -(-hw // tile)
+    for blk in range(b * tiles):
+        bi, p0 = blk // tiles, (blk % tiles) * tile
+        n = min(tile, hw - p0)
+        chunks = (n + 2 * v - 2) // v
+        assert chunks <= (tc.INFONCE_MAX_TILE + 2 * v - 2) // v
+        table = np.zeros((v, chunks, v), np.int64)
+        for p in np.nonzero(hit[bi * hw + p0:bi * hw + p0 + n])[0]:
+            for m in range(v):
+                k, e = divmod(p + m, v)
+                assert k < chunks and table[m, k, e] == 0
+                table[m, k, e] = p + 1
+        f = np.arange(256)
+        e0 = bi * 256 * hw + f * hw + p0
+        m = e0 % v
+        assert (-(-(m + n) // v) <= chunks).all()  # every row's chunks are items
+        k = np.arange(chunks)
+        lo = k[None, :] * v - m[:, None]  # (plane, chunk): its first tile pixel
+        local = lo[..., None] + np.arange(v)  # (plane, chunk, element)
+        inside = (local >= 0) & (local < n) & (lo[..., None] < n)
+        at = (e0 - m)[:, None, None] + (k * v)[None, :, None] + np.arange(v)
+        np.add.at(writes, at[inside], 1)
+        read = table[m[:, None, None], k[None, :, None], np.arange(v)[None, None, :]]
+        want = np.where(hit[bi * hw + p0 + np.clip(local, 0, n - 1)], local + 1, 0)
+        fields_right &= bool((read[inside] == want[inside]).all())
+    return writes, fields_right
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("b,h,w,sms", [(2, 37, 29, 4), (3, 9, 7, 1), (1, 33, 33, 2),
+                                        (2, 129, 129, 132)])
+def test_infonce_bwd_tiles_write_every_element_once(b, h, w, sms, itemsize):
+    """Every element of the gradient is written once, the ragged ends of a
+    row's tile element by element, and reads its own pixel's field of the
+    chunk table; hw not a multiple of 8 (so a tile's rows take every
+    alignment)."""
+    hw = h * w
+    tile = tc._infonce_bwd_tile(b * hw, sms)
+    assert tile % 4 == 0 and 4 <= tile <= tc.INFONCE_MAX_TILE
+    blocks = b * -(-hw // tile)
+    assert tile == tc.INFONCE_MAX_TILE or blocks >= tc.INFONCE_BWD_BLOCKS_PER_SM * sms - b
+    rng = np.random.RandomState(b * hw)
+    hits = rng.choice(b * hw, size=max(1, b * hw // 25), replace=False)
+    writes, fields_right = _infonce_bwd_walk(b, hw, tile, itemsize, hits)
+    assert (writes == 1).all() and fields_right
+
+
+def test_infonce_bwd_tile_at_the_flagship():
+    """The flagship's 8 x 129² pixels on 132 SMs: 508-pixel tiles, 33 a
+    plane, 264 blocks (two an SM)."""
+    tile = tc._infonce_bwd_tile(8 * 129 * 129, 132)
+    assert tile == 508 and 8 * -(-129 * 129 // tile) == 264

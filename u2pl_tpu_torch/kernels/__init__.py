@@ -23,8 +23,9 @@ def load():
     lib = ctypes.CDLL(path)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
-        # (x, y, idx_h, w_h, idx_w, w_w, planes, H, W, OH, OW, mode, stream)
-        "u2pl_resize_bilinear_ac": [p] * 6 + [i] * 6 + [p],
+        # (x, y, idx_h, w_h, idx_w, w_w, taps_h, taps_w, planes, H, W, OH, OW,
+        #  rows, bands, mode, stream)
+        "u2pl_resize_bilinear_ac": [p] * 8 + [i] * 8 + [p],
         # (gy, gx, idx_h, w_h, rng_h, idx_w, w_w, rng_w, planes, H, W, OH, OW,
         #  rows, bands, wspan, mode, stream)
         "u2pl_resize_bilinear_ac_bwd": [p] * 8 + [i] * 9 + [p],
@@ -66,8 +67,8 @@ def load():
         #  temperature, stream)
         "u2pl_contra_infonce_fwd": [p] * 13 + [i] * 10 + [f, p],
         # (anchor_idx, active, valid_seg, gdir, g, sums, grad_rep, B, F, HW, C, Q,
-        #  rep_dtype, split, stream)
-        "u2pl_contra_infonce_bwd": [p] * 7 + [i] * 7 + [p],
+        #  tile, rep_dtype, split, stream)
+        "u2pl_contra_infonce_bwd": [p] * 7 + [i] * 8 + [p],
         # (values, out, state, n, k, grid, slice, cap, stream)
         "u2pl_kth_smallest": [p] * 3 + [i] * 5 + [p],
         # (x, labels, p_y, num_valid, ticket, idx_h, w_h, idx_w, w_w,

@@ -41,7 +41,26 @@
 // `upsampled` (H pass, then W pass), so the same bits as kernels C, D and
 // K7 evaluate inside themselves.  Shared memory per block: 16 B per output
 // column (rounded up to 4 columns) plus 4 B per input column and band row,
-// at most kResizeMaxShared.
+// at most kResizeMaxShared.  The host plans the bands (ops/resize.py:
+// _fwd_plan: about 4096 outputs a band, as many rows as that memory holds).
+//
+// A few planes (a 3-plane request image, 513² or 769²; eval's image at each
+// scale) make too few bands to fill the card: at VOC's (1, 3, 375, 500) ->
+// 513², 171 blocks, one partial wave, each block's tap staging, H pass (a
+// warp's row of 500 columns in 16 load steps) and W pass one after the
+// other: 0.0115-0.0118 ms against 0.0058-0.0060 for F.interpolate.  There
+// the plan gives no bands (fewer than 4 blocks an SM) and the direct kernel
+// runs: a thread per output pixel for every plane, its taps packed as one
+// int4 per row and column, loaded once for all planes, then 4 inputs a
+// plane, all issued before the first is used; the same products and sums.
+// It takes 0.0042-0.0044 ms there and 0.0093-0.0094 at Cityscapes' (1, 3,
+// 1024, 2048) -> 769² (F.interpolate 0.0144-0.0146; the 25 MB input stays
+// in L2 from call to call), on an NVIDIA H100 80GB HBM3 at 700 W
+// (timing_ab.py).  Shorter bands (u2pl_tpu_torch/kernels/plan_sweep.py)
+// keep each block's serial chain and are slower; so were an H pass flat
+// over the block with its loads batched (its registers halved the blocks
+// an SM at the logits' 84 planes) and a thread per 4 flat outputs (12
+// loads an output).
 //
 // A-bwd is in gather form: each INPUT element sums the output rows and
 // columns whose taps reach it, so no two threads write one address and no
@@ -112,6 +131,7 @@
 namespace {
 
 using u2pl::blocks_for;
+using u2pl::div_small;
 using u2pl::kThreads;
 using u2pl::lerp2;
 using u2pl::round_bf16;
@@ -120,18 +140,7 @@ using u2pl::store_as;
 using u2pl::tap_weight;
 using u2pl::to_f32;
 
-constexpr int kBandOutputs = 4096;        // outputs per block, about
 constexpr int kResizeMaxShared = 160 * 1024;  // bytes of taps and H-lerped rows
-
-// n / d for 0 <= n < 2^24 and d >= 1: a float estimate, off by at most one,
-// corrected to the exact quotient
-__device__ __forceinline__ int div_small(int n, int d, float inv_d) {
-  int q = (int)((float)n * inv_d);
-  const int r = n - q * d;
-  if (r < 0) --q;
-  else if (r >= d) ++q;
-  return q;
-}
 
 // shared-memory slot of output column ox's taps: the columns are stored
 // by ox % 4, so the lanes of a warp, each on its own 4 consecutive columns,
@@ -142,7 +151,7 @@ __device__ __forceinline__ int col_slot(int ox, int quarter) {
 
 // T: the input's element type (float; __nv_bfloat16 in the bf16 modes), O
 // the output's (T, or float from bf16 in kModeBf16F32); WIDE rounds the H
-// pass to bf16
+// pass to bf16; (rows, bands) from ops/resize.py:_fwd_plan
 template <typename T, typename O, bool WIDE>
 __global__ void __launch_bounds__(kThreads) resize_bilinear_ac_kernel(
     const T* __restrict__ x, O* __restrict__ y,
@@ -200,6 +209,56 @@ __global__ void __launch_bounds__(kThreads) resize_bilinear_ac_kernel(
           ox = 0;
           ++r;
         }
+      }
+    }
+  }
+}
+
+constexpr int kDirectPlanes = 4;  // planes whose loads a direct kernel thread issues together
+
+// A with few planes (ops/resize.py:_fwd_plan gives no bands): a thread per
+// output pixel (oy, ox), for every plane, straight from the input: its two
+// H-pass values from their 2 + 2 taps, then the W lerp (the band kernel's
+// products and sums); no shared memory, no barrier.  The taps come packed,
+// (lo, hi, 1 - frac, frac) as one int4 per output row and column
+// (ops/resize.py:_device_taps4), loaded once for all planes; the lanes of
+// a warp, on consecutive columns, read consecutive taps and nearby inputs
+// and store consecutive outputs.
+template <typename T, typename O, bool WIDE>
+__global__ void __launch_bounds__(kThreads) resize_bilinear_ac_direct_kernel(
+    const T* __restrict__ x, O* __restrict__ y, const int4* __restrict__ taps_h,
+    const int4* __restrict__ taps_w, int planes, int H, int W, int OH, int OW) {
+  const unsigned area = (unsigned)OH * OW;
+  const unsigned pix = blockIdx.x * kThreads + threadIdx.x;  // oy * OW + ox
+  if (pix >= area) return;
+  const int oy = (int)(pix / (unsigned)OW), ox = (int)(pix - (unsigned)oy * OW);
+  const int4 rt = taps_h[oy], ct = taps_w[ox];
+  const float a = __int_as_float(rt.z), b = __int_as_float(rt.w);
+  const float p = __int_as_float(ct.z), q = __int_as_float(ct.w);
+  const int h0 = rt.x * W, h1 = rt.y * W;
+  const size_t in_plane = (size_t)H * W;
+  for (int c0 = 0; c0 < planes; c0 += kDirectPlanes) {
+    float x00[kDirectPlanes], x10[kDirectPlanes], x01[kDirectPlanes], x11[kDirectPlanes];
+#pragma unroll
+    for (int j = 0; j < kDirectPlanes; ++j) {
+      if (c0 + j < planes) {
+        const T* xp = x + (c0 + j) * in_plane;
+        x00[j] = to_f32(xp[h0 + ct.x]);
+        x10[j] = to_f32(xp[h1 + ct.x]);
+        x01[j] = to_f32(xp[h0 + ct.y]);
+        x11[j] = to_f32(xp[h1 + ct.y]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kDirectPlanes; ++j) {
+      if (c0 + j < planes) {
+        float t0 = lerp2(a, x00[j], b, x10[j]);
+        float t1 = lerp2(a, x01[j], b, x11[j]);
+        if (WIDE) {
+          t0 = round_bf16(t0);
+          t1 = round_bf16(t1);
+        }
+        store_as(y + (size_t)(c0 + j) * area + pix, lerp2(p, t0, q, t1));
       }
     }
   }
@@ -284,6 +343,8 @@ __global__ void __launch_bounds__(kThreads) resize_bilinear_ac_bwd_kernel(
 struct ResizeArgs {
   const void* x;  // A: x, A-bwd: gy
   void* y;        // A: y, A-bwd: gx
+  const int4* taps_h;  // A's direct kernel: the packed taps
+  const int4* taps_w;
   const int* idx_h;
   const float* w_h;
   const int* rng_h;
@@ -294,8 +355,18 @@ struct ResizeArgs {
 };
 
 template <typename T, typename O, bool WIDE>
-cudaError_t launch_fwd(const ResizeArgs& a, unsigned blocks, int smem, int rows, int bands,
-                       int quarter, cudaStream_t stream) {
+cudaError_t launch_fwd(const ResizeArgs& a, unsigned planes, int rows, int bands,
+                       cudaStream_t stream) {
+  if (rows == 0) {  // no bands: the direct kernel
+    const unsigned area = (unsigned)a.OH * (unsigned)a.OW;
+    resize_bilinear_ac_direct_kernel<T, O, WIDE>
+        <<<(area + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+            (const T*)a.x, (O*)a.y, a.taps_h, a.taps_w, (int)planes, a.H, a.W, a.OH, a.OW);
+    return cudaGetLastError();
+  }
+  const int quarter = (a.OW + 3) / 4;
+  const int smem = quarter * 64 + rows * a.W * 4;
+  const unsigned blocks = planes * (unsigned)bands;
   auto kernel = resize_bilinear_ac_kernel<T, O, WIDE>;
   if (smem > 48 * 1024) {  // above the default dynamic shared memory of a block
     const cudaError_t err =
@@ -365,38 +436,33 @@ extern "C" {
 // narrow branch, the bf16 wide branch, and (A only) bf16 in, f32 out
 enum { kModeF32 = 0, kModeBf16 = 1, kModeBf16Wide = 2, kModeBf16F32 = 3 };
 
+// (rows, bands) from ops/resize.py:_fwd_plan: bands of `rows` output rows
+// of a plane, a block each; (0, 0): the direct kernel, which reads the
+// packed tables taps_h / taps_w (the band kernel the four others)
 int u2pl_resize_bilinear_ac(const void* x, void* y, const void* idx_h,
                             const void* w_h, const void* idx_w, const void* w_w,
-                            int planes, int H, int W, int OH, int OW, int mode,
+                            const void* taps_h, const void* taps_w, int planes, int H,
+                            int W, int OH, int OW, int rows, int bands, int mode,
                             void* stream) {
   if (mode < kModeF32 || mode > kModeBf16F32) return (int)cudaErrorInvalidValue;
   if (planes <= 0 || OH <= 0 || OW <= 0) return (int)cudaGetLastError();
   const int quarter = (OW + 3) / 4;
-  if (H <= 0 || W <= 0 || (long long)quarter * 64 + (long long)W * 4 > kResizeMaxShared) {
+  const bool direct = rows == 0 && bands == 0;
+  if (H <= 0 || W <= 0 || (long long)planes * OH * OW >= (1LL << 31) ||
+      (direct && (taps_h == nullptr || taps_w == nullptr)) ||
+      (!direct && (rows <= 0 || bands != (OH + rows - 1) / rows ||
+                   (long long)quarter * 64 + (long long)rows * W * 4 > kResizeMaxShared))) {
     return (int)cudaErrorInvalidValue;
   }
-  // about kBandOutputs outputs per block, in bands of even height
-  const int target = min(OH, (kBandOutputs + OW - 1) / OW);
-  const int even = max(1, (OH + target / 2) / target);
-  int rows = (OH + even - 1) / even;
-  rows = min(rows, (kResizeMaxShared - quarter * 64) / (W * 4));
-  const int bands = (OH + rows - 1) / rows;
-  const int smem = quarter * 64 + rows * W * 4;
-  const ResizeArgs a = {x, y, (const int*)idx_h, (const float*)w_h, nullptr,
-                        (const int*)idx_w, (const float*)w_w, nullptr, H, W, OH, OW};
-  const unsigned blocks = (unsigned)planes * bands;
+  const ResizeArgs a = {x, y, (const int4*)taps_h, (const int4*)taps_w, (const int*)idx_h,
+                        (const float*)w_h, nullptr, (const int*)idx_w, (const float*)w_w,
+                        nullptr, H, W, OH, OW};
   cudaStream_t st = (cudaStream_t)stream;
   using bf16 = __nv_bfloat16;
-  if (mode == kModeBf16Wide) {
-    return (int)launch_fwd<bf16, bf16, true>(a, blocks, smem, rows, bands, quarter, st);
-  }
-  if (mode == kModeBf16) {
-    return (int)launch_fwd<bf16, bf16, false>(a, blocks, smem, rows, bands, quarter, st);
-  }
-  if (mode == kModeBf16F32) {
-    return (int)launch_fwd<bf16, float, false>(a, blocks, smem, rows, bands, quarter, st);
-  }
-  return (int)launch_fwd<float, float, false>(a, blocks, smem, rows, bands, quarter, st);
+  if (mode == kModeBf16Wide) return (int)launch_fwd<bf16, bf16, true>(a, planes, rows, bands, st);
+  if (mode == kModeBf16) return (int)launch_fwd<bf16, bf16, false>(a, planes, rows, bands, st);
+  if (mode == kModeBf16F32) return (int)launch_fwd<bf16, float, false>(a, planes, rows, bands, st);
+  return (int)launch_fwd<float, float, false>(a, planes, rows, bands, st);
 }
 
 // (rows, bands, wspan) from ops/resize.py:_bwd_plan: bands of `rows` input
@@ -414,9 +480,9 @@ int u2pl_resize_bilinear_ac_bwd(const void* gy, void* gx, const void* idx_h,
       threads >= (1LL << 31)) {
     return (int)cudaErrorInvalidValue;
   }
-  const ResizeArgs a = {gy, gx, (const int*)idx_h, (const float*)w_h, (const int*)rng_h,
-                        (const int*)idx_w, (const float*)w_w, (const int*)rng_w,
-                        H, W, OH, OW};
+  const ResizeArgs a = {gy, gx, nullptr, nullptr, (const int*)idx_h, (const float*)w_h,
+                        (const int*)rng_h, (const int*)idx_w, (const float*)w_w,
+                        (const int*)rng_w, H, W, OH, OW};
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned n = (unsigned)threads;
   if (mode == kModeBf16Wide) {

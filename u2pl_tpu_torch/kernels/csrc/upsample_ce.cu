@@ -84,6 +84,7 @@
 
 namespace {
 
+using u2pl::div_small;
 using u2pl::kThreads;
 using u2pl::round_bf16;
 using u2pl::store_as;
@@ -364,15 +365,6 @@ constexpr int kStatsThreads = 256;
 // less room for the static shared memory of C's reduction
 constexpr int kStatsMaxShared = 224 * 1024;
 
-// n / d for 0 <= n < 2^24 and d >= 1 (resize.cu's div_small)
-__device__ __forceinline__ int stats_div(int n, int d, float inv_d) {
-  int q = (int)((float)n * inv_d);
-  const int r = n - q * d;
-  if (r < 0) --q;
-  else if (r >= d) ++q;
-  return q;
-}
-
 // the statistics of one output pixel from its row's H-lerped inputs Tr
 // (class c at Tr + c * W) and its column taps t = (lo, hi, 1 - frac, frac):
 // kernel D's first design's expressions in its class order, with each
@@ -550,7 +542,7 @@ __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
 #pragma unroll
     for (int j = 0; j < kStageBatch; ++j) {
       const int kk = k + j * kStatsThreads;
-      const int c = stats_div(kk, W, inv_w);
+      const int c = div_small(kk, W, inv_w);
       off[j] = c * plane + kk - c * W;  // class c, column ix
     }
     for (int r = 0; r < nr; ++r) {
@@ -579,7 +571,7 @@ __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
   unsigned valid = 0;             // kStatsTargetProb: the thread's valid pixels
   for (unsigned k = k0 + 4u * threadIdx.x; k < k1; k += 4u * kStatsThreads) {
     const int local = (int)(k - base);
-    int r = stats_div(local, OW, inv_ow);
+    int r = div_small(local, OW, inv_ow);
     int ox = local - r * OW;
     int4 lab = make_int4(ignore, ignore, ignore, ignore);
     if constexpr (MODE == kStatsCE || MODE == kStatsTargetProb) {

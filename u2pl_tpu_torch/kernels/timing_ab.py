@@ -118,7 +118,20 @@ results are bit-equal.  The inputs come from seeded generators on the card:
              pseudo-labels (21 classes, ~5% 255, sample 1 a single class)
              and max-probs, (4, 21) draws with ties in sample 0 (chip_smoke.py's
              classmix_case); its hash covers image, label and max-prob;
-  K3c_city   the same at Cityscapes, (2, 3, 769²), 19 classes.
+  K3c_city   the same at Cityscapes, (2, 3, 769²), 19 classes;
+  A_image_voc  kernel A at a served VOC request image, (1, 3, 375, 500) ->
+             513², with its bytes bound; library: F.interpolate;
+  A_image_city the same at a served Cityscapes image, (1, 3, 1024, 2048) ->
+             769²;
+  A_eval_voc_125  VOC eval's image resize at scale 1.25, (1, 3, 375, 500) ->
+             (469, 625);
+  K6_bwd_bf16  K6's backward on a bf16 rep at the flagship, as K6_bwd but with
+             the directions' negatives' parts apart (a bf16 bank: a (2, 21,
+             256, 256) gdir) and a bf16 gradient; library: torch.zeros of the
+             bf16 (N, 256) rows, then index_add_ of bf16 rows; with its bytes
+             bound;
+  K6_bwd_bf16_no_draws  the same with every position inactive; library:
+             torch.zeros of the bf16 rep.
 The K4r and K3c rows carry their bytes bound, as chip_smoke.py:bounds
 counts it (each input read once, each output written once).
 The K5 rows carry their NCHW sector bound: the distinct 32-byte sectors of
@@ -533,6 +546,39 @@ def main() -> int:
             "sha256": "-".join(digest(t) for t in fn()),
             "bound_ms": (2 * b * hw * hw * (12 + 4 + 4) + b * c * 4) / PEAK_BYTES_S * 1e3}
         del img, lab, prob
+    # kernel A at the 3-plane request images and an eval scale's image resize
+    for name, shape, size in (("A_image_voc", (1, 3, 375, 500), (513, 513)),
+                              ("A_image_city", (1, 3, 1024, 2048), (769, 769)),
+                              ("A_eval_voc_125", (1, 3, 375, 500), (469, 625))):
+        x = torch.randn(*shape, device=dev, generator=g)
+        fn = lambda: R.resize_bilinear(x, size)  # noqa: E731
+        out["kernels"][name] = {
+            "ms": cuda_ms(fn, 100), "profiled_ms": profiled_ms(fn),
+            "library_ms": cuda_ms(lambda: F.interpolate(x, size=size, mode="bilinear",
+                                                        align_corners=True), 100),
+            "sha256": digest(fn()),
+            "bound_ms": 3 * (shape[2] * shape[3] + size[0] * size[1]) * 4 / PEAK_BYTES_S * 1e3}
+        del x
+    # K6's backward on a bf16 rep and a bf16 bank (the negatives' parts apart)
+    b, f, hw, c, q = 8, 256, 129 * 129, 21, 256
+    pools = torch.stack([torch.randperm(b * hw, device=dev, generator=g)[:2000] for _ in range(c)])
+    anchor_idx = pools.gather(1, torch.randint(0, 2000, (c, q), device=dev, generator=g))
+    anchor_idx = anchor_idx.to(torch.int32).contiguous()
+    active = torch.arange(c, device=dev) < c - 1
+    gdir = torch.randn(2, c, q, f, device=dev, generator=g)
+    shape, bf = (b, f, 129, 129), torch.bfloat16
+    rows = anchor_idx.flatten().long()
+    src = torch.randn(c * q, f, device=dev, generator=g).to(bf)
+    for name, act in (("K6_bwd_bf16", active), ("K6_bwd_bf16_no_draws", torch.zeros_like(active))):
+        fn = lambda: tc._infonce_bwd_cuda(  # noqa: E731
+            anchor_idx, act, valid_seg, gdir, one, shape, bf)
+        lib_fn = ((lambda: torch.zeros(b * hw, f, device=dev, dtype=bf).index_add_(0, rows, src))
+                  if act.any() else (lambda: torch.zeros(shape, device=dev, dtype=bf)))
+        out["kernels"][name] = {
+            "ms": cuda_ms(fn, 50), "profiled_ms": profiled_ms(fn),
+            "library_ms": cuda_ms(lib_fn, 50), "sha256": digest(fn().view(torch.int16)),
+            "bound_ms": (b * f * hw * 2 + int(act.sum()) * q * (2 * f * 4 + 4))
+            / PEAK_BYTES_S * 1e3}
     print(json.dumps(out), flush=True)
     return 0
 

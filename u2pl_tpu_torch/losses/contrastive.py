@@ -524,8 +524,9 @@ class _AnchorRows(torch.autograd.Function):
 
 def anchor_rows(rep: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """The f32 anchor rows rep_f[idx] of an NCHW rep, (*idx.shape, F),
-    differentiable in `rep` as JAX's gather and astype are."""
-    if rep.dtype == torch.float32:
+    differentiable in `rep` as JAX's gather and astype are (a float64 rep:
+    its float64 rows)."""
+    if rep.dtype != torch.bfloat16:
         return gather_rows(rep, idx)
     return _AnchorRows.apply(rep, idx)
 
@@ -545,13 +546,15 @@ def contra_infonce_plain(
     (contrastive.py:283-378): gather, sample, normalize, dot, log-softmax
     (the f32 path), or with a bf16 rep and a bf16 bank its dot-first path;
     differentiated by autograd (`anchor_rows`).  Materialises
-    (C, Q, 1 + M, F) f32."""
+    (C, Q, 1 + M, F) f32.  A float64 rep takes the f32 path's arithmetic in
+    float64 (the bank's keys widened exactly): a reference without the f32
+    roundings of either route, which chip_smoke.py holds K6 against."""
     c, q = anchor_idx.shape
     f = rep.shape[1]
     anchor = anchor_rows(rep, anchor_idx)  # (C, Q, F) f32
     negs = sample(bank, u_neg, dtype=None)[0][b_j.long()]  # the bank of class b_j
-    negs = negs.to(torch.float32).reshape(c, q, -1, f)
-    pos = positive[:, None, None, :].expand(c, q, 1, f)
+    negs = negs.to(anchor.dtype).reshape(c, q, -1, f)
+    pos = positive.to(anchor.dtype)[:, None, None, :].expand(c, q, 1, f)
     norm = torch.linalg.vector_norm
     if rep.dtype == torch.bfloat16 and bank.keys.dtype == torch.bfloat16:
         # dot-first: bf16 products, exact in f32, summed in f32; the norms
@@ -696,6 +699,19 @@ def _check_draws(c: int, q: int) -> None:
         )
 
 
+INFONCE_MAX_TILE = 1020  # K6 bwd's pixels a tile (kernels/csrc/infonce.cu: kMaxTile)
+INFONCE_BWD_BLOCKS_PER_SM = 2
+
+
+def _infonce_bwd_tile(pixels: int, sms: int) -> int:
+    """K6 bwd's tile: the pixels of one image a block writes, all 256
+    planes.  About INFONCE_BWD_BLOCKS_PER_SM blocks on each of `sms` SMs
+    over the `pixels` = B * h * w of the rep (an even grid keeps the write
+    stream balanced), a multiple of 4, at most INFONCE_MAX_TILE."""
+    tile = -(-pixels // (INFONCE_BWD_BLOCKS_PER_SM * sms))
+    return min(INFONCE_MAX_TILE, max(4, (tile + 3) & ~3))
+
+
 def _infonce_bwd_cuda(anchor_idx, active, valid_seg, gdir, g, rep_shape,
                       rep_dtype=torch.float32) -> torch.Tensor:
     """K6's backward on the card: the (B, F, h, w) gradient of the rep, in
@@ -708,15 +724,18 @@ def _infonce_bwd_cuda(anchor_idx, active, valid_seg, gdir, g, rep_shape,
     _check_draws(c, q)
     dev = gdir.device
     from u2pl_tpu_torch.kernels import load
+    from u2pl_tpu_torch.ops.resize import _sm_count
 
     lib = load()
     g = g.to(torch.float32).contiguous()
-    sums = torch.empty((c * q, f), dtype=torch.float32, device=dev)  # per-pixel sums
+    # per-pixel sums past the kernel's shared memory
+    sums = torch.empty((c * q, f), dtype=torch.float32, device=dev)
     grad_rep = torch.empty((b, f, h, w), dtype=rep_dtype, device=dev)
     _launch(lib, "u2pl_contra_infonce_bwd", "contra_infonce_bwd", dev,
             anchor_idx.data_ptr(), active.data_ptr(), valid_seg.data_ptr(), gdir.data_ptr(),
             g.data_ptr(), sums.data_ptr(), grad_rep.data_ptr(), b, f, h * w, c, q,
-            BANK_DTYPE_CODES[rep_dtype], int(gdir.dim() == 4))
+            _infonce_bwd_tile(b * h * w, _sm_count(dev)), BANK_DTYPE_CODES[rep_dtype],
+            int(gdir.dim() == 4))
     contra_infonce.bwd_launches += 1
     return grad_rep
 

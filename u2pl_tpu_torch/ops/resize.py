@@ -142,6 +142,19 @@ def _device_taps(
 
 
 @functools.lru_cache(maxsize=256)
+def _device_taps4(
+    in_size: int, out_size: int, align_corners: bool, device: torch.device
+) -> torch.Tensor:
+    """Kernel A's direct kernel's table on `device`: the same taps packed,
+    int32 (out_size, 4) rows of (lo, hi, the bits of 1 - frac, the bits of
+    frac), one 16-byte load per output index."""
+    lo, hi, frac = _interp_taps_np(in_size, out_size, align_corners)
+    w = np.stack([np.float32(1.0) - frac, frac], axis=1).astype(np.float32).view(np.int32)
+    taps = np.concatenate([np.stack([lo, hi], axis=1).astype(np.int32), w], axis=1)
+    return torch.from_numpy(np.ascontiguousarray(taps)).to(device)
+
+
+@functools.lru_cache(maxsize=256)
 def _device_ranges(
     in_size: int, out_size: int, align_corners: bool, device: torch.device
 ) -> torch.Tensor:
@@ -258,6 +271,34 @@ def resize_argmax_plain(
 # per input column and band row in shared memory (kernels/csrc/resize.cu:
 # kResizeMaxShared)
 RESIZE_MAX_SHARED = 160 * 1024
+# kernel A's plan: about this many outputs a band; with fewer than this many
+# blocks an SM in bands, the direct kernel
+BAND_OUTPUTS = 4096
+FWD_BLOCKS_PER_SM = 4
+
+
+@functools.lru_cache(maxsize=256)
+def _fwd_plan(planes: int, h: int, w: int, oh: int, ow: int, sms: int) -> Tuple[int, int]:
+    """Kernel A's launch: (rows, bands), a block per band of `rows` output
+    rows of one plane, or (0, 0) for the direct kernel.
+
+    Bands of about BAND_OUTPUTS outputs and of even height, as many rows as
+    shared memory holds at most: at the logits', the decoders' and the eval
+    crops' plane counts that grid is tens of blocks an SM.  With few planes
+    (a 3-plane request image) it would be one partial wave of blocks whose
+    tap staging, H pass and barriers run one after the other, so when the
+    planes x bands blocks come to fewer than FWD_BLOCKS_PER_SM on each of
+    `sms` SMs the direct kernel takes the call: a thread per output pixel
+    for every plane, straight from the input (`_device_taps4`), no shared
+    memory."""
+    quarter = -(-ow // 4)
+    target = min(oh, -(-BAND_OUTPUTS // ow))
+    even = max(1, (oh + target // 2) // target)
+    rows = min(-(-oh // even), (RESIZE_MAX_SHARED - quarter * 64) // (w * 4))
+    bands = -(-oh // rows)
+    if planes * bands < FWD_BLOCKS_PER_SM * sms:
+        return 0, 0
+    return rows, bands
 
 
 F32 = (torch.float32,)
@@ -341,10 +382,15 @@ def _resize_bilinear_cuda(x: torch.Tensor, size, align_corners: bool,
     idx_w, w_w = _device_taps(w, ow, align_corners, x.device)
     y = torch.empty((b, c, oh, ow), dtype=out_dtype, device=x.device)
     mode = _resize_mode(x.dtype, c, (h, w), (oh, ow), align_corners, out_dtype)
+    plan = _fwd_plan(b * c, h, w, oh, ow, _sm_count(x.device))
+    taps = (0, 0)  # the direct kernel's packed tables
+    if plan == (0, 0):
+        taps = (_device_taps4(h, oh, align_corners, x.device).data_ptr(),
+                _device_taps4(w, ow, align_corners, x.device).data_ptr())
     with torch.cuda.device(x.device):
         err = lib.u2pl_resize_bilinear_ac(
             x.data_ptr(), y.data_ptr(), idx_h.data_ptr(), w_h.data_ptr(),
-            idx_w.data_ptr(), w_w.data_ptr(), b * c, h, w, oh, ow, mode,
+            idx_w.data_ptr(), w_w.data_ptr(), *taps, b * c, h, w, oh, ow, *plan, mode,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     check(lib, err, "resize_bilinear_ac launch")
