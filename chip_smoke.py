@@ -340,8 +340,8 @@ def phase1_kernels(dev):
     import torch
 
     from u2pl_tpu_torch.ops.resize import (
-        _fwd_plan, _sm_count, _wide, resize_argmax, resize_argmax_plain, resize_bilinear,
-        resize_bilinear_plain, resize_bilinear_rounded,
+        _fwd_plan, _resize_mode, _sm_count, _wide, resize_argmax, resize_argmax_plain,
+        resize_bilinear, resize_bilinear_plain, resize_bilinear_rounded,
     )
 
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -372,8 +372,10 @@ def phase1_kernels(dev):
         torch.cuda.synchronize()
         branch = "wide" if _wide(xb.dtype, shape[1], shape[2:], out, True) else "narrow"
         plan = _fwd_plan(shape[0] * shape[1], *shape[2:], *out, _sm_count(dev))
-        log(f"[phase 1] kernel A {shape} -> {out} (rows, bands) {plan}: bf16 ({branch}) "
-            f"bit-equal to the rounded formula {same_bf}; bf16 -> f32 {same_up}")
+        bplan = _fwd_plan(shape[0] * shape[1], *shape[2:], *out, _sm_count(dev),
+                          _resize_mode(xb.dtype, shape[1], shape[2:], out, True))
+        log(f"[phase 1] kernel A {shape} -> {out} {plan}: bf16 ({branch}, plan "
+            f"{bplan}) bit-equal to the rounded formula {same_bf}; bf16 -> f32 {same_up}")
         if not same_bf or not same_up:
             fail(f"kernel A {shape}->{out}: bf16 modes bit-equal {same_bf} / {same_up}")
         del x, y, exact, ref, xb
@@ -2804,6 +2806,13 @@ def bf16_kernels(dev, card, case, cfg):
                       cuda_ms(lambda: F.interpolate(x, out_hw, mode="bilinear",
                                                     align_corners=True)))
         f32[key] = cuda_ms(lambda: R.resize_bilinear(x32, out_hw))
+        planes = shape[0] * shape[1]
+        mode = R._resize_mode(bf, shape[1], shape[2:], out_hw, True)
+        log(f"[{card}] kernel A bf16 ({'wide' if wide else 'narrow'}) {shape} -> {out_hw}, plan "
+            f"{R._fwd_plan(planes, *shape[2:], *out_hw, R._sm_count(dev), mode)}: "
+            f"{times[key][0]:.4f} ms; its f32 mode (plan "
+            f"{R._fwd_plan(planes, *shape[2:], *out_hw, R._sm_count(dev))}) {f32[key]:.4f} ms; "
+            f"plain version {times[key][1]:.4f} ms; F.interpolate bf16 {times[key][2]:.4f} ms")
         del x, x32, y
     # A-bwd: the decoder's adjoints (wide: the W sum rounded to bf16)
     for key, shape, out_hw in (("A_bwd_bf16", (8, 256, 65, 65), (OS4, OS4)),
@@ -2836,14 +2845,43 @@ def bf16_kernels(dev, card, case, cfg):
         f"upsample) {plain.item():.7f}")
     if rel > C_LOSS_TOL:
         fail("kernel C fwd bf16 differs from its plain version")
-    xg = x.detach().requires_grad_(True)
-    (gk,) = torch.autograd.grad(ce.upsample_cross_entropy(xg, lab), xg)
-    # the ulp of each (image, class) plane's largest: the kernel and the plain
-    # version round the full-resolution gradient at its boundaries apart, and
-    # the adjoint's sums of those terms may cancel to a small element
-    errs["C_bwd_bf16"] = bf16_flips("kernel C bwd bf16 (4, 21, 129²) <- 513²", gk,
-                                    ce.upsample_ce_bwd_plain(x, lab), BF16_FLIP_FRAC,
-                                    row_dim=(2, 3))
+    # C bwd bf16 at each of the main path's three compilations: VOC (x4, 21
+    # classes), the Cityscapes main head (x4, 19 classes in two owner pairs a
+    # thread, OHEM's kept labels and the class weight) and its aux head (x8,
+    # kept labels), each bit-equal to its own arithmetic in torch ops on the
+    # forward's saved lse and denominator, and within the bf16 flips of the
+    # plain version
+    crit = load_f32(CITY_CONFIG).criterion
+    gc = torch.Generator(device=dev).manual_seed(SEED + 24)
+    c_bwd_cases = [(f"(4, 21, {OS4}²) <- {CROP}²", x, lab, None)]
+    for head, hw, block, weighted in (("main", CITY_OS4, 8, True), ("aux", CITY_OS8, 4, False)):
+        xc, labc = ohem_case(dev, gc, hw, 8.0, block, 0.05)
+        xc = xc.to(bf)
+        kept = ohem.ohem_kept_labels(xc, labc, crit.thresh, crit.min_kept)
+        c_bwd_cases.append((f"Cityscapes {head} head {tuple(xc.shape)} <- {CITY_CROP}², kept "
+                            f"labels{', weighted' if weighted else ''}", xc, kept,
+                            ohem._class_weight(weighted, dev)))
+    errs["C_bwd_bf16"] = 0.0
+    for what, xb, lb, cw in c_bwd_cases:
+        xg = xb.detach().requires_grad_(True)
+        lk = ce.upsample_cross_entropy(xg, lb, 255, cw)
+        _, _, lse, stats, _ = lk.grad_fn.saved_tensors
+        (gk,) = torch.autograd.grad(lk, xg)
+        same = torch.equal(gk, ce.upsample_ce_bwd_ordered(xb, lb, cw, 255, 1.0, lse, stats[1]))
+        plan = ce._bwd_plan(*xb.shape, *lb.shape[1:], ce._sm_count(dev), 2)
+        log(f"[phase 13] kernel C bwd bf16 {what}, plan {tuple(plan)}: bit-equal to "
+            f"upsample_ce_bwd_ordered {same}")
+        if not same:
+            fail(f"kernel C bwd bf16 {what} is not bit-equal to its ordered formula")
+        # the ulp of each (image, class) plane's largest: the kernel and the
+        # plain version round the full-resolution gradient at its boundaries
+        # apart, and the adjoint's sums of those terms may cancel to a small
+        # element
+        errs["C_bwd_bf16"] = max(errs["C_bwd_bf16"], bf16_flips(
+            f"kernel C bwd bf16 {what}", gk, ce.upsample_ce_bwd_plain(xb, lb, cw),
+            BF16_FLIP_FRAC, row_dim=(2, 3)))
+        del xg, lk, lse, stats, gk
+    del c_bwd_cases, xc, labc, kept
     x32 = x.float()
     with torch.no_grad():
         times["C_fwd_bf16"] = (cuda_ms(lambda: ce.upsample_cross_entropy(x, lab)),
@@ -2868,7 +2906,7 @@ def bf16_kernels(dev, card, case, cfg):
             cuda_ms(lambda: unsup.upsample_softmax_stats_plain(x, (CROP, CROP), sel)), None)
         f32[f"D_{sel}_bf16"] = cuda_ms(
             lambda: unsup.upsample_softmax_stats(x32, (CROP, CROP), outputs=sel))
-    del x, x32, xg, gk, up, mp, am, ent, rmp, ram, rent
+    del x, x32, up, mp, am, ent, rmp, ram, rent
     # K7 prob at the Cityscapes heads
     for key, hw in (("K7_prob_bf16", CITY_OS4), ("K7_prob_aux_bf16", CITY_OS8)):
         xc, labc = ohem_case(dev, g, hw, 8.0, 4, 0.05)

@@ -113,7 +113,7 @@ def test_kernel_a_few_planes_bit_equal_to_rounded_formula(shape, outsz, dtype):
     x = (torch.randn(*shape, device=dev, generator=g) * 3).to(dtype)
     planes = shape[0] * shape[1]
     plan = tr._fwd_plan(planes, *shape[2:], *outsz, tr._sm_count(dev))
-    assert (plan == (0, 0)) == (planes < 10 or shape[2] != 129)
+    assert (plan.kernel == tr.FWD_DIRECT) == (planes < 10 or shape[2] != 129)
     n = tr.resize_bilinear.launches
     got = tr.resize_bilinear(x, outsz)
     torch.cuda.synchronize()
@@ -447,6 +447,27 @@ def test_kernel_c_bwd_counts_labels_past_c_as_ignored():
     (gp,) = torch.autograd.grad(ce.upsample_cross_entropy(x, past), x)
     (gi,) = torch.autograd.grad(ce.upsample_cross_entropy(x, ign), x)
     assert torch.equal(gp, gi)
+
+
+def test_kernel_c_refuses_a_width_its_backward_cannot_take_before_the_forward():
+    """Logits wider than the backward's BWD_MAX_THREADS columns raise in the
+    forward when they need a gradient (no forward launch), and run the
+    forward alone when they do not."""
+    from u2pl_tpu_torch.losses import ce
+
+    dev = _cuda()
+    w = ce.BWD_MAX_THREADS + 1
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(1, 3, 2, w, device=dev, generator=g)
+    lab = _labels(g, 1, 5, w, 3, dev)
+    n = ce.upsample_cross_entropy.fwd_launches
+    xg = x.clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="owner threads"):
+        ce.upsample_cross_entropy(xg, lab)
+    assert ce.upsample_cross_entropy.fwd_launches == n
+    with torch.no_grad():
+        loss = ce.upsample_cross_entropy(xg, lab)
+    assert ce.upsample_cross_entropy.fwd_launches == n + 1 and torch.isfinite(loss)
 
 
 def test_kernel_c_bwd_allocates_no_full_resolution_gradient():
@@ -1425,8 +1446,14 @@ def assert_bf16_flips(got, want, max_frac=0.01, row_dim=None):
 
 # the decoder's upsamples (wide: 256 channels, bf16-exact weights) and the
 # logits' (narrow), at small shapes, and an odd narrow one
+# the decoders' shapes at a reduced batch (the exact 2x kernel), a wide 4x
+# upsample (the band kernel), 67 planes of a 2x one whose output ends in a
+# partial run of 8 and one narrower than 8 (every run wraps a row)
 BF16_A_SHAPES = [((2, 256, 33, 33), (65, 65)), ((2, 64, 49, 49), (97, 97)),
-                 ((2, 21, 33, 33), (129, 129)), ((3, 5, 9, 7), (13, 30))]
+                 ((2, 21, 33, 33), (129, 129)), ((3, 5, 9, 7), (13, 30)),
+                 ((2, 256, 65, 65), (129, 129)), ((1, 256, 97, 97), (193, 193)),
+                 ((1, 256, 33, 33), (129, 129)), ((1, 67, 5, 7), (9, 13)),
+                 ((1, 64, 3, 3), (5, 5))]
 
 
 @pytest.mark.parametrize("shape,outsz", BF16_A_SHAPES)
@@ -1446,6 +1473,24 @@ def test_kernel_a_bf16_bit_equal_to_rounded_formula(shape, outsz):
     assert torch.equal(got, tr.resize_bilinear_rounded(x, outsz))
     if shape[1] >= 64:  # every product exact: the plain einsums give the same bits
         assert torch.equal(got, tr.resize_bilinear_plain(x, outsz))
+    two_x = shape[1] >= 64 and outsz == (2 * shape[2] - 1, 2 * shape[3] - 1)
+    plan = tr._fwd_plan(shape[0] * shape[1], *shape[2:], *outsz, tr._sm_count(dev),
+                        tr._resize_mode(x.dtype, shape[1], shape[2:], outsz, True))
+    assert (plan.kernel == tr.FWD_WIDE_2X) == two_x
+
+
+def test_kernel_a_bf16_wide_2x_non_finite_inputs():
+    """The exact 2x kernel keeps the band kernel's products, the zero-weight
+    ones included: inf and NaN inputs give the rounded formula's bits."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(24)
+    x = torch.randn(2, 256, 65, 65, device=dev, generator=g)
+    x[0, 0, 7, 9], x[0, 1, 64, 64], x[1, 3, 0, 0] = float("inf"), float("nan"), -float("inf")
+    x = x.to(torch.bfloat16)
+    assert tr._fwd_plan(512, 65, 65, 129, 129, tr._sm_count(dev), 2).kernel == tr.FWD_WIDE_2X
+    got = tr.resize_bilinear(x, (129, 129))
+    want = tr.resize_bilinear_rounded(x, (129, 129))
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.parametrize("shape,outsz", BF16_A_SHAPES)
@@ -1521,6 +1566,49 @@ def test_kernel_c_bwd_bf16_matches_plain(shape, outsz, weighted):
     # their boundaries, may cancel to a small element of the adjoint's sum
     assert_bf16_flips(gx, ce.upsample_ce_bwd_plain(x.detach(), lab, cw, 255, 3.0),
                       row_dim=(2, 3))
+
+
+# C's backward against its ordered formula: ratio 4 at 21 classes (7
+# groups of 3), ratio 8 at 19 (groups of 3 and 4), a width that is no exact
+# ratio (its tap table) at 5 (2 + 3), ratio 4 with the last image's labels
+# all ignored, and 193 columns of 4-class groups (two owner pairs a thread)
+C_BWD_ORDERED_SHAPES = [((2, 21, 33, 33), (129, 129), False),
+                        ((2, 19, 25, 25), (193, 193), False),
+                        ((2, 5, 17, 23), (65, 90), False),
+                        ((3, 19, 13, 13), (49, 49), True),
+                        ((1, 19, 9, 193), (33, 769), False)]
+
+
+@pytest.mark.parametrize("sms", [None, 4])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,outsz,last_ignored", C_BWD_ORDERED_SHAPES)
+def test_kernel_c_bwd_bit_equal_to_ordered_formula(shape, outsz, last_ignored, dtype, weighted,
+                                                   sms, monkeypatch):
+    """C's backward, both modes, bit-equal to `upsample_ce_bwd_ordered` on
+    the forward's saved lse and denominator (sms None: the card's own plan;
+    4: taller bands)."""
+    from u2pl_tpu_torch.losses import ce
+
+    dev = _cuda()
+    if sms is not None:
+        monkeypatch.setattr(ce, "_sm_count", lambda device: sms)
+    g = torch.Generator(device=dev).manual_seed(25)
+    x = (torch.randn(*shape, device=dev, generator=g) * 3).to(dtype).requires_grad_(True)
+    lab = _labels(g, shape[0], *outsz, shape[1], dev)
+    if last_ignored:
+        lab[-1] = 255
+    cw = torch.rand(shape[1], device=dev, generator=g) if weighted else None
+    loss = ce.upsample_cross_entropy(x, lab, 255, cw)
+    _, _, lse, stats, _ = loss.grad_fn.saved_tensors
+    n = ce.upsample_cross_entropy.bwd_launches
+    (gx,) = torch.autograd.grad(loss * 3.0, x)
+    torch.cuda.synchronize()
+    assert ce.upsample_cross_entropy.bwd_launches == n + 1 and gx.dtype == dtype
+    want = ce.upsample_ce_bwd_ordered(x.detach(), lab, cw, 255, 3.0, lse, stats[1])
+    assert torch.equal(gx, want)
+    if last_ignored:
+        assert not gx[-1].any()
 
 
 @pytest.mark.parametrize("bank_dtype", [torch.bfloat16, torch.float32])

@@ -506,7 +506,7 @@ A_MANY_PLANES = [
 @pytest.mark.parametrize("planes,h,w,oh,ow,rows,bands", A_MANY_PLANES)
 def test_a_fwd_plan_keeps_the_band_plan_at_many_planes(planes, h, w, oh, ow, rows, bands, sms):
     assert _band_plan(h, w, oh, ow) == (rows, bands)
-    assert tr._fwd_plan(planes, h, w, oh, ow, sms) == (rows, bands)
+    assert tr._fwd_plan(planes, h, w, oh, ow, sms) == tr.FwdPlan(tr.FWD_BAND, rows, bands)
 
 
 # (h, w, oh, ow) of the 3-plane images: the VOC and Cityscapes request
@@ -519,18 +519,18 @@ A_FEW_PLANES = [(375, 500, 513, 513), (1024, 2048, 769, 769), (375, 500, 281, 37
 @pytest.mark.parametrize("h,w,oh,ow", A_FEW_PLANES)
 def test_a_fwd_plan_takes_the_direct_kernel_for_few_planes(h, w, oh, ow, sms):
     """At 3 planes the band plan's blocks are fewer than FWD_BLOCKS_PER_SM
-    an SM at the request and eval images on 114 or 132 SMs: (0, 0), the
-    direct kernel, whose grid (a 256-thread block per 256 output pixels,
+    an SM at the request and eval images on 114 or 132 SMs: the direct
+    kernel, whose grid (a 256-thread block per 256 output pixels,
     common.cuh: kThreads) then fills every SM; where they are not, the
     band plan."""
     rows, bands = _band_plan(h, w, oh, ow)
     plan = tr._fwd_plan(3, h, w, oh, ow, sms)
     if 3 * bands < tr.FWD_BLOCKS_PER_SM * sms:
-        assert plan == (0, 0)
+        assert plan == tr.FwdPlan(tr.FWD_DIRECT, 0, 0)
     else:
-        assert plan == (rows, bands)
+        assert plan == tr.FwdPlan(tr.FWD_BAND, rows, bands)
     if sms >= 114 and oh > 100:
-        assert plan == (0, 0) and -(-oh * ow // 256) >= sms
+        assert plan.kernel == tr.FWD_DIRECT and -(-oh * ow // 256) >= sms
 
 
 @pytest.mark.parametrize("planes", [1, 3, 9, 10, 21, 84])
@@ -539,7 +539,7 @@ def test_a_fwd_plan_switches_where_the_band_plan_is_too_few_blocks(planes):
     under 4 x 132: 9 planes and fewer take the direct kernel, 10 and more
     the band plan."""
     plan = tr._fwd_plan(planes, 129, 129, 513, 513, 132)
-    assert plan == ((9, 57) if planes >= 10 else (0, 0))
+    assert plan == (tr.FwdPlan(tr.FWD_BAND, 9, 57) if planes >= 10 else tr.FwdPlan(tr.FWD_DIRECT))
 
 
 @pytest.mark.parametrize("planes", [1, 3, 84, 2048])
@@ -549,8 +549,9 @@ def test_a_fwd_plan_switches_where_the_band_plan_is_too_few_blocks(planes):
 def test_a_fwd_plan_bands_fit_shared_memory(planes, h, w, oh, ow):
     """A band plan's taps and H-lerped rows fit RESIZE_MAX_SHARED, and its
     bands cover every output row once."""
-    rows, bands = tr._fwd_plan(planes, h, w, oh, ow, 132)
-    if (rows, bands) == (0, 0):
+    kernel, rows, bands = tr._fwd_plan(planes, h, w, oh, ow, 132)
+    if kernel == tr.FWD_DIRECT:
+        assert (rows, bands) == (0, 0)
         assert planes * _band_plan(h, w, oh, ow)[1] < tr.FWD_BLOCKS_PER_SM * 132
         return
     assert 1 <= rows <= oh and bands == -(-oh // rows) and (bands - 1) * rows < oh
@@ -638,3 +639,43 @@ def test_infonce_bwd_tile_at_the_flagship():
     plane, 264 blocks (two an SM)."""
     tile = tc._infonce_bwd_tile(8 * 129 * 129, 132)
     assert tile == 508 and 8 * -(-129 * 129 // tile) == 264
+
+
+# (planes, h, w, oh, ow) of the decoders' bf16 wide upsamples: VOC's 4 + 4
+# images at 65² -> 129², Cityscapes' 2 + 2 at 97² -> 193², and reduced batches
+A_WIDE_2X = [(2048, 65, 65, 129, 129), (1024, 97, 97, 193, 193), (512, 65, 65, 129, 129),
+             (256, 97, 97, 193, 193), (64, 3, 3, 5, 5)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16])
+@pytest.mark.parametrize("planes,h,w,oh,ow", A_WIDE_2X)
+def test_a_fwd_plan_takes_the_wide_2x_kernel_at_the_decoders(planes, h, w, oh, ow, sms):
+    """The bf16 wide branch (mode 2) of an align-corners n -> 2n - 1
+    upsample takes the exact 2x kernel, whatever the plane count; every
+    other mode at the same shape keeps its band (or direct) plan."""
+    assert tr._fwd_plan(planes, h, w, oh, ow, sms, 2) == tr.FwdPlan(tr.FWD_WIDE_2X, 0, 0)
+    for mode in (0, 1, 3):
+        assert tr._fwd_plan(planes, h, w, oh, ow, sms, mode) == tr._fwd_plan(
+            planes, h, w, oh, ow, sms)
+    assert tr._fwd_plan(planes, h, w, oh, ow, sms).kernel != tr.FWD_WIDE_2X
+    assert tr._fwd_plan(planes, h, w, oh, ow, sms, 2, False) == tr._fwd_plan(
+        planes, h, w, oh, ow, sms)
+
+
+# wide-mode shapes around the decoders': a 4x upsample, the logits' shape,
+# 2x on one axis only, a single row, and a 3-plane exact 2x
+A_WIDE_ELSEWHERE = [(2048, 33, 33, 129, 129), (84, 129, 129, 513, 513),
+                    (256, 65, 65, 129, 130), (256, 1, 65, 1, 129), (3, 375, 500, 749, 999)]
+
+
+@pytest.mark.parametrize("planes,h,w,oh,ow", A_WIDE_ELSEWHERE)
+def test_a_fwd_plan_keeps_the_band_or_direct_kernel_elsewhere(planes, h, w, oh, ow):
+    """The wide mode at a shape that is not an exact 2x upsample on both
+    axes (or of a single row) keeps the plan the other modes take."""
+    two_x = h >= 2 and w >= 2 and (oh, ow) == (2 * h - 1, 2 * w - 1)
+    plan = tr._fwd_plan(planes, h, w, oh, ow, 132, 2)
+    if two_x:
+        assert plan.kernel == tr.FWD_WIDE_2X
+    else:
+        assert plan == tr._fwd_plan(planes, h, w, oh, ow, 132)
+        assert plan.kernel != tr.FWD_WIDE_2X

@@ -24,8 +24,8 @@ def load():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
         # (x, y, idx_h, w_h, idx_w, w_w, taps_h, taps_w, planes, H, W, OH, OW,
-        #  rows, bands, mode, stream)
-        "u2pl_resize_bilinear_ac": [p] * 8 + [i] * 8 + [p],
+        #  kernel, rows, bands, mode, stream)
+        "u2pl_resize_bilinear_ac": [p] * 8 + [i] * 9 + [p],
         # (gy, gx, idx_h, w_h, rng_h, idx_w, w_w, rng_w, planes, H, W, OH, OW,
         #  rows, bands, wspan, mode, stream)
         "u2pl_resize_bilinear_ac_bwd": [p] * 8 + [i] * 9 + [p],
@@ -35,9 +35,9 @@ def load():
         #  B, C, H, W, OH, OW, ignore, floor, span, max_rows, dtype, stream)
         "u2pl_upsample_ce_fwd": [p] * 10 + [i] * 7 + [f, i, i, i, p],
         # (x, labels, cw, lse, stats, gout, gx, idx_h, w_h, rng_h, idx_w, w_w,
-        #  rng_w, B, C, H, W, OH, OW, ignore, floor, rows, bands, span, log_s,
-        #  Q, dtype, stream)
-        "u2pl_upsample_ce_bwd": [p] * 13 + [i] * 7 + [f] + [i] * 6 + [p],
+        #  rng_w, B, C, H, W, OH, OW, ignore, floor, groups, cls, rows, bands,
+        #  chunk, threads, span, gs, ratio, dtype, stream)
+        "u2pl_upsample_ce_bwd": [p] * 13 + [i] * 7 + [f] + [i] * 10 + [p],
         # (x, maxprob, argmax, entropy, idx_h, w_h, idx_w, w_w,
         #  B, C, H, W, OH, OW, span, max_rows, dtype, stream)
         "u2pl_upsample_softmax_stats": [p] * 8 + [i] * 9 + [p],

@@ -216,7 +216,7 @@ __global__ void __launch_bounds__(kThreads) resize_bilinear_ac_kernel(
 
 constexpr int kDirectPlanes = 4;  // planes whose loads a direct kernel thread issues together
 
-// A with few planes (ops/resize.py:_fwd_plan gives no bands): a thread per
+// A with few planes (ops/resize.py:_fwd_plan gives FWD_DIRECT): a thread per
 // output pixel (oy, ox), for every plane, straight from the input: its two
 // H-pass values from their 2 + 2 taps, then the W lerp (the band kernel's
 // products and sums); no shared memory, no barrier.  The taps come packed,
@@ -260,6 +260,47 @@ __global__ void __launch_bounds__(kThreads) resize_bilinear_ac_direct_kernel(
         }
         store_as(y + (size_t)(c0 + j) * area + pix, lerp2(p, t0, q, t1));
       }
+    }
+  }
+}
+
+// A's bf16 wide branch at an exact 2x upsample, n -> 2n - 1 on both axes
+// (the decoder's os8 -> os4: (8, 256, 65²) -> 129² at VOC, (4, 256, 97²) ->
+// 193² at Cityscapes): output index o takes input o / 2 with weight 1 and
+// o / 2 + 1 (clamped) with weight 0 when o is even, both with weight 1/2
+// when it is odd, on both axes; the tap tables hold just these values.  So
+// a thread takes input element (i, j) of a plane and writes the 2 x 2
+// outputs (2i + {0, 1}, 2j + {0, 1}) it leads (1 x 1 at the last row and
+// column): 4 loads (i and i + 1, j and j + 1, clamped), the 4 H-pass values
+// (each rounded to bf16), 4 W lerps; no table, no shared memory, no
+// barrier.  The lanes of a warp, on consecutive j, read consecutive inputs
+// and together write whole runs of two output rows.  The same products and
+// sums as the band kernel (lerp2 with the tables' weights, the zero-weight
+// products included, so non-finite inputs give its bits too).
+__global__ void __launch_bounds__(kThreads) resize_bilinear_ac_wide2x_kernel(
+    const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ y, unsigned planes, int H,
+    int W, float inv_w) {
+  const int t = blockIdx.x * kThreads + threadIdx.x;  // i * W + j
+  if (t >= H * W) return;
+  const int i = div_small(t, W, inv_w), j = t - i * W;
+  const int di = i + 1 < H ? W : 0, dj = j + 1 < W ? 1 : 0;  // the clamped neighbours
+  const int OW = 2 * W - 1;
+  const unsigned in_plane = (unsigned)H * W, out_plane = (unsigned)(2 * H - 1) * OW;
+  for (unsigned plane = blockIdx.y; plane < planes; plane += gridDim.y) {
+    const __nv_bfloat16* xp = x + plane * in_plane + t;
+    const float x00 = to_f32(xp[0]), x01 = to_f32(xp[dj]);
+    const float x10 = to_f32(xp[di]), x11 = to_f32(xp[di + dj]);
+    __nv_bfloat16* yp = y + plane * out_plane + (unsigned)(2 * i) * OW + 2 * j;
+    // output row 2i: the H pass with weights 1, 0
+    const float e0 = round_bf16(lerp2(1.0f, x00, 0.0f, x10));
+    const float e1 = round_bf16(lerp2(1.0f, x01, 0.0f, x11));
+    yp[0] = __float2bfloat16_rn(lerp2(1.0f, e0, 0.0f, e1));
+    if (dj) yp[1] = __float2bfloat16_rn(lerp2(0.5f, e0, 0.5f, e1));
+    if (di) {  // output row 2i + 1: weights 1/2, 1/2
+      const float o0 = round_bf16(lerp2(0.5f, x00, 0.5f, x10));
+      const float o1 = round_bf16(lerp2(0.5f, x01, 0.5f, x11));
+      yp[OW] = __float2bfloat16_rn(lerp2(1.0f, o0, 0.0f, o1));
+      if (dj) yp[OW + 1] = __float2bfloat16_rn(lerp2(0.5f, o0, 0.5f, o1));
     }
   }
 }
@@ -354,10 +395,21 @@ struct ResizeArgs {
   int H, W, OH, OW;
 };
 
+// A's kernels (ops/resize.py: FWD_BAND, FWD_DIRECT, FWD_WIDE_2X)
+enum { kFwdBand = 0, kFwdDirect = 1, kFwdWide2x = 2 };
+
 template <typename T, typename O, bool WIDE>
-cudaError_t launch_fwd(const ResizeArgs& a, unsigned planes, int rows, int bands,
+cudaError_t launch_fwd(const ResizeArgs& a, unsigned planes, int kind, int rows, int bands,
                        cudaStream_t stream) {
-  if (rows == 0) {  // no bands: the direct kernel
+  if constexpr (WIDE) {
+    if (kind == kFwdWide2x) {  // a thread per input element
+      const dim3 grid((a.H * a.W + kThreads - 1) / kThreads, min(planes, 65535u));
+      resize_bilinear_ac_wide2x_kernel<<<grid, kThreads, 0, stream>>>(
+          (const T*)a.x, (O*)a.y, planes, a.H, a.W, 1.0f / (float)a.W);
+      return cudaGetLastError();
+    }
+  }
+  if (kind == kFwdDirect) {  // a thread per output pixel
     const unsigned area = (unsigned)a.OH * (unsigned)a.OW;
     resize_bilinear_ac_direct_kernel<T, O, WIDE>
         <<<(area + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
@@ -436,22 +488,28 @@ extern "C" {
 // narrow branch, the bf16 wide branch, and (A only) bf16 in, f32 out
 enum { kModeF32 = 0, kModeBf16 = 1, kModeBf16Wide = 2, kModeBf16F32 = 3 };
 
-// (rows, bands) from ops/resize.py:_fwd_plan: bands of `rows` output rows
-// of a plane, a block each; (0, 0): the direct kernel, which reads the
-// packed tables taps_h / taps_w (the band kernel the four others)
+// (kernel, rows, bands) from ops/resize.py:_fwd_plan: kFwdBand, bands of
+// `rows` output rows of a plane, a block each, staging the tables idx_h /
+// w_h / idx_w / w_w; kFwdDirect, which reads the packed tables taps_h /
+// taps_w; kFwdWide2x, the bf16 wide branch's exact 2x upsample (align
+// corners, n -> 2n - 1 on both axes), which reads no table
 int u2pl_resize_bilinear_ac(const void* x, void* y, const void* idx_h,
                             const void* w_h, const void* idx_w, const void* w_w,
                             const void* taps_h, const void* taps_w, int planes, int H,
-                            int W, int OH, int OW, int rows, int bands, int mode,
+                            int W, int OH, int OW, int kernel, int rows, int bands, int mode,
                             void* stream) {
   if (mode < kModeF32 || mode > kModeBf16F32) return (int)cudaErrorInvalidValue;
   if (planes <= 0 || OH <= 0 || OW <= 0) return (int)cudaGetLastError();
   const int quarter = (OW + 3) / 4;
-  const bool direct = rows == 0 && bands == 0;
   if (H <= 0 || W <= 0 || (long long)planes * OH * OW >= (1LL << 31) ||
-      (direct && (taps_h == nullptr || taps_w == nullptr)) ||
-      (!direct && (rows <= 0 || bands != (OH + rows - 1) / rows ||
-                   (long long)quarter * 64 + (long long)rows * W * 4 > kResizeMaxShared))) {
+      (kernel == kFwdDirect && (taps_h == nullptr || taps_w == nullptr)) ||
+      (kernel == kFwdWide2x && !(mode == kModeBf16Wide && H >= 2 && W >= 2 &&
+                                 OH == 2 * H - 1 && OW == 2 * W - 1 &&
+                                 (long long)H * W < (1 << 24))) ||
+      (kernel == kFwdBand &&
+       (rows <= 0 || bands != (OH + rows - 1) / rows ||
+        (long long)quarter * 64 + (long long)rows * W * 4 > kResizeMaxShared)) ||
+      kernel < kFwdBand || kernel > kFwdWide2x) {
     return (int)cudaErrorInvalidValue;
   }
   const ResizeArgs a = {x, y, (const int4*)taps_h, (const int4*)taps_w, (const int*)idx_h,
@@ -459,10 +517,16 @@ int u2pl_resize_bilinear_ac(const void* x, void* y, const void* idx_h,
                         nullptr, H, W, OH, OW};
   cudaStream_t st = (cudaStream_t)stream;
   using bf16 = __nv_bfloat16;
-  if (mode == kModeBf16Wide) return (int)launch_fwd<bf16, bf16, true>(a, planes, rows, bands, st);
-  if (mode == kModeBf16) return (int)launch_fwd<bf16, bf16, false>(a, planes, rows, bands, st);
-  if (mode == kModeBf16F32) return (int)launch_fwd<bf16, float, false>(a, planes, rows, bands, st);
-  return (int)launch_fwd<float, float, false>(a, planes, rows, bands, st);
+  if (mode == kModeBf16Wide) {
+    return (int)launch_fwd<bf16, bf16, true>(a, planes, kernel, rows, bands, st);
+  }
+  if (mode == kModeBf16) {
+    return (int)launch_fwd<bf16, bf16, false>(a, planes, kernel, rows, bands, st);
+  }
+  if (mode == kModeBf16F32) {
+    return (int)launch_fwd<bf16, float, false>(a, planes, kernel, rows, bands, st);
+  }
+  return (int)launch_fwd<float, float, false>(a, planes, kernel, rows, bands, st);
 }
 
 // (rows, bands, wspan) from ops/resize.py:_bwd_plan: bands of `rows` input

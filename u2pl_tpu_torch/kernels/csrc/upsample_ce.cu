@@ -131,28 +131,100 @@ __global__ void upsample_ce_finalize_kernel(const double* __restrict__ part,
   }
 }
 
-constexpr int kBwdThreads = 1024;
-constexpr int kGroup = 4;   // classes per item in both phases of a row
-constexpr int kPreT = 4;    // next-row H-lerp inputs held in registers per thread
-constexpr int kPrePx = 2;   // next-row pixels (label, lse) held per thread
+// C's backward.  Once the forward's lse is saved, class c's full-resolution
+// gradient coef (softmax - onehot) needs no other class, so a block owns a
+// group of at most `cls` classes (the C classes split evenly over
+// `groups`), `rows` input rows of one image (a band) and walks the output
+// rows [oy_begin, oy_end) that reach the band, `chunk` at a time, with one
+// barrier a step (its buffers doubled):
+// - phase 1, every thread: g of the step's rows for the group's classes,
+//   one output pixel per item (its label and lse from shared memory, its
+//   column taps too, one expf per class), into the step's g rows.
+//   Meanwhile the next step's labels and lse are copied into shared memory
+//   (cp.async: no registers, waited for at the barrier), and each owner
+//   (below) loads the next step's H-pass inputs of its column and stores
+//   their lerps when its items are done;
+// - phase 2, the owner of (class, input column ix), one pair or two a
+//   thread: per output row the W sum s = sum over the output columns
+//   reaching ix of tapw * g, ascending from 0 (the step's rows first, one
+//   independent chain each), then the H sums of the two input rows each row
+//   reaches, in row order, held in two registers (A-bwd's rolling pair); an
+//   input row is stored when the walk has passed it.
+// So no block-wide accumulator in shared memory, and two blocks share an
+// SM, one's barrier overlapping the other's work; the host plans the bands
+// to fill one wave of them (losses/ce.py:_bwd_plan).  The work is
+// instruction issue, not bytes: at an exact ratio S = 4 or 8 (OW - 1 =
+// S (W - 1): every training shape) the kernel is compiled for its NC
+// classes a block, so the class loop has no branch (a group of fewer
+// classes computes the missing ones from unused rows and never reads
+// them), the owner's column taps are constants, o = S (ix - 1) + j with
+// weight j / S or (2S - j) / S, and a g row holds output column ox at S +
+// ox, so the owner of ix reads its 2S values at S ix with two vector loads
+// (in bf16 the rows are bf16: each g value is rounded to bf16 anyway).
+// Other shapes (NC 0) take any cls and read a table of tap weights.
+// Every product and sum is the one-block-per-band design's, in its order
+// (the zero weights' products included), so the gradient has its bits
+// (losses/ce.py:upsample_ce_bwd_ordered gives them in torch ops).
+constexpr int kBwdMaxThreads = 1024;
+constexpr int kBwdExactThreads = 512;  // the exact-ratio kernels' most threads a block
+constexpr int kBwdExactBlocks = 2;     // ... and their blocks an SM (64 registers)
+constexpr int kBwdClasses = 4;         // the most classes of a block
+constexpr int kBwdMaxChunk = 4;        // the most output rows of a step
 
-// (c, i) of item k of a (C, n) grid, advanced by the block's stride without
-// a division per item: dc = stride / n, di = stride % n
-struct GridWalk {
-  int c, i;
-  __device__ GridWalk(int k, int n) : c(k / n), i(k - (k / n) * n) {}
-  __device__ void next(int dc, int di, int n) {
-    c += dc;
-    i += di;
-    if (i >= n) {
-      i -= n;
-      ++c;
+__device__ __forceinline__ void copy_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void copy_async_wait() { asm volatile("cp.async.wait_all;\n" ::); }
+
+// the weight of output column S (ix - 1) + j on input column ix at an exact
+// ratio S: frac j / S, then 1 - frac (2S - j) / S (the tables' values)
+template <int S>
+__device__ __forceinline__ constexpr float tapw(int j) {
+  return j < S ? (float)j / S : (float)(2 * S - j) / S;
+}
+
+// the 2S values of a g row from p (aligned to 2S elements' bytes / 2),
+// widened to f32
+template <int S>
+__device__ __forceinline__ void load_g(const float* p, float (&v)[2 * S]) {
+#pragma unroll
+  for (int i = 0; i < 2 * S; i += 4) {
+    const float4 w = *reinterpret_cast<const float4*>(p + i);
+    v[i] = w.x;
+    v[i + 1] = w.y;
+    v[i + 2] = w.z;
+    v[i + 3] = w.w;
+  }
+}
+template <int S>
+__device__ __forceinline__ void load_g(const __nv_bfloat16* p, float (&v)[2 * S]) {
+  const unsigned* q = reinterpret_cast<const unsigned*>(p);
+#pragma unroll
+  for (int i = 0; i < S; i += S / 2) {  // S / 2 words a load: 8 or 16 bytes
+    unsigned w[S / 2];
+    if constexpr (S == 4) {
+      const uint2 t = *reinterpret_cast<const uint2*>(q + i);
+      w[0] = t.x;
+      w[1] = t.y;
+    } else {
+      const uint4 t = *reinterpret_cast<const uint4*>(q + i);
+      w[0] = t.x;
+      w[1] = t.y;
+      w[2] = t.z;
+      w[3] = t.w;
+    }
+#pragma unroll
+    for (int h = 0; h < S / 2; ++h) {
+      v[2 * (i + h)] = __uint_as_float(w[h] << 16);
+      v[2 * (i + h) + 1] = __uint_as_float(w[h] & 0xffff0000u);
     }
   }
-};
+}
 
-template <typename In>
-__global__ void __launch_bounds__(kBwdThreads) upsample_ce_bwd_kernel(
+template <typename In, int S, int NC, int P>
+__global__ void __launch_bounds__(S ? kBwdExactThreads : kBwdMaxThreads,
+                                  S ? kBwdExactBlocks : 1) upsample_ce_bwd_kernel(
     const In* __restrict__ x, const int* __restrict__ labels,
     const float* __restrict__ cw, const float* __restrict__ lse,
     const float* __restrict__ stats, const float* __restrict__ gout,
@@ -160,196 +232,250 @@ __global__ void __launch_bounds__(kBwdThreads) upsample_ce_bwd_kernel(
     const float* __restrict__ w_h, const int* __restrict__ rng_h,
     const int* __restrict__ idx_w, const float* __restrict__ w_w,
     const int* __restrict__ rng_w, int C, int H, int W, int OH, int OW,
-    int ignore, float floor_, int rows, int bands, int span, int log_s,
-    int Q) {
-  extern __shared__ int2 col[];  // OW x (lo | hi << 16, frac) of the columns
+    int ignore, float floor_, int groups, int cls, int rows, int bands, int chunk,
+    int span, int gs) {
+  extern __shared__ int4 smem[];
   constexpr bool BF = sizeof(In) == 2;
-  const int S = 1 << log_s, SQ = S * Q, CW = C * W;
-  const int G = (C + kGroup - 1) / kGroup;         // class groups
-  float* g = reinterpret_cast<float*>(col + OW);  // G*kGroup x S x Q: g of one output row
-  float* T = g + G * kGroup * SQ;                 // C x W: H-lerped input rows
-  float* acc = T + CW;                            // C x rows x W: the band's gradient
-  float* coef = acc + C * rows * W;               // OW
-  float* lrow = coef + OW;                        // OW: lse
-  int* yrow = reinterpret_cast<int*>(lrow + OW);  // OW: labels
-  float* wtab = reinterpret_cast<float*>(yrow + OW);      // W x span: column tap weights
-  int* wstart = reinterpret_cast<int*>(wtab + W * span);  // W: first output column
-  int* wcount = wstart + W;                               // W: output columns
-  float* cws = reinterpret_cast<float*>(wcount + W);      // C: class weights x scale
+  constexpr int NCL = NC ? NC : kBwdClasses;  // the class loop's length
+  if (NC) cls = NC;
+  const int CQ = cls * gs, CWs = cls * W, PX = chunk * OW;
+  // g rows, 2 x chunk x cls x gs, in In (f32, or bf16: g is rounded to
+  // bf16), output column ox at S + ox; gs a multiple of 8, so rows are
+  // 16-byte aligned
+  In* gb = reinterpret_cast<In*>(smem);
+  int4* rt = reinterpret_cast<int4*>(gb + 2 * chunk * CQ);  // 2 x chunk: (lo, w_lo, w_hi) a row
+  int2* col = reinterpret_cast<int2*>(rt + 2 * chunk);      // OW: (lo | hi << 16, frac)
+  int* ys = reinterpret_cast<int*>(col + OW);           // 2 x chunk x OW: labels
+  float* ls = reinterpret_cast<float*>(ys + 2 * PX);    // 2 x chunk x OW: lse
+  float* T = ls + 2 * PX;                               // 2 x chunk x cls x W: H-lerped rows
+  float* cws = T + 2 * chunk * CWs;                     // C: class weights x scale
+  float* wtab = cws + C;                                // S == 0: W x span column tap weights
+  int* wstart = reinterpret_cast<int*>(wtab + W * span);  // S == 0: first output column
+  int* wcount = wstart + W;                               // S == 0: output columns
 
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int b = blockIdx.x / bands;
-  const int iy0 = (blockIdx.x - b * bands) * rows;
-  const int iy1 = min(iy0 + rows, H);
-  const int oy_begin = rng_h[iy0], oy_end = rng_h[H + iy1 - 1];
+  const int grp = blockIdx.x % groups;
+  const int bb = blockIdx.x / groups;  // image * bands + band
+  const int b = bb / bands;
+  const int iy0 = (bb - b * bands) * rows, iy1 = min(iy0 + rows, H);
+  const int c0 = grp * C / groups, nc = (grp + 1) * C / groups - c0;
+  const int ob = rng_h[iy0], oe = rng_h[H + iy1 - 1];
   const int plane = H * W;
-  const In* xb = x + (size_t)b * C * plane;
   const int* lab = labels + (size_t)b * OH * OW;
   const float* lse_b = lse + (size_t)b * OH * OW;
   const float denom = stats[1];
   const float scale = denom > 0.0f ? gout[0] / fmaxf(denom, floor_) : 0.0f;
 
+  // the labels and lse of the step at output row oyc into buffer `buf`
+  auto copy_pixels = [&](int oyc, int buf) {
+    const int n = min(chunk, oe - oyc) * OW;
+    const int* ysrc = lab + oyc * OW;
+    const float* lsrc = lse_b + oyc * OW;
+    for (int p = tid; p < n; p += nt) {
+      copy_async4(ys + buf * PX + p, ysrc + p);
+      copy_async4(ls + buf * PX + p, lsrc + p);
+    }
+  };
+  if (ob < oe) copy_pixels(ob, 0);
   for (int ox = tid; ox < OW; ox += nt) {
     col[ox] = make_int2(idx_w[ox] | (idx_w[OW + ox] << 16), __float_as_int(w_w[OW + ox]));
   }
-  for (int k = tid; k < W * span; k += nt) {
-    const int ix = k / span, j = k - ix * span;
-    const int s0 = rng_w[ix], n = rng_w[W + ix] - s0;
-    if (j == 0) {
-      wstart[ix] = s0;
-      wcount[ix] = n;
-    }
-    if (j < n) wtab[k] = tap_weight(idx_w, w_w, OW, s0 + j, ix);
-  }
   // kernel C's coef of a valid pixel of class y: w[y] * gout / max(denom, floor)
   for (int c = tid; c < C; c += nt) cws[c] = (cw ? cw[c] : 1.0f) * scale;
-  for (int k = tid; k < C * rows * W; k += nt) acc[k] = 0.0f;
-
-  auto put_pixel = [&](int ox, int y, float l) {
-    const bool valid = y != ignore && y >= 0 && y < C;
-    coef[ox] = valid ? cws[y] : 0.0f;
-    lrow[ox] = l;
-    yrow[ox] = y;
-  };
-  // the H-lerped inputs [k0, CW) and pixels [p0, OW) of row oy, read from
-  // device memory here
-  const int dcw = nt / W, diw = nt % W;
-  auto stage = [&](int oy, int k0, int p0) {
-    const float a = w_h[oy], bw = w_h[OH + oy];
-    const In* x0 = xb + idx_h[oy] * W;
-    const In* x1 = xb + idx_h[OH + oy] * W;
-    GridWalk it(k0, W);
-    for (int k = k0; k < CW; k += nt, it.next(dcw, diw, W)) {
-      const int off = it.c * plane + it.i;
-      T[k] = u2pl::lerp2(a, to_f32(x0[off]), bw, to_f32(x1[off]));
-    }
-    for (int ox = p0; ox < OW; ox += nt) put_pixel(ox, lab[oy * OW + ox], lse_b[oy * OW + ox]);
-  };
-  __syncthreads();  // cws
-  if (oy_begin < oy_end) stage(oy_begin, tid, tid);
-  __syncthreads();
-
-  const int GO = G * OW, GW = G * W;
-  const int dco = nt / OW, dio = nt % OW;
-  for (int oy = oy_begin; oy < oy_end; ++oy) {
-    // the next row's device-memory reads, issued now and stored in phase 2
-    const bool more = oy + 1 < oy_end;
-    float xa[kPreT], xc[kPreT], ln[kPrePx];
-    int yn[kPrePx];
-    if (more) {
-      const In* x0 = xb + idx_h[oy + 1] * W;
-      const In* x1 = xb + idx_h[OH + oy + 1] * W;
-#pragma unroll
-      for (int j = 0; j < kPreT; ++j) {
-        const int k = tid + j * nt;
-        if (k < CW) {
-          const int c = k / W;
-          const int off = c * plane + (k - c * W);
-          xa[j] = to_f32(x0[off]);
-          xc[j] = to_f32(x1[off]);
-        }
+  if constexpr (S == 0) {
+    for (int k = tid; k < W * span; k += nt) {
+      const int ix = k / span, j = k - ix * span;
+      const int s0 = rng_w[ix], n = rng_w[W + ix] - s0;
+      if (j == 0) {
+        wstart[ix] = s0;
+        wcount[ix] = n;
       }
+      if (j < n) wtab[k] = tap_weight(idx_w, w_w, OW, s0 + j, ix);
+    }
+  }
+
+  // this thread's P (class c0 + u, input column ix) pairs, tid + p nt, if
+  // it owns them
+  int u[P], ix[P];
+  bool own[P];
+  const In* xo[P];
+  In* out[P];
 #pragma unroll
-      for (int j = 0; j < kPrePx; ++j) {
-        const int ox = tid + j * nt;
-        if (ox < OW) {
-          yn[j] = lab[(oy + 1) * OW + ox];
-          ln[j] = lse_b[(oy + 1) * OW + ox];
+  for (int p = 0; p < P; ++p) {
+    const int q = tid + p * nt;
+    u[p] = q / W;
+    ix[p] = q - u[p] * W;
+    own[p] = u[p] < nc;
+    xo[p] = x + ((size_t)b * C + c0 + u[p]) * plane + ix[p];
+    out[p] = gx + ((size_t)b * C + c0 + u[p]) * plane + ix[p];
+  }
+  float xa[P][kBwdMaxChunk], xc[P][kBwdMaxChunk];
+  // the H pass of the step at output row oyc, the owners' columns: its
+  // inputs loaded by load_rows, the lerps stored into buffer `buf` by
+  // store_rows
+  auto load_rows = [&](int oyc) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+#pragma unroll
+      for (int k = 0; k < kBwdMaxChunk; ++k) {
+        if (own[p] && k < chunk && oyc + k < oe) {
+          xa[p][k] = to_f32(xo[p][idx_h[oyc + k] * W]);
+          xc[p][k] = to_f32(xo[p][idx_h[OH + oyc + k] * W]);
         }
       }
     }
+  };
+  auto store_rows = [&](int oyc, int buf) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+#pragma unroll
+      for (int k = 0; k < kBwdMaxChunk; ++k) {
+        if (own[p] && k < chunk && oyc + k < oe) {
+          T[(buf * chunk + k) * CWs + u[p] * W + ix[p]] =
+              u2pl::lerp2(w_h[oyc + k], xa[p][k], w_h[OH + oyc + k], xc[p][k]);
+        }
+      }
+    }
+  };
+  load_rows(ob);
+  store_rows(ob, 0);
+  // each pair's input rows L and L + 1 take the current output row; rows
+  // [iy0, next) are stored
+  float a0[P], a1[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) a0[p] = a1[p] = 0.0f;
+  int L = ob < oe ? idx_h[ob] : iy1, next = iy0;
+  auto flush = [&](int upto) {  // store input rows [next, upto) of the band
+    for (; next < upto; ++next) {
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        if (own[p]) {
+          store_as(out[p] + (size_t)next * W,
+                   next == L ? a0[p] : next == L + 1 ? a1[p] : 0.0f);
+        }
+      }
+    }
+  };
+  copy_async_wait();
+  __syncthreads();  // col, cws, the tables, the first step's H pass and pixels
 
-    // phase 1: g of output row oy (kernel C's expression), kGroup classes
-    // of one output column per item
-    GridWalk it(tid, OW);
-    for (int k = tid; k < GO; k += nt, it.next(dco, dio, OW)) {
-      const int c0 = it.c * kGroup, ox = it.i;
-      float* gp = g + c0 * SQ + (ox & (S - 1)) * Q + (ox >> log_s);
-      const float coefv = coef[ox];
+  const int dk = nt / OW, dox = nt - dk * OW;
+  int buf = 0;
+  for (int oyc = ob; oyc < oe; oyc += chunk, buf ^= 1) {
+    const int nk = min(chunk, oe - oyc);
+    const bool more = oyc + chunk < oe;
+    if (more) copy_pixels(oyc + chunk, buf ^ 1);
+    if (more) load_rows(oyc + chunk);
+    int4* rb = rt + buf * chunk;
+    if (tid < nk) {
+      const int r = oyc + tid, lo = idx_h[r];
+      rb[tid] = make_int4(lo, __float_as_int(tap_weight(idx_h, w_h, OH, r, lo)),
+                          __float_as_int(tap_weight(idx_h, w_h, OH, r, lo + 1)), 0);
+    }
+    // phase 1: g of the step's rows (kernel C's expression), the group's
+    // classes of one output pixel per item
+    In* g0 = gb + buf * chunk * CQ;
+    const float* T0 = T + buf * chunk * CWs;
+    const int* yb = ys + buf * PX;
+    const float* lb = ls + buf * PX;
+    int k = tid / OW, px = tid - k * OW;
+    for (int p = tid; p < nk * OW; p += nt) {
+      const int y = yb[p];
+      const float l = lb[p];
+      In* gp = g0 + k * CQ + S + px;
+      const bool valid = y != ignore && y >= 0 && y < C;
+      const float coefv = valid ? cws[y] : 0.0f;
       if (coefv == 0.0f) {
 #pragma unroll
-        for (int u = 0; u < kGroup; ++u) gp[u * SQ] = 0.0f;
-        continue;
-      }
-      const int2 t = col[ox];
-      const int t0 = t.x & 0xffff, t1 = t.x >> 16;
-      const float q = __int_as_float(t.y), p = __fsub_rn(1.0f, q);
-      const float l = lrow[ox];
-      const int y = yrow[ox];
+        for (int v = 0; v < NCL; ++v) {
+          if (NC || v < nc) store_as(gp + v * gs, 0.0f);
+        }
+      } else {
+        const int2 t = col[px];
+        const float q = __int_as_float(t.y), pw = __fsub_rn(1.0f, q);
+        const float* T0c = T0 + k * CWs + (t.x & 0xffff);
+        const float* T1c = T0 + k * CWs + (t.x >> 16);
+        const int yl = y - c0;
 #pragma unroll
-      for (int u = 0; u < kGroup; ++u) {
-        const int c = c0 + u;
-        if (c < C) {
-          const float* Tc = T + c * W;
-          const float e = expf(up_value<BF>(p, Tc[t0], q, Tc[t1]) - l);
-          const float gv = coefv * (c == y ? e - 1.0f : e);
-          gp[u * SQ] = BF ? round_bf16(gv) : gv;
+        for (int v = 0; v < NCL; ++v) {
+          if (NC || v < nc) {
+            const float e = expf(up_value<BF>(pw, T0c[v * W], q, T1c[v * W]) - l);
+            const float gv = coefv * (v == yl ? e - 1.0f : e);
+            store_as(gp + v * gs, gv);  // bf16: rounded, as the VJP of the cast rounds it
+          }
+        }
+      }
+      k += dk;
+      px += dox;
+      if (px >= OW) {
+        px -= OW;
+        ++k;
+      }
+    }
+    if (more) store_rows(oyc + chunk, buf ^ 1);
+    copy_async_wait();
+    __syncthreads();
+
+    // phase 2: the owners' W sums of the step's rows, then their H sums
+    if (own[0]) {
+      float sw[P][kBwdMaxChunk];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+#pragma unroll
+        for (int kk = 0; kk < kBwdMaxChunk; ++kk) {
+          if (own[p] && kk < nk) {
+            const In* gr = g0 + kk * CQ + u[p] * gs;
+            float sum = 0.0f;
+            if constexpr (S > 0) {
+              // output column S (ix - 1) + j, at S ix + j: 2S values, j from
+              // S at ix = 0, to S + 1 at ix = W - 1
+              float gv[2 * S];
+              load_g<S>(gr + S * ix[p], gv);
+              if (ix[p] > 0 && ix[p] < W - 1) {
+#pragma unroll
+                for (int j = 0; j < 2 * S; ++j) sum = __fadd_rn(sum, __fmul_rn(tapw<S>(j), gv[j]));
+              } else {
+                const int jb = ix[p] == 0 ? S : 0, je = ix[p] == W - 1 ? S + 1 : 2 * S;
+#pragma unroll
+                for (int j = 0; j < 2 * S; ++j) {
+                  if (j >= jb && j < je) sum = __fadd_rn(sum, __fmul_rn(tapw<S>(j), gv[j]));
+                }
+              }
+            } else {
+              const float* wt = wtab + ix[p] * span;
+              const int s0 = wstart[ix[p]], n = wcount[ix[p]];
+              for (int j = 0; j < n; ++j) {
+                sum = __fadd_rn(sum, __fmul_rn(wt[j], to_f32(gr[s0 + j])));
+              }
+            }
+            sw[p][kk] = sum;
+          }
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBwdMaxChunk; ++kk) {
+        if (kk < nk) {
+          const int4 r = rb[kk];
+          const int lo = r.x;
+          if (lo != L) {  // input rows below lo have all their output rows
+            flush(min(lo, iy1));
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+              a0[p] = lo == L + 1 ? a1[p] : 0.0f;
+              a1[p] = 0.0f;
+            }
+            L = lo;
+          }
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            a0[p] = __fadd_rn(a0[p], __fmul_rn(__int_as_float(r.y), sw[p][kk]));
+            a1[p] = __fadd_rn(a1[p], __fmul_rn(__int_as_float(r.z), sw[p][kk]));
+          }
         }
       }
     }
-    __syncthreads();
-
-    // phase 2: the next row's inputs, then the adjoint of row oy onto the
-    // band: per (class, input column) s = sum of tapw * g over the output
-    // columns reaching it, ascending, then acc += wy * s on the band rows
-    // that oy reaches (lo, lo + 1)
-    if (more) {
-      const float a = w_h[oy + 1], bw = w_h[OH + oy + 1];
-#pragma unroll
-      for (int j = 0; j < kPreT; ++j) {
-        const int k = tid + j * nt;
-        if (k < CW) T[k] = u2pl::lerp2(a, xa[j], bw, xc[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < kPrePx; ++j) {
-        const int ox = tid + j * nt;
-        if (ox < OW) put_pixel(ox, yn[j], ln[j]);
-      }
-      if (CW > kPreT * nt || OW > kPrePx * nt) {  // what the registers did not hold
-        stage(oy + 1, tid + kPreT * nt, tid + kPrePx * nt);
-      }
-    }
-    const int lo = idx_h[oy];
-    const float w_lo = tap_weight(idx_h, w_h, OH, oy, lo);
-    const float w_hi = tap_weight(idx_h, w_h, OH, oy, lo + 1);
-    const bool in_lo = lo >= iy0 && lo < iy1;
-    const bool in_hi = lo + 1 >= iy0 && lo + 1 < iy1;
-    GridWalk jt(tid, W);
-    for (int k = tid; k < GW; k += nt, jt.next(dcw, diw, W)) {
-      const int c0 = jt.c * kGroup, ix = jt.i;
-      const float* gc = g + c0 * SQ;
-      const float* wt = wtab + ix * span;
-      const int s0 = wstart[ix], n = wcount[ix];
-      float s[kGroup];
-#pragma unroll
-      for (int u = 0; u < kGroup; ++u) s[u] = 0.0f;
-      for (int j = 0; j < n; ++j) {
-        const int o = s0 + j;
-        const float w = wt[j];
-        const float* go = gc + (o & (S - 1)) * Q + (o >> log_s);
-#pragma unroll
-        for (int u = 0; u < kGroup; ++u) s[u] = __fadd_rn(s[u], __fmul_rn(w, go[u * SQ]));
-      }
-#pragma unroll
-      for (int u = 0; u < kGroup; ++u) {
-        if (c0 + u < C) {
-          float* a = acc + ((c0 + u) * rows + lo - iy0) * W + ix;  // band row lo - iy0
-          if (in_lo) a[0] = __fadd_rn(a[0], __fmul_rn(w_lo, s[u]));
-          if (in_hi) a[W] = __fadd_rn(a[W], __fmul_rn(w_hi, s[u]));
-        }
-      }
-    }
-    __syncthreads();
   }
-
-  const int nr = iy1 - iy0;
-  for (int k = tid; k < C * nr * W; k += nt) {
-    const int c = k / (nr * W);
-    const int rem = k - c * nr * W;
-    const int r = rem / W;
-    store_as(gx + ((size_t)b * C + c) * plane + (size_t)(iy0 + r) * W + (rem - r * W),
-             acc[(c * rows + r) * W + rem - r * W]);
-  }
+  if (own[0]) flush(iy1);
 }
 
 // ---- D: upsample_softmax_stats --------------------------------------------
@@ -765,22 +891,43 @@ struct BwdArgs {
   const int* rng_w;
   int C, H, W, OH, OW, ignore;
   float floor_;
-  int rows, bands, span, log_s, Q;
+  int groups, cls, rows, bands, chunk, span, gs;
 };
 
-template <typename In>
-cudaError_t launch_bwd(const BwdArgs& a, unsigned blocks, int smem, cudaStream_t stream) {
-  auto kernel = upsample_ce_bwd_kernel<In>;
+template <typename In, int S, int NC, int P>
+cudaError_t launch_bwd(const BwdArgs& a, unsigned blocks, int threads, int smem,
+                       cudaStream_t stream) {
+  auto kernel = upsample_ce_bwd_kernel<In, S, NC, P>;
   if (smem > 48 * 1024) {  // above the default dynamic shared memory of a block
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<blocks, kBwdThreads, (size_t)smem, stream>>>(
+  kernel<<<blocks, threads, (size_t)smem, stream>>>(
       (const In*)a.x, a.labels, a.cw, a.lse, a.stats, a.gout, (In*)a.gx, a.idx_h, a.w_h,
       a.rng_h, a.idx_w, a.w_w, a.rng_w, a.C, a.H, a.W, a.OH, a.OW, a.ignore, a.floor_,
-      a.rows, a.bands, a.span, a.log_s, a.Q);
+      a.groups, a.cls, a.rows, a.bands, a.chunk, a.span, a.gs);
   return cudaGetLastError();
+}
+
+// at the exact ratio S: its 3 or 4 classes a block, 1 or 2 pairs a thread
+template <typename In, int S>
+cudaError_t launch_bwd_exact(const BwdArgs& a, int pairs, unsigned blocks, int threads,
+                             int smem, cudaStream_t stream) {
+  if (a.cls == 3) {
+    if (pairs == 2) return launch_bwd<In, S, 3, 2>(a, blocks, threads, smem, stream);
+    return launch_bwd<In, S, 3, 1>(a, blocks, threads, smem, stream);
+  }
+  if (pairs == 2) return launch_bwd<In, S, 4, 2>(a, blocks, threads, smem, stream);
+  return launch_bwd<In, S, 4, 1>(a, blocks, threads, smem, stream);
+}
+
+template <typename In>
+cudaError_t launch_bwd_ratio(const BwdArgs& a, int ratio, int pairs, unsigned blocks,
+                             int threads, int smem, cudaStream_t stream) {
+  if (ratio == 4) return launch_bwd_exact<In, 4>(a, pairs, blocks, threads, smem, stream);
+  if (ratio == 8) return launch_bwd_exact<In, 8>(a, pairs, blocks, threads, smem, stream);
+  return launch_bwd<In, 0, 0, 1>(a, blocks, threads, smem, stream);
 }
 
 }  // namespace
@@ -817,39 +964,56 @@ int u2pl_upsample_ce_fwd(const void* x, const void* labels, const void* cw,
   return (int)cudaGetLastError();
 }
 
-// shared memory of the backward's block, in bytes (losses/ce.py:_bwd_smem)
-static long long bwd_smem(int C, int W, int OW, int rows, int span,
-                          int log_s, int Q) {
-  const long long planes = (C + kGroup - 1) / kGroup * kGroup;
-  return 8LL * OW + 4LL * (planes * (1 << log_s) * Q + (long long)C * W +
-                           (long long)C * rows * W + 3LL * OW +
-                           (long long)W * span + 2LL * W + C);
+// shared memory of the backward's block, in bytes (losses/ce.py:_bwd_smem):
+// two steps' g rows of `cls` classes (`gbytes` a value: the logits' dtype),
+// two steps' row taps, the column taps, two steps' labels and lse and
+// H-lerped rows, the class weights and, at no exact ratio, the column tap
+// weights
+static long long bwd_smem(int C, int W, int OW, int cls, int chunk, int span, int gs,
+                          int ratio, int gbytes) {
+  return 2LL * gbytes * chunk * cls * gs + 32LL * chunk + 8LL * OW + 16LL * chunk * OW +
+         4LL * (2LL * chunk * cls * W + C + (ratio ? 0LL : (long long)W * span + 2LL * W));
 }
 
+// (groups, cls, rows, bands, chunk, threads, span, gs, ratio) from
+// losses/ce.py:_bwd_plan: blocks of `threads` on (image, band of `rows`
+// input rows, one of `groups` class groups of at most `cls`), `chunk`
+// output rows a step, g rows of `gs` elements; ratio 4 or 8 where OW - 1 =
+// ratio (W - 1), else 0
 int u2pl_upsample_ce_bwd(const void* x, const void* labels, const void* cw,
                          const void* lse, const void* stats, const void* gout,
                          void* gx, const void* idx_h, const void* w_h,
                          const void* rng_h, const void* idx_w, const void* w_w,
                          const void* rng_w, int B, int C, int H, int W, int OH,
-                         int OW, int ignore, float floor_, int rows, int bands,
-                         int span, int log_s, int Q, int dtype, void* stream) {
+                         int OW, int ignore, float floor_, int groups, int cls, int rows,
+                         int bands, int chunk, int threads, int span, int gs, int ratio,
+                         int dtype, void* stream) {
   if ((long long)B * C * H * W <= 0) return (int)cudaGetLastError();
-  if (OH <= 0 || OW <= 0 || W >= 32768 || (dtype != 0 && dtype != 1) || rows <= 0 ||
-      bands != (H + rows - 1) / rows || span <= 0 || log_s < 0 || log_s > 5 ||
-      Q * (1 << log_s) < OW) {
+  const bool exact = ratio == 4 || ratio == 8;
+  if (OH <= 0 || OW <= 0 || W >= 32768 || (dtype != 0 && dtype != 1) || cls < 1 ||
+      cls > kBwdClasses || groups != (C + cls - 1) / cls || rows <= 0 ||
+      bands != (H + rows - 1) / rows || chunk < 1 || chunk > kBwdMaxChunk ||
+      threads % 32 != 0 || threads > (exact ? kBwdExactThreads : kBwdMaxThreads) ||
+      threads * (exact ? 2 : 1) < cls * W || span <= 0 || gs % 8 != 0 ||
+      gs < OW + 2 * ratio ||
+      (ratio != 0 && !(exact && W >= 2 && OW - 1 == ratio * (W - 1) && cls >= 3))) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long smem = bwd_smem(C, W, OW, rows, span, log_s, Q);
+  const int pairs = threads < cls * W ? 2 : 1;  // owner pairs a thread
+  const long long smem = bwd_smem(C, W, OW, cls, chunk, span, gs, ratio, dtype == 1 ? 2 : 4);
   if (smem > kBwdMaxShared) return (int)cudaErrorInvalidValue;
   const BwdArgs a = {x, (const int*)labels, (const float*)cw, (const float*)lse,
                      (const float*)stats, (const float*)gout, gx, (const int*)idx_h,
                      (const float*)w_h, (const int*)rng_h, (const int*)idx_w,
                      (const float*)w_w, (const int*)rng_w, C, H, W, OH, OW, ignore,
-                     floor_, rows, bands, span, log_s, Q};
-  const unsigned blocks = (unsigned)B * bands;
+                     floor_, groups, cls, rows, bands, chunk, span, gs};
+  const unsigned blocks = (unsigned)B * bands * groups;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1) return (int)launch_bwd<__nv_bfloat16>(a, blocks, (int)smem, st);
-  return (int)launch_bwd<float>(a, blocks, (int)smem, st);
+  if (dtype == 1) {
+    return (int)launch_bwd_ratio<__nv_bfloat16>(a, ratio, pairs, blocks, threads, (int)smem,
+                                                st);
+  }
+  return (int)launch_bwd_ratio<float>(a, ratio, pairs, blocks, threads, (int)smem, st);
 }
 
 // maxprob and argmax both or neither, entropy or not (at least one output);

@@ -131,7 +131,14 @@ results are bit-equal.  The inputs come from seeded generators on the card:
              bf16 (N, 256) rows, then index_add_ of bf16 rows; with its bytes
              bound;
   K6_bwd_bf16_no_draws  the same with every position inactive; library:
-             torch.zeros of the bf16 rep.
+             torch.zeros of the bf16 rep;
+  C_bwd_voc_bf16, C_bwd_city_main_bf16, C_bwd_city_aux_bf16  kernel C's
+             backward in bf16 (the semi step's dtype), as the C_bwd rows:
+             bf16 logits (3 x randn at VOC, the OHEM heads' logits), the
+             gradient bf16; the hash covers the gradient's bits;
+  A_decoder_bf16, A_decoder_city_bf16  kernel A's bf16 wide branch at the
+             decoders' (8, 256, 65²) -> 129² and (4, 256, 97²) -> 193², with
+             their bytes bound; library: F.interpolate on the bf16 input.
 The K4r and K3c rows carry their bytes bound, as chip_smoke.py:bounds
 counts it (each input read once, each output written once).
 The K5 rows carry their NCHW sector bound: the distinct 32-byte sectors of
@@ -579,6 +586,38 @@ def main() -> int:
             "library_ms": cuda_ms(lib_fn, 50), "sha256": digest(fn().view(torch.int16)),
             "bound_ms": (b * f * hw * 2 + int(act.sum()) * q * (2 * f * 4 + 4))
             / PEAK_BYTES_S * 1e3}
+    # kernel C's backward and kernel A's wide branch in bf16
+    bf = torch.bfloat16
+    x = (3 * torch.randn(4, 21, 129, 129, device=dev, generator=g)).to(bf)
+    lab = torch.randint(0, 21, (4, 513, 513), device=dev, generator=g, dtype=torch.int32)
+    lab[torch.rand(lab.shape, device=dev, generator=g) < 0.1] = 255
+
+    def ohem_head_bf16(hw, block):
+        xh, labh = ohem_inputs(hw, block)
+        xh = xh.to(bf)
+        return xh, ohem.ohem_kept_labels(xh, labh, 0.7, 100000)
+
+    cases = {"C_bwd_voc_bf16": (x, lab, None),
+             "C_bwd_city_main_bf16": (*ohem_head_bf16(193, 8), ohem._class_weight(True, dev)),
+             "C_bwd_city_aux_bf16": (*ohem_head_bf16(97, 4), None)}
+    for name, (x, lab, cw) in cases.items():
+        x = x.requires_grad_(True)
+        loss = ce.upsample_cross_entropy(x, lab, 255, cw)
+        fn = lambda: torch.autograd.grad(loss, x, retain_graph=True)[0]  # noqa: E731
+        out["kernels"][name] = {"ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn),
+                                "library_ms": None, "sha256": digest(fn().view(torch.int16))}
+    for name, shape, size in (("A_decoder_bf16", (8, 256, 65, 65), (129, 129)),
+                              ("A_decoder_city_bf16", (4, 256, 97, 97), (193, 193))):
+        x = (3 * torch.randn(*shape, device=dev, generator=g)).to(bf)
+        fn = lambda: R.resize_bilinear(x, size)  # noqa: E731
+        out["kernels"][name] = {
+            "ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn),
+            "library_ms": cuda_ms(lambda: F.interpolate(x, size=size, mode="bilinear",
+                                                        align_corners=True)),
+            "sha256": digest(fn().view(torch.int16)),
+            "bound_ms": shape[0] * shape[1] * (shape[2] * shape[3] + size[0] * size[1]) * 2
+            / PEAK_BYTES_S * 1e3}
+        del x
     print(json.dumps(out), flush=True)
     return 0
 

@@ -7,8 +7,8 @@ the port fuses the two: `upsample_cross_entropy(logits_os4, labels)` is
 (kernel C, `kernels/csrc/upsample_ce.cu`, forward and backward), so on the
 card the (B, C, H, W) upsampled logits are never stored: the forward
 reduces them per pixel, and the backward, fused with the adjoint resize,
-writes the gradient to the os4 logits from one full-resolution row at a
-time in shared memory.  On a CPU tensor it is the plain version: kernel
+writes the gradient to the os4 logits from a few full-resolution rows of
+a group of classes at a time in shared memory.  On a CPU tensor it is the plain version: kernel
 A's plain resize, then `log_softmax` and a gather, differentiated by
 autograd (`upsample_ce_bwd_plain` is the backward written out).
 Reductions are float32; the empty valid set gives 0, as in JAX.
@@ -24,7 +24,7 @@ points; the plain versions round there too.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,10 +34,12 @@ from u2pl_tpu_torch.ops.resize import (
     _check_cuda,
     _device_ranges,
     _device_taps,
+    _interp_taps_np,
     _ranges_np,
     _sm_count,
     resize_bilinear_bwd_plain,
     resize_bilinear_plain,
+    resize_bilinear_rounded,
 )
 
 # 19-entry binary class-weight vector used by Criterion(use_weight=True)
@@ -117,6 +119,84 @@ def upsample_ce_bwd_plain(
     return resize_bilinear_bwd_plain(gfull, (h, w)).to(logits.dtype)
 
 
+def _adjoint_table(n_in: int, n_out: int, device):
+    """(output index, weight, in range), each (span, n_in), per input index
+    and slot j: the output indices [start, end) whose taps reach the input
+    index (`_ranges_np`) in ascending order, and their weights as
+    common.cuh's tap_weight computes them (lo's weight, then hi's added)."""
+    lo, hi, frac = _interp_taps_np(n_in, n_out, True)
+    w0, w1 = np.float32(1.0) - frac, frac
+    start, end = _ranges_np(n_in, n_out, True)
+    span = max(int((end - start).max()), 1)
+    slot = start[None, :] + np.arange(span)[:, None]
+    o = np.minimum(slot, n_out - 1)
+    i = np.arange(n_in)[None, :]
+    wt = np.where(lo[o] == i, w0[o], np.float32(0.0)).astype(np.float32)
+    wt = np.where(hi[o] == i, (wt + w1[o]).astype(np.float32), wt)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return to(o.astype(np.int64)), to(wt), to(slot < end[None, :])
+
+
+def upsample_ce_bwd_ordered(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    class_weight: Optional[torch.Tensor] = None,
+    ignore_label: int = 255,
+    g: Union[float, torch.Tensor] = 1.0,
+    lse: Optional[torch.Tensor] = None,
+    denom: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Kernel C's backward in its own arithmetic, in torch ops, for checking
+    it (on the card it gives the kernel's bits): the upsample is
+    `resize_bilinear_rounded` (bf16: rounded to bf16), lse = m + log(s) with
+    s summed over the classes in order (the forward's; or the forward's
+    saved `lse`), denom the weights summed in float64 and rounded to f32
+    (or the forward's saved one), coef = w[y] * (g / max(denom, floor)) and
+    +0 where coef is 0, each g value coef * (exp(v - lse) - [c == y])
+    (bf16: rounded to bf16); then the adjoint's sums in the kernel's order:
+    per output row the W sum over the output columns reaching each input
+    column, ascending from 0, then per input row the H sum over the output
+    rows reaching it, ascending from 0, each product and sum rounded on its
+    own.  It holds (B, C, OH, OW) and (B, C, OH, w) f32."""
+    b, c, h, w = logits.shape
+    oh, ow = labels.shape[1:]
+    dev = logits.device
+    up = resize_bilinear_rounded(logits, (oh, ow)).float()
+    if lse is None:
+        m = up.amax(dim=1)
+        s = torch.zeros_like(m)
+        for k in range(c):
+            s = s + torch.exp(up[:, k] - m)
+        lse = m + torch.log(s)
+    y = labels.long()
+    valid = (y != ignore_label) & (y >= 0) & (y < c)
+    safe = torch.where(valid, y, torch.zeros_like(y))
+    if class_weight is None:
+        wy, floor = valid.float(), 1.0
+    else:
+        wy, floor = torch.where(valid, class_weight.float()[safe], torch.zeros_like(up[:, 0])), 1e-12
+    if denom is None:
+        denom = wy.double().sum().float()
+    g = torch.as_tensor(g, dtype=torch.float32, device=dev)
+    scale = torch.where(denom > 0, g / torch.clamp(denom, min=floor), torch.zeros_like(g))
+    cws = (torch.ones(c, device=dev) if class_weight is None else class_weight.float()) * scale
+    coef = torch.where(valid, cws[safe], torch.zeros_like(up[:, 0]))[:, None]
+    e = torch.exp(up - lse[:, None])
+    onehot = torch.arange(c, device=dev)[None, :, None, None] == y[:, None]
+    gfull = torch.where(coef == 0, torch.zeros_like(e), coef * torch.where(onehot, e - 1.0, e))
+    if logits.dtype != torch.float32:
+        gfull = gfull.to(logits.dtype).float()
+    o_w, wt_w, m_w = _adjoint_table(w, ow, dev)
+    o_h, wt_h, m_h = _adjoint_table(h, oh, dev)
+    s = torch.zeros((b, c, oh, w), device=dev)
+    for j in range(o_w.shape[0]):
+        s = torch.where(m_w[j], s + wt_w[j] * gfull.index_select(3, o_w[j]), s)
+    gx = torch.zeros((b, c, h, w), device=dev)
+    for j in range(o_h.shape[0]):
+        gx = torch.where(m_h[j][:, None], gx + wt_h[j][:, None] * s.index_select(2, o_h[j]), gx)
+    return gx.to(logits.dtype)
+
+
 def upsample_cross_entropy(
     logits: torch.Tensor,
     labels: torch.Tensor,
@@ -126,7 +206,10 @@ def upsample_cross_entropy(
     """`cross_entropy_ignore(resize_bilinear(logits, labels' H, W), labels)`
     (kernel C on the card).  logits (B, C, h, w) float32 or bfloat16 (JAX's
     bf16 rounding points, module docstring); labels (B, H, W) int32;
-    returns a 0-d f32 device tensor, differentiable in `logits` only."""
+    returns a 0-d f32 device tensor, differentiable in `logits` only.  On
+    the card, logits that need a gradient are at most BWD_MAX_THREADS (1024)
+    columns wide (the backward's plan, `_bwd_plan`, checked before the
+    forward runs)."""
     if logits.dim() != 4 or labels.dim() != 3 or labels.shape[0] != logits.shape[0]:
         raise ValueError(
             f"upsample_cross_entropy: logits {tuple(logits.shape)}, labels "
@@ -134,6 +217,9 @@ def upsample_cross_entropy(
         )
     if logits.device.type == "cpu":
         return upsample_cross_entropy_plain(logits, labels, ignore_label, class_weight)
+    if torch.is_grad_enabled() and logits.requires_grad:  # a shape the backward refuses
+        b, c, h, w = logits.shape
+        _bwd_plan(b, c, h, w, *labels.shape[1:], _sm_count(logits.device), logits.element_size())
     return _UpsampleCE.apply(logits, labels, ignore_label, class_weight)
 
 
@@ -156,53 +242,91 @@ def _check_ce_inputs(logits, labels, class_weight):
             raise ValueError("upsample_cross_entropy: one class weight per class")
 
 
-# shared memory a block of the fused backward may use: sm_90's 227 KB
-# (kernels/csrc/upsample_ce.cu:kBwdMaxShared)
+# the fused backward (kernels/csrc/upsample_ce.cu): the shared memory a block
+# may use (sm_90's 227 KB, kBwdMaxShared), its most threads a block (at an
+# exact column ratio kBwdExactThreads, for two blocks an SM), classes and
+# output rows a step (kBwdClasses, kBwdMaxChunk); the plan's blocks an SM
+# (one wave of two) and each one's shared memory for that
 BWD_MAX_SHARED = 232448
+BWD_MAX_THREADS = 1024
+BWD_EXACT_THREADS = 512
+BWD_CLASSES = 4
+BWD_MAX_CHUNK = 4
+BWD_BLOCKS_PER_SM = 2
+BWD_SHARED_PER_BLOCK = 113 * 1024
 
 
-def _bwd_smem(c: int, w: int, ow: int, rows: int, span: int, log_s: int, q: int) -> int:
-    """Bytes of shared memory of one block of the fused backward: the column
-    taps, one output row of g in the slot layout (classes padded to groups
-    of 4), one row of H-lerped inputs, the band's accumulators, one row of
-    coef / lse / labels, the column tap weights and the class weights
-    (upsample_ce.cu:bwd_smem)."""
-    return 8 * ow + 4 * (-(-c // 4) * 4 * (1 << log_s) * q + c * w + c * rows * w + 3 * ow
-                         + w * span + 2 * w + c)
+class BwdPlan(NamedTuple):
+    """The fused backward's launch (`_bwd_plan`)."""
+
+    groups: int  # class groups, the C classes split evenly
+    cls: int  # the most classes of a group (the exact-ratio kernel's classes)
+    rows: int  # input rows of a band
+    bands: int
+    chunk: int  # output rows a step (one barrier each)
+    threads: int  # a block's: cls x w owner pairs, one or two a thread, whole warps
+    span: int  # the most output columns reaching an input column, odd
+    gs: int  # a g row's elements: output column ox at ratio + ox, a multiple of 8
+    ratio: int  # 4 or 8 where ow - 1 = ratio (w - 1): the owners' taps are constants
+
+
+def _bwd_smem(c: int, w: int, ow: int, cls: int, chunk: int, span: int, gs: int,
+              ratio: int, gbytes: int = 4) -> int:
+    """Bytes of shared memory of one block of the fused backward: two steps'
+    g rows of `cls` classes, `gbytes` a value (4 in f32, 2 in bf16), two
+    steps' row taps (16 B a row), the column taps (8 B a column), two
+    steps' labels and lse and H-lerped rows, the class weights and, at no
+    exact ratio, the column tap weights (upsample_ce.cu:bwd_smem)."""
+    return (2 * gbytes * chunk * cls * gs + 32 * chunk + 8 * ow + 16 * chunk * ow
+            + 4 * (2 * chunk * cls * w + c + (0 if ratio else w * span + 2 * w)))
 
 
 @functools.lru_cache(maxsize=64)
-def _bwd_plan(b: int, c: int, h: int, w: int, oh: int, ow: int,
-              sms: int) -> Tuple[int, int, int, int, int]:
-    """The fused backward's launch: (rows, bands, span, log_s, q).
+def _bwd_plan(b: int, c: int, h: int, w: int, oh: int, ow: int, sms: int,
+              gbytes: int = 4) -> BwdPlan:
+    """The fused backward's launch, for g rows of `gbytes` a value (the
+    logits' dtype).
 
-    A block owns `rows` input rows of one image; the rows are the fewest
-    for which the B x bands blocks fit in one wave on `sms` SMs (fewer when
-    the block's shared memory would exceed BWD_MAX_SHARED).  span: the most
-    output columns reaching one input column, made odd so that lanes on
-    consecutive input columns read the tap-weight table on distinct banks.
-    A g row is stored with output column ox at (ox % S) * q + ox // S,
-    S = 2**log_s ~ the upsample factor (at most 8) and q = 32 / S (mod 32),
-    so that lanes ~S columns apart hit distinct banks."""
-    if w >= 32768:
-        raise ValueError(f"upsample_cross_entropy: width {w} exceeds the backward's 16-bit taps")
+    A block owns a group of classes of a band of `rows` input rows of one
+    image, with an owner per (class, input column).  At an exact column
+    ratio (ow - 1 = 4 or 8 times w - 1: every training shape; w <= 256,
+    c >= 3) the kernel is compiled for 3 or 4 classes a group, whichever
+    splits the c classes with fewer unused slots (the larger at a tie), and
+    a thread owns one pair, or two where the pairs pass BWD_EXACT_THREADS;
+    elsewhere up to BWD_CLASSES classes, one pair a thread.  The bands are
+    the shortest for which the b x bands x groups blocks fit one wave of
+    BWD_BLOCKS_PER_SM on each of `sms` SMs (a second, partial wave costs
+    more than the boundary output rows that two bands both walk), and a
+    step takes the most output rows (up to BWD_MAX_CHUNK) for which a block
+    fits BWD_SHARED_PER_BLOCK, so that two share an SM.  span: the most output columns
+    reaching one input column, made odd so that lanes on consecutive input
+    columns read the tap-weight table on distinct banks.  A g row holds
+    output column ox at ratio + ox, its 2 x ratio owner values read past
+    both ends."""
+    if w > BWD_MAX_THREADS:
+        raise ValueError(f"upsample_cross_entropy: width {w} exceeds the backward's "
+                         f"{BWD_MAX_THREADS} owner threads a block")
     counts = np.diff(_ranges_np(w, ow, True), axis=0)[0]
     span = max(int(counts.max()), 1) | 1
-    factor = (ow - 1) / max(w - 1, 1)
-    log_s = 0
-    while log_s < 3 and 2 ** (log_s + 1) <= factor + 0.5:
-        log_s += 1
-    s = 1 << log_s
-    q = -(-ow // s)
-    if s > 1:
-        q += (32 // s - q) % 32
-    rows = -(-h // min(h, max(1, sms // b)))
-    while rows > 1 and _bwd_smem(c, w, ow, rows, span, log_s, q) > BWD_MAX_SHARED:
-        rows -= 1
-    if _bwd_smem(c, w, ow, rows, span, log_s, q) > BWD_MAX_SHARED:
+    ratio = next((s for s in (4, 8) if c >= 3 and 2 <= w <= BWD_EXACT_THREADS // 2
+                  and ow - 1 == s * (w - 1)), 0)
+    gs = -(-(ow + 2 * ratio) // 8) * 8
+    if ratio:
+        cls = min((4, 3), key=lambda n: (-(-c // n) * n - c, -n))
+        pairs = 1 if cls * w <= BWD_EXACT_THREADS else 2
+    else:
+        cls, pairs = min(BWD_CLASSES, c, BWD_MAX_THREADS // w), 1
+    groups = -(-c // cls)
+    threads = -(-cls * w // (32 * pairs)) * 32
+    wave = BWD_BLOCKS_PER_SM * sms
+    rows = next((r for r in range(1, h) if b * groups * -(-h // r) <= wave), h)
+    chunk = next((k for k in range(BWD_MAX_CHUNK, 0, -1)
+                  if _bwd_smem(c, w, ow, cls, k, span, gs, ratio, gbytes)
+                  <= BWD_SHARED_PER_BLOCK), 1)
+    if _bwd_smem(c, w, ow, cls, chunk, span, gs, ratio, gbytes) > BWD_MAX_SHARED:
         raise ValueError(f"upsample_cross_entropy: {c} classes at widths {w} -> {ow} exceed "
                          f"the backward's {BWD_MAX_SHARED} bytes of shared memory")
-    return rows, -(-h // rows), span, log_s, q
+    return BwdPlan(groups, cls, rows, -(-h // rows), chunk, threads, span, gs, ratio)
 
 
 # kernels C fwd and D (upsample_ce.cu: kStatsMaxShared): a block's bytes of
@@ -273,7 +397,7 @@ class _UpsampleCE(torch.autograd.Function):
         b, c, h, w = logits.shape
         oh, ow = labels.shape[1:]
         dev = logits.device
-        rows, bands, span, log_s, q = _bwd_plan(b, c, h, w, oh, ow, _sm_count(dev))
+        plan = _bwd_plan(b, c, h, w, oh, ow, _sm_count(dev), logits.element_size())
         idx_h, w_h = _device_taps(h, oh, True, dev)
         idx_w, w_w = _device_taps(w, ow, True, dev)
         rng_h = _device_ranges(h, oh, True, dev)
@@ -287,7 +411,7 @@ class _UpsampleCE(torch.autograd.Function):
                 stats.data_ptr(), g.data_ptr(), gx.data_ptr(), idx_h.data_ptr(),
                 w_h.data_ptr(), rng_h.data_ptr(), idx_w.data_ptr(), w_w.data_ptr(),
                 rng_w.data_ptr(), b, c, h, w, oh, ow, ctx.ignore_label, ctx.floor,
-                rows, bands, span, log_s, q, LOGIT_DTYPES[logits.dtype],
+                *plan, LOGIT_DTYPES[logits.dtype],
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         check(lib, err, "upsample_ce_bwd launch")

@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import collections
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -277,10 +277,30 @@ BAND_OUTPUTS = 4096
 FWD_BLOCKS_PER_SM = 4
 
 
+# kernel A's kernels (resize.cu: kFwdBand, kFwdDirect, kFwdWide2x)
+FWD_BAND, FWD_DIRECT, FWD_WIDE_2X = 0, 1, 2
+
+
+class FwdPlan(NamedTuple):
+    """Kernel A's launch (`_fwd_plan`)."""
+
+    kernel: int  # FWD_BAND, FWD_DIRECT or FWD_WIDE_2X
+    rows: int = 0  # the band kernel's: output rows of a band, a block each
+    bands: int = 0
+
+
 @functools.lru_cache(maxsize=256)
-def _fwd_plan(planes: int, h: int, w: int, oh: int, ow: int, sms: int) -> Tuple[int, int]:
-    """Kernel A's launch: (rows, bands), a block per band of `rows` output
-    rows of one plane, or (0, 0) for the direct kernel.
+def _fwd_plan(planes: int, h: int, w: int, oh: int, ow: int, sms: int, mode: int = 0,
+              align_corners: bool = True) -> FwdPlan:
+    """Kernel A's launch: the band kernel, a block per band of `rows`
+    output rows of one plane; the direct kernel; or the bf16 wide branch's
+    exact 2x kernel.
+
+    The bf16 wide branch (`mode` 2) of an align-corners n -> 2n - 1 upsample
+    on both axes (the decoder's 65² -> 129² and 97² -> 193²) takes the 2x
+    kernel: its weights are 1 / 0 and 1/2 / 1/2, so it reads no tap table,
+    and a thread writes the 2 x 2 outputs one input element leads.  Every
+    other call:
 
     Bands of about BAND_OUTPUTS outputs and of even height, as many rows as
     shared memory holds at most: at the logits', the decoders' and the eval
@@ -291,14 +311,16 @@ def _fwd_plan(planes: int, h: int, w: int, oh: int, ow: int, sms: int) -> Tuple[
     `sms` SMs the direct kernel takes the call: a thread per output pixel
     for every plane, straight from the input (`_device_taps4`), no shared
     memory."""
+    if mode == 2 and align_corners and h >= 2 and w >= 2 and (oh, ow) == (2 * h - 1, 2 * w - 1):
+        return FwdPlan(FWD_WIDE_2X)
     quarter = -(-ow // 4)
     target = min(oh, -(-BAND_OUTPUTS // ow))
     even = max(1, (oh + target // 2) // target)
     rows = min(-(-oh // even), (RESIZE_MAX_SHARED - quarter * 64) // (w * 4))
     bands = -(-oh // rows)
     if planes * bands < FWD_BLOCKS_PER_SM * sms:
-        return 0, 0
-    return rows, bands
+        return FwdPlan(FWD_DIRECT)
+    return FwdPlan(FWD_BAND, rows, bands)
 
 
 F32 = (torch.float32,)
@@ -382,9 +404,9 @@ def _resize_bilinear_cuda(x: torch.Tensor, size, align_corners: bool,
     idx_w, w_w = _device_taps(w, ow, align_corners, x.device)
     y = torch.empty((b, c, oh, ow), dtype=out_dtype, device=x.device)
     mode = _resize_mode(x.dtype, c, (h, w), (oh, ow), align_corners, out_dtype)
-    plan = _fwd_plan(b * c, h, w, oh, ow, _sm_count(x.device))
+    plan = _fwd_plan(b * c, h, w, oh, ow, _sm_count(x.device), mode, align_corners)
     taps = (0, 0)  # the direct kernel's packed tables
-    if plan == (0, 0):
+    if plan.kernel == FWD_DIRECT:
         taps = (_device_taps4(h, oh, align_corners, x.device).data_ptr(),
                 _device_taps4(w, ow, align_corners, x.device).data_ptr())
     with torch.cuda.device(x.device):
