@@ -143,6 +143,24 @@ Phases; any failure ends the run with a nonzero exit code:
      Cityscapes workspace (the same), with seconds per image, launches of each mode
      per image and the mIoU beside phase 12's f32 one; `u2pl_tpu_torch.infer
      --dtype bfloat16` at batch 3 and on Cityscapes.
+ 15. K5's modes for several ranks: the gather (each rank's (21, 8192,
+     256) slab of keys from the teacher's NCHW rep) and the slab enqueue
+     (the all-gathered (W, 21, 8192, 256) slabs into the (21, 50000, 256)
+     bank) against their plain versions, in bf16 and f32, for 1, 2, 4 and
+     8 ranks on rings that wrap; at 8 ranks class 0 takes more keys than
+     its queue; rows, keys, ptr and occupancy bit-equal; each timed beside
+     its plain version and the enqueue beside one `index_put_`, with its
+     bytes bound;
+ 16. the data-parallel VOC bf16 contrastive semi step (the `ours` config
+     as it stands) through `u2pl_tpu_torch.dist`: (a) 3 steps with no group
+     and in a one-process NCCL group on the card, cuDNN deterministic,
+     bit-equal after every step, ms per step of each; (b) 2 ranks, one
+     process each (`--phase16-rank`): NCCL with one rank per card on a
+     machine with two, else both on cuda:0 under gloo (NCCL takes one rank
+     per device), 4 + 4 images a rank, SyncBN, the gradient mean and the
+     bank's exchange; the ranks' states bit-equal after every step, each
+     rank's step through the kernels and the plain versions held to phase
+     13's bounds, ms per step and the bytes of the slab exchange.
 Phase 1 also holds the contrastive kernels (K4: pixel masks, key selection,
 anchor draws; K5: the bank write; K6: the InfoNCE forward and backward)
 against their plain versions at the flagship shapes, on a prefilled bank
@@ -164,8 +182,9 @@ its bound and a library call's time; kernel A once per shape, the logits',
 the decoder's, the VOC and Cityscapes request images' and the Cityscapes
 eval crops'; K4 masks
 and anchor draws at VOC and at Cityscapes; each bf16 mode with its f32
-mode's time as `f32_ms`, each with its own path's launches), then one
-JSON line
+mode's time as `f32_ms`, each with its own path's launches; K5's gather
+and slab modes with their launches on phase 16's runs and each world's
+times in `by_world`), then one JSON line
 {"ok": true, "device": {...}} as the last line of its output.
 """
 
@@ -932,8 +951,12 @@ VARIANT_COUNTERS = {  # apply_aug: classmix, contrastive.select_keys: radix
     "K4r": ("u2pl_tpu_torch.losses.contrastive", "select_keys_radix", "launches"),
 }
 VAL_COUNTERS = {"B": ("u2pl_tpu_torch.ops.resize", "resize_argmax", "launches")}
+DIST_COUNTERS = {  # K5's modes under a process group (phase 16)
+    "K5_gather": ("u2pl_tpu_torch.memobank", "memobank_gather", "launches"),
+    "K5_slabs": ("u2pl_tpu_torch.memobank", "memobank_enqueue_slabs", "launches"),
+}
 COUNTERS = {**TRAIN_COUNTERS, **CONTRA_COUNTERS, **OHEM_COUNTERS, **VARIANT_COUNTERS,
-            **VAL_COUNTERS}
+            **VAL_COUNTERS, **DIST_COUNTERS}
 
 
 def _counter(name):
@@ -1059,6 +1082,8 @@ def plain_versions():
         (contrastive, "select_keys_radix", contrastive.select_keys_radix_plain),
         (contrastive, "sample_anchors", contrastive.sample_anchors_plain),
         (contrastive, "memobank_enqueue", memobank.memobank_enqueue_plain),
+        (contrastive, "memobank_gather", memobank.memobank_gather_plain),
+        (contrastive, "memobank_enqueue_slabs", memobank.memobank_enqueue_slabs_plain),
         (contrastive, "contra_infonce", contrastive.contra_infonce_plain),
     ]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
@@ -3010,8 +3035,6 @@ def bf16_voc_training(dev, card):
     import torch
 
     from u2pl_tpu_torch.config import load_config
-    from u2pl_tpu_torch.models.builder import computing_in
-    from u2pl_tpu_torch.models.decoder import Dropout2d
     from u2pl_tpu_torch.ops import mixing
     from u2pl_tpu_torch.train.state import create_train_state
     from u2pl_tpu_torch.train.steps import draw_contrastive, make_semi_step, run_steps
@@ -3083,7 +3106,23 @@ def bf16_voc_training(dev, card):
     def run(st, route):
         return step(st, *batches[-1], mix=mix, contra=draws)
 
-    runs2 = both_routes(snapshot, run, "phase 13", bf16=True)
+    routes = bf16_routes(snapshot, run, "phase 13")
+    del snapshot
+    return launches, {"semi_ms": med, "img_s": imgs * 1e3 / med, "peak": peak, **routes}
+
+
+def bf16_routes(snapshot, run, what):
+    """The bf16 step `run` on copies of `snapshot` through the kernels, the
+    plain versions (`both_routes`) and the kernels in f32: fails unless each
+    loss and threshold and the update of the two bf16 routes lie within
+    BF16_ROUTE_SHARE of the step's own bf16-vs-f32 gap.  Returns {"route",
+    "gap", "update"}."""
+    import torch
+
+    from u2pl_tpu_torch.models.builder import computing_in
+    from u2pl_tpu_torch.models.decoder import Dropout2d
+
+    runs2 = both_routes(snapshot, run, what, bf16=True)
     st32 = copy.deepcopy(snapshot)
     for mm in list(st32.student.modules()) + list(st32.teacher.modules()):
         if isinstance(mm, Dropout2d):
@@ -3092,7 +3131,7 @@ def bf16_voc_training(dev, card):
     with computing_in(st32.student, torch.float32), computing_in(st32.teacher, torch.float32):
         m32 = scalars(run(st32, "kernels"))
     d32 = {a: p.detach() - before[a] for a, p in st32.student.named_parameters()}
-    del st32, snapshot
+    del st32
     (mk, dk, _), (mp, dp, _) = runs2["kernels"], runs2["plain"]
     mk, mp = scalars(mk), scalars(mp)
     names = ("sup_loss", "uns_loss", "con_loss", "drop_thresh", "high_thresh")
@@ -3101,15 +3140,14 @@ def bf16_voc_training(dev, card):
     l2 = lambda d, e: sum(((d[a] - e[a]).float() ** 2).sum().item() for a in d) ** 0.5  # noqa: E731
     upd_route, upd_gap = l2(dk, dp), l2(dk, d32)
     share = {a: route[a] / max(gap[a], 1e-30) for a in names}
-    log(f"[phase 13] bf16 step {BF16_STEPS} again: kernels {mk}; plain {mp}; the kernels in f32 "
+    log(f"[{what}] the bf16 step again: kernels {mk}; plain {mp}; the kernels in f32 "
         f"{m32}; |kernels - plain| {route}; |bf16 - f32| {gap}; share {share} (bound "
         f"{BF16_ROUTE_SHARE}); update L2 kernels - plain {upd_route:.4e}, bf16 - f32 "
         f"{upd_gap:.4e} (share {upd_route / max(upd_gap, 1e-30):.3e})")
     if any(v > BF16_ROUTE_SHARE for v in share.values()) or upd_route > BF16_ROUTE_SHARE * upd_gap:
-        fail("the bf16 step through the kernels and through the plain versions differ by more "
-             f"than {BF16_ROUTE_SHARE} of the step's bf16-vs-f32 gap")
-    return launches, {"semi_ms": med, "img_s": imgs * 1e3 / med, "peak": peak,
-                      "route": route, "gap": gap, "update": (upd_route, upd_gap)}
+        fail(f"{what}: the bf16 step through the kernels and through the plain versions differ "
+             f"by more than {BF16_ROUTE_SHARE} of the step's bf16-vs-f32 gap")
+    return {"route": route, "gap": gap, "update": (upd_route, upd_gap)}
 
 
 def bf16_city_training(dev, card):
@@ -3623,6 +3661,347 @@ def phase14_bf16_inference(dev, card, tmp, f32_evals):
 BF16_INFER_KEYS = ("A_image", "A_bf16_narrow", "A_bf16_f32", "B_bf16", "B_f32")
 
 
+# ---- phase 16: the data-parallel VOC bf16 contrastive step ------------------
+
+DIST_START = 2  # phase 16 steps from the first semi epoch (2 steps an epoch)
+DIST_STEPS = 3  # two steps of the first semi epoch, one of epoch 2
+DIST_TIMEOUT = 900  # seconds for phase 16's two rank processes
+
+
+def state_hash(state) -> str:
+    """sha256 of the state's bits: the step, both models' parameters and
+    buffers, the optimizer's traces and the bank."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    tensors = [state.step]
+    for model in (state.student, state.teacher):
+        tensors += [t for _, t in sorted(model.state_dict().items())]
+    for p in state.student.parameters():
+        per = state.optimizer.state.get(p, {})
+        tensors += [per[k] for k in sorted(per) if torch.is_tensor(per[k])]
+    if state.bank is not None:
+        tensors += [state.bank.keys, state.bank.ptr, state.bank.occupancy]
+    for t in tensors:
+        h.update(t.detach().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dist_steps(state, cfg, batches, group):
+    """DIST_STEPS semi steps through `run_steps` from DIST_START, each rank's
+    draws from `step_generator(SEED, i, rank)`: (ms per step, synchronised;
+    the state's hash after each step; the metrics)."""
+    import torch
+
+    from u2pl_tpu_torch.train.steps import run_steps
+
+    times, hashes, metrics = [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _, m in run_steps(state, batches, STEPS_PER_EPOCH, cfg, start_iter=DIST_START,
+                          seed=SEED, group=group):
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(scalars(m))
+        hashes.append(state_hash(state))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+    return times, hashes, metrics
+
+
+def dist_state(dev, group=None):
+    """The VOC `ours` config as it stands (bf16, contrastive on) and its
+    state from SEED at step DIST_START, its BatchNorms synced over `group`."""
+    import torch
+
+    from u2pl_tpu_torch.config import load_config
+    from u2pl_tpu_torch.train.state import broadcast_state, create_train_state
+
+    cfg = load_config(VOC_CONFIG)
+    state = create_train_state(cfg, device=dev, generator=torch.Generator().manual_seed(SEED),
+                               group=group)
+    broadcast_state(state, group)
+    state.step.fill_(DIST_START)
+    return cfg, state
+
+
+def phase16_one_rank_group(dev, card):
+    """(a) The VOC bf16 contrastive semi step, DIST_STEPS steps, with no group
+    and in a one-process NCCL group on `dev`, from the same state and draws:
+    bit-equal after every step.  Both runs take cuDNN's deterministic
+    algorithms: its default convolution backward varies in the last bits
+    from run to run on this card, group or not.  Returns (the group run's
+    launches, ms per step of each)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _one_rank_group(dev, card)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _one_rank_group(dev, card):
+    import torch.distributed as tdist
+
+    from u2pl_tpu_torch import dist
+    from u2pl_tpu_torch.models.builder import sync_batch_norm
+
+    cfg, state = dist_state(dev)
+    snapshot = copy.deepcopy(state)
+    batches = synthetic_batches(dev, DIST_STEPS, seed=SEED + 40)
+    none = dist_steps(state, cfg, batches, None)
+    del state
+    tdist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                             world_size=1)
+    try:
+        group = dist.Group()
+        for model in (snapshot.student, snapshot.teacher):
+            sync_batch_norm(model, group)
+        zero_counters()
+        got = dist_steps(snapshot, cfg, batches, group)
+        launches = read_counters()
+    finally:
+        tdist.destroy_process_group()
+    del snapshot, batches
+    same = got[1] == none[1] and got[2] == none[2]
+    log(f"[{card}] phase 16a VOC bf16 contrastive semi step, {B_L}+{B_U} at {CROP}², "
+        f"{DIST_STEPS} steps, cudnn.deterministic: no group {[f'{t:.1f}' for t in none[0]]} ms, "
+        f"a one-process NCCL "
+        f"group {[f'{t:.1f}' for t in got[0]]} ms; states bit-equal after every step {same}; "
+        f"K5 gather / slab launches {launches['K5_gather']} / {launches['K5_slabs']}, rep mode "
+        f"{launches['K5']}")
+    if not same:
+        fail("phase 16a: a one-process group does not give the bits of no group")
+    if (launches["K5_gather"], launches["K5_slabs"], launches["K5"]) != (DIST_STEPS, DIST_STEPS, 0):
+        fail(f"phase 16a: K5 launches {launches}: want the gather and slab modes once a step")
+    return launches, {"none_ms": none[0], "group_ms": got[0]}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("", 0))
+        return sock.getsockname()[1]
+
+
+def phase16_two_ranks(card):
+    """(b) The same step on DIST_W ranks, one process each: NCCL with one
+    rank per card when the machine has DIST_W cards, else both on cuda:0
+    under gloo (NCCL takes one rank per device).  Each rank steps on its own
+    4 + 4 images with its own draws; their states must be bit-equal after
+    each step, and each rank's last step through the kernels and through the
+    plain versions is held to phase 13's bounds.  Returns (launches summed
+    over the ranks' step runs, the ranks' reports)."""
+    import torch
+
+    backend = "nccl" if torch.cuda.device_count() >= DIST_W else "gloo"
+    torch.cuda.empty_cache()
+    port = free_port()
+    with tempfile.TemporaryDirectory(prefix="u2pl_chip_smoke_dist_") as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(DIST_W)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase16-rank",
+                                   str(r), str(DIST_W), str(port), backend, outs[r]], cwd=ROOT)
+                 for r in range(DIST_W)]
+        try:
+            codes = [p.wait(timeout=DIST_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(codes):
+            fail(f"phase 16b: the rank processes exited {codes}")
+        reports = []
+        for path in outs:
+            with open(path) as f:
+                reports.append(json.load(f))
+    hashes = [r["hashes"] for r in reports]
+    same = all(h == hashes[0] for h in hashes)
+    log(f"[{card}] phase 16b {DIST_W} ranks over {backend} "
+        f"({'one per card' if backend == 'nccl' else 'both on cuda:0'}), VOC bf16 contrastive "
+        f"semi step, {B_L}+{B_U} at {CROP}² a rank: ms per step "
+        + "; ".join(f"rank {i} {[f'{t:.1f}' for t in r['ms']]}" for i, r in enumerate(reports))
+        + f"; slab exchange {reports[0]['exchange_bytes']} bytes a step; states bit-equal "
+        f"across the ranks after every step {same}")
+    if not same:
+        fail("phase 16b: the ranks' states differ")
+    launches = {k: sum(r["launches"][k] for r in reports) for k in reports[0]["launches"]}
+    if (launches["K5_gather"], launches["K5_slabs"]) != (DIST_W * DIST_STEPS,) * 2:
+        fail(f"phase 16b: K5 gather / slab launches {launches}")
+    return launches, {"backend": backend, "reports": reports}
+
+
+def phase16_rank(rank, world, port, backend, out):
+    """One rank of phase 16b (run as `chip_smoke.py --phase16-rank RANK WORLD
+    PORT BACKEND OUT`): writes its report to OUT."""
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as tdist
+
+    from u2pl_tpu_torch import dist
+    from u2pl_tpu_torch.ops import mixing
+    from u2pl_tpu_torch.train.steps import draw_contrastive, make_semi_step
+
+    rank, world = int(rank), int(world)
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tdist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=rank,
+                             world_size=world)
+    group = dist.Group()
+    cfg, state = dist_state(dev, group)
+    batches = synthetic_batches(dev, DIST_STEPS, seed=SEED + 40 + rank)
+    zero_counters()
+    times, hashes, _ = dist_steps(state, cfg, batches, group)
+    launches = read_counters()
+    what = f"phase 16b rank {rank}"
+    log(f"[{what}] ms per step {[f'{t:.1f}' for t in times]}; launches {launches}")
+    # a step from the run's end state through both routes (phase 13's bounds)
+    snapshot = copy.deepcopy(state)
+    del state
+    step = make_semi_step(cfg, STEPS_PER_EPOCH, group)
+    g = torch.Generator(device=dev).manual_seed(SEED + 50 + rank)
+    mix = (torch.tensor(True, device=dev), mixing.draw_boxes(g, B_U, CROP, CROP))
+    draws = draw_contrastive(g, cfg, (B_L + B_U) * OS4 * OS4)
+    routes = bf16_routes(snapshot, lambda st, route: step(st, *batches[-1], mix=mix, contra=draws),
+                         what)
+    c, k = cfg.net.num_classes, cfg.trainer.contrastive.max_keys_per_class_per_step
+    report = {"ms": times, "hashes": hashes, "launches": launches, "routes": routes,
+              "exchange_bytes": world * c * (k * 256 * 2 + 4),
+              "peak": torch.cuda.max_memory_allocated(dev)}
+    with open(out, "w") as f:
+        json.dump(report, f)
+    tdist.destroy_process_group()
+    return 0
+
+
+# ---- phase 15: K5's modes for several ranks ----------------------------------
+
+SLAB_WORLDS = (1, 2, 4, 8)  # ranks whose slabs phase 15 enqueues
+DIST_W = 2  # phase 16's ranks
+
+
+def rank_selections(case, w):
+    """Rank w's (sel_idx, n_sel) for phase 15: the flagship selection with
+    classes 1 .. C-1 rolled by w among themselves, so each rank brings other
+    counts to a class; class 0 keeps its 8192 keys on every rank, past its
+    50,000-row ring at 8 ranks."""
+    import torch
+
+    c = case["n_sel"].shape[0]
+    perm = torch.cat([torch.zeros(1, dtype=torch.long),
+                      (torch.arange(c - 1) - w) % (c - 1) + 1]).to(case["n_sel"].device)
+    return case["sel_idx"][perm].contiguous(), case["n_sel"][perm].contiguous()
+
+
+def slab_bytes(counts, sizes, k, f, in_bytes, out_bytes):
+    """(kept rows, bytes) of a slab enqueue: each class's rows up to its
+    queue, read in the slabs' dtype and written in the bank's."""
+    import torch
+
+    kept = int(torch.minimum(torch.clamp(counts, max=k).sum(0), sizes).sum())
+    return kept, kept * f * (in_bytes + out_bytes) + counts.numel() * 4
+
+
+def phase15_slabs(dev, card, case):
+    """K5's gather (each rank's (C, K, F) slab from the teacher's NCHW rep)
+    and slab enqueue (the gathered (W, C, K, F) slabs into the ring) against
+    their plain versions at the VOC bank (21, 50000, 256), K = 8192, in
+    bf16 and f32, for 1, 2, 4 and 8 ranks on a bank whose rings wrap: the
+    gathered rows, keys, ptr and occupancy bit-equal; W = 8 must overflow a
+    ring.  Times each beside its plain version and, for the enqueue, one
+    `index_put_` of the kept rows.  Returns ({key: (ms, plain_ms,
+    library_ms)}, {key: f32_ms}, {key: bound ms}, {W: {...}} per world)."""
+    import torch
+
+    from u2pl_tpu_torch.memobank import (
+        clone_bank, memobank_enqueue_slabs, memobank_enqueue_slabs_plain, memobank_gather,
+        memobank_gather_plain,
+    )
+
+    bank0 = case["bank"]
+    c, cap, f = bank0.keys.shape
+    k = case["sel_idx"].shape[1]
+    times, f32, bounds_ms, per_world = {}, {}, {}, {}
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        rep = case["rep_t"].to(dt)
+        bank = clone_bank(bank0)
+        bank.keys = bank.keys.to(dt)
+        sel = [rank_selections(case, w) for w in range(max(SLAB_WORLDS))]
+        slabs = [memobank_gather(rep, *s) for s in sel]
+        torch.cuda.synchronize()
+        for w, ((idx, n), slab) in enumerate(zip(sel, slabs)):
+            ref = memobank_gather_plain(rep, idx, n)
+            rows = torch.arange(k, device=dev)[None, :] < n[:, None]
+            if not torch.equal(slab[rows], ref[rows]):
+                fail(f"phase 15: K5 gather ({name}) rank {w} differs from its plain version")
+        sel_rows = int(case["n_sel"].sum())
+        gather_ms = cuda_ms(lambda: memobank_gather(rep, *sel[0]))
+        gather_plain = cuda_ms(lambda: memobank_gather_plain(rep, *sel[0]))
+        rb = rep.element_size()
+        gather_bound = (sel_rows * f * 2 * rb + sel_rows * 4) / PEAK_BYTES_S * 1e3
+        log(f"[{card}] phase 15 K5 gather {name} rep {tuple(rep.shape)} -> ({c}, {k}, {f}), "
+            f"{sel_rows} rows: bit-equal; {gather_ms:.4f} ms (plain {gather_plain:.4f}; bytes "
+            f"bound {gather_bound:.4f} ms)")
+        key = f"K5_gather_{name}"
+        times[key], bounds_ms[key] = (gather_ms, gather_plain, None), gather_bound
+        overflow = {}
+        for w in SLAB_WORLDS:
+            stacked = torch.stack(slabs[:w])
+            counts = torch.stack([s[1] for s in sel[:w]])
+            kb = memobank_enqueue_slabs(clone_bank(bank), stacked, counts)
+            pb = memobank_enqueue_slabs_plain(clone_bank(bank), stacked, counts)
+            torch.cuda.synchronize()
+            same = all(torch.equal(getattr(kb, a), getattr(pb, a))
+                       for a in ("keys", "ptr", "occupancy"))
+            total = torch.clamp(counts, max=k).sum(0)
+            overflow[w] = int((total > bank.sizes).sum())
+            wrapped = int((bank.ptr + torch.minimum(total, bank.sizes) > bank.sizes).sum())
+            if not same:
+                fail(f"phase 15: K5 slab enqueue ({name}, W={w}) differs from its plain version")
+            # the library call: one index_put_ of the kept rows at their ring rows
+            first = torch.clamp(total - bank.sizes, min=0)
+            flat = stacked.transpose(0, 1).reshape(c, w * k, f)
+            valid = (torch.arange(k, device=dev)[None, None] < torch.clamp(counts, max=k).t()[:, :, None]
+                     ).reshape(c, w * k)
+            rank = torch.cumsum(valid.int(), 1) - 1
+            keep = valid & (rank >= first[:, None])
+            ring = (torch.arange(c, device=dev)[:, None] * cap
+                    + torch.remainder(bank.ptr[:, None] + rank, bank.sizes[:, None]))[keep]
+            vals = flat[keep].to(bank.keys.dtype)
+            bl, bk, bp = clone_bank(bank), clone_bank(bank), clone_bank(bank)
+            dst = bl.keys.view(c * cap, f)
+            lib_ms = cuda_ms(lambda: dst.index_put_((ring,), vals))
+            ms = cuda_ms(lambda: memobank_enqueue_slabs(bk, stacked, counts))
+            plain_ms = cuda_ms(lambda: memobank_enqueue_slabs_plain(bp, stacked, counts))
+            kept, nbytes = slab_bytes(counts, bank.sizes, k, f, rb, bank.keys.element_size())
+            bound = nbytes / PEAK_BYTES_S * 1e3
+            log(f"[{card}] phase 15 K5 slab enqueue {name}, W={w}: {kept} kept rows of "
+                f"{int(total.sum())}, {overflow[w]} classes past their queue, {wrapped} rings "
+                f"wrapped; keys, ptr, occupancy bit-equal; {ms:.4f} ms (plain {plain_ms:.4f}, "
+                f"index_put_ {lib_ms:.4f}; bytes bound {bound:.4f} ms)")
+            per_world.setdefault(w, {})[name] = {"ms": ms, "plain_ms": plain_ms,
+                                                 "library_ms": lib_ms, "bound_ms": bound,
+                                                 "kept_rows": kept}
+            if w == DIST_W:
+                key = f"K5_slabs_{name}"
+                times[key], bounds_ms[key] = (ms, plain_ms, lib_ms), bound
+            del kb, pb, bk, bp, bl, dst, stacked, flat, vals, ring
+        if overflow[max(SLAB_WORLDS)] == 0:
+            fail(f"phase 15: at W={max(SLAB_WORLDS)} no class took more keys than its queue")
+        del slabs, rep, bank
+    for name in ("gather", "slabs"):
+        f32[f"K5_{name}_bf16"] = times[f"K5_{name}_f32"][0]
+    return times, f32, bounds_ms, per_world
+
+
 def bounds(case, cfg):
     """{kernel: (bound ms, "bytes" or "operations")}: the least time the card
     could take for each timed call, the larger of the bytes it must move
@@ -3769,6 +4148,8 @@ def bounds(case, cfg):
 
 
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--phase16-rank":
+        return phase16_rank(*sys.argv[2:7])
     if not os.path.isdir(os.path.join(ROOT, "u2pl_tpu_torch")):
         fail(f"no u2pl_tpu_torch package beside {__file__}: run from a checkout of the repo")
     sys.path.insert(0, ROOT)
@@ -3834,9 +4215,15 @@ def main() -> int:
         inf_launches, inf_errs, inf_times, inf_f32, inf_run = phase14_bf16_inference(
             dev, card, tmp, f32_evals)
     torch.cuda.empty_cache()
+    slab_times, slab_f32, slab_bounds, slab_worlds = phase15_slabs(dev, card, case)
+    one_rank, one_rank_run = phase16_one_rank_group(dev, card)
+    two_ranks, two_ranks_run = phase16_two_ranks(card)
+    torch.cuda.empty_cache()
     bound = bounds(case, ccfg)
+    bound.update({key: (ms, "bytes") for key, ms in slab_bounds.items()})
     bf_errs.update(inf_errs)
     bf_f32.update(inf_f32)
+    bf_f32.update(slab_f32)
 
     csrc = "u2pl_tpu_torch/kernels/csrc/"
     times.update(train_times)
@@ -3845,6 +4232,7 @@ def main() -> int:
     times.update(variant_times)
     times.update(bf_times)
     times.update(inf_times)
+    times.update(slab_times)
     srv = inf_run["serving"]
     log(f"[{card}] bf16 beside f32, VOC serving at 513² (phase 14): batch-1 latency p50 "
         f"{srv['bfloat16']['p50']:.2f} / p99 {srv['bfloat16']['p99']:.2f} ms vs "
@@ -3859,6 +4247,11 @@ def main() -> int:
         f"{bf_city_run['semi_ms']:.1f} ms, {bf_city_run['img_s']:.2f} img/s, peak "
         f"{bf_city_run['peak'] / 2**30:.2f} GiB vs f32 {city_times_run['semi_ms']:.1f} ms "
         f"(phase 9)")
+    log(f"[{card}] phase 16: the VOC bf16 contrastive semi step, ms per step: no group "
+        f"{one_rank_run['none_ms']}, one-process NCCL group {one_rank_run['group_ms']}; "
+        f"{DIST_W} ranks over {two_ranks_run['backend']} "
+        + "; ".join(f"rank {i} {r['ms']}, peak {r['peak'] / 2**30:.2f} GiB"
+                    for i, r in enumerate(two_ranks_run["reports"])))
     ms = times["K5"][0]
     log(f"[{card}] kernel K5: {ms:.4f} ms, {ms / bound['K5'][0]:.1f}x its row-bytes bound "
         f"{bound['K5'][0]:.4f} ms, {ms / bound['K5_sectors'][0]:.1f}x its NCHW sector bound "
@@ -4036,6 +4429,16 @@ def main() -> int:
         entry("resize_bilinear_ac_bf16_to_f32", "A_bf16_f32", "resize.cu",
               "u2pl_tpu/ops/resize.py:217", inf_launches["A_bf16_f32"], bf_errs["A_bf16_f32"],
               "A_bf16_f32"),
+        # K5's modes for several ranks (phase 15's times at the VOC bank, bf16
+        # slabs into the bf16 bank, the enqueue at DIST_W ranks; each world's
+        # in `by_world`), with their launches on phase 16's data-parallel runs
+        entry("memobank_gather_bf16", "K5_gather_bf16", "memobank.cu",
+              "u2pl_tpu/losses/contrastive.py:259",
+              one_rank["K5_gather"] + two_ranks["K5_gather"], 0.0, "K5_gather_bf16"),
+        {**entry("memobank_enqueue_slabs_bf16", "K5_slabs_bf16", "memobank.cu",
+                 "u2pl_tpu/memobank.py:92", one_rank["K5_slabs"] + two_ranks["K5_slabs"], 0.0,
+                 "K5_slabs_bf16"),
+         "world": DIST_W, "by_world": {str(w): v for w, v in slab_worlds.items()}},
     ]}
     log(card)
     log(json.dumps(report))

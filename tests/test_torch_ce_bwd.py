@@ -227,24 +227,32 @@ def _assert_bf16_flips(got, want, max_frac=0.01):
     scale = torch.maximum(a.abs(), b.abs()).amax(dim=(2, 3), keepdim=True).expand_as(a)
     _, e = torch.frexp(scale)
     ulp = torch.ldexp(torch.ones_like(scale), e - 8)
-    assert ((a - b).abs() <= ulp)[diff].all()
-    assert diff.float().mean().item() <= max_frac
+    gap = ((a - b).abs() / ulp).max().item()
+    frac = diff.float().mean().item()
+    assert gap <= 1, f"bfloat16: largest gap {gap:.3f} ulp of its plane's largest (bound 1)"
+    assert frac <= max_frac, f"bfloat16: {frac:.4f} of the elements differ (bound {max_frac})"
 
 
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("shape,hw", SHAPES)
 def test_upsample_ce_bwd_ordered_matches_plain(shape, hw, weighted):
     """The kernel's ordered formula against the plain version: f32 within
-    1e-6 of the gradient's max (the two differ in summation order and in
-    exp(v - lse) against softmax); bf16 equal but at bf16 rounding
-    boundaries (the full-resolution terms, rounded apart there)."""
+    1e-6 of the gradient's max of the plain version in float64 (the same f32
+    interpolation weights), so the bound holds the ordered formula's own
+    roundings (measured 8.6e-8 to 1.7e-7 of the max) and no longer the f32
+    plain version's library calls too (MKL's sgemm and the vectorised
+    softmax, whose bits may depend on the host's ISA, the thread partition
+    and the operands' alignment); bf16 equal to the bf16 plain version but
+    at bf16 rounding boundaries (the full-resolution terms, rounded apart
+    there).  Each assertion prints its measured gap and dtype."""
     x, lab = _inputs(shape, hw, seed=shape[1] + 7, ignore_frac=0.1)
     cw = torch.rand(shape[1], generator=torch.Generator().manual_seed(3)) if weighted else None
     xt, lt = torch.from_numpy(x), torch.from_numpy(lab)
     got = ce.upsample_ce_bwd_ordered(xt, lt, cw, 255, 0.75)
-    want = ce.upsample_ce_bwd_plain(xt, lt, cw, 255, 0.75)
-    assert got.dtype == torch.float32
-    assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+    want = ce.upsample_ce_bwd_plain(xt.double(), lt, cw, 255, 0.75)
+    assert got.dtype == torch.float32 and want.dtype == torch.float64
+    ratio = (got.double() - want).abs().max().item() / want.abs().max().item()
+    assert ratio <= 1e-6, f"float32 against float64: {ratio:.3e} of the max (bound 1e-6)"
     xb = (xt * 2).to(torch.bfloat16)
     _assert_bf16_flips(ce.upsample_ce_bwd_ordered(xb, lt, cw, 255, 0.75),
                        ce.upsample_ce_bwd_plain(xb, lt, cw, 255, 0.75))

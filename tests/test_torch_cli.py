@@ -24,7 +24,7 @@ import shutil
 import pytest
 import torch
 
-from u2pl_tpu_torch import memobank, train_semi, train_sup
+from u2pl_tpu_torch import dist, memobank, train_semi, train_sup
 from u2pl_tpu_torch.data.synthetic import make_voc_workspace, write_config
 from u2pl_tpu_torch.train import state as state_mod
 from u2pl_tpu_torch.utils.checkpoint import CKPT_BEST_NAME, CKPT_NAME
@@ -221,35 +221,76 @@ class SetupReached(Exception):
 
 @pytest.fixture
 def no_launcher(monkeypatch):
-    for name in train_semi.WORLD_SIZE_VARS:
+    for _, names in dist.LAUNCHERS:
+        for name in names:
+            monkeypatch.delenv(name, raising=False)
+    for name in ("MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(name, raising=False)
+
+
+# each launcher's variables for rank 1 of 2, local rank 1 (torchrun's with its
+# address; SLURM and Open MPI take localhost and the default port)
+LAUNCH_ENV = {
+    "WORLD_SIZE": ({"WORLD_SIZE": "2", "RANK": "1", "LOCAL_RANK": "1",
+                    "MASTER_ADDR": "127.0.0.9", "MASTER_PORT": "29123"}, "tcp://127.0.0.9:29123"),
+    "SLURM_NTASKS": ({"SLURM_NTASKS": "2", "SLURM_PROCID": "1", "SLURM_LOCALID": "1"},
+                     f"tcp://localhost:{dist.DEFAULT_PORT}"),
+    "OMPI_COMM_WORLD_SIZE": ({"OMPI_COMM_WORLD_SIZE": "2", "OMPI_COMM_WORLD_RANK": "1",
+                              "OMPI_COMM_WORLD_LOCAL_RANK": "1"},
+                             f"tcp://localhost:{dist.DEFAULT_PORT}"),
+}
+
+
+class GroupStub:
+    def __init__(self):
+        self.rank, self.size, self.backend = 1, 2, "gloo"
 
 
 @pytest.mark.parametrize("module", [train_semi, train_sup], ids=["semi", "sup"])
 @pytest.mark.parametrize("var", ["WORLD_SIZE", "SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE"])
 def test_multi_process_launch_raises_before_any_state(monkeypatch, no_launcher, module, var):
-    """A launcher's world size above 1 raises before the config is read or
-    any state is built, naming the variable and the queue item that ports
-    multi-GPU: each process would otherwise train its own copy on device 0
-    and write the same checkpoints."""
+    """Each launcher's variables reach `init_distributed`: rank 1 of 2 with
+    `--device cpu` makes a gloo group at the launch's address with rank 1
+    and world size 2, and the setup gets the CPU and that group; with
+    `--device cuda`, local rank 1 has no card of its own (one visible) and
+    the launch raises before the setup and before any group is made."""
+    env, address = LAUNCH_ENV[var]
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    made = []
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: bool(made))
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda backend, init_method, rank, world_size:
+                        made.append((backend, init_method, rank, world_size)))
+    monkeypatch.setattr(dist, "Group", GroupStub)
 
-    def setup(*args, **kw):
-        raise AssertionError("setup ran under a multi-process launch")
+    def setup(args, logger, device, group):
+        raise SetupReached(device, group)
 
     monkeypatch.setattr(module, "setup", setup)
-    monkeypatch.setenv(var, "2")
-    with pytest.raises(RuntimeError, match=f"{var}=2: .*ROADMAP.md queue 1 item 6"):
+    with pytest.raises(SetupReached) as reached:
         module.main(["--config", "config.yaml", "--device", "cpu"])
+    device, group = reached.value.args
+    assert made == [("gloo", address, 1, 2)]
+    assert device == torch.device("cpu") and (group.rank, group.size) == (1, 2)
+
+    made.clear()
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="local rank 1 of a world of 2 has no card of its own"):
+        module.main(["--config", "config.yaml", "--device", "cuda"])
+    assert made == []
 
 
 @pytest.mark.parametrize("module", [train_semi, train_sup], ids=["semi", "sup"])
 def test_single_process_launch_still_starts(monkeypatch, no_launcher, module):
     """A world size of 1 under every launcher's variable (a one-process
-    torchrun, a one-task SLURM or MPI job) goes on to the setup."""
-    for name in train_semi.WORLD_SIZE_VARS:
-        monkeypatch.setenv(name, "1")
+    torchrun, a one-task SLURM or MPI job) goes on to the setup with no
+    group."""
+    for _, (_, world, _) in dist.LAUNCHERS:
+        monkeypatch.setenv(world, "1")
 
-    def setup(*args, **kw):
+    def setup(args, logger, device, group):
+        assert group is None and device == torch.device("cpu")
         raise SetupReached
 
     monkeypatch.setattr(module, "setup", setup)

@@ -1038,6 +1038,45 @@ def test_kernel_memobank_enqueue_more_cases(dtype, b, c, h, w, k, queue, case):
             assert torch.equal(getattr(bank, name), getattr(ref, name)), name
 
 
+@pytest.mark.parametrize("rep_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bank_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("w", [1, 3, 8])
+def test_kernel_memobank_gather_and_slabs_bit_equal(rep_dtype, bank_dtype, w):
+    """K5's modes for several ranks: each rank's gathered slab equal to
+    `gather_rows` below its counts, and the slab enqueue of the W slabs
+    bit-equal to `enqueue_segments` twice in a row, with counts over K, 0,
+    and a class past its queue (the newest `size` rows kept)."""
+    from u2pl_tpu_torch.memobank import (
+        clone_bank, memobank_enqueue_slabs, memobank_enqueue_slabs_plain, memobank_gather,
+        memobank_gather_plain,
+    )
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(20 + w)
+    b, c, h, wd, k, queue = 2, 7, 13, 11, 40, 96
+    rep = torch.randn(b, 256, h, wd, device=dev, generator=g).to(rep_dtype)
+    bank = _prefilled_bank(dev, c, 256, queue, queue, bank_dtype)
+    slabs, counts = [], []
+    for _ in range(w):
+        sel = torch.randint(0, b * h * wd, (c, k), device=dev, generator=g, dtype=torch.int32)
+        n = torch.randint(0, k + 1, (c,), device=dev, generator=g, dtype=torch.int32)
+        n[:3] = torch.tensor([k, 0, k + 9], dtype=torch.int32)
+        slab = memobank_gather(rep, sel, n)
+        ref = memobank_gather_plain(rep, sel, n)
+        rows = torch.arange(k, device=dev)[None, :] < torch.clamp(n, max=k)[:, None]
+        assert slab.dtype == rep_dtype and torch.equal(slab[rows], ref[rows])
+        slabs.append(slab)
+        counts.append(n)
+    slabs, counts = torch.stack(slabs), torch.stack(counts)
+    ref = clone_bank(bank)
+    for _ in range(2):
+        ref = memobank_enqueue_slabs_plain(ref, slabs, counts)
+        bank = memobank_enqueue_slabs(bank, slabs, counts)
+        torch.cuda.synchronize()
+        for name in ("keys", "ptr", "occupancy"):
+            assert torch.equal(getattr(bank, name), getattr(ref, name)), name
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m", [1, 7, 13, 50, 67])
 def test_kernel_infonce_fwd_groups_match_plain_and_repeat(dtype, m):

@@ -708,7 +708,7 @@ def test_steps_module_imports_no_jax():
 import ast, importlib, pkgutil, sys
 import u2pl_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(u2pl_tpu_torch.__path__, "u2pl_tpu_torch.")]
-assert {"u2pl_tpu_torch.train.steps", "u2pl_tpu_torch.memobank",
+assert {"u2pl_tpu_torch.train.steps", "u2pl_tpu_torch.memobank", "u2pl_tpu_torch.dist",
         "u2pl_tpu_torch.losses.ohem", "u2pl_tpu_torch.train_semi", "u2pl_tpu_torch.train_sup",
         "u2pl_tpu_torch.data.loader", "u2pl_tpu_torch.data.native",
         "u2pl_tpu_torch.train.validate", "u2pl_tpu_torch.utils.checkpoint",

@@ -1,11 +1,14 @@
 """Dataset and prefetching batch loader of the host data pipeline (port of
-u2pl_tpu/data/loader.py, one process).
+u2pl_tpu/data/loader.py).
 
 In place of torch's DataLoader / DistributedSampler (reference
 pascal_voc.py:74-157): a worker pool decodes and augments the next batches
 while the card computes the current step; the epoch's order is a
 permutation seeded by (seed + epoch), as in the JAX package, so both give
-the same batches of indices.
+the same batches of indices.  Data-parallel, `batch_size` is per rank (the
+reference's per-GPU batch): the global batch is batch_size x
+`process_count`, and rank `process_index` assembles its slice of each
+(loader.py:104-200).
 
 Two worker modes (`dataset.workers_mode`):
   thread   (the default) an in-process thread pool; the transforms draw
@@ -104,11 +107,14 @@ def task_seed(seed: int, epoch: int, batch: int) -> int:
 class EpochLoader:
     """Iterates one epoch's batches with background prefetch; drop_last as
     the reference's train loaders (pascal_voc.py:136-156).  One process
-    feeds one card, so `batch_size` is the whole batch."""
+    feeds one card: `batch_size` is its share of a global batch of
+    batch_size x process_count, whose slice `process_index` it assembles,
+    each batch with the draws the JAX loader gives that slice; the epoch's
+    length counts global batches."""
 
     def __init__(self, dataset: SegDataset, batch_size: int, seed: int = 0, shuffle: bool = True,
                  drop_last: bool = True, workers: int = 2, prefetch: int = 2,
-                 workers_mode: str = "thread"):
+                 workers_mode: str = "thread", process_index: int = 0, process_count: int = 1):
         if workers_mode not in ("thread", "process"):
             raise ValueError(f"workers_mode must be thread|process, got {workers_mode!r}")
         self.dataset = dataset
@@ -119,6 +125,9 @@ class EpochLoader:
         self.workers = max(workers, 1)
         self.prefetch = prefetch
         self.workers_mode = workers_mode
+        self.process_index = process_index
+        self.process_count = process_count
+        self.global_batch = batch_size * process_count
         self._proc_pool: Optional[futures.ProcessPoolExecutor] = None
 
     def _get_proc_pool(self) -> futures.ProcessPoolExecutor:
@@ -140,13 +149,19 @@ class EpochLoader:
             self._proc_pool = None
 
     def __len__(self):
-        n = len(self.dataset)
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        n, gb = len(self.dataset), self.global_batch
+        return n // gb if self.drop_last else -(-n // gb)
 
     def epoch(self, epoch: int) -> Iterator[tuple]:
         idx = epoch_indices(len(self.dataset), epoch, self.seed, self.shuffle)
-        bs = self.batch_size
-        batches = [idx[i * bs : (i + 1) * bs] for i in range(len(self))]
+        gb = self.global_batch
+        batches = [idx[i * gb : (i + 1) * gb] for i in range(len(self))]
+        if self.process_count > 1:
+            lo = self.process_index * self.batch_size
+            # a ragged last batch (drop_last=False) may leave a later rank
+            # nothing: that batch is skipped there
+            batches = [b[lo : lo + self.batch_size] for b in batches]
+            batches = [b for b in batches if len(b)]
         nb = len(batches)
         pending: "queue_mod.Queue" = queue_mod.Queue()
         if self.workers_mode == "process":
@@ -180,9 +195,10 @@ class EpochLoader:
                 ex.shutdown(wait=False, cancel_futures=True)
 
 
-def build_loaders(cfg: Config, seed: int = 0):
+def build_loaders(cfg: Config, seed: int = 0, process_index: int = 0, process_count: int = 1):
     """The reference's get_loader (dataset/builder.py:9-43): (sup, unsup,
-    val) for the *_semi dataset types, else (sup, val).
+    val) for the *_semi dataset types, else (sup, val); rank
+    `process_index` of `process_count` assembles its slice of each batch.
 
     The unlabeled list is the labeled one with "labeled.txt" ->
     "unlabeled.txt" (pascal_voc.py:131), and both train loaders sample
@@ -193,7 +209,8 @@ def build_loaders(cfg: Config, seed: int = 0):
         return build_transform(split_cfg, d.mean, d.std, d.ignore_label,
                                output_u8=d.device_normalize)
 
-    common = dict(workers=d.workers, workers_mode=d.workers_mode)
+    common = dict(workers=d.workers, workers_mode=d.workers_mode, process_index=process_index,
+                  process_count=process_count)
     val_ds = SegDataset(d.val.data_root, d.val.data_list, mk(d.val), seed, None, "val")
     val_loader = EpochLoader(val_ds, d.batch_size, seed, shuffle=False, drop_last=False, **common)
     if d.is_semi:

@@ -62,6 +62,11 @@ def load():
         # (rep, sel_idx, n_sel, keys, ptr, occ, sizes, ticket, B, F, HW, C, K,
         #  cap, dtype, rep_dtype, tile, stream)
         "u2pl_memobank_enqueue": [p] * 8 + [i] * 9 + [p],
+        # (rep, sel_idx, n_sel, slab, B, F, HW, C, K, rep_dtype, stream)
+        "u2pl_memobank_gather": [p] * 4 + [i] * 6 + [p],
+        # (slabs, counts, keys, ptr, occ, sizes, ticket, W, F, C, K, cap, dtype,
+        #  slab_dtype, stream)
+        "u2pl_memobank_enqueue_slabs": [p] * 7 + [i] * 7 + [p],
         # (rep, anchor_idx, pos, keys, occ, b_j, u_neg, active, valid_seg, ce,
         #  gdir, loss, ticket, B, F, HW, C, Q, M, cap, dtype, rep_dtype, group,
         #  temperature, stream)
@@ -92,7 +97,7 @@ def load():
 
 
 # the words of `tickets`: one per kernel that sums or updates in its last
-# block; K7 prob's ticket is followed by the word its blocks count into,
+# block (K5's modes share one: launches on a stream run one after another); K7 prob's ticket is followed by the word its blocks count into,
 # K4 masks' by the 2 x 32 words of its per-class counts, K3c's by the 64
 # u64 presence words of its samples (8-aligned: the tensor is)
 TICKET_INFONCE_FWD = 0

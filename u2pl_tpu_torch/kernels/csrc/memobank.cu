@@ -51,6 +51,26 @@
 // (half the sector bytes), widens each value to f32 exactly and stores it
 // as above: the same rows, bit for bit.  One kernel: R is a template
 // parameter, picked by the host's `rep_dtype` code.
+//
+// Several ranks (data-parallel training, u2pl_tpu/losses/contrastive.py:
+// 259-273): each rank's keys cross to every other rank, so the fused read of
+// the rep cannot serve them.  Two more kernels, the (C, K, F) slab between:
+// - the gather (mode a): each rank writes its own slab from the NCHW rep at
+//   sel_idx, in the rep's dtype, as JAX's `rep_t_f[sel_idx]`; rows past
+//   n_sel[c] are never read downstream, so they are not written.  A block
+//   owns kGatherRows rows of one class; a thread takes (row, 8-feature
+//   chunk) items, chunks fastest, so a warp stores one 512-byte bf16 row
+//   (F = 256) with 16-byte stores; each of its 8 loads is a sector of its
+//   own (the rep is NCHW), as in the fused mode;
+// - the slab enqueue (mode b): the all-gathered (W, C, K, F) slabs and the
+//   (W, C) counts ring-written per class in (rank, row) order, keeping the
+//   newest `size` when W * K rows exceed the queue (u2pl_tpu/memobank.py:
+//   50-89; at 8 ranks, 8 x 8192 > 50,000).  A block owns (a tile of
+//   kSlabRows rows, rank w, class c): the rows before it in the class's
+//   order are the counts of the ranks below w, so each block places its own
+//   rows with no pass over the others; 16-byte loads and stores, cast to
+//   the bank's type as above; the last block moves ptr and occupancy.
+// Both are plain copies: the bound is the kept rows' bytes, read and written.
 
 #include <cuda_bf16.h>
 
@@ -182,6 +202,114 @@ __global__ void __launch_bounds__(kThreads) mb_enqueue_kernel(
   }
 }
 
+constexpr int kGatherRows = 32;  // slab rows a gather block writes
+constexpr int kSlabRows = 32;  // slab rows a slab-enqueue block writes
+
+// 8 consecutive values of type R at p (16-byte aligned) widened to f32, and back
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 a = reinterpret_cast<const uint4*>(p)[0];
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// a slab row's 8 values, stored in the rep's own type (exact: they came from it)
+__device__ __forceinline__ void put8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ void put8(__nv_bfloat16* p, const float (&v)[8]) {
+  uint4 o;
+  o.x = pack_bf16x2(v[0], v[1]);
+  o.y = pack_bf16x2(v[2], v[3]);
+  o.z = pack_bf16x2(v[4], v[5]);
+  o.w = pack_bf16x2(v[6], v[7]);
+  reinterpret_cast<uint4*>(p)[0] = o;
+}
+
+// mode a: slab[c, r] = rep row at sel_idx[c, r], r < min(n_sel[c], K)
+template <typename R>
+__global__ void __launch_bounds__(kThreads) mb_gather_kernel(
+    const R* __restrict__ rep, const int* __restrict__ sel_idx,
+    const int* __restrict__ n_sel, R* __restrict__ slab, int F, int HW, int K) {
+  const int c = blockIdx.y;
+  const int r0 = (int)blockIdx.x * kGatherRows;
+  const int rows = min(min(n_sel[c], K) - r0, kGatherRows);
+  if (rows <= 0) return;
+  const int chunks = F / 8;
+  for (int it = threadIdx.x; it < rows * chunks; it += kThreads) {
+    const int r = r0 + it / chunks, f0 = (it % chunks) * 8;
+    const int pix = sel_idx[(size_t)c * K + r];
+    const int b = pix / HW;
+    const R* src = rep + ((size_t)b * F + f0) * HW + (pix - b * HW);
+    float v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = u2pl::to_f32(src[(size_t)i * HW]);
+    put8(slab + ((size_t)c * K + r) * F + f0, v);
+  }
+}
+
+// mode b: the (W, C, K, F) slabs' kept rows into the ring, (rank, row) order
+template <typename R>
+__global__ void __launch_bounds__(kThreads) mb_enqueue_slabs_kernel(
+    const R* __restrict__ slabs, const int* __restrict__ counts, void* __restrict__ keys,
+    int* __restrict__ ptr, int* __restrict__ occ, const int* __restrict__ sizes,
+    unsigned* ticket, int F, int W, int C, int K, int cap, int dtype) {
+  const int w = blockIdx.y, c = blockIdx.z;
+  __shared__ int before, total, p0, size;
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    int lo = 0, all = 0;
+    for (int v = 0; v < W; ++v) {
+      const int n = min(counts[v * C + c], K);
+      lo += v < w ? n : 0;
+      all += n;
+    }
+    before = lo;
+    total = all;
+    p0 = ptr[c];
+    size = sizes[c];
+  }
+  __syncthreads();
+  // this block's rows [r0, r1) of slab (w, c); rank before + r in the
+  // class's order, kept from rank total - size on
+  const int t0 = (int)blockIdx.x * kSlabRows;
+  const int r0 = max(t0, total - size - before);
+  const int r1 = min(t0 + kSlabRows, min(counts[w * C + c], K));
+  const int chunks = F / 8;
+  for (int it = threadIdx.x; it < (r1 - r0) * chunks; it += kThreads) {
+    const int r = r0 + it / chunks, f0 = (it % chunks) * 8;
+    float v[8];
+    load8(slabs + (((size_t)w * C + c) * K + r) * F + f0, v);
+    store8(keys, (long long)c * cap + (p0 + before + r) % size, F, f0, v, dtype);
+  }
+  // the last block to finish moves ptr and occupancy: every block read ptr
+  // before its ticket
+  __syncthreads();
+  const unsigned blocks = gridDim.x * gridDim.y * gridDim.z;
+  if (threadIdx.x == 0) last = atomicInc(ticket, blocks - 1) == blocks - 1;
+  __syncthreads();
+  if (!last) return;
+  for (int k = threadIdx.x; k < C; k += kThreads) {
+    int all = 0;
+    for (int v = 0; v < W; ++v) all += min(counts[v * C + k], K);
+    ptr[k] = (ptr[k] + all) % sizes[k];
+    occ[k] = min(occ[k] + all, sizes[k]);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -210,6 +338,48 @@ int u2pl_memobank_enqueue(const void* rep, const void* sel_idx,
         (const float*)rep, (const int*)sel_idx, (const int*)n_sel, keys, (int*)ptr,
         (int*)occ, (const int*)sizes, (unsigned*)ticket, F, HW, C, K, cap, dtype, tile,
         pixels);
+  }
+  return (int)cudaGetLastError();
+}
+
+int u2pl_memobank_gather(const void* rep, const void* sel_idx, const void* n_sel, void* slab,
+                         int B, int F, int HW, int C, int K, int rep_dtype, void* stream) {
+  // slab: (C, K, F) in the rep's dtype (0 float32, 1 bfloat16)
+  if (B <= 0 || F <= 0 || F % 8 || HW <= 0 || C <= 0 || C > 65535 || K <= 0 ||
+      (rep_dtype != 0 && rep_dtype != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((K + kGatherRows - 1) / kGatherRows, C);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (rep_dtype == 1) {
+    mb_gather_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        (const __nv_bfloat16*)rep, (const int*)sel_idx, (const int*)n_sel,
+        (__nv_bfloat16*)slab, F, HW, K);
+  } else {
+    mb_gather_kernel<float><<<grid, kThreads, 0, st>>>(
+        (const float*)rep, (const int*)sel_idx, (const int*)n_sel, (float*)slab, F, HW, K);
+  }
+  return (int)cudaGetLastError();
+}
+
+int u2pl_memobank_enqueue_slabs(const void* slabs, const void* counts, void* keys, void* ptr,
+                                void* occ, const void* sizes, void* ticket, int W, int F, int C,
+                                int K, int cap, int dtype, int slab_dtype, void* stream) {
+  // slabs (W, C, K, F) in slab_dtype, counts (W, C); dtype: the bank's
+  if (W <= 0 || W > 65535 || F <= 0 || F % 8 || C <= 0 || C > 65535 || K <= 0 || cap <= 0 ||
+      (dtype != 0 && dtype != 1) || (slab_dtype != 0 && slab_dtype != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((K + kSlabRows - 1) / kSlabRows, W, C);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (slab_dtype == 1) {
+    mb_enqueue_slabs_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        (const __nv_bfloat16*)slabs, (const int*)counts, keys, (int*)ptr, (int*)occ,
+        (const int*)sizes, (unsigned*)ticket, F, W, C, K, cap, dtype);
+  } else {
+    mb_enqueue_slabs_kernel<float><<<grid, kThreads, 0, st>>>(
+        (const float*)slabs, (const int*)counts, keys, (int*)ptr, (int*)occ, (const int*)sizes,
+        (unsigned*)ticket, F, W, C, K, cap, dtype);
   }
   return (int)cudaGetLastError();
 }

@@ -99,22 +99,24 @@ def upsample_ce_bwd_plain(
     coef = w[y] g / max(denom, floor) and 0 where y is ignored or outside
     [0, C), then applies A-bwd's plain version.  bf16 logits: `up` is the
     bf16 upsample, the full-resolution gradient is rounded to bf16, the
-    adjoint is f32 and the result bf16."""
+    adjoint is f32 and the result bf16.  float64 logits: every step in
+    float64 (the same f32 interpolation weights), a reference."""
     c, h, w = logits.shape[1:]
-    up = resize_bilinear_plain(logits, labels.shape[1:]).float()
+    up = resize_bilinear_plain(logits, labels.shape[1:])
+    up = up if up.dtype == torch.float64 else up.float()
     y = labels.long()
     valid = (y != ignore_label) & (y >= 0) & (y < c)
     safe = torch.where(valid, y, torch.zeros_like(y))
     if class_weight is None:
-        wy, floor = valid.float(), 1.0
+        wy, floor = valid.to(up.dtype), 1.0
     else:
         wy, floor = class_weight.to(up)[safe] * valid, 1e-12
     denom = wy.sum()
-    g = torch.as_tensor(g, dtype=torch.float32, device=up.device)
+    g = torch.as_tensor(g, dtype=up.dtype, device=up.device)
     scale = torch.where(denom > 0, g / torch.clamp(denom, min=floor), torch.zeros_like(g))
     onehot = torch.nn.functional.one_hot(safe, c).permute(0, 3, 1, 2).to(up)
     gfull = (torch.softmax(up, dim=1) - onehot) * (wy * scale)[:, None]
-    if logits.dtype != torch.float32:
+    if logits.dtype == torch.bfloat16:
         gfull = gfull.to(logits.dtype).float()
     return resize_bilinear_bwd_plain(gfull, (h, w)).to(logits.dtype)
 

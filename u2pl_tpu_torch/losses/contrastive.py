@@ -36,7 +36,10 @@ The device functions and their kernels (CUDA C++, sm_90a):
   sample_anchors       K4: per position the with-replacement anchor draws
                        mapped to set pixels of the anchor mask (one thread
                        block cluster per position);
-  memobank_enqueue     K5 (`memobank.py`, `kernels/csrc/memobank.cu`);
+  memobank_enqueue     K5 (`memobank.py`, `kernels/csrc/memobank.cu`); under
+                       a process group its gather and slab modes around
+                       the all_gather (`memobank_gather`,
+                       `memobank_enqueue_slabs`);
   contra_infonce       K6 (`kernels/csrc/infonce.cu`): the bank sample, the
                        cosines, the log-softmax CE to the positive and the
                        masked mean, forward and backward.
@@ -62,12 +65,15 @@ from typing import Tuple
 
 import torch
 
+from u2pl_tpu_torch import dist
 from u2pl_tpu_torch.config import ContrastiveCfg
 from u2pl_tpu_torch.memobank import (
     BANK_DTYPE_CODES,
     MemoryBank,
     gather_rows,
     memobank_enqueue,
+    memobank_enqueue_slabs,
+    memobank_gather,
     sample,
 )
 from u2pl_tpu_torch.ops.one_hot import label_onehot
@@ -772,10 +778,16 @@ def compute_contra_memobank_loss(
     ignore_label: int = 255,
     strict_reference: bool = True,
     return_info: bool = False,
+    group=None,
 ):
-    """The JAX `compute_contra_memobank_loss` with `axis_name=None`
-    (contrastive.py:168-398) on one device.  rep (B, F, h, w) the student's
-    representation (gradients flow); label_l / label_u (B_l / B_u, h, w)
+    """The JAX `compute_contra_memobank_loss` (contrastive.py:168-398): with
+    `group` None, `axis_name=None` on one device; with a `dist.Group`, under
+    the data axis: every rank's (C, K, F) key slab and (C,) counts are
+    all-gathered (:259-273) and written in rank order into every rank's
+    bank, and the loss's value is the ranks' mean while its gradient is
+    d(local / W) (:380-392, the reference's in-place all_reduce).  rep (B,
+    F, h, w) the student's representation (gradients flow); label_l /
+    label_u (B_l / B_u, h, w)
     int32 small labels with `ignore_label` (one-hot inside); prob_l / prob_u
     (B_*, C, h, w) the teacher's softmax; low_mask / high_mask (B, h, w)
     bool; rep_teacher (B, F, h, w) (no gradient); draws as the module
@@ -813,7 +825,11 @@ def compute_contra_memobank_loss(
     # enqueue this step's negative keys, then sample the bank (:250-292)
     select = select_keys_radix if cfg.select_keys == "radix" else select_keys
     sel_idx, n_sel = select(negative_mask, pri, cfg.max_keys_per_class_per_step)
-    memobank_enqueue(bank, rep_teacher, sel_idx, n_sel)
+    if group is None:
+        memobank_enqueue(bank, rep_teacher, sel_idx, n_sel)
+    else:
+        slab = memobank_gather(rep_teacher, sel_idx, n_sel)
+        memobank_enqueue_slabs(bank, dist.all_gather(slab, group), dist.all_gather(n_sel, group))
 
     b_j = valid_classes_first(class_valid)
     a_j = torch.arange(c, dtype=torch.int32, device=b_j.device) if strict_reference else b_j
@@ -826,6 +842,11 @@ def compute_contra_memobank_loss(
     )
     loss = contra_infonce(rep, anchor_idx, positive, bank, b_j, u_neg, active, valid_seg,
                           cfg.temperature)
+    if group is not None:
+        # value: the ranks' mean; gradient: d(local / W), as torch's
+        # untracked in-place all_reduce gives it (contrastive.py:380-392)
+        local = loss / float(group.size)
+        loss = local - local.detach() + dist.all_mean(loss.detach(), group)
     if return_info:
         return bank, loss, {"neg_candidates": neg_candidates}
     return bank, loss

@@ -17,7 +17,12 @@ with the random draws as an argument.  The train step's write is
 `memobank_enqueue`: kernel K5 (`kernels/csrc/memobank.cu`) on the card,
 which gathers the selected rows of the teacher's NCHW representation and
 writes them into the ring in one pass; on a CPU tensor, the gather and
-`enqueue_segments`.
+`enqueue_segments`.  Under a process group (data-parallel training) every
+rank's keys enter every rank's bank, so the write takes K5's two other
+modes around the all_gather (u2pl_tpu/losses/contrastive.py:259-273):
+`memobank_gather` writes the rank's (C, K, F) slab, and
+`memobank_enqueue_slabs` ring-writes the gathered (W, C, K, F) slabs; on
+CPU tensors, `gather_rows` and `enqueue_segments`.
 """
 
 from __future__ import annotations
@@ -201,3 +206,109 @@ def memobank_enqueue(
 
 
 memobank_enqueue.launches = 0
+
+
+def memobank_gather_plain(rep_teacher: torch.Tensor, sel_idx: torch.Tensor,
+                          n_sel: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K5's gather: the (C, K, F) slab
+    `rep_t_f[sel_idx]` (contrastive.py:259) in the rep's dtype, every row
+    (the kernel writes the rows below n_sel alone)."""
+    return gather_rows(rep_teacher.detach(), sel_idx)
+
+
+def memobank_gather(rep_teacher: torch.Tensor, sel_idx: torch.Tensor,
+                    n_sel: torch.Tensor) -> torch.Tensor:
+    """This rank's (C, K, F) slab of keys for the all_gather: row r of class
+    c is the teacher representation's row at pixel sel_idx[c, r], in the
+    rep's dtype (f32 or bf16), for r < n_sel[c]; the rows past n_sel[c] are
+    left unwritten on the card (nothing reads them).  On the card, K5's
+    gather mode (memobank.cu: a block per 32 rows of a class)."""
+    if sel_idx.dim() != 2 or n_sel.shape != sel_idx.shape[:1] or rep_teacher.dim() != 4:
+        raise ValueError(f"memobank_gather: rep {tuple(rep_teacher.shape)}, sel_idx "
+                         f"{tuple(sel_idx.shape)}, n_sel {tuple(n_sel.shape)}")
+    rep_teacher = rep_teacher.detach()
+    if rep_teacher.device.type == "cpu":
+        return memobank_gather_plain(rep_teacher, sel_idx, n_sel)
+    from u2pl_tpu_torch.ops.resize import F32_BF16, _check_cuda
+
+    _check_cuda(rep_teacher, 4, "memobank_gather rep_teacher", F32_BF16)
+    dev = rep_teacher.device
+    for name, t in (("sel_idx", sel_idx), ("n_sel", n_sel)):
+        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"memobank_gather: {name} must be contiguous int32 on {dev}")
+    from u2pl_tpu_torch.kernels import check, load
+
+    lib = load()
+    b, f, h, w = rep_teacher.shape
+    c, k = sel_idx.shape
+    slab = torch.empty((c, k, f), dtype=rep_teacher.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.u2pl_memobank_gather(
+            rep_teacher.data_ptr(), sel_idx.data_ptr(), n_sel.data_ptr(), slab.data_ptr(),
+            b, f, h * w, c, k, BANK_DTYPE_CODES[rep_teacher.dtype],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    check(lib, err, "memobank_gather launch")
+    memobank_gather.launches += 1
+    return slab
+
+
+memobank_gather.launches = 0
+
+
+def memobank_enqueue_slabs_plain(bank: MemoryBank, slabs: torch.Tensor,
+                                 counts: torch.Tensor) -> MemoryBank:
+    """Plain PyTorch version of K5's slab enqueue: `enqueue_segments` of the
+    (W, C, K, F) slabs as (C, W, K, F) with the (W, C) counts as (C, W)."""
+    return enqueue_segments(bank, slabs.transpose(0, 1), counts.t())
+
+
+def memobank_enqueue_slabs(bank: MemoryBank, slabs: torch.Tensor,
+                           counts: torch.Tensor) -> MemoryBank:
+    """Ring-write every rank's keys: slabs (W, C, K, F) f32 or bf16, the
+    all-gathered `memobank_gather` slabs; counts (W, C) int32, the rows of
+    each that are keys.  Class c takes the kept rows in (rank, row) order,
+    the newest `size` when they are more (memobank.py:50-113), cast to the
+    bank's dtype as `memobank_enqueue` casts them.  In place.  On the card,
+    K5's slab mode (memobank.cu: a block per (32 rows, rank, class); its
+    last block moves `ptr` and `occupancy`)."""
+    c, cap, f = bank.keys.shape
+    if slabs.dim() != 4 or slabs.shape[1:] != (c, slabs.shape[2], f) or \
+            counts.shape != (slabs.shape[0], c):
+        raise ValueError(f"memobank_enqueue_slabs: bank {tuple(bank.keys.shape)}, slabs "
+                         f"{tuple(slabs.shape)}, counts {tuple(counts.shape)}")
+    if slabs.device.type == "cpu":
+        return memobank_enqueue_slabs_plain(bank, slabs, counts)
+    from u2pl_tpu_torch.ops.resize import F32_BF16, _check_cuda
+
+    _check_cuda(slabs, 4, "memobank_enqueue_slabs slabs", F32_BF16)
+    dev = slabs.device
+    for name, t in (("counts", counts), ("ptr", bank.ptr), ("occupancy", bank.occupancy),
+                    ("sizes", bank.sizes)):
+        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"memobank_enqueue_slabs: {name} must be contiguous int32 on {dev}")
+    if bank.keys.device != dev or not bank.keys.is_contiguous():
+        raise ValueError("memobank_enqueue_slabs: the bank must be contiguous on the slabs' device")
+    dtype_code = BANK_DTYPE_CODES.get(bank.keys.dtype)
+    if dtype_code is None:
+        raise TypeError(f"memobank_enqueue_slabs: bank dtype {bank.keys.dtype} (float32 or "
+                        "bfloat16)")
+    if bank.keys.numel() >= 2**31:
+        raise ValueError("memobank_enqueue_slabs: the bank exceeds the int32 sizes")
+    from u2pl_tpu_torch.kernels import TICKET_MEMOBANK, check, load, tickets
+
+    lib = load()
+    w, _, k, _ = slabs.shape
+    with torch.cuda.device(dev):
+        err = lib.u2pl_memobank_enqueue_slabs(
+            slabs.data_ptr(), counts.data_ptr(), bank.keys.data_ptr(), bank.ptr.data_ptr(),
+            bank.occupancy.data_ptr(), bank.sizes.data_ptr(),
+            tickets(dev)[TICKET_MEMOBANK].data_ptr(), w, f, c, k, cap, dtype_code,
+            BANK_DTYPE_CODES[slabs.dtype], torch.cuda.current_stream(dev).cuda_stream,
+        )
+    check(lib, err, "memobank_enqueue_slabs launch")
+    memobank_enqueue_slabs.launches += 1
+    return bank
+
+
+memobank_enqueue_slabs.launches = 0

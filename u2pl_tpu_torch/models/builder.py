@@ -19,7 +19,7 @@ from torch import nn
 
 from u2pl_tpu_torch.config import NetCfg
 from u2pl_tpu_torch.models.decoder import AuxHead, DeepLabV3, DeepLabV3Plus, Dropout2d
-from u2pl_tpu_torch.models.resnet import ResNet, resnet_spec
+from u2pl_tpu_torch.models.resnet import BatchNorm2d, ResNet, resnet_spec
 
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -149,3 +149,14 @@ def build_model(
     model = model.to_empty(device="cpu")
     init_weights(model, generator or torch.Generator().manual_seed(0))
     return model.to(device)
+
+
+def sync_batch_norm(model: nn.Module, group) -> nn.Module:
+    """Every BatchNorm of `model` (encoder, decoder and aux head, as the JAX
+    `build_model` passes `axis_name` to each norm, builder.py:92-99) takes
+    its train-mode statistics over `group` (a `dist.Group`; None: the
+    local batch).  The caller gates it on `net.sync_bn`."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.sync_group = group
+    return model

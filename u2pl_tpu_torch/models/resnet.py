@@ -61,9 +61,24 @@ class BatchNorm2d(nn.BatchNorm2d):
     14% at n = 8 in the ASPP image-pool BN of a 4+4 step.  Normalisation
     itself (by the biased batch variance) is torch's own.  A bf16 input is
     normalised in float32 (its statistics too) and the result cast back
-    once, as flax's `_normalize` does under `dtype=bf16`."""
+    once, as flax's `_normalize` does under `dtype=bf16`.
+
+    SyncBN: with `sync_group` set to a group of W > 1 ranks (`net.sync_bn`,
+    `models.builder.sync_batch_norm`), a train-mode forward takes the
+    statistics of all the ranks' batches as flax's `_compute_stats` does
+    under `axis_name` (flax 0.12.3, fast variance): E[x] and E[x²] of the
+    local batch in float32, one all_reduce of the two stacked (the sum / W,
+    JAX's pmean), var = max(0, E[x²] - E[x]²); the output (x - mean) *
+    (rsqrt(var + eps) * scale) + bias, and the running statistics move
+    towards the global mean and biased variance.  The gradient flows
+    through the all_reduce (its transpose sums the ranks' cotangents).  An
+    eval-mode forward uses the running statistics and syncs nothing."""
+
+    sync_group = None  # a u2pl_tpu_torch.dist.Group, or None: this process's batch
 
     def forward(self, x):
+        if self.training and self.sync_group is not None and self.sync_group.size > 1:
+            return self._forward_sync(x).to(x.dtype)
         if x.dtype != torch.float32:
             return self._forward_f32(x.float()).to(x.dtype)
         return self._forward_f32(x)
@@ -72,11 +87,31 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.detach().float(), dim=(0, 2, 3), unbiased=False)
-            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
-            self.num_batches_tracked.add_(1)
+        self._track(*torch.var_mean(x.detach().float(), dim=(0, 2, 3), unbiased=False)[::-1])
+        return y
+
+    @torch.no_grad()
+    def _track(self, mean, var):
+        self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+        self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+        self.num_batches_tracked.add_(1)
+
+    def _forward_sync(self, x):
+        """The output in float32.  A bf16 x is widened twice, as flax does
+        (once for the statistics, once for x - mean), so its two
+        cotangents are rounded to bf16 apart and added in bf16 (JAX's
+        add_any); on an f32 x both are x itself."""
+        from u2pl_tpu_torch.dist import all_sum_grad
+
+        group = self.sync_group
+        xs = x.float()
+        local = torch.stack([xs.mean(dim=(0, 2, 3)), (xs * xs).mean(dim=(0, 2, 3))])
+        mean, mean2 = (all_sum_grad(local, group) / float(group.size)).unbind(0)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x.float() - mean[None, :, None, None]) * mul[None, :, None, None] \
+            + self.bias[None, :, None, None]
+        self._track(mean.detach(), var.detach())
         return y
 
 

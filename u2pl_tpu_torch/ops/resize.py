@@ -175,9 +175,16 @@ def _ranges_np(in_size: int, out_size: int, align_corners: bool) -> np.ndarray:
 
 
 def _dense(in_size: int, out_size: int, align_corners: bool, like: torch.Tensor):
-    return torch.from_numpy(_interp_matrix_np(in_size, out_size, align_corners)).to(
-        like.device
-    )
+    """The f32 interpolation matrix on `like`'s device, widened to float64
+    for a float64 `like` (the plain versions' float64 references)."""
+    w = torch.from_numpy(_interp_matrix_np(in_size, out_size, align_corners)).to(like.device)
+    return w.double() if like.dtype == torch.float64 else w
+
+
+def _wide_float(x: torch.Tensor) -> torch.Tensor:
+    """x in the plain versions' arithmetic: float64 stays float64 (a
+    reference), anything else goes to float32."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def resize_bilinear_plain(
@@ -189,13 +196,14 @@ def resize_bilinear_plain(
     f32, the result cast to `out_dtype` (x's dtype by default), and in the
     bf16 wide branch the intermediate rounded to bf16 too (every product
     there is exact).  bf16 `x` with `out_dtype` float32 is the f32 version
-    on the exact upcast."""
+    on the exact upcast; a float64 `x` is resized in float64 (the same f32
+    weights), a reference."""
     _, c, h, w = x.shape
     oh, ow = int(size[0]), int(size[1])
     out_dtype = _out_dtype(x, out_dtype)
     wh = _dense(h, oh, align_corners, x)
     ww = _dense(w, ow, align_corners, x)
-    y = torch.einsum("oh,bchw->bcow", wh, x.float())
+    y = torch.einsum("oh,bchw->bcow", wh, _wide_float(x))
     if _wide(out_dtype, c, (h, w), (oh, ow), align_corners):
         y = y.to(x.dtype).float()
     y = torch.einsum("pw,bcow->bcop", ww, y)
@@ -244,12 +252,13 @@ def resize_bilinear_bwd_plain(
     `resize_bilinear_plain`, the two einsums with the transposed dense
     matrices in reverse order (W first), as XLA's VJP of the JAX function;
     in the bf16 wide branch the W sum rounded to bf16 (its jaxpr's
-    convert_element_type), the result in gy's dtype."""
+    convert_element_type), the result in gy's dtype (float64: a float64
+    reference)."""
     _, c, oh, ow = gy.shape
     h, w = int(in_size[0]), int(in_size[1])
     wh = _dense(h, oh, align_corners, gy)
     ww = _dense(w, ow, align_corners, gy)
-    g = torch.einsum("pw,bcop->bcow", ww, gy.float())
+    g = torch.einsum("pw,bcop->bcow", ww, _wide_float(gy))
     if _wide(gy.dtype, c, (h, w), (oh, ow), align_corners):
         g = g.to(gy.dtype).float()
     g = torch.einsum("oh,bcow->bchw", wh, g)

@@ -31,6 +31,18 @@ back to the host.  The anatomy follows the JAX steps line by line:
 train_semi.py does; the CLIs (`u2pl_tpu_torch.train_semi`, `train_sup`)
 drive it and `make_sup_step` from the data loaders.
 
+Data-parallel (`group`, a `dist.Group` of W ranks, one process per card;
+the JAX steps' `shard_map` over the "data" axis): each rank steps on its
+own slice of the global batch with its own draws (`step_generator` with
+the rank folded in, steps.py:121, :186, :276); the model's BatchNorm
+syncs its statistics when `net.sync_bn` (`create_train_state`); the
+gradients are averaged in one all_reduce before the optimizer step
+(:88-90); the contrastive loss all-gathers the ranks' keys; the logged
+losses are summed over the ranks, neg_cand is their max and the
+thresholds their mean (:549-563).  The percentiles stay per rank (:365).
+With no group every path is the one-process path; a group of one gives
+its bits.
+
 Dropout masks, the mix draws (the coin, and boxes or ClassMix uniforms)
 and the contrastive draws (key priorities, or u32 keys under `select_keys:
 radix`, anchor and bank draws) come from the `generator` passed to the
@@ -98,6 +110,7 @@ from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence, Tuple
 
 import torch
 
+from u2pl_tpu_torch import dist
 from u2pl_tpu_torch.config import Config
 from u2pl_tpu_torch.losses import ce as ce_loss
 from u2pl_tpu_torch.losses import contrastive, ohem, unsup
@@ -154,8 +167,11 @@ def make_normalizer(cfg: Config) -> Callable:
     return norm
 
 
-def _update(cfg: Config, state: TrainState, max_iter: int, steps_per_epoch: int) -> torch.Tensor:
-    """Optimizer step at the scheduled LR of `state.step` (steps.py:87-100)."""
+def _update(cfg: Config, state: TrainState, max_iter: int, steps_per_epoch: int,
+            group=None) -> torch.Tensor:
+    """The gradients' mean over the ranks, then the optimizer step at the
+    scheduled LR of `state.step` (steps.py:87-100)."""
+    dist.mean_gradients(list(state.student.parameters()), group)
     lr = lr_at(
         cfg.trainer.lr_scheduler, cfg.trainer.optimizer.lr, state.step, max_iter,
         steps_per_epoch,
@@ -173,9 +189,10 @@ def _sup_forward_backward(state, sup_loss_fn, image, label, generator, has_aux):
     return loss.detach()
 
 
-def make_sup_step(cfg: Config, steps_per_epoch: int) -> Callable:
+def make_sup_step(cfg: Config, steps_per_epoch: int, group=None) -> Callable:
     """Supervised baseline step (steps.py:103-162):
-    step(state, image, label, generator=None) -> metrics."""
+    step(state, image, label, generator=None) -> metrics; `group`: the
+    data-parallel ranks (module docstring)."""
     max_iter = cfg.trainer.epochs * steps_per_epoch
     sup_loss_fn = make_sup_loss_fn(cfg)
     has_aux = cfg.net.aux_loss is not None
@@ -183,14 +200,14 @@ def make_sup_step(cfg: Config, steps_per_epoch: int) -> Callable:
 
     def step(state: TrainState, image, label, generator=None) -> Metrics:
         loss = _sup_forward_backward(state, sup_loss_fn, normalize(image), label, generator, has_aux)
-        lr = _update(cfg, state, max_iter, steps_per_epoch)
+        lr = _update(cfg, state, max_iter, steps_per_epoch, group)
         state.step += 1
-        return {"sup_loss": loss, "lr": lr}
+        return {"sup_loss": dist.all_sum(loss, group), "lr": lr}
 
     return step
 
 
-def make_semi_warmup_step(cfg: Config, steps_per_epoch: int) -> Callable:
+def make_semi_warmup_step(cfg: Config, steps_per_epoch: int, group=None) -> Callable:
     """Warmup branch of the semi trainer (steps.py:165-244): sup loss on the
     labeled batch + a train-mode teacher forward on it that only updates the
     teacher's BN statistics.
@@ -206,10 +223,11 @@ def make_semi_warmup_step(cfg: Config, steps_per_epoch: int) -> Callable:
         state.teacher.train()
         with torch.no_grad():
             state.teacher(image_l, generator=generator)
-        lr = _update(cfg, state, max_iter, steps_per_epoch)
+        lr = _update(cfg, state, max_iter, steps_per_epoch, group)
         state.step += 1
         zero = torch.zeros((), device=loss.device)
-        return {"sup_loss": loss, "uns_loss": zero, "con_loss": zero, "lr": lr}
+        return {"sup_loss": dist.all_sum(loss, group), "uns_loss": zero, "con_loss": zero,
+                "lr": lr}
 
     return step
 
@@ -278,8 +296,9 @@ def draw_contrastive(generator: torch.Generator, cfg: Config, n_pixels: int):
     )
 
 
-def make_semi_step(cfg: Config, steps_per_epoch: int) -> Callable:
-    """The U²PL semi-supervised step (steps.py:247-583).
+def make_semi_step(cfg: Config, steps_per_epoch: int, group=None) -> Callable:
+    """The U²PL semi-supervised step (steps.py:247-583), over the ranks of
+    `group` (module docstring).
     step(state, image_l, label_l, image_u, generator=None, mix=None,
     contra=None) -> metrics; `mix=(coin, draws)`: a 0-d bool and the mode's
     draws on the device ((B_u, 4) int32 boxes, or (B_u, C) f32 ClassMix
@@ -381,14 +400,14 @@ def make_semi_step(cfg: Config, steps_per_epoch: int) -> Callable:
             _, con_loss, info = contrastive.compute_contra_memobank_loss(
                 outs["rep"], label_l_small, label_u_small, prob_teacher[:b_l],
                 prob_teacher[b_l:], low_small, high_small, contra_cfg, state.bank,
-                rep_teacher, contra, ignore_label=ignore, return_info=True,
+                rep_teacher, contra, ignore_label=ignore, return_info=True, group=group,
             )
             con_loss = con_loss * contra_cfg.loss_weight
             neg_cand = info["neg_candidates"]
             del prob_teacher, rep_teacher, contra_in
         del outs, pred_all
         (sup_loss + unsup_loss + con_loss).backward()
-        lr = _update(cfg, state, max_iter, steps_per_epoch)
+        lr = _update(cfg, state, max_iter, steps_per_epoch, group)
 
         # ---- EMA of the teacher's parameters (:519-546)
         with torch.no_grad():
@@ -400,27 +419,33 @@ def make_semi_step(cfg: Config, steps_per_epoch: int) -> Callable:
             )
             torch._foreach_copy_(t_params, blended)
         state.step += 1
+        # the logged losses summed over the ranks, neg_cand their max, the
+        # thresholds their mean (steps.py:549-563)
         metrics = {
-            "sup_loss": sup_loss.detach(),
-            "uns_loss": unsup_loss.detach(),
-            "con_loss": con_loss.detach(),
+            "sup_loss": dist.all_sum(sup_loss.detach(), group),
+            "uns_loss": dist.all_sum(unsup_loss.detach(), group),
+            "con_loss": dist.all_sum(con_loss.detach(), group),
             "lr": lr,
-            "neg_cand": neg_cand,
-            "drop_thresh": drop_thresh,
+            "neg_cand": dist.all_max(neg_cand, group),
+            "drop_thresh": dist.all_mean(drop_thresh, group),
         }
         if contra_cfg is not None:
-            metrics["low_thresh"] = low_thresh
-            metrics["high_thresh"] = high_thresh
+            metrics["low_thresh"] = dist.all_mean(low_thresh, group)
+            metrics["high_thresh"] = dist.all_mean(high_thresh, group)
         return metrics
 
     return step
 
 
-def step_generator(seed: int, i_iter: int, device) -> torch.Generator:
-    """The generator of global step `i_iter` of a run seeded `seed` (JAX:
-    fold_in(rng, i_iter), steps.py:275): every draw of a step comes from
-    it, so a resumed run takes the draws an uninterrupted one takes."""
-    return torch.Generator(device=device).manual_seed(((seed + 1) << 32) + i_iter)
+def step_generator(seed: int, i_iter: int, device, rank: int = 0) -> torch.Generator:
+    """The generator of global step `i_iter` of a run seeded `seed` on data-
+    parallel rank `rank` (JAX: fold_in(fold_in(rng, i_iter), axis_index),
+    steps.py:275-276): every draw of a step comes from it, so a resumed run
+    takes the draws an uninterrupted one takes, and each rank its own; rank
+    0's are the one-process run's."""
+    if not 0 <= rank < 128:
+        raise ValueError(f"step_generator: rank {rank} outside [0, 128)")
+    return torch.Generator(device=device).manual_seed((((seed + 1) << 32) + i_iter) ^ (rank << 56))
 
 
 def run_steps(
@@ -433,6 +458,7 @@ def run_steps(
     mixes: Optional[Sequence] = None,
     contras: Optional[Sequence] = None,
     seed: Optional[int] = None,
+    group=None,
 ) -> Iterator[Tuple[int, Metrics]]:
     """The semi trainer's step sequencing (train_semi.py:166-245; the CLI
     `u2pl_tpu_torch.train_semi` adds the data pipeline, validation and
@@ -446,16 +472,16 @@ def run_steps(
     reads nothing back from the device); yields (i_iter, metrics) after each
     step.  `mixes[j]` and `contras[j]`, when given, are the semi step's
     injected (coin, draws) and contrastive draws for batch j.  With `seed`,
-    each step draws from `step_generator(seed, i_iter)` in place of
-    `generator`."""
-    warmup = make_semi_warmup_step(cfg, steps_per_epoch)
-    semi = make_semi_step(cfg, steps_per_epoch)
+    each step draws from `step_generator(seed, i_iter, rank)` in place of
+    `generator`.  `group`: the data-parallel ranks (module docstring)."""
+    warmup = make_semi_warmup_step(cfg, steps_per_epoch, group)
+    semi = make_semi_step(cfg, steps_per_epoch, group)
     sup_only_epoch = cfg.trainer.sup_only_epoch
     for j, (image_l, label_l, image_u) in enumerate(batches):
         i_iter = start_iter + j
         epoch = i_iter // steps_per_epoch
         if seed is not None:
-            generator = step_generator(seed, i_iter, state.step.device)
+            generator = step_generator(seed, i_iter, state.step.device, dist.rank(group))
         if epoch < sup_only_epoch:
             metrics = warmup(state, image_l, label_l, image_u, generator)
         else:

@@ -1,15 +1,24 @@
-"""Semi-supervised U²PL trainer CLI on one card (port of the root
-train_semi.py; reference train_semi.py).
+"""Semi-supervised U²PL trainer CLI (port of the root train_semi.py;
+reference train_semi.py), on one card or data-parallel on W cards:
 
     python -m u2pl_tpu_torch.train_semi --config <config.yaml> --seed 2
+    torchrun --nproc_per_node=W -m u2pl_tpu_torch.train_semi --config <config.yaml>
 
-The same flags as the reference (--config --seed --port --local_rank; the
-last two are accepted for launcher compatibility and unused on one card:
-a launch of several processes raises, see `refuse_multi_process`),
-`--profile_dir` for a torch.profiler trace of steps 10-13, and `--device`
-(default: the card; `cpu` runs the plain versions of the kernels).
-Set U2PL_ALLOW_RANDOM_INIT=1 to train a config that requires ImageNet
-weights without them.
+The same flags as the reference (--config --seed --port --local_rank: a
+`torch.distributed.launch` passes --local_rank, --port is the group's port
+when MASTER_PORT is unset), `--profile_dir` for a torch.profiler trace of
+steps 10-13, and `--device` (default: the card; `cpu` runs the plain
+versions of the kernels, over gloo).  Set U2PL_ALLOW_RANDOM_INIT=1 to
+train a config that requires ImageNet weights without them.
+
+Several processes (torchrun, SLURM or Open MPI; `dist.init_distributed`):
+rank r trains on `cuda:LOCAL_RANK` on its slice of each global batch of
+`dataset.batch_size` x W, with SyncBN under `net.sync_bn`, the gradients
+averaged, the bank fed by every rank's keys (`train.steps`); rank 0's
+initial state is broadcast after init, pretrain or resume; validation sums
+the ranks' counts; rank 0 alone logs, writes the scalars, the profile and
+the checkpoints, and every rank passes a barrier after each write.  A
+local rank with no card of its own raises before anything is built.
 
 Per epoch: the labeled and unlabeled loaders feed `train.steps.run_steps`
 (warmup while epoch < sup_only_epoch, then the semi step); every draw of
@@ -23,8 +32,7 @@ The port trains in the config's `net.dtype`, as the JAX trainer does:
 float32 (TF32 off), or bfloat16 under the JAX package's rounding points
 (models/builder.py, train/steps.py) with float32 parameters, optimizer,
 EMA and checkpoints; in-training validation runs a float32 forward either
-way.  `sync_bn` on one card is plain BN.  `main(argv)` runs in
-process and returns a summary of the run.
+way.  `main(argv)` runs in process and returns a summary of the run.
 """
 
 from __future__ import annotations
@@ -40,9 +48,10 @@ from typing import Dict, List, Optional
 
 import torch
 
+from u2pl_tpu_torch import dist
 from u2pl_tpu_torch.config import load_config
 from u2pl_tpu_torch.data.loader import build_loaders
-from u2pl_tpu_torch.train.state import create_train_state
+from u2pl_tpu_torch.train.state import broadcast_state, create_train_state
 from u2pl_tpu_torch.train.steps import run_steps
 from u2pl_tpu_torch.train.validate import validate
 from u2pl_tpu_torch.utils.checkpoint import (
@@ -53,39 +62,18 @@ from u2pl_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from u2pl_tpu_torch.utils.logging_utils import AverageMeter, init_log
-from u2pl_tpu_torch.utils.tb import ScalarWriter
+from u2pl_tpu_torch.utils.tb import NullWriter, ScalarWriter
 
 
 def make_parser(description: str) -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=description)
     parser.add_argument("--config", type=str, default="config.yaml")
-    parser.add_argument("--local_rank", type=int, default=0)  # launcher parity
+    parser.add_argument("--local_rank", type=int, default=None)  # torch.distributed.launch
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--port", default=None, type=int)  # launcher parity
+    parser.add_argument("--port", default=None, type=int)  # the group's, without MASTER_PORT
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on (default: the card)")
     return parser
-
-
-# the world size as torchrun / torch.distributed.launch, SLURM and Open MPI set it
-WORLD_SIZE_VARS = ("WORLD_SIZE", "SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE")
-
-
-def refuse_multi_process() -> None:
-    """Raise when a launcher started several processes.  The port trains on
-    one card: each process would train its own copy on device 0 and write
-    the same checkpoint files."""
-    for name in WORLD_SIZE_VARS:
-        try:
-            n = int(os.environ.get(name, ""))
-        except ValueError:
-            continue
-        if n > 1:
-            raise RuntimeError(
-                f"{name}={n}: the PyTorch port trains on one card in one process; "
-                "multi-GPU training (DDP, SyncBN, the bank's all_gather) is ROADMAP.md "
-                "queue 1 item 6. Launch a single process."
-            )
 
 
 parser = make_parser("Semi-Supervised Semantic Segmentation (PyTorch / CUDA)")
@@ -93,21 +81,33 @@ parser.add_argument("--profile_dir", type=str, default="",
                     help="write a torch.profiler chrome trace of train steps 10-13 here")
 
 
-def setup(args, logger: logging.Logger):
-    """Config, device (TF32 off: float32 means float32), scalar writer and
-    save dir."""
+def start(args):
+    """This process's device and data-parallel group (`dist.init_distributed`;
+    None for one process), and the logger: INFO on rank 0, warnings only on
+    the others."""
+    device, group = dist.init_distributed(args.device, args.local_rank, args.port)
+    level = logging.INFO if dist.is_primary(group) else logging.WARNING
+    return device, group, init_log("global", level)
+
+
+def setup(args, logger: logging.Logger, device, group=None):
+    """Config, TF32 off (float32 means float32), scalar writer (rank 0's)
+    and save dir."""
     cfg = load_config(args.config)
-    device = torch.device(args.device)
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     logger.info(pprint.pformat(cfg))
+    w = dist.world_size(group)
     logger.info(f"training in {cfg.net.dtype} on {device} (net.dtype; validation in float32); "
-                f"sync_bn {cfg.net.sync_bn} on one card is plain BN")
-    tb = ScalarWriter(osp.join(cfg.exp_path, "log/events_seg/"
-                               + datetime.now().strftime("%Y%m%d_%H%M%S")))
-    os.makedirs(cfg.save_path, exist_ok=True)
-    return cfg, device, tb
+                f"{w} rank{'s' if w > 1 else ''}, sync_bn {cfg.net.sync_bn}"
+                + (f" over {group}" if group is not None else " (one process: plain BN)"))
+    tb = NullWriter()
+    if dist.is_primary(group):
+        tb = ScalarWriter(osp.join(cfg.exp_path, "log/events_seg/"
+                                   + datetime.now().strftime("%Y%m%d_%H%M%S")))
+        os.makedirs(cfg.save_path, exist_ok=True)
+    return cfg, tb
 
 
 class StepClock:
@@ -152,17 +152,24 @@ def device_batches(loader_iter, device, clock: StepClock):
         yield tuple(out)
 
 
-def end_of_epoch(cfg, state, model, loader_val, epoch, best_prec, logger, tb, summary):
-    """Validation, the checkpoints and the red best-mIoU line; the new best."""
+def end_of_epoch(cfg, state, model, loader_val, epoch, best_prec, logger, tb, summary,
+                 group=None):
+    """Validation (the ranks' counts summed, so every rank takes the same
+    mIoU), the checkpoints (written by rank 0 alone, then a barrier) and the
+    red best-mIoU line; the new best."""
     logger.info("start evaluation")
-    prec = validate(model, loader_val, cfg, epoch, logger)
+    prec = validate(model, loader_val, cfg, epoch, logger, group)
     t0 = time.perf_counter()
+    primary = dist.is_primary(group)
     if prec > best_prec:
         best_prec = prec
-        save_checkpoint(osp.join(cfg.save_path, CKPT_BEST_NAME), state, epoch + 1, best_prec,
+        if primary:
+            save_checkpoint(osp.join(cfg.save_path, CKPT_BEST_NAME), state, epoch + 1,
+                            best_prec, save_memobank=cfg.saver.save_memobank)
+    if primary:
+        save_checkpoint(osp.join(cfg.save_path, CKPT_NAME), state, epoch + 1, best_prec,
                         save_memobank=cfg.saver.save_memobank)
-    save_checkpoint(osp.join(cfg.save_path, CKPT_NAME), state, epoch + 1, best_prec,
-                    save_memobank=cfg.saver.save_memobank)
+    dist.barrier(group)
     summary["ckpt_s"].append(time.perf_counter() - t0)
     summary["mious"].append(prec)
     logger.info("\033[31m * Currently, the best val result is: {:.2f}\033[0m".format(best_prec * 100))
@@ -189,19 +196,21 @@ def new_summary(last_epoch: int, steps_per_epoch: int) -> Dict:
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     args = parser.parse_args(argv)
-    refuse_multi_process()
-    logger = init_log("global", logging.INFO)
-    cfg, device, tb = setup(args, logger)
+    device, group, logger = start(args)
+    cfg, tb = setup(args, logger, device, group)
 
-    loader_sup, loader_unsup, loader_val = build_loaders(cfg, seed=args.seed)
+    loader_sup, loader_unsup, loader_val = build_loaders(
+        cfg, seed=args.seed, process_index=dist.rank(group),
+        process_count=dist.world_size(group))
     assert len(loader_sup) == len(loader_unsup), (
         f"labeled data {len(loader_sup)} unlabeled data {len(loader_unsup)}, imbalance!")
     steps_per_epoch = len(loader_sup)
     state = create_train_state(cfg, device=device,
-                               generator=torch.Generator().manual_seed(args.seed))
+                               generator=torch.Generator().manual_seed(args.seed), group=group)
     # ImageNet encoder warm start, before auto_resume / pretrain may overwrite it
     load_encoder_pretrained(cfg.net.encoder, state)
     resumed, last_epoch, best_prec = maybe_resume(cfg.saver, cfg.save_path, state)
+    broadcast_state(state, group)
     if resumed:
         logger.info(f"resumed at epoch {last_epoch}, step {int(state.step)}")
     summary = new_summary(last_epoch, steps_per_epoch)
@@ -243,12 +252,13 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             pending = None
             prof = None
             for i_iter, metrics in run_steps(state, batches, steps_per_epoch, cfg,
-                                             start_iter=epoch * steps_per_epoch, seed=args.seed):
+                                             start_iter=epoch * steps_per_epoch, seed=args.seed,
+                                             group=group):
                 flush(pending)
                 pending = (i_iter, metrics)
                 clock.step_done()
                 summary["steps"] += 1
-                if args.profile_dir and i_iter == 9:
+                if args.profile_dir and i_iter == 9 and dist.is_primary(group):
                     prof = _start_profiler()
                 if prof is not None and i_iter == 13:
                     _stop_profiler(prof, args.profile_dir, device, logger)
@@ -260,11 +270,12 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             if cfg.trainer.eval_on:
                 model = state.student if epoch < sup_only_epoch else state.teacher
                 best_prec = end_of_epoch(cfg, state, model, loader_val, epoch, best_prec, logger,
-                                         tb, summary)
+                                         tb, summary, group)
     finally:
         for loader in (loader_sup, loader_unsup, loader_val):
             loader.close()
         tb.close()
+        dist.destroy(group)
     summary.update(best_miou=best_prec, step=int(state.step), state=state)
     return summary
 

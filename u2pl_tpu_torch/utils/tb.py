@@ -23,3 +23,14 @@ class ScalarWriter:
 
     def close(self) -> None:
         self._f.close()
+
+
+class NullWriter:
+    """The writer of a rank other than 0: the reference writes scalars on
+    rank 0 only."""
+
+    def add_scalar(self, tag: str, value, step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
