@@ -160,7 +160,20 @@ Phases; any failure ends the run with a nonzero exit code:
      per device), 4 + 4 images a rank, SyncBN, the gradient mean and the
      bank's exchange; the ranks' states bit-equal after every step, each
      rank's step through the kernels and the plain versions held to phase
-     13's bounds, ms per step and the bytes of the slab exchange.
+     13's bounds, ms per step and the bytes of the slab exchange;
+ 17. `contrastive.anchor_ema`: the VOC `ours` config as it stands (bf16)
+     with `trainer.contrastive.anchor_ema: true` set in memory, 5 steps
+     through `run_steps` (2 warmup, 3 semi): the prototype all zero into
+     the first semi step, written after each at the active positions' bank-
+     class slots and nowhere else, K6's per-query mode once a semi step,
+     con_loss finite and > 0, the step's ms beside phase 13's; then step 5
+     again through the kernels, the plain versions and the kernels in f32
+     (phase 13's bounds, the new prototypes among them); then the same
+     config in f32, 5 steps through `run_steps` with the counts set to 0
+     just before them, the same checks: the f32 per-query mode's run.
+Phase 1 also holds K6's forward with a (C, Q, F) positive (the anchor_ema
+blend; its per-query mode) against the plain route in float64, with an f32
+and a bf16 rep, each timed beside the per-class mode on the same inputs.
 Phase 1 also holds the contrastive kernels (K4: pixel masks, key selection,
 anchor draws; K5: the bank write; K6: the InfoNCE forward and backward)
 against their plain versions at the flagship shapes, on a prefilled bank
@@ -955,8 +968,11 @@ DIST_COUNTERS = {  # K5's modes under a process group (phase 16)
     "K5_gather": ("u2pl_tpu_torch.memobank", "memobank_gather", "launches"),
     "K5_slabs": ("u2pl_tpu_torch.memobank", "memobank_enqueue_slabs", "launches"),
 }
+EMA_COUNTERS = {  # K6's per-query positive, contrastive.anchor_ema (phase 17)
+    "K6_fwd_pq": ("u2pl_tpu_torch.losses.contrastive", "contra_infonce", "fwd_pq_launches"),
+}
 COUNTERS = {**TRAIN_COUNTERS, **CONTRA_COUNTERS, **OHEM_COUNTERS, **VARIANT_COUNTERS,
-            **VAL_COUNTERS, **DIST_COUNTERS}
+            **VAL_COUNTERS, **DIST_COUNTERS, **EMA_COUNTERS}
 
 
 def _counter(name):
@@ -1616,6 +1632,94 @@ def phase1_contrastive_kernels(dev, cfg):
         fail(f"K6 contra_infonce: loss {rel}, gradient {grel}")
     errs["K6_fwd"], errs["K6_bwd"] = le, ge
     return errs, case
+
+
+EMA_ITER = 37  # the anchor_ema blend's step in phase 1: d = 1 - 1/37
+
+
+def phase1_k6_per_query(dev, card, case, cfg):
+    """K6's forward with a (C, Q, F) positive (the anchor_ema blend of the
+    flagship's prototypes with a seeded momentum prototype) at the flagship
+    shape, on the prefilled bank that wraps, with an f32 rep and a bf16 rep
+    on the bf16 bank, against the plain route in float64 (the rep widened):
+    the loss within K6_LOSS_TOL, the gradient within K6_GRAD_TOL of its max
+    (for the bf16 rep: the f32 gradient of its forward's stored directions,
+    K6's backward in f32 mode; its bf16 gradient is held one bf16 ulp from
+    the bf16 plain route's at rounding boundaries, as phase 13 holds it).
+    Each mode timed beside the per-class mode on the same inputs.  Returns
+    ({key: error}, {key: (ms, plain ms, None)}, {key: f32 mode ms},
+    {key: per-class mode ms})."""
+    import torch
+
+    from u2pl_tpu_torch.losses import contrastive as tc
+
+    ccfg = cfg.trainer.contrastive
+    c, q = case["anchor_idx"].shape
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    momentum = torch.randn(c, q, 1, FEATURES, device=dev, generator=g)
+    pos_pq, _ = tc._anchor_ema(case["positive"], momentum, case["b_j"], case["active"],
+                               torch.tensor(EMA_ITER, device=dev))
+    if pos_pq.shape != (c, q, FEATURES) or torch.equal(pos_pq[:, 0], pos_pq[:, 1]):
+        fail(f"phase 1: the anchor_ema positive {tuple(pos_pq.shape)} is not one per draw")
+    rest = (case["bank"], case["b_j"], case["u_neg"], case["active"], case["valid_seg"],
+            ccfg.temperature)
+    pq = (case["anchor_idx"], pos_pq) + rest
+    pc = (case["anchor_idx"], case["positive"]) + rest
+    bf = torch.bfloat16
+    errs, times, f32, per_class = {}, {}, {}, {}
+    r64 = case["rep"].double().requires_grad_(True)
+    l64 = tc.contra_infonce_plain(r64, *pq)
+    (g64,) = torch.autograd.grad(l64, r64)
+    top = max(g64.abs().max().item(), 1e-30)
+    one = torch.ones((), device=dev)
+    for key, dtype in (("K6_fwd_pq", torch.float32), ("K6_fwd_pq_bf16", bf)):
+        rep = case["rep"].detach().to(dtype, copy=True).requires_grad_(True)
+        launched = tc.contra_infonce.fwd_pq_launches
+        lk = tc.contra_infonce(rep, *pq)
+        if tc.contra_infonce.fwd_pq_launches != launched + 1:
+            fail(f"{key}: the per-query mode did not launch")
+        (gk,) = torch.autograd.grad(lk, rep, retain_graph=True)
+        if dtype == bf:
+            # the f32 gradient of the bf16 forward's directions (the negatives'
+            # parts added back), through K6's backward in f32 mode
+            anchor_idx, active, valid_seg, gdir = lk.grad_fn.saved_tensors
+            g32 = tc._infonce_bwd_cuda(anchor_idx, active, valid_seg, gdir.sum(0), one,
+                                       tuple(rep.shape))
+            rp = rep.detach().clone().requires_grad_(True)
+            (gp,) = torch.autograd.grad(tc.contra_infonce_plain(rp, *pq), rp)
+            # the same bf16 values widened: the float64 route of this rep
+            r64b = rep.detach().double().requires_grad_(True)
+            l64b = tc.contra_infonce_plain(r64b, *pq)
+            (g64b,) = torch.autograd.grad(l64b, r64b)
+            ref_l, ref_g, ref_top = l64b.item(), g64b, max(g64b.abs().max().item(), 1e-30)
+        else:
+            g32, ref_l, ref_g, ref_top = gk, l64.item(), g64, top
+        torch.cuda.synchronize()
+        rel = abs(lk.item() - ref_l) / max(abs(ref_l), 1e-30)
+        grel = (g32.double() - ref_g).abs().max().item() / ref_top
+        log(f"[phase 1] K6 contra_infonce per-query positive {tuple(pos_pq.shape)}, "
+            f"{str(dtype).replace('torch.', '')} rep, {int(case['active'].sum())} active positions "
+            f"x {q} x (1 + {ccfg.num_negatives}): loss {lk.item():.6f} vs float64 {ref_l:.9f} "
+            f"(rel {rel:.3e}, bound {K6_LOSS_TOL}); f32 gradient {grel:.3e} of its max (bound "
+            f"{K6_GRAD_TOL})")
+        if not (ref_l > 0 and rel <= K6_LOSS_TOL and grel <= K6_GRAD_TOL):
+            fail(f"{key}: loss {rel:.3e}, gradient {grel:.3e} against the float64 plain route")
+        errs[key] = abs(lk.item() - ref_l)
+        if dtype == bf:
+            bf16_flips("kernel K6 per-query bf16 (8, 256, 129²) rep gradient, kernel vs the "
+                       "bf16 plain route", gk, gp, K6_BF16_FLIP_FRAC, row_dim=1, where="phase 1")
+        del lk, gk, g32
+        with torch.no_grad():
+            times[key] = (cuda_ms(lambda: tc.contra_infonce(rep, *pq), 20),
+                          cuda_ms(lambda: tc.contra_infonce_plain(rep, *pq), 20), None)
+            per_class[key] = cuda_ms(lambda: tc.contra_infonce(rep, *pc), 20)
+            if dtype == bf:
+                rep32 = case["rep"]
+                f32[key] = cuda_ms(lambda: tc.contra_infonce(rep32, *pq), 20)
+        log(f"[{card}] kernel {key}: {times[key][0]:.4f} ms, the per-class mode on the same "
+            f"inputs {per_class[key]:.4f} ms; plain version {times[key][1]:.4f} ms"
+            + (f"; its f32 mode {f32[key]:.4f} ms" if key in f32 else ""))
+    return errs, times, f32, per_class
 
 
 def ohem_case(dev, g, hw, amp, block, ignore_frac, c=19):
@@ -2742,7 +2846,10 @@ CITY_BF16_STEPS = 2  # the bf16 Cityscapes run: 2 semi steps (sup_only_epoch 0)
 # the bf16 step through the kernels against the plain versions: each loss,
 # threshold and the update within this share of the step's own bf16-vs-f32
 # gap (the same snapshot and inputs through the kernels in f32); the
-# measured spread and the bound's derivation are in CHANGES.md
+# measured spread and the bound's derivation are in CHANGES.md.  A loss or
+# threshold whose routes differ by one f32 ulp of its value or less passes
+# whatever its gap: f32 arithmetic cannot show less, and a threshold's
+# bf16-vs-f32 gap has itself measured one ulp
 BF16_ROUTE_SHARE = 0.5
 
 
@@ -2754,7 +2861,7 @@ def bf16_ulp(x):
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
 
 
-def bf16_flips(what, got, want, max_frac, row_dim=None):
+def bf16_flips(what, got, want, max_frac, row_dim=None, where="phase 13"):
     """Two bf16 results of the same f32 values summed in another order:
     equal but at bf16 rounding boundaries, there one bf16 ulp apart (of the
     larger magnitude, or along `row_dim` (a dim or dims) of the largest
@@ -2772,7 +2879,7 @@ def bf16_flips(what, got, want, max_frac, row_dim=None):
     over = int(((a - b).abs() > bf16_ulp(scale))[diff].sum())
     frac = diff.float().mean().item()
     err = (a - b).abs().max().item()
-    log(f"[phase 13] {what}: {int(diff.sum())} of {diff.numel()} elements one bf16 ulp apart "
+    log(f"[{where}] {what}: {int(diff.sum())} of {diff.numel()} elements one bf16 ulp apart "
         f"({frac:.2e}; bound {max_frac}), {over} beyond one ulp (bound 0), max abs diff {err:.3e}")
     if over or frac > max_frac:
         fail(f"{what}: kernel and plain version differ beyond the bf16 rounding boundaries")
@@ -3115,8 +3222,10 @@ def bf16_routes(snapshot, run, what):
     """The bf16 step `run` on copies of `snapshot` through the kernels, the
     plain versions (`both_routes`) and the kernels in f32: fails unless each
     loss and threshold and the update of the two bf16 routes lie within
-    BF16_ROUTE_SHARE of the step's own bf16-vs-f32 gap.  Returns {"route",
-    "gap", "update"}."""
+    BF16_ROUTE_SHARE of the step's own bf16-vs-f32 gap, and so must the
+    anchor_ema prototype where the step writes one (`_prototype_routes`).
+    Returns {"route", "gap", "update", "prototype"}."""
+    import numpy as np
     import torch
 
     from u2pl_tpu_torch.models.builder import computing_in
@@ -3131,6 +3240,8 @@ def bf16_routes(snapshot, run, what):
     with computing_in(st32.student, torch.float32), computing_in(st32.teacher, torch.float32):
         m32 = scalars(run(st32, "kernels"))
     d32 = {a: p.detach() - before[a] for a, p in st32.student.named_parameters()}
+    prototype = _prototype_routes(runs2["kernels"][2].prototype, runs2["plain"][2].prototype,
+                                  st32.prototype, what)
     del st32
     (mk, dk, _), (mp, dp, _) = runs2["kernels"], runs2["plain"]
     mk, mp = scalars(mk), scalars(mp)
@@ -3140,14 +3251,39 @@ def bf16_routes(snapshot, run, what):
     l2 = lambda d, e: sum(((d[a] - e[a]).float() ** 2).sum().item() for a in d) ** 0.5  # noqa: E731
     upd_route, upd_gap = l2(dk, dp), l2(dk, d32)
     share = {a: route[a] / max(gap[a], 1e-30) for a in names}
+    # one f32 ulp of the value: the least two f32 routes can differ by
+    ulp = {a: float(np.spacing(np.float32(abs(mk[a])))) for a in names}
+    over = [a for a in names if route[a] > max(BF16_ROUTE_SHARE * gap[a], ulp[a])]
     log(f"[{what}] the bf16 step again: kernels {mk}; plain {mp}; the kernels in f32 "
         f"{m32}; |kernels - plain| {route}; |bf16 - f32| {gap}; share {share} (bound "
-        f"{BF16_ROUTE_SHARE}); update L2 kernels - plain {upd_route:.4e}, bf16 - f32 "
-        f"{upd_gap:.4e} (share {upd_route / max(upd_gap, 1e-30):.3e})")
-    if any(v > BF16_ROUTE_SHARE for v in share.values()) or upd_route > BF16_ROUTE_SHARE * upd_gap:
+        f"{BF16_ROUTE_SHARE}, or one f32 ulp of the value: {ulp}); update L2 kernels - plain "
+        f"{upd_route:.4e}, bf16 - f32 {upd_gap:.4e} (share "
+        f"{upd_route / max(upd_gap, 1e-30):.3e}); over the bound {over}")
+    if over or upd_route > BF16_ROUTE_SHARE * upd_gap:
         fail(f"{what}: the bf16 step through the kernels and through the plain versions differ "
              f"by more than {BF16_ROUTE_SHARE} of the step's bf16-vs-f32 gap")
-    return {"route": route, "gap": gap, "update": (upd_route, upd_gap)}
+    return {"route": route, "gap": gap, "update": (upd_route, upd_gap), "prototype": prototype}
+
+
+def _prototype_routes(pk, pp, p32, what):
+    """The new anchor_ema prototypes of the kernel, plain and f32 routes:
+    fails unless the bf16 routes write the same slots and lie within
+    BF16_ROUTE_SHARE of the bf16-vs-f32 gap (L2).  Returns (L2 kernels -
+    plain, L2 bf16 - f32), or None where the step wrote no prototype."""
+    import torch
+
+    if pk is None or not (pk.any() or pp.any()):
+        return None
+    slots = lambda p: p.flatten(1).ne(0).any(1)  # noqa: E731
+    d_route, d_gap = (pk - pp).norm().item(), (pk - p32).norm().item()
+    alike = torch.equal(slots(pk), slots(pp))
+    log(f"[{what}] the step's new prototype: L2 kernels - plain {d_route:.4e}, bf16 - f32 "
+        f"{d_gap:.4e} (share {d_route / max(d_gap, 1e-30):.3e}, bound {BF16_ROUTE_SHARE}); "
+        f"slots written alike {alike}")
+    if d_route > BF16_ROUTE_SHARE * d_gap or not alike:
+        fail(f"{what}: the new prototype differs between the kernels and the plain versions "
+             f"beyond the bf16 gap's share")
+    return d_route, d_gap
 
 
 def bf16_city_training(dev, card):
@@ -3882,6 +4018,167 @@ def phase16_rank(rank, world, port, backend, out):
     return 0
 
 
+# ---- phase 17: contrastive.anchor_ema ------------------------------------------
+
+EMA_STEPS = 5  # 2 warmup, 3 semi steps, as phase 13
+
+
+def ema_config(cfg):
+    """`cfg` with trainer.contrastive.anchor_ema: true."""
+    contra = dataclasses.replace(cfg.trainer.contrastive, anchor_ema=True)
+    return dataclasses.replace(cfg, trainer=dataclasses.replace(cfg.trainer, contrastive=contra))
+
+
+def ema_run(dev, cfg, what, seed):
+    """EMA_STEPS steps of the anchor_ema config `cfg` through `run_steps`
+    with every count set to 0 just before them: the prototype all zero
+    into the first semi step and written after it, at the active
+    positions' bank-class slots and nowhere else (the slots and the
+    positions read from the step's own blend, by tapping
+    `losses/contrastive.py:_anchor_ema`); con_loss finite and > 0; K6's
+    per-query mode and the rest of K6 once per semi step, every kernel of
+    the contrastive semi step launched.  Returns (state, batches, the
+    step generator, the run's launches, the state before the last step)."""
+    import torch
+
+    from u2pl_tpu_torch.losses import contrastive as tc
+    from u2pl_tpu_torch.train.state import create_train_state
+    from u2pl_tpu_torch.train.steps import run_steps
+
+    state = create_train_state(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    log(f"[{what}] config {os.path.relpath(VOC_CONFIG, ROOT)} (net.dtype {cfg.net.dtype}) with "
+        f"trainer.contrastive.anchor_ema: true; prototype {tuple(state.prototype.shape)} "
+        f"{state.prototype.dtype}; {B_L}+{B_U} images of {CROP}², {EMA_STEPS} steps")
+    batches = synthetic_batches(dev, EMA_STEPS, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    blends = []  # (b_j, active) of each semi step's blend
+    original = tc._anchor_ema
+
+    def tap(positive, prototype, b_j, active, i_iter):
+        blends.append((b_j.clone(), active.clone()))
+        return original(positive, prototype, b_j, active, i_iter)
+
+    history, snapshot = [], None
+    tc._anchor_ema = tap
+    try:
+        torch.cuda.synchronize()
+        zero_counters()
+        into = state.prototype.clone()
+        for i_iter, m in run_steps(state, batches, STEPS_PER_EPOCH, cfg, generator=gen):
+            semi = "low_thresh" in m
+            out = state.prototype.clone()
+            history.append((i_iter, scalars(m), semi, into, out))
+            into = out
+            if i_iter == EMA_STEPS - 2:
+                snapshot = copy.deepcopy(state)
+        torch.cuda.synchronize()
+        launches = read_counters()
+    finally:
+        tc._anchor_ema = original
+    semi_steps = sum(h[2] for h in history)
+    if len(blends) != semi_steps or semi_steps != EMA_STEPS - cfg.trainer.sup_only_epoch * (
+            STEPS_PER_EPOCH):
+        fail(f"{what}: {len(blends)} blends over {semi_steps} semi steps")
+    first = True
+    for (i_iter, m, semi, p_in, p_out) in history:
+        log(f"[{what}] step {i_iter} ({'semi' if semi else 'warmup'}): "
+            + ", ".join(f"{a} {v:.6g}" for a, v in m.items()))
+        if not all(v == v and abs(v) != float("inf") for v in m.values()):
+            fail(f"{what} step {i_iter}: non-finite metrics {m}")
+        if not semi:
+            if p_out.any():
+                fail(f"{what}: a warmup step wrote the prototype")
+            continue
+        b_j, active = blends.pop(0)
+        written = torch.zeros_like(active)
+        written[b_j.long()] = active  # slot b_j[j] takes position j's blend
+        slots = p_out.flatten(1).ne(0).any(1)
+        log(f"[{what}] step {i_iter}: prototype in all zero {not p_in.any()}; active positions "
+            f"{active.nonzero().flatten().tolist()}, their bank classes "
+            f"{b_j[active].tolist()}; slots written {slots.nonzero().flatten().tolist()}")
+        if first and p_in.any():
+            fail(f"{what}: the prototype is not all zero into the first semi step")
+        if not first and not p_in.any():
+            fail(f"{what}: the prototype is all zero into a later semi step")
+        if not torch.equal(slots, written) or not active.any():
+            fail(f"{what} step {i_iter}: slots written {slots.tolist()}, active bank-class "
+                 f"slots {written.tolist()}")
+        if not m["con_loss"] > 0:
+            fail(f"{what} step {i_iter}: con_loss {m['con_loss']} is not > 0")
+        first = False
+    want = {"K6_fwd_pq": semi_steps, "K6_fwd": semi_steps, "K6_bwd": semi_steps}
+    got = {k: launches[k] for k in want}
+    log(f"[{what}] launches {launches}; K6 {got} (want {want})")
+    if got != want:
+        fail(f"{what}: K6 launches {got}, want {want}: the per-query mode once a semi step")
+    missing = [k for k in (*TRAIN_COUNTERS, *CONTRA_COUNTERS) if launches[k] <= 0]
+    if missing:
+        fail(f"{what}: a kernel of the anchor_ema path was never launched: {missing}")
+    check_per_semi_step(what, launches, semi_steps, contrastive=True)
+    return state, batches, gen, launches, snapshot
+
+
+def phase17_anchor_ema(dev, card, bf16_semi_ms):
+    """The VOC `ours` config as it stands (bf16) with
+    `trainer.contrastive.anchor_ema: true` set in memory: EMA_STEPS steps
+    through `run_steps` (`ema_run`); the step's ms beside phase 13's step
+    without anchor_ema (`bf16_semi_ms`); step 5 again from a copy through
+    the kernels, the plain versions and the kernels in f32 (`bf16_routes`,
+    phase 13's bounds), the new prototype of the two bf16 routes within
+    BF16_ROUTE_SHARE of its bf16-vs-f32 gap.  Then the same config in f32
+    (`load_f32`), EMA_STEPS steps through `run_steps` again (`ema_run`):
+    the f32 per-query mode's own main-path run.  Returns (launches of the
+    bf16 run, launches of the f32 run, a summary)."""
+    import torch
+
+    from u2pl_tpu_torch.config import load_config
+    from u2pl_tpu_torch.ops import mixing
+    from u2pl_tpu_torch.train.steps import draw_contrastive, make_semi_step
+
+    cfg = ema_config(load_config(VOC_CONFIG))
+    if cfg.net.dtype != "bfloat16":
+        fail(f"{VOC_CONFIG}: net.dtype {cfg.net.dtype}, phase 17 expects bfloat16")
+    state, batches, gen, launches, snapshot = ema_run(dev, cfg, "phase 17", SEED + 50)
+
+    # the step's time, as phase 13 times it
+    step = make_semi_step(cfg, STEPS_PER_EPOCH)
+    runs = []
+    for i in range(2 + 7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, *batches[i % len(batches)], gen)
+        torch.cuda.synchronize()
+        if i >= 2:
+            runs.append((time.perf_counter() - t0) * 1e3)
+    med, imgs = statistics.median(runs), B_L + B_U
+    log(f"[{card}] bf16 anchor_ema contrastive semi step ({imgs} images of {CROP}², "
+        f"synchronised): median {med:.1f} ms over {len(runs)} runs after 2 (min {min(runs):.1f}, "
+        f"max {max(runs):.1f}); {imgs * 1e3 / med:.2f} img/s; phase 13's step without anchor_ema "
+        f"{bf16_semi_ms:.1f} ms")
+    del state
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 52)
+    mix = (torch.tensor(True, device=dev), mixing.draw_boxes(g, B_U, CROP, CROP))
+    draws = draw_contrastive(g, cfg, (B_L + B_U) * OS4 * OS4)
+
+    def run(st, route):
+        return step(st, *batches[-1], mix=mix, contra=draws)
+
+    if not snapshot.prototype.any():
+        fail("phase 17: the prototype into step 5 is all zero")
+    routes = bf16_routes(snapshot, run, "phase 17")
+    del snapshot, batches
+    if routes["prototype"] is None:
+        fail("phase 17: step 5 wrote no prototype")
+    torch.cuda.empty_cache()
+
+    # the f32 per-query mode on a main-path run of its own
+    state, _, _, f32_launches, _ = ema_run(dev, ema_config(load_f32(VOC_CONFIG)),
+                                           "phase 17 f32", SEED + 53)
+    del state
+    return launches, f32_launches, {"semi_ms": med, "img_s": imgs * 1e3 / med, **routes}
+
+
 # ---- phase 15: K5's modes for several ranks ----------------------------------
 
 SLAB_WORLDS = (1, 2, 4, 8)  # ranks whose slabs phase 15 enqueues
@@ -4129,6 +4426,12 @@ def bounds(case, cfg):
         "K5_bf16": (sel * (f * 2 + 4 + f * 2), 0),
         "K6_fwd_bf16": (act * q * (f * 2 + m * (f * 2 + 4)) + act * f * 4,
                         act * q * (m + 1) * f * 4),
+        # the per-query positive (anchor_ema): a (C, Q, F) f32 row per draw
+        # in place of a (C, F) row per position
+        "K6_fwd_pq": (act * q * (f * 4 + m * (f * 2 + 4)) + act * q * f * 4,
+                      act * q * (m + 1) * f * 4),
+        "K6_fwd_pq_bf16": (act * q * (f * 2 + m * (f * 2 + 4)) + act * q * f * 4,
+                           act * q * (m + 1) * f * 4),
         "K6_bwd_bf16": (b * f * hw * 2 + act * q * (2 * f * 4 + 4), 0),
         # phase 14: B reads the bf16 logits and writes a byte per pixel; A
         # bf16 -> f32 reads bf16 and writes f32; A narrow at the decoder's
@@ -4181,6 +4484,8 @@ def main() -> int:
     ccfg = load_f32(VOC_CONFIG)  # the `ours` config as it stands (f32), contrastive included
     contra_errs, case = phase1_contrastive_kernels(dev, ccfg)
     errs.update(contra_errs)
+    pq_errs, pq_times, pq_f32, pq_class = phase1_k6_per_query(dev, card, case, ccfg)
+    errs.update(pq_errs)
     k = ccfg.trainer.contrastive.max_keys_per_class_per_step
     variant_errs, variant_inputs = phase1_variant_kernels(dev, case["negative"], k)
     errs.update(variant_errs)
@@ -4219,11 +4524,14 @@ def main() -> int:
     one_rank, one_rank_run = phase16_one_rank_group(dev, card)
     two_ranks, two_ranks_run = phase16_two_ranks(card)
     torch.cuda.empty_cache()
+    ema_launches, ema_f32_launches, ema_run = phase17_anchor_ema(dev, card, bf_voc_run["semi_ms"])
+    torch.cuda.empty_cache()
     bound = bounds(case, ccfg)
     bound.update({key: (ms, "bytes") for key, ms in slab_bounds.items()})
     bf_errs.update(inf_errs)
     bf_f32.update(inf_f32)
     bf_f32.update(slab_f32)
+    bf_f32.update(pq_f32)
 
     csrc = "u2pl_tpu_torch/kernels/csrc/"
     times.update(train_times)
@@ -4233,6 +4541,7 @@ def main() -> int:
     times.update(bf_times)
     times.update(inf_times)
     times.update(slab_times)
+    times.update(pq_times)
     srv = inf_run["serving"]
     log(f"[{card}] bf16 beside f32, VOC serving at 513² (phase 14): batch-1 latency p50 "
         f"{srv['bfloat16']['p50']:.2f} / p99 {srv['bfloat16']['p99']:.2f} ms vs "
@@ -4252,6 +4561,13 @@ def main() -> int:
         f"{DIST_W} ranks over {two_ranks_run['backend']} "
         + "; ".join(f"rank {i} {r['ms']}, peak {r['peak'] / 2**30:.2f} GiB"
                     for i, r in enumerate(two_ranks_run["reports"])))
+    log(f"[{card}] phase 17: the VOC bf16 contrastive semi step with anchor_ema "
+        f"{ema_run['semi_ms']:.1f} ms, phase 13's without it {bf_voc_run['semi_ms']:.1f} ms")
+    for key in ("K6_fwd_pq", "K6_fwd_pq_bf16"):
+        ms = times[key][0]
+        log(f"[{card}] kernel {key}: {ms:.4f} ms (the per-class mode on the same inputs "
+            f"{pq_class[key]:.4f} ms), {ms / bound[key][0]:.1f}x its bound {bound[key][0]:.4f} ms "
+            f"({bound[key][1]})")
     ms = times["K5"][0]
     log(f"[{card}] kernel K5: {ms:.4f} ms, {ms / bound['K5'][0]:.1f}x its row-bytes bound "
         f"{bound['K5'][0]:.4f} ms, {ms / bound['K5_sectors'][0]:.1f}x its NCHW sector bound "
@@ -4412,6 +4728,16 @@ def main() -> int:
         entry("contra_infonce_fwd_bf16", "K6_fwd_bf16", "infonce.cu",
               "u2pl_tpu/losses/contrastive.py:168", bf("K6_fwd"), bf_errs["K6_fwd_bf16"],
               "K6_fwd_bf16"),
+        # K6's forward with the (C, Q, F) anchor_ema positive: its launches on
+        # phase 17's bf16 run, and the f32 mode's on that phase's f32 run;
+        # each beside the per-class mode timed on the same inputs
+        {**entry("contra_infonce_fwd_per_query", "K6_fwd_pq", "infonce.cu",
+                 "u2pl_tpu/losses/contrastive.py:168", ema_f32_launches["K6_fwd_pq"],
+                 errs["K6_fwd_pq"], "K6_fwd_pq"), "per_class_ms": pq_class["K6_fwd_pq"]},
+        {**entry("contra_infonce_fwd_per_query_bf16", "K6_fwd_pq_bf16", "infonce.cu",
+                 "u2pl_tpu/losses/contrastive.py:168", ema_launches["K6_fwd_pq"],
+                 errs["K6_fwd_pq_bf16"], "K6_fwd_pq_bf16"),
+         "per_class_ms": pq_class["K6_fwd_pq_bf16"]},
         {**entry("contra_infonce_bwd_bf16", "K6_bwd_bf16", "infonce.cu",
                  "u2pl_tpu/losses/contrastive.py:168", bf("K6_bwd"), bf_errs["K6_bwd_bf16"],
                  "K6_bwd_bf16"),

@@ -354,28 +354,32 @@ def nhwc_rows(rep, idx):
     return np.moveaxis(rep, 1, -1).reshape(-1, rep.shape[1])[idx]
 
 
-def _contra_run(rep_dtype, bank_dtype, seed=0):
+def _contra_run(rep_dtype, bank_dtype, seed=0, momentum=None):
     """(loss, rep gradient) of the JAX loss with `rep_dtype` reps on a
     `bank_dtype` bank (float32: on the data before its bf16 rounding), and
-    the port's inputs."""
-    jcfg, cfg = cfgs()
+    the port's inputs; with a (C, Q, 1, F) `momentum` prototype (anchor_ema,
+    at i_iter ANCHOR_EMA_ITER) also JAX's new prototype, after the gradient."""
+    jcfg, cfg = cfgs(anchor_ema=momentum is not None)
     rep, rep_t, prob, labels, low, high = inputs(seed)
     if rep_dtype == jnp.bfloat16:  # the f32 reference takes the unrounded data
         rep, rep_t = to_bf16_np(rep), to_bf16_np(rep_t)
     jbank, bank = banks(seed, dtype=bank_dtype)
     rng = jax.random.PRNGKey(100 + seed)
     onehot = jax_onehot(jnp.asarray(labels), CC)
+    ema = {} if momentum is None else {"prototype": jnp.asarray(momentum),
+                                       "i_iter": jnp.asarray(ANCHOR_EMA_ITER, jnp.int32)}
 
     def jax_loss(rep_nhwc):
-        _, loss = jc.compute_contra_memobank_loss(
+        *proto, _, loss = jc.compute_contra_memobank_loss(
             rep_nhwc, onehot[:B_L], onehot[B_L:], nhwc(prob[:B_L]), nhwc(prob[B_L:]),
             jnp.asarray(low, jnp.float32)[..., None], jnp.asarray(high, jnp.float32)[..., None],
-            jcfg, jbank, nhwc(rep_t).astype(rep_dtype), rng)
-        return loss
+            jcfg, jbank, nhwc(rep_t).astype(rep_dtype), rng, **ema)
+        return loss, proto
 
-    v, gr = jax.jit(jax.value_and_grad(jax_loss))(nhwc(rep).astype(rep_dtype))
-    return (float(v), nchw(gr.astype(jnp.float32))), (rep, rep_t, prob, labels, low, high,
-                                                      bank, rng, cfg)
+    (v, proto), gr = jax.jit(jax.value_and_grad(jax_loss, has_aux=True))(
+        nhwc(rep).astype(rep_dtype))
+    ref = (float(v), nchw(gr.astype(jnp.float32))) + tuple(np.asarray(p) for p in proto)
+    return ref, (rep, rep_t, prob, labels, low, high, bank, rng, cfg)
 
 
 @pytest.mark.parametrize("bank_dtype", ["bfloat16", "float32"])
@@ -408,6 +412,36 @@ def test_contrastive_loss_and_gradient(bank_dtype):
     hold_half(f"contrastive loss, {bank_dtype} bank", loss.item(), ref_bf[0], ref_32[0])
     hold_half(f"contrastive rep gradient, {bank_dtype} bank", rt.grad, ref_bf[1], ref_32[1],
               rounded=True)
+
+
+ANCHOR_EMA_ITER = 37
+
+
+@pytest.mark.parametrize("bank_dtype", ["bfloat16", "float32"])
+def test_contrastive_anchor_ema(bank_dtype):
+    """`contrastive.anchor_ema` on a bf16 rep: the blended (C, Q, F) float32
+    positive through the dot-first path (bf16 bank) or normalise-then-dot
+    (f32 bank); loss and rep gradient within half of JAX's bf16-vs-f32 gap
+    as above, the new prototype (f32, from the bf16 teacher rep's f32-
+    accumulated prototype) rtol 1e-5, atol 1e-6 of JAX's bf16 run."""
+    jdt = {"bfloat16": jnp.bfloat16, "float32": jnp.float32}[bank_dtype]
+    momentum = np.random.RandomState(8).randn(CC, 8, 1, 256).astype(np.float32)
+    ref_bf, args = _contra_run(jnp.bfloat16, jdt, momentum=momentum)
+    ref_32, _ = _contra_run(jnp.float32, jdt, momentum=momentum)
+    rep, rep_t, prob, labels, low, high, bank, rng, cfg = args
+    rt = torch.from_numpy(rep).to(torch.bfloat16).requires_grad_(True)
+    draws = jax_draws(rng, cfg.num_queries, cfg.num_negatives)
+    lab, pt = torch.from_numpy(labels), torch.from_numpy(prob)
+    proto, _, loss = tc.compute_contra_memobank_loss(
+        rt, lab[:B_L], lab[B_L:], pt[:B_L], pt[B_L:], torch.from_numpy(low),
+        torch.from_numpy(high), cfg, bank, torch.from_numpy(rep_t).to(torch.bfloat16), draws,
+        prototype=torch.from_numpy(momentum), i_iter=torch.tensor(ANCHOR_EMA_ITER))
+    loss.backward()
+    assert rt.grad.dtype == torch.bfloat16 and proto.dtype == torch.float32
+    hold_half(f"anchor_ema loss, {bank_dtype} bank", loss.item(), ref_bf[0], ref_32[0])
+    hold_half(f"anchor_ema rep gradient, {bank_dtype} bank", rt.grad, ref_bf[1], ref_32[1],
+              rounded=True)
+    np.testing.assert_allclose(proto.numpy(), ref_bf[2], rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("bank_dtype", [torch.bfloat16, torch.float32])

@@ -193,6 +193,31 @@ def test_pretrain_loads_weights_only(tmp_path):
     assert all(torch.equal(after[k], six_sd[k]) for k in after if k not in mismatched)
 
 
+@pytest.mark.parametrize("name, zipfile", [("pretrain.pt", True), ("pretrain.pth.tar", True),
+                                           ("weights", True), ("legacy.pth", False)])
+def test_pretrain_from_a_torch_file_of_any_name(tmp_path, name, zipfile):
+    """A torch file is read as one whatever its name, the format told by
+    its first byte (a zip archive, or the legacy format's pickle):
+    `saver.pretrain` of a `.pt`, a `.pth.tar` or a name with no suffix
+    loads its weights only, and `load_model_variables` its teacher."""
+    src = trained_state(0)
+    path = str(tmp_path / name)
+    ck.save_checkpoint(path, src, epoch=5, best_miou=0.9)
+    if not zipfile:
+        torch.save(torch.load(path, weights_only=False), path,
+                   _use_new_zipfile_serialization=False)
+    cfg = parse_config(raw_cfg(pretrain=path))
+    dst = state_mod.create_train_state(cfg, device="cpu",
+                                       generator=torch.Generator().manual_seed(3))
+    assert ck.maybe_resume(cfg.saver, str(tmp_path / "none"), dst) == (True, 0, 0.0)
+    for model in ("student", "teacher"):
+        want, got = getattr(src, model).state_dict(), getattr(dst, model).state_dict()
+        assert all(torch.equal(got[k], want[k]) for k in want), model
+    assert int(dst.step) == 0 and not dst.optimizer.state
+    teacher = ck.load_model_variables(path)
+    assert all(torch.equal(teacher[k], v) for k, v in src.teacher.state_dict().items())
+
+
 def test_auto_resume_comes_before_pretrain(tmp_path):
     src = trained_state(0)
     save = tmp_path / "checkpoints"

@@ -27,7 +27,7 @@ import torch
 from u2pl_tpu_torch import dist, memobank, train_semi, train_sup
 from u2pl_tpu_torch.data.synthetic import make_voc_workspace, write_config
 from u2pl_tpu_torch.train import state as state_mod
-from u2pl_tpu_torch.utils.checkpoint import CKPT_BEST_NAME, CKPT_NAME
+from u2pl_tpu_torch.utils.checkpoint import CKPT_BEST_NAME, CKPT_NAME, JAX_CKPT_NAME
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOC = os.path.join(REPO, "experiments", "pascal", "1464", "ours", "config.yaml")
@@ -191,6 +191,77 @@ def test_resume_is_bit_equal_to_an_uninterrupted_run(ws, uninterrupted):
     assert summary["start_epoch"] == 1 and summary["start_iter"] == 4 and summary["steps"] == 4
     assert any("resumed at epoch 1, step 4" in ln for ln in lines)
     assert_bit_equal(snapshot(summary["state"]), want)
+
+
+def jax_ckpt_of(pth, cfg_path, out):
+    """The state of the port's `.pth` at `pth` as the JAX package's TrainState
+    (its `torch_to_flax` for both models and for the SGD trace, the bank and
+    the prototype as they are), written to `out` by the JAX package's
+    `save_checkpoint` with the file's epoch and best mIoU."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import optax
+
+    from u2pl_tpu.config import head_lr_multiplier, load_config
+    from u2pl_tpu.memobank import MemoryBank
+    from u2pl_tpu.models import build_model as build_jax_model
+    from u2pl_tpu.train.optim import make_optimizer
+    from u2pl_tpu.train.state import TrainState
+    from u2pl_tpu.utils.checkpoint import save_checkpoint
+    from u2pl_tpu.utils.convert_torch import torch_to_flax
+    from u2pl_tpu_torch.config import load_config as port_load_config
+    from u2pl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    jcfg = load_config(cfg_path)
+    tmpl = build_jax_model(jcfg.net).init(jax.random.PRNGKey(0), jnp.zeros((1, 33, 33, 3)),
+                                          train=False)
+    ckpt = torch.load(pth, weights_only=False)
+    student, teacher = (torch_to_flax(ckpt[k], tmpl) for k in ("model_state", "teacher_state"))
+    port = state_mod.create_train_state(port_load_config(cfg_path), device="cpu")
+    load_checkpoint(pth, port)
+    trace = {n: port.optimizer.state[p]["trace"] for n, p in port.student.named_parameters()}
+    tx = make_optimizer(jcfg.trainer.optimizer, student["params"], head_lr_multiplier(jcfg))
+    opt = optax.tree_utils.tree_set(
+        tx.init(student["params"]), trace=torch_to_flax(trace, {"params": tmpl["params"]})["params"])
+    bank = port.bank
+    tree = lambda t: jax.tree_util.tree_map(jnp.asarray, t)  # noqa: E731
+    state = TrainState(
+        step=jnp.asarray(int(port.step), jnp.int32), params=tree(student["params"]),
+        batch_stats=tree(student["batch_stats"]), opt_state=opt,
+        teacher_params=tree(teacher["params"]), teacher_batch_stats=tree(teacher["batch_stats"]),
+        bank=MemoryBank(jnp.asarray(bank.keys.float().numpy(), jnp.bfloat16),
+                        *(jnp.asarray(getattr(bank, f).numpy()) for f in ("ptr", "occupancy",
+                                                                          "sizes"))),
+        prototype=jnp.asarray(port.prototype.numpy()))
+    save_checkpoint(out, state, ckpt["epoch"], ckpt["best_miou"])
+    return np.asarray(state.step)
+
+
+def test_auto_resume_from_the_jax_ckpt(ws, uninterrupted):
+    """A folder holding only the JAX package's `ckpt.ckpt` (the uninterrupted
+    run's state after epoch 0, written by the JAX package): auto_resume
+    starts at its epoch and step, and the run ends bit-equal to the
+    uninterrupted one (student, teacher, optimizer, bank, step) but for
+    BatchNorm's `num_batches_tracked`, a counter JAX has not (0 after a
+    `.ckpt`, so epoch 0's count is missing from it)."""
+    _, _, want, _, first = uninterrupted
+    cfg = config(ws, "from_jax", **PROCESS, **{"saver.auto_resume": True})
+    folder = os.path.join(os.path.dirname(cfg), "checkpoints")
+    os.makedirs(folder)
+    assert jax_ckpt_of(first, cfg, os.path.join(folder, JAX_CKPT_NAME)) == 4
+    assert os.listdir(folder) == [JAX_CKPT_NAME]
+    summary, lines = run(train_semi, cfg)
+    assert summary["start_epoch"] == 1 and summary["start_iter"] == 4 and summary["steps"] == 4
+    assert any(f"Resume model from: '{os.path.join(folder, JAX_CKPT_NAME)}'" in ln for ln in lines)
+    assert any("resumed at epoch 1, step 4" in ln for ln in lines)
+    got = snapshot(summary["state"])
+    want = {k: dict(v) if isinstance(v, dict) else v for k, v in want.items()}
+    for model in ("student", "teacher"):
+        for k in [k for k in want[model] if k.endswith("num_batches_tracked")]:
+            # both models counted epoch 0's 4 train-mode forwards before the file
+            assert got[model].pop(k) == want[model].pop(k) - 4, (model, k)
+    assert_bit_equal(got, want)
 
 
 def test_train_sup_end_to_end(ws):

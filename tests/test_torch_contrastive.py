@@ -551,33 +551,45 @@ def test_sample_anchors_bit_equal(density):
 
 # ---- the loss ------------------------------------------------------------------
 
-def run_both(seed, strict=True, fill=True, n_classes_present=C, high_frac=0.7, **kw):
+def run_both(seed, strict=True, fill=True, n_classes_present=C, high_frac=0.7,
+             prototype=None, i_iter=0, bank_dtype=jnp.bfloat16, **kw):
+    """The loss, its gradient in `rep`, the bank and the info of JAX and of
+    the port on seed `seed`'s inputs; with a (C, Q, 1, F) numpy `prototype`
+    (anchor_ema) also each side's new prototype, after the bank."""
     jcfg, cfg = cfgs(**kw)
     rep, rep_t, prob, labels, low, high = inputs(seed, n_classes_present, high_frac)
-    jbank, bank = banks(seed, fill)
+    jbank, bank = banks(seed, fill, bank_dtype)
     rng = jax.random.PRNGKey(100 + seed)
     onehot = jax_onehot(jnp.asarray(labels), C)
+    ema = {} if prototype is None else {"prototype": jnp.asarray(prototype),
+                                        "i_iter": jnp.asarray(i_iter, jnp.int32)}
 
     def jax_loss(rep_nhwc):
-        bank_out, loss, info = jc.compute_contra_memobank_loss(
+        *protos, bank_out, loss, info = jc.compute_contra_memobank_loss(
             rep_nhwc, onehot[:B_L], onehot[B_L:], nhwc(prob[:B_L]), nhwc(prob[B_L:]),
             jnp.asarray(low, jnp.float32)[..., None], jnp.asarray(high, jnp.float32)[..., None],
-            jcfg, jbank, nhwc(rep_t), rng, strict_reference=strict, return_info=True)
-        return loss, (bank_out, info)
+            jcfg, jbank, nhwc(rep_t), rng, strict_reference=strict, return_info=True, **ema)
+        return loss, (bank_out, info, protos)
 
-    (ref_loss, (ref_bank, ref_info)), ref_g = jax.value_and_grad(jax_loss, has_aux=True)(nhwc(rep))
+    (ref_loss, (ref_bank, ref_info, ref_protos)), ref_g = jax.value_and_grad(
+        jax_loss, has_aux=True)(nhwc(rep))
     rep_t_ = torch.from_numpy(rep).requires_grad_(True)
     draws = jax_draws(rng, cfg.num_queries, cfg.num_negatives, select_keys=cfg.select_keys)
     lab = torch.from_numpy(labels)
     pt = torch.from_numpy(prob)
-    out_bank, loss, info = tc.compute_contra_memobank_loss(
+    port_ema = {} if prototype is None else {
+        "prototype": torch.from_numpy(prototype), "i_iter": torch.tensor(i_iter, dtype=torch.int32)}
+    *protos, out_bank, loss, info = tc.compute_contra_memobank_loss(
         rep_t_, lab[:B_L], lab[B_L:], pt[:B_L], pt[B_L:], torch.from_numpy(low),
         torch.from_numpy(high), cfg, bank, torch.from_numpy(rep_t), draws,
-        strict_reference=strict, return_info=True)
+        strict_reference=strict, return_info=True, **port_ema)
     assert out_bank is bank
     loss.backward()
-    return (float(ref_loss), np.moveaxis(np.asarray(ref_g), -1, 1), ref_bank, ref_info), (
-        loss.item(), rep_t_.grad.numpy(), bank, info)
+    ref = (float(ref_loss), np.moveaxis(np.asarray(ref_g), -1, 1), ref_bank, ref_info)
+    got = (loss.item(), rep_t_.grad.numpy(), bank, info)
+    if prototype is None:
+        return ref, got
+    return ref + (np.asarray(ref_protos[0]),), got + (protos[0].numpy(),)
 
 
 @pytest.mark.parametrize("strict", [True, False])
@@ -650,11 +662,68 @@ def test_zero_loss_cases(case):
     assert_equal(gbank, rbank)
 
 
-def test_anchor_ema_raises():
-    _, cfg = cfgs(anchor_ema=True)
-    rep, rep_t, prob, labels, low, high = inputs(0)
-    t = torch.from_numpy
-    with pytest.raises(NotImplementedError, match="anchor_ema"):
-        tc.compute_contra_memobank_loss(
-            t(rep), t(labels[:B_L]), t(labels[B_L:]), t(prob[:B_L]), t(prob[B_L:]), t(low),
-            t(high), cfg, banks(0)[1], t(rep_t), jax_draws(jax.random.PRNGKey(0), 8, 4))
+def momentum_prototype(seed, zero=False, q=8):
+    """A (C, Q, 1, F) momentum prototype: zeros, or seeded values."""
+    if zero:
+        return np.zeros((C, q, 1, F), np.float32)
+    return np.random.RandomState(50 + seed).randn(C, q, 1, F).astype(np.float32)
+
+
+def check_anchor_ema(ref, got):
+    """Loss and rep gradient at the loss's bounds, the bank bit-equal, the
+    new prototype rtol 1e-5, atol 1e-6 (JAX's own test of it,
+    tests/test_losses.py:463)."""
+    (rl, rg, rbank, rinfo, rproto), (gl, gg, gbank, ginfo, gproto) = ref, got
+    np.testing.assert_allclose(gl, rl, rtol=1e-5)
+    np.testing.assert_allclose(gg, rg, rtol=0, atol=1e-5 * np.abs(rg).max())
+    np.testing.assert_array_equal(ginfo["neg_candidates"].numpy(), np.asarray(rinfo["neg_candidates"]))
+    assert_equal(gbank, rbank)
+    assert gproto.shape == rproto.shape == (C, 8, 1, F) and gproto.dtype == np.float32
+    np.testing.assert_allclose(gproto, rproto, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("bank_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("zero", [True, False])
+def test_anchor_ema_matches_jax(zero, bank_dtype):
+    """`contrastive.anchor_ema`: each position's positive blended with its
+    bank class's momentum slot at d = min(1 - 1/37, 0.999), or not blended
+    while the prototype is all zero; K6's plain version with the (C, Q, F)
+    positive; the new prototype written at the active positions' b_j slots."""
+    proto = momentum_prototype(0, zero)
+    ref, got = run_both(0, prototype=proto, i_iter=37, anchor_ema=True,
+                        bank_dtype={"bfloat16": jnp.bfloat16, "float32": jnp.float32}[bank_dtype])
+    assert ref[0] > 0
+    check_anchor_ema(ref, got)
+    # every position is active here: every slot written
+    assert (np.abs(ref[4]).sum(axis=(1, 2, 3)) > 0).all()
+    if not zero:  # the blend moved the positive: the loss differs from the unblended one
+        (rl0, *_), _ = run_both(0, bank_dtype=jnp.float32 if bank_dtype == "float32" else
+                                jnp.bfloat16)
+        assert abs(ref[0] - rl0) > 1e-4 * abs(rl0)
+
+
+@pytest.mark.parametrize("i_iter", [0, 1, 5000])
+def test_anchor_ema_decay_ends(i_iter):
+    """d = 0 at i_iter 0 and 1 (the blend gives the positive itself), 0.999
+    from i_iter 1000 on: the new prototype as JAX's, the slots of a first
+    step equal to the per-class positive."""
+    ref, got = run_both(1, prototype=momentum_prototype(1), i_iter=i_iter, anchor_ema=True)
+    check_anchor_ema(ref, got)
+    if i_iter <= 1:
+        gproto = got[4]
+        assert np.all(gproto == gproto[:, :1])  # one positive per class, unblended
+
+
+def test_anchor_ema_inactive_slot_stays_zero():
+    """Inactive positions leave their b_j slots of the new prototype zero on
+    both sides, though the momentum slots are not: class 2's ring is empty
+    and takes no key this step (no negative candidates), and class 4 has no
+    pixel (its position lies past valid_seg)."""
+    proto = momentum_prototype(4)
+    ref, got = run_both(4, high_frac=0.0, prototype=proto, i_iter=37, anchor_ema=True,
+                        n_classes_present=4)
+    check_anchor_ema(ref, got)
+    zero_slots = [k for k in range(C) if not np.any(ref[4][k])]
+    assert zero_slots == [2, 4] and all(np.any(proto[k]) for k in zero_slots)
+    for k in zero_slots:
+        assert not np.any(got[4][k])

@@ -17,6 +17,12 @@ pattern, the teacher's BN statistics rtol 1e-4, the bank's ptr and occupancy
 exact and its keys within a bf16 ulp plus KEY_ATOL.  After each step the two
 ranks' states (models, optimizer trace, bank) are bit-equal.  The sup step
 at W = 2: tests/test_torch_dist_sup.py.
+
+With `contrastive.anchor_ema` (`ema_trajectory`) each rank keeps its own
+prototype, as each JAX device keeps its own buffer of the P()-specced
+state: rank r is fed device r's shard before a step and held to device
+r's shard after it (PROTO_ATOL), and the ranks' bit-equality covers the
+rest of the state, not the prototype.
 """
 
 import flax.linen as fnn
@@ -29,7 +35,7 @@ import torch
 from test_torch_contrastive import jax_draws
 from test_torch_dist import Ranks, W, assert_bit_equal, post
 from test_torch_train_step import (
-    BANK, CONTRA, HW, STEPS, _jax_snapshot, _np_bank, _np_tree, check_bank, check_contrastive_losses, check_student_update,
+    BANK, CONTRA, HW, PROTO_ATOL, STEPS, _jax_snapshot, _np_bank, _np_tree, check_bank, check_contrastive_losses, check_student_update,
     check_teacher_bn_running_stats, check_teacher_parameters, raw_cfg,
 )
 from u2pl_tpu.config import head_lr_multiplier as jax_head_lr_multiplier
@@ -55,7 +61,7 @@ def sync_raw(**kw):
     return raw
 
 
-def global_batches(b=B_RANK * W):
+def global_batches(b=B_RANK * W, steps=STEPS):
     """The smooth, colour-labeled batches of tests/test_torch_train_step.py
     at b labeled + b unlabeled images a step (the mesh's global batch)."""
     from u2pl_tpu_torch.ops.resize import resize_bilinear_numpy
@@ -68,7 +74,7 @@ def global_batches(b=B_RANK * W):
         return (x + 0.1 * rng.randn(*x.shape)).astype(np.float32)
 
     out = []
-    for _ in range(STEPS):
+    for _ in range(steps):
         img_l = images()
         lab_l = np.clip(((img_l[..., 0] + 2) * 5 / 4).astype(np.int32), 0, 4)
         lab_l[:, :3] = 255
@@ -112,13 +118,16 @@ def port_snapshot(snap, step):
     return out
 
 
-def port_entry(i, snap, batch, rng):
+def port_entry(i, snap, batch, rng, prototypes=None):
     """The worker's step i: JAX's state before it, the global batch, and
-    each rank's replayed CutMix and contrastive draws (semi steps)."""
+    each rank's replayed CutMix and contrastive draws (semi steps), and
+    under anchor_ema each rank's prototype (`prototypes[r]`)."""
     img_l, lab_l, img_u = batch
     entry = {"kind": "semi", "i": i, "steps_per_epoch": 1, "state": port_snapshot(snap, i),
              "batch": (nchw(img_l), torch.from_numpy(lab_l), nchw(img_u)),
              "mix": [None] * W, "contra": [None] * W}
+    if prototypes is not None:
+        entry["prototype"] = [torch.from_numpy(p) for p in prototypes]
     if i > 0:
         for r in range(W):
             coin, u = shard_mix(rng, i, r)
@@ -127,17 +136,28 @@ def port_entry(i, snap, batch, rng):
     return entry
 
 
-@pytest.fixture(scope="module")
-def trajectory(tmp_path_factory):
+def device_prototypes(state, mesh):
+    """Each device's own buffer of JAX's `state.prototype`, in the mesh's
+    device order: the step's P() spec with check_vma=False leaves each
+    device the prototype it computed from its shard (steps.py:576-581)."""
+    shards = state.prototype.addressable_shards
+    if len(shards) == 1:  # the initial state, on one device before the first step
+        return [np.array(shards[0].data)] * W
+    by_device = {sh.device: np.array(sh.data) for sh in shards}
+    return [by_device[d] for d in mesh.devices.flat]
+
+
+def _trajectory(tmp_path_factory, raw, steps=STEPS):
     """(before, jax_after, torch_after, steps) in the format of
     tests/test_torch_train_step.py, torch_after from rank 0, and both ranks'
-    raw outputs."""
-    raw = sync_raw(contrastive=CONTRA)
+    raw outputs; under anchor_ema each step's extras also hold the devices'
+    prototypes before and after it (`device_prototypes`)."""
     jcfg = jax_parse_config(raw)
-    data = global_batches()
-    # a step key whose coin lands heads on both semi steps on both shards
+    ema = jcfg.trainer.contrastive.anchor_ema
+    data = global_batches(steps=steps)
+    # a step key whose coin lands heads on every semi step on both shards
     seed = next(s for s in range(256) if all(
-        shard_mix(jax.random.PRNGKey(s), i, r)[0] for i in (1, 2) for r in range(W)))
+        shard_mix(jax.random.PRNGKey(s), i, r)[0] for i in range(1, steps) for r in range(W)))
     rng = jax.random.PRNGKey(seed)
     init_model = build_jax_model(jcfg.net)
     init = jax.jit(lambda k, x: init_model.init(k, x, train=False))
@@ -167,7 +187,8 @@ def trajectory(tmp_path_factory):
             semi = jax_semi_step(jcfg, model, tx, 1, mesh)
             for i, (img_l, lab_l, img_u) in enumerate(data):
                 jax_before.append(_jax_snapshot(state))
-                post(tmp, f"step{i}.pt", port_entry(i, jax_before[i], data[i], rng))
+                into = device_prototypes(state, mesh) if ema else None
+                post(tmp, f"step{i}.pt", port_entry(i, jax_before[i], data[i], rng, into))
                 if i == 1:
                     state = jax_copy(state)
                 state, m = (warmup if i == 0 else semi)(
@@ -179,7 +200,8 @@ def trajectory(tmp_path_factory):
                     flax_to_torch({"params": _np_tree(state.teacher_params),
                                    "batch_stats": _np_tree(state.teacher_batch_stats)}),
                     {"neg_cand": np.asarray(m["neg_cand"]) if "neg_cand" in m else None,
-                     "bank": _np_bank(state.bank)},
+                     "bank": _np_bank(state.bank),
+                     "prototypes": (into, device_prototypes(state, mesh)) if ema else None},
                 ))
     except BaseException:
         ranks.kill()
@@ -198,6 +220,17 @@ def trajectory(tmp_path_factory):
         ))
     before = [flax_to_torch({"params": b["params"]}) for b in jax_before]
     return (before, jax_after, torch_after, steps), ranks
+
+
+@pytest.fixture(scope="module")
+def trajectory(tmp_path_factory):
+    return _trajectory(tmp_path_factory, sync_raw(contrastive=CONTRA))
+
+
+@pytest.fixture(scope="module")
+def ema_trajectory(tmp_path_factory):
+    """`contrastive.anchor_ema` at W = 2: a warmup and 2 semi steps."""
+    return _trajectory(tmp_path_factory, sync_raw(contrastive={**CONTRA, "anchor_ema": True}))
 
 
 @pytest.mark.parametrize("i", range(STEPS))
@@ -228,3 +261,25 @@ def test_ranks_bit_equal(trajectory, i):
     _, ranks = trajectory
     assert_bit_equal(ranks[0][i]["state"], ranks[1][i]["state"], f"step {i}")
     assert_bit_equal(ranks[0][i]["metrics"], ranks[1][i]["metrics"], f"step {i} metrics")
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_anchor_ema_per_rank_prototype(ema_trajectory, i):
+    """anchor_ema at W = 2: the losses, thresholds and bank at the bounds
+    above, and each rank's prototype, fed device r's shard of JAX's
+    `state.prototype` before the step, within PROTO_ATOL of device r's shard
+    after it (not of the array as a whole: each device keeps its own, and so
+    does each rank; after the first semi step they differ).  The ranks stay
+    bit-equal in everything else."""
+    traj, ranks = ema_trajectory
+    check_contrastive_losses(traj, i)
+    check_bank(traj, i)
+    into, after = traj[1][i][3]["prototypes"]
+    for r in range(W):
+        np.testing.assert_array_equal(ranks[r][i]["prototype_in"].numpy(), into[r])
+        np.testing.assert_allclose(ranks[r][i]["prototype"].numpy(), after[r], rtol=0,
+                                   atol=PROTO_ATOL, err_msg=f"step {i} rank {r}")
+    assert (not into[0].any()) == (i <= 1) and after[0].any() == (i >= 1)
+    if i == 2:
+        assert not np.array_equal(after[0], after[1])  # the devices' prototypes part
+    assert_bit_equal(ranks[0][i]["state"], ranks[1][i]["state"], f"step {i}")

@@ -6,12 +6,15 @@ Every leaf must be bit-equal: the same dtype, shape and bytes for an
 array (a bfloat16 leaf is a `torch.bfloat16` tensor whose bits are
 flax's), the same type and value for a scalar, the same keys for a map.
 Then `load_model_variables` on such a file: teacher preferred, the state
-dict `flax_to_torch` makes of the JAX variables, and a resume from a
-`.ckpt` refused.
+dict `flax_to_torch` makes of the JAX variables.  And training from one:
+the JAX package's `save_checkpoint` mid-trajectory (test_torch_train_step.py's
+config and steps), `load_checkpoint` bit-equal to JAX's state (SGD with
+anchor_ema's prototype and the bf16 bank; Adam), the port's next step
+against JAX's at that file's bounds, `load_pretrain_weights` (weights
+only), and a tree that does not fit refused by name.
 """
 
 import struct
-import types
 
 import jax
 import jax.numpy as jnp
@@ -21,11 +24,16 @@ import pytest
 import torch
 from flax import serialization
 
+import test_torch_train_step as ts
 from test_torch_model import C, perturbed_flax_variables, small_net_raw
 from u2pl_tpu.config import parse_config as jax_parse_config
 from u2pl_tpu.models import build_model as build_jax_model
+from u2pl_tpu.utils.checkpoint import save_checkpoint as jax_save_checkpoint
 from u2pl_tpu_torch.config import parse_config
+from u2pl_tpu_torch.memobank import init_memobank
 from u2pl_tpu_torch.models import build_model
+from u2pl_tpu_torch.models.decoder import Dropout2d
+from u2pl_tpu_torch.train.state import create_train_state
 from u2pl_tpu_torch.utils import checkpoint as ck
 from u2pl_tpu_torch.utils.convert_jax import flax_to_torch
 from u2pl_tpu_torch.utils.msgpack_ckpt import msgpack_restore, read_msgpack_ckpt
@@ -203,12 +211,196 @@ def test_teacher_preferred_else_model_state(tmp_path, jax_variables):
         ck.load_model_variables(str(tmp_path / "missing.ckpt"))
 
 
-def test_resume_from_ckpt_raises(tmp_path, jax_variables):
-    _, teacher, _ = jax_variables
-    path = _write(tmp_path / "ckpt.ckpt", {"epoch": 1, "model_state":
-                                           serialization.to_state_dict(teacher)})
-    state = types.SimpleNamespace(student=torch.nn.Linear(1, 1))  # names the device alone
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ck.load_checkpoint(path, state)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ck.load_pretrain_weights(path, state)
+# ---- training from a JAX `.ckpt` ---------------------------------------------
+
+EMA_RAW = ts.raw_cfg(contrastive={**ts.CONTRA, "anchor_ema": True})
+
+
+def adam_raw():
+    raw = ts.raw_cfg()
+    raw["trainer"]["optimizer"]["type"] = "Adam"
+    return raw
+
+
+def _fresh_state(cfg):
+    """The port's state for `cfg` on the CPU, dropout off, with the
+    trajectory's bank sizes (test_torch_train_step.py: BANK)."""
+    student = build_model(cfg.net, device="cpu")
+    for m in student.modules():
+        if isinstance(m, Dropout2d):
+            m.p = 0.0
+    state = create_train_state(cfg, device="cpu", student=student)
+    if state.bank is not None:
+        state.bank = init_memobank(cfg.net.num_classes, 256, dtype=state.bank.keys.dtype,
+                                   device="cpu", **ts.BANK)
+    return state
+
+
+def _capture(state):
+    """The port's state as plain tensors: models, optimizer state by
+    parameter name, bank, prototype and step."""
+    named = dict(state.student.named_parameters())
+    out = {"student": {k: v.clone() for k, v in state.student.state_dict().items()},
+           "teacher": {k: v.clone() for k, v in state.teacher.state_dict().items()},
+           "opt": {n: {k: v.clone() for k, v in state.optimizer.state[p].items()}
+                   for n, p in named.items() if p in state.optimizer.state},
+           "step": int(state.step)}
+    if state.bank is not None:
+        out["bank"] = {f: getattr(state.bank, f).clone() for f in ck.BANK_FIELDS}
+        out["prototype"] = state.prototype.clone()
+    return out
+
+
+def _jax_capture(state, fields):
+    """JAX's state in the port's names: `flax_to_torch` of both models and of
+    each optax per-parameter tree in `fields`, Adam's count, the bank and
+    the prototype."""
+    out = {"student": flax_to_torch({"params": ts._np_tree(state.params),
+                                     "batch_stats": ts._np_tree(state.batch_stats)}),
+           "teacher": flax_to_torch({"params": ts._np_tree(state.teacher_params),
+                                     "batch_stats": ts._np_tree(state.teacher_batch_stats)}),
+           "opt": {f: flax_to_torch({"params": ts._np_tree(
+               optax.tree_utils.tree_get(state.opt_state, f))}) for f in fields},
+           "step": int(state.step)}
+    if "mu" in fields:
+        out["count"] = int(optax.tree_utils.tree_get(state.opt_state, "count"))
+    if state.bank is not None:
+        out["bank"] = {"keys": torch.from_numpy(np.array(state.bank.keys.astype(jnp.float32))).to(
+            torch.bfloat16), **{f: torch.from_numpy(np.array(getattr(state.bank, f)))
+                                for f in ("ptr", "occupancy", "sizes")}}
+        out["prototype"] = torch.from_numpy(np.array(state.prototype))
+    return out
+
+
+def _resume_run(tmp_path_factory, raw, steps, fields):
+    """JAX's trajectory of `steps` steps on `raw` (test_torch_train_step.py),
+    written by the JAX package's `save_checkpoint` before its last step
+    (epoch steps - 1: one step an epoch); the port loads that `.ckpt` with
+    `load_checkpoint` and takes the last step.  Returns (the trajectory,
+    {"jax": JAX's state before the last step, "loaded": the port's after
+    the load, "epoch", "best", "path"})."""
+    path = str(tmp_path_factory.mktemp("jax_ckpt") / "ckpt.ckpt")
+    last, out = steps - 1, {"path": path}
+
+    def save(i, state):
+        if i == last:
+            jax_save_checkpoint(path, state, epoch=last, best_miou=0.25)
+            out["jax"] = _jax_capture(state, fields)
+
+    def load(cfg, snap, i):
+        state = _fresh_state(cfg)
+        _, out["epoch"], out["best"] = ck.load_checkpoint(path, state)
+        out["loaded"] = _capture(state)
+        return state
+
+    traj = ts._trajectory(raw, steps, jax_hook=save, port_state=load, port_steps=(last,))
+    return traj, out
+
+
+@pytest.fixture(scope="module")
+def ema_resume(tmp_path_factory):
+    """anchor_ema contrastive, SGD: a warmup and 2 semi steps in JAX, saved,
+    then the third semi step from the file."""
+    return _resume_run(tmp_path_factory, EMA_RAW, 4, ("trace",))
+
+
+@pytest.fixture(scope="module")
+def adam_resume(tmp_path_factory):
+    """Adam, no contrastive: a warmup and a semi step in JAX, saved, then the
+    next semi step from the file."""
+    return _resume_run(tmp_path_factory, adam_raw(), 3, ("mu", "nu"))
+
+
+def check_loaded(run):
+    """The port's state after `load_checkpoint` bit-equal to JAX's: both
+    models, every parameter's optimizer leaves, the bank, the prototype,
+    the step; the epoch and best_miou as saved."""
+    _, out = run
+    want, got = out["jax"], out["loaded"]
+    for model in ("student", "teacher"):
+        assert got[model].keys() == want[model].keys()
+        for k, v in want[model].items():
+            assert torch.equal(got[model][k], v), (model, k)
+    assert got["opt"].keys() == want["student"].keys() - {
+        k for k in want["student"] if k.endswith(("running_mean", "running_var",
+                                                  "num_batches_tracked"))}
+    for field, sd in want["opt"].items():
+        for name, v in sd.items():
+            assert torch.equal(got["opt"][name][field], v), (field, name)
+    if "count" in want:
+        assert {int(v["step"]) for v in got["opt"].values() if "step" in v} == {want["count"]}
+    assert got["step"] == want["step"] and out["epoch"] == want["step"] and out["best"] == 0.25
+    if "bank" in want:
+        for f, v in want["bank"].items():
+            assert torch.equal(got["bank"][f], v), f
+        assert torch.equal(got["prototype"], want["prototype"])
+        assert want["prototype"].any() and want["bank"]["occupancy"].sum() > 0
+
+
+def test_load_checkpoint_from_jax_ckpt_bit_equal(ema_resume):
+    """SGD's trace, the bf16 bank and a non-zero anchor_ema prototype among
+    them (two semi steps in)."""
+    check_loaded(ema_resume)
+
+
+def test_step_after_a_jax_ckpt_matches_jax(ema_resume):
+    """The port's step from the loaded state against JAX's next step, at
+    test_torch_train_step.py's bounds: losses, thresholds, bank, the new
+    prototype, the student's update and the teacher."""
+    traj, _ = ema_resume
+    ts.check_contrastive_losses(traj, 3)
+    ts.check_bank(traj, 3)
+    _, jax_after, torch_after, _ = traj
+    np.testing.assert_allclose(torch_after[3][3]["prototype"], jax_after[3][3]["prototype"],
+                               rtol=0, atol=ts.PROTO_ATOL)
+    ts.check_student_update(traj, 3)
+    ts.check_teacher_parameters(traj, 3)
+
+
+def test_adam_state_from_jax_ckpt(adam_resume):
+    """Adam: optax's mu, nu and count into the port's per-parameter mu / nu
+    and each group's step, bit-equal; the next step's losses, LR and drop
+    threshold at the trajectory's bounds (the threshold at THRESH_RTOL, what
+    JAX moves against itself: its 1e-5 was measured at the SGD
+    trajectory's weights, here it moved 1.6e-5), the update and the
+    teacher."""
+    check_loaded(adam_resume)
+    ts.check_losses(adam_resume[0], 2, drop_rtol=ts.THRESH_RTOL)
+    ts.check_student_update(adam_resume[0], 2)
+    ts.check_teacher_parameters(adam_resume[0], 2)
+
+
+def test_pretrain_from_jax_ckpt(ema_resume):
+    """`load_pretrain_weights` of a `.ckpt`: both models' weights, and
+    nothing else: no optimizer state, step 0, the bank and the prototype
+    as created."""
+    _, out = ema_resume
+    state = _fresh_state(parse_config(EMA_RAW))
+    ck.load_pretrain_weights(out["path"], state)
+    got, want = _capture(state), out["jax"]
+    for model in ("student", "teacher"):
+        for k, v in want[model].items():
+            assert torch.equal(got[model][k], v), (model, k)
+    assert got["opt"] == {} and got["step"] == 0
+    assert not got["prototype"].any() and not got["bank"]["occupancy"].any()
+
+
+def test_resume_from_ckpt_raises(tmp_path, ema_resume):
+    """A `.ckpt` whose tree does not fit the state raises, naming the leaf:
+    a state of another width, an optimizer of another kind, a bank of
+    another dtype; no partial load is left unreported."""
+    _, out = ema_resume
+    narrow = EMA_RAW.copy()
+    narrow["net"] = {**EMA_RAW["net"], "num_classes": 4}
+    with pytest.raises(ValueError, match=r"(?s)model_state does not fit.*decoder.classifier.8.weight"):
+        ck.load_checkpoint(out["path"], _fresh_state(parse_config(narrow)))
+    adam = {**EMA_RAW, "trainer": {**EMA_RAW["trainer"], "optimizer": {
+        **EMA_RAW["trainer"]["optimizer"], "type": "Adam"}}}
+    with pytest.raises(ValueError, match="optimizer_state holds no optax count/mu/nu"):
+        ck.load_checkpoint(out["path"], _fresh_state(parse_config(adam)))
+    state = _fresh_state(parse_config(EMA_RAW))
+    state.bank.keys = state.bank.keys.float()
+    with pytest.raises(ValueError, match="memobank keys: torch.bfloat16"):
+        ck.load_checkpoint(out["path"], state)
+    with pytest.raises(FileNotFoundError):
+        ck.load_checkpoint(str(tmp_path / "missing.ckpt"), state)

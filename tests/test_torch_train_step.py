@@ -67,6 +67,13 @@ The variant trajectory (`variant_trajectory`) is the contrastive one with
 `apply_aug: classmix` and `contrastive.select_keys: radix`: the port's
 ClassMix uniforms and u32 keys are JAX's own, replayed; it is held to the
 contrastive trajectory's bounds.
+
+The anchor_ema trajectory (`ema_trajectory`) is the contrastive one with
+`contrastive.anchor_ema` and a third semi step, each port step from JAX's
+state with its prototype: zero into the first semi step, then not.  It is
+held to the contrastive trajectory's bounds, the new prototype (a masked
+mean of the teacher's representation, blended) to PROTO_ATOL = KEY_ATOL
+(measured 1.7e-6 to 2.9e-6 against values up to 1.8).
 """
 
 import os
@@ -106,12 +113,14 @@ from u2pl_tpu_torch.utils.convert_jax import flax_to_torch
 HW = 33
 B = 2
 STEPS = 3  # warmup, first semi epoch, epoch 2
+EMA_STEPS = 4  # the anchor_ema trajectory: warmup, then three semi steps
 TENSOR_L2 = 3e-2
 GLOBAL_L2 = 1e-2
 # contrastive trajectory: what JAX moves against itself from teacher
 # weights moved by 1e-7 (module docstring)
 THRESH_RTOL = 3e-4
 KEY_ATOL = 1e-4
+PROTO_ATOL = KEY_ATOL  # the anchor_ema prototype: a mean of teacher reps, as the keys are
 OHEM_THRESH = 0.1  # city_raw_cfg: below the 1700-th smallest p_y
 
 
@@ -155,7 +164,7 @@ def city_raw_cfg():
     return raw
 
 
-def batches():
+def batches(steps=STEPS):
     """Smooth colour fields (a 4x4 random grid, upsampled) with a little
     noise, labeled by quantising their first channel into the 5 classes:
     a learnable target, so the gradient is not a small residual of random
@@ -170,7 +179,7 @@ def batches():
         return (x + 0.1 * rng.randn(*x.shape)).astype(np.float32)
 
     out = []
-    for _ in range(STEPS):
+    for _ in range(steps):
         img_l = images()
         lab_l = np.clip(((img_l[..., 0] + 2) * 5 / 4).astype(np.int32), 0, 4)
         lab_l[:, :3] = 255
@@ -221,6 +230,7 @@ def _jax_snapshot(state):
     }
     if state.bank is not None:
         snap["bank"] = _np_bank(state.bank)
+        snap["prototype"] = np.array(state.prototype)
     return snap
 
 
@@ -246,21 +256,26 @@ def _port_state(cfg, snap, step):
         b = snap["bank"]
         state.bank = MemoryBank(torch.from_numpy(b["keys"]).to(state.bank.keys.dtype),
                                 *(torch.from_numpy(b[k]) for k in ("ptr", "occupancy", "sizes")))
+        state.prototype.copy_(torch.from_numpy(snap["prototype"]))
     return state
 
 
-def _trajectory(raw):
-    """JAX's 3-step trajectory on `raw`, and each port step from JAX's state
-    before it: (before, jax_after, torch_after, steps), each `after` a list
-    of (scalar metrics, student, teacher, extras) per step."""
+def _trajectory(raw, steps=STEPS, jax_hook=None, port_state=None, port_steps=None):
+    """JAX's trajectory of `steps` steps (a warmup, then semi steps) on
+    `raw`, and each port step from JAX's state before it: (before,
+    jax_after, torch_after, steps), each `after` a list of (scalar metrics,
+    student, teacher, extras) per step.  `jax_hook(i, state)` sees JAX's
+    state before step i; `port_state(cfg, snapshot, i)` (default
+    `_port_state`) makes the port's state before step i; `port_steps`: the
+    steps the port takes (default all; the others' entries are None)."""
     cfg, jcfg = parse_config(raw), jax_parse_config(raw)
     contra = jcfg.trainer.contrastive
     mode = jcfg.trainer.unsupervised.apply_aug
-    data = batches()
-    # a step key whose coin lands heads on both semi steps, so the
+    data = batches(steps)
+    # a step key whose coin lands heads on every semi step, so the
     # trajectory goes through CutMix
     seed = next(s for s in range(64)
-                if all(jax_mix(jax.random.PRNGKey(s), i, mode)[0] for i in (1, 2)))
+                if all(jax_mix(jax.random.PRNGKey(s), i, mode)[0] for i in range(1, steps)))
     rng = jax.random.PRNGKey(seed)
 
     init_model = build_jax_model(jcfg.net)
@@ -286,6 +301,8 @@ def _trajectory(raw):
         semi = jax_semi_step(jcfg, model, tx, 1, mesh)
         for i, (img_l, lab_l, img_u) in enumerate(data):
             jax_before.append(_jax_snapshot(state))
+            if jax_hook is not None:
+                jax_hook(i, state)
             args = (jnp.asarray(img_l), jnp.asarray(lab_l), jnp.asarray(img_u), rng)
             step_fn = warmup if i == 0 else semi
             if i == 1:
@@ -298,7 +315,9 @@ def _trajectory(raw):
                 flax_to_torch({"params": _np_tree(state.teacher_params),
                                "batch_stats": _np_tree(state.teacher_batch_stats)}),
                 {"neg_cand": np.asarray(m["neg_cand"]) if "neg_cand" in m else None,
-                 "bank": _np_bank(state.bank) if contra else None},
+                 "bank": _np_bank(state.bank) if contra else None,
+                 "prototype_before": jax_before[i].get("prototype"),
+                 "prototype": np.array(state.prototype) if contra else None},
             ))
 
     torch_after, steps = [], []
@@ -306,7 +325,11 @@ def _trajectory(raw):
     side = ((HW - 1) // 2 + 1) // 2 + 1  # 33 -> 17 -> 9
     n_pixels = 2 * B * side * side
     for i, (img_l, lab_l, img_u) in enumerate(data):
-        tstate = _port_state(cfg, jax_before[i], i)
+        if port_steps is not None and i not in port_steps:
+            torch_after.append(None)
+            steps.append(None)
+            continue
+        tstate = (port_state or _port_state)(cfg, jax_before[i], i)
         mix = contra_draws = None
         if i > 0:
             coin, u = jax_mix(rng, i, mode)
@@ -326,7 +349,8 @@ def _trajectory(raw):
             {"neg_cand": m["neg_cand"].numpy() if "neg_cand" in m else None,
              "bank": None if bank is None else {
                  "keys": bank.keys.float().numpy(), "ptr": bank.ptr.numpy(),
-                 "occupancy": bank.occupancy.numpy()}},
+                 "occupancy": bank.occupancy.numpy()},
+             "prototype": None if bank is None else tstate.prototype.numpy().copy()},
         ))
     before = [flax_to_torch({"params": b["params"]}) for b in jax_before]
     return before, jax_after, torch_after, steps
@@ -340,6 +364,13 @@ def trajectory():
 @pytest.fixture(scope="module")
 def contra_trajectory():
     return _trajectory(raw_cfg(contrastive=CONTRA))
+
+
+@pytest.fixture(scope="module")
+def ema_trajectory():
+    """The contrastive trajectory with `contrastive.anchor_ema`, a warmup
+    and three semi steps: the prototype zero into the first, then not."""
+    return _trajectory(raw_cfg(contrastive={**CONTRA, "anchor_ema": True}), steps=EMA_STEPS)
 
 
 @pytest.fixture(scope="module")
@@ -554,6 +585,35 @@ def test_classmix_radix_update_and_teacher(variant_trajectory, i):
     check_teacher_parameters(variant_trajectory, i)
 
 
+@pytest.mark.parametrize("i", range(EMA_STEPS))
+def test_anchor_ema_losses_bank_and_prototype(ema_trajectory, i):
+    """`contrastive.anchor_ema`: the contrastive trajectory's bounds on the
+    losses, thresholds and bank, and the new prototype held as the bank's
+    keys are (it is the teacher representation's masked mean, blended):
+    within PROTO_ATOL of JAX's.  The warmup leaves it zero; the first semi
+    step takes a zero prototype (no blend) and writes its active slots;
+    the later ones blend at d = 1 - 1/i_iter."""
+    check_contrastive_losses(ema_trajectory, i)
+    check_bank(ema_trajectory, i)
+    _, jax_after, torch_after, _ = ema_trajectory
+    into, ref, got = (jax_after[i][3]["prototype_before"], jax_after[i][3]["prototype"],
+                      torch_after[i][3]["prototype"])
+    assert got.shape == ref.shape == (5, CONTRA["num_queries"], 1, 256)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=PROTO_ATOL, err_msg=f"step {i}")
+    assert (not into.any()) == (i <= 1)
+    assert ref.any() == (i >= 1)
+    if i >= 1:  # inactive slots stay zero, active ones are written, alike
+        np.testing.assert_array_equal(got.any(axis=(1, 2, 3)), ref.any(axis=(1, 2, 3)))
+
+
+@pytest.mark.parametrize("i", range(EMA_STEPS))
+def test_anchor_ema_update_and_teacher(ema_trajectory, i):
+    """The student's update and the teacher in the L2 pattern above."""
+    keys = check_student_update(ema_trajectory, i)
+    assert any(k.startswith("decoder.representation.") for k in keys)
+    check_teacher_parameters(ema_trajectory, i)
+
+
 def test_cityscapes_ohem_selection_is_live(city_trajectory):
     """JAX's k-th smallest p_y lies above thresh on both heads of every step,
     so the threshold is the k-th value and the selection decides; the port's
@@ -671,9 +731,9 @@ def test_semi_step_asks_kernel_d_for_what_it_uses(monkeypatch, contrastive):
 def test_unported_branches_raise():
     from u2pl_tpu_torch.train.steps import make_semi_step, make_sup_step
 
-    with pytest.raises(NotImplementedError, match="anchor_ema"):
-        make_semi_step(parse_config(raw_cfg(contrastive={**CONTRA, "anchor_ema": True})), 1)
     make_semi_step(parse_config(raw_cfg(contrastive=CONTRA)), 1)  # ported
+    # ported: anchor_ema (the ema trajectory above)
+    make_semi_step(parse_config(raw_cfg(contrastive={**CONTRA, "anchor_ema": True})), 1)
     # ported: radix key selection and ClassMix (the variant trajectory above)
     make_semi_step(parse_config(raw_cfg(contrastive={**CONTRA, "select_keys": "radix"})), 1)
     make_semi_step(parse_config(raw_cfg(apply_aug="classmix")), 1)

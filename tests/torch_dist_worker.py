@@ -9,7 +9,8 @@ this rank's results.  Tasks:
             of `posted_steps` entries the test posts one by one as
             step<i>.pt while the ranks run), each from its own state
             snapshot, on this rank's slice of the global batch with this
-            rank's injected draws;
+            rank's injected draws (and under anchor_ema this rank's own
+            prototype, returned apart from the shared state);
   one_rank  a group of one process against no group: the same run_steps
             twice from the same state, both states returned;
   bn        the port's BatchNorm2d forward / backward on this rank's slice;
@@ -110,6 +111,8 @@ def task_steps(inp, rank, world, group):
     entries = inp.get("steps") or (posted(f"step{i}.pt") for i in range(inp["posted_steps"]))
     for entry in entries:
         state = port_state(cfg, entry["state"], group)
+        if "prototype" in entry:  # anchor_ema: this rank's own
+            state.prototype.copy_(entry["prototype"][rank])
         batch = tuple(rank_slice(t, rank, world) for t in entry["batch"])
         if entry["kind"] == "sup":
             m = make_sup_step(cfg, entry["steps_per_epoch"], group)(state, *batch)
@@ -120,6 +123,8 @@ def task_steps(inp, rank, world, group):
                 mixes=[entry["mix"][rank]], contras=[entry["contra"][rank]], group=group)
         out.append({"metrics": metrics_of(m), "steps": (i_iter, int(state.step)),
                     "state": snapshot(state)})
+        if "prototype" in entry:  # per rank, apart from the state the ranks share
+            out[-1].update(prototype_in=entry["prototype"][rank], prototype=state.prototype.clone())
     return out
 
 

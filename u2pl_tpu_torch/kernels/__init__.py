@@ -69,8 +69,8 @@ def load():
         "u2pl_memobank_enqueue_slabs": [p] * 7 + [i] * 7 + [p],
         # (rep, anchor_idx, pos, keys, occ, b_j, u_neg, active, valid_seg, ce,
         #  gdir, loss, ticket, B, F, HW, C, Q, M, cap, dtype, rep_dtype, group,
-        #  temperature, stream)
-        "u2pl_contra_infonce_fwd": [p] * 13 + [i] * 10 + [f, p],
+        #  pos_rows, temperature, stream)
+        "u2pl_contra_infonce_fwd": [p] * 13 + [i] * 11 + [f, p],
         # (anchor_idx, active, valid_seg, gdir, g, sums, grad_rep, B, F, HW, C, Q,
         #  tile, rep_dtype, split, stream)
         "u2pl_contra_infonce_bwd": [p] * 7 + [i] * 8 + [p],

@@ -46,7 +46,9 @@ The device functions and their kernels (CUDA C++, sm_90a):
 Each wrapper takes its plain PyTorch version on a CPU tensor and launches
 its kernel on a CUDA tensor, or raises; `<wrapper>.launches` counts the
 launches.  The prototype masked mean stays a matmul (`torch.bmm`), as JAX
-leaves it to XLA.
+leaves it to XLA; under `contrastive.anchor_ema` the blend with the
+momentum prototype and the new prototype are torch ops too (`_anchor_ema`),
+and K6 takes the blended (C, Q, F) positive, one per draw.
 
 bfloat16 reps (a bf16 model): the prototype is JAX's bf16 x bf16 product
 with f32 accumulation (:243-249), here a `bmm` of the f32-widened
@@ -61,7 +63,7 @@ bf16-rep mode of each.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -560,7 +562,7 @@ def contra_infonce_plain(
     anchor = anchor_rows(rep, anchor_idx)  # (C, Q, F) f32
     negs = sample(bank, u_neg, dtype=None)[0][b_j.long()]  # the bank of class b_j
     negs = negs.to(anchor.dtype).reshape(c, q, -1, f)
-    pos = positive.to(anchor.dtype)[:, None, None, :].expand(c, q, 1, f)
+    pos = positive.to(anchor.dtype).reshape(c, -1, 1, f).expand(c, q, 1, f)
     norm = torch.linalg.vector_norm
     if rep.dtype == torch.bfloat16 and bank.keys.dtype == torch.bfloat16:
         # dot-first: bf16 products, exact in f32, summed in f32; the norms
@@ -597,7 +599,9 @@ def contra_infonce(
 ) -> torch.Tensor:
     """The InfoNCE loss of the anchors: per position j and draw q, the anchor
     row rep[anchor_idx[j, q]] (NCHW, f32 or bf16) against the positive
-    `positive[j]` and M = u_neg.shape[1] / Q bank keys of class b_j, rows
+    `positive[j]` ((C, F)), or `positive[j, q]` ((C, Q, F): the anchor_ema
+    blend, one positive per draw; no gradient flows to it either way) and
+    M = u_neg.shape[1] / Q bank keys of class b_j, rows
     floor(u_neg[b_j, q*M + m] * max(occ, 1)); cosines (eps 1e-8) over
     `temperature`, CE to the positive, the mean over q, summed over the
     `active` positions and divided by max(valid_seg, 1); 0 when
@@ -613,7 +617,8 @@ def contra_infonce(
     pass, zero off the anchors (no float atomics, no zero fill first);
     C * Q is at most MAX_DRAWS on the card."""
     c, q = anchor_idx.shape
-    if (positive.shape != (c, rep.shape[1]) or b_j.shape != (c,) or active.shape != (c,)
+    if (positive.shape not in ((c, rep.shape[1]), (c, q, rep.shape[1])) or b_j.shape != (c,)
+            or active.shape != (c,)
             or u_neg.dim() != 2 or u_neg.shape[0] != c or u_neg.shape[1] % q):
         raise ValueError(
             f"contra_infonce: rep {tuple(rep.shape)}, anchor_idx {tuple(anchor_idx.shape)}, "
@@ -633,7 +638,7 @@ class _ContraInfoNCE(torch.autograd.Function):
         from u2pl_tpu_torch.ops.resize import F32_BF16, _check_cuda
 
         _check_cuda(rep, 4, "contra_infonce rep", F32_BF16)
-        _check_cuda(positive, 2, "contra_infonce positive")
+        _check_cuda(positive, positive.dim(), "contra_infonce positive")
         _check_cuda(u_neg, 2, "contra_infonce u_neg")
         dev = rep.device
         for name, t, dt in (("anchor_idx", anchor_idx, torch.int32), ("occupancy", occupancy, torch.int32),
@@ -657,6 +662,9 @@ class _ContraInfoNCE(torch.autograd.Function):
 
         lib = load()
         m = u_neg.shape[1] // q
+        # a (C, Q, F) positive: the kernel's per-draw instance (Q > 1; at
+        # Q = 1 the two are one layout)
+        per_query = positive.dim() == 3 and q > 1
         ce = torch.empty((c, q), dtype=torch.float32, device=dev)
         # a bf16 rep on a bf16 bank: the negatives' part of each direction
         # apart, at gdir[1] (infonce.cu: kSplit)
@@ -669,8 +677,11 @@ class _ContraInfoNCE(torch.autograd.Function):
                 occupancy.data_ptr(), b_j.data_ptr(), u_neg.data_ptr(), active.data_ptr(),
                 valid_seg.data_ptr(), ce.data_ptr(), gdir.data_ptr(), loss.data_ptr(),
                 ticket.data_ptr(), b, f, h * w, c, q, m, cap, dtype_code,
-                BANK_DTYPE_CODES[rep.dtype], _infonce_group(keys.dtype), float(temperature))
+                BANK_DTYPE_CODES[rep.dtype], _infonce_group(keys.dtype),
+                q if per_query else 1, float(temperature))
         contra_infonce.fwd_launches += 1
+        if per_query:
+            contra_infonce.fwd_pq_launches += 1
         ctx.save_for_backward(anchor_idx, active, valid_seg, gdir)
         ctx.rep_shape, ctx.rep_dtype = tuple(rep.shape), rep.dtype
         return loss
@@ -746,7 +757,8 @@ def _infonce_bwd_cuda(anchor_idx, active, valid_seg, gdir, g, rep_shape,
     return grad_rep
 
 
-contra_infonce.fwd_launches = 0
+contra_infonce.fwd_launches = 0  # every forward launch, either positive
+contra_infonce.fwd_pq_launches = 0  # those with a (C, Q, F) positive (anchor_ema)
 contra_infonce.bwd_launches = 0
 
 
@@ -779,6 +791,8 @@ def compute_contra_memobank_loss(
     strict_reference: bool = True,
     return_info: bool = False,
     group=None,
+    prototype: Optional[torch.Tensor] = None,
+    i_iter=0,
 ):
     """The JAX `compute_contra_memobank_loss` (contrastive.py:168-398): with
     `group` None, `axis_name=None` on one device; with a `dist.Group`, under
@@ -793,12 +807,15 @@ def compute_contra_memobank_loss(
     bool; rep_teacher (B, F, h, w) (no gradient); draws as the module
     docstring says.
 
-    Returns (bank, loss) or, with `return_info`, (bank, loss, {"neg_candidates":
-    (C,) int32}); the bank is updated in place.  `anchor_ema` is not ported."""
-    if cfg.anchor_ema:
-        raise NotImplementedError(
-            "contrastive.anchor_ema: true is not ported yet (ROADMAP.md queue 1)"
-        )
+    `prototype` (C, Q, 1, F) float32, the state's momentum prototype, when
+    the step runs `contrastive.anchor_ema` (JAX passes it then, steps.py:477),
+    and `i_iter` the global step (an int or a 0-d device tensor): each
+    position's positive blends with its bank class's prototype slot
+    (:303-321, `_anchor_ema`) and K6 takes one positive per draw.
+
+    Returns (bank, loss), or (new_prototype, bank, loss) with a `prototype`;
+    with `return_info`, an info dict {"neg_candidates": (C,) int32} after
+    them.  The bank is updated in place; the new prototype is a new tensor."""
     num_labeled = label_l.shape[0]
     c = prob_l.shape[1]
     pri, u_anchor, u_neg = draws
@@ -840,6 +857,8 @@ def compute_contra_memobank_loss(
         & (n_anchor > 0)
         & (bank.occupancy[b_j.long()] > 0)
     )
+    if prototype is not None:
+        positive, new_prototype = _anchor_ema(positive, prototype, b_j, active, i_iter)
     loss = contra_infonce(rep, anchor_idx, positive, bank, b_j, u_neg, active, valid_seg,
                           cfg.temperature)
     if group is not None:
@@ -847,6 +866,30 @@ def compute_contra_memobank_loss(
         # untracked in-place all_reduce gives it (contrastive.py:380-392)
         local = loss / float(group.size)
         loss = local - local.detach() + dist.all_mean(loss.detach(), group)
+    out = (bank, loss) if prototype is None else (new_prototype, bank, loss)
     if return_info:
-        return bank, loss, {"neg_candidates": neg_candidates}
-    return bank, loss
+        out = out + ({"neg_candidates": neg_candidates},)
+    return out
+
+
+def _anchor_ema(positive: torch.Tensor, prototype: torch.Tensor, b_j: torch.Tensor,
+                active: torch.Tensor, i_iter) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The anchor_ema blend (contrastive.py:303-321, reference
+    loss_helper.py:209-218): position j's positive, broadcast to its Q draws,
+    blended with the momentum prototype of its BANK class b_j (not of its
+    anchor class a_j), (1 - d) * positive + d * prototype[b_j] in float32
+    (two products, then the sum, as JAX), with d = min(1 - 1 / max(i_iter,
+    1), 0.999) on the device; no blend while the whole prototype is zero.
+    Returns (the (C, Q, F) positive, the new (C, Q, 1, F) prototype: zeros
+    but at the active positions' slots b_j, which take the blend)."""
+    c, q, _, f = prototype.shape
+    pos = positive[:, None, :].expand(c, q, f)
+    it = torch.as_tensor(i_iter, device=prototype.device).to(torch.float32)
+    decay = torch.minimum(1.0 - 1.0 / torch.clamp(it, min=1.0), torch.full_like(it, 0.999))
+    momentum = prototype[b_j.long()].reshape(c, q, f)
+    blended = torch.where(prototype.ne(0).any(), (1.0 - decay) * pos + decay * momentum, pos)
+    new_prototype = torch.zeros_like(prototype)
+    # b_j is a permutation of the classes: every slot is written once
+    new_prototype[b_j.long()] = torch.where(
+        active[:, None, None], blended, torch.zeros_like(blended)).reshape(c, q, 1, f)
+    return blended.contiguous(), new_prototype

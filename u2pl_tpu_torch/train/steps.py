@@ -47,8 +47,11 @@ Dropout masks, the mix draws (the coin, and boxes or ClassMix uniforms)
 and the contrastive draws (key priorities, or u32 keys under `select_keys:
 radix`, anchor and bank draws) come from the `generator` passed to the
 step; `mix=(coin, draws)` and `contra=(pri, u_anchor, u_neg)` inject them
-instead.  `contrastive.anchor_ema` raises NotImplementedError: it is a
-later slice (ROADMAP.md).
+instead.  Under `contrastive.anchor_ema` the loss takes `state.prototype`
+and the device step and returns the new prototype, copied into the state
+after the optimizer step (steps.py:477-483, :572); under a group each rank
+keeps its own, as each device does under JAX's `shard_map` (the state's
+P() spec with check_vma=False, :576-581): nothing exchanges it.
 
 bfloat16 (`net.dtype: bfloat16`).  The JAX package's policy is not
 autocast: it rounds at fixed points, and the port rounds where it does.
@@ -120,16 +123,6 @@ from u2pl_tpu_torch.train.lr import _div, lr_at
 from u2pl_tpu_torch.train.state import TrainState, copy_student_to_teacher
 
 Metrics = Dict[str, torch.Tensor]
-
-
-def _check_contrastive_ported(cfg: Config) -> None:
-    contra = cfg.trainer.contrastive
-    if contra is None:
-        return
-    if contra.anchor_ema:
-        raise NotImplementedError(
-            "contrastive.anchor_ema: true is not ported yet (ROADMAP.md queue 1)"
-        )
 
 
 def make_sup_loss_fn(cfg: Config) -> Callable:
@@ -306,7 +299,6 @@ def make_semi_step(cfg: Config, steps_per_epoch: int, group=None) -> Callable:
     (`draw_contrastive`), in place of the generator's."""
     max_iter = cfg.trainer.epochs * steps_per_epoch
     sup_loss_fn = make_sup_loss_fn(cfg)
-    _check_contrastive_ported(cfg)
     has_aux = cfg.net.aux_loss is not None
     ignore = cfg.dataset.ignore_label
     unsup_cfg = cfg.trainer.unsupervised
@@ -395,13 +387,19 @@ def make_semi_step(cfg: Config, steps_per_epoch: int, group=None) -> Callable:
         ) * unsup_cfg.loss_weight
         con_loss = torch.zeros((), device=sup_loss.device)
         neg_cand = torch.zeros((cfg.net.num_classes,), dtype=torch.int32, device=sup_loss.device)
+        new_proto = None
         if contra_cfg is not None:
             label_l_small, label_u_small, low_small, high_small = contra_in
-            _, con_loss, info = contrastive.compute_contra_memobank_loss(
+            res = contrastive.compute_contra_memobank_loss(
                 outs["rep"], label_l_small, label_u_small, prob_teacher[:b_l],
                 prob_teacher[b_l:], low_small, high_small, contra_cfg, state.bank,
                 rep_teacher, contra, ignore_label=ignore, return_info=True, group=group,
+                prototype=state.prototype if contra_cfg.anchor_ema else None, i_iter=state.step,
             )
+            if contra_cfg.anchor_ema:
+                new_proto, _, con_loss, info = res
+            else:
+                _, con_loss, info = res
             con_loss = con_loss * contra_cfg.loss_weight
             neg_cand = info["neg_candidates"]
             del prob_teacher, rep_teacher, contra_in
@@ -418,6 +416,8 @@ def make_semi_step(cfg: Config, steps_per_epoch: int, group=None) -> Callable:
                 torch._foreach_mul(s_params, 1.0 - ema_decay),
             )
             torch._foreach_copy_(t_params, blended)
+            if new_proto is not None:
+                state.prototype.copy_(new_proto)
         state.step += 1
         # the logged losses summed over the ranks, neg_cand their max, the
         # thresholds their mean (steps.py:549-563)
