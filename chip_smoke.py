@@ -1035,13 +1035,15 @@ def zero_counters():
 def check_per_semi_step(path, launches, semi_steps, contrastive, heads=1):
     """Per semi step, kernel D twice (max-prob + argmax for the pseudo-labels,
     the entropy alone for the gate) and, with the contrastive branch, K4's
-    masks, key selection and anchor draws once each; C's forward once per
-    supervised head (`heads`: the main head, and on Cityscapes the aux head)
-    on every step and once more for the unsupervised CE on a semi step."""
+    masks, key selection and anchor draws and K6's forward once each; C's
+    forward once per supervised head (`heads`: the main head, and on
+    Cityscapes the aux head) on every step and once more for the
+    unsupervised CE on a semi step."""
     want = {"D": 2 * semi_steps, "D_prob": semi_steps, "D_entropy": semi_steps,
             "C_fwd": TRAIN_STEPS * heads + semi_steps}
     if contrastive:
-        want.update(K4_masks=semi_steps, K4_select=semi_steps, K4_anchors=semi_steps)
+        want.update(K4_masks=semi_steps, K4_select=semi_steps, K4_anchors=semi_steps,
+                    K6_fwd=semi_steps)
     got = {k: launches[k] for k in want}
     log(f"[{path}] launches over {semi_steps} semi steps: {got} (want {want})")
     if got != want:
@@ -4556,6 +4558,14 @@ def main() -> int:
         f"{bf_city_run['semi_ms']:.1f} ms, {bf_city_run['img_s']:.2f} img/s, peak "
         f"{bf_city_run['peak'] / 2**30:.2f} GiB vs f32 {city_times_run['semi_ms']:.1f} ms "
         f"(phase 9)")
+    # K6's forward on the bf16 bank (the copy engine) and the bf16 stats
+    # kernel's modes (the staged ring), each beside its f32 mode and the bf16
+    # VOC step that launches them (K7 prob: Cityscapes' step)
+    log(f"[{card}] phase 13: of the bf16 VOC step's {bf_voc_run['semi_ms']:.1f} ms "
+        f"(Cityscapes' {bf_city_run['semi_ms']:.1f} ms), " + ", ".join(
+            f"{key} {bf_times[key][0]:.4f} ms (f32 mode {bf_f32[key]:.4f})"
+            for key in ("K6_fwd_bf16", "D_prob_bf16", "D_entropy_bf16", "C_fwd_bf16",
+                        "K7_prob_bf16", "K7_prob_aux_bf16")))
     log(f"[{card}] phase 16: the VOC bf16 contrastive semi step, ms per step: no group "
         f"{one_rank_run['none_ms']}, one-process NCCL group {one_rank_run['group_ms']}; "
         f"{DIST_W} ranks over {two_ranks_run['backend']} "

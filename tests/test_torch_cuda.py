@@ -1080,8 +1080,9 @@ def test_kernel_memobank_gather_and_slabs_bit_equal(rep_dtype, bank_dtype, w):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m", [1, 7, 13, 50, 67])
 def test_kernel_infonce_fwd_groups_match_plain_and_repeat(dtype, m):
-    """K6's forward with M not a multiple of its key group (4 bf16 rows, 2
-    f32) and over two chunks of 32 keys, inactive positions and a bank
+    """K6's forward with M not a multiple of its key group (a bf16 bank's
+    chunk of 32 keys, 2 f32 rows) and over two or more of them, inactive
+    positions and a bank
     class of occupancy 1: the loss within the flagship test's tolerance,
     the gradient within 1e-5 of its max, and the same loss and directions
     bits on a second call."""
@@ -1582,6 +1583,92 @@ def test_kernel_c_d_k7_bf16_match_the_rounded_upsample(shape, outsz):
     p_y, nv = ohem.ohem_target_prob(x, lab)
     rp, rnv = ohem._target_prob(tr.resize_bilinear_rounded(x, outsz), lab, 255)
     assert torch.equal(nv, rnv) and ((p_y - rp).abs() <= 1e-5 * rp).all()
+
+
+# the bf16 stats kernel's ring (losses/ce.py:_stats_ring): steps whose rows
+# cross two or more images (OH x OW under a span: 3 images a step at
+# 33 x 25), class counts outside {19, 21} (5 and 27 in registers, 40 for C
+# fwd and K7 prob with none) and the VOC step's shape
+RING_SHAPES = [((3, 5, 9, 7), (33, 25)), ((2, 27, 9, 7), (33, 25)), ((2, 40, 9, 9), (33, 33)),
+               ((4, 21, 129, 129), (513, 513))]
+
+
+@pytest.mark.parametrize("shape,outsz", RING_SHAPES)
+def test_kernel_stats_ring_bf16_cases(shape, outsz):
+    """D, C fwd and K7 prob on bf16 logits through the staged ring: D's
+    selections bit-equal to its all-outputs call and within 1e-5 of the
+    statistics of kernel A's rounded upsample (argmax equal, exact ties to
+    the first class); C's loss and K7's p_y within 1e-5 of theirs on that
+    upsample, num_valid equal; each the same bits on a second call.  The
+    logits are a view one image into a larger tensor, as the semi step's
+    unlabeled half is: its start need not be 16-byte aligned (the copies
+    are aligned from the address)."""
+    from u2pl_tpu_torch.losses import ce, ohem, unsup
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(31)
+    b, c = shape[:2]
+    whole = (torch.randn(b + 1, *shape[1:], device=dev, generator=g) * 3).to(torch.bfloat16)
+    x = whole[1:]
+    x[:, 1] = x[:, 0]  # exact ties
+    lab = _labels(g, b, *outsz, c, dev)
+    up = tr.resize_bilinear_rounded(x, outsz)
+    if c <= unsup.MAX_STATS_CLASSES:
+        full = unsup.upsample_softmax_stats(x, outsz, outputs="all")
+        for outputs, keep in (("prob", (0, 1)), ("entropy", (2,))):
+            got = unsup.upsample_softmax_stats(x, outsz, outputs=outputs)
+            assert all(torch.equal(got[i], full[i]) for i in keep)
+        rmp, ram, rent = _rounded_stats(x, outsz)
+        assert ((full[0] - rmp).abs() <= 1e-5 * rmp).all()
+        assert ((full[2] - rent).abs() <= 1e-5 * rent.abs().clamp(min=1e-3)).all()
+        assert torch.equal(full[1], ram) and (full[1] != 1).all()
+        again = unsup.upsample_softmax_stats(x, outsz, outputs="all")
+        assert all(torch.equal(a, f) for a, f in zip(again, full))
+    loss = ce.upsample_cross_entropy(x, lab)
+    ref = ce.cross_entropy_ignore(up, lab)
+    assert abs(loss.item() - ref.item()) <= 1e-5 * abs(ref.item())
+    assert torch.equal(loss, ce.upsample_cross_entropy(x, lab))
+    p_y, nv = ohem.ohem_target_prob(x, lab)
+    rp, rnv = ohem._target_prob(up, lab, 255)
+    assert torch.equal(nv, rnv) and ((p_y - rp).abs() <= 1e-5 * rp).all()
+    p2, nv2 = ohem.ohem_target_prob(x, lab)
+    assert torch.equal(p_y, p2) and torch.equal(nv, nv2)
+
+
+@pytest.mark.parametrize("rep_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["q_past_1024", "one_active", "no_keys"])
+def test_kernel_infonce_fwd_copy_engine_cases(case, rep_dtype):
+    """K6's forward on a bf16 bank (its keys by the copy engine, 32 a chunk,
+    reduced transposed): Q = 1100 draws a position
+    (past a block's 1024 threads), a single active position, and M = 0; the
+    loss within 1e-5 of
+    the float64 plain route on the same inputs, the same loss and
+    directions bits on a second call."""
+    from u2pl_tpu_torch.losses import contrastive as tc
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(32)
+    b, c, h, w, q, m = 2, 3, 17, 15, 1100 if case == "q_past_1024" else 64, 50
+    m = 0 if case == "no_keys" else m
+    bank = _prefilled_bank(dev, c, 256, 300, 300, torch.bfloat16)
+    bank.occupancy.copy_(bank.sizes)
+    rep = torch.randn(b, 256, h, w, device=dev, generator=g).to(rep_dtype).requires_grad_(True)
+    positive = torch.randn(c, 256, device=dev, generator=g)
+    b_j = torch.randperm(c, device=dev, generator=g).to(torch.int32)
+    anchor_idx = torch.randint(0, b * h * w, (c, q), device=dev, generator=g, dtype=torch.int32)
+    active = torch.ones(c, dtype=torch.bool, device=dev)
+    if case == "one_active":
+        active[1:] = False
+    valid_seg = torch.tensor(c, dtype=torch.int32, device=dev)
+    u_neg = torch.rand(c, q * m, device=dev, generator=g)
+    args = (anchor_idx, positive, bank, b_j, u_neg, active, valid_seg, 0.5)
+    loss = tc.contra_infonce(rep, *args)
+    again = tc.contra_infonce(rep, *args)
+    torch.cuda.synchronize()
+    gdir, gdir2 = (t.grad_fn.saved_tensors[3][..., active, :, :] for t in (loss, again))
+    assert torch.equal(loss, again) and torch.equal(gdir, gdir2)
+    ref = tc.contra_infonce_plain(rep.detach().double(), *args)
+    assert abs(loss.item() - ref.item()) <= 1e-5 * abs(ref.item())
 
 
 @pytest.mark.parametrize("weighted", [False, True])

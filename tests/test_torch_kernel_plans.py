@@ -3,8 +3,10 @@ band plan at many planes, the direct kernel at few, within shared memory)
 and K6 bwd (`losses/contrastive.py:_infonce_bwd_tile`, its chunk table and
 stores walked as the kernel makes them: every element once), of kernel
 A-bwd (`ops/resize.py:_bwd_plan`), of kernels C fwd, D and K7 prob
-(`losses/ce.py:_stats_plan`), of K6 fwd
-(`losses/contrastive.py:_infonce_group`), K5 (`memobank.py:
+(`losses/ce.py:_stats_plan`; the bf16 ring, `_stats_ring`: its steps walked,
+every pixel once, every row's input rows staged), of K6 fwd
+(`losses/contrastive.py:_infonce_group`: a bf16 bank's chunks of 32 keys
+by the copy engine, the transposed reduction bit-equal to the butterfly), K5 (`memobank.py:
 _enqueue_tile`), the radix descent of E and K7 kth (`ops/quantile.py:
 _descent_plan`) and K4's masks and anchor draws (`losses/contrastive.py:
 _masks_plan`, `_anchors_plan`), on the CPU.
@@ -129,6 +131,111 @@ def test_stats_plan_refuses_what_shared_memory_cannot_hold():
         ce._stats_plan(1, 64, 1000, 4000, 4000)
 
 
+# an SM of the H100 (sm_90): shared memory (228 KB), what each block
+# reserves of it, threads
+SM_SHARED, BLOCK_RESERVED, SM_THREADS = 233472, 1024, 2048
+
+
+def _ring_walk(b, c, h, w, oh, ow, sms, grid):
+    """The bf16 stats kernel's ring (upsample_ce.cu: stats_ring_kernel) as
+    it runs on `grid` blocks: per block its spans [p0, p1) in steps of
+    `spans` (the last may hold fewer), per step the
+    output rows it touches, its image groups' copies (byte base, bytes, the
+    run's first element and length, its shift in the first 16-byte block)
+    as `issue` lays them out, and per row the raw elements it reads;
+    returns (pixels taken per flat pixel, spans written per span, the most
+    rows and raw bytes of a step, every row read inside its group's run and
+    T's rows on distinct slots of its ring)."""
+    span, _, _ = ce._stats_plan(b, c, w, oh, ow)
+    ring = ce._stats_ring(b, c, h, w, oh, ow, sms)
+    lo, hi, _ = tr._interp_taps_np(h, oh, True)
+    total = b * oh * ow
+    nparts = -(-total // span)
+    taken = np.zeros(total, dtype=np.int64)
+    parts = np.zeros(nparts, dtype=np.int64)
+    most_rows = most_raw = 0
+    inside = True
+    for blk in range(grid):
+        p0, p1 = blk * nparts // grid, (blk + 1) * nparts // grid
+        done = -1  # T's ring holds the rows up to `done` (the step before's)
+        for p in range(p0, p1, ring.spans):  # the block's spans, a step at a time
+            k0, k1 = p * span, min(min(p + ring.spans, p1) * span, total)
+            ra, rb = k0 // ow, (k1 - 1) // ow
+            most_rows = max(most_rows, rb - ra + 1)
+            # the step's rows on distinct slots of T's ring, the row it
+            # shares with the step before kept where that step wrote it
+            inside &= len({r % ring.rows for r in range(ra, rb + 1)}) == rb - ra + 1
+            inside &= done < ra or done == ra  # consecutive steps share a row at most
+            done = rb
+            groups, base = {}, 0
+            for img in range(ra // oh, rb // oh + 1):
+                oy0, oy1 = max(ra - img * oh, 0), min(rb - img * oh, oh - 1)
+                i0, n_el = int(lo[oy0]), int(hi[oy1] - lo[oy0] + 1) * w
+                stride = 2 * ((n_el + 14) & ~7)
+                for cls in range(c):
+                    e = (img * c + cls) * h * w + i0 * w
+                    nbytes = 2 * ((e % 8 + n_el + 7) & ~7)
+                    inside &= nbytes <= stride and (base + cls * stride) % 16 == 0
+                groups[img] = (i0, n_el)
+                base += c * stride
+            most_raw = max(most_raw, base)
+            for r in range(ra, rb + 1):
+                i0, n_el = groups[r // oh]
+                oy = r % oh
+                inside &= i0 * w <= lo[oy] * w and (hi[oy] + 1) * w <= i0 * w + n_el
+            for s_ in range(ring.spans):  # each span's threads: 4 pixels each
+                ks = k0 + s_ * span
+                if ks < k1:
+                    parts[p + s_] += 1
+                    taken[ks:min(ks + span, k1)] += 1
+    return taken, parts, most_rows, most_raw, inside
+
+
+# the ring at STATS_SHAPES' bf16-capable shapes, planned for several SM
+# counts, on grids of one block to the kernel's (min(SMs x blocks an SM,
+# steps): one block an SM or two)
+@pytest.mark.parametrize("sms,per_sm", [(132, 1), (132, 2), (114, 1), (16, 1), (1, 1)])
+@pytest.mark.parametrize("b,c,h,w,oh,ow", STATS_SHAPES[:-1])
+def test_stats_ring_steps_take_every_pixel_once_within_shared_memory(b, c, h, w, oh, ow, sms,
+                                                                     per_sm):
+    ring = ce._stats_ring(b, c, h, w, oh, ow, sms)
+    span = ce._stats_plan(b, c, w, oh, ow)[0]
+    nparts = -(-(b * oh * ow) // span)
+    steps = -(-nparts // ring.spans)
+    taken, parts, rows, raw, inside = _ring_walk(b, c, h, w, oh, ow, sms,
+                                                 min(sms * per_sm, steps))
+    assert (taken == 1).all() and (parts == 1).all()  # every pixel, every span's sums once
+    assert rows <= ring.rows and raw <= ring.raw_bytes and ring.raw_bytes % 16 == 0
+    # each row's lo and hi input rows staged, copies 16-byte aligned, T's
+    # rows on distinct slots
+    assert inside
+    assert ring.smem == ce._ring_bytes(c, w, ow, ring.rows, ring.raw_bytes)
+    assert ring.smem <= ce.STATS_MAX_SHARED and ring.rows * c * w < 2**24
+    per_sm = min(SM_SHARED // (ring.smem + BLOCK_RESERVED),
+                 SM_THREADS // (256 * ring.spans))
+    assert per_sm >= 1  # co-resident: at least one block an SM
+    # the spans: a block's ceil(nparts / sms) spans in steps with the fewest
+    # idle span slots (the main path on 132 SMs: VOC 8 spans a block in 2
+    # steps of 4, Cityscapes 9 in 3 of 3)
+    per_block = -(-nparts // sms)
+    assert -(-per_block // ring.spans) * ring.spans == min(
+        -(-per_block // k) * k for k in range(1, ce.STATS_RING_MAX_SPANS + 1)
+        if ce._ring_bytes(c, w, ow, min(span * k // ow + 2, b * oh), ce._ring_raw_bytes(
+            b, c, h, w, oh, ow, span, span * k)) <= ce.STATS_MAX_SHARED)
+    if sms == 132 and (b, c, w, ow) == (4, 21, 129, 513):
+        assert ring.spans == 4
+    if sms == 132 and (b, c, ow) == (2, 19, 769):
+        assert ring.spans == 3
+    assert ce._stats_launch(b, c, h, w, oh, ow, torch.bfloat16, sms) == (
+        span, ring.rows, ring.spans, ring.raw_bytes)
+    assert ce._stats_launch(b, c, h, w, oh, ow, torch.float32, sms)[2:] == (0, 0)
+
+
+def test_stats_ring_refuses_what_shared_memory_cannot_hold():
+    with pytest.raises(ValueError, match="bf16 kernel"):
+        ce._stats_ring(1, 64, 300, 300, 1200, 1200, 132)
+
+
 # ---- K6 fwd (losses/contrastive.py:_infonce_group) and K5
 # (memobank.py:_enqueue_tile): the kernels' loops, walked here in Python
 
@@ -153,31 +260,105 @@ def _infonce_key_schedule(m, g):
     return events
 
 
+def _infonce_copy_schedule(m):
+    """K6 fwd's draw on a bf16 bank (infonce.cu:infonce_draw_copy): per
+    chunk of 32 keys ("copy", c0, nk, expected bytes) with lane k's row
+    into slot k, ("wait", c0), then ("update", key, slot) in key order; the
+    next chunk's copies once the slots are read."""
+    events = []
+    for c0 in range(0, m, tc.INFONCE_CHUNK):
+        nk = min(tc.INFONCE_CHUNK, m - c0)
+        events.append(("copy", c0, nk, nk * tc.INFONCE_ROW_BYTES))
+        events.append(("wait", c0))
+        events.extend(("update", c0 + k, k) for k in range(nk))
+    return events
+
+
+def _transposed_sums(v):
+    """The kernel's transposed reduction (infonce.cu:infonce_draw_copy: the
+    first level at offset 16, keys i and i + 16 kept by the lanes of the
+    lower and upper half, then `halve` at 8, 4, 2, 1) of v[lane, key],
+    (32, 32) float32 partials: what each lane holds at the end (its t[0])."""
+    lanes = np.arange(32)
+    upper = (lanes & 16) != 0
+    keep = np.where(upper[:, None], v[:, 16:], v[:, :16])
+    send = np.where(upper[:, None], v[:, :16], v[:, 16:])
+    t = (keep + send[lanes ^ 16]).astype(np.float32)
+    for o in (8, 4, 2, 1):
+        n = t.shape[1] // 2
+        up = ((lanes & o) != 0)[:, None]
+        keep, send = np.where(up, t[:, n:], t[:, :n]), np.where(up, t[:, :n], t[:, n:])
+        t = (keep + send[lanes ^ o]).astype(np.float32)
+    return t[:, 0]
+
+
+def _butterfly_sums(v):
+    """warp_sum2's xor butterfly (offsets 16 .. 1) of each key's 32 lane
+    partials, as lane 0 ends with it (every lane holds the same bits)."""
+    lanes = np.arange(32)
+    t = v.copy()
+    for o in (16, 8, 4, 2, 1):
+        t = (t + t[lanes ^ o]).astype(np.float32)
+    return t[0]
+
+
 @pytest.mark.parametrize("m", [0, 1, 7, 31, 32, 33, 50, 63, 64, 65, 100])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_infonce_groups_fit_their_registers_and_reduce_every_key_in_order(m, dtype):
     g = tc._infonce_group(dtype)
-    row_regs = {torch.bfloat16: 4, torch.float32: 8}[dtype]
-    assert 2 * g * row_regs <= tc.INFONCE_ROW_REGS and 32 % g == 0
-    assert g == {torch.bfloat16: 4, torch.float32: 2}[dtype]  # the kernel's instances
-    events = _infonce_key_schedule(m, g)
-    fetched = [k for e, k in events if e == "fetch"]
-    reduced = [k for e, k in events if e == "reduce"]
-    assert fetched == list(range(m)) and reduced == list(range(m))  # once each, in key order
-    chunks = [k for e, k in events if e == "rows"]
-    assert chunks == list(range(-(-m // 32)))
-    in_flight, seen_rows, most = set(), set(), 0
-    for e, k in events:
-        if e == "rows":
-            seen_rows.add(k)
-        elif e == "fetch":
-            assert k // 32 in seen_rows  # its row was computed first
-            in_flight.add(k)
-            most = max(most, len(in_flight))
+    assert g == {torch.bfloat16: tc.INFONCE_CHUNK, torch.float32: 2}[dtype]  # the kernel's
+    if dtype == torch.float32:  # rows in registers, two groups in flight
+        assert 2 * g * 8 <= tc.INFONCE_ROW_REGS and 32 % g == 0
+        events = _infonce_key_schedule(m, g)
+        fetched = [k for e, k in events if e == "fetch"]
+        reduced = [k for e, k in events if e == "reduce"]
+        assert fetched == list(range(m)) and reduced == list(range(m))  # once each, in order
+        chunks = [k for e, k in events if e == "rows"]
+        assert chunks == list(range(-(-m // 32)))
+        in_flight, seen_rows, most = set(), set(), 0
+        for e, k in events:
+            if e == "rows":
+                seen_rows.add(k)
+            elif e == "fetch":
+                assert k // 32 in seen_rows  # its row was computed first
+                in_flight.add(k)
+                most = max(most, len(in_flight))
+            else:
+                assert k in in_flight  # fetched before it is reduced
+                in_flight.remove(k)
+        assert most <= 2 * g and (m <= g or most > g)  # two groups in flight
+        return
+    # a bf16 bank: 32 rows of shared memory a warp, by the copy engine
+    events = _infonce_copy_schedule(m)
+    landed, updated, slots = set(), [], {}
+    for ev in events:
+        if ev[0] == "copy":
+            _, c0, nk, nbytes = ev
+            assert 1 <= nk <= g and nbytes == nk * 512  # what the mbarrier expects
+            slots = {c0 + k: k for k in range(nk)}  # lane k's row into slot k
+            pending = set(slots)
+        elif ev[0] == "wait":
+            landed |= pending
         else:
-            assert k in in_flight  # fetched before it is reduced
-            in_flight.remove(k)
-    assert most <= 2 * g and (m <= g or most > g)  # two groups in flight
+            _, key, slot = ev
+            assert key in landed and slots[key] == slot < g  # copied before it is used
+            updated.append(key)
+    assert updated == list(range(m))  # every key once, in key order (M = 0: none)
+    smem = tc._infonce_copy_bytes()
+    assert smem == tc.INFONCE_COPY_WARPS * (g * 512 + 16)
+    assert tc.INFONCE_COPY_BLOCKS_PER_SM * (smem + BLOCK_RESERVED) <= SM_SHARED
+    # the kernel's 128 registers a thread (its build log), two blocks an SM
+    assert tc.INFONCE_COPY_BLOCKS_PER_SM * tc.INFONCE_COPY_WARPS * 32 * 128 <= 65536
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_infonce_transposed_reduction_is_the_butterflys_bits(seed):
+    """Lane k of the transposed reduction holds key k's sums with
+    warp_sum2's bits: the same pairs at each level (float addition
+    commutes)."""
+    rng = np.random.default_rng(seed)
+    v = (rng.standard_normal((32, 32)) * 10.0 ** rng.integers(-3, 4, (32, 32))).astype(np.float32)
+    assert np.array_equal(_transposed_sums(v).view(np.int32), _butterfly_sums(v).view(np.int32))
 
 
 TILE_ROWS = 1024  # memobank.cu: kMaxTileRows, the rows a tile lists

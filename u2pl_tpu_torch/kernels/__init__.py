@@ -32,15 +32,16 @@ def load():
         # (x, out, idx_h, w_h, idx_w, w_w, C, H, W, OH, OW, dtype, stream)
         "u2pl_resize_argmax_ac": [p] * 6 + [i] * 6 + [p],
         # (x, labels, cw, lse, part, stats, idx_h, w_h, idx_w, w_w,
-        #  B, C, H, W, OH, OW, ignore, floor, span, max_rows, dtype, stream)
-        "u2pl_upsample_ce_fwd": [p] * 10 + [i] * 7 + [f, i, i, i, p],
+        #  B, C, H, W, OH, OW, ignore, floor, span, max_rows, spans, raw_bytes,
+        #  dtype, stream)
+        "u2pl_upsample_ce_fwd": [p] * 10 + [i] * 7 + [f] + [i] * 5 + [p],
         # (x, labels, cw, lse, stats, gout, gx, idx_h, w_h, rng_h, idx_w, w_w,
         #  rng_w, B, C, H, W, OH, OW, ignore, floor, groups, cls, rows, bands,
         #  chunk, threads, span, gs, ratio, dtype, stream)
         "u2pl_upsample_ce_bwd": [p] * 13 + [i] * 7 + [f] + [i] * 10 + [p],
         # (x, maxprob, argmax, entropy, idx_h, w_h, idx_w, w_w,
-        #  B, C, H, W, OH, OW, span, max_rows, dtype, stream)
-        "u2pl_upsample_softmax_stats": [p] * 8 + [i] * 9 + [p],
+        #  B, C, H, W, OH, OW, span, max_rows, spans, raw_bytes, dtype, stream)
+        "u2pl_upsample_softmax_stats": [p] * 8 + [i] * 11 + [p],
         # (values, mask, pct, out, state, n, K, grid, slice, cap, stream)
         "u2pl_masked_percentiles": [p] * 5 + [i] * 5 + [p],
         # (img, lab, prob, boxes, img_out, lab_out, prob_out,
@@ -77,8 +78,9 @@ def load():
         # (values, out, state, n, k, grid, slice, cap, stream)
         "u2pl_kth_smallest": [p] * 3 + [i] * 5 + [p],
         # (x, labels, p_y, num_valid, ticket, idx_h, w_h, idx_w, w_w,
-        #  B, C, H, W, OH, OW, ignore, span, max_rows, dtype, stream)
-        "u2pl_ohem_target_prob": [p] * 9 + [i] * 10 + [p],
+        #  B, C, H, W, OH, OW, ignore, span, max_rows, spans, raw_bytes, dtype,
+        #  stream)
+        "u2pl_ohem_target_prob": [p] * 9 + [i] * 12 + [p],
         # (labels, p_y, kth, num_valid, out, n, thresh, min_kept, ignore, stream)
         "u2pl_ohem_keep_labels": [p] * 5 + [i, f, i, i, p],
         "u2pl_quantile_max_queries": [],

@@ -36,7 +36,7 @@
 // lerps (252 loads per pixel at C = 21), and wrote all three outputs:
 // 0.138 ms per call at the VOC shape (4, 21, 129²) -> 513² on an NVIDIA
 // H100 80GB HBM3 at 700 W, 25x its bytes bound.  The work is instruction
-// issue (the bytes are ~10-14 MB, 3-4 us), so this design cuts
+// issue (the bytes are ~10-14 MB, 3-4 us), so the f32 instance cuts
 // instructions: a block owns 1024 consecutive output pixels, stages the
 // H-lerped input rows of the output rows they touch in shared memory (C x W
 // floats per row, once per block), and each thread evaluates a pixel's C
@@ -45,9 +45,24 @@
 // C in steps of 8, C <= 32), takes one expf per class (reused for the sum
 // and the entropy's p), and stores 4 pixels per 16-byte vector.  The
 // expressions and the class order are the first design's, so the outputs
-// are the same bits.  0.0375 / 0.059 ms for the max-prob + argmax / the
-// entropy call at VOC, 0.042 / 0.063 at Cityscapes' (2, 19, 193²) -> 769²
-// (u2pl_tpu_torch/kernels/timing_ab.py; PERF.md has the variants).
+// are the same bits.  0.0373-0.0379 / 0.059-0.060 ms for the max-prob +
+// argmax / the entropy call at VOC, 0.042 / 0.063 at Cityscapes' (2, 19,
+// 193²) -> 769² (u2pl_tpu_torch/kernels/timing_ab.py; PERF.md has the
+// variants).  Its pixel loop is 516-558 instructions a pixel (prob) and
+// 1344-1386 (entropy), its issue floor at VOC 0.0176 / 0.0436 ms
+// (kernels/sass_count.py: loop instructions x pixels / 32 over 132 SMs x 4
+// a clock at 1980 MHz).
+// The bf16 instance (every config's logits) keeps that pixel code and
+// stages by the copy engine (stats_ring_kernel, below): persistent blocks
+// of 256 x spans threads, one an SM, each a run of spans in steps of
+// `spans`; a step's raw input rows land in shared memory while the step
+// before computes, its H pass reads them there, and its threads take the
+// f32 instance's spans as they were.  Measured (timing_ab.py, NVIDIA H100
+// 80GB HBM3, 700.00 W): prob 0.0362-0.0363 / entropy 0.0600 ms at VOC
+// (parent 0.0393-0.0395 / 0.0621-0.0626), 0.0395 / 0.0637-0.0638 at
+// Cityscapes (0.0440-0.0443 / 0.0644-0.0647); without its pixels (the
+// staging alone) 0.0146 ms at VOC, without its H pass 0.028: the pixel loop
+// at ~63% of its issue floor is what holds it.
 //
 // K7 prob. u2pl_ohem_target_prob replaces u2pl_tpu/losses/ohem.py:66-75
 //    (OHEM's p_y = softmax(upsampled logits)[label], 1.0 at ignored pixels,
@@ -531,10 +546,13 @@ __device__ __forceinline__ void stats_pixel(const float* __restrict__ Tr, int W,
   if (MODE & kStatsEntropy) {
     // unsup.py:24-27: -sum p log(p + 1e-10), p = exp(v - max) / sum
     float e = 0.0f;
+    // bf16: the quotients' reciprocal of s formed once (u2pl::div_r1, the
+    // same bits as '/')
+    const float r1 = BF ? u2pl::rcp_refined(s) : 0.0f;
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) {
       if (EXACT || c < C) {
-        const float pc = v[c] / s;
+        const float pc = BF ? u2pl::div_r1(v[c], s, r1) : v[c] / s;
         e += pc * logf(pc + 1e-10f);
       }
     }
@@ -601,33 +619,131 @@ __device__ __forceinline__ float target_prob_pixel(const float* __restrict__ Tr,
   return expf(vy - m) / s;
 }
 
-// a block owns `span` consecutive pixels [k0, k0 + span) of the flat
-// (B, OH, OW) output (span a multiple of 4, so every 4-pixel chunk is
-// 16-byte aligned): every thread gets the same number of chunks, whatever
-// OW is.  It stages the column taps (by column % 4, as kernel A), the row
-// taps of the flat output rows R0 + r that the span touches, and then
-// their H-lerped input rows T[r][c][ix] in shared memory: a thread takes
-// kStageBatch (class, column) items, issues their loads before it stores
-// any, and walks the rows for them (rows that share an input row then read
-// it from L1: the staging's L2 reads, not HBM, were its cost).  Each thread then
-// takes aligned 4-pixel chunks, one pixel at a time (the pixel's code is
-// emitted once: four copies of a C-unrolled pixel overflow the instruction
-// cache), and stores each output as one 16-byte vector.  In kernel C's
-// forward (MODE kStatsCE) a thread reads its chunk's 4 labels as one
-// 16-byte vector, writes their lse as another, and sums its pixels' weighted
-// nll and weight in double; the block adds its threads' sums in a fixed
-// order (warp shuffles, then the warps in turn) into part[block] and
-// part[blocks + block].  In K7 prob (MODE kStatsTargetProb) it reads the
-// labels so too, writes p_y as a 16-byte vector, and counts its valid
-// pixels; each block adds its count into ticket[1] with one integer atomic
-// (exact, whatever the order), and the last block to finish (ticket[0],
-// kernels.tickets) moves the sum into num_valid and takes ticket[1] back
-// to 0: no zero-fill launch.
+// The pixels [k0, k1) of one span (at most kStatsThreads chunks of 4), a
+// 4-pixel chunk per thread t: thread t takes pixels k0 + 4t .., one pixel
+// at a time (the pixel's code is emitted once: four copies of a
+// C-unrolled pixel overflow the instruction cache), each output stored as
+// one 16-byte vector; T holds the H-lerped rows of the flat output rows
+// from R0 on (RING: a ring of nt rows, row R0 + r at slot slot0 + r mod nt;
+// else row R0 + r at r), class c at T + row * C * W + c * W.  kStatsCE: the
+// thread's weighted nll and weight into acc, acc_w; kStatsTargetProb: its
+// valid pixels into valid.
+template <int MAXC, int MODE, bool EXACT, bool BF, bool RING>
+__device__ __forceinline__ void stats_chunks(
+    const float* __restrict__ T, int slot0, int nt, const int4* __restrict__ scol, int quarter,
+    int C, int W, int OW, float inv_ow, unsigned R0, unsigned k0, unsigned k1, int t,
+    const int* __restrict__ labels, const float* __restrict__ cw, int ignore,
+    float* __restrict__ maxprob, int* __restrict__ argmax, float* __restrict__ entropy,
+    double& acc, double& acc_w, unsigned& valid) {
+  const int CW = C * W;
+  const unsigned base = R0 * OW;  // pixel local - base is in row local / OW of T
+  const bool vec = ((uintptr_t)labels & 15) == 0;
+  for (unsigned k = k0 + 4u * t; k < k1; k += 4u * kStatsThreads) {
+    const int local = (int)(k - base);
+    int slot = div_small(local, OW, inv_ow);  // T's row of this flat output row
+    int ox = local - slot * OW;
+    if (RING) {
+      slot += slot0;
+      if (slot >= nt) slot -= nt;
+    }
+    int4 lab = make_int4(ignore, ignore, ignore, ignore);
+    if constexpr (MODE == kStatsCE || MODE == kStatsTargetProb) {
+      if (vec && k + 4 <= k1) {
+        lab = *reinterpret_cast<const int4*>(labels + k);
+      } else {
+        lab.x = labels[k];
+        if (k + 1 < k1) lab.y = labels[k + 1];
+        if (k + 2 < k1) lab.z = labels[k + 2];
+        if (k + 3 < k1) lab.w = labels[k + 3];
+      }
+    }
+    float mpv[4], env[4];
+    int amv[4];
+#pragma unroll 1
+    for (int i = 0; i < 4; ++i) {
+      float mp = 0.0f, en = 0.0f;
+      int am = 0;
+      if (k + i < k1) {
+        const int4 t = scol[(ox & 3) * quarter + (ox >> 2)];
+        if constexpr (MODE == kStatsCE) {
+          const int y = i == 0 ? lab.x : i == 1 ? lab.y : i == 2 ? lab.z : lab.w;
+          float vy;
+          mp = ce_pixel<MAXC, EXACT, BF>(T + slot * CW, W, C, t, y, vy);  // the lse
+          if (y != ignore && y >= 0 && y < C) {
+            const float wy = cw ? cw[y] : 1.0f;
+            acc += (double)((mp - vy) * wy);
+            acc_w += (double)wy;
+          }
+        } else if constexpr (MODE == kStatsTargetProb) {
+          const int y = i == 0 ? lab.x : i == 1 ? lab.y : i == 2 ? lab.z : lab.w;
+          mp = target_prob_pixel<MAXC, EXACT, BF>(T + slot * CW, W, C, t, y, ignore, valid);
+        } else {
+          stats_pixel<MAXC, MODE, EXACT, BF>(T + slot * CW, W, C, t, mp, am, en);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // register slots, not a local-memory array
+        if (j == i) {
+          mpv[j] = mp;
+          amv[j] = am;
+          env[j] = en;
+        }
+      }
+      if (++ox == OW) {  // the chunk runs on into the next row
+        ox = 0;
+        ++slot;
+        if (RING && slot == nt) slot = 0;
+      }
+    }
+    if (k + 4 <= k1) {
+      if (MODE & (kStatsProb | kStatsCE | kStatsTargetProb)) {  // the lse; p_y
+        *reinterpret_cast<float4*>(maxprob + k) = make_float4(mpv[0], mpv[1], mpv[2], mpv[3]);
+      }
+      if (MODE & kStatsProb) {
+        *reinterpret_cast<int4*>(argmax + k) = make_int4(amv[0], amv[1], amv[2], amv[3]);
+      }
+      if (MODE & kStatsEntropy) {
+        *reinterpret_cast<float4*>(entropy + k) = make_float4(env[0], env[1], env[2], env[3]);
+      }
+      continue;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // the output's last, partial chunk
+      if (k + j < k1) {
+        if (MODE & (kStatsProb | kStatsCE | kStatsTargetProb)) maxprob[k + j] = mpv[j];
+        if (MODE & kStatsProb) argmax[k + j] = amv[j];
+        if (MODE & kStatsEntropy) entropy[k + j] = env[j];
+      }
+    }
+  }
+}
+
+// The f32 instance: a block owns `span` consecutive pixels [k0, k0 + span)
+// of the flat (B, OH, OW) output (span a multiple of 4, so every 4-pixel
+// chunk is 16-byte aligned): every thread gets the same number of chunks,
+// whatever OW is.  It stages the column taps (by column % 4, as kernel A),
+// the row taps of the flat output rows R0 + r that the span touches, and
+// then their H-lerped input rows T[r][c][ix] in shared memory: a thread
+// takes kStageBatch (class, column) items, issues their loads before it
+// stores any, and walks the rows for them (rows that share an input row
+// then read it from L1).  Each thread then takes aligned 4-pixel chunks
+// (stats_chunks).  In kernel C's forward (MODE kStatsCE) a thread reads its
+// chunk's 4 labels as one 16-byte vector, writes their lse as another, and
+// sums its pixels' weighted nll and weight in double; the block adds its
+// threads' sums in a fixed order (warp shuffles, then the warps in turn)
+// into part[block] and part[blocks + block].  In K7 prob (MODE
+// kStatsTargetProb) it reads the labels so too, writes p_y as a 16-byte
+// vector, and counts its valid pixels; each block adds its count into
+// ticket[1] with one integer atomic (exact, whatever the order), and the
+// last block to finish (ticket[0], kernels.tickets) moves the sum into
+// num_valid and takes ticket[1] back to 0: no zero-fill launch.  Where this
+// staging, a barrier between loads and pixels in every block, cost the
+// most at the bf16 instance's shapes, the ring below takes its place.
 constexpr int kStageBatch = 8;
 
-template <int MAXC, int MODE, bool EXACT, typename In>
+template <int MAXC, int MODE, bool EXACT>
 __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
-    const In* __restrict__ x, float* __restrict__ maxprob,
+    const float* __restrict__ x, float* __restrict__ maxprob,
     int* __restrict__ argmax, float* __restrict__ entropy,
     const int* __restrict__ labels, const float* __restrict__ cw,
     double* __restrict__ part, int* __restrict__ num_valid, unsigned* __restrict__ ticket,
@@ -636,7 +752,6 @@ __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
     int H, int W, int OH, int OW, unsigned total, int span, int quarter,
     int max_rows, float inv_ow) {
   extern __shared__ int4 scol[];  // (lo, hi, 1 - frac, frac) per output column
-  constexpr bool BF = sizeof(In) == 2;
   int4* rtab = scol + 4 * quarter;  // per touched row: input row offsets, weights
   float* T = reinterpret_cast<float*>(rtab + max_rows);
   const unsigned k0 = blockIdx.x * (unsigned)span;
@@ -691,83 +806,11 @@ __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
     }
   }
   __syncthreads();
-  const unsigned base = R0 * OW;  // pixel local - base is in row local / OW of T
-  const bool vec = ((uintptr_t)labels & 15) == 0;
   double acc = 0.0, acc_w = 0.0;  // kStatsCE: the thread's weighted nll and weight
   unsigned valid = 0;             // kStatsTargetProb: the thread's valid pixels
-  for (unsigned k = k0 + 4u * threadIdx.x; k < k1; k += 4u * kStatsThreads) {
-    const int local = (int)(k - base);
-    int r = div_small(local, OW, inv_ow);
-    int ox = local - r * OW;
-    int4 lab = make_int4(ignore, ignore, ignore, ignore);
-    if constexpr (MODE == kStatsCE || MODE == kStatsTargetProb) {
-      if (vec && k + 4 <= k1) {
-        lab = *reinterpret_cast<const int4*>(labels + k);
-      } else {
-        lab.x = labels[k];
-        if (k + 1 < k1) lab.y = labels[k + 1];
-        if (k + 2 < k1) lab.z = labels[k + 2];
-        if (k + 3 < k1) lab.w = labels[k + 3];
-      }
-    }
-    float mpv[4], env[4];
-    int amv[4];
-#pragma unroll 1
-    for (int i = 0; i < 4; ++i) {
-      float mp = 0.0f, en = 0.0f;
-      int am = 0;
-      if (k + i < k1) {
-        const int4 t = scol[(ox & 3) * quarter + (ox >> 2)];
-        if constexpr (MODE == kStatsCE) {
-          const int y = i == 0 ? lab.x : i == 1 ? lab.y : i == 2 ? lab.z : lab.w;
-          float vy;
-          mp = ce_pixel<MAXC, EXACT, BF>(T + r * CW, W, C, t, y, vy);  // the lse
-          if (y != ignore && y >= 0 && y < C) {
-            const float wy = cw ? cw[y] : 1.0f;
-            acc += (double)((mp - vy) * wy);
-            acc_w += (double)wy;
-          }
-        } else if constexpr (MODE == kStatsTargetProb) {
-          const int y = i == 0 ? lab.x : i == 1 ? lab.y : i == 2 ? lab.z : lab.w;
-          mp = target_prob_pixel<MAXC, EXACT, BF>(T + r * CW, W, C, t, y, ignore, valid);
-        } else {
-          stats_pixel<MAXC, MODE, EXACT, BF>(T + r * CW, W, C, t, mp, am, en);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {  // register slots, not a local-memory array
-        if (j == i) {
-          mpv[j] = mp;
-          amv[j] = am;
-          env[j] = en;
-        }
-      }
-      if (++ox == OW) {  // the chunk runs on into the next row
-        ox = 0;
-        ++r;
-      }
-    }
-    if (k + 4 <= k1) {
-      if (MODE & (kStatsProb | kStatsCE | kStatsTargetProb)) {  // the lse; p_y
-        *reinterpret_cast<float4*>(maxprob + k) = make_float4(mpv[0], mpv[1], mpv[2], mpv[3]);
-      }
-      if (MODE & kStatsProb) {
-        *reinterpret_cast<int4*>(argmax + k) = make_int4(amv[0], amv[1], amv[2], amv[3]);
-      }
-      if (MODE & kStatsEntropy) {
-        *reinterpret_cast<float4*>(entropy + k) = make_float4(env[0], env[1], env[2], env[3]);
-      }
-      continue;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {  // the output's last, partial chunk
-      if (k + j < k1) {
-        if (MODE & (kStatsProb | kStatsCE | kStatsTargetProb)) maxprob[k + j] = mpv[j];
-        if (MODE & kStatsProb) argmax[k + j] = amv[j];
-        if (MODE & kStatsEntropy) entropy[k + j] = env[j];
-      }
-    }
-  }
+  stats_chunks<MAXC, MODE, EXACT, false, false>(T, 0, max_rows, scol, quarter, C, W, OW, inv_ow,
+                                             R0, k0, k1, threadIdx.x, labels, cw, ignore,
+                                             maxprob, argmax, entropy, acc, acc_w, valid);
   if constexpr (MODE == kStatsCE) {
     __shared__ double red[2][kStatsThreads / 32];
 #pragma unroll
@@ -804,6 +847,231 @@ __global__ void __launch_bounds__(kStatsThreads) upsample_softmax_stats_kernel(
   }
 }
 
+// ---- the bf16 instance: persistent blocks on a staged ring ---------------
+// (In = __nv_bfloat16: D's two semi-step calls, C's forward, K7 prob.)  A
+// step is `spans` consecutive spans of the plan above (its span, so C's
+// partial sums and K7's counts are the ones the f32 instance forms), taken
+// by a block of kStatsThreads x spans threads: thread t works span t /
+// kStatsThreads as that span's thread t % kStatsThreads.  The blocks are
+// persistent (as many as the SMs hold, at most one a step's spans), each
+// taking a contiguous run of spans, a step at a time.  A step's raw bf16
+// input rows arrive by the copy engine: one bulk copy per (image, class) of
+// the input rows its output rows reach, 16-byte aligned (the run widened to
+// whole 16-byte blocks: the first and last of them hold the run's ends, so
+// the copy never leaves the pages of the logits), into one buffer,
+// completing on an mbarrier.  Per step: wait for its rows; every thread
+// H-lerps the step's output rows from them into T (the f32 instance's
+// staging expression, read from shared memory instead of L2), a ring of a
+// step's rows (flat row R at R mod rows) that keeps the row a step shares
+// with the one before; a barrier, after which warp 0 issues the next
+// step's copies into the freed buffer while every thread computes its
+// span's pixels (stats_chunks: the same code as the f32 instance); a
+// barrier.  So the copies of step n + 1 are in flight while step n is
+// computed.  The host picks the spans a step (losses/ce.py:_stats_ring: 4
+// at VOC, 3 at Cityscapes, whose 1155 spans split 9 a block).  Variants
+// measured at VOC prob on an NVIDIA H100 80GB HBM3 at 700 W that stayed
+// out: 2 spans a step (0.039 ms, two blocks an SM) and 1 (0.048) against
+// 4 (0.036); T holding two steps' rows, the next step's H pass taken by the
+// warps done with this step's pixels, one barrier a step (0.0386 against
+// 0.0384).  The entropy's quotients share one reciprocal of the sum
+// (u2pl::div_r1: 0.0585 against 0.0597 ms with '/').
+constexpr int kRingMaxSpans = 4;
+
+// the shared memory of a ring block (losses/ce.py:_ring_bytes): the column
+// taps, per step row its raw offsets and weights, per image group its copy
+// layout and per row its group, T's rows, the raw buffer, the mbarrier
+__host__ __device__ inline long long ring_bytes(int C, int W, int OW, int rows, int raw) {
+  return 64LL * ((OW + 3) / 4) + 48LL * rows + ((4LL * rows * C * W + 15) & ~15LL) + raw + 16;
+}
+
+template <int MAXC, int MODE, bool EXACT>
+__global__ void __launch_bounds__(kStatsThreads * kRingMaxSpans) stats_ring_kernel(
+    const __nv_bfloat16* __restrict__ x, float* __restrict__ maxprob,
+    int* __restrict__ argmax, float* __restrict__ entropy,
+    const int* __restrict__ labels, const float* __restrict__ cw,
+    double* __restrict__ part, int* __restrict__ num_valid, unsigned* __restrict__ ticket,
+    int ignore, const int* __restrict__ idx_h, const float* __restrict__ w_h,
+    const int* __restrict__ idx_w, const float* __restrict__ w_w, int C, int H, int W,
+    int OH, int OW, unsigned total, int span, int spans, int nparts, int quarter, int rows,
+    int raw_bytes, float inv_ow) {
+  extern __shared__ int4 scol[];  // (lo, hi, 1 - frac, frac) per output column
+  int4* rtab = scol + 4 * quarter;  // per step row: its lo and hi rows in a run, weights
+  int4* gtab = rtab + rows;         // per image group: byte base, class stride, shift, i0
+  int* rgrp = reinterpret_cast<int*>(gtab + rows);  // per step row: its group
+  float* T = reinterpret_cast<float*>(rgrp + 4 * rows);
+  char* raw = reinterpret_cast<char*>(T) + ((4LL * rows * C * W + 15) & ~15LL);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(raw + raw_bytes);
+  __shared__ double red[2][kRingMaxSpans][kStatsThreads / 32];  // kStatsCE
+  __shared__ unsigned block_valid;                              // kStatsTargetProb
+  const int tid = threadIdx.x, nthreads = blockDim.x, warp = tid >> 5, lane = tid & 31;
+  const int CW = C * W, HW = H * W;
+  // the block's spans [p0, p1), in steps of `spans` (the last may hold fewer)
+  const int p0 = (int)((long long)blockIdx.x * nparts / gridDim.x);
+  const int p1 = (int)((long long)(blockIdx.x + 1) * nparts / gridDim.x);
+  auto first = [&](int p) { return (unsigned)p * span; };
+  auto stop = [&](int p) { return min((unsigned)min(p + spans, p1) * span, total); };
+  if (tid == 0) {
+    block_valid = 0;
+    u2pl::mbar_init(bar, 1);
+  }
+  for (int ox = tid; ox < OW; ox += nthreads) {
+    scol[(ox & 3) * quarter + (ox >> 2)] =
+        make_int4(idx_w[ox], idx_w[OW + ox], __float_as_int(w_w[ox]), __float_as_int(w_w[OW + ox]));
+  }
+  __syncthreads();
+
+  // warp 0: the tables of the step from span p and its copies.  Its output
+  // rows [Ra, Rb] fall in images bA .. Rb / OH, a group each: the input rows
+  // [i0, i1] of class c are one run of (i1 - i0 + 1) W elements, copied from
+  // the 16-byte block holding its first element to the group's base + c *
+  // stride; the run's shift in that block counts from the address, x8 (the
+  // logits may be a view that starts anywhere on their 2-byte elements).
+  const int x8 = (int)(((uintptr_t)x >> 1) & 7);
+  auto issue = [&](int p) {
+    const unsigned k0 = first(p), k1 = stop(p);
+    const int Ra = (int)(k0 / OW), Rb = (int)((k1 - 1) / OW), bA = Ra / OH;
+    const int ng = Rb / OH - bA + 1;
+    if (lane == 0) {
+      int base = 0;
+      for (int g = 0; g < ng; ++g) {
+        const int b = bA + g;
+        const int oy0 = max(Ra - b * OH, 0), oy1 = min(Rb - b * OH, OH - 1);
+        const int i0 = idx_h[oy0], n_el = (idx_h[OH + oy1] - i0 + 1) * W;
+        const int stride = 2 * ((n_el + 14) & ~7);  // bytes a class
+        const long long e = ((long long)b * C * H + i0) * W;
+        gtab[g] = make_int4(base, stride, (int)((x8 + e) & 7), i0);
+        base += C * stride;
+      }
+      if (base > raw_bytes) __trap();  // the plan's bound (losses/ce.py:_stats_ring)
+    }
+    for (int r = lane; r <= Rb - Ra; r += 32) {
+      const int R = Ra + r, b = R / OH, oy = R - b * OH, g = b - bA;
+      const int i0 = g == 0 ? idx_h[max(Ra - b * OH, 0)] : idx_h[0];
+      rgrp[r] = g;
+      rtab[r] = make_int4((idx_h[oy] - i0) * W, (idx_h[OH + oy] - i0) * W,
+                          __float_as_int(w_h[oy]), __float_as_int(w_h[OH + oy]));
+    }
+    __syncwarp();
+    unsigned bytes = 0;
+    for (int i = lane; i < ng * C; i += 32) {
+      const int g = i / C, c = i - g * C;
+      const int4 gt = gtab[g];
+      const int b = bA + g;
+      const int oy1 = min(Rb - b * OH, OH - 1);
+      const int n_el = (idx_h[OH + oy1] - gt.w + 1) * W;
+      const int shift = (gt.z + c * (HW & 7)) & 7;
+      bytes += 2u * (unsigned)((shift + n_el + 7) & ~7);
+    }
+    bytes = __reduce_add_sync(0xffffffffu, bytes);
+    if (lane == 0) u2pl::mbar_expect(bar, bytes);
+    __syncwarp();
+    for (int i = lane; i < ng * C; i += 32) {
+      const int g = i / C, c = i - g * C;
+      const int4 gt = gtab[g];
+      const int b = bA + g;
+      const int oy1 = min(Rb - b * OH, OH - 1);
+      const int n_el = (idx_h[OH + oy1] - gt.w + 1) * W;
+      const long long e = ((long long)b * C + c) * HW + (long long)gt.w * W;
+      const int shift = (int)((x8 + e) & 7);
+      u2pl::bulk_copy(raw + gt.x + c * gt.y, x + (e - shift), 2u * ((shift + n_el + 7) & ~7),
+                      bar);
+    }
+  };
+  const float inv_w = 1.0f / (float)W;
+  const int hw8 = HW & 7;
+  unsigned phase = 0;
+  int done = -1;  // T holds the flat rows up to `done` (those of the step before)
+  // the H pass of the step from span p (once its copies have landed): its
+  // rows past `done`, (class, column) items walking the rows, into T's ring
+  // (a row the step shares with the one before stays at its slot: the new
+  // rows, at most rows - 1 past it, take the others)
+  auto lerp = [&](int p) {
+    u2pl::mbar_wait(bar, phase);
+    phase ^= 1;
+    const int Ra = (int)(first(p) / OW), Rb = (int)((stop(p) - 1) / OW);
+    const int r0 = max(done + 1, Ra) - Ra, nr = Rb - Ra + 1;
+    const int slot0 = (Ra + r0) % rows;  // T's row of the first new row
+    for (int k = tid; k < CW; k += nthreads) {
+      const int c = div_small(k, W, inv_w), ix = k - c * W;
+      int gcur = -1, slot = slot0;
+      const __nv_bfloat16* src = nullptr;
+      for (int r = r0; r < nr; ++r) {
+        const int g = rgrp[r];
+        if (g != gcur) {
+          const int4 gt = gtab[g];
+          src = reinterpret_cast<const __nv_bfloat16*>(raw + gt.x + c * gt.y) +
+                ((gt.z + c * hw8) & 7) + ix;
+          gcur = g;
+        }
+        const int4 rt = rtab[r];
+        T[slot * CW + k] = u2pl::lerp2(__int_as_float(rt.z), to_f32(src[rt.x]),
+                                       __int_as_float(rt.w), to_f32(src[rt.y]));
+        if (++slot == rows) slot = 0;
+      }
+    }
+    done = Rb;
+  };
+
+  if (warp == 0 && p0 < p1) issue(p0);
+  __syncthreads();  // the first step's tables
+  const int s = tid / kStatsThreads, t = tid - s * kStatsThreads;  // this thread's span
+  unsigned valid = 0;
+  for (int p = p0; p < p1; p += spans) {
+    const unsigned k0 = first(p), k1 = stop(p);
+    const unsigned R0 = k0 / OW;
+    lerp(p);
+    __syncthreads();  // T written; the raw buffer and the tables free
+    if (warp == 0 && p + spans < p1) {
+      u2pl::fence_async_shared();
+      issue(p + spans);
+    }
+    const unsigned ks = k0 + (unsigned)s * span;
+    double acc = 0.0, acc_w = 0.0;
+    if (ks < k1) {
+      stats_chunks<MAXC, MODE, EXACT, true, true>(
+          T, (int)(R0 % rows), rows, scol, quarter, C, W, OW, inv_ow, R0, ks,
+          min(ks + (unsigned)span, k1), t, labels, cw, ignore, maxprob, argmax, entropy, acc,
+          acc_w, valid);
+    }
+    if constexpr (MODE == kStatsCE) {
+      // the span's partial sums, as the f32 instance's block forms them
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        acc += __shfl_down_sync(0xffffffffu, acc, o);
+        acc_w += __shfl_down_sync(0xffffffffu, acc_w, o);
+      }
+      if (lane == 0) {
+        red[0][s][t >> 5] = acc;
+        red[1][s][t >> 5] = acc_w;
+      }
+    }
+    __syncthreads();  // T's rows of this step free
+    if constexpr (MODE == kStatsCE) {
+      if (t == 0 && ks < k1) {
+        double a = 0.0, b = 0.0;
+        for (int j = 0; j < kStatsThreads / 32; ++j) {
+          a += red[0][s][j];
+          b += red[1][s][j];
+        }
+        part[p + s] = a;
+        part[nparts + p + s] = b;
+      }
+    }
+  }
+  if constexpr (MODE == kStatsTargetProb) {
+    valid = __reduce_add_sync(0xffffffffu, valid);
+    if (lane == 0 && valid) atomicAdd(&block_valid, valid);
+    __syncthreads();
+    if (tid == 0) {
+      if (block_valid) atomicAdd(ticket + 1, block_valid);
+      __threadfence();  // the count before the ticket
+      if (atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1) {
+        *num_valid = (int)atomicExch(ticket + 1, 0u);
+      }
+    }
+  }
+}
+
 struct StatsArgs {
   const void* x;  // float or __nv_bfloat16 (the launch's In)
   float* maxprob;  // kStatsCE: the lse; kStatsTargetProb: p_y
@@ -822,21 +1090,51 @@ struct StatsArgs {
   int C, H, W, OH, OW;
   unsigned total;
   int span, quarter, max_rows, smem;
+  int spans, raw_bytes;  // the bf16 ring (losses/ce.py:_stats_ring)
 };
+
+// the ring's grid: as many blocks as the SMs hold, at most one a step's spans
+template <int MAXC, int MODE, bool EXACT>
+cudaError_t launch_ring(const StatsArgs& a, cudaStream_t stream) {
+  auto kernel = stats_ring_kernel<MAXC, MODE, EXACT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+  if (err != cudaSuccess) return err;
+  const int threads = kStatsThreads * a.spans;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, a.smem)) !=
+          cudaSuccess) {
+    return err;
+  }
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int nparts = (int)((a.total + a.span - 1) / a.span);  // the spans
+  kernel<<<min((nparts + a.spans - 1) / a.spans, sms * per_sm), threads, a.smem, stream>>>(
+      (const __nv_bfloat16*)a.x, a.maxprob, a.argmax, a.entropy, a.labels, a.cw, a.part,
+      a.num_valid, a.ticket, a.ignore, a.idx_h, a.w_h, a.idx_w, a.w_w, a.C, a.H, a.W, a.OH,
+      a.OW, a.total, a.span, a.spans, nparts, a.quarter, a.max_rows, a.raw_bytes,
+      1.0f / (float)a.OW);
+  return cudaGetLastError();
+}
 
 template <int MAXC, int MODE, bool EXACT, typename In>
 cudaError_t launch_stats(const StatsArgs& a, cudaStream_t stream) {
-  auto kernel = upsample_softmax_stats_kernel<MAXC, MODE, EXACT, In>;
-  if (a.smem > 48 * 1024) {  // above the default dynamic shared memory of a block
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
-    if (err != cudaSuccess) return err;
+  if constexpr (sizeof(In) == 2) {
+    return launch_ring<MAXC, MODE, EXACT>(a, stream);
+  } else {
+    auto kernel = upsample_softmax_stats_kernel<MAXC, MODE, EXACT>;
+    if (a.smem > 48 * 1024) {  // above the default dynamic shared memory of a block
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+      if (err != cudaSuccess) return err;
+    }
+    kernel<<<(a.total + a.span - 1) / a.span, kStatsThreads, a.smem, stream>>>(
+        (const float*)a.x, a.maxprob, a.argmax, a.entropy, a.labels, a.cw, a.part, a.num_valid,
+        a.ticket, a.ignore, a.idx_h, a.w_h, a.idx_w, a.w_w, a.C, a.H, a.W, a.OH, a.OW, a.total,
+        a.span, a.quarter, a.max_rows, 1.0f / (float)a.OW);
+    return cudaGetLastError();
   }
-  kernel<<<(a.total + a.span - 1) / a.span, kStatsThreads, a.smem, stream>>>(
-      (const In*)a.x, a.maxprob, a.argmax, a.entropy, a.labels, a.cw, a.part, a.num_valid, a.ticket,
-      a.ignore, a.idx_h, a.w_h, a.idx_w, a.w_w, a.C, a.H, a.W, a.OH, a.OW, a.total, a.span,
-      a.quarter, a.max_rows, 1.0f / (float)a.OW);
-  return cudaGetLastError();
 }
 
 // the configs' class counts exactly (no per-class guard), else the
@@ -862,16 +1160,25 @@ cudaError_t launch_stats_mode(const StatsArgs& a, int dtype, cudaStream_t stream
   return launch_stats_in<MODE, float>(a, stream);
 }
 
-// a plan (span, max_rows) from losses/ce.py:_stats_plan: span a multiple of
-// 4, room for every row a span touches, within kStatsMaxShared; the block's
-// shared memory in *smem
-bool stats_plan_ok(int B, int C, int W, int OH, int OW, int span, int max_rows,
-                   int* smem) {
+// a plan (span, max_rows, spans, raw_bytes) from losses/ce.py:_stats_launch:
+// span a multiple of 4, room for every row a span touches (f32: spans and
+// raw_bytes 0; bf16: a step of `spans` spans, in 1 .. kRingMaxSpans,
+// max_rows the rows a step touches and raw_bytes a multiple of 16, the
+// most a step's copies take), within kStatsMaxShared; the block's shared
+// memory in *smem
+bool stats_plan_ok(int B, int C, int W, int OH, int OW, int span, int max_rows, int spans,
+                   int raw_bytes, int dtype, int* smem) {
   const long long total = (long long)B * OH * OW;
-  const long long bytes = 64LL * ((OW + 3) / 4) + (long long)max_rows * (4LL * C * W + 16);
+  const long long bytes =
+      dtype == 1 ? ring_bytes(C, W, OW, max_rows, raw_bytes)
+                 : 64LL * ((OW + 3) / 4) + (long long)max_rows * (4LL * C * W + 16);
+  const int per_step = dtype == 1 ? spans : 1;
   *smem = (int)min(bytes, (long long)INT_MAX);
   return span > 0 && span % 4 == 0 && total < (1LL << 31) && OW < (1 << 23) &&
-         max_rows >= min((long long)span / OW + 2, (long long)B * OH) &&
+         (dtype == 1 ? spans >= 1 && spans <= kRingMaxSpans && raw_bytes >= 0 &&
+                           raw_bytes % 16 == 0
+                     : spans == 0 && raw_bytes == 0) &&
+         max_rows >= min((long long)span * per_step / OW + 2, (long long)B * OH) &&
          bytes <= kStatsMaxShared && (long long)max_rows * C * W < (1 << 24);
 }
 
@@ -940,11 +1247,11 @@ int u2pl_upsample_ce_fwd(const void* x, const void* labels, const void* cw,
                          void* lse, void* part, void* stats, const void* idx_h,
                          const void* w_h, const void* idx_w, const void* w_w,
                          int B, int C, int H, int W, int OH, int OW,
-                         int ignore, float floor_, int span, int max_rows, int dtype,
-                         void* stream) {
+                         int ignore, float floor_, int span, int max_rows, int spans,
+                         int raw_bytes, int dtype, void* stream) {
   int smem = 0;
   if (C <= 0 || H <= 0 || W <= 0 || (dtype != 0 && dtype != 1) ||
-      !stats_plan_ok(B, C, W, OH, OW, span, max_rows, &smem)) {
+      !stats_plan_ok(B, C, W, OH, OW, span, max_rows, spans, raw_bytes, dtype, &smem)) {
     return (int)cudaErrorInvalidValue;
   }
   const long long total = (long long)B * OH * OW;
@@ -955,7 +1262,7 @@ int u2pl_upsample_ce_fwd(const void* x, const void* labels, const void* cw,
                          (const float*)cw, (double*)part, nullptr, nullptr, ignore,
                          (const int*)idx_h, (const float*)w_h, (const int*)idx_w,
                          (const float*)w_w, C, H, W, OH, OW, (unsigned)total, span,
-                         (OW + 3) / 4, max_rows, smem};
+                         (OW + 3) / 4, max_rows, smem, spans, raw_bytes};
     const cudaError_t err = launch_stats_mode<kStatsCE>(a, dtype, st);
     if (err != cudaSuccess) return (int)err;
   }
@@ -1022,20 +1329,21 @@ int u2pl_upsample_softmax_stats(const void* x, void* maxprob, void* argmax,
                                 void* entropy, const void* idx_h,
                                 const void* w_h, const void* idx_w,
                                 const void* w_w, int B, int C, int H, int W,
-                                int OH, int OW, int span, int max_rows, int dtype,
-                                void* stream) {
+                                int OH, int OW, int span, int max_rows, int spans,
+                                int raw_bytes, int dtype, void* stream) {
   const int mode = (maxprob ? kStatsProb : 0) | (entropy ? kStatsEntropy : 0);
   int smem = 0;
   if (!maxprob != !argmax || mode == 0 || C <= 0 || (dtype != 0 && dtype != 1) ||
-      C > kStatsMaxClasses || H <= 0 ||
-      W <= 0 || !stats_plan_ok(B, C, W, OH, OW, span, max_rows, &smem)) {
+      C > kStatsMaxClasses || H <= 0 || W <= 0 ||
+      !stats_plan_ok(B, C, W, OH, OW, span, max_rows, spans, raw_bytes, dtype, &smem)) {
     return (int)cudaErrorInvalidValue;
   }
   if (B <= 0 || OH <= 0 || OW <= 0) return (int)cudaGetLastError();
   const StatsArgs a = {x, (float*)maxprob, (int*)argmax, (float*)entropy,
                        nullptr, nullptr, nullptr, nullptr, nullptr, 0, (const int*)idx_h,
                        (const float*)w_h, (const int*)idx_w, (const float*)w_w, C, H, W, OH, OW,
-                       (unsigned)((long long)B * OH * OW), span, (OW + 3) / 4, max_rows, smem};
+                       (unsigned)((long long)B * OH * OW), span, (OW + 3) / 4, max_rows, smem,
+                       spans, raw_bytes};
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (mode == kStatsProb) {
@@ -1055,18 +1363,19 @@ int u2pl_ohem_target_prob(const void* x, const void* labels, void* p_y,
                           void* num_valid, void* ticket, const void* idx_h,
                           const void* w_h, const void* idx_w, const void* w_w,
                           int B, int C, int H, int W, int OH, int OW, int ignore,
-                          int span, int max_rows, int dtype, void* stream) {
+                          int span, int max_rows, int spans, int raw_bytes, int dtype,
+                          void* stream) {
   int smem = 0;
   const long long total = (long long)B * OH * OW;
   if (total <= 0 || C <= 0 || H <= 0 || W <= 0 || (dtype != 0 && dtype != 1) ||
-      !stats_plan_ok(B, C, W, OH, OW, span, max_rows, &smem)) {
+      !stats_plan_ok(B, C, W, OH, OW, span, max_rows, spans, raw_bytes, dtype, &smem)) {
     return (int)cudaErrorInvalidValue;
   }
   const StatsArgs a = {x, (float*)p_y, nullptr, nullptr, (const int*)labels,
                        nullptr, nullptr, (int*)num_valid, (unsigned*)ticket, ignore,
                        (const int*)idx_h, (const float*)w_h, (const int*)idx_w,
                        (const float*)w_w, C, H, W, OH, OW, (unsigned)total, span,
-                       (OW + 3) / 4, max_rows, smem};
+                       (OW + 3) / 4, max_rows, smem, spans, raw_bytes};
   return (int)launch_stats_mode<kStatsTargetProb>(a, dtype, (cudaStream_t)stream);
 }
 

@@ -139,6 +139,22 @@ results are bit-equal.  The inputs come from seeded generators on the card:
   A_decoder_bf16, A_decoder_city_bf16  kernel A's bf16 wide branch at the
              decoders' (8, 256, 65²) -> 129² and (4, 256, 97²) -> 193², with
              their bytes bound; library: F.interpolate on the bf16 input.
+  K6_fwd_voc_bf16, K6_fwd_city_bf16  K6's forward as K6_fwd_voc / K6_fwd_city
+             on a bf16 rep (the semi step's dtype), from a generator of their
+             own (`new_rows`, after every older row); K6_fwd_voc_pq and
+             K6_fwd_voc_pq_bf16 with a (21, 256, 256) f32 per-query positive
+             (`anchor_ema`), f32 and bf16 rep; K6_fwd_voc_bf16_no_keys and
+             K6_fwd_voc_bf16_one_pixel as the f32 rows' variants; each with
+             its bytes bound;
+  D_voc_prob_bf16, D_voc_entropy_bf16, D_city_prob_bf16, D_city_entropy_bf16
+             kernel D's two semi-step calls on bf16 logits (3 x randn) at VOC
+             and Cityscapes;
+  C_fwd_voc_bf16, C_fwd_city_main_bf16, C_fwd_city_aux_bf16,
+  C_fwd_city_unsup_bf16  C's forward on bf16 logits as the C_fwd rows (the
+             hash covers the loss and C bwd's bf16 gradient);
+  K7_prob_city_main_bf16, K7_prob_city_aux_bf16  K7 prob on bf16 logits as
+             the K7_prob rows; the stats kernel's rows with their operations
+             bound.
 The K4r and K3c rows carry their bytes bound, as chip_smoke.py:bounds
 counts it (each input read once, each output written once).
 The K5 rows carry their NCHW sector bound: the distinct 32-byte sectors of
@@ -226,6 +242,135 @@ def digest(t) -> str:
     return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
 
 
+def ohem_inputs(g, dev, hw, block):
+    """OHEM logits at a Cityscapes head, (2, 19, hw²), whose label class
+    leads at most pixels, and their 769² labels, 5% ignored."""
+    from u2pl_tpu_torch.ops import resize as R
+
+    cells = torch.randint(0, 19, (2, -(-hw // block), -(-hw // block)), device=dev,
+                          generator=g, dtype=torch.int32)
+    lab_s = R.resize_nearest(cells, (hw, hw))
+    onehot = F.one_hot(lab_s.long(), 19).permute(0, 3, 1, 2).float()
+    x = (8.0 * onehot - 4.0 + 0.3 * torch.randn(2, 19, hw, hw, device=dev, generator=g))
+    lab = R.resize_nearest(lab_s, (769, 769)).contiguous()
+    lab[torch.rand(lab.shape, device=dev, generator=g) < 0.05] = 255
+    return x.contiguous(), lab
+
+
+PEAK_F32_FLOPS = 67e12  # the H100 SXM's float32 peak
+PEAK_SFU_S = 16 * 132 * 1.98e9  # expf / logf: 16 per SM per clock at its 1.98 GHz
+
+
+def bound_ms(nbytes, ops=0, sfu=0):
+    """(bound ms, "bytes" or "operations"), as chip_smoke.py:bounds forms it."""
+    t_b, t_o = nbytes / PEAK_BYTES_S, max(ops / PEAK_F32_FLOPS, sfu / PEAK_SFU_S)
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def new_rows(out, dev):
+    """K6's forward on a bf16 bank and the stats kernel's bf16 instance (D,
+    C fwd, K7 prob) at the main path's shapes, from a generator of their
+    own: the rows K6_fwd_voc_bf16 .. K7_prob_city_aux_bf16 of the module
+    docstring, each with its bound (chip_smoke.py:bounds' counts)."""
+    from u2pl_tpu_torch.losses import ce, ohem, unsup
+    from u2pl_tpu_torch.losses import contrastive as tc
+    from u2pl_tpu_torch.memobank import init_memobank
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    bf, f, q, m = torch.bfloat16, 256, 256, 50
+    for label, b, hw, c in (("voc", 8, 129, 21), ("city", 4, 193, 19)):
+        n = b * hw * hw
+        bank = init_memobank(c, f, dtype=bf, device=dev)
+        for j in range(c):
+            bank.keys[j].copy_(torch.randn(bank.keys.shape[1:], device=dev, generator=g))
+        bank.occupancy.copy_(bank.sizes)
+        rep = torch.randn(b, f, hw, hw, device=dev, generator=g)
+        pools = torch.stack([torch.randperm(n, device=dev, generator=g)[:2000] for _ in range(c)])
+        anchor_idx = pools.gather(1, torch.randint(0, 2000, (c, q), device=dev, generator=g))
+        anchor_idx = anchor_idx.to(torch.int32).contiguous()
+        active = torch.arange(c, device=dev) < c - 1
+        rest = (bank, torch.randperm(c, device=dev, generator=g).to(torch.int32),
+                torch.rand(c, q * m, device=dev, generator=g), active,
+                torch.tensor(c - 1, dtype=torch.int32, device=dev), 0.5)
+        per_class = torch.randn(c, f, device=dev, generator=g)
+        per_query = torch.randn(c, q, f, device=dev, generator=g)
+        act = int(active.sum())
+        cases = [(f"K6_fwd_{label}_bf16", rep.to(bf), anchor_idx, per_class, rest, 2, f)]
+        if label == "voc":
+            cases += [("K6_fwd_voc_pq", rep, anchor_idx, per_query, rest, 4, q * f),
+                      ("K6_fwd_voc_pq_bf16", rep.to(bf), anchor_idx, per_query, rest, 2, q * f),
+                      ("K6_fwd_voc_bf16_no_keys", rep.to(bf), anchor_idx, per_class,
+                       (rest[0], rest[1], rest[2][:, :0].contiguous(), *rest[3:]), 2, f),
+                      ("K6_fwd_voc_bf16_one_pixel", rep.to(bf), torch.zeros_like(anchor_idx),
+                       per_class, rest, 2, f)]
+        for name, r, idx, pos, more, rbytes, pbytes in cases:
+            mm = more[2].shape[1] // q
+            fn = lambda: tc.contra_infonce(r, idx, pos, *more)  # noqa: E731
+            with torch.no_grad():
+                ms, prof = cuda_ms(fn, 20), profiled_ms(fn)
+            loss = tc.contra_infonce(r.clone().requires_grad_(True), idx, pos, *more)
+            gdir = loss.grad_fn.saved_tensors[3]
+            out["kernels"][name] = {
+                "ms": ms, "profiled_ms": prof, "library_ms": None,
+                "sha256": digest(loss) + "-" + digest(gdir[..., active, :, :]),
+                "bound": bound_ms(act * q * (f * rbytes + mm * (f * 2 + 4)) + act * pbytes * 4,
+                                  act * q * (mm + 1) * f * 4)}
+            del loss, gdir
+        del bank, rep, per_query
+    # the stats kernel in bf16: D's two calls, C's forward, K7 prob
+    for label, b, c, hw, crop in (("voc", 4, 21, 129, 513), ("city", 2, 19, 193, 769)):
+        x = (3 * torch.randn(b, c, hw, hw, device=dev, generator=g)).to(bf)
+        lo, hi, px = b * c * hw * hw, b * c * crop * crop, b * crop * crop
+        for outputs, keep, nb in (("prob", (0, 1), (lo * 2 + px * 8, hi * 12, hi + 2 * px)),
+                                  ("entropy", (2,), (lo * 2 + px * 4, hi * 16, 2 * hi))):
+            fn = lambda: unsup.upsample_softmax_stats(x, (crop, crop), outputs=outputs)  # noqa: E731
+            res = fn()
+            out["kernels"][f"D_{label}_{outputs}_bf16"] = {
+                "ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn), "library_ms": None,
+                "sha256": "-".join(digest(res[i]) for i in keep), "bound": bound_ms(*nb)}
+        del x
+    x = (3 * torch.randn(4, 21, 129, 129, device=dev, generator=g)).to(bf)
+    lab = torch.randint(0, 21, (4, 513, 513), device=dev, generator=g, dtype=torch.int32)
+    lab[torch.rand(lab.shape, device=dev, generator=g) < 0.1] = 255
+    xu = (3 * torch.randn(2, 19, 193, 193, device=dev, generator=g)).to(bf)
+    labu = torch.randint(0, 19, (2, 769, 769), device=dev, generator=g, dtype=torch.int32)
+    labu[torch.rand(labu.shape, device=dev, generator=g) < 0.2] = 255
+
+    def head(hw, block):  # OHEM's kept labels of a bf16 head
+        xh, labh = ohem_inputs(g, dev, hw, block)
+        xh = xh.to(bf)
+        return xh, ohem.ohem_kept_labels(xh, labh, 0.7, 100000)
+
+    cpx = 2 * 769 * 769
+    cases = {"C_fwd_voc_bf16": (x, lab, None),
+             "C_fwd_city_main_bf16": (*head(193, 8), ohem._class_weight(True, dev)),
+             "C_fwd_city_aux_bf16": (*head(97, 4), None),
+             "C_fwd_city_unsup_bf16": (xu, labu, None)}
+    for name, (xc, lc, cw) in cases.items():
+        n_lo, n_hi, n_px = xc.numel(), xc.shape[0] * xc.shape[1] * lc.shape[1] * lc.shape[2], lc.numel()
+        fn = lambda: ce.upsample_cross_entropy(xc, lc, 255, cw)  # noqa: E731
+        with torch.no_grad():
+            ms, prof = cuda_ms(fn), profiled_ms(fn)
+        xg = xc.clone().requires_grad_(True)
+        loss = ce.upsample_cross_entropy(xg, lc, 255, cw)
+        (grad,) = torch.autograd.grad(loss, xg)
+        out["kernels"][name] = {
+            "ms": ms, "profiled_ms": prof, "library_ms": None,
+            "sha256": digest(loss) + "-" + digest(grad.view(torch.int16)),
+            "bound": bound_ms(n_lo * 2 + n_px * 8 + (0 if cw is None else 19 * 4),
+                              n_hi * 11, n_hi + n_px)}
+    for name, hw, block in (("K7_prob_city_main_bf16", 193, 8), ("K7_prob_city_aux_bf16", 97, 4)):
+        xk, labk = ohem_inputs(g, dev, hw, block)
+        xk = xk.to(bf)
+        fn = lambda: ohem.ohem_target_prob(xk, labk)  # noqa: E731
+        p_y, nv = fn()
+        valid = int(nv)
+        out["kernels"][name] = {
+            "ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn), "library_ms": None,
+            "sha256": digest(p_y) + "-" + digest(nv), "num_valid": valid,
+            "bound": bound_ms(xk.numel() * 2 + cpx * 8, valid * 19 * 11, valid * 19)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True, help="checkout whose u2pl_tpu_torch is timed")
@@ -298,18 +443,8 @@ def main() -> int:
     }
     from u2pl_tpu_torch.losses import ce, ohem
 
-    def ohem_inputs(hw, block):  # logits whose label class leads at most pixels
-        cells = torch.randint(0, 19, (2, -(-hw // block), -(-hw // block)), device=dev,
-                              generator=g, dtype=torch.int32)
-        lab_s = R.resize_nearest(cells, (hw, hw))
-        onehot = F.one_hot(lab_s.long(), 19).permute(0, 3, 1, 2).float()
-        x = (8.0 * onehot - 4.0 + 0.3 * torch.randn(2, 19, hw, hw, device=dev, generator=g))
-        lab = R.resize_nearest(lab_s, (769, 769)).contiguous()
-        lab[torch.rand(lab.shape, device=dev, generator=g) < 0.05] = 255
-        return x.contiguous(), lab
-
     def ohem_head(hw, block):
-        x, lab = ohem_inputs(hw, block)
+        x, lab = ohem_inputs(g, dev, hw, block)
         return x, ohem.ohem_kept_labels(x, lab, 0.7, 100000)
 
     x = torch.randn(4, 21, 129, 129, device=dev, generator=g)
@@ -445,7 +580,7 @@ def main() -> int:
     from u2pl_tpu_torch.ops import quantile
 
     for name, hw, block in (("K7_prob_city_main", 193, 8), ("K7_prob_city_aux", 97, 4)):
-        x, lab = ohem_inputs(hw, block)
+        x, lab = ohem_inputs(g, dev, hw, block)
         fn = lambda: ohem.ohem_target_prob(x, lab)  # noqa: E731
         p_y, nv = fn()
         out["kernels"][name] = {"ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn),
@@ -593,7 +728,7 @@ def main() -> int:
     lab[torch.rand(lab.shape, device=dev, generator=g) < 0.1] = 255
 
     def ohem_head_bf16(hw, block):
-        xh, labh = ohem_inputs(hw, block)
+        xh, labh = ohem_inputs(g, dev, hw, block)
         xh = xh.to(bf)
         return xh, ohem.ohem_kept_labels(xh, labh, 0.7, 100000)
 
@@ -618,6 +753,7 @@ def main() -> int:
             "bound_ms": shape[0] * shape[1] * (shape[2] * shape[3] + size[0] * size[1]) * 2
             / PEAK_BYTES_S * 1e3}
         del x
+    new_rows(out, dev)
     print(json.dumps(out), flush=True)
     return 0
 

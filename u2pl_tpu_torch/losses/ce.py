@@ -339,7 +339,8 @@ STATS_SPAN = 1024
 
 @functools.lru_cache(maxsize=64)
 def _stats_plan(b: int, c: int, w: int, oh: int, ow: int) -> Tuple[int, int, int]:
-    """The launch of C's forward and of D: (span, max_rows, smem bytes).
+    """The launch of C's forward, D and K7 prob on f32 logits: (span,
+    max_rows, smem bytes); bf16 logits take the span and `_stats_ring`.
 
     A block owns `span` consecutive output pixels (STATS_SPAN, halved while
     the input rows they touch, at most span // ow + 2 of C x w floats, and
@@ -358,6 +359,89 @@ def _stats_plan(b: int, c: int, w: int, oh: int, ow: int) -> Tuple[int, int, int
     return span, max_rows, smem
 
 
+# the bf16 instance's staged ring (upsample_ce.cu: stats_ring_kernel): at
+# most STATS_RING_MAX_SPANS spans a step, blocks of 256 x spans threads
+STATS_RING_MAX_SPANS = 4
+
+
+class RingPlan(NamedTuple):
+    spans: int      # spans a step
+    rows: int       # output rows a step touches, at most (T and the row tables)
+    raw_bytes: int  # the most a step's copies take
+    smem: int       # a block's shared memory (upsample_ce.cu: ring_bytes)
+
+
+def _ring_bytes(c: int, w: int, ow: int, rows: int, raw: int) -> int:
+    return 64 * -(-ow // 4) + 48 * rows + ((4 * rows * c * w + 15) & ~15) + raw + 16
+
+
+def _ring_raw_bytes(b: int, c: int, h: int, w: int, oh: int, ow: int, span: int,
+                    step: int) -> int:
+    """The most bytes one step's copies take (the kernel's `issue`), of a
+    step of `step` pixels from any span's first pixel: per image its output
+    rows reach, per class the run of input rows [lo of its first row, hi of
+    its last] widened to whole 16-byte blocks, C of them (each (n + 14) & ~7
+    elements: the run's start may lie anywhere in its first block)."""
+    lo, hi, _ = _interp_taps_np(h, oh, True)
+    total = b * oh * ow
+    k0 = np.arange(0, total, span, dtype=np.int64)  # a step may start at any span
+    k1 = np.minimum(k0 + step, total)
+    ra, rb = k0 // ow, (k1 - 1) // ow
+    ba, bb = ra // oh, rb // oh
+    raw = np.zeros_like(k0)
+    for g in range(int((bb - ba).max()) + 1):
+        img = ba + g
+        has = img <= bb
+        oy0 = np.clip(ra - img * oh, 0, oh - 1)
+        oy1 = np.clip(rb - img * oh, 0, oh - 1)
+        n_el = (hi[oy1].astype(np.int64) - lo[oy0] + 1) * w
+        raw += np.where(has, c * 2 * ((n_el + 14) & ~7), 0)
+    return int(raw.max())
+
+
+@functools.lru_cache(maxsize=64)
+def _stats_ring(b: int, c: int, h: int, w: int, oh: int, ow: int, sms: int) -> RingPlan:
+    """The bf16 instance's launch on `sms` SMs: steps of `spans` spans of
+    `_stats_plan`'s span (so C's partial sums are formed over the same
+    pixels), a block of 256 x spans threads, one an SM, taking ceil(spans of
+    the output / sms) spans: the spans whose steps hold them with the fewest
+    idle span slots (ceil(spans a block / spans) x spans; the more spans on a
+    tie: at VOC's 1028 spans on 132 SMs 4, 8 spans in 2 steps; at
+    Cityscapes' 1155 3, 9 in 3), among those whose block fits
+    STATS_MAX_SHARED; its T rows, the raw buffer and the block's bytes.
+    It raises where one span's rows and their raw rows do not fit (the f32
+    instance, which stages no raw rows, holds more)."""
+    span = _stats_plan(b, c, w, oh, ow)[0]
+    nparts = -(-(b * oh * ow) // span)
+    per_block = -(-nparts // sms)
+    best = None
+    for spans in range(STATS_RING_MAX_SPANS, 0, -1):
+        step = span * spans
+        rows = min(step // ow + 2, b * oh)
+        raw = _ring_raw_bytes(b, c, h, w, oh, ow, span, step)
+        smem = _ring_bytes(c, w, ow, rows, raw)
+        slots = -(-per_block // spans) * spans
+        if smem <= STATS_MAX_SHARED and rows * c * w < 2**24 and (best is None
+                                                                  or slots < best[0]):
+            best = (slots, RingPlan(spans, rows, raw, smem))
+    if best is not None:
+        return best[1]
+    raise ValueError(f"upsample: {c} classes at widths {w} -> {ow} exceed the bf16 "
+                     f"kernel's {STATS_MAX_SHARED} bytes of shared memory")
+
+
+def _stats_launch(b: int, c: int, h: int, w: int, oh: int, ow: int, dtype: torch.dtype,
+                  sms: int) -> Tuple[int, int, int, int]:
+    """The C entries' plan arguments (span, max_rows, spans, raw_bytes): the
+    f32 instance's blocks (spans and raw_bytes 0), or the bf16 instance's
+    ring on `sms` SMs."""
+    span, max_rows, _ = _stats_plan(b, c, w, oh, ow)
+    if dtype != torch.bfloat16:
+        return span, max_rows, 0, 0
+    ring = _stats_ring(b, c, h, w, oh, ow, sms)
+    return span, ring.rows, ring.spans, ring.raw_bytes
+
+
 class _UpsampleCE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, labels, ignore_label, class_weight):
@@ -366,13 +450,13 @@ class _UpsampleCE(torch.autograd.Function):
 
         b, c, h, w = logits.shape
         oh, ow = labels.shape[1:]
-        span, max_rows, _ = _stats_plan(b, c, w, oh, ow)
-        lib = load()
         dev = logits.device
+        plan = _stats_launch(b, c, h, w, oh, ow, logits.dtype, _sm_count(dev))
+        lib = load()
         idx_h, w_h = _device_taps(h, oh, True, dev)
         idx_w, w_w = _device_taps(w, ow, True, dev)
         lse = torch.empty((b, oh, ow), dtype=torch.float32, device=dev)
-        part = torch.empty(2 * -(-(b * oh * ow) // span), dtype=torch.float64, device=dev)
+        part = torch.empty(2 * -(-(b * oh * ow) // plan[0]), dtype=torch.float64, device=dev)
         stats = torch.empty(2, dtype=torch.float32, device=dev)  # [loss, denom]
         floor = 1e-12 if class_weight is not None else 1.0
         cw = class_weight.data_ptr() if class_weight is not None else None
@@ -381,7 +465,7 @@ class _UpsampleCE(torch.autograd.Function):
                 logits.data_ptr(), labels.data_ptr(), cw, lse.data_ptr(),
                 part.data_ptr(), stats.data_ptr(), idx_h.data_ptr(), w_h.data_ptr(),
                 idx_w.data_ptr(), w_w.data_ptr(), b, c, h, w, oh, ow,
-                int(ignore_label), floor, span, max_rows, LOGIT_DTYPES[logits.dtype],
+                int(ignore_label), floor, *plan, LOGIT_DTYPES[logits.dtype],
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         check(lib, err, "upsample_ce_fwd launch")

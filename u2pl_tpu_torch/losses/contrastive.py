@@ -607,10 +607,12 @@ def contra_infonce(
     `active` positions and divided by max(valid_seg, 1); 0 when
     valid_seg <= 1.  A 0-d device tensor, differentiable in `rep`.
 
-    On the card, kernel K6: one warp per anchor gathers its 1 + M rows
-    (each bank row one 16-byte load per lane, `_infonce_group` rows issued
-    at a time), never writing the sample; an online softmax gives the CE
-    and the anchor's gradient direction in one pass.  The loss is a
+    On the card, kernel K6: one warp per anchor gathers its 1 + M rows,
+    never writing the sample (a bf16 bank: 32 rows at a time copied into
+    the warp's shared memory by the copy engine, each key's scalar work on
+    its own lane; an f32 bank: `_infonce_group` rows in registers); an
+    online softmax gives the CE and the anchor's gradient direction in one
+    pass.  The loss is a
     fixed-order sum by the launch's last block, read by nobody on the
     host.  The backward sums each pixel's draws' stored directions in a
     fixed order, scales them once and writes the whole rep gradient in one
@@ -694,18 +696,30 @@ class _ContraInfoNCE(torch.autograd.Function):
         return grad_rep, None, None, None, None, None, None, None, None, None
 
 
-INFONCE_ROW_REGS = 32  # registers a lane of K6 fwd spends on the bank rows in flight
+INFONCE_ROW_REGS = 32  # registers a lane of K6 fwd spends on an f32 bank's rows in flight
+INFONCE_CHUNK = 32  # a bf16 bank's keys a warp holds (kernels/csrc/infonce.cu: kChunk)
+INFONCE_ROW_BYTES = 512  # a bf16 bank row
+INFONCE_COPY_WARPS = 7  # warps a block of the bf16 bank's kernel (kCopyWarps)
+INFONCE_COPY_BLOCKS_PER_SM = 2  # its blocks an SM (kCopyBlocksPerSM)
 
 
 def _infonce_group(dtype: torch.dtype) -> int:
-    """K6 fwd's bank rows per group: a warp has two groups in flight (one
-    being reduced, the next loading), which must fit INFONCE_ROW_REGS
-    registers a lane (a lane's 8 features of a row: 4 registers in bf16, 8
-    in f32): 4 rows in bf16, 2 in f32.  The kernel takes each dtype at
-    this size only (a template instance each); a group divides the 32 keys
-    whose rows the lanes compute at once."""
-    regs = {torch.bfloat16: 4, torch.float32: 8}[dtype]
-    return INFONCE_ROW_REGS // (2 * regs)
+    """K6 fwd's bank keys held at once.  A bf16 bank: a chunk of
+    INFONCE_CHUNK keys, each row copied by the copy engine into the warp's
+    shared memory (lane k: key k's row), reduced transposed so that lane k
+    takes key k's scalar work (`_infonce_copy_bytes`).  An f32 bank: rows in
+    registers, a group being reduced while the next loads, the two within
+    INFONCE_ROW_REGS registers a lane (8 a row): 2 rows.  The kernel takes
+    each dtype at this size only."""
+    if dtype == torch.bfloat16:
+        return INFONCE_CHUNK
+    return INFONCE_ROW_REGS // (2 * 8)
+
+
+def _infonce_copy_bytes() -> int:
+    """The shared memory of a block of the bf16 bank's kernel: per warp a
+    chunk's rows and its mbarrier (16 bytes)."""
+    return INFONCE_COPY_WARPS * (INFONCE_CHUNK * INFONCE_ROW_BYTES + 16)
 
 
 def _check_draws(c: int, q: int) -> None:

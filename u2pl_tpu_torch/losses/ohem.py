@@ -32,7 +32,13 @@ import torch
 
 from u2pl_tpu_torch.losses import ce
 from u2pl_tpu_torch.ops import quantile
-from u2pl_tpu_torch.ops.resize import F32_BF16, _check_cuda, _device_taps, resize_bilinear_plain
+from u2pl_tpu_torch.ops.resize import (
+    F32_BF16,
+    _check_cuda,
+    _device_taps,
+    _sm_count,
+    resize_bilinear_plain,
+)
 
 # use_weight=True vector (reference loss_helper.py:464-486; the JAX
 # package's CITYSCAPES_OHEM_WEIGHT, u2pl_tpu/losses/ohem.py:28)
@@ -88,7 +94,7 @@ def ohem_target_prob(
     from u2pl_tpu_torch.kernels import TICKET_OHEM_PROB, check, load, tickets
 
     lib = load()
-    span, max_rows, _ = ce._stats_plan(b, c, w, oh, ow)
+    plan = ce._stats_launch(b, c, h, w, oh, ow, logits.dtype, _sm_count(dev))
     idx_h, w_h = _device_taps(h, oh, True, dev)
     idx_w, w_w = _device_taps(w, ow, True, dev)
     with torch.cuda.device(dev):
@@ -96,7 +102,7 @@ def ohem_target_prob(
             logits.data_ptr(), labels.data_ptr(), p_y.data_ptr(), num_valid.data_ptr(),
             tickets(dev)[TICKET_OHEM_PROB].data_ptr(), idx_h.data_ptr(), w_h.data_ptr(),
             idx_w.data_ptr(), w_w.data_ptr(), b, c, h, w, oh, ow, int(ignore_label),
-            span, max_rows, ce.LOGIT_DTYPES[logits.dtype],
+            *plan, ce.LOGIT_DTYPES[logits.dtype],
             torch.cuda.current_stream(dev).cuda_stream,
         )
     check(lib, err, "ohem_target_prob launch")

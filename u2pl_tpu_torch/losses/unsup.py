@@ -19,8 +19,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from u2pl_tpu_torch.losses.ce import LOGIT_DTYPES, _stats_plan, upsample_cross_entropy
-from u2pl_tpu_torch.ops.resize import F32_BF16, _check_cuda, _device_taps, resize_bilinear_plain
+from u2pl_tpu_torch.losses.ce import LOGIT_DTYPES, _stats_launch, upsample_cross_entropy
+from u2pl_tpu_torch.ops.resize import (
+    F32_BF16,
+    _check_cuda,
+    _device_taps,
+    _sm_count,
+    resize_bilinear_plain,
+)
 
 
 def teacher_entropy(prob_logits: torch.Tensor) -> torch.Tensor:
@@ -84,11 +90,11 @@ def upsample_softmax_stats(
         raise ValueError("upsample_softmax_stats: the upsampled logits exceed the int32 sizes")
     if c > MAX_STATS_CLASSES:
         raise ValueError(f"upsample_softmax_stats: {c} classes (at most {MAX_STATS_CLASSES})")
-    span, max_rows, _ = _stats_plan(b, c, w, oh, ow)
+    dev = logits.device
+    plan = _stats_launch(b, c, h, w, oh, ow, logits.dtype, _sm_count(dev))
     from u2pl_tpu_torch.kernels import check, load
 
     lib = load()
-    dev = logits.device
     idx_h, w_h = _device_taps(h, oh, True, dev)
     idx_w, w_w = _device_taps(w, ow, True, dev)
 
@@ -102,7 +108,7 @@ def upsample_softmax_stats(
         err = lib.u2pl_upsample_softmax_stats(
             logits.data_ptr(), ptr(maxprob), ptr(argmax), ptr(entropy), idx_h.data_ptr(),
             w_h.data_ptr(), idx_w.data_ptr(), w_w.data_ptr(), b, c, h, w, oh, ow,
-            span, max_rows, LOGIT_DTYPES[logits.dtype],
+            *plan, LOGIT_DTYPES[logits.dtype],
             torch.cuda.current_stream(dev).cuda_stream,
         )
     check(lib, err, "upsample_softmax_stats launch")
