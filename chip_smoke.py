@@ -713,6 +713,26 @@ def phase1_train_kernels(dev):
         worst = max(worst, abs_err)
         del x, y, gy, gx, ref, again
     errs["A_bwd"] = worst
+    # A-bwd's bf16 wide branch at the decoders' exact 2x upsamples: the 2x
+    # adjoint, bit-equal to the ordered bf16 sums (the W sums rounded to
+    # bf16, the result rounded once), timed beside its bytes bound
+    for shape, out in (((8, 256, 65, 65), (OS4, OS4)),
+                       ((4, FEATURES, CITY_OS8, CITY_OS8), (CITY_OS4, CITY_OS4))):
+        gy = (torch.randn(shape[:2] + out, device=dev, generator=g) * 3).to(torch.bfloat16)
+        plan = R._bwd_plan(shape[0] * shape[1], *shape[2:], *out, R._sm_count(dev),
+                           R._resize_mode(gy.dtype, shape[1], shape[2:], out, True))
+        got = R.resize_bilinear_bwd(gy, shape[2:])
+        want = R.resize_bilinear_bwd_ordered(gy, shape[2:])
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+        ms = cuda_ms(lambda: R.resize_bilinear_bwd(gy, shape[2:]), 20)
+        bound = shape[0] * shape[1] * (out[0] * out[1] + shape[2] * shape[3]) * 2 / PEAK_BYTES_S * 1e3
+        log(f"[phase 1] kernel A-bwd bf16 (wide) {shape[2:]} <- {out} x{shape[0] * shape[1]} "
+            f"planes, plan {plan}: bit-equal to the ordered bf16 sums {same}; {ms:.4f} ms, "
+            f"{ms / bound:.2f}x its bytes bound {bound:.4f} ms")
+        if plan.kernel != R.BWD_WIDE_2X or not same:
+            fail(f"kernel A-bwd bf16 {shape}: plan {plan}, bit-equal {same}")
+        del gy, got, want
 
     # C forward and backward (fused with its adjoint resize) at the VOC CE's
     # shape, the Cityscapes heads' (weighted on the main head, most pixels
@@ -4217,7 +4237,8 @@ def phase15_slabs(dev, card, case):
     gathered rows, keys, ptr and occupancy bit-equal; W = 8 must overflow a
     ring.  Times each beside its plain version and, for the enqueue, one
     `index_put_` of the kept rows.  Returns ({key: (ms, plain_ms,
-    library_ms)}, {key: f32_ms}, {key: bound ms}, {W: {...}} per world)."""
+    library_ms)}, {key: f32_ms}, {key: bound ms}, {W: {...}} per world,
+    {gather key: NCHW sector bound ms})."""
     import torch
 
     from u2pl_tpu_torch.memobank import (
@@ -4225,10 +4246,12 @@ def phase15_slabs(dev, card, case):
         memobank_gather_plain,
     )
 
+    from u2pl_tpu_torch.kernels.timing_ab import rep_sectors
+
     bank0 = case["bank"]
     c, cap, f = bank0.keys.shape
     k = case["sel_idx"].shape[1]
-    times, f32, bounds_ms, per_world = {}, {}, {}, {}
+    times, f32, bounds_ms, per_world, sectors = {}, {}, {}, {}, {}
     for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         rep = case["rep_t"].to(dt)
         bank = clone_bank(bank0)
@@ -4246,11 +4269,20 @@ def phase15_slabs(dev, card, case):
         gather_plain = cuda_ms(lambda: memobank_gather_plain(rep, *sel[0]))
         rb = rep.element_size()
         gather_bound = (sel_rows * f * 2 * rb + sel_rows * 4) / PEAK_BYTES_S * 1e3
+        # the sector bound: the distinct 32-byte sectors of the NCHW rep that
+        # the rows' pixels touch (32 // rb pixels a sector), the indices and
+        # the slab rows written
+        idx, n = sel[0]
+        pix = idx[torch.arange(k, device=dev)[None, :] < torch.clamp(n, max=k)[:, None]].long()
+        sector_bound = ((rep_sectors(pix, rep.shape[2] * rep.shape[3], f, 32 // rb) * 32
+                         + sel_rows * (4 + f * rb)) / PEAK_BYTES_S * 1e3)
         log(f"[{card}] phase 15 K5 gather {name} rep {tuple(rep.shape)} -> ({c}, {k}, {f}), "
             f"{sel_rows} rows: bit-equal; {gather_ms:.4f} ms (plain {gather_plain:.4f}; bytes "
-            f"bound {gather_bound:.4f} ms)")
+            f"bound {gather_bound:.4f} ms, NCHW sector bound {sector_bound:.4f} ms, "
+            f"{gather_ms / sector_bound:.2f}x it)")
         key = f"K5_gather_{name}"
         times[key], bounds_ms[key] = (gather_ms, gather_plain, None), gather_bound
+        sectors[key] = sector_bound
         overflow = {}
         for w in SLAB_WORLDS:
             stacked = torch.stack(slabs[:w])
@@ -4298,7 +4330,7 @@ def phase15_slabs(dev, card, case):
         del slabs, rep, bank
     for name in ("gather", "slabs"):
         f32[f"K5_{name}_bf16"] = times[f"K5_{name}_f32"][0]
-    return times, f32, bounds_ms, per_world
+    return times, f32, bounds_ms, per_world, sectors
 
 
 def bounds(case, cfg):
@@ -4323,20 +4355,18 @@ def bounds(case, cfg):
     act = int(case["active"].sum())
     # K5's reads as the card makes them: sel_idx is random in pixel space and
     # the rep NCHW, so each feature read costs its 32-byte sector; the
-    # distinct sectors of the (B, F, h, w) f32 rep that the written rows'
-    # pixels touch, over all F planes
+    # distinct sectors of the (B, F, h, w) rep that the written rows' pixels
+    # touch, over all F planes, 8 pixels a sector in f32 and 16 in bf16
     import torch
 
-    from u2pl_tpu_torch.kernels.timing_ab import masks_needed
+    from u2pl_tpu_torch.kernels.timing_ab import masks_needed, rep_sectors
 
     n_new = torch.minimum(case["n_sel"], torch.tensor(k, device=case["n_sel"].device))
     first = torch.clamp(n_new - case["bank"].sizes, min=0)
     rank = torch.arange(case["sel_idx"].shape[1], device=n_new.device)
     written = (rank >= first[:, None]) & (rank < n_new[:, None])
     pix = case["sel_idx"][written].long()
-    planes = (pix // hw * f)[:, None] + torch.arange(f, device=pix.device)
-    flat = planes * hw + (pix % hw)[:, None]
-    sectors = int(torch.unique(flat // 8).numel())
+    sectors, sectors_bf16 = rep_sectors(pix, hw, f, 8), rep_sectors(pix, hw, f, 16)
     # operations per upsampled value: 9 for the bilinear taps (6 products,
     # 3 sums), plus the softmax / CE / entropy terms the function needs
     moved = {  # kernel -> (bytes, float32 operations)
@@ -4426,6 +4456,7 @@ def bounds(case, cfg):
         "K7_prob_aux_bf16": (clo8 * 2 + cpx * 8, K7_VALID["K7_prob_aux_bf16"] * 19 * 11,
                              K7_VALID["K7_prob_aux_bf16"] * 19),
         "K5_bf16": (sel * (f * 2 + 4 + f * 2), 0),
+        "K5_bf16_sectors": (sectors_bf16 * 32 + sel * (4 + f * 2), 0),
         "K6_fwd_bf16": (act * q * (f * 2 + m * (f * 2 + 4)) + act * f * 4,
                         act * q * (m + 1) * f * 4),
         # the per-query positive (anchor_ema): a (C, Q, F) f32 row per draw
@@ -4522,7 +4553,7 @@ def main() -> int:
         inf_launches, inf_errs, inf_times, inf_f32, inf_run = phase14_bf16_inference(
             dev, card, tmp, f32_evals)
     torch.cuda.empty_cache()
-    slab_times, slab_f32, slab_bounds, slab_worlds = phase15_slabs(dev, card, case)
+    slab_times, slab_f32, slab_bounds, slab_worlds, slab_sectors = phase15_slabs(dev, card, case)
     one_rank, one_rank_run = phase16_one_rank_group(dev, card)
     two_ranks, two_ranks_run = phase16_two_ranks(card)
     torch.cuda.empty_cache()
@@ -4578,10 +4609,11 @@ def main() -> int:
         log(f"[{card}] kernel {key}: {ms:.4f} ms (the per-class mode on the same inputs "
             f"{pq_class[key]:.4f} ms), {ms / bound[key][0]:.1f}x its bound {bound[key][0]:.4f} ms "
             f"({bound[key][1]})")
-    ms = times["K5"][0]
-    log(f"[{card}] kernel K5: {ms:.4f} ms, {ms / bound['K5'][0]:.1f}x its row-bytes bound "
-        f"{bound['K5'][0]:.4f} ms, {ms / bound['K5_sectors'][0]:.1f}x its NCHW sector bound "
-        f"{bound['K5_sectors'][0]:.4f} ms")
+    for key, sec in (("K5", "K5_sectors"), ("K5_bf16", "K5_bf16_sectors")):
+        ms = times[key][0]
+        log(f"[{card}] kernel {key}: {ms:.4f} ms, {ms / bound[key][0]:.1f}x its row-bytes bound "
+            f"{bound[key][0]:.4f} ms, {ms / bound[sec][0]:.1f}x its NCHW sector bound "
+            f"{bound[sec][0]:.4f} ms")
     for key in ("C_fwd", "C_fwd_city_main", "C_fwd_city_aux", "C_fwd_city_unsup",
                 "C_bwd", "C_bwd_city_main", "C_bwd_city_aux"):
         ms, plain_ms, _ = times[key]
@@ -4733,8 +4765,9 @@ def main() -> int:
         entry("ohem_target_prob_aux_bf16", "K7_prob_aux_bf16", "upsample_ce.cu",
               "u2pl_tpu/losses/ohem.py:66", bf_city["K7_prob_aux"], bf_errs["K7_prob_aux_bf16"],
               "K7_prob_aux_bf16"),
-        entry("memobank_enqueue_bf16", "K5_bf16", "memobank.cu", "u2pl_tpu/memobank.py:92",
-              bf("K5"), bf_errs["K5_bf16"], "K5_bf16"),
+        {**entry("memobank_enqueue_bf16", "K5_bf16", "memobank.cu", "u2pl_tpu/memobank.py:92",
+                 bf("K5"), bf_errs["K5_bf16"], "K5_bf16"),
+         "sector_bound_ms": bound["K5_bf16_sectors"][0]},
         entry("contra_infonce_fwd_bf16", "K6_fwd_bf16", "infonce.cu",
               "u2pl_tpu/losses/contrastive.py:168", bf("K6_fwd"), bf_errs["K6_fwd_bf16"],
               "K6_fwd_bf16"),
@@ -4768,9 +4801,10 @@ def main() -> int:
         # K5's modes for several ranks (phase 15's times at the VOC bank, bf16
         # slabs into the bf16 bank, the enqueue at DIST_W ranks; each world's
         # in `by_world`), with their launches on phase 16's data-parallel runs
-        entry("memobank_gather_bf16", "K5_gather_bf16", "memobank.cu",
-              "u2pl_tpu/losses/contrastive.py:259",
-              one_rank["K5_gather"] + two_ranks["K5_gather"], 0.0, "K5_gather_bf16"),
+        {**entry("memobank_gather_bf16", "K5_gather_bf16", "memobank.cu",
+                 "u2pl_tpu/losses/contrastive.py:259",
+                 one_rank["K5_gather"] + two_ranks["K5_gather"], 0.0, "K5_gather_bf16"),
+         "sector_bound_ms": slab_sectors["K5_gather_bf16"]},
         {**entry("memobank_enqueue_slabs_bf16", "K5_slabs_bf16", "memobank.cu",
                  "u2pl_tpu/memobank.py:92", one_rank["K5_slabs"] + two_ranks["K5_slabs"], 0.0,
                  "K5_slabs_bf16"),

@@ -230,11 +230,12 @@ def test_kernel_a_bwd_matches_plain_adjoint(shape, outsz):
     assert torch.equal(again, gx)  # deterministic: no atomics
 
 
-def _ordered_adjoint(gy, h, w):
+def _ordered_adjoint(gy, h, w, round_w=False):
     """A-bwd's sums in its order, one torch op per product and per sum (so
     each rounded on its own): per output row the W sum over ascending output
     columns from 0, then per input row the H sum over ascending output rows
-    from 0, with common.cuh's tap_weight values."""
+    from 0, with common.cuh's tap_weight values; `round_w`: each W sum
+    rounded to bf16 before it enters the H sum."""
     import numpy as np
 
     def table(n_in, n_out):  # (output index, weight, in range) per input index and slot
@@ -255,6 +256,8 @@ def _ordered_adjoint(gy, h, w):
     s = torch.zeros(gy.shape[:3] + (w,), device=gy.device)
     for j in range(o_w.shape[0]):
         s = torch.where(m_w[j], s + wt_w[j] * gy.index_select(3, o_w[j]), s)
+    if round_w:
+        s = s.to(torch.bfloat16).float()
     gx = torch.zeros(gy.shape[:2] + (h, w), device=gy.device)
     for j in range(o_h.shape[0]):
         gx = torch.where(m_h[j][:, None], gx + wt_h[j][:, None] * s.index_select(2, o_h[j]), gx)
@@ -294,6 +297,100 @@ def test_kernel_a_bwd_bit_equal_to_ordered_sums(shape, outsz, sms, monkeypatch):
     assert tr.resize_bilinear_bwd.launches == n + 1
     assert got.shape == want.shape and torch.equal(got, want)
     assert torch.equal(tr.resize_bilinear_bwd(gy, shape[2:]), got)
+
+
+def _ordered_adjoint_bf16(gy, h, w):
+    """`_ordered_adjoint` in A-bwd's bf16 wide mode, the VJP of JAX's bf16
+    wide branch (u2pl_tpu/ops/resize.py:101-112): the bf16 gy widened
+    exactly, each W sum rounded to bf16 before it enters the H sum, the
+    result rounded to bf16 once."""
+    return _ordered_adjoint(gy.float(), h, w, round_w=True).to(torch.bfloat16)
+
+
+# A-bwd's 2x adjoint (the bf16 wide branch at n -> 2n - 1 on both axes):
+# the decoders' shapes at batch 1 and 2, an odd plane count, H or W of 2,
+# and an even H (a thread's last row pair whole)
+A_BWD_2X_SHAPES = [
+    ((1, 256, 65, 65), (129, 129)),
+    ((2, 256, 65, 65), (129, 129)),
+    ((1, 256, 97, 97), (193, 193)),
+    ((2, 256, 97, 97), (193, 193)),
+    ((1, 67, 5, 7), (9, 13)),
+    ((1, 64, 2, 9), (3, 17)),
+    ((2, 64, 9, 2), (17, 3)),
+    ((3, 64, 2, 2), (3, 3)),
+    ((1, 64, 8, 6), (15, 11)),
+]
+
+
+@pytest.mark.parametrize("non_finite", [False, True])
+@pytest.mark.parametrize("shape,outsz", A_BWD_2X_SHAPES)
+def test_kernel_a_bwd_bf16_bit_equal_to_ordered_sums(shape, outsz, non_finite):
+    """A-bwd's bf16 wide branch at an exact 2x upsample takes the 2x
+    adjoint, bit-equal to the ordered bf16 sums (`_ordered_adjoint_bf16`,
+    and the package's `resize_bilinear_bwd_ordered`), inf and NaN in gy
+    included (the zero-weight products kept)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(23)
+    gy = torch.randn(shape[:2] + outsz, device=dev, generator=g) * 3
+    if non_finite:
+        gy[0, 0, 0, 0], gy[0, 1, -1, -1] = float("inf"), float("nan")
+        gy[-1, 2, 1, outsz[1] // 2], gy[0, -1, outsz[0] // 2, 0] = -float("inf"), float("nan")
+    gy = gy.to(torch.bfloat16)
+    plan = tr._bwd_plan(shape[0] * shape[1], *shape[2:], *outsz, tr._sm_count(dev),
+                        tr._resize_mode(gy.dtype, shape[1], shape[2:], outsz, True))
+    assert plan.kernel == tr.BWD_WIDE_2X
+    n = tr.resize_bilinear_bwd.launches
+    got = tr.resize_bilinear_bwd(gy, shape[2:])
+    torch.cuda.synchronize()
+    assert tr.resize_bilinear_bwd.launches == n + 1 and got.dtype == torch.bfloat16
+    want = _ordered_adjoint_bf16(gy, *shape[2:])
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert torch.equal(tr.resize_bilinear_bwd_ordered(gy, shape[2:]).view(torch.int16),
+                       want.view(torch.int16))
+
+
+def test_kernel_a_bwd_bf16_2x_at_an_odd_address():
+    """The 2x adjoint's aligned word loads follow gy's address: a
+    contiguous view starting at an odd bf16 element gives the same bits."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(27)
+    shape, outsz = (2, 64, 9, 8), (17, 15)
+    n = shape[0] * shape[1] * outsz[0] * outsz[1]
+    flat = (torch.randn(n + 1, device=dev, generator=g) * 3).to(torch.bfloat16)
+    gy = flat[1:].view(shape[:2] + outsz)
+    assert gy.is_contiguous() and gy.data_ptr() % 4 == 2
+    got = tr.resize_bilinear_bwd(gy, shape[2:])
+    want = _ordered_adjoint_bf16(gy.clone(), *shape[2:])
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+# shapes A-bwd takes in its band kernel in bf16: the wide branch at a 4x
+# upsample and at one not exact in bf16 (narrow then), the narrow branch
+# at a 2x upsample (21 channels) and an odd one
+A_BWD_BF16_BAND_SHAPES = [
+    ((1, 256, 33, 33), (129, 129)),
+    ((2, 64, 9, 7), (20, 13)),
+    ((2, 21, 65, 65), (129, 129)),
+    ((3, 5, 9, 7), (13, 30)),
+]
+
+
+@pytest.mark.parametrize("shape,outsz", A_BWD_BF16_BAND_SHAPES)
+def test_kernel_a_bwd_bf16_band_kernel_elsewhere(shape, outsz):
+    """Every bf16 A-bwd that is not the wide branch of an exact 2x upsample
+    keeps the band kernel and its bits: the ordered sums with the W sum
+    rounded in the wide branch, only the result rounded in the narrow one."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(25)
+    gy = (torch.randn(shape[:2] + outsz, device=dev, generator=g) * 3).to(torch.bfloat16)
+    mode = tr._resize_mode(gy.dtype, shape[1], shape[2:], outsz, True)
+    plan = tr._bwd_plan(shape[0] * shape[1], *shape[2:], *outsz, tr._sm_count(dev), mode)
+    assert plan.kernel == tr.BWD_BAND
+    got = tr.resize_bilinear_bwd(gy, shape[2:])
+    want = (_ordered_adjoint_bf16(gy, *shape[2:]) if mode == 2 else
+            _ordered_adjoint(gy.float(), *shape[2:]).to(torch.bfloat16))
+    assert torch.equal(got, want)
 
 
 def _labels(g, b, h, w, c, dev, ignore_frac=0.1):
@@ -1075,6 +1172,44 @@ def test_kernel_memobank_gather_and_slabs_bit_equal(rep_dtype, bank_dtype, w):
         torch.cuda.synchronize()
         for name in ("keys", "ptr", "occupancy"):
             assert torch.equal(getattr(bank, name), getattr(ref, name)), name
+
+
+@pytest.mark.parametrize("rep_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["flagship", "dense", "shared", "over_k", "empty", "images"])
+def test_kernel_memobank_gather_pixel_order_cases(rep_dtype, case, monkeypatch):
+    """K5's gather in pixel order, bit-equal to `memobank_gather_plain` below
+    min(n_sel, K): the flagship's counts on a (8, 256, 129²) rep, a tile
+    denser than its list (every row in 300 pixels), a pixel selected by
+    several classes, n_sel > K, all classes empty, and tiles across images
+    (one SM: the largest tile); rows past the counts left unwritten."""
+    from u2pl_tpu_torch import memobank as mb
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(26)
+    flagship = [8192, 475, 494, 479, 489, 510, 493, 507, 477, 473, 488, 484, 500, 459, 512,
+                530, 514, 512, 506, 469, 488]
+    b, hw, c, k = (8, 129, 21, 8192) if case in ("flagship", "dense") else (3, 47, 6, 300)
+    n = b * hw * hw
+    rep = torch.randn(b, 256, hw, hw, device=dev, generator=g).to(rep_dtype)
+    sel = torch.stack([torch.randperm(n, device=dev, generator=g)[:k] for _ in range(c)])
+    counts = {"flagship": flagship, "dense": [2048] * c, "shared": [300, 17, 0, 250, 300, 9],
+              "over_k": [301, 400, 299, 5, 1000, 0], "empty": [0] * c,
+              "images": [300, 280, 290, 300, 0, 150]}[case]
+    if case == "dense":
+        sel = torch.randint(0, 300, (c, k), device=dev, generator=g)
+    if case == "shared":
+        sel[:] = sel[0]
+    sel = sel.to(torch.int32).contiguous()
+    n_sel = torch.tensor(counts, dtype=torch.int32, device=dev)
+    if case == "images":
+        monkeypatch.setattr(tr, "_sm_count", lambda device: 1)
+    launches = mb.memobank_gather.launches
+    slab = mb.memobank_gather(rep, sel, n_sel)
+    torch.cuda.synchronize()
+    assert mb.memobank_gather.launches == launches + 1
+    ref = mb.memobank_gather_plain(rep, sel, n_sel)
+    rows = torch.arange(k, device=dev)[None, :] < torch.clamp(n_sel, max=k)[:, None]
+    assert slab.dtype == rep_dtype and torch.equal(slab[rows], ref[rows])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -70,7 +70,8 @@ A_BWD_SHAPES = [
 @pytest.mark.parametrize("sms", [132, 114, 16, 1])
 @pytest.mark.parametrize("planes,h,w,oh,ow", A_BWD_SHAPES)
 def test_a_bwd_bands_cover_every_input_rows_outputs(planes, h, w, oh, ow, sms):
-    rows, bands, wspan = tr._bwd_plan(planes, h, w, oh, ow, sms)
+    kernel, rows, bands, wspan = tr._bwd_plan(planes, h, w, oh, ow, sms)
+    assert kernel == tr.BWD_BAND
     start_w, end_w = _ranges_np(w, ow, True)
     assert wspan == max((end_w - start_w).max(), 1)
     target = sms * tr.BWD_THREADS_PER_SM  # threads: enough, with the tallest bands that give it
@@ -94,7 +95,7 @@ def test_a_bwd_bands_cover_every_input_rows_outputs(planes, h, w, oh, ow, sms):
 
 @pytest.mark.parametrize("planes,h,w,oh,ow", [(2048, 65, 65, 129, 129), (1024, 97, 97, 193, 193)])
 def test_a_bwd_plan_takes_whole_planes_at_the_decoders_shapes(planes, h, w, oh, ow):
-    assert tr._bwd_plan(planes, h, w, oh, ow, 132) == (h, 1, 4)
+    assert tr._bwd_plan(planes, h, w, oh, ow, 132) == (tr.BWD_BAND, h, 1, 4)
 
 
 # C fwd and D as (B, C, h, w, OH, OW): the VOC CE (and D), the Cityscapes
@@ -406,6 +407,62 @@ def test_enqueue_tiles_write_every_row_once(case, sms):
     assert sorted(got) == want and len(got) == len(set(got))
     assert len({(j, row) for j, _, row in got}) == len(got)  # a ring row at most once
     if case == "one_class" and sms == 1:
+        assert overflowed  # the rows past a tile's list are written too
+
+
+def _gather_writes(n_sel, k, pixels, tile, sel, chunks=32):
+    """The (class, rank) slab rows K5's gather writes (memobank.cu:
+    mb_gather_kernel), by tile: the rows below min(n_sel, K) whose pixel
+    lies in the tile, the first TILE_ROWS listed and written by the block's
+    (row, chunk) items (item i: listed row i % n, chunk i // n; each row
+    whole only if every chunk is taken once), the rest by the thread that
+    found them; and how many tiles overflowed."""
+    n_new = np.minimum(n_sel, k)
+    live = np.arange(sel.shape[1])[None, :] < n_new[:, None]
+    written, overflowed = [], 0
+    for t0 in range(0, pixels, tile):
+        cs, rs = np.nonzero(live & (sel >= t0) & (sel < min(t0 + tile, pixels)))
+        n = min(len(cs), TILE_ROWS)
+        items = np.arange(n * chunks)
+        taken = np.zeros((n, chunks), dtype=int)
+        np.add.at(taken, (items % n, items // n), 1)
+        assert (taken == 1).all()
+        written += list(zip(cs.tolist(), rs.tolist()))  # the listed ones, then the rest
+        overflowed += int(len(cs) > TILE_ROWS)
+    return written, overflowed
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16, 1])
+@pytest.mark.parametrize("case", ["flagship", "dense", "shared", "over_k", "empty"])
+def test_gather_tiles_write_every_row_once(case, sms):
+    """K5's gather in pixel order: its tiles and lists write every slab row
+    below min(n_sel, K) exactly once and no row past it, at the
+    flagship's selection counts, a tile denser than its list, a pixel
+    selected by several classes, n_sel > K and all classes empty."""
+    rng = np.random.RandomState(4)
+    c, k, pixels = (21, 8192, 8 * 129 * 129) if case in ("flagship", "dense") else (5, 40, 90)
+    sel = np.stack([rng.permutation(pixels)[:k] if k <= pixels else rng.randint(0, pixels, k)
+                    for _ in range(c)])
+    n_sel = {"flagship": np.array([8192, 475, 494, 479, 489, 510, 493, 507, 477, 473, 488, 484,
+                                   500, 459, 512, 530, 514, 512, 506, 469, 488]),
+             "dense": np.full(c, 2048),  # every row in the first 300 pixels
+             "shared": np.array([40, 13, 25, 0, 12]),  # every class the same pixels
+             "over_k": np.array([52, 40, 41, 7, 100]),
+             "empty": np.zeros(c, dtype=int)}[case]
+    if case == "dense":
+        sel = rng.randint(0, 300, (c, k))
+    if case == "shared":
+        sel[:] = sel[0]
+    tile = mb._gather_tile(pixels, sms)
+    tiles = -(-pixels // tile)
+    assert 1 <= tile <= mb.GATHER_MAX_TILE
+    assert tiles <= mb.GATHER_TILES_PER_SM * sms or tile == mb.GATHER_MAX_TILE
+    assert (tiles - 1) * tile < pixels
+    got, overflowed = _gather_writes(n_sel, k, pixels, tile, sel)
+    n_new = np.minimum(n_sel, k)
+    want = [(j, r) for j in range(c) for r in range(n_new[j])]
+    assert sorted(got) == want and len(got) == len(set(got))
+    if case == "dense":
         assert overflowed  # the rows past a tile's list are written too
 
 
@@ -860,3 +917,78 @@ def test_a_fwd_plan_keeps_the_band_or_direct_kernel_elsewhere(planes, h, w, oh, 
     else:
         assert plan == tr._fwd_plan(planes, h, w, oh, ow, 132)
         assert plan.kernel != tr.FWD_WIDE_2X
+
+
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("planes,h,w,oh,ow", A_WIDE_2X + A_WIDE_ELSEWHERE)
+def test_a_bwd_plan_takes_the_2x_adjoint_where_a_takes_its_2x_kernel(planes, h, w, oh, ow,
+                                                                     align):
+    """A-bwd's 2x adjoint runs exactly where kernel A runs its exact 2x
+    kernel (the bf16 wide mode of an align-corners n -> 2n - 1 upsample on
+    both axes); every other mode and shape keeps the band kernel's plan."""
+    for mode in (0, 1, 2):
+        fwd = tr._fwd_plan(planes, h, w, oh, ow, 132, mode, align)
+        bwd = tr._bwd_plan(planes, h, w, oh, ow, 132, mode, align)
+        assert (bwd.kernel == tr.BWD_WIDE_2X) == (fwd.kernel == tr.FWD_WIDE_2X)
+        if bwd.kernel == tr.BWD_WIDE_2X:
+            assert bwd.rows == tr.BWD_2X_ROWS and bwd.bands == -(-h // tr.BWD_2X_ROWS)
+        else:
+            assert bwd == tr._bwd_plan(planes, h, w, oh, ow, 132, 0, align)
+            assert bwd.kernel == tr.BWD_BAND
+
+
+def _adjoint_2x_walk(gy, rows):
+    """A-bwd's 2x adjoint (resize.cu: resize_bilinear_ac_bwd_wide2x_kernel) as
+    its threads compute it, in torch ops: the thread of input column ix and
+    group k loads output rows 2 k rows - 2 + u, u < 2 rows + 2 (those inside
+    the plane), at columns 2ix - 2 .. 2ix + 1 (those inside: 1, 1/2 at ix =
+    0; 0, 1/2, 1 at the last), takes each row's W sum (wsum_2x) rounded to
+    bf16, then for each of its input rows the H sum over its window's four
+    (or fewer) rows, rounded to bf16 once."""
+    b, c, oh, ow = gy.shape
+    h, w = (oh + 1) // 2, (ow + 1) // 2
+    g = gy.float()
+    ix = torch.arange(w)
+    left, right = ix > 0, ix + 1 < w
+    v = [g.index_select(3, (2 * ix - 2 + j).clamp(0, ow - 1)) for j in range(4)]
+    zero = torch.zeros_like(v[0])
+    s = torch.where(left, zero + 0.0 * v[0], zero)
+    s = torch.where(left, s + 0.5 * v[1], s)
+    s = s + v[2]
+    s = torch.where(right, s + 0.5 * v[3], s)
+    s = s.to(torch.bfloat16).float()  # (b, c, oh, w): every output row's W sums
+    out = torch.empty((b, c, h, w), dtype=torch.bfloat16)
+    for k in range(-(-h // rows)):
+        win = [s[:, :, oy] if 0 <= oy < oh else None
+               for oy in range(2 * k * rows - 2, 2 * k * rows + 2 * rows)]
+        for r in range(rows):
+            iy = k * rows + r
+            if iy >= h:
+                break
+            a = torch.zeros((b, c, w))
+            if iy > 0:
+                a = a + 0.0 * win[2 * r]
+                a = a + 0.5 * win[2 * r + 1]
+            a = a + win[2 * r + 2]
+            if iy + 1 < h:
+                a = a + 0.5 * win[2 * r + 3]
+            out[:, :, iy] = a.to(torch.bfloat16)
+    return out
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4])
+@pytest.mark.parametrize("shape", [(1, 64, 5, 7), (1, 64, 2, 2), (2, 64, 9, 2), (1, 67, 6, 3)])
+def test_a_bwd_2x_walk_bit_equal_to_ordered_sums(shape, rows):
+    """The 2x adjoint's per-thread sums, its edge columns and rows and the
+    window of 2 rows + 2 output rows included, are A-bwd's ordered sums
+    (`resize_bilinear_bwd_ordered`) bit for bit, with inf and NaN in gy."""
+    b, c, h, w = shape
+    g = torch.Generator().manual_seed(23)
+    gy = torch.randn((b, c, 2 * h - 1, 2 * w - 1), generator=g) * 3
+    gy[0, 0, 0, 0], gy[0, 1, -1, -1], gy[-1, 2, 1, 2 * w - 2] = float("inf"), float("nan"), -float("inf")
+    gy = gy.to(torch.bfloat16)
+    assert tr._wide(gy.dtype, c, (h, w), gy.shape[2:], True)
+    want = tr.resize_bilinear_bwd_ordered(gy, (h, w))
+    assert want.dtype == torch.bfloat16
+    assert torch.equal(_adjoint_2x_walk(gy, rows).view(torch.int16), want.view(torch.int16))
+

@@ -102,6 +102,36 @@ def test_argmax_keeps_first_maximum():
     assert (tr.resize_argmax_plain(x, (5, 5)) == 1).all()
 
 
+@pytest.mark.parametrize("shape", [(1, 9, 9, 64), (2, 9, 9, 64), (1, 17, 13, 64),
+                                   (1, 5, 7, 256)])
+def test_ordered_bf16_adjoint_is_the_jax_vjp(shape):
+    """The ordered bf16 adjoint that the card holds A-bwd's wide 2x branch
+    to (tests/test_torch_cuda.py:_ordered_adjoint_bf16, and the package's
+    `resize_bilinear_bwd_ordered`), run on the CPU, bit-equal to `jax.vjp`
+    of the JAX function on a bf16 NHWC input at an n -> 2n - 1 upsample."""
+    import jax
+    import ml_dtypes
+
+    from test_torch_cuda import _ordered_adjoint_bf16
+
+    b, h, w, c = shape
+    size = (2 * h - 1, 2 * w - 1)
+    rng = np.random.RandomState(b + h + w + c)
+    x = rng.randn(*shape).astype(ml_dtypes.bfloat16)
+    g = (rng.randn(b, *size, c) * 3).astype(ml_dtypes.bfloat16)
+    _, vjp = jax.vjp(lambda a: jax_resize_bilinear(a, size), jnp.asarray(x))
+    (ref,) = vjp(jnp.asarray(g))
+    assert ref.dtype == jnp.bfloat16
+    ref = np.moveaxis(np.asarray(ref.astype(jnp.float32)), -1, 1)
+    gy = torch.from_numpy(np.moveaxis(g.astype(np.float32), -1, 1).copy()).to(torch.bfloat16)
+    assert tr._wide(gy.dtype, c, (h, w), size, True)
+    got = _ordered_adjoint_bf16(gy, h, w)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), ref)
+    assert torch.equal(tr.resize_bilinear_bwd_ordered(gy, (h, w)).view(torch.int16),
+                       got.view(torch.int16))
+
+
 def test_cpu_wrappers_take_plain_versions_and_launch_nothing():
     rng = np.random.RandomState(3)
     x = torch.from_numpy(rng.randn(2, 3, 7, 9).astype(np.float32))

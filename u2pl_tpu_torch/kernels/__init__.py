@@ -27,8 +27,8 @@ def load():
         #  kernel, rows, bands, mode, stream)
         "u2pl_resize_bilinear_ac": [p] * 8 + [i] * 9 + [p],
         # (gy, gx, idx_h, w_h, rng_h, idx_w, w_w, rng_w, planes, H, W, OH, OW,
-        #  rows, bands, wspan, mode, stream)
-        "u2pl_resize_bilinear_ac_bwd": [p] * 8 + [i] * 9 + [p],
+        #  kernel, rows, bands, wspan, mode, stream)
+        "u2pl_resize_bilinear_ac_bwd": [p] * 8 + [i] * 10 + [p],
         # (x, out, idx_h, w_h, idx_w, w_w, C, H, W, OH, OW, dtype, stream)
         "u2pl_resize_argmax_ac": [p] * 6 + [i] * 6 + [p],
         # (x, labels, cw, lse, part, stats, idx_h, w_h, idx_w, w_w,
@@ -63,8 +63,8 @@ def load():
         # (rep, sel_idx, n_sel, keys, ptr, occ, sizes, ticket, B, F, HW, C, K,
         #  cap, dtype, rep_dtype, tile, stream)
         "u2pl_memobank_enqueue": [p] * 8 + [i] * 9 + [p],
-        # (rep, sel_idx, n_sel, slab, B, F, HW, C, K, rep_dtype, stream)
-        "u2pl_memobank_gather": [p] * 4 + [i] * 6 + [p],
+        # (rep, sel_idx, n_sel, slab, B, F, HW, C, K, rep_dtype, tile, stream)
+        "u2pl_memobank_gather": [p] * 4 + [i] * 7 + [p],
         # (slabs, counts, keys, ptr, occ, sizes, ticket, W, F, C, K, cap, dtype,
         #  slab_dtype, stream)
         "u2pl_memobank_enqueue_slabs": [p] * 7 + [i] * 7 + [p],

@@ -57,11 +57,20 @@
 // the rep cannot serve them.  Two more kernels, the (C, K, F) slab between:
 // - the gather (mode a): each rank writes its own slab from the NCHW rep at
 //   sel_idx, in the rep's dtype, as JAX's `rep_t_f[sel_idx]`; rows past
-//   n_sel[c] are never read downstream, so they are not written.  A block
-//   owns kGatherRows rows of one class; a thread takes (row, 8-feature
-//   chunk) items, chunks fastest, so a warp stores one 512-byte bf16 row
-//   (F = 256) with 16-byte stores; each of its 8 loads is a sector of its
-//   own (the rep is NCHW), as in the fused mode;
+//   n_sel[c] are never read downstream, so they are not written.  Its first
+//   design (PR 20) read in selection order, a warp a row, each lane 8
+//   features at stride HW: every 2-byte load a 32-byte sector at a random
+//   place in the 68 MB bf16 rep, 0.0643-0.0651 ms at the flagship (f32 rep
+//   0.1241-0.1243) on an NVIDIA H100 80GB HBM3 at 700 W, ten times its
+//   rows' bytes.  At the flagship 13.6% of the pixels are selected, so ~90%
+//   of the rep's bf16 sectors (16 pixels each) are read anyway; this design
+//   reads the rep in pixel order, as the fused mode does: a block owns a
+//   tile of pixels, lists its rows and reads the planes of the tile in
+//   order, 16-byte stores into the slab rows: 0.0416-0.0443 ms (f32
+//   0.0667-0.0732) there, 3.4x the 0.0129 ms sector bound.  Staging
+//   64-pixel sub-tiles whole through shared memory was slower (0.0733):
+//   the flagship's keys come from the unlabeled half of the batch, so half
+//   the tiles have nothing to stage;
 // - the slab enqueue (mode b): the all-gathered (W, C, K, F) slabs and the
 //   (W, C) counts ring-written per class in (rank, row) order, keeping the
 //   newest `size` when W * K rows exceed the queue (u2pl_tpu/memobank.py:
@@ -70,7 +79,9 @@
 //   order are the counts of the ranks below w, so each block places its own
 //   rows with no pass over the others; 16-byte loads and stores, cast to
 //   the bank's type as above; the last block moves ptr and occupancy.
-// Both are plain copies: the bound is the kept rows' bytes, read and written.
+// Both are plain copies: the bytes bound is the kept rows' bytes, read and
+// written; the gather's reads cost the NCHW sectors its rows touch
+// (chip_smoke.py's sector bound, 16 pixels a bf16 sector).
 
 #include <cuda_bf16.h>
 
@@ -202,10 +213,9 @@ __global__ void __launch_bounds__(kThreads) mb_enqueue_kernel(
   }
 }
 
-constexpr int kGatherRows = 32;  // slab rows a gather block writes
 constexpr int kSlabRows = 32;  // slab rows a slab-enqueue block writes
 
-// 8 consecutive values of type R at p (16-byte aligned) widened to f32, and back
+// 8 consecutive values of type R at p (16-byte aligned) widened to f32
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
   const float4 b = reinterpret_cast<const float4*>(p)[1];
@@ -224,40 +234,90 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
   }
 }
 
-// a slab row's 8 values, stored in the rep's own type (exact: they came from it)
-__device__ __forceinline__ void put8(float* p, const float (&v)[8]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+// one 16-byte chunk of a pixel's row: the 16 / sizeof(R) features from
+// src (the first of them) at stride HW, as their raw bits
+__device__ __forceinline__ uint4 load_chunk(const float* __restrict__ src, size_t HW) {
+  return make_uint4(__float_as_uint(src[0]), __float_as_uint(src[HW]),
+                    __float_as_uint(src[2 * HW]), __float_as_uint(src[3 * HW]));
 }
 
-__device__ __forceinline__ void put8(__nv_bfloat16* p, const float (&v)[8]) {
-  uint4 o;
-  o.x = pack_bf16x2(v[0], v[1]);
-  o.y = pack_bf16x2(v[2], v[3]);
-  o.z = pack_bf16x2(v[4], v[5]);
-  o.w = pack_bf16x2(v[6], v[7]);
-  reinterpret_cast<uint4*>(p)[0] = o;
+__device__ __forceinline__ uint4 load_chunk(const __nv_bfloat16* __restrict__ src, size_t HW) {
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(src);
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) w[i] = h[2 * i * HW] | ((unsigned)h[(2 * i + 1) * HW] << 16);
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// mode a: slab[c, r] = rep row at sel_idx[c, r], r < min(n_sel[c], K)
+constexpr int kGatherMaxTile = 4096;  // pixels a gather tile holds at most (memobank.py)
+
+// mode a: slab[c, r] = rep row at sel_idx[c, r], r < min(n_sel[c], K), read
+// in pixel order.  A block owns a tile of consecutive pixels and lists the
+// rows whose pixel lies in it with their slab rows (the fused mode's scan;
+// a row past the list is copied by the thread that found it).  Its threads
+// then take (row, 16-byte chunk) items, rows fastest, so a warp reads one
+// plane's window of the tile for up to 32 rows, and the block walks the
+// planes in order; each item's 16 / sizeof(R) loads, kItems items a thread,
+// are issued before the first store.  The rows are copied as raw bits (the
+// slab is in the rep's dtype).
 template <typename R>
 __global__ void __launch_bounds__(kThreads) mb_gather_kernel(
-    const R* __restrict__ rep, const int* __restrict__ sel_idx,
-    const int* __restrict__ n_sel, R* __restrict__ slab, int F, int HW, int K) {
-  const int c = blockIdx.y;
-  const int r0 = (int)blockIdx.x * kGatherRows;
-  const int rows = min(min(n_sel[c], K) - r0, kGatherRows);
-  if (rows <= 0) return;
-  const int chunks = F / 8;
-  for (int it = threadIdx.x; it < rows * chunks; it += kThreads) {
-    const int r = r0 + it / chunks, f0 = (it % chunks) * 8;
-    const int pix = sel_idx[(size_t)c * K + r];
-    const int b = pix / HW;
-    const R* src = rep + ((size_t)b * F + f0) * HW + (pix - b * HW);
-    float v[8];
+    const R* __restrict__ rep, const int* __restrict__ sel_idx, const int* __restrict__ n_sel,
+    R* __restrict__ slab, int F, int HW, int C, int K, int tile, int pixels) {
+  __shared__ int tile_pix[kMaxTileRows];
+  __shared__ int tile_row[kMaxTileRows];  // its slab row c * K + r
+  __shared__ int listed;
+  constexpr int E = 16 / sizeof(R);  // features a chunk
+  const int chunks = F / E;
+  const int t0 = blockIdx.x * tile;
+  const int t1 = min(t0 + tile, pixels);
+  if (threadIdx.x == 0) listed = 0;
+  __syncthreads();
+  for (int c = 0; c < C; ++c) {
+    const int end = min(n_sel[c], K);
+    for (int r0 = threadIdx.x; r0 < end; r0 += kThreads * kScan) {
+      int pix[kScan];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = u2pl::to_f32(src[(size_t)i * HW]);
-    put8(slab + ((size_t)c * K + r) * F + f0, v);
+      for (int u = 0; u < kScan; ++u) {
+        const int r = r0 + u * kThreads;
+        pix[u] = r < end ? sel_idx[(size_t)c * K + r] : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < kScan; ++u) {
+        if (pix[u] < t0 || pix[u] >= t1) continue;
+        const int row = c * K + r0 + u * kThreads;
+        const int slot = atomicAdd(&listed, 1);
+        if (slot < kMaxTileRows) {
+          tile_pix[slot] = pix[u];
+          tile_row[slot] = row;
+        } else {  // a tile denser than the list: this thread copies the row alone
+          const int b = pix[u] / HW;
+          const R* src = rep + (size_t)b * F * HW + (pix[u] - b * HW);
+          uint4* dst = reinterpret_cast<uint4*>(slab + (size_t)row * F);
+          for (int j = 0; j < chunks; ++j) dst[j] = load_chunk(src + (size_t)j * E * HW, HW);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const int n = min(listed, kMaxTileRows);
+  const int items = n * chunks;
+  for (int base = threadIdx.x; base < items; base += kThreads * kItems) {
+    uint4 v[kItems];
+#pragma unroll
+    for (int u = 0; u < kItems; ++u) {
+      const int it = base + u * kThreads;
+      if (it < items) {
+        const int pix = tile_pix[it % n], j = it / n;
+        const int b = pix / HW;
+        v[u] = load_chunk(rep + ((size_t)b * F + (size_t)j * E) * HW + (pix - b * HW), HW);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kItems; ++u) {
+      const int it = base + u * kThreads;
+      if (it < items) reinterpret_cast<uint4*>(slab + (size_t)tile_row[it % n] * F)[it / n] = v[u];
+    }
   }
 }
 
@@ -342,22 +402,27 @@ int u2pl_memobank_enqueue(const void* rep, const void* sel_idx,
   return (int)cudaGetLastError();
 }
 
+// tile from memobank.py:_gather_tile
 int u2pl_memobank_gather(const void* rep, const void* sel_idx, const void* n_sel, void* slab,
-                         int B, int F, int HW, int C, int K, int rep_dtype, void* stream) {
+                         int B, int F, int HW, int C, int K, int rep_dtype, int tile,
+                         void* stream) {
   // slab: (C, K, F) in the rep's dtype (0 float32, 1 bfloat16)
-  if (B <= 0 || F <= 0 || F % 8 || HW <= 0 || C <= 0 || C > 65535 || K <= 0 ||
+  if (B <= 0 || F <= 0 || F % 8 || HW <= 0 || C <= 0 || K <= 0 ||
+      (long long)C * K * F >= (1LL << 31) || tile <= 0 || tile > kGatherMaxTile ||
       (rep_dtype != 0 && rep_dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((K + kGatherRows - 1) / kGatherRows, C);
+  const int pixels = B * HW;
+  const int blocks = (pixels + tile - 1) / tile;
   cudaStream_t st = (cudaStream_t)stream;
   if (rep_dtype == 1) {
-    mb_gather_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+    mb_gather_kernel<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(
         (const __nv_bfloat16*)rep, (const int*)sel_idx, (const int*)n_sel,
-        (__nv_bfloat16*)slab, F, HW, K);
+        (__nv_bfloat16*)slab, F, HW, C, K, tile, pixels);
   } else {
-    mb_gather_kernel<float><<<grid, kThreads, 0, st>>>(
-        (const float*)rep, (const int*)sel_idx, (const int*)n_sel, (float*)slab, F, HW, K);
+    mb_gather_kernel<float><<<blocks, kThreads, 0, st>>>(
+        (const float*)rep, (const int*)sel_idx, (const int*)n_sel, (float*)slab, F, HW, C, K,
+        tile, pixels);
   }
   return (int)cudaGetLastError();
 }

@@ -381,6 +381,85 @@ __global__ void __launch_bounds__(kThreads) resize_bilinear_ac_bwd_kernel(
   flush(iy1);
 }
 
+// the W sum of one output row of A-bwd's 2x adjoint for input column ix:
+// output columns 2ix - 2 .. 2ix + 1 with weights 0, 1/2, 1, 1/2 (the first
+// two from ix = 1 on, the last up to ix = W - 2), from 0 in ascending
+// order as the band kernel adds them.  The weight-1 product is v[2] itself
+// (a NaN's bits end canonical at the bf16 rounding either way).
+__device__ __forceinline__ float wsum_2x(const float (&v)[4], bool left, bool right) {
+  float s = 0.0f;
+  if (left) {
+    s = __fadd_rn(s, __fmul_rn(0.0f, v[0]));
+    s = __fadd_rn(s, __fmul_rn(0.5f, v[1]));
+  }
+  s = __fadd_rn(s, v[2]);
+  if (right) s = __fadd_rn(s, __fmul_rn(0.5f, v[3]));
+  return s;
+}
+
+// A-bwd's bf16 wide branch at an exact 2x upsample (the adjoint of
+// resize_bilinear_ac_wide2x_kernel; the decoder's (8, 256, 129²) -> 65² at
+// VOC, (4, 256, 193²) -> 97² at Cityscapes).  Input index i is reached by
+// output indices 2i - 2 .. 2i + 1 with the tap tables' weights 0, 1/2, 1,
+// 1/2 (clamped at the edges: 1, 1/2 at i = 0; 0, 1/2, 1 at the last), on
+// both axes.  A thread takes input column ix of R consecutive input rows
+// iy0 .. iy0 + R - 1 of a plane: it loads the 4 x (2R + 2) gy values that
+// reach them (all issued before the first is used; the lanes of a warp, on
+// consecutive ix, read one stretch of each output row), forms the 2R + 2 W
+// sums (each rounded to bf16; a sum serves two input rows) and each input
+// row's H sum over ascending output rows, rounded to bf16 once.  No table,
+// no shared memory, no barrier; the band kernel's products and sums (the
+// zero-weight ones included), so its bits, inf and NaN too.  R = 1: 0.0743
+// ms at VOC, 0.0818 at Cityscapes (the bf16 band kernel 0.0960 / 0.1328;
+// bytes bound 0.0255 / 0.0285) on an NVIDIA H100 80GB HBM3 at 700 W
+// (timing_ab.py).  The gy loads' latency holds it (each value is read by
+// four threads): 2 or 4 rows a thread were slower, and aligned word loads
+// with shuffles (a quarter of the load instructions) or 2 planes a thread
+// were no faster (PERF.md).
+template <int R>
+__global__ void __launch_bounds__(kThreads) resize_bilinear_ac_bwd_wide2x_kernel(
+    const __nv_bfloat16* __restrict__ gy, __nv_bfloat16* __restrict__ gx, unsigned planes,
+    int H, int W, int groups, float inv_w) {
+  const int t = blockIdx.x * kThreads + threadIdx.x;  // group * W + ix
+  if (t >= groups * W) return;
+  const int k = div_small(t, W, inv_w), ix = t - k * W;
+  const int iy0 = k * R, OH = 2 * H - 1, OW = 2 * W - 1;
+  const bool left = ix > 0, right = ix + 1 < W;
+  const unsigned in_plane = (unsigned)H * W, out_plane = (unsigned)OH * OW;
+  for (unsigned plane = blockIdx.y; plane < planes; plane += gridDim.y) {
+    // output rows 2 iy0 - 2 + u, u < 2R + 2, columns 2ix - 2 .. 2ix + 1
+    const __nv_bfloat16* g = gy + plane * out_plane + 2 * ix;
+    float v[2 * R + 2][4];
+#pragma unroll
+    for (int u = 0; u < 2 * R + 2; ++u) {
+      const int oy = 2 * iy0 - 2 + u;
+      const bool row = oy >= 0 && oy < OH;
+      const __nv_bfloat16* p = g + (row ? oy : 0) * OW;
+      v[u][0] = row && left ? to_f32(p[-2]) : 0.0f;
+      v[u][1] = row && left ? to_f32(p[-1]) : 0.0f;
+      v[u][2] = row ? to_f32(p[0]) : 0.0f;
+      v[u][3] = row && right ? to_f32(p[1]) : 0.0f;
+    }
+    float s[2 * R + 2];
+#pragma unroll
+    for (int u = 0; u < 2 * R + 2; ++u) s[u] = round_bf16(wsum_2x(v[u], left, right));
+    __nv_bfloat16* out = gx + plane * in_plane + ix;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int iy = iy0 + r;
+      if (iy >= H) break;
+      float a = 0.0f;  // output rows 2iy - 2 .. 2iy + 1: s[2r .. 2r + 3]
+      if (iy > 0) {
+        a = __fadd_rn(a, __fmul_rn(0.0f, s[2 * r]));
+        a = __fadd_rn(a, __fmul_rn(0.5f, s[2 * r + 1]));
+      }
+      a = __fadd_rn(a, s[2 * r + 2]);
+      if (iy + 1 < H) a = __fadd_rn(a, __fmul_rn(0.5f, s[2 * r + 3]));
+      out[iy * W] = __float2bfloat16_rn(a);
+    }
+  }
+}
+
 struct ResizeArgs {
   const void* x;  // A: x, A-bwd: gy
   void* y;        // A: y, A-bwd: gx
@@ -448,6 +527,20 @@ cudaError_t launch_bwd_span(const ResizeArgs& a, unsigned threads, int rows, int
     return launch_bwd<4, T, WIDE>(a, threads, rows, bands, stream);
   }
   return launch_bwd<0, T, WIDE>(a, threads, rows, bands, stream);
+}
+
+// A-bwd's kernels (ops/resize.py: BWD_BAND, BWD_WIDE_2X)
+enum { kBwdBand = 0, kBwdWide2x = 1 };
+
+// the 2x adjoint: a thread per input column of `rows` input rows (bands of
+// them: ceil(H / rows)), for every plane
+template <int R>
+cudaError_t launch_bwd_2x(const ResizeArgs& a, unsigned planes, int bands, cudaStream_t stream) {
+  const dim3 grid((bands * a.W + kThreads - 1) / kThreads, min(planes, 65535u));
+  resize_bilinear_ac_bwd_wide2x_kernel<R><<<grid, kThreads, 0, stream>>>(
+      (const __nv_bfloat16*)a.x, (__nv_bfloat16*)a.y, planes, a.H, a.W, bands,
+      1.0f / (float)a.W);
+  return cudaGetLastError();
 }
 
 // T: the logits' element type (float, or __nv_bfloat16 widened on load)
@@ -529,25 +622,37 @@ int u2pl_resize_bilinear_ac(const void* x, void* y, const void* idx_h,
   return (int)launch_fwd<float, float, false>(a, planes, kernel, rows, bands, st);
 }
 
-// (rows, bands, wspan) from ops/resize.py:_bwd_plan: bands of `rows` input
-// rows, at most wspan output columns reaching one input column
+// (kernel, rows, bands, wspan) from ops/resize.py:_bwd_plan: kBwdBand,
+// bands of `rows` input rows, at most wspan output columns reaching one
+// input column, from the tables idx / w / rng; kBwdWide2x, the bf16 wide
+// branch's exact 2x adjoint (align corners, n -> 2n - 1 on both axes), a
+// thread per input column of `rows` (1, 2 or 4) input rows, no table
 int u2pl_resize_bilinear_ac_bwd(const void* gy, void* gx, const void* idx_h,
                                 const void* w_h, const void* rng_h,
                                 const void* idx_w, const void* w_w,
                                 const void* rng_w, int planes, int H, int W,
-                                int OH, int OW, int rows, int bands, int wspan,
+                                int OH, int OW, int kernel, int rows, int bands, int wspan,
                                 int mode, void* stream) {
   if (mode < kModeF32 || mode > kModeBf16Wide) return (int)cudaErrorInvalidValue;
   if (planes <= 0 || H <= 0 || W <= 0) return (int)cudaGetLastError();
   const long long threads = (long long)planes * bands * W;
   if (OH <= 0 || OW <= 0 || rows <= 0 || bands != (H + rows - 1) / rows || wspan <= 0 ||
-      threads >= (1LL << 31)) {
+      threads >= (1LL << 31) || kernel < kBwdBand || kernel > kBwdWide2x ||
+      (kernel == kBwdWide2x &&
+       !(mode == kModeBf16Wide && H >= 2 && W >= 2 && OH == 2 * H - 1 && OW == 2 * W - 1 &&
+         (rows == 1 || rows == 2 || rows == 4) && (long long)bands * W < (1 << 24)))) {
     return (int)cudaErrorInvalidValue;
   }
   const ResizeArgs a = {gy, gx, nullptr, nullptr, (const int*)idx_h, (const float*)w_h,
                         (const int*)rng_h, (const int*)idx_w, (const float*)w_w,
                         (const int*)rng_w, H, W, OH, OW};
   cudaStream_t st = (cudaStream_t)stream;
+  if (kernel == kBwdWide2x) {
+    const unsigned p = (unsigned)planes;
+    if (rows == 1) return (int)launch_bwd_2x<1>(a, p, bands, st);
+    if (rows == 2) return (int)launch_bwd_2x<2>(a, p, bands, st);
+    return (int)launch_bwd_2x<4>(a, p, bands, st);
+  }
   const unsigned n = (unsigned)threads;
   if (mode == kModeBf16Wide) {
     return (int)launch_bwd_span<__nv_bfloat16, true>(a, n, rows, bands, wspan, st);

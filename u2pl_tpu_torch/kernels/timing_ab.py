@@ -154,7 +154,17 @@ results are bit-equal.  The inputs come from seeded generators on the card:
              hash covers the loss and C bwd's bf16 gradient);
   K7_prob_city_main_bf16, K7_prob_city_aux_bf16  K7 prob on bf16 logits as
              the K7_prob rows; the stats kernel's rows with their operations
-             bound.
+             bound;
+  A_bwd_voc_bf16, A_bwd_city_bf16  kernel A-bwd's bf16 wide branch (the
+             decoders' exact 2x adjoint) at (8, 256, 129²) -> 65² and (4, 256,
+             193²) -> 97², from a generator of their own (`adjoint_gather_rows`,
+             after every older row); library: aten upsample_bilinear2d_backward
+             on the bf16 gy; with their bytes bound;
+  K5_gather_voc_bf16, K5_gather_voc  K5's gather (a rank's slab before the
+             all_gather) of VOC_N_SEL rows at random distinct pixels of a
+             (8, 256, 129²) bf16 / f32 rep into a (21, 8192, 256) slab; the
+             hash covers the written rows; with their bytes bound and their
+             NCHW sector bound (16 / 8 pixels a sector).
 The K4r and K3c rows carry their bytes bound, as chip_smoke.py:bounds
 counts it (each input read once, each output written once).
 The K5 rows carry their NCHW sector bound: the distinct 32-byte sectors of
@@ -205,6 +215,16 @@ def masks_needed(prob, labels, low, high, b_l, cfg, ignore=255):
     n_ranked, n_one = int(ranked.sum()), int(one.sum())
     nbytes = c * b * hw * 6 + b * hw * 5 + (b - b_l) * hw + n_ranked * c * 4 + n_one * 4
     return nbytes, n_ranked * c
+
+
+def rep_sectors(pix, hw, f, per):
+    """The distinct 32-byte sectors of an NCHW (B, f, h, w) rep (hw = h * w
+    pixels a plane) that reading every feature of the pixels `pix` (flat
+    indices b * hw + y * w + x, an int64 tensor) touches, at `per` values a
+    sector (8 float32, 16 bfloat16).  chip_smoke.py:bounds and the K5 rows
+    count with it."""
+    planes = (pix // hw * f)[:, None] + torch.arange(f, device=pix.device)
+    return int(torch.unique((planes * hw + (pix % hw)[:, None]) // per).numel())
 
 
 def cuda_ms(fn, iters=30):
@@ -369,6 +389,46 @@ def new_rows(out, dev):
             "ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn), "library_ms": None,
             "sha256": digest(p_y) + "-" + digest(nv), "num_valid": valid,
             "bound": bound_ms(xk.numel() * 2 + cpx * 8, valid * 19 * 11, valid * 19)}
+
+
+def adjoint_gather_rows(out, dev):
+    """A-bwd's bf16 wide branch at the decoders' 2x and K5's gather at the
+    flagship, from a generator of their own: the rows A_bwd_voc_bf16 ..
+    K5_gather_voc of the module docstring, each with its bytes bound (the
+    gathers also with their NCHW sector bound)."""
+    from u2pl_tpu_torch import memobank as mb
+    from u2pl_tpu_torch.ops import resize as R
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    bf = torch.bfloat16
+    for name, shape, size in (("A_bwd_voc_bf16", (8, 256, 65, 65), (129, 129)),
+                              ("A_bwd_city_bf16", (4, 256, 97, 97), (193, 193))):
+        gy = (3 * torch.randn(shape[:2] + size, device=dev, generator=g)).to(bf)
+        fn = lambda: R.resize_bilinear_bwd(gy, shape[2:])  # noqa: E731
+        out["kernels"][name] = {
+            "ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn),
+            "library_ms": cuda_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
+                gy, list(size), list(shape), True)),
+            "sha256": digest(fn().view(torch.int16)),
+            "bound": bound_ms(shape[0] * shape[1] * (size[0] * size[1] + shape[2] * shape[3]) * 2)}
+        del gy
+    b, hw, k, c = 8, 129 * 129, 8192, len(VOC_N_SEL)
+    sel = torch.stack([torch.randperm(b * hw, device=dev, generator=g)[:k] for _ in range(c)])
+    sel = sel.to(torch.int32).contiguous()
+    n_sel = torch.tensor(VOC_N_SEL, dtype=torch.int32, device=dev)
+    rows = torch.arange(k, device=dev)[None, :] < torch.clamp(n_sel, max=k)[:, None]
+    pix, n_rows = sel[rows].long(), int(rows.sum())
+    rep = torch.randn(b, 256, 129, 129, device=dev, generator=g)
+    for name, r in (("K5_gather_voc_bf16", rep.to(bf)), ("K5_gather_voc", rep)):
+        rb = r.element_size()
+        fn = lambda: mb.memobank_gather(r, sel, n_sel)  # noqa: E731
+        out["kernels"][name] = {
+            "ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn), "library_ms": None,
+            "sha256": digest(fn()[rows].view(torch.int16)), "rows": n_rows,
+            "bound": bound_ms(n_rows * (4 + 2 * 256 * rb)),
+            "sector_bound_ms": (rep_sectors(pix, hw, 256, 32 // rb) * 32
+                                + n_rows * (4 + 256 * rb)) / PEAK_BYTES_S * 1e3}
+        del r
 
 
 def main() -> int:
@@ -569,8 +629,7 @@ def main() -> int:
         first = torch.clamp(n_new - bank.sizes.long(), min=0)
         rank = torch.arange(sel.shape[1], device=dev)
         pix = sel[(rank >= first[:, None]) & (rank < n_new[:, None])]
-        planes = (pix // (hw * hw) * 256)[:, None] + torch.arange(256, device=dev)
-        sectors = torch.unique((planes * (hw * hw) + (pix % (hw * hw))[:, None]) // 8).numel()
+        sectors = rep_sectors(pix, hw * hw, 256, 8)
         out["kernels"][f"K5_{label}"] = {
             "ms": cuda_ms(fn), "profiled_ms": profiled_ms(fn), "library_ms": None,
             "sha256": bank_digest(memobank_enqueue(clone_bank(bank), *enq)),
@@ -754,6 +813,7 @@ def main() -> int:
             / PEAK_BYTES_S * 1e3}
         del x
     new_rows(out, dev)
+    adjoint_gather_rows(out, dev)
     print(json.dumps(out), flush=True)
     return 0
 

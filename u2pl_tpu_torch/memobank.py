@@ -208,6 +208,17 @@ def memobank_enqueue(
 memobank_enqueue.launches = 0
 
 
+GATHER_TILES_PER_SM = 2
+GATHER_MAX_TILE = 4096  # memobank.cu: kGatherMaxTile
+
+
+def _gather_tile(pixels: int, sms: int) -> int:
+    """K5 gather's tile: the consecutive pixels of the rep one block owns (it
+    writes the slab rows of the selected pixels there), GATHER_TILES_PER_SM
+    tiles per SM, at most GATHER_MAX_TILE pixels."""
+    return min(max(1, -(-pixels // (GATHER_TILES_PER_SM * sms))), GATHER_MAX_TILE)
+
+
 def memobank_gather_plain(rep_teacher: torch.Tensor, sel_idx: torch.Tensor,
                           n_sel: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K5's gather: the (C, K, F) slab
@@ -222,7 +233,8 @@ def memobank_gather(rep_teacher: torch.Tensor, sel_idx: torch.Tensor,
     c is the teacher representation's row at pixel sel_idx[c, r], in the
     rep's dtype (f32 or bf16), for r < n_sel[c]; the rows past n_sel[c] are
     left unwritten on the card (nothing reads them).  On the card, K5's
-    gather mode (memobank.cu: a block per 32 rows of a class)."""
+    gather mode (memobank.cu: a block per tile of `_gather_tile` pixels,
+    the rep read in pixel order)."""
     if sel_idx.dim() != 2 or n_sel.shape != sel_idx.shape[:1] or rep_teacher.dim() != 4:
         raise ValueError(f"memobank_gather: rep {tuple(rep_teacher.shape)}, sel_idx "
                          f"{tuple(sel_idx.shape)}, n_sel {tuple(n_sel.shape)}")
@@ -237,6 +249,7 @@ def memobank_gather(rep_teacher: torch.Tensor, sel_idx: torch.Tensor,
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"memobank_gather: {name} must be contiguous int32 on {dev}")
     from u2pl_tpu_torch.kernels import check, load
+    from u2pl_tpu_torch.ops.resize import _sm_count
 
     lib = load()
     b, f, h, w = rep_teacher.shape
@@ -246,6 +259,7 @@ def memobank_gather(rep_teacher: torch.Tensor, sel_idx: torch.Tensor,
         err = lib.u2pl_memobank_gather(
             rep_teacher.data_ptr(), sel_idx.data_ptr(), n_sel.data_ptr(), slab.data_ptr(),
             b, f, h * w, c, k, BANK_DTYPE_CODES[rep_teacher.dtype],
+            _gather_tile(b * h * w, _sm_count(dev)),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     check(lib, err, "memobank_gather launch")

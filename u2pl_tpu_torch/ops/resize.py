@@ -265,6 +265,48 @@ def resize_bilinear_bwd_plain(
     return g.to(gy.dtype)
 
 
+def resize_bilinear_bwd_ordered(
+    gy: torch.Tensor, in_size: Tuple[int, int], align_corners: bool = True
+) -> torch.Tensor:
+    """Kernel A-bwd's own sums in torch ops, for checking it: per output row
+    the W sum over the output columns reaching each input column
+    (`_ranges_np`), ascending from 0, then per input row the H sum over the
+    output rows reaching it, ascending from 0, with common.cuh's
+    `tap_weight` values; each product and sum a separate op and so rounded
+    on its own.  On the card it is bit-equal to kernel A-bwd.  A bf16 `gy`
+    gives its bf16 mode: in f32, the W sums rounded to bf16 in the wide
+    branch, the result rounded to bf16 once."""
+    _, c, oh, ow = gy.shape
+    h, w = int(in_size[0]), int(in_size[1])
+    wide = _wide(gy.dtype, c, (h, w), (oh, ow), align_corners)
+    dtype, g = gy.dtype, gy.float()
+
+    def table(n_in, n_out):  # (output index, weight, in range) per slot and input index
+        lo, hi, frac = _interp_taps_np(n_in, n_out, align_corners)
+        w0, w1 = np.float32(1.0) - frac, frac
+        start, end = _ranges_np(n_in, n_out, align_corners)
+        slots = start[None, :] + np.arange(max(int((end - start).max()), 1))[:, None]
+        o = np.minimum(slots, n_out - 1)  # (span, n_in)
+        i = np.arange(n_in)[None, :]
+        wt = np.where(lo[o] == i, w0[o], np.float32(0.0)).astype(np.float32)
+        wt = np.where(hi[o] == i, (wt + w1[o]).astype(np.float32), wt)
+        return (torch.from_numpy(o.astype(np.int64)).to(gy.device),
+                torch.from_numpy(wt).to(gy.device),
+                torch.from_numpy(slots < end[None, :]).to(gy.device))
+
+    o_w, wt_w, m_w = table(w, ow)
+    o_h, wt_h, m_h = table(h, oh)
+    s = torch.zeros(g.shape[:3] + (w,), device=gy.device)
+    for j in range(o_w.shape[0]):
+        s = torch.where(m_w[j], s + wt_w[j] * g.index_select(3, o_w[j]), s)
+    if wide:
+        s = s.to(dtype).float()
+    gx = torch.zeros(g.shape[:2] + (h, w), device=gy.device)
+    for j in range(o_h.shape[0]):
+        gx = torch.where(m_h[j][:, None], gx + wt_h[j][:, None] * s.index_select(2, o_h[j]), gx)
+    return gx if dtype == torch.float32 else gx.to(dtype)
+
+
 def resize_argmax_plain(
     logits: torch.Tensor, size: Tuple[int, int], align_corners: bool = True
 ) -> torch.Tensor:
@@ -439,12 +481,33 @@ resize_bilinear.modes = collections.Counter()  # launches per `_resize_mode` cod
 # kernel A-bwd (kernels/csrc/resize.cu): the threads per SM (of its 2048)
 # that keep enough gy loads in flight
 BWD_THREADS_PER_SM = 512
+# kernel A-bwd's kernels (resize.cu: kBwdBand, kBwdWide2x)
+BWD_BAND, BWD_WIDE_2X = 0, 1
+# the 2x adjoint's input rows a thread (1, 2 or 4)
+BWD_2X_ROWS = 1
+
+
+class BwdPlan(NamedTuple):
+    """Kernel A-bwd's launch (`_bwd_plan`): a thread per input column of a
+    band of `rows` input rows, `bands` = ceil(h / rows) of them a plane."""
+
+    kernel: int  # BWD_BAND or BWD_WIDE_2X
+    rows: int
+    bands: int
+    wspan: int  # the most output columns reaching one input column
 
 
 @functools.lru_cache(maxsize=64)
-def _bwd_plan(planes: int, h: int, w: int, oh: int, ow: int, sms: int,
-              align_corners: bool = True) -> Tuple[int, int, int]:
-    """Kernel A-bwd's launch: (rows, bands, wspan).
+def _bwd_plan(planes: int, h: int, w: int, oh: int, ow: int, sms: int, mode: int = 0,
+              align_corners: bool = True) -> BwdPlan:
+    """Kernel A-bwd's launch.
+
+    The bf16 wide branch (`mode` 2) of an align-corners n -> 2n - 1
+    upsample on both axes (the decoder's 129² -> 65² and 193² -> 97²),
+    where `_fwd_plan` takes FWD_WIDE_2X, takes the 2x adjoint: its weights
+    are 0, 1/2, 1, 1/2, so it reads no table, and a thread sums the 4 x
+    (2 BWD_2X_ROWS + 2) gy values that reach BWD_2X_ROWS input rows of one
+    column of a plane.  Every other call takes the band kernel:
 
     A thread owns one input column of a band of `rows` input rows of one
     plane and walks the output rows that reach the band (a band boundary's
@@ -455,9 +518,11 @@ def _bwd_plan(planes: int, h: int, w: int, oh: int, ow: int, sms: int,
     tap weights in registers, else it reads them from the tables)."""
     start_w, end_w = _ranges_np(w, ow, align_corners)
     wspan = max(int((end_w - start_w).max()), 1)
+    if mode == 2 and align_corners and h >= 2 and w >= 2 and (oh, ow) == (2 * h - 1, 2 * w - 1):
+        return BwdPlan(BWD_WIDE_2X, BWD_2X_ROWS, -(-h // BWD_2X_ROWS), wspan)
     target = sms * BWD_THREADS_PER_SM
     rows = next((r for r in range(h, 1, -1) if planes * -(-h // r) * w >= target), 1)
-    return rows, -(-h // rows), wspan
+    return BwdPlan(BWD_BAND, rows, -(-h // rows), wspan)
 
 
 def resize_bilinear_bwd(
@@ -466,7 +531,7 @@ def resize_bilinear_bwd(
     """Adjoint of `resize_bilinear`: the gradient (B, C, h, w) of an
     (h, w) -> gy's (H, W) resize, given the output gradient gy (kernel A-bwd:
     gather form, a thread per input column of a band of input rows,
-    deterministic)."""
+    deterministic; `_bwd_plan`)."""
     if gy.dim() != 4:
         raise ValueError(f"resize_bilinear_bwd: expected NCHW, got {tuple(gy.shape)}")
     h, w = int(in_size[0]), int(in_size[1])
@@ -481,7 +546,8 @@ def resize_bilinear_bwd(
         return gx
     from u2pl_tpu_torch.kernels import check, load
 
-    plan = _bwd_plan(b * c, h, w, oh, ow, _sm_count(gy.device), align_corners)
+    mode = _resize_mode(gy.dtype, c, (h, w), (oh, ow), align_corners)
+    plan = _bwd_plan(b * c, h, w, oh, ow, _sm_count(gy.device), mode, align_corners)
     lib = load()
     idx_h, w_h = _device_taps(h, oh, align_corners, gy.device)
     idx_w, w_w = _device_taps(w, ow, align_corners, gy.device)
@@ -491,8 +557,7 @@ def resize_bilinear_bwd(
         err = lib.u2pl_resize_bilinear_ac_bwd(
             gy.data_ptr(), gx.data_ptr(), idx_h.data_ptr(), w_h.data_ptr(),
             rng_h.data_ptr(), idx_w.data_ptr(), w_w.data_ptr(), rng_w.data_ptr(),
-            b * c, h, w, oh, ow, *plan, _resize_mode(gy.dtype, c, (h, w), (oh, ow), align_corners),
-            torch.cuda.current_stream(gy.device).cuda_stream,
+            b * c, h, w, oh, ow, *plan, mode, torch.cuda.current_stream(gy.device).cuda_stream,
         )
     check(lib, err, "resize_bilinear_ac_bwd launch")
     resize_bilinear_bwd.launches += 1
